@@ -1,0 +1,708 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. setup    -- a card, full fp32 matmuls (no TF32), both CUDA kernels built
+               from ``src/repro_torch/kernels/csrc`` with nvcc.
+2. kernels  -- each kernel at llama-3.2-1b's main-path shapes (K -> N of the
+               qkv, o, gate_up, down projections and the LM head; M = 4 for
+               decode, 4 x 32 = 128 for prefill), held against its plain
+               PyTorch version on the same inputs and timed with CUDA events
+               beside the plain version, an fp32 ``torch.matmul`` of the same
+               size (yardstick only) and the card's bound for the work.
+3. analog   -- full-width llama-3.2-1b (16 layers, random weights from a
+               seed) deployed ``analog_hw`` with ``use_pallas=True`` serves 4
+               prompts of 32 tokens for 16 greedy tokens; every projection
+               must have run on ``analog_matmul``. The same model unfused
+               (plain torch ops, the reference's default) is the check.
+4. int4     -- the same with ``digital_int4`` on ``int4_matmul``, checked
+               against ``digital_rtn4`` (unfused).
+5. cli      -- ``repro_torch.launch.serve.main`` for 4 requests.
+
+It then prints the kernels' JSON line, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+ARCH = "llama-3.2-1b"
+BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
+# (site, K, N, sites per forward) of llama-3.2-1b: 16 layers + the LM head
+SITES = [("qkv", 2048, 3072, 16), ("o", 2048, 2048, 16),
+         ("gate_up", 2048, 16384, 16), ("down", 8192, 2048, 16),
+         ("lm_head", 2048, 128256, 1)]
+LAUNCHES_PER_FORWARD = sum(s[3] for s in SITES)            # 65
+FORWARDS = 1 + NEW_TOKENS                                  # prefill + decode
+M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT_LEN
+# published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3
+# bandwidth and the fp32 rate of the CUDA cores (the ADC contract forbids
+# TF32, so the tensor cores are not used)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+U32 = 2.0 ** -24                                           # fp32 unit round-off
+# Fused vs unfused at full width (serve_phase). Site by site on the same
+# inputs the two may differ only by one ADC level where the pre-ADC value
+# lies within fp32 reassociation error of a rounding tie (site_parity:
+# every mismatch is checked). End to end, every later site re-quantizes
+# what such a flip moved, so flips cascade through the 16 layers and the
+# logits differ by a few percent (relative L2) on random weights; E2E_TOL
+# only catches gross faults (unrelated logits give about 1.4).
+E2E_TOL = 0.25
+
+
+class SmokeFailure(RuntimeError):
+    """A phase found the port wrong."""
+
+
+def check(cond: bool, msg: str) -> None:
+    """Fail the phase with ``msg`` unless ``cond``."""
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def gpu_name_and_power() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_setup(torch) -> dict:
+    """Card present, fp32 matmuls in full fp32, kernels built."""
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmul precision is not 'highest'")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, log in logs.items():
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"  {name}: " + (" | ".join(lines) or "(already built)"))
+    for name in _build.SOURCES:
+        _build.load(name)
+    print(f"  built {len(logs)} kernels in {build_s:.1f}s; device "
+          f"{torch.cuda.get_device_name(0)}; python {sys.version.split()[0]}"
+          f", torch {torch.__version__}, cuda {torch.version.cuda}")
+    print(f"  {gpu_name_and_power()}")
+    return {"build_s": build_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+def cuda_time_ms(torch, fn, n_args: int, reps: int = 20,
+                 rounds: int = 5) -> float:
+    """Median over ``rounds`` of the mean time of ``reps`` calls, by CUDA
+    events; call ``i`` gets argument set ``i % n_args``, so that a caller
+    can rotate weight copies whose sum exceeds the 50 MB L2 cache (the main
+    path finds its weights cold)."""
+    for i in range(3):
+        fn(i % n_args)
+    torch.cuda.synchronize()
+    times = []
+    for r in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(reps):
+            fn((r * reps + i) % n_args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def sleep_ms_per_cycle(torch) -> float:
+    """Milliseconds of one cycle of ``torch.cuda._sleep``, the card's spin
+    kernel (measured: its clock runs at the card's own rate)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 10_000_000
+
+
+def device_ms(torch, fn, n_args: int, reps: int = 20,
+              rounds: int = 5) -> float:
+    """Device time per call: CUDA events around ``reps`` calls queued
+    behind a spin kernel that holds the card until the host has queued
+    them all, so that host dispatch gaps are not in it (a round whose
+    queueing outlasted the spin is repeated with a longer spin). Median
+    over ``rounds``; arguments rotate as in :func:`cuda_time_ms`."""
+    per_cycle = sleep_ms_per_cycle(torch)
+    spin_ms = 20.0
+    for i in range(3):
+        fn(i % n_args)
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < rounds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms / per_cycle))
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn((len(times) * reps + i) % n_args)
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if queued_ms > 0.8 * spin_ms:
+            check(spin_ms < 2000, "the host cannot queue the calls")
+            spin_ms *= 2
+            continue
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def n_copies(nbytes: int) -> int:
+    """Weight copies to rotate so that their sum exceeds L2 four times."""
+    return max(1, math.ceil(200e6 / nbytes))
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of the work on the card and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
+    """One analog_matmul shape: parity against the plain version, times."""
+    from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import dispatch, ref
+
+    dev = torch.device("cuda")
+    copies = n_copies(4 * k * n)
+    ws = [torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+          for _ in range(copies)]
+    x = torch.randn((m, k), generator=gen, device=dev)
+    beta = torch.full((1,), 3.0, device=dev)
+    bounds = [ref.adc_bound(w, beta, 14.0) for w in ws]
+    offs = [0.1 * b * torch.randn((n,), generator=gen, device=dev)
+            if with_off else None for b in bounds]
+    plan = dispatch.select_blocks(m, k, n, kernel="analog_matmul")
+
+    y_k = km.analog_matmul(x, ws[0], beta, bounds[0], offs[0])
+    y_r = ref.analog_matmul_ref(x, ws[0], beta, bounds[0], offs[0])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y_k).all()), "analog_matmul: non-finite")
+    # every mismatch must be one ADC level at a near-tie of the plain
+    # version: |frac(y * inv) - 1/2| within the fp32 dot error bound
+    # K * 2^-24 * (|x_q| . |w|) * inv
+    qi, qo = 127.0, 127.0
+    b = torch.clamp_min(bounds[0], 1e-8)
+    x_q = ref.div(beta, qi) * torch.round(
+        ref.clip(x, -beta, beta) * ref.rdiv(qi, beta))
+    y = x_q @ ws[0]
+    if offs[0] is not None:
+        y = y + offs[0]
+    inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
+    v = y * inv
+    tie_dist = (v - torch.floor(v) - 0.5).abs()
+    err_bound = k * U32 * (x_q.abs() @ ws[0].abs()) * inv
+    lsb = ref.div(b, qo).expand_as(y_k)
+    diff = (y_k - y_r).abs()
+    flips = diff != 0
+    n_flip = int(flips.sum())
+    if n_flip:
+        rel = ((diff[flips] - lsb[flips]).abs() / lsb[flips]).max()
+        check(float(rel) < 1e-3,
+              f"analog_matmul {m}x{k}x{n}: a mismatch is not one ADC level "
+              f"(rel dev {float(rel):.3e})")
+        near = tie_dist[flips] <= err_bound[flips]
+        check(bool(near.all()),
+              f"analog_matmul {m}x{k}x{n}: a mismatch is not a near-tie")
+
+    def kernel(i):
+        return km.analog_matmul(x, ws[i], beta, bounds[i], offs[i])
+
+    ms = device_ms(torch, kernel, copies)
+    wall = cuda_time_ms(torch, kernel, copies)
+    plain = device_ms(torch, lambda i: ref.analog_matmul_ref(
+        x, ws[i], beta, bounds[i], offs[i]), copies, reps=5, rounds=3)
+    mm = device_ms(torch, lambda i: x @ ws[i], copies)
+    # the ADC bound that analog_linear computes from the weights on every
+    # call, before the kernel (core/analog.py)
+    bound_calc = device_ms(torch, lambda i: ref.adc_bound(ws[i], beta, 14.0),
+                           copies)
+    # x, w, beta, bound and col_off read once, the output written once
+    nbytes = 4 * (m * k + k * n + 1 + n + (n if with_off else 0) + m * n)
+    bnd, by = bound_ms(nbytes, 2.0 * m * k * n)
+    return {"M": m, "K": k, "N": n, "col_off": with_off, "ms": ms,
+            "wall_ms": wall, "plain_ms": plain, "matmul_ms": mm,
+            "adc_bound_ms": bound_calc, "bound_ms": bnd, "bound_by": by,
+            "mapping": plan.mapping, "splits": plan.splits, "flips": n_flip,
+            "flip_rate": n_flip / (m * n),
+            "max_abs_err": float(diff.max())}
+
+
+def int4_case(torch, gen, m, k, n) -> dict:
+    """One int4_matmul shape: parity against the plain version, times."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import int4_matmul as k4
+
+    dev = torch.device("cuda")
+    copies = n_copies(k * n // 2)
+    packs = [ref.pack_int4(torch.randint(-7, 8, (k, n), generator=gen,
+                                         device=dev, dtype=torch.int8))
+             for _ in range(copies)]
+    scales = [(torch.rand((n,), generator=gen, device=dev) + 0.5) * 0.01
+              for _ in range(copies)]
+    x = torch.randn((m, k), generator=gen, device=dev)
+    plan = dispatch.select_blocks(m, k, n, kernel="int4_matmul")
+
+    y_k = k4.int4_matmul(x, packs[0], scales[0])
+    y_r = ref.int4_matmul_ref(x, packs[0], scales[0])
+    w_deq = ref.unpack_int4(packs[0]).float() * scales[0]
+    err_bound = k * U32 * (x.abs() @ w_deq.abs())
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y_k).all()), "int4_matmul: non-finite")
+    diff = (y_k - y_r).abs()
+    check(bool((diff <= err_bound).all()),
+          f"int4_matmul {m}x{k}x{n}: outside the fp32 dot error bound "
+          f"(max err {float(diff.max()):.3e})")
+    err_ratio = float((diff / err_bound).max())
+    del w_deq, err_bound
+
+    def kernel(i):
+        return k4.int4_matmul(x, packs[i], scales[i])
+
+    ms = device_ms(torch, kernel, copies)
+    wall = cuda_time_ms(torch, kernel, copies)
+    plain = device_ms(torch, lambda i: ref.int4_matmul_ref(
+        x, packs[i], scales[i]), copies, reps=5, rounds=3)
+    w_mm = [torch.randn((k, n), generator=gen, device=dev)
+            for _ in range(n_copies(4 * k * n))]
+    mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm))
+    nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
+    bnd, by = bound_ms(nbytes, 2.0 * m * k * n)
+    return {"M": m, "K": k, "N": n, "ms": ms, "wall_ms": wall,
+            "plain_ms": plain,
+            "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+            "mapping": plan.mapping, "splits": plan.splits,
+            "max_abs_err": float(diff.max()),
+            "max_err_over_bound": err_ratio}
+
+
+def phase_kernels(torch) -> dict:
+    """Parity and times of both kernels at every main-path shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {"analog_matmul": [], "int4_matmul": []}
+    for site, k, n, _ in SITES:
+        for m in (M_DECODE, M_PREFILL):
+            for with_off in (False, True):
+                r = analog_case(torch, gen, m, k, n, with_off)
+                r["site"] = site
+                rows["analog_matmul"].append(r)
+                print(f"  analog_matmul {site:8s} M={m:3d} {k}->{n} "
+                      f"off={int(with_off)}: {r['ms']:.4f} ms (wall "
+                      f"{r['wall_ms']:.4f}, plain "
+                      f"{r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}, "
+                      f"bound {r['bound_ms']:.4f} by {r['bound_by']}; "
+                      f"adc_bound {r['adc_bound_ms']:.4f}; {r['mapping']} "
+                      f"x{r['splits']}), flips {r['flips']} "
+                      f"({r['flip_rate']:.2e})")
+            r = int4_case(torch, gen, m, k, n)
+            r["site"] = site
+            rows["int4_matmul"].append(r)
+            print(f"  int4_matmul   {site:8s} M={m:3d} {k}->{n}: "
+                  f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}, matmul "
+                  f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}; {r['mapping']} x{r['splits']}), "
+                  f"err/bound "
+                  f"{r['max_err_over_bound']:.2e}")
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3 to 5
+# ---------------------------------------------------------------------------
+
+def _deploy_args(deploy: str):
+    return argparse.Namespace(deploy=deploy)
+
+
+def serve_phase(torch, deploy: str, base: str) -> dict:
+    """Serve full-width llama-3.2-1b under ``deploy`` on the kernels and
+    check it against the unfused ``base`` deployment of the same weights."""
+    from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import int4_matmul as k4
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.models import build
+    from repro_torch.serve.decode import generate, prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cfg, params, labels = build(ARCH, gen, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 16 and cfg.d_model == 2048
+          and cfg.padded_vocab == 128256, f"unexpected config {cfg}")
+    fused_p, fused_acfg = deploy_model(_deploy_args(deploy), cfg, params,
+                                       labels, gen)
+    if deploy == "analog_hw":
+        fused_acfg = dataclasses.replace(fused_acfg, use_pallas=True)
+        base_p = fused_p                  # same programmed (noisy) weights
+        base_acfg = dataclasses.replace(fused_acfg, use_pallas=False)
+        counter, other = km, k4
+    else:
+        base_p, base_acfg = deploy_model(_deploy_args(base), cfg, params,
+                                         labels, gen)
+        counter, other = k4, km
+    del params
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                           generator=gen, device=dev)
+
+    torch.cuda.synchronize()
+    km.launches = k4.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(fused_p, cfg, fused_acfg, gen, prompt, NEW_TOKENS,
+                    greedy_first=NEW_TOKENS)
+    toks_host = toks.cpu()
+    gen_s = time.perf_counter() - t0
+    launched, other_launched = counter.launches, other.launches
+    want = LAUNCHES_PER_FORWARD * FORWARDS
+    check(launched == want, f"{deploy}: {counter.__name__} launched "
+          f"{launched} times, expected {want}")
+    check(other_launched == 0, f"{deploy}: the other kernel launched "
+          f"{other_launched} times")
+    check(tuple(toks_host.shape) == (BATCH, NEW_TOKENS)
+          and int(toks_host.min()) >= 0
+          and int(toks_host.max()) < cfg.vocab_size,
+          f"{deploy}: bad tokens {toks_host}")
+
+    lf, _, _ = prefill(fused_p, cfg, fused_acfg, prompt, PROMPT_LEN + 1)
+    lb, _, _ = prefill(base_p, cfg, base_acfg, prompt, PROMPT_LEN + 1)
+    base_toks = generate(base_p, cfg, base_acfg, gen, prompt, NEW_TOKENS,
+                         greedy_first=NEW_TOKENS).cpu()
+    check(bool(torch.isfinite(lf).all()), f"{deploy}: non-finite logits")
+    rel_l2 = float(torch.linalg.vector_norm(lf - lb)
+                   / torch.linalg.vector_norm(lb))
+    n_sites, n_el, n_flip = site_parity(torch, cfg, fused_p, fused_acfg,
+                                        base_p, base_acfg, prompt)
+    agree = int((toks_host == base_toks).sum())
+    first_agree = int((toks_host[:, 0] == base_toks[:, 0]).sum())
+    res = {"deploy": deploy, "params": n_params, "launches": launched,
+           "generate_s": gen_s,
+           "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
+           "max_logit_diff": float((lf - lb).abs().max()),
+           "logit_scale": float(lb.abs().max()), "rel_l2": rel_l2,
+           "sites": n_sites, "site_elements": n_el, "site_flips": n_flip,
+           "greedy_agree": agree, "first_token_agree": first_agree}
+    print(f"  {deploy}: {n_params / 1e9:.3f}B params, {launched} launches, "
+          f"generate {gen_s:.2f}s; vs {base}: {n_sites} sites on the same "
+          f"inputs, {n_flip} of {n_el} outputs one ADC level apart at "
+          f"near-ties ({n_flip / n_el:.2e}); end to end max |dlogit| "
+          f"{res['max_logit_diff']:.3e} (|logit| <= "
+          f"{res['logit_scale']:.3e}), rel L2 {rel_l2:.3e}, greedy tokens "
+          f"agree {agree}/{BATCH * NEW_TOKENS}, first {first_agree}/{BATCH}")
+    check(rel_l2 < E2E_TOL, f"{deploy}: fused vs unfused logits rel L2 "
+          f"{rel_l2:.3e} >= {E2E_TOL}")
+    res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt))
+    res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt)
+    print(f"  {deploy} on the kernels: prefill {res['prefill_ms']:.2f} ms, "
+          f"decode {res['decode_ms']:.2f} ms/step, of it on the device "
+          f"{res['decode_device_ms']:.2f} ms (busy "
+          f"{res['device_busy']:.3f}); unfused {base}: prefill "
+          f"{res['unfused']['prefill_ms']:.2f} ms, decode "
+          f"{res['unfused']['decode_ms']:.2f} ms/step, on the device "
+          f"{res['unfused']['decode_device_ms']:.2f} ms (busy "
+          f"{res['unfused']['device_busy']:.3f})")
+    del fused_p, base_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def step_times(torch, cfg, params, acfg, prompt) -> dict:
+    """Host-clock time of one prefill and of a greedy decode step
+    (synchronized, after the main-path run warmed everything up; median of
+    3 rounds), and the device time of one decode step: the step captured
+    as a CUDA graph and replayed back to back, so that the card never
+    waits for the host (launching a graph takes far less than running it;
+    the graph's short gaps between its kernels are in the time). Its share
+    of the host-clock step is ``device_busy``."""
+    from repro_torch.serve.decode import prefill, serve_step
+
+    pre, dec = [], []
+    for _ in range(3):                     # median of 3 rounds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, pos = prefill(params, cfg, acfg, prompt,
+                                      PROMPT_LEN + NEW_TOKENS)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(logits, dim=-1)
+        t0 = time.perf_counter()
+        for i in range(NEW_TOKENS):
+            logits, caches = serve_step(params, cfg, acfg, tok[:, None],
+                                        caches, pos + i)
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t0) * 1e3 / NEW_TOKENS)
+    out = {"prefill_ms": sorted(pre)[1], "decode_ms": sorted(dec)[1]}
+
+    # one decode step at position pos as a graph (each replay rewrites the
+    # same cache row); warmed up on a side stream, as capture requires
+    tok = tok[:, None]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            serve_step(params, cfg, acfg, tok, caches, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        serve_step(params, cfg, acfg, tok, caches, pos)
+    out["decode_device_ms"] = cuda_time_ms(torch, lambda i: graph.replay(),
+                                           1, reps=10, rounds=3)
+    out["device_busy"] = out["decode_device_ms"] / out["decode_ms"]
+    del graph
+    return out
+
+
+def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens):
+    """Every analog site of one prefill, fused (a) against unfused (b) on
+    the same input: the input path b's own forward gave that site. Every
+    mismatch must be exactly one ADC level at a near-tie of path b's
+    pre-ADC value, ``|frac(y * inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) *
+    inv``, as in the kernel phase. Returns (sites, elements, flips)."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import prefill
+
+    real = A.analog_linear
+    calls = {"a": [], "b": []}
+
+    def recorder(tag):
+        def spy(p, x, acfg, ctx):
+            calls[tag].append((p, x))
+            return real(p, x, acfg, ctx)
+        return spy
+
+    for tag, params, acfg in (("a", params_a, acfg_a),
+                              ("b", params_b, acfg_b)):
+        L.analog_linear = T.analog_linear = recorder(tag)
+        try:
+            prefill(params, cfg, acfg, tokens, tokens.shape[1])
+        finally:
+            L.analog_linear = T.analog_linear = real
+    check(len(calls["a"]) == len(calls["b"]) == LAUNCHES_PER_FORWARD,
+          f"site count {len(calls['a'])}, {len(calls['b'])}")
+    qo = ref.qmax(acfg_b.output_bits)
+    ctx = A.AnalogCtx()
+    elements = flips = 0
+    with torch.no_grad():
+        for i, ((pa, _), (pb, x)) in enumerate(zip(calls["a"], calls["b"])):
+            ya, _ = real(pa, x, acfg_a, ctx)
+            yb, _ = real(pb, x, acfg_b, ctx)
+            w = pb["kernel"].float()
+            if acfg_b.mode == "rtn":
+                w = quant.rtn_dequantize(*quant.rtn_quantize(
+                    w, acfg_b.weight_bits))
+            beta = pb["input_range"].reshape(()).float()
+            x_q = quant.input_quantize(x.float().reshape(-1, w.shape[0]),
+                                       beta, acfg_b.input_bits)
+            b = torch.clamp_min(ref.adc_bound(w, beta, acfg_b.out_bound),
+                                1e-8)
+            inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
+            v = (x_q @ w) * inv
+            err = w.shape[0] * U32 * (x_q.abs() @ w.abs()) * inv
+            diff = (ya - yb).reshape(v.shape).abs()
+            lsb = ref.div(b, qo).expand_as(diff)
+            bad = diff != 0
+            n_bad = int(bad.sum())
+            elements += diff.numel()
+            flips += n_bad
+            if n_bad:
+                level = ((diff[bad] - lsb[bad]).abs() / lsb[bad]).max()
+                tie = (v[bad] - torch.floor(v[bad]) - 0.5).abs()
+                check(float(level) < 1e-3 and bool((tie <= err[bad]).all()),
+                      f"site {i}: a fused/unfused mismatch is not one ADC "
+                      f"level at a near-tie")
+    return len(calls["b"]), elements, flips
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def small_reference_check(torch) -> dict:
+    """Reduced llama on the kernels against the same weights on the CPU,
+    where every kernel runs its plain version: logits within 1e-4 and
+    equal greedy tokens (K <= 192 here, far from the flip regime)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig, pack_int4_weights
+    from repro_torch.models import build
+    from repro_torch.serve.decode import digital_int4_config, generate, prefill
+
+    cfg = get_config(ARCH).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (3, 8),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, acfg, p in [
+            ("analog", AnalogConfig(mode="analog", use_pallas=True), params),
+            ("int4", digital_int4_config(AnalogConfig()),
+             pack_int4_weights(params, labels))]:
+        pc = _to(p, torch.device("cuda"))
+        lc, _, _ = prefill(pc, cfg, acfg, prompt.cuda(), 9)
+        lh, _, _ = prefill(p, cfg, acfg, prompt, 9)
+        err = float((lc.cpu() - lh).abs().max())
+        tc = generate(pc, cfg, acfg, None, prompt.cuda(), 6,
+                      greedy_first=6).cpu()
+        th = generate(p, cfg, acfg, None, prompt, 6, greedy_first=6)
+        check(err < 1e-4, f"small {name}: cuda vs cpu logits differ by "
+              f"{err:.3e}")
+        check(torch.equal(tc, th), f"small {name}: greedy tokens differ")
+        out[name] = err
+    print(f"  reduced {ARCH}, cuda kernels vs cpu plain versions: max "
+          f"|dlogit| {out}, greedy tokens equal")
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_cli(torch) -> dict:
+    """The serving CLI in-process on the card."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    toks = serve.main(["--arch", ARCH, "--deploy", "digital_int4",
+                       "--num-requests", "4"])
+    dt = time.perf_counter() - t0
+    check(tuple(toks.shape) == (4, 32), f"cli: tokens {tuple(toks.shape)}")
+    return {"seconds": dt}
+
+
+# ---------------------------------------------------------------------------
+# the kernels line
+# ---------------------------------------------------------------------------
+
+def kernels_line(rows: dict, launches: dict) -> dict:
+    """One entry per kernel. ``ms``, ``plain_ms``, ``bound_ms`` and the
+    yardstick ``matmul_ms`` are totals over the launches of one main-path
+    run (1 prefill forward at M = 128 + 16 decode forwards at M = 4, 65
+    sites each), summed from the per-shape times of phase 2 (analog:
+    without col_off, which the main path does not use). ``ms`` and the
+    others are device time; ``wall_ms`` is the same total by CUDA events
+    around back-to-back calls, host dispatch gaps included."""
+    meta = {
+        "analog_matmul": ("src/repro_torch/kernels/csrc/analog_matmul.cu",
+                          "src/repro/kernels/analog_matmul.py:157"),
+        "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
+                        "src/repro/kernels/int4_matmul.py:78")}
+    per_site = {s[0]: s[3] for s in SITES}
+    out = []
+    for name, (src, replaces) in meta.items():
+        shapes = [r for r in rows[name] if not r.get("col_off")]
+        tot = {"ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0, "matmul_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+        for r in shapes:
+            reps = per_site[r["site"]] * (NEW_TOKENS if r["M"] == M_DECODE
+                                          else 1)
+            for key in ("ms", "wall_ms", "plain_ms", "matmul_ms",
+                        "bound_ms"):
+                tot[key] += reps * r[key]
+            tot["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
+                reps * r["bound_ms"])
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                         else "operations"),
+            "library_ms": None, "matmul_ms": tot["matmul_ms"],
+            "wall_ms": tot["wall_ms"], "parity": "ok"})
+    return {"kernels": out}
+
+
+def main() -> int:
+    """Run the phases; returns the exit code."""
+    try:
+        import torch
+        import repro_torch  # noqa: F401  (the port must be beside us)
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    t_start = time.perf_counter()
+    results = {}
+    try:
+        print("[1/5] setup")
+        results["setup"] = phase_setup(torch)
+        print("[2/5] kernels at llama-3.2-1b main-path shapes")
+        rows = phase_kernels(torch)
+        print("[3/5] analog_hw serving, use_pallas=True")
+        results["small"] = small_reference_check(torch)
+        results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
+        print("[4/5] digital_int4 serving")
+        results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
+        print("[5/5] serving CLI")
+        results["cli"] = phase_cli(torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    line = kernels_line(rows, {"analog_matmul": results["analog"]["launches"],
+                               "int4_matmul": results["int4"]["launches"]})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"results": results, "shapes": rows, **line}, indent=1))
+    print(f"  total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps(line))
+    print(gpu_name_and_power())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

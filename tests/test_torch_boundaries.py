@@ -1,0 +1,220 @@
+"""Guards of the port's boundaries.
+
+* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
+  nor the reference package ``repro`` (an AST scan of every file).
+* On CPU tensors the kernels' plain versions run and the launch counters
+  stay at 0; a tensor on any other non-CUDA device is refused, not served
+  by the plain version.
+* Entry points that default to the card raise when there is none instead
+  of running on the CPU.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+
+import pytest
+import torch
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.kernels import _build, dispatch
+from repro_torch.kernels import analog_matmul as k_analog
+from repro_torch.kernels import int4_matmul as k_int4
+from repro_torch.kernels import ref
+from repro_torch.launch import serve
+from repro_torch.models import build
+from repro_torch.models import model as model_mod
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def _imports(path: pathlib.Path) -> list[str]:
+    """Every module a file imports, statically or by a literal name."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            names.append(node.args[0].value)
+    return names
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) > 20
+    assert all(p.is_file() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_scan_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.core import quant\n"
+                 "import importlib\nimportlib.import_module('repro.models')\n"
+                 "from repro_torch.core import quant\n")
+    assert [n for n in _imports(f) if _forbidden(n)] == [
+        "jax.numpy", "repro.core", "repro.models"]
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    before = (k_analog.launches, k_int4.launches)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 64, generator=g)
+    w = torch.randn(64, 32, generator=g) * 0.1
+    beta = torch.tensor([2.0])
+    bound = ref.adc_bound(w, beta, 12.0)
+    y = k_analog.analog_matmul(x, w, beta, bound)
+    torch.testing.assert_close(y, ref.analog_matmul_ref(x, w, beta, bound),
+                               rtol=0, atol=0)
+    w_int = torch.randint(-7, 8, (64, 32), generator=g, dtype=torch.int8)
+    scale = torch.rand(32, generator=g) + 0.1
+    packed = ref.pack_int4(w_int)
+    y4 = k_int4.int4_matmul(x, packed, scale)
+    torch.testing.assert_close(y4, ref.int4_matmul_ref(x, packed, scale),
+                               rtol=0, atol=0)
+    dispatch.analog_mvm(x[None], w, beta, bound)
+    dispatch.int4_mvm(x, w_int, scale)
+    assert (k_analog.launches, k_int4.launches) == before == (0, 0)
+
+
+def test_other_devices_are_refused_not_served():
+    x = torch.empty(2, 8, device="meta")
+    w = torch.empty(8, 4, device="meta")
+    with pytest.raises(ValueError):
+        k_analog.analog_matmul(x, w, torch.empty(1, device="meta"),
+                               torch.empty(4, device="meta"))
+    with pytest.raises(ValueError):
+        k_int4.int4_matmul(x, torch.empty(8, 2, dtype=torch.uint8,
+                                          device="meta"),
+                           torch.empty(4, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "strides", "device"])
+def test_wrapper_argument_check_refuses(case):
+    """What the kernel wrappers check before a launch on the card."""
+    from repro_torch.kernels import _launch
+    t = torch.zeros(4, 6)
+    _launch.check("t", t, torch.float32, (4, 6), t.device)
+    bad = {"dtype": (t.double(), TypeError),
+           "shape": (t[:3], ValueError),
+           "strides": (t.t().contiguous().t(), ValueError),
+           "device": (torch.zeros(4, 6, device="meta"), ValueError)}[case]
+    with pytest.raises(bad[1]):
+        _launch.check("t", bad[0], torch.float32, (4, 6), t.device)
+
+
+def test_fused_dispatch_rules():
+    assert dispatch.use_fused(AnalogConfig(mode="analog", use_pallas=True))
+    assert dispatch.use_fused(AnalogConfig(mode="rtn", use_pallas=True))
+    assert not dispatch.use_fused(AnalogConfig(mode="analog"))
+    assert not dispatch.use_fused(AnalogConfig(mode="qat", use_pallas=True))
+    assert not dispatch.use_fused(AnalogConfig(mode="analog", use_pallas=True,
+                                               output_quant=False))
+    assert dispatch.can_use_int4(64, 4) and not dispatch.can_use_int4(63, 4)
+    assert not dispatch.can_use_int4(64, 8)
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--device", "cuda", "--reduced", "--num-requests", "1",
+                    "--new-tokens", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--num-requests", "1", "--new-tokens", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build("llama-3.2-1b")
+    with pytest.raises(RuntimeError):
+        model_mod.default_device()
+
+
+def test_kernel_build_setup():
+    # the nvcc flags keep IEEE division and rintf: never fast math
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    for name in _build.SOURCES:
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+        assert path == _build.library_path(name)     # content-addressed
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "src/repro_torch/kernels/build/" in ignored
+    has_nvcc = (shutil.which("nvcc") or os.path.isfile(
+        "/usr/local/cuda/bin/nvcc") or os.environ.get("CUDA_HOME"))
+    if has_nvcc:
+        assert _build.find_nvcc()
+    else:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.find_nvcc()
+
+
+def _run_chip_smoke(cwd: pathlib.Path):
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would drive it")
+    proc = _run_chip_smoke(ROOT)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_the_port(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_chip_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert "cannot import the port" in proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_kernels_line_sums_one_main_path_run():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.bound_ms(3.35e9, 1.0) == pytest.approx((1.0, "bytes"))
+    assert cs.bound_ms(1.0, 67e9) == pytest.approx((1.0, "operations"))
+    rows = {}
+    for name in ("analog_matmul", "int4_matmul"):
+        rows[name] = [
+            {"site": site, "M": m, "col_off": False, "ms": 1.0,
+             "wall_ms": 2.0, "plain_ms": 3.0, "matmul_ms": 4.0,
+             "bound_ms": 0.5, "bound_by": "bytes" if m == cs.M_DECODE
+             else "operations", "max_abs_err": 0.0}
+            for site, _, _, _ in cs.SITES for m in (cs.M_DECODE, cs.M_PREFILL)]
+    line = cs.kernels_line(rows, {"analog_matmul": 7, "int4_matmul": 9})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    launches_per_run = cs.LAUNCHES_PER_FORWARD * cs.FORWARDS   # 65 x 17
+    for k in line["kernels"]:
+        assert keys <= set(k)
+        assert k["route"] == "cuda" and (ROOT / k["source"]).is_file()
+        assert k["ms"] == pytest.approx(launches_per_run)
+        assert k["bound_ms"] == pytest.approx(0.5 * launches_per_run)
+        assert k["bound_by"] == "bytes"          # 16 decode forwards
+    assert [k["launches"] for k in line["kernels"]] == [7, 9]
