@@ -20,7 +20,27 @@ Phases, in order; any failure exits non-zero:
                (plain torch ops, the reference's default) is the check.
 4. int4     -- the same with ``digital_int4`` on ``int4_matmul``, checked
                against ``digital_rtn4`` (unfused).
-5. cli      -- ``repro_torch.launch.serve.main`` for 4 requests.
+5. paged    -- both paged-attention kernels at llama-3.2-1b's attention
+               shapes (H 32, KV 8, hd 64, block 16): decode for 8 rows at
+               live contexts of 128, 512 and 2048 tokens with ragged
+               ``start``, 1 and 4 splits; prefill for the engine's 2 compact
+               rows x chunk 32 at the same contexts; fp32, bf16 and int8
+               pools. Each is held against its plain version and timed
+               beside it, beside gather ``kp[tbl]`` + PyTorch's
+               ``scaled_dot_product_attention`` (yardstick only) and the
+               card's bound.
+6. engine   -- the continuous-batching engine (``serve.scheduler``) at full
+               width on the paged pool: 16 mixed-length requests (prompts
+               32-480 tokens, 16-64 new) through 8 slots, chunk 32, for
+               ``analog_hw`` + ``use_pallas=True`` and ``digital_int4`` on a
+               bf16 pool and ``analog_hw`` on the int8 pool. Every request
+               must finish, every block come back, and every projection and
+               attention call run on its kernel.
+7. reduced  -- reduced llama-3.2-1b through the engine on the card and on the
+               CPU (plain versions): equal greedy tokens for ``fp`` and
+               ``analog_hw``, paged and per-slot contiguous.
+8. cli      -- ``repro_torch.launch.serve.main``, continuous (paged) and
+               static.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -36,6 +56,8 @@ import pathlib
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -63,6 +85,22 @@ U32 = 2.0 ** -24                                           # fp32 unit round-off
 # logits differ by a few percent (relative L2) on random weights; E2E_TOL
 # only catches gross faults (unrelated logits give about 1.4).
 E2E_TOL = 0.25
+# paged attention at llama-3.2-1b's attention shapes (phase 5) and the
+# continuous engine's geometry (phase 6)
+PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS = 32, 8, 64, 16
+PAGED_CONTEXTS = (128, 512, 2048)
+DECODE_ROWS, DECODE_SPLITS = 8, (1, 4)
+POOL_DTYPES = ("f32", "bf16", "i8")
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_REQUESTS = 8, 32, 16
+# the engine's compact prefill width: (slots + 2 chunks - slots) // chunk
+PREFILL_ROWS = 2
+# the case of each paged kernel that the kernels line reports: the engine's
+# bf16 pool and one split, at a context near the engine's mean
+LINE_CASE = {"dtype": "bf16", "context": 512, "splits": 1}
+# |kernel - plain| <= PAGED_TOL * (1 + |plain|): both run the same fp32
+# online softmax over the same blocks; only the order of the sums inside
+# a block differs (and expf's last bit)
+PAGED_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -182,6 +220,28 @@ def device_ms(torch, fn, n_args: int, reps: int = 20,
             continue
         times.append(start.elapsed_time(end) / reps)
     return sorted(times)[len(times) // 2]
+
+
+def graph_ms(torch, fn, reps: int = 5, rounds: int = 3) -> float:
+    """Device time of one call of ``fn``: the call captured as a CUDA graph
+    (warmed up on a side stream, as capture requires) and replayed back to
+    back, so that the card never waits for the host. For calls of
+    thousands of small launches, which fill the launch queue behind the
+    spin kernel of :func:`device_ms`; the graph's gaps between its
+    kernels are in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_time_ms(torch, lambda i: graph.replay(), 1, reps=reps,
+                      rounds=rounds)
+    del graph
+    return ms
 
 
 def n_copies(nbytes: int) -> int:
@@ -347,7 +407,428 @@ def phase_kernels(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 to 5
+# phase 5: the paged-attention kernels
+# ---------------------------------------------------------------------------
+
+def paged_tables(torch, gen, rows: int, context: int, chunk: int):
+    """Block tables and cursors: row ``b`` starts at a ragged ``start[b]``
+    (0 to 4 blocks of left pad) and its last query column attends exactly
+    ``context`` tokens. Distinct random physical blocks per row; block 0
+    is the sink."""
+    dev = torch.device("cuda")
+    bs = PAGED_BS
+    start = torch.randint(0, 4 * bs, (rows,), generator=gen, device=dev)
+    pos = start + context - chunk               # first column of the chunk
+    nb = -(-(4 * bs + context) // bs)
+    npool = 1 + rows * nb
+    perm = torch.randperm(npool - 1, generator=gen, device=dev) + 1
+    tbl = perm.reshape(rows, nb).to(torch.int32).contiguous()
+    return (tbl, pos.to(torch.int32).contiguous(),
+            start.to(torch.int32).contiguous(), npool)
+
+
+def paged_pool(torch, gen, npool: int, dtype: str):
+    """One random pool ``(kp, vp, k_scale, v_scale)`` of ``dtype``."""
+    dev = torch.device("cuda")
+    shape = (npool, PAGED_BS, PAGED_KV, PAGED_HD)
+    if dtype == "i8":
+        return tuple(torch.randint(-127, 128, shape, generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(2)) + tuple(
+            torch.rand(shape[:3], generator=gen, device=dev) * 0.02
+            for _ in range(2))
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                 for _ in range(2)) + (None, None)
+
+
+def gather_sdpa(torch, q, kp, vp, ks, vs, tbl, pos, start, scale):
+    """The yardstick: gather each row's logical view ``kp[tbl]`` out of the
+    pool and run PyTorch's ``scaled_dot_product_attention`` on it with the
+    ``start <= j <= pos + i`` mask. q is [B, H, hd] (decode) or
+    [B, S, H, hd] (prefill). Never used by the port."""
+    F = torch.nn.functional
+    decode = q.dim() == 3
+    qs = q[:, None] if decode else q                 # [B, S, H, hd]
+    b, s, nq, hd = qs.shape
+    idx = tbl.long()
+    k, v = kp[idx], vp[idx]                          # [B, NB, bs, KV, hd]
+    if ks is not None:
+        k = k.float() * ks[idx][..., None]
+        v = v.float() * vs[idx][..., None]
+    t, nkv = k.shape[1] * k.shape[2], k.shape[3]
+
+    def heads(x):      # [B, t, KV, hd] -> [B, H, t, hd], GQA groups by view
+        x = x.reshape(b, t, nkv, 1, hd).expand(b, t, nkv, nq // nkv, hd)
+        return x.reshape(b, t, nq, hd).transpose(1, 2).float()
+
+    qpos = pos.long()[:, None] + torch.arange(s, device=q.device)[None]
+    j = torch.arange(t, device=q.device)
+    mask = ((j[None, None] >= start.long()[:, None, None])
+            & (j[None, None] <= qpos[..., None]))
+    out = F.scaled_dot_product_attention(
+        qs.transpose(1, 2).float(), heads(k), heads(v),
+        attn_mask=mask[:, None], scale=scale)
+    out = out.transpose(1, 2)
+    return out[:, 0] if decode else out
+
+
+def paged_case(torch, gen, kind: str, context: int, dtype: str,
+               splits: int) -> dict:
+    """One paged kernel case: parity against the plain version (and the
+    yardstick against it, loosely), then device times of the kernel, the
+    plain version and the yardstick beside the card's bound. Pool copies
+    rotate so that the live bytes of all copies exceed the 50 MB L2."""
+    from repro_torch.kernels import paged_attention as kd
+    from repro_torch.kernels import paged_prefill as kp_
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    decode = kind == "decode"
+    rows = DECODE_ROWS if decode else PREFILL_ROWS
+    chunk = 1 if decode else ENGINE_CHUNK
+    tbl, pos, start, npool = paged_tables(torch, gen, rows, context, chunk)
+    elem = {"f32": 4, "bf16": 2, "i8": 1}[dtype]
+    live = rows * context                      # tokens the kernel must read
+    kv_bytes = live * PAGED_KV * (2 * PAGED_HD * elem
+                                  + (8 if dtype == "i8" else 0))
+    pools = [paged_pool(torch, gen, npool, dtype)
+             for _ in range(n_copies(kv_bytes))]
+    qshape = ((rows, PAGED_H, PAGED_HD) if decode
+              else (rows, chunk, PAGED_H, PAGED_HD))
+    q = torch.randn(qshape, generator=gen, device=dev)
+    scale = PAGED_HD ** -0.5
+
+    if decode:
+        def kernel(i):
+            kp, vp, ks, vs = pools[i]
+            return kd.paged_flash_decode(q, kp, vp, tbl, pos, start,
+                                         scale=scale, k_scale=ks, v_scale=vs,
+                                         num_splits=splits)
+
+        def plain(i):
+            kp, vp, ks, vs = pools[i]
+            return ref.paged_decode_ref(q, kp, vp, tbl, pos, start, scale,
+                                        ks, vs, num_splits=splits)
+    else:
+        def kernel(i):
+            kp, vp, ks, vs = pools[i]
+            return kp_.paged_flash_prefill(q, kp, vp, tbl, pos, start,
+                                           scale=scale, k_scale=ks,
+                                           v_scale=vs)
+
+        def plain(i):
+            kp, vp, ks, vs = pools[i]
+            return ref.paged_prefill_ref(q, kp, vp, tbl, pos, start, scale,
+                                         ks, vs)
+
+    def library(i):
+        return gather_sdpa(torch, q, *pools[i], tbl, pos, start, scale)
+
+    # none of the timed calls may make the host wait for the card
+    # (device_ms queues them behind a spin kernel)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, want, lib = kernel(0), plain(0), library(0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    name = (f"paged {kind} ctx={context} {dtype}"
+            + (f" splits={splits}" if decode else ""))
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = (out - want).abs()
+    check(bool((err <= PAGED_TOL * (1 + want.abs())).all()),
+          f"{name}: differs from the plain version by {float(err.max()):.3e}")
+    lib_err = float((lib - want).abs().max())
+    check(lib_err < 1e-3, f"{name}: the yardstick computes something else "
+          f"({lib_err:.3e})")
+    n = len(pools)
+    ms = device_ms(torch, kernel, n)
+    wall = cuda_time_ms(torch, kernel, n)
+    # the plain version launches about 20 kernels per block of the table
+    # (over 4000 at context 2048): timed as a graph on one pool copy
+    plain_ms = graph_ms(torch, lambda: plain(0), reps=3)
+    lib_ms = device_ms(torch, library, n, reps=5, rounds=3)
+    # each input read once, the output written once: live K/V (+ scales),
+    # q, out, the table rows and cursors
+    nbytes = (kv_bytes + 2 * 4 * q.numel() + 4 * (tbl.numel() + 2 * rows))
+    cols = torch.arange(chunk, dtype=torch.float64)
+    attended = float((context - chunk + 1 + cols).sum()) * rows
+    bnd, by = bound_ms(nbytes, 4.0 * PAGED_HD * PAGED_H * attended)
+    del pools
+    return {"kind": kind, "context": context, "dtype": dtype,
+            "splits": splits, "rows": rows, "chunk": chunk, "ms": ms,
+            "wall_ms": wall, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd, "bound_by": by, "copies": n,
+            "max_abs_err": float(err.max()), "library_abs_err": lib_err}
+
+
+def phase_paged(torch) -> dict:
+    """Parity and times of both paged kernels at every listed case."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"paged_flash_decode": [], "paged_flash_prefill": []}
+    for context in PAGED_CONTEXTS:
+        for dtype in POOL_DTYPES:
+            cases = [("decode", s) for s in DECODE_SPLITS] + [("prefill", 1)]
+            for kind, splits in cases:
+                r = paged_case(torch, gen, kind, context, dtype, splits)
+                rows[f"paged_flash_{kind}"].append(r)
+                print(f"  {kind:7s} ctx={context:4d} {dtype:4s} "
+                      f"splits={splits}: {r['ms']:.4f} ms (wall "
+                      f"{r['wall_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                      f"gather+sdpa {r['library_ms']:.4f}, bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}), max err "
+                      f"{r['max_abs_err']:.2e}")
+                torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the continuous engine at full width
+# ---------------------------------------------------------------------------
+
+def engine_requests(cfg, n: int, seed: int):
+    """``n`` mixed-length requests: prompts of 32-480 tokens, 16-64 new,
+    sampled as the CLI samples (temperature 0.8, top-k 50)."""
+    from repro_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(32, 481))
+        reqs.append(Request(
+            uid=i, prompt=rng.integers(0, cfg.vocab_size, plen).astype(
+                np.int32), max_new=int(rng.integers(16, 65)),
+            temperature=0.8, top_k=50, seed=seed + i))
+    return reqs
+
+
+def _counters():
+    from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import int4_matmul as k4
+    from repro_torch.kernels import paged_attention as kd
+    from repro_torch.kernels import paged_prefill as kp_
+    return {"analog_matmul": km, "int4_matmul": k4,
+            "paged_flash_decode": kd, "paged_flash_prefill": kp_}
+
+
+def engine_phase(torch, cfg, params, labels, deploy: str,
+                 kv_bits: int) -> dict:
+    """Serve the mixed workload at full width on the paged pool under
+    ``deploy``; check that every request finished, every block came back
+    and every call ran on its kernel; measure tokens/s and the device
+    busy share of a decode step."""
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
+                                             required_max_len)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p, acfg = deploy_model(_deploy_args(deploy), cfg, params, labels, gen)
+    mvm = "analog_matmul"
+    if deploy == "analog_hw":
+        acfg = dataclasses.replace(acfg, use_pallas=True)
+    else:
+        mvm = "int4_matmul"
+    acfg = dataclasses.replace(acfg, kv_bits=kv_bits)
+    reqs = engine_requests(cfg, ENGINE_REQUESTS, seed=0)
+    max_len = max(required_max_len(len(r.prompt), r.max_new, ENGINE_CHUNK)
+                  for r in reqs)
+    scfg = SchedulerConfig(num_slots=ENGINE_SLOTS, max_len=max_len,
+                           prefill_chunk=ENGINE_CHUNK,
+                           cache_dtype=torch.bfloat16, paged=True,
+                           kv_block_size=PAGED_BS)
+    eng = ServeEngine(p, cfg, acfg, scfg)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for m in counters.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in counters.items()}
+    tag = f"{deploy} kv_bits={kv_bits}"
+    total = sum(len(v) for v in results.values())
+    check(sorted(results) == [r.uid for r in reqs], f"{tag}: lost requests")
+    for r in reqs:
+        out = results[r.uid]
+        check(eng.status[r.uid] == "finished" and len(out) == r.max_new
+              and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+              f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
+              f"{len(out)}/{r.max_new} tokens")
+    pool = eng.pool
+    check(pool.num_live == 0 and pool.num_free == pool.num_blocks,
+          f"{tag}: blocks not returned ({pool.num_live} live, "
+          f"{pool.num_free}/{pool.num_blocks} free)")
+    layers, forwards = cfg.num_layers, eng.decode_steps + eng.prefill_forwards
+    # qkv, o, gate_up and down in every layer, and the LM head
+    sites = 4 * layers + (0 if cfg.tie_embeddings else 1)
+    want = {mvm: sites * forwards,
+            "paged_flash_decode": layers * eng.decode_steps,
+            "paged_flash_prefill": layers * eng.prefill_forwards}
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{tag}: {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    res = {"deploy": deploy, "kv_bits": kv_bits, "run_s": run_s,
+           "tokens": total, "tokens_per_s": total / run_s,
+           "decode_steps": eng.decode_steps, "mixed_steps": eng.mixed_steps,
+           "prefill_forwards": eng.prefill_forwards,
+           "decode_tokens_during_admission":
+               eng.decode_tokens_during_admission,
+           "phase_s": dict(eng.phase_time), "launches": launches}
+    res.update(engine_busy(torch, cfg, p, acfg, scfg))
+    print(f"  {tag}: {total} tokens of {len(reqs)} requests in {run_s:.2f}s "
+          f"({res['tokens_per_s']:.1f} tok/s), {eng.decode_steps} decode "
+          f"forwards, {eng.prefill_forwards} chunk forwards "
+          f"({eng.mixed_steps} fused with decode), launches {launches}; "
+          f"decode step {res['decode_step_ms']:.2f} ms host, "
+          f"{res['decode_device_ms']:.2f} ms device (busy "
+          f"{res['device_busy']:.3f})")
+    del eng, p
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
+    """Device busy share of the engine's decode step: 8 greedy requests of
+    256-token prompts are admitted and prefilled, then decode blocks run
+    (host clock per decode forward, synchronized); the same step over the
+    same slots is captured as a CUDA graph and replayed back to back, so
+    the card never waits for the host (the graph's own gaps between its
+    kernels are inside, so the share is an upper bound)."""
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, acfg, scfg)
+    rng = np.random.default_rng(11)
+    for i in range(ENGINE_SLOTS):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, 256).astype(np.int32), max_new=96,
+            temperature=0.0))
+    while any(s is None or s.prefilling for s in eng.slots):
+        eng.step()
+    steps0 = eng.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (eng.decode_steps - steps0)
+    check(all(s is not None for s in eng.slots), "busy: a slot retired")
+    eng._refresh_device_state()
+    d = eng._dev
+
+    def step():
+        logits, _ = serve_step(params, cfg, acfg, d["toks"][:, None],
+                               eng.caches, d["off"][:, None],
+                               seq_mask=d["active"][:, None])
+        return torch.argmax(logits, dim=-1)
+
+    dev_ms = graph_ms(torch, step, reps=10)
+    del eng
+    return {"decode_step_ms": host_ms, "decode_device_ms": dev_ms,
+            "device_busy": dev_ms / host_ms}
+
+
+def phase_engine(torch) -> dict:
+    """Full-width llama-3.2-1b (random weights from a seed) through the
+    continuous engine: analog_hw and digital_int4 on a bf16 pool, and
+    analog_hw on the int8 pool."""
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    cfg, params, labels = build(ARCH, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    out = {}
+    for deploy, kv_bits in (("analog_hw", 0), ("digital_int4", 0),
+                            ("analog_hw", 8)):
+        out[f"{deploy}/kv{kv_bits or 16}"] = engine_phase(
+            torch, cfg, params, labels, deploy, kv_bits)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the reduced engine, card against CPU
+# ---------------------------------------------------------------------------
+
+def reduced_engine_check(torch) -> dict:
+    """Reduced llama-3.2-1b through the continuous engine on the card (the
+    kernels) and on the CPU (their plain versions), same weights: greedy
+    tokens must be equal for ``fp`` and ``analog_hw`` (fused), paged and
+    per-slot contiguous. One paged chunk forward and one decode step must
+    give the CPU's logits within 1e-4 (as phase 3's reduced check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig, AnalogCtx
+    from repro_torch.core.analog import perturb_analog_weights
+    from repro_torch.models import apply, build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                             ServeEngine)
+
+    cfg = get_config(ARCH).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    hw = perturb_analog_weights(params, labels,
+                                torch.Generator().manual_seed(1), "hw")
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(3, 21))).astype(np.int32),
+        max_new=int(rng.integers(4, 13)), temperature=0.0)
+        for i in range(6)]
+    out = {}
+    cuda = torch.device("cuda")
+    for deploy, p, acfg in (
+            ("fp", params, AnalogConfig(mode="off")),
+            ("analog_hw", hw, AnalogConfig(mode="analog", train_noise=False,
+                                           use_pallas=True))):
+        pc = _to(p, cuda)
+        for paged in (True, False):
+            scfg = SchedulerConfig(num_slots=3, max_len=40, prefill_chunk=8,
+                                   paged=paged, kv_block_size=8)
+            host = ServeEngine(p, cfg, acfg, scfg).run(list(reqs))
+            card = ServeEngine(pc, cfg, acfg, scfg).run(list(reqs))
+            bad = [r.uid for r in reqs
+                   if not np.array_equal(host[r.uid], card[r.uid])]
+            out[f"{deploy}/{'paged' if paged else 'contiguous'}"] = bad
+            check(not bad, f"reduced {deploy} paged={paged}: greedy tokens "
+                  f"differ for requests {bad}")
+        # logits of one paged chunk forward and one decode step
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 8)))
+        errs = []
+        for where, q in (("cpu", p), ("cuda", pc)):
+            caches = T.init_caches(cfg, 2, 24, device=where, per_slot=True,
+                                   paged=True, kv_block_size=8)
+            caches["tbl"][:] = torch.tensor([[1, 2, 3], [4, 5, 6]],
+                                            dtype=torch.int32)
+            caches["wtbl"][:] = caches["tbl"]
+            caches["start"][:] = torch.tensor([3, 0], dtype=torch.int32)
+            mask = torch.ones((2, 8), device=where)
+            mask[0, :3] = 0                      # row 0: 3 left pads
+            off = torch.tensor([[-3], [0]], device=where)
+            t = toks.to(where)
+            l1, _, caches = apply(q, cfg, acfg, AnalogCtx(), {"tokens": t},
+                                  caches=caches, pos_offset=off,
+                                  seq_mask=mask)
+            l2, _, _ = apply(q, cfg, acfg, AnalogCtx(),
+                             {"tokens": t[:, -1:]}, caches=caches,
+                             pos_offset=off + 8,
+                             seq_mask=torch.ones((2, 1), device=where))
+            errs.append((l1.cpu(), l2.cpu()))
+        d1 = float((errs[0][0] - errs[1][0]).abs().max())
+        d2 = float((errs[0][1] - errs[1][1]).abs().max())
+        out[f"{deploy}/logit_err"] = max(d1, d2)
+        check(max(d1, d2) < 1e-4, f"reduced {deploy}: card vs cpu paged "
+              f"logits differ by {max(d1, d2):.3e}")
+    print(f"  reduced {ARCH} engine, card vs cpu: greedy tokens equal for "
+          f"fp and analog_hw, paged and contiguous; max |dlogit| of a paged "
+          f"chunk + decode step: fp {out['fp/logit_err']:.2e}, analog_hw "
+          f"{out['analog_hw/logit_err']:.2e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4, and the CLI
 # ---------------------------------------------------------------------------
 
 def _deploy_args(deploy: str):
@@ -605,29 +1086,65 @@ def _to(tree, device):
 
 
 def phase_cli(torch) -> dict:
-    """The serving CLI in-process on the card."""
+    """The serving CLI in-process on the card: the continuous engine on
+    the paged pool (the default engine) and the static engine."""
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
+    res = serve.main(["--arch", ARCH, "--deploy", "digital_int4",
+                      "--num-requests", "4", "--paged"])
+    cont_s = time.perf_counter() - t0
+    check(sorted(res) == [0, 1, 2, 3] and all(len(v) for v in res.values()),
+          f"cli continuous: results {res}")
+    t0 = time.perf_counter()
     toks = serve.main(["--arch", ARCH, "--deploy", "digital_int4",
-                       "--num-requests", "4"])
-    dt = time.perf_counter() - t0
+                       "--num-requests", "4", "--engine", "static"])
+    static_s = time.perf_counter() - t0
     check(tuple(toks.shape) == (4, 32), f"cli: tokens {tuple(toks.shape)}")
-    return {"seconds": dt}
+    return {"continuous_s": cont_s, "static_s": static_s}
 
 
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
-def kernels_line(rows: dict, launches: dict) -> dict:
-    """One entry per kernel. ``ms``, ``plain_ms``, ``bound_ms`` and the
-    yardstick ``matmul_ms`` are totals over the launches of one main-path
-    run (1 prefill forward at M = 128 + 16 decode forwards at M = 4, 65
-    sites each), summed from the per-shape times of phase 2 (analog:
-    without col_off, which the main path does not use). ``ms`` and the
-    others are device time; ``wall_ms`` is the same total by CUDA events
-    around back-to-back calls, host dispatch gaps included."""
+#: the run whose launch count each kernel's entry reports: the static
+#: engine's (phases 3 and 4) or the continuous engine's analog_hw run on
+#: the bf16 pool (phase 6)
+LINE_PATHS = {"analog_matmul": "static/analog_hw",
+              "int4_matmul": "static/digital_int4",
+              "paged_flash_decode": "continuous/analog_hw/kv16",
+              "paged_flash_prefill": "continuous/analog_hw/kv16"}
+
+PAGED_META = {
+    "paged_flash_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                           "src/repro/kernels/paged_attention.py:169"),
+    "paged_flash_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                            "src/repro/kernels/paged_prefill.py:193")}
+
+
+def kernels_line(rows: dict, launches: dict, paged_rows: dict,
+                 paged_launches: dict) -> dict:
+    """One entry per kernel.
+
+    ``analog_matmul`` / ``int4_matmul``: ``ms``, ``plain_ms``,
+    ``bound_ms`` and the yardstick ``matmul_ms`` are totals over the
+    launches of one static-engine run (1 prefill forward at M = 128 + 16
+    decode forwards at M = 4, 65 sites each), summed from the per-shape
+    times of phase 2 (analog: without col_off, which the main path does not
+    use); ``wall_ms`` is the same total by CUDA events around back-to-back
+    calls, host dispatch gaps included. ``launches`` is that run's count.
+
+    ``paged_flash_decode`` / ``paged_flash_prefill``: the times are per
+    launch at the phase-5 case named in ``case`` (the engine's bf16 pool,
+    one split, context 512); ``library_ms`` is gather ``kp[tbl]`` +
+    ``scaled_dot_product_attention`` on the same inputs; ``max_abs_err``
+    is the largest over all phase-5 cases; ``launches`` is the count of
+    the continuous engine's ``analog_hw`` run (phase 6).
+
+    Each entry's ``path`` names the run its ``launches`` come from
+    (``LINE_PATHS``); the continuous runs' counts of every kernel are in
+    the phase-6 results."""
     meta = {
         "analog_matmul": ("src/repro_torch/kernels/csrc/analog_matmul.cu",
                           "src/repro/kernels/analog_matmul.py:157"),
@@ -649,7 +1166,8 @@ def kernels_line(rows: dict, launches: dict) -> dict:
                 reps * r["bound_ms"])
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "path": LINE_PATHS[name],
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
@@ -657,6 +1175,23 @@ def kernels_line(rows: dict, launches: dict) -> dict:
                          else "operations"),
             "library_ms": None, "matmul_ms": tot["matmul_ms"],
             "wall_ms": tot["wall_ms"], "parity": "ok"})
+    for name, (src, replaces) in PAGED_META.items():
+        cases = paged_rows[name]
+        r = next(c for c in cases
+                 if c["dtype"] == LINE_CASE["dtype"]
+                 and c["context"] == LINE_CASE["context"]
+                 and c["splits"] == LINE_CASE["splits"])
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "path": LINE_PATHS[name],
+            "launches": paged_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
+            "case": {k: r[k] for k in ("rows", "chunk", "context", "dtype",
+                                       "splits")},
+            "parity": "ok"})
     return {"kernels": out}
 
 
@@ -675,26 +1210,37 @@ def main() -> int:
     t_start = time.perf_counter()
     results = {}
     try:
-        print("[1/5] setup")
+        print("[1/8] setup")
         results["setup"] = phase_setup(torch)
-        print("[2/5] kernels at llama-3.2-1b main-path shapes")
+        print("[2/8] MVM kernels at llama-3.2-1b main-path shapes")
         rows = phase_kernels(torch)
-        print("[3/5] analog_hw serving, use_pallas=True")
+        print("[3/8] static engine, analog_hw serving, use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        print("[4/5] digital_int4 serving")
+        print("[4/8] static engine, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        print("[5/5] serving CLI")
+        print("[5/8] paged-attention kernels at llama-3.2-1b attention "
+              "shapes")
+        paged_rows = phase_paged(torch)
+        print("[6/8] continuous engine at full width, paged pool")
+        results["engine"] = phase_engine(torch)
+        print("[7/8] reduced continuous engine, card against cpu")
+        results["reduced_engine"] = reduced_engine_check(torch)
+        print("[8/8] serving CLI")
         results["cli"] = phase_cli(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    line = kernels_line(rows, {"analog_matmul": results["analog"]["launches"],
-                               "int4_matmul": results["int4"]["launches"]})
+    line = kernels_line(
+        rows, {"analog_matmul": results["analog"]["launches"],
+               "int4_matmul": results["int4"]["launches"]},
+        paged_rows, {name: results["engine"][LINE_PATHS[name].split(
+            "/", 1)[1]]["launches"][name] for name in PAGED_META})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"results": results, "shapes": rows, **line}, indent=1))
+        {"results": results, "shapes": rows, "paged": paged_rows, **line},
+        indent=1))
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(gpu_name_and_power())

@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import clip, div, qmax, rdiv
 
 __all__ = ["qmax", "input_quantize", "dynamic_input_quantize",
            "output_quantize", "weight_fake_quant", "rtn_quantize",
-           "rtn_dequantize"]
+           "rtn_dequantize", "kv_quantize", "kv_dequantize"]
 
 
 def input_quantize(x: torch.Tensor, beta: torch.Tensor,
@@ -79,3 +79,30 @@ def rtn_dequantize(w_int: torch.Tensor, scale: torch.Tensor,
                    dtype=torch.float32) -> torch.Tensor:
     """Dequantize an RTN int carrier back to ``w_int * scale``."""
     return w_int.to(dtype) * scale.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache quantization (the int8 paged pool, serving only)
+# ---------------------------------------------------------------------------
+
+def kv_quantize(x: torch.Tensor, bits: int = 8):
+    """Symmetric per-vector quantization for KV-cache storage.
+
+    ``x`` [..., hd] holds one K or V head vector per leading index; the
+    scale is the absmax over the head dim, so each cached token/head pair
+    carries its own scale. Returns ``(x_int8, scale)`` with ``scale`` of
+    shape ``x.shape[:-1]`` (fp32). Both divisions are true IEEE divisions
+    (``ref.div``), so the CPU and the card round alike.
+    """
+    q = qmax(bits)
+    xf = x.float()
+    absmax = torch.amax(torch.abs(xf), dim=-1)
+    scale = div(torch.clamp_min(absmax, 1e-8), q)
+    x_int = torch.clamp(torch.round(torch.div(xf, scale[..., None])), -q, q)
+    return x_int.to(torch.int8), scale
+
+
+def kv_dequantize(x_int: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Invert :func:`kv_quantize`: ``x_int * scale`` with broadcast scales."""
+    return (x_int.float() * scale.float()[..., None]).to(dtype)

@@ -10,8 +10,13 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
 * ``rtn`` serving with 4-bit weights (``AnalogConfig.int4_serve``) →
   :func:`int4_mvm_packed`: weights packed two per byte, unpacked on chip;
   input and output quantization stay in the digital periphery.
+* Paged attention of the continuous engine → :func:`paged_decode_attention`
+  (``paged_flash_decode``) for a decode step and
+  :func:`paged_prefill_attention` (``paged_flash_prefill``) for a prefill
+  chunk, both scoring the block pool in place.
 * A CPU tensor runs each kernel's plain PyTorch version (the CPU tests); a
-  CUDA tensor launches the kernel or raises.
+  CUDA tensor launches the kernel or raises. There is no switch that sends
+  a CUDA tensor to the plain version: a caller that wants it calls ``ref``.
 
 The kernels are strictly 2-D, so ``[B, S, K]`` activations are flattened
 here. Each kernel's library picks its own tiling for the card from the
@@ -25,6 +30,8 @@ import torch
 from repro_torch.kernels import _launch, ref
 from repro_torch.kernels.analog_matmul import analog_matmul
 from repro_torch.kernels.int4_matmul import int4_matmul
+from repro_torch.kernels.paged_attention import paged_flash_decode
+from repro_torch.kernels.paged_prefill import paged_flash_prefill
 
 
 def use_fused(cfg) -> bool:
@@ -112,3 +119,35 @@ def int4_mvm(x_q: torch.Tensor, w_int: torch.Tensor,
     """:func:`int4_mvm_packed` with on-the-fly packing of the int8-carrier
     RTN output ``w_int`` [K, N] (N even)."""
     return int4_mvm_packed(x_q, ref.pack_int4(w_int), scale)
+
+
+def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
+                           vp: torch.Tensor, tbl: torch.Tensor,
+                           pos: torch.Tensor, start: torch.Tensor,
+                           scale: float, *,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
+                           num_splits: int = 1) -> torch.Tensor:
+    """One paged GQA decode step: q [B, H, hd] against the block pool
+    ``kp`` / ``vp`` [P, bs, KV, hd] through ``tbl`` [B, NB]; row ``b``
+    attends ``start[b] <= j <= pos[b]``. ``num_splits`` > 1 splits each
+    row's block loop over thread blocks (merged in split order)."""
+    return paged_flash_decode(q.contiguous(), kp, vp, tbl, pos, start,
+                              scale=scale, k_scale=k_scale, v_scale=v_scale,
+                              num_splits=num_splits)
+
+
+def paged_prefill_attention(q: torch.Tensor, kp: torch.Tensor,
+                            vp: torch.Tensor, tbl: torch.Tensor,
+                            pos: torch.Tensor, start: torch.Tensor,
+                            scale: float, *,
+                            k_scale: torch.Tensor | None = None,
+                            v_scale: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """One paged GQA prefill chunk: q [B, S, H, hd] scored in place
+    against the block pool; column ``i`` of row ``b`` attends
+    ``start[b] <= j <= pos[b] + i``. The chunk's K/V are already in the
+    pool."""
+    return paged_flash_prefill(q.contiguous(), kp, vp, tbl, pos, start,
+                               scale=scale, k_scale=k_scale,
+                               v_scale=v_scale)

@@ -109,3 +109,163 @@ def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
     """Pack int4 values in an int8 carrier ([K, N], N even) to [K, N//2]."""
     u = (w_int.to(torch.int32) + 8).to(torch.uint8)
     return u[:, 0::2] | (u[:, 1::2] << 4)
+
+
+# ---------------------------------------------------------------------------
+# paged attention over the block pool (decode and prefill)
+# ---------------------------------------------------------------------------
+
+def _load_block(pool: torch.Tensor, scale: torch.Tensor | None,
+                phys: torch.Tensor) -> torch.Tensor:
+    """Physical blocks ``phys`` [B] of a ``[P, bs, KV, hd]`` pool as fp32,
+    dequantized right after the load when ``scale`` [P, bs, KV] is given."""
+    blk = pool[phys].float()                               # [B, bs, KV, hd]
+    if scale is not None:
+        blk = blk * scale[phys].float()[..., None]
+    return blk
+
+
+def _online_softmax_step(carry, logits, valid, v_blk, live, pv_eq: str):
+    """One block of the flash loop. ``logits`` [..., bs] with ``valid``
+    broadcastable to it; ``live`` [B] keeps the carry of a row whose block
+    is dead unchanged (the kernel skips such blocks)."""
+    m, l, acc = carry
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    p = torch.where(valid, p, torch.zeros_like(p))
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(pv_eq, p, v_blk)
+    shape = (-1,) + (1,) * (m.dim() - 1)
+    lv = live.reshape(shape)
+    return (torch.where(lv, m_new, m), torch.where(lv, l_new, l),
+            torch.where(lv[..., None], acc_new, acc))
+
+
+def merge_splits(o_part: torch.Tensor, m_part: torch.Tensor,
+                 l_part: torch.Tensor) -> torch.Tensor:
+    """Second pass of the split-K flash decode: combine per-split partials.
+
+    o_part [B, NS, H, hd] unnormalized accumulators, m_part / l_part
+    [B, NS, H] running max and sum of exponentials. Dead splits carry
+    ``m = -inf, l = 0, acc = 0`` and drop out through ``exp(-inf - M) = 0``.
+    """
+    m_tot = torch.amax(m_part, dim=1)                      # [B, H]
+    w = torch.exp(m_part - m_tot[:, None])                 # [B, NS, H]
+    l_tot = torch.sum(l_part * w, dim=1)
+    o = torch.sum(o_part * w[..., None], dim=1)
+    return o / torch.clamp_min(l_tot, 1e-30)[..., None]
+
+
+def paged_decode_partials(q, kp, vp, tbl, pos, start, scale: float,
+                          k_scale=None, v_scale=None, num_splits: int = 1):
+    """Per-split flash-decode partials ``(acc [B, NS, H, hd], m, l
+    [B, NS, H])`` in fp32; split ``s`` covers logical blocks
+    ``[s * nbs, (s + 1) * nbs)`` with ``nbs = ceil(NB / num_splits)``."""
+    bsz, nq, hd = q.shape
+    nb = tbl.shape[1]
+    bs, nkv = kp.shape[1], kp.shape[2]
+    group = nq // nkv
+    nbs = -(-nb // num_splits)
+    qg = q.reshape(bsz, nkv, group, hd).float()
+    pos, start, tbl = pos.long(), start.long(), tbl.long()
+    first, last = start // bs, pos // bs
+    ar = torch.arange(bs, device=q.device)
+    parts = []
+    for s in range(num_splits):
+        carry = (torch.full((bsz, nkv, group), -float("inf"),
+                            device=q.device),
+                 torch.zeros((bsz, nkv, group), device=q.device),
+                 torch.zeros((bsz, nkv, group, hd), device=q.device))
+        for j in range(s * nbs, min((s + 1) * nbs, nb)):
+            phys = tbl[:, j]
+            k_blk = _load_block(kp, k_scale, phys)
+            v_blk = _load_block(vp, v_scale, phys)
+            jpos = j * bs + ar
+            valid = ((jpos[None] >= start[:, None])
+                     & (jpos[None] <= pos[:, None]))[:, None, None, :]
+            logits = torch.einsum("bngh,bsnh->bngs", qg, k_blk) * scale
+            live = (j >= first) & (j <= last)
+            carry = _online_softmax_step(carry, logits, valid, v_blk, live,
+                                         "bngs,bsnh->bngh")
+        parts.append(carry)
+    m, l, acc = (torch.stack([p[i] for p in parts], dim=1) for i in range(3))
+    return (acc.reshape(bsz, num_splits, nq, hd),
+            m.reshape(bsz, num_splits, nq), l.reshape(bsz, num_splits, nq))
+
+
+def paged_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                     tbl: torch.Tensor, pos: torch.Tensor,
+                     start: torch.Tensor, scale: float,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
+                     num_splits: int = 1) -> torch.Tensor:
+    """Plain version of the paged flash-decode kernel.
+
+    One GQA decode step per row against the block pool, with the online
+    softmax block loop of the kernel:
+
+    q        [B, H, hd]       current-token queries (H = KV * group)
+    kp, vp   [P, bs, KV, hd]  physical pool (fp32, bf16, or int8 + scales)
+    tbl      [B, NB]          per-slot block table (logical → physical)
+    pos      [B]              logical index of the current token
+    start    [B]              first valid logical index (left-pad count)
+    k_scale, v_scale [P, bs, KV]  dequant scales of the int8 pool
+
+    Row ``b`` attends ``start[b] <= j <= pos[b]``; blocks outside
+    ``start // bs … pos // bs`` leave the row's carry untouched. With
+    ``num_splits > 1`` the block loop is cut into independent partials
+    merged by :func:`merge_splits`, as the kernel does. Returns
+    [B, H, hd] in ``q.dtype``.
+    """
+    acc, m, l = paged_decode_partials(q, kp, vp, tbl, pos, start, scale,
+                                      k_scale, v_scale, num_splits)
+    if num_splits == 1:
+        out = acc[:, 0] / torch.clamp_min(l[:, 0], 1e-30)[..., None]
+    else:
+        out = merge_splits(acc, m, l)
+    return out.to(q.dtype)
+
+
+def paged_prefill_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                      tbl: torch.Tensor, pos: torch.Tensor,
+                      start: torch.Tensor, scale: float,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the paged flash-prefill kernel.
+
+    One query chunk ``q`` [B, S, H, hd] per row, scored in place against
+    the pool; column ``i`` of row ``b`` sits at logical position
+    ``pos[b] + i`` (``pos`` is the pre-chunk write cursor; the chunk's own
+    K/V are already in the pool) and attends ``start[b] <= j <= pos[b] + i``.
+    Blocks outside ``start // bs … (pos + S - 1) // bs`` are skipped.
+    Returns [B, S, H, hd] in ``q.dtype``.
+    """
+    bsz, s, nq, hd = q.shape
+    nb = tbl.shape[1]
+    bs, nkv = kp.shape[1], kp.shape[2]
+    group = nq // nkv
+    qg = q.reshape(bsz, s, nkv, group, hd).permute(0, 2, 1, 3, 4).float()
+    pos, start, tbl = pos.long(), start.long(), tbl.long()
+    first, last = start // bs, (pos + s - 1) // bs
+    ar = torch.arange(bs, device=q.device)
+    qpos = pos[:, None] + torch.arange(s, device=q.device)[None]   # [B, S]
+    carry = (torch.full((bsz, nkv, s, group), -float("inf"),
+                        device=q.device),
+             torch.zeros((bsz, nkv, s, group), device=q.device),
+             torch.zeros((bsz, nkv, s, group, hd), device=q.device))
+    for j in range(nb):
+        phys = tbl[:, j]
+        k_blk = _load_block(kp, k_scale, phys)
+        v_blk = _load_block(vp, v_scale, phys)
+        jpos = j * bs + ar
+        valid = ((jpos[None, None] >= start[:, None, None])
+                 & (jpos[None, None] <= qpos[..., None]))    # [B, S, bs]
+        logits = torch.einsum("bnsgh,btnh->bnsgt", qg, k_blk) * scale
+        live = (j >= first) & (j <= last)
+        carry = _online_softmax_step(carry, logits, valid[:, None, :, None],
+                                     v_blk, live, "bnsgt,btnh->bnsgh")
+    _, l, acc = carry
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(bsz, s, nq, hd).to(q.dtype)

@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels)
+from repro_torch.kernels import dispatch
 
 # ---------------------------------------------------------------------------
 # norms (digital)
@@ -168,21 +170,34 @@ def _chunked_causal_attention(q, k, v, scale, q_chunk=512, kv_chunk=1024):
 
 def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
               ctx: AnalogCtx, positions: torch.Tensor,
-              cache: dict | None = None):
+              cache: dict | None = None,
+              seq_mask: torch.Tensor | None = None):
     """GQA attention block. Returns ``(y, stats, new_cache)``.
 
-    Cache layout (see :func:`init_cache`): ``{"k": [B, T, KV, hd], "v": ...,
-    "pos": int}``, one write position shared by the batch. A prefill writes
-    the prompt's K/V at the front of the buffers and a decode step writes
-    one token at ``pos``, **in place** (the returned cache holds the same
-    buffers); a decode step attends over the whole buffer, masked to
-    ``j <= pos``. The per-slot and paged layouts of the continuous engine
-    are not ported yet.
+    Three cache layouts (see :func:`init_cache`):
+
+    * contiguous (``pos`` a host int): ``{"k", "v": [B, T, KV, hd],
+      "pos"}``, one write position shared by the batch. A prefill writes
+      the prompt's K/V at the front of the buffers and a decode step one
+      token at ``pos``; a decode step attends the whole buffer masked to
+      ``j <= pos``.
+    * per slot (``pos`` [B] on the device): ``{"k", "v", "pos", "start"}``,
+      the continuous engine's layout. Row ``b`` writes its chunk at
+      ``pos[b] + arange(S)`` and attends ``start[b] <= j <= pos[b] + i``.
+    * paged (``"kp"`` present): ``{"kp", "vp": [P, bs, KV, hd], "tbl",
+      "wtbl": [B, NB], "pos", "start": [B]}`` (+ ``"ks"`` / ``"vs"``
+      [P, bs, KV] scales for the int8 pool). Logical index ``j`` of row
+      ``b`` lives at physical block ``tbl[b, j // bs]``, offset
+      ``j % bs``; writes go through ``wtbl``, reads through ``tbl``.
+      Decode runs ``paged_flash_decode``, a prefill chunk
+      ``paged_flash_prefill`` (``kernels.dispatch``).
+
+    ``seq_mask`` [B, S] (1 = real token) applies to the slot layouts: a
+    row whose mask is all zero is cache-transparent, its K/V writes are
+    dropped (per slot) or sent to the sink block 0 (paged) and its cursor
+    stays. All three update the buffers **in place**; the returned cache
+    holds the same buffers and the new cursors.
     """
-    if cache is not None and ("kp" in cache or "start" in cache):
-        raise NotImplementedError(
-            "the slot and paged cache layouts belong to the continuous "
-            "engine slice")
     hd = cfg.head_dim
     if "qkv" in p:
         qkv, st_qkv = analog_linear(p["qkv"], x, acfg, ctx)
@@ -201,7 +216,12 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     scale = cfg.head_dim ** -0.5
     s = x.shape[1]
 
-    if cache is not None and s == 1:                 # decode step
+    if cache is not None and "kp" in cache:          # paged slots
+        out, new_cache = _paged_slot_attention(cache, q, k, v, scale,
+                                               acfg.kv_splits, seq_mask)
+    elif cache is not None and "start" in cache:     # per-slot buffers
+        out, new_cache = _slot_attention(cache, q, k, v, scale, seq_mask)
+    elif cache is not None and s == 1:               # decode step
         pos = cache["pos"]
         k_buf, v_buf = cache["k"], cache["v"]
         k_buf[:, pos:pos + 1] = k.to(k_buf.dtype)
@@ -232,14 +252,137 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     return y, {**stats_in, "o": st_o}, new_cache
 
 
+def _row_active(seq_mask: torch.Tensor | None, bsz: int,
+                device) -> torch.Tensor:
+    """Per-row activity flag [B] int32 of the slot layouts: 1 when the
+    row's chunk carries at least one real token, 0 when the whole row is
+    masked (a slot the current substep must leave untouched)."""
+    if seq_mask is None:
+        return torch.ones((bsz,), dtype=torch.int32, device=device)
+    return (torch.amax(seq_mask, dim=1) > 0).to(torch.int32)
+
+
+def _slot_attention(cache, q, k, v, scale, seq_mask=None):
+    """Per-slot branch of :func:`attention`: scatter the chunk at
+    ``pos[b] + arange(S)``, then attend ``start[b] <= j <= pos[b] + i``.
+
+    The reference drops the writes of masked rows with an out-of-range
+    index; torch has no dropping scatter, so a masked row writes back the
+    values it reads at clamped indices, which leaves its buffer as it was.
+    """
+    pos, start = cache["pos"], cache["start"]
+    k_buf, v_buf = cache["k"], cache["v"]
+    bsz, s = q.shape[0], q.shape[1]
+    t = k_buf.shape[1]
+    dev = q.device
+    row_on = _row_active(seq_mask, bsz, dev)
+    idx = pos.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    keep = ((row_on[:, None] > 0) & (idx < t))[..., None, None]
+    idx_c = torch.clamp_max(idx, t - 1)
+    b_idx = torch.arange(bsz, device=dev)[:, None].expand(bsz, s)
+    k_buf[b_idx, idx_c] = torch.where(keep, k.to(k_buf.dtype),
+                                      k_buf[b_idx, idx_c])
+    v_buf[b_idx, idx_c] = torch.where(keep, v.to(v_buf.dtype),
+                                      v_buf[b_idx, idx_c])
+    j = torch.arange(t, device=dev)[None, None, :]
+    mask = (j >= start.long()[:, None, None]) & (j <= idx[:, :, None])
+    out = _gqa_scores_softmax_v(q, k_buf, v_buf, mask, scale)
+    return out, {"k": k_buf, "v": v_buf, "pos": pos + s * row_on,
+                 "start": start}
+
+
+def _paged_slot_attention(cache, q, k, v, scale, kv_splits=1,
+                          seq_mask=None):
+    """Paged branch of :func:`attention`: scatter the chunk into the block
+    pool through the write table, then score it against each row's live
+    blocks in place (decode: ``paged_flash_decode``, a prefill chunk:
+    ``paged_flash_prefill``).
+
+    A fully masked row writes to the sink block 0 and keeps its cursor.
+    JAX clamps a gather past the table's end where torch raises, so the
+    logical block index is clamped explicitly; only masked rows, whose
+    block is the sink anyway, can reach past it.
+    """
+    pos, start, tbl = cache["pos"], cache["start"], cache["tbl"]
+    wtbl = cache.get("wtbl", tbl)
+    bsz, s = q.shape[0], q.shape[1]
+    bs = cache["kp"].shape[1]
+    dev = q.device
+    row_on = _row_active(seq_mask, bsz, dev)
+    idx = pos.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    lblk = torch.clamp_max(idx // bs, wtbl.shape[1] - 1)
+    blk = torch.gather(wtbl.long(), 1, lblk)
+    blk = torch.where(row_on[:, None] > 0, blk, torch.zeros_like(blk))
+    off = idx % bs
+    new_cache = dict(cache)
+    if "ks" in cache:
+        kq, ks = quant.kv_quantize(k, 8)
+        vq, vs = quant.kv_quantize(v, 8)
+        cache["kp"][blk, off] = kq
+        cache["vp"][blk, off] = vq
+        cache["ks"][blk, off] = ks.to(cache["ks"].dtype)
+        cache["vs"][blk, off] = vs.to(cache["vs"].dtype)
+    else:
+        cache["kp"][blk, off] = k.to(cache["kp"].dtype)
+        cache["vp"][blk, off] = v.to(cache["vp"].dtype)
+    new_cache["pos"] = pos + s * row_on
+
+    if s == 1:                                    # decode: flash over blocks
+        out = dispatch.paged_decode_attention(
+            q[:, 0], cache["kp"], cache["vp"], tbl, pos, start, scale,
+            k_scale=cache.get("ks"), v_scale=cache.get("vs"),
+            num_splits=kv_splits)
+        return out[:, None].to(q.dtype), new_cache
+    out = dispatch.paged_prefill_attention(
+        q, cache["kp"], cache["vp"], tbl, pos, start, scale,
+        k_scale=cache.get("ks"), v_scale=cache.get("vs"))
+    return out.to(q.dtype), new_cache
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device=None) -> dict:
-    """Contiguous (legacy) KV cache: ``{"k", "v": [B, T, KV, hd], "pos": 0}``.
-    ``pos`` is a host int, so a decode step needs no device sync."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": 0}
+               device=None, *, per_slot: bool = False, paged: bool = False,
+               kv_block_size: int = 16, kv_blocks: int | None = None,
+               kv_bits: int = 0) -> dict:
+    """Attention KV cache of one layer (the reference's key names).
+
+    * default: the contiguous cache ``{"k", "v": [B, T, KV, hd], "pos": 0}``
+      with ``pos`` a host int, so a decode step needs no device sync;
+    * ``per_slot``: per-row cursors ``pos`` and left-pad markers ``start``
+      [B] int32 on the device;
+    * ``paged`` (implies per slot): a pool of ``kv_blocks`` usable blocks
+      of ``kv_block_size`` tokens (default: every slot at ``max_len``) plus
+      the sink block at physical 0, the read and write block tables
+      ``tbl`` / ``wtbl`` [B, ceil(max_len / kv_block_size)], and with
+      ``kv_bits=8`` an int8 pool with fp32 per token/head scales
+      ``ks`` / ``vs``.
+    """
+    hd, nkv = cfg.head_dim, cfg.num_kv_heads
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if paged:
+        nb = -(-max_len // kv_block_size)
+        npool = 1 + (kv_blocks if kv_blocks else batch * nb)
+        kv_dtype = torch.int8 if kv_bits == 8 else dtype
+        c = {"kp": zeros((npool, kv_block_size, nkv, hd), kv_dtype),
+             "vp": zeros((npool, kv_block_size, nkv, hd), kv_dtype),
+             "tbl": zeros((batch, nb), torch.int32),
+             "wtbl": zeros((batch, nb), torch.int32),
+             "pos": zeros((batch,), torch.int32),
+             "start": zeros((batch,), torch.int32)}
+        if kv_bits == 8:
+            c["ks"] = zeros((npool, kv_block_size, nkv), torch.float32)
+            c["vs"] = zeros((npool, kv_block_size, nkv), torch.float32)
+        return c
+    c = {"k": zeros((batch, max_len, nkv, hd), dtype),
+         "v": zeros((batch, max_len, nkv, hd), dtype)}
+    if per_slot:
+        c["pos"] = zeros((batch,), torch.int32)
+        c["start"] = zeros((batch,), torch.int32)
+    else:
+        c["pos"] = 0
+    return c
 
 
 # ---------------------------------------------------------------------------

@@ -66,11 +66,14 @@ def attn_layer_labels(p: dict) -> dict:
 
 
 def apply_attn_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
-                     ctx: AnalogCtx, positions: torch.Tensor, cache=None):
-    """One attention block with residuals. Returns (x, stats, cache)."""
+                     ctx: AnalogCtx, positions: torch.Tensor, cache=None,
+                     seq_mask: torch.Tensor | None = None):
+    """One attention block with residuals. Returns (x, stats, cache).
+    ``seq_mask`` [B, S] goes to the slot cache layouts (see
+    ``layers.attention``)."""
     h, st_a, new_cache = L.attention(
         p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg, acfg, ctx,
-        positions, cache)
+        positions, cache, seq_mask)
     x = x + h
     h, st_f = L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, cfg.norm), cfg, acfg,
                     ctx)
@@ -97,27 +100,36 @@ def blocks_labels(params_blocks: dict, cfg) -> dict:
 
 def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                  acfg: AnalogConfig, ctx: AnalogCtx, positions: torch.Tensor,
-                 caches: dict | None = None):
+                 caches: dict | None = None,
+                 seq_mask: torch.Tensor | None = None):
     """Run the layer stack. Returns ``(x, stats, new_caches)``.
 
-    ``caches`` is :func:`init_caches`' stacked ``{"k", "v": [L, ...],
-    "pos": int}``; each layer writes its slice in place, and all layers
-    share one write position.
+    ``caches`` is :func:`init_caches`' stacked tree, every tensor leaf
+    ``[L, ...]``. Each layer writes its slice of the buffers and pools in
+    place. The contiguous layout shares one host-int ``pos``; the slot
+    layouts carry per-layer cursors ``pos`` [L, B], which come back
+    advanced (rows fully masked by ``seq_mask`` [B, S] keep theirs).
     """
     _require_dense(cfg)
     n_layers = next(iter(params_blocks["ln1"].values())).shape[0]
-    stats = []
+    slots = caches is not None and "start" in caches
+    stats, new_pos = [], []
     for i in range(n_layers):
         p_l = tree_index(params_blocks, i)
-        cache_l = None if caches is None else {
-            "k": caches["k"][i], "v": caches["v"][i], "pos": caches["pos"]}
-        x, st, _ = apply_attn_layer(p_l, x, cfg, acfg, ctx, positions,
-                                    cache_l)
+        cache_l = None
+        if caches is not None:
+            cache_l = {k: (v if k == "pos" and not slots else v[i])
+                       for k, v in caches.items()}
+        x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx, positions,
+                                     cache_l, seq_mask)
         stats.append(st)
+        if slots:
+            new_pos.append(nc["pos"])
     new_caches = None
     if caches is not None:
-        new_caches = {"k": caches["k"], "v": caches["v"],
-                      "pos": caches["pos"] + x.shape[1]}
+        new_caches = dict(caches)
+        new_caches["pos"] = (torch.stack(new_pos) if slots
+                             else caches["pos"] + x.shape[1])
     return x, tree_stack(stats), new_caches
 
 
@@ -179,18 +191,23 @@ def apply_lm_head(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
 
 def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
             inputs: dict, caches: dict | None = None,
-            pos_offset: Optional[int] = None, last_only: bool = False):
+            pos_offset: Optional[int | torch.Tensor] = None,
+            last_only: bool = False,
+            seq_mask: torch.Tensor | None = None):
     """Full forward. Returns ``(logits, stats, new_caches)``.
 
-    For decode pass single-token inputs with ``caches`` and ``pos_offset``
-    (the RoPE position of the token). ``last_only`` applies the LM head to
-    the final position only.
+    For decode pass single-token inputs with ``caches`` and ``pos_offset``,
+    the RoPE position of the token: a host int for the contiguous cache,
+    or per row ([B, 1] on the device) for the continuous engine's slot
+    caches, where rows decode at their own positions. ``seq_mask`` [B, S]
+    marks real tokens (see :func:`apply_blocks`). ``last_only`` applies the
+    LM head to the final position only.
     """
     x, positions = embed_inputs(params, cfg, inputs)
     if pos_offset is not None:
         positions = positions + pos_offset
     x, st_blocks, new_caches = apply_blocks(params["blocks"], x, cfg, acfg,
-                                            ctx, positions, caches)
+                                            ctx, positions, caches, seq_mask)
     stats: dict[str, Any] = {"blocks": st_blocks}
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if last_only:
@@ -201,12 +218,51 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
-                device=None) -> dict:
-    """Stacked contiguous KV caches for :func:`apply_blocks`:
-    ``{"k", "v": [L, B, T, KV, hd], "pos": 0}``."""
+                device=None, *, per_slot: bool = False, paged: bool = False,
+                kv_block_size: int = 16, kv_blocks: int | None = None,
+                kv_bits: int = 0) -> dict:
+    """Stacked KV caches for :func:`apply_blocks`, every tensor leaf of
+    ``layers.init_cache`` with a leading ``[L]`` axis: the contiguous
+    ``{"k", "v": [L, B, T, KV, hd], "pos": 0}`` by default, the per-slot
+    or paged layout of the continuous engine with ``per_slot`` /
+    ``paged`` (every layer shares one logical→physical block mapping, so
+    one host-side allocation covers the stack)."""
     _require_dense(cfg)
-    one = L.init_cache(cfg, batch, max_len, dtype, device="meta")  # shape
-    shape = (cfg.num_layers,) + tuple(one["k"].shape)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": 0}
+    one = L.init_cache(cfg, batch, max_len, dtype, device="meta",
+                       per_slot=per_slot, paged=paged,
+                       kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+                       kv_bits=kv_bits)
+    out = {}
+    for name, leaf in one.items():
+        if isinstance(leaf, int):
+            out[name] = leaf
+        else:
+            out[name] = torch.zeros((cfg.num_layers,) + tuple(leaf.shape),
+                                    dtype=leaf.dtype, device=device)
+    return out
+
+
+def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
+    """``(axes, kinds)`` of the slot cache tree of :func:`init_caches`.
+
+    ``axes`` gives the slot (request) axis of each leaf, ``-1`` for
+    pool-wide leaves with no slot axis (the paged pools, passed through
+    whole). ``kinds`` labels each leaf: ``"start"`` (set to the left-pad
+    count at admission), ``"pos"`` (the write cursor), ``"state"``
+    (zeroed at admission), ``"table"`` / ``"wtable"`` (the slot's read /
+    write block-table rows) or ``"pool"`` (shared physical storage,
+    untouched at admission). The engine gathers and scatters one slot's
+    rows with these, without knowing the layout.
+    """
+    _require_dense(cfg)
+    if paged:
+        axes = {"kp": -1, "vp": -1, "tbl": 1, "wtbl": 1, "pos": 1,
+                "start": 1}
+        kinds = {"kp": "pool", "vp": "pool", "tbl": "table",
+                 "wtbl": "wtable", "pos": "pos", "start": "start"}
+        if kv_bits == 8:
+            axes.update(ks=-1, vs=-1)
+            kinds.update(ks="pool", vs="pool")
+        return axes, kinds
+    return ({"k": 1, "v": 1, "pos": 1, "start": 1},
+            {"k": "state", "v": "state", "pos": "pos", "start": "start"})

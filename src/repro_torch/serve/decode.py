@@ -40,12 +40,19 @@ def prefill(params, cfg, acfg: AnalogConfig, tokens: torch.Tensor,
 
 @torch.no_grad()
 def serve_step(params, cfg, acfg: AnalogConfig, token: torch.Tensor,
-               caches, pos: int):
-    """One decode step: token [B, 1] at RoPE position ``pos`` → (logits
-    [B, V], caches). The caches are written in place."""
+               caches, pos, seq_mask: torch.Tensor | None = None):
+    """One decode step: token [B, 1] → (logits [B, V], caches).
+
+    ``pos`` is the RoPE position: a host int for the contiguous cache, or
+    per row ([B, 1] on the device) for the continuous engine's slot
+    caches, where row ``b`` decodes at ``written - left pads`` (the cache
+    write index lives in the cache itself). ``seq_mask`` [B, 1] marks the
+    rows whose slot holds a decoding request; the others leave the cache
+    untouched. The caches are written in place.
+    """
     logits, _, caches = model_apply(params, cfg, acfg, AnalogCtx(),
                                     {"tokens": token}, caches=caches,
-                                    pos_offset=pos)
+                                    pos_offset=pos, seq_mask=seq_mask)
     return logits[:, 0], caches
 
 

@@ -21,6 +21,8 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels import analog_matmul as k_analog
 from repro_torch.kernels import int4_matmul as k_int4
+from repro_torch.kernels import paged_attention as k_decode
+from repro_torch.kernels import paged_prefill as k_prefill
 from repro_torch.kernels import ref
 from repro_torch.launch import serve
 from repro_torch.models import build
@@ -56,6 +58,13 @@ def _imports(path: pathlib.Path) -> list[str]:
 def test_port_files_exist():
     assert len(PORT_FILES) > 20
     assert all(p.is_file() for p in PORT_FILES)
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("kernels/paged_attention.py", "kernels/paged_prefill.py",
+                "kernels/_paged.py", "kernels/csrc/paged_attention.cu",
+                "kernels/csrc/paged_prefill.cu",
+                "kernels/csrc/paged_common.cuh", "serve/kv_pool.py",
+                "serve/scheduler.py"):
+        assert (port / rel).is_file(), rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -93,6 +102,21 @@ def test_cpu_tensors_run_the_plain_versions():
     dispatch.analog_mvm(x[None], w, beta, bound)
     dispatch.int4_mvm(x, w_int, scale)
     assert (k_analog.launches, k_int4.launches) == before == (0, 0)
+    kp = torch.randn(5, 4, 2, 8, generator=g)
+    tbl = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pos = torch.tensor([5, 2], dtype=torch.int32)
+    start = torch.tensor([1, 0], dtype=torch.int32)
+    q = torch.randn(2, 4, 8, generator=g)
+    out = k_decode.paged_flash_decode(q, kp, kp, tbl, pos, start, scale=0.3,
+                                      num_splits=2)
+    torch.testing.assert_close(out, ref.paged_decode_ref(
+        q, kp, kp, tbl, pos, start, 0.3, num_splits=2), rtol=0, atol=0)
+    qs = torch.randn(2, 3, 4, 8, generator=g)
+    out = k_prefill.paged_flash_prefill(qs, kp, kp, tbl, pos, start,
+                                        scale=0.3)
+    torch.testing.assert_close(out, ref.paged_prefill_ref(
+        qs, kp, kp, tbl, pos, start, 0.3), rtol=0, atol=0)
+    assert (k_decode.launches, k_prefill.launches) == (0, 0)
 
 
 def test_other_devices_are_refused_not_served():
@@ -105,20 +129,108 @@ def test_other_devices_are_refused_not_served():
         k_int4.int4_matmul(x, torch.empty(8, 2, dtype=torch.uint8,
                                           device="meta"),
                            torch.empty(4, device="meta"))
+    pool = torch.empty(3, 4, 2, 8, device="meta")
+    tbl = torch.empty(2, 2, dtype=torch.int32, device="meta")
+    cur = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        k_decode.paged_flash_decode(torch.empty(2, 4, 8, device="meta"),
+                                    pool, pool, tbl, cur, cur, scale=1.0)
+    with pytest.raises(ValueError):
+        k_prefill.paged_flash_prefill(torch.empty(2, 3, 4, 8, device="meta"),
+                                      pool, pool, tbl, cur, cur, scale=1.0)
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "strides", "device"])
+def _pool_args(**over):
+    """Arguments of ``_paged.check_pool`` that pass, with ``over``
+    replaced: a bf16 pool of 5 blocks of 4 tokens, 2 kv heads of 8, for 2
+    rows of 4 query heads."""
+    a = dict(kp=torch.zeros(5, 4, 2, 8, dtype=torch.bfloat16),
+             vp=torch.zeros(5, 4, 2, 8, dtype=torch.bfloat16),
+             k_scale=None, v_scale=None,
+             tbl=torch.zeros(2, 3, dtype=torch.int32),
+             pos=torch.zeros(2, dtype=torch.int32),
+             start=torch.zeros(2, dtype=torch.int32),
+             bsz=2, nq=4, hd=8, dev=torch.device("cpu"))
+    a.update(over)
+    return a
+
+
+PAGED_REFUSALS = [
+    "pool_dtype", "pool_rank", "v_mismatch", "gqa_ratio", "head_dim",
+    "int8_without_scales", "scales_without_int8", "scale_dtype",
+    "table_dtype", "table_rows", "cursor_dtype", "pool_strides"]
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "strides", "device"]
+                         + [f"paged_{c}" for c in PAGED_REFUSALS])
 def test_wrapper_argument_check_refuses(case):
-    """What the kernel wrappers check before a launch on the card."""
-    from repro_torch.kernels import _launch
-    t = torch.zeros(4, 6)
-    _launch.check("t", t, torch.float32, (4, 6), t.device)
-    bad = {"dtype": (t.double(), TypeError),
-           "shape": (t[:3], ValueError),
-           "strides": (t.t().contiguous().t(), ValueError),
-           "device": (torch.zeros(4, 6, device="meta"), ValueError)}[case]
+    """What the kernel wrappers check before a launch on the card: every
+    tensor (``_launch.check``), and the paged-attention wrappers' pool,
+    scales, tables and cursors (``_paged.check_pool``)."""
+    from repro_torch.kernels import _launch, _paged
+    if not case.startswith("paged_"):
+        t = torch.zeros(4, 6)
+        _launch.check("t", t, torch.float32, (4, 6), t.device)
+        bad = {"dtype": (t.double(), TypeError),
+               "shape": (t[:3], ValueError),
+               "strides": (t.t().contiguous().t(), ValueError),
+               "device": (torch.zeros(4, 6, device="meta"),
+                          ValueError)}[case]
+        with pytest.raises(bad[1]):
+            _launch.check("t", bad[0], torch.float32, (4, 6), t.device)
+        return
+    assert _paged.check_pool(**_pool_args()) == (5, 4, 2, 3, 1)
+    i8 = torch.zeros(5, 4, 2, 8, dtype=torch.int8)
+    sc = torch.zeros(5, 4, 2)
+    assert _paged.check_pool(**_pool_args(kp=i8, vp=i8, k_scale=sc,
+                                          v_scale=sc))[-1] == 2
+    bad = {
+        "pool_dtype": (dict(kp=torch.zeros(5, 4, 2, 8, dtype=torch.half),
+                            vp=torch.zeros(5, 4, 2, 8, dtype=torch.half)),
+                       TypeError),
+        "pool_rank": (dict(kp=torch.zeros(5, 4, 16)), ValueError),
+        "v_mismatch": (dict(vp=torch.zeros(5, 4, 2, 8)), TypeError),
+        "gqa_ratio": (dict(nq=3), ValueError),
+        "head_dim": (dict(hd=16), ValueError),
+        "int8_without_scales": (dict(kp=i8, vp=i8), ValueError),
+        "scales_without_int8": (dict(k_scale=sc, v_scale=sc), ValueError),
+        "scale_dtype": (dict(kp=i8, vp=i8, k_scale=sc.double(),
+                             v_scale=sc), TypeError),
+        "table_dtype": (dict(tbl=torch.zeros(2, 3, dtype=torch.int64)),
+                        TypeError),
+        "table_rows": (dict(tbl=torch.zeros(3, 3, dtype=torch.int32)),
+                       ValueError),
+        "cursor_dtype": (dict(pos=torch.zeros(2, dtype=torch.int64)),
+                         TypeError),
+        "pool_strides": (dict(kp=torch.zeros(5, 2, 4, 8, dtype=torch.bfloat16
+                                             ).transpose(1, 2)),
+                         ValueError)}[case[len("paged_"):]]
     with pytest.raises(bad[1]):
-        _launch.check("t", bad[0], torch.float32, (4, 6), t.device)
+        _paged.check_pool(**_pool_args(**bad[0]))
+
+
+def test_cuda_launch_without_a_card_raises(monkeypatch, tmp_path):
+    """A CUDA tensor never falls back to the plain version: without a card
+    (and so without a built library) the launch path raises, and it does so
+    before any build starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels would launch")
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch.zeros(1, device="cuda")      # no CUDA tensor can even exist
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    for mod in (k_decode, k_prefill):
+        mod._lib.cache_clear()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            mod._lib()
+        mod._lib.cache_clear()
+    assert not build_dir.exists()
 
 
 def test_fused_dispatch_rules():
@@ -207,14 +319,41 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
              "bound_ms": 0.5, "bound_by": "bytes" if m == cs.M_DECODE
              else "operations", "max_abs_err": 0.0}
             for site, _, _, _ in cs.SITES for m in (cs.M_DECODE, cs.M_PREFILL)]
-    line = cs.kernels_line(rows, {"analog_matmul": 7, "int4_matmul": 9})
+    paged = {}
+    for name, kind in (("paged_flash_decode", "decode"),
+                       ("paged_flash_prefill", "prefill")):
+        paged[name] = [
+            {"kind": kind, "context": c, "dtype": d, "splits": s,
+             "rows": 8, "chunk": 1, "ms": 0.1 * c, "wall_ms": 0.2,
+             "plain_ms": 3.0, "library_ms": 2.0, "bound_ms": 0.01,
+             "bound_by": "bytes", "max_abs_err": 1e-7 * c}
+            for c in cs.PAGED_CONTEXTS for d in cs.POOL_DTYPES
+            for s in (cs.DECODE_SPLITS if kind == "decode" else (1,))]
+    line = cs.kernels_line(rows, {"analog_matmul": 7, "int4_matmul": 9},
+                           paged, {"paged_flash_decode": 32,
+                                   "paged_flash_prefill": 16})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     launches_per_run = cs.LAUNCHES_PER_FORWARD * cs.FORWARDS   # 65 x 17
+    assert [k["name"] for k in line["kernels"]] == [
+        "analog_matmul", "int4_matmul", "paged_flash_decode",
+        "paged_flash_prefill"]
     for k in line["kernels"]:
         assert keys <= set(k)
         assert k["route"] == "cuda" and (ROOT / k["source"]).is_file()
+        path, lineno = k["replaces"].split(":")
+        assert "pallas_call" in (ROOT / path).read_text().splitlines()[
+            int(lineno) - 1]
+    for k in line["kernels"][:2]:
         assert k["ms"] == pytest.approx(launches_per_run)
         assert k["bound_ms"] == pytest.approx(0.5 * launches_per_run)
         assert k["bound_by"] == "bytes"          # 16 decode forwards
-    assert [k["launches"] for k in line["kernels"]] == [7, 9]
+    for k in line["kernels"][2:]:                # the named case
+        assert k["case"]["context"] == 512 and k["case"]["dtype"] == "bf16"
+        assert k["ms"] == pytest.approx(51.2)
+        assert k["library_ms"] == 2.0
+        assert k["max_abs_err"] == pytest.approx(2048e-7)
+    assert [k["launches"] for k in line["kernels"]] == [7, 9, 32, 16]
+    assert [k["path"] for k in line["kernels"]] == [
+        "static/analog_hw", "static/digital_int4",
+        "continuous/analog_hw/kv16", "continuous/analog_hw/kv16"]

@@ -5,15 +5,20 @@ a card machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-It holds the libraries' launch plans (mapping switch, split-K) and both
-kernels against their plain versions at small ragged shapes, where the
-edges of M, N and K are masked. ``chip_smoke.py`` does the same at the
-main path's full-width shapes.
+It holds the libraries' launch plans (mapping switch, split-K) and the
+MVM kernels against their plain versions at small ragged shapes, where the
+edges of M, N and K are masked, and both paged-attention kernels against
+theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
+1 to 8 decode splits. ``chip_smoke.py`` does the same at the main path's
+full-width shapes.
 
 Tolerance: ``analog_matmul`` may differ from its plain version only by one
 ADC level where the plain version's pre-ADC value lies within the fp32 dot
 error bound ``K * 2^-24 * (|x_q| . |w|) * inv`` of a rounding tie;
-``int4_matmul`` stays within ``K * 2^-24 * (|x| . |w_deq|)`` per element.
+``int4_matmul`` stays within ``K * 2^-24 * (|x| . |w_deq|)`` per element;
+the paged kernels stay within ``1e-5 + 1e-5 * |plain|`` of their plain
+versions (both run the same fp32 online softmax over the same blocks; only
+the order of the sums inside a block differs).
 """
 
 import pytest
@@ -22,6 +27,8 @@ import torch
 from repro_torch.kernels import analog_matmul as k_analog
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import int4_matmul as k_int4
+from repro_torch.kernels import paged_attention as k_decode
+from repro_torch.kernels import paged_prefill as k_prefill
 
 U32 = 2.0 ** -24
 RAGGED = [(1, 64, 96), (4, 128, 130), (8, 96, 64), (5, 4100, 258),
@@ -115,3 +122,129 @@ def test_int4_matmul_matches_plain_version(card, m, k, n):
     y_ref = ref.int4_matmul_ref(x, packed, scale)
     w_deq = w_int.float() * scale
     assert ((y - y_ref).abs() <= k * U32 * (x.abs() @ w_deq.abs())).all()
+
+
+# (B, H, KV, hd, bs, NB): GQA at llama-3.2-1b's head shape, MHA at
+# phi-3-mini-4k's, a tiny one, and hd 128 (over 48 KB of shared memory)
+PAGED = [(3, 32, 8, 64, 16, 9), (4, 32, 32, 96, 8, 7), (2, 4, 2, 16, 4, 11),
+         (2, 16, 2, 128, 16, 5)]
+POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8}
+
+
+def _paged_case(dev, b, h, kv, hd, bs, nb, dtype, seed, chunk=1):
+    """A pool with distinct random physical blocks per row (block 0 is the
+    sink), ragged ``start`` and cursors with room for a chunk of ``chunk``
+    columns: one row ends in its first block, one row's start lies past
+    the first block, and one row fills its table."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    npool = 1 + b * nb
+    shape = (npool, bs, kv, hd)
+    if dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(shape[:3], generator=g, device=dev) * 0.02
+        vs = torch.rand(shape[:3], generator=g, device=dev) * 0.02
+    else:
+        kp = torch.randn(shape, generator=g, device=dev).to(dtype)
+        vp = torch.randn(shape, generator=g, device=dev).to(dtype)
+        ks = vs = None
+    perm = torch.randperm(npool - 1, generator=g, device=dev) + 1
+    tbl = perm.reshape(b, nb).to(torch.int32).contiguous()
+    cap = nb * bs - chunk                      # last legal chunk start
+    pos = torch.randint(0, cap + 1, (b,), generator=g, device=dev)
+    pos[0] = min(bs - 1 - (chunk - 1), cap) if bs > chunk else 0
+    pos[-1] = cap
+    start = (torch.rand((b,), generator=g, device=dev) * (pos + 1)).long()
+    if b > 2:
+        start[1] = min(bs + 1, int(pos[1]))
+    return (kp, vp, ks, vs, tbl, pos.to(torch.int32).contiguous(),
+            start.to(torch.int32).contiguous())
+
+
+def _close(out, plain):
+    err = (out - plain).abs()
+    assert torch.isfinite(out).all()
+    assert (err <= 1e-5 + 1e-5 * plain.abs()).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+@pytest.mark.parametrize("shape", PAGED, ids=str)
+def test_paged_decode_matches_plain_version(card, shape, pool, splits):
+    b, h, kv, hd, bs, nb = shape
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, b, h, kv, hd, bs, nb, POOL_DTYPES[pool], seed=hd + nb)
+    g = torch.Generator(device=card).manual_seed(1)
+    q = torch.randn((b, h, hd), generator=g, device=card)
+    before = k_decode.launches
+    out = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
+                                      k_scale=ks, v_scale=vs,
+                                      num_splits=splits)
+    assert k_decode.launches == before + 1
+    plain = ref.paged_decode_ref(q, kp, vp, tbl, pos, start, 0.125, ks, vs,
+                                 num_splits=splits)
+    _close(out, plain)
+    one = ref.paged_decode_ref(q, kp, vp, tbl, pos, start, 0.125, ks, vs)
+    _close(out, one)                       # the split does not change it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 5, 32])
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+@pytest.mark.parametrize("shape", PAGED, ids=str)
+def test_paged_prefill_matches_plain_version(card, shape, pool, chunk):
+    b, h, kv, hd, bs, nb = shape
+    if chunk > nb * bs:
+        pytest.skip("chunk longer than the table")
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, b, h, kv, hd, bs, nb, POOL_DTYPES[pool], seed=hd * nb,
+        chunk=chunk)
+    g = torch.Generator(device=card).manual_seed(2)
+    q = torch.randn((b, chunk, h, hd), generator=g, device=card)
+    before = k_prefill.launches
+    out = k_prefill.paged_flash_prefill(q, kp, vp, tbl, pos, start,
+                                        scale=0.125, k_scale=ks, v_scale=vs)
+    assert k_prefill.launches == before + 1
+    _close(out, ref.paged_prefill_ref(q, kp, vp, tbl, pos, start, 0.125, ks,
+                                      vs))
+
+
+@pytest.mark.cuda
+def test_paged_kernels_are_deterministic_and_read_only(card):
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, 4, 32, 8, 64, 16, 33, torch.bfloat16, seed=3, chunk=32)
+    q = torch.randn((4, 32, 64), device=card)
+    qs = torch.randn((4, 32, 32, 64), device=card)
+    before = kp.clone(), vp.clone()
+    a = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
+                                    num_splits=4)
+    b = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
+                                    num_splits=4)
+    c = k_prefill.paged_flash_prefill(qs, kp, vp, tbl, pos, start,
+                                      scale=0.125)
+    d = k_prefill.paged_flash_prefill(qs, kp, vp, tbl, pos, start,
+                                      scale=0.125)
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert torch.equal(kp, before[0]) and torch.equal(vp, before[1])
+
+
+@pytest.mark.cuda
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(card):
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, 2, 4, 2, 16, 4, 3, torch.int8, seed=4)
+    q = torch.randn((2, 4, 16), device=card)
+    with pytest.raises(ValueError):            # int8 pool without scales
+        k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=1.0)
+    with pytest.raises(TypeError):             # int64 table
+        k_decode.paged_flash_decode(q, kp, vp, tbl.long(), pos, start,
+                                    scale=1.0, k_scale=ks, v_scale=vs)
+    with pytest.raises(TypeError):             # fp16 pool
+        k_prefill.paged_flash_prefill(q[:, None], kp.half(), vp.half(), tbl,
+                                      pos, start, scale=1.0)
+    with pytest.raises(ValueError):            # 3 heads on 2 kv heads
+        k_decode.paged_flash_decode(q[:, :3].contiguous(), kp, vp, tbl, pos,
+                                    start, scale=1.0, k_scale=ks,
+                                    v_scale=vs)
