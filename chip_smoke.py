@@ -5,14 +5,16 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. setup    -- a card, full fp32 matmuls (no TF32), both CUDA kernels built
-               from ``src/repro_torch/kernels/csrc`` with nvcc.
-2. kernels  -- each kernel at llama-3.2-1b's main-path shapes (K -> N of the
-               qkv, o, gate_up, down projections and the LM head; M = 4 for
-               decode, 4 x 32 = 128 for prefill), held against its plain
-               PyTorch version on the same inputs and timed with CUDA events
-               beside the plain version, an fp32 ``torch.matmul`` of the same
-               size (yardstick only) and the card's bound for the work.
+1. setup    -- a card, full fp32 matmuls (no TF32), the five CUDA kernels
+               built from ``src/repro_torch/kernels/csrc`` with nvcc.
+2. kernels  -- each MVM kernel at llama-3.2-1b's main-path shapes (K -> N of
+               the qkv, o, gate_up, down projections and the LM head; M = 4
+               for decode, 4 x 32 = 128 for prefill) and at mamba2-130m's
+               (in_proj 768 -> 3352, out_proj 1536 -> 768; M = 4 and
+               4 x 1024), held against its plain PyTorch version on the same
+               inputs and timed with CUDA events beside the plain version,
+               an fp32 ``torch.matmul`` of the same size (yardstick only) and
+               the card's bound for the work.
 3. analog   -- full-width llama-3.2-1b (16 layers, random weights from a
                seed) deployed ``analog_hw`` with ``use_pallas=True`` serves 4
                prompts of 32 tokens for 16 greedy tokens; every projection
@@ -29,18 +31,35 @@ Phases, in order; any failure exits non-zero:
                beside it, beside gather ``kp[tbl]`` + PyTorch's
                ``scaled_dot_product_attention`` (yardstick only) and the
                card's bound.
-6. engine   -- the continuous-batching engine (``serve.scheduler``) at full
-               width on the paged pool: 16 mixed-length requests (prompts
-               32-480 tokens, 16-64 new) through 8 slots, chunk 32, for
-               ``analog_hw`` + ``use_pallas=True`` and ``digital_int4`` on a
-               bf16 pool and ``analog_hw`` on the int8 pool. Every request
-               must finish, every block come back, and every projection and
-               attention call run on its kernel.
-7. reduced  -- reduced llama-3.2-1b through the engine on the card and on the
-               CPU (plain versions): equal greedy tokens for ``fp`` and
-               ``analog_hw``, paged and per-slot contiguous.
-8. cli      -- ``repro_torch.launch.serve.main``, continuous (paged) and
-               static.
+6. ssd      -- ``ssd_scan`` at mamba2-130m's shapes (H 24, P 64, N 128,
+               G 1; strided views of one projection, as the mixer hands them
+               over): the engine's chunk (2 rows x 32 tokens from a nonzero
+               state, ragged left pads), the static prompt (4 x 1024) and a
+               long prefill (1 x 8192), each held against its plain version
+               (y and the final state) and timed beside it and the card's
+               bound.
+7. mamba    -- full-width mamba2-130m (24 layers, random weights from a seed)
+               on the static engine: 4 prompts of 1024 tokens, 32 greedy
+               tokens, for ``fp`` (``ssd_scan`` against the plain SSD on the
+               card), ``analog_hw`` + ``use_pallas=True`` (against unfused)
+               and ``digital_int4`` (against ``digital_rtn4``); 48 MVM
+               launches per forward, 24 ``ssd_scan`` launches per prefill.
+8. engine   -- the continuous-batching engine (``serve.scheduler``) at full
+               width: llama-3.2-1b on the paged pool, 16 mixed-length
+               requests (prompts 32-480 tokens, 16-64 new) through 8 slots,
+               chunk 32, for ``analog_hw`` + ``use_pallas=True`` and
+               ``digital_int4`` on a bf16 pool and ``analog_hw`` on the int8
+               pool; then mamba2-130m with the same requests for
+               ``analog_hw`` and ``digital_int4`` (``paged=True``, inert for
+               an ssm stack, which the engine records). Every request must
+               finish, every block come back, and every projection,
+               attention and SSD call run on its kernel.
+9. reduced  -- reduced llama-3.2-1b and mamba2-130m through the engine on the
+               card and on the CPU (plain versions): equal greedy tokens for
+               ``fp`` and ``analog_hw`` (llama: paged and per-slot
+               contiguous), and a chunk + decode step's logits within 1e-4.
+10. cli     -- ``repro_torch.launch.serve.main``, continuous (paged) and
+               static, and continuous with ``--arch mamba2-130m``.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -49,6 +68,7 @@ as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -86,7 +106,7 @@ U32 = 2.0 ** -24                                           # fp32 unit round-off
 # only catches gross faults (unrelated logits give about 1.4).
 E2E_TOL = 0.25
 # paged attention at llama-3.2-1b's attention shapes (phase 5) and the
-# continuous engine's geometry (phase 6)
+# continuous engine's geometry (phase 8)
 PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS = 32, 8, 64, 16
 PAGED_CONTEXTS = (128, 512, 2048)
 DECODE_ROWS, DECODE_SPLITS = 8, (1, 4)
@@ -94,6 +114,29 @@ POOL_DTYPES = ("f32", "bf16", "i8")
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_REQUESTS = 8, 32, 16
 # the engine's compact prefill width: (slots + 2 chunks - slots) // chunk
 PREFILL_ROWS = 2
+# mamba2-130m, the ssm family: (site, K, N, sites per forward) of its 24
+# layers (the tied LM head is a plain matmul, as in the reference), the
+# static engine's batch, prompt and new tokens
+MAMBA = "mamba2-130m"
+MAMBA_SITES = [("in_proj", 768, 3352, 24), ("out_proj", 1536, 768, 24)]
+MAMBA_MVM_PER_FORWARD = sum(s[3] for s in MAMBA_SITES)      # 48
+MAMBA_PROMPT, MAMBA_NEW = 1024, 32
+# decode steps of each timing round of the static engine's step times
+MAMBA_STEP_TOKENS = 8
+MAMBA_M_PREFILL = BATCH * MAMBA_PROMPT
+# ssd_scan cases (phase 6): (name, rows, tokens, incoming state); "chunk"
+# is what the continuous engine runs, and the kernels line reports it
+SSD_CASES = [("chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
+             ("static", BATCH, MAMBA_PROMPT, False),
+             ("long", 1, 8192, False)]
+SSD_LINE_CASE = "chunk"
+# |kernel - plain| <= SSD_TOL * (1 + |plain|) for y and the final state:
+# the two differ only in the order of their sums and their chunking (the
+# JAX package holds its Pallas kernel to its jnp path at 2e-4)
+SSD_TOL = 2e-4
+# fp mamba2-130m at full width, ssd_scan against the plain SSD on the card:
+# relative L2 of the prefill logits (no quantizer in between to flip)
+MAMBA_FP_TOL = 1e-4
 # the case of each paged kernel that the kernels line reports: the engine's
 # bf16 pool and one split, at a context near the engine's mean
 LINE_CASE = {"dtype": "bf16", "context": 512, "splits": 1}
@@ -375,34 +418,38 @@ def int4_case(torch, gen, m, k, n) -> dict:
 
 
 def phase_kernels(torch) -> dict:
-    """Parity and times of both kernels at every main-path shape."""
+    """Parity and times of both kernels at every main-path shape of
+    llama-3.2-1b and mamba2-130m (each row names its ``arch``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"analog_matmul": [], "int4_matmul": []}
-    for site, k, n, _ in SITES:
-        for m in (M_DECODE, M_PREFILL):
-            for with_off in (False, True):
-                r = analog_case(torch, gen, m, k, n, with_off)
-                r["site"] = site
-                rows["analog_matmul"].append(r)
-                print(f"  analog_matmul {site:8s} M={m:3d} {k}->{n} "
-                      f"off={int(with_off)}: {r['ms']:.4f} ms (wall "
-                      f"{r['wall_ms']:.4f}, plain "
-                      f"{r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}, "
-                      f"bound {r['bound_ms']:.4f} by {r['bound_by']}; "
-                      f"adc_bound {r['adc_bound_ms']:.4f}; {r['mapping']} "
-                      f"x{r['splits']}), flips {r['flips']} "
-                      f"({r['flip_rate']:.2e})")
-            r = int4_case(torch, gen, m, k, n)
-            r["site"] = site
-            rows["int4_matmul"].append(r)
-            print(f"  int4_matmul   {site:8s} M={m:3d} {k}->{n}: "
-                  f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
-                  f"{r['plain_ms']:.4f}, matmul "
-                  f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}; {r['mapping']} x{r['splits']}), "
-                  f"err/bound "
-                  f"{r['max_err_over_bound']:.2e}")
-            torch.cuda.empty_cache()
+    shapes = ([(ARCH, site, k, n, m) for site, k, n, _ in SITES
+               for m in (M_DECODE, M_PREFILL)]
+              + [(MAMBA, site, k, n, m) for site, k, n, _ in MAMBA_SITES
+                 for m in (M_DECODE, MAMBA_M_PREFILL)])
+    for arch, site, k, n, m in shapes:
+        for with_off in (False, True):
+            r = analog_case(torch, gen, m, k, n, with_off)
+            r["site"], r["arch"] = site, arch
+            rows["analog_matmul"].append(r)
+            print(f"  analog_matmul {site:8s} M={m:4d} {k}->{n} "
+                  f"off={int(with_off)}: {r['ms']:.4f} ms (wall "
+                  f"{r['wall_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} by {r['bound_by']}; "
+                  f"adc_bound {r['adc_bound_ms']:.4f}; {r['mapping']} "
+                  f"x{r['splits']}), flips {r['flips']} "
+                  f"({r['flip_rate']:.2e})")
+        r = int4_case(torch, gen, m, k, n)
+        r["site"], r["arch"] = site, arch
+        rows["int4_matmul"].append(r)
+        print(f"  int4_matmul   {site:8s} M={m:4d} {k}->{n}: "
+              f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, matmul "
+              f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}; {r['mapping']} x{r['splits']}), "
+              f"err/bound "
+              f"{r['max_err_over_bound']:.2e}")
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -584,7 +631,246 @@ def phase_paged(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the continuous engine at full width
+# phase 6: the ssd_scan kernel
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(torch, gen, cfg, rows: int, tokens: int, with_h0: bool,
+               pads=None):
+    """One scan's inputs at ``cfg``'s widths, laid out as the mixer hands
+    them to the kernel: x, b and c are strided views of one
+    ``[rows, tokens, conv_ch]`` projection, dt is ``softplus`` of a random
+    pre-activation plus the reference's initial bias. ``pads[r]`` left
+    positions of row ``r`` are masked (dt = 0, x = b = c = 0), as a
+    left-padded prompt chunk is."""
+    dev = torch.device("cuda")
+    heads, pdim = cfg.ssm_heads, cfg.ssm_headdim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    d_inner = heads * pdim
+    xbc = torch.nn.functional.silu(torch.randn(
+        (rows, tokens, d_inner + 2 * g * n), generator=gen, device=dev))
+    dt = torch.nn.functional.softplus(
+        torch.randn((rows, tokens, heads), generator=gen, device=dev)
+        + math.log(math.expm1(0.01)))
+    if pads is not None:
+        live = (torch.arange(tokens, device=dev)[None]
+                >= torch.as_tensor(pads, device=dev)[:, None]).float()
+        xbc = xbc * live[..., None]
+        dt = dt * live[..., None]
+    a = -torch.linspace(1.0, 16.0, heads, device=dev)
+    h0 = (torch.randn((rows * heads, n, pdim), generator=gen, device=dev)
+          if with_h0 else None)
+    x = xbc[..., :d_inner].reshape(rows, tokens, heads, pdim)
+    b = xbc[..., d_inner:d_inner + g * n].reshape(rows, tokens, g, n)
+    c = xbc[..., d_inner + g * n:].reshape(rows, tokens, g, n)
+    return x, dt, a, b, c, h0
+
+
+def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
+             with_h0: bool) -> dict:
+    """One ssd_scan case: parity against the plain version (y and the final
+    state), then device times of both beside the card's bound. Input
+    copies rotate so that their bytes exceed the 50 MB L2."""
+    from repro_torch.kernels import _launch, ref
+    from repro_torch.kernels import ssd_scan as ks
+
+    heads, pdim = cfg.ssm_heads, cfg.ssm_headdim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    pads = ([11] + [0] * (rows - 1)) if with_h0 else None
+    in_bytes = 4 * (rows * tokens * (heads * pdim + heads + 2 * g * n)
+                    + (rows * heads * n * pdim if with_h0 else 0))
+    sets = [ssd_inputs(torch, gen, cfg, rows, tokens, with_h0, pads)
+            for _ in range(n_copies(in_bytes))]
+    plan = _launch.ssd_plan(rows, tokens, heads, pdim, n, g)
+
+    def kernel(i):
+        return ks.ssd_scan(*sets[i])
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (y, h), (y_r, h_r) = kernel(0), ref.ssd_scan_ref(*sets[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    errs = []
+    for what, out, want in (("y", y, y_r), ("state", h, h_r)):
+        check(bool(torch.isfinite(out).all()), f"ssd {name}: non-finite "
+              f"{what}")
+        err = (out - want).abs()
+        check(bool((err <= SSD_TOL * (1 + want.abs())).all()),
+              f"ssd {name}: {what} differs from the plain version by "
+              f"{float(err.max()):.3e}")
+        errs.append(float(err.max()))
+    ms = device_ms(torch, kernel, len(sets))
+    wall = cuda_time_ms(torch, kernel, len(sets))
+    # the plain version runs a loop over chunks: timed as a graph
+    plain_ms = graph_ms(torch, lambda: ref.ssd_scan_ref(*sets[0]), reps=3)
+    # each input read once (b / c per group), y and the state written once;
+    # the work of the chunked algorithm at the kernel's chunk L: C B^T
+    # (L N), the intra-chunk y (L P), C h and the state update (2 N P) per
+    # token and head, two operations per FMA
+    nbytes = in_bytes + 4 * (heads + rows * tokens * heads * pdim
+                             + rows * heads * n * pdim)
+    flops = 2.0 * rows * tokens * heads * (
+        plan.chunk * (n + pdim) + 2 * n * pdim)
+    bnd, by = bound_ms(nbytes, flops)
+    del sets
+    return {"case": name, "rows": rows, "tokens": tokens, "h0": with_h0,
+            "chunk": plan.chunk, "ms": ms, "wall_ms": wall,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "max_abs_err": max(errs), "y_abs_err": errs[0],
+            "state_abs_err": errs[1]}
+
+
+def phase_ssd(torch) -> list:
+    """Parity and times of ssd_scan at mamba2-130m's shapes."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MAMBA)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for name, b, s, with_h0 in SSD_CASES:
+        r = ssd_case(torch, gen, cfg, name, b, s, with_h0)
+        rows.append(r)
+        print(f"  ssd_scan {name:6s} {b} x {s:4d} h0={int(with_h0)}: "
+              f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}: {r['gflop']:.3f} GFLOP, {r['mbytes']:.1f} "
+              f"MB), max err y {r['y_abs_err']:.2e} state "
+              f"{r['state_abs_err']:.2e}")
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: mamba2-130m on the static engine
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_ssd():
+    """Inside the block ``dispatch.ssd`` runs the plain SSD version on the
+    card in place of the kernel: the full-width check of the kernel path
+    (the port itself never hands a CUDA tensor to a plain version)."""
+    from repro_torch.kernels import dispatch, ref
+
+    real = dispatch.ssd_scan
+    dispatch.ssd_scan = ref.ssd_scan_ref
+    try:
+        yield
+    finally:
+        dispatch.ssd_scan = real
+
+
+def mamba_static_phase(torch, cfg, params, labels, deploy: str) -> dict:
+    """Serve full-width mamba2-130m under ``deploy`` on the static engine
+    and check it: ``fp`` against the plain SSD version on the card,
+    ``analog_hw`` (fused) against unfused, ``digital_int4`` against
+    ``digital_rtn4``. Every projection must run on the deployment's MVM
+    kernel and every layer of the prefill on ``ssd_scan``."""
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serve.decode import generate, prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, acfg = deploy_model(_deploy_args(deploy), cfg, params, labels, gen)
+    base_p, base_acfg, mvm = p, acfg, None
+    if deploy == "analog_hw":
+        acfg = dataclasses.replace(acfg, use_pallas=True)
+        base_acfg, mvm = dataclasses.replace(acfg, use_pallas=False), \
+            "analog_matmul"
+    elif deploy == "digital_int4":
+        base_p, base_acfg = deploy_model(_deploy_args("digital_rtn4"), cfg,
+                                         params, labels, gen)
+        mvm = "int4_matmul"
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, MAMBA_PROMPT),
+                           generator=gen, device=dev)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for m in counters.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(p, cfg, acfg, gen, prompt, MAMBA_NEW,
+                    greedy_first=MAMBA_NEW)
+    toks_host = toks.cpu()
+    gen_s = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in counters.items()}
+    want = {"ssd_scan": cfg.num_layers}               # the prefill forward
+    if mvm is not None:
+        want[mvm] = mvm_sites(cfg) * (1 + MAMBA_NEW)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"mamba {deploy}: {name} launched {n} "
+              f"times, expected {want.get(name, 0)}")
+    check(tuple(toks_host.shape) == (BATCH, MAMBA_NEW)
+          and int(toks_host.min()) >= 0
+          and int(toks_host.max()) < cfg.vocab_size,
+          f"mamba {deploy}: bad tokens {toks_host}")
+
+    lf, _, _ = prefill(p, cfg, acfg, prompt, MAMBA_PROMPT + 1)
+    with (plain_ssd() if deploy == "fp" else contextlib.nullcontext()):
+        lb, _, _ = prefill(base_p, cfg, base_acfg, prompt, MAMBA_PROMPT + 1)
+        base_toks = generate(base_p, cfg, base_acfg, gen, prompt, MAMBA_NEW,
+                             greedy_first=MAMBA_NEW).cpu()
+    check(bool(torch.isfinite(lf).all()), f"mamba {deploy}: non-finite "
+          f"logits")
+    rel_l2 = float(torch.linalg.vector_norm(lf - lb)
+                   / torch.linalg.vector_norm(lb))
+    res = {"deploy": deploy, "launches": launches, "generate_s": gen_s,
+           "tokens_per_s": BATCH * MAMBA_NEW / gen_s, "rel_l2": rel_l2,
+           "max_logit_diff": float((lf - lb).abs().max()),
+           "greedy_agree": int((toks_host == base_toks).sum()),
+           "first_token_agree": int((toks_host[:, 0]
+                                     == base_toks[:, 0]).sum())}
+    if deploy == "fp":
+        what = "plain SSD"
+        check(rel_l2 < MAMBA_FP_TOL, f"mamba fp: ssd_scan vs the plain SSD "
+              f"logits rel L2 {rel_l2:.3e} >= {MAMBA_FP_TOL}")
+    else:
+        what = "unfused" if deploy == "analog_hw" else "digital_rtn4"
+        n_sites, n_el, n_flip = site_parity(
+            torch, cfg, p, acfg, base_p, base_acfg, prompt,
+            sites=mvm_sites(cfg))
+        res.update(sites=n_sites, site_elements=n_el, site_flips=n_flip)
+        check(rel_l2 < E2E_TOL, f"mamba {deploy}: fused vs {what} logits "
+              f"rel L2 {rel_l2:.3e} >= {E2E_TOL}")
+    res.update(step_times(torch, cfg, p, acfg, prompt, MAMBA_STEP_TOKENS))
+    print(f"  mamba {deploy}: launches {launches}, generate {gen_s:.2f}s; vs "
+          f"{what}: " + (f"{res['site_flips']} of {res['site_elements']} site "
+                         f"outputs one ADC level apart at near-ties; "
+                         if "sites" in res else "")
+          + f"max |dlogit| {res['max_logit_diff']:.3e}, rel L2 {rel_l2:.3e}, "
+          f"greedy tokens agree {res['greedy_agree']}/{BATCH * MAMBA_NEW}; "
+          f"prefill {res['prefill_ms']:.2f} ms, decode "
+          f"{res['decode_ms']:.2f} ms/step, on the device "
+          f"{res['decode_device_ms']:.2f} ms (busy {res['device_busy']:.3f})")
+    del p, base_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mamba_static(torch) -> dict:
+    """Full-width mamba2-130m (random weights from a seed) on the static
+    engine under fp, analog_hw and digital_int4."""
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    cfg, params, labels = build(MAMBA, torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(cfg.num_layers == 24 and cfg.d_model == 768
+          and cfg.ssm_heads == 24 and cfg.padded_vocab == 50432
+          and mvm_sites(cfg) == MAMBA_MVM_PER_FORWARD,
+          f"unexpected config {cfg}")
+    print(f"  {MAMBA}: {n_params / 1e6:.1f}M params")
+    out = {"params": n_params}
+    for deploy in ("fp", "analog_hw", "digital_int4"):
+        out[deploy] = mamba_static_phase(torch, cfg, params, labels, deploy)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the continuous engine at full width
 # ---------------------------------------------------------------------------
 
 def engine_requests(cfg, n: int, seed: int):
@@ -608,16 +894,28 @@ def _counters():
     from repro_torch.kernels import int4_matmul as k4
     from repro_torch.kernels import paged_attention as kd
     from repro_torch.kernels import paged_prefill as kp_
+    from repro_torch.kernels import ssd_scan as ks
     return {"analog_matmul": km, "int4_matmul": k4,
-            "paged_flash_decode": kd, "paged_flash_prefill": kp_}
+            "paged_flash_decode": kd, "paged_flash_prefill": kp_,
+            "ssd_scan": ks}
+
+
+def mvm_sites(cfg) -> int:
+    """Analog sites of one forward: in_proj and out_proj of every mamba
+    layer (the tied LM head is a plain matmul); qkv, o, gate_up and down of
+    every attention layer, and the LM head unless tied."""
+    if cfg.family == "ssm":
+        return 2 * cfg.num_layers
+    return 4 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
 
 
 def engine_phase(torch, cfg, params, labels, deploy: str,
                  kv_bits: int) -> dict:
-    """Serve the mixed workload at full width on the paged pool under
+    """Serve the mixed workload at full width with ``paged=True`` under
     ``deploy``; check that every request finished, every block came back
-    and every call ran on its kernel; measure tokens/s and the device
-    busy share of a decode step."""
+    (an ssm stack has no pool and must say why) and every call ran on its
+    kernel; measure tokens/s and the device busy share of a decode
+    step."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
                                              required_max_len)
@@ -647,7 +945,7 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: m.launches for name, m in counters.items()}
-    tag = f"{deploy} kv_bits={kv_bits}"
+    tag = f"{cfg.name} {deploy} kv_bits={kv_bits}"
     total = sum(len(v) for v in results.values())
     check(sorted(results) == [r.uid for r in reqs], f"{tag}: lost requests")
     for r in reqs:
@@ -657,15 +955,21 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
               f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
               f"{len(out)}/{r.max_new} tokens")
     pool = eng.pool
-    check(pool.num_live == 0 and pool.num_free == pool.num_blocks,
-          f"{tag}: blocks not returned ({pool.num_live} live, "
-          f"{pool.num_free}/{pool.num_blocks} free)")
+    ssm = cfg.family == "ssm"
+    if ssm:
+        check(pool is None and "paged" in eng.gating_reasons,
+              f"{tag}: paged on an ssm stack is not inert and explained")
+    else:
+        check(pool.num_live == 0 and pool.num_free == pool.num_blocks,
+              f"{tag}: blocks not returned ({pool.num_live} live, "
+              f"{pool.num_free}/{pool.num_blocks} free)")
     layers, forwards = cfg.num_layers, eng.decode_steps + eng.prefill_forwards
-    # qkv, o, gate_up and down in every layer, and the LM head
-    sites = 4 * layers + (0 if cfg.tie_embeddings else 1)
-    want = {mvm: sites * forwards,
-            "paged_flash_decode": layers * eng.decode_steps,
-            "paged_flash_prefill": layers * eng.prefill_forwards}
+    want = {mvm: mvm_sites(cfg) * forwards}
+    if ssm:
+        want["ssd_scan"] = layers * eng.prefill_forwards
+    else:
+        want.update(paged_flash_decode=layers * eng.decode_steps,
+                    paged_flash_prefill=layers * eng.prefill_forwards)
     for name, n in launches.items():
         check(n == want.get(name, 0), f"{tag}: {name} launched {n} times, "
               f"expected {want.get(name, 0)}")
@@ -675,7 +979,8 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
            "prefill_forwards": eng.prefill_forwards,
            "decode_tokens_during_admission":
                eng.decode_tokens_during_admission,
-           "phase_s": dict(eng.phase_time), "launches": launches}
+           "phase_s": dict(eng.phase_time), "launches": launches,
+           "gating_reasons": dict(eng.gating_reasons)}
     res.update(engine_busy(torch, cfg, p, acfg, scfg))
     print(f"  {tag}: {total} tokens of {len(reqs)} requests in {run_s:.2f}s "
           f"({res['tokens_per_s']:.1f} tok/s), {eng.decode_steps} decode "
@@ -730,27 +1035,29 @@ def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
             "device_busy": dev_ms / host_ms}
 
 
-def phase_engine(torch) -> dict:
-    """Full-width llama-3.2-1b (random weights from a seed) through the
-    continuous engine: analog_hw and digital_int4 on a bf16 pool, and
-    analog_hw on the int8 pool."""
+def phase_engine(torch, arch: str = ARCH) -> dict:
+    """A full-width model (random weights from a seed) through the
+    continuous engine: llama-3.2-1b with analog_hw and digital_int4 on a
+    bf16 pool and analog_hw on the int8 pool; mamba2-130m with analog_hw
+    and digital_int4 (its per-slot state in bf16 / fp32)."""
     from repro_torch.models import build
 
     dev = torch.device("cuda")
-    cfg, params, labels = build(ARCH, torch.Generator(device=dev).manual_seed(
+    cfg, params, labels = build(arch, torch.Generator(device=dev).manual_seed(
         0), device=dev)
+    runs = ((("analog_hw", 0), ("digital_int4", 0)) if cfg.family == "ssm"
+            else (("analog_hw", 0), ("digital_int4", 0), ("analog_hw", 8)))
     out = {}
-    for deploy, kv_bits in (("analog_hw", 0), ("digital_int4", 0),
-                            ("analog_hw", 8)):
-        out[f"{deploy}/kv{kv_bits or 16}"] = engine_phase(
-            torch, cfg, params, labels, deploy, kv_bits)
+    for deploy, kv_bits in runs:
+        key = deploy if cfg.family == "ssm" else f"{deploy}/kv{kv_bits or 16}"
+        out[key] = engine_phase(torch, cfg, params, labels, deploy, kv_bits)
     del params
     torch.cuda.empty_cache()
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the reduced engine, card against CPU
+# phase 9: the reduced engines, card against CPU
 # ---------------------------------------------------------------------------
 
 def reduced_engine_check(torch) -> dict:
@@ -827,8 +1134,77 @@ def reduced_engine_check(torch) -> dict:
     return out
 
 
+def reduced_mamba_check(torch) -> dict:
+    """Reduced mamba2-130m through the continuous engine on the card (the
+    kernels) and on the CPU (their plain versions), same weights: greedy
+    tokens must be equal for ``fp`` and ``analog_hw`` (fused). Two chunks
+    of a left-padded prompt (the second from the first one's state) and a
+    decode step must give the CPU's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
+                                         perturb_analog_weights)
+    from repro_torch.models import apply, build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                             ServeEngine)
+
+    cfg = get_config(MAMBA).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    hw = perturb_analog_weights(params, labels,
+                                torch.Generator().manual_seed(1), "hw")
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(3, 21))).astype(np.int32),
+        max_new=int(rng.integers(4, 13)), temperature=0.0)
+        for i in range(6)]
+    out = {}
+    cuda = torch.device("cuda")
+    scfg = SchedulerConfig(num_slots=3, max_len=40, prefill_chunk=8,
+                           paged=True)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 17)))
+    for deploy, p, acfg in (
+            ("fp", params, AnalogConfig(mode="off")),
+            ("analog_hw", hw, AnalogConfig(mode="analog", train_noise=False,
+                                           use_pallas=True))):
+        pc = _to(p, cuda)
+        host = ServeEngine(p, cfg, acfg, scfg).run(list(reqs))
+        card = ServeEngine(pc, cfg, acfg, scfg).run(list(reqs))
+        bad = [r.uid for r in reqs
+               if not np.array_equal(host[r.uid], card[r.uid])]
+        out[deploy] = bad
+        check(not bad, f"reduced {MAMBA} {deploy}: greedy tokens differ for "
+              f"requests {bad}")
+        logits = []
+        for where, q in (("cpu", p), ("cuda", pc)):
+            caches = T.init_caches(cfg, 2, 24, device=where, per_slot=True)
+            mask = torch.ones((2, 16), device=where)
+            mask[0, :5] = 0                      # row 0: 5 left pads
+            t = toks.to(where)
+            got = []
+            for j in range(2):
+                lj, _, caches = apply(q, cfg, acfg, AnalogCtx(),
+                                      {"tokens": t[:, 8 * j:8 * j + 8]},
+                                      caches=caches,
+                                      seq_mask=mask[:, 8 * j:8 * j + 8])
+                got.append(lj.cpu())
+            ld, _, _ = apply(q, cfg, acfg, AnalogCtx(), {"tokens": t[:, 16:]},
+                             caches=caches,
+                             seq_mask=torch.ones((2, 1), device=where))
+            logits.append(got + [ld.cpu()])
+        err = max(float((u - v).abs().max())
+                  for u, v in zip(logits[0], logits[1]))
+        out[f"{deploy}/logit_err"] = err
+        check(err < 1e-4, f"reduced {MAMBA} {deploy}: card vs cpu logits "
+              f"differ by {err:.3e}")
+    print(f"  reduced {MAMBA} engine, card vs cpu: greedy tokens equal for fp "
+          f"and analog_hw; max |dlogit| of two chunks + a decode step: fp "
+          f"{out['fp/logit_err']:.2e}, analog_hw "
+          f"{out['analog_hw/logit_err']:.2e}")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4, and the CLI
+# phases 3 and 4, and the CLI (phase 10)
 # ---------------------------------------------------------------------------
 
 def _deploy_args(deploy: str):
@@ -925,7 +1301,8 @@ def serve_phase(torch, deploy: str, base: str) -> dict:
     return res
 
 
-def step_times(torch, cfg, params, acfg, prompt) -> dict:
+def step_times(torch, cfg, params, acfg, prompt,
+               new_tokens: int = NEW_TOKENS) -> dict:
     """Host-clock time of one prefill and of a greedy decode step
     (synchronized, after the main-path run warmed everything up; median of
     3 rounds), and the device time of one decode step: the step captured
@@ -940,17 +1317,17 @@ def step_times(torch, cfg, params, acfg, prompt) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches, pos = prefill(params, cfg, acfg, prompt,
-                                      PROMPT_LEN + NEW_TOKENS)
+                                      prompt.shape[1] + new_tokens)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
         tok = torch.argmax(logits, dim=-1)
         t0 = time.perf_counter()
-        for i in range(NEW_TOKENS):
+        for i in range(new_tokens):
             logits, caches = serve_step(params, cfg, acfg, tok[:, None],
                                         caches, pos + i)
             tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
-        dec.append((time.perf_counter() - t0) * 1e3 / NEW_TOKENS)
+        dec.append((time.perf_counter() - t0) * 1e3 / new_tokens)
     out = {"prefill_ms": sorted(pre)[1], "decode_ms": sorted(dec)[1]}
 
     # one decode step at position pos as a graph (each replay rewrites the
@@ -972,7 +1349,8 @@ def step_times(torch, cfg, params, acfg, prompt) -> dict:
     return out
 
 
-def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens):
+def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens,
+                sites: int = LAUNCHES_PER_FORWARD):
     """Every analog site of one prefill, fused (a) against unfused (b) on
     the same input: the input path b's own forward gave that site. Every
     mismatch must be exactly one ADC level at a near-tie of path b's
@@ -982,6 +1360,7 @@ def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens):
     from repro_torch.core import quant
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
     from repro_torch.models import transformer as T
     from repro_torch.serve.decode import prefill
 
@@ -996,12 +1375,12 @@ def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens):
 
     for tag, params, acfg in (("a", params_a, acfg_a),
                               ("b", params_b, acfg_b)):
-        L.analog_linear = T.analog_linear = recorder(tag)
+        L.analog_linear = M.analog_linear = T.analog_linear = recorder(tag)
         try:
             prefill(params, cfg, acfg, tokens, tokens.shape[1])
         finally:
-            L.analog_linear = T.analog_linear = real
-    check(len(calls["a"]) == len(calls["b"]) == LAUNCHES_PER_FORWARD,
+            L.analog_linear = M.analog_linear = T.analog_linear = real
+    check(len(calls["a"]) == len(calls["b"]) == sites,
           f"site count {len(calls['a'])}, {len(calls['b'])}")
     qo = ref.qmax(acfg_b.output_bits)
     ctx = A.AnalogCtx()
@@ -1101,20 +1480,34 @@ def phase_cli(torch) -> dict:
                        "--num-requests", "4", "--engine", "static"])
     static_s = time.perf_counter() - t0
     check(tuple(toks.shape) == (4, 32), f"cli: tokens {tuple(toks.shape)}")
-    return {"continuous_s": cont_s, "static_s": static_s}
+    counters = _counters()
+    for m in counters.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", MAMBA, "--deploy", "digital_int4",
+                      "--num-requests", "4", "--paged"])
+    mamba_s = time.perf_counter() - t0
+    check(sorted(res) == [0, 1, 2, 3] and all(len(v) for v in res.values()),
+          f"cli {MAMBA}: results {res}")
+    check(counters["ssd_scan"].launches > 0
+          and counters["int4_matmul"].launches > 0,
+          f"cli {MAMBA}: the kernels did not run")
+    return {"continuous_s": cont_s, "static_s": static_s,
+            "mamba_continuous_s": mamba_s}
 
 
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
-#: the run whose launch count each kernel's entry reports: the static
-#: engine's (phases 3 and 4) or the continuous engine's analog_hw run on
-#: the bf16 pool (phase 6)
+#: the run whose launch count each kernel's entry reports: llama-3.2-1b's
+#: static engine (phases 3 and 4) or continuous engine analog_hw run on the
+#: bf16 pool (phase 8), or mamba2-130m's continuous analog_hw run (phase 8)
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
-              "paged_flash_prefill": "continuous/analog_hw/kv16"}
+              "paged_flash_prefill": "continuous/analog_hw/kv16",
+              "ssd_scan": f"continuous/{MAMBA}/analog_hw"}
 
 PAGED_META = {
     "paged_flash_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1124,7 +1517,8 @@ PAGED_META = {
 
 
 def kernels_line(rows: dict, launches: dict, paged_rows: dict,
-                 paged_launches: dict) -> dict:
+                 paged_launches: dict, ssd_rows: list,
+                 ssd_launches: int) -> dict:
     """One entry per kernel.
 
     ``analog_matmul`` / ``int4_matmul``: ``ms``, ``plain_ms``,
@@ -1140,7 +1534,13 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     one split, context 512); ``library_ms`` is gather ``kp[tbl]`` +
     ``scaled_dot_product_attention`` on the same inputs; ``max_abs_err``
     is the largest over all phase-5 cases; ``launches`` is the count of
-    the continuous engine's ``analog_hw`` run (phase 6).
+    the continuous engine's ``analog_hw`` run (phase 8).
+
+    ``ssd_scan``: the times are per launch at the phase-6 case named in
+    ``case`` (the engine's chunk, ``SSD_LINE_CASE``); ``max_abs_err`` is the
+    largest over all phase-6 cases, y and final state; ``library_ms`` is
+    null (no single PyTorch call computes an SSD scan); ``launches`` is the
+    count of mamba2-130m's continuous ``analog_hw`` run (phase 8).
 
     Each entry's ``path`` names the run its ``launches`` come from
     (``LINE_PATHS``); the continuous runs' counts of every kernel are in
@@ -1153,7 +1553,8 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     per_site = {s[0]: s[3] for s in SITES}
     out = []
     for name, (src, replaces) in meta.items():
-        shapes = [r for r in rows[name] if not r.get("col_off")]
+        shapes = [r for r in rows[name] if not r.get("col_off")
+                  and r.get("arch", ARCH) == ARCH]
         tot = {"ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0, "matmul_ms": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
         for r in shapes:
@@ -1192,6 +1593,18 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
             "case": {k: r[k] for k in ("rows", "chunk", "context", "dtype",
                                        "splits")},
             "parity": "ok"})
+    r = next(c for c in ssd_rows if c["case"] == SSD_LINE_CASE)
+    out.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:92",
+        "path": LINE_PATHS["ssd_scan"], "launches": ssd_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in ssd_rows),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "wall_ms": r["wall_ms"],
+        "case": {k: r[k] for k in ("case", "rows", "tokens", "h0")},
+        "parity": "ok"})
     return {"kernels": out}
 
 
@@ -1209,24 +1622,38 @@ def main() -> int:
 
     t_start = time.perf_counter()
     results = {}
+
+    def phase(title: str) -> None:
+        print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
+
     try:
-        print("[1/8] setup")
+        phase("[1/10] setup")
         results["setup"] = phase_setup(torch)
-        print("[2/8] MVM kernels at llama-3.2-1b main-path shapes")
+        phase("[2/10] MVM kernels at llama-3.2-1b and mamba2-130m main-path "
+              "shapes")
         rows = phase_kernels(torch)
-        print("[3/8] static engine, analog_hw serving, use_pallas=True")
+        phase("[3/10] static engine, llama-3.2-1b, analog_hw serving, "
+              "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        print("[4/8] static engine, digital_int4 serving")
+        phase("[4/10] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        print("[5/8] paged-attention kernels at llama-3.2-1b attention "
+        phase("[5/10] paged-attention kernels at llama-3.2-1b attention "
               "shapes")
         paged_rows = phase_paged(torch)
-        print("[6/8] continuous engine at full width, paged pool")
+        phase("[6/10] ssd_scan at mamba2-130m shapes")
+        ssd_rows = phase_ssd(torch)
+        phase("[7/10] static engine, mamba2-130m: fp, analog_hw, "
+              "digital_int4")
+        results["mamba_static"] = phase_mamba_static(torch)
+        phase("[8/10] continuous engine at full width: llama-3.2-1b on the "
+              "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
-        print("[7/8] reduced continuous engine, card against cpu")
+        results["engine_mamba"] = phase_engine(torch, MAMBA)
+        phase("[9/10] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
-        print("[8/8] serving CLI")
+        results["reduced_mamba"] = reduced_mamba_check(torch)
+        phase("[10/10] serving CLI")
         results["cli"] = phase_cli(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1235,12 +1662,14 @@ def main() -> int:
         rows, {"analog_matmul": results["analog"]["launches"],
                "int4_matmul": results["int4"]["launches"]},
         paged_rows, {name: results["engine"][LINE_PATHS[name].split(
-            "/", 1)[1]]["launches"][name] for name in PAGED_META})
+            "/", 1)[1]]["launches"][name] for name in PAGED_META},
+        ssd_rows, results["engine_mamba"]["analog_hw"]["launches"][
+            "ssd_scan"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"results": results, "shapes": rows, "paged": paged_rows, **line},
-        indent=1))
+        {"results": results, "shapes": rows, "paged": paged_rows,
+         "ssd": ssd_rows, **line}, indent=1))
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(gpu_name_and_power())

@@ -23,7 +23,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 SOURCES = ("analog_matmul", "int4_matmul", "paged_attention",
-           "paged_prefill")
+           "paged_prefill", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -69,3 +69,26 @@ def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+class ScanPlan(NamedTuple):
+    """How the ``ssd_scan`` kernel runs one scan on the card."""
+
+    chunk: int          # tokens per chunk (L)
+    threads: int        # threads of a thread block
+    smem: int           # dynamic shared memory of a thread block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(b: int, s: int, h: int, p: int, n: int, g: int) -> ScanPlan:
+    """The ``ssd_scan`` library's plan for x [B, S, H, P] with b / c
+    [B, S, G, N] (builds and loads the library at first use). Raises
+    ``ValueError`` for a shape the kernel does not take."""
+    fn = _build.load("ssd_scan").ssd_scan_plan
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(*(ctypes.c_int(v) for v in (b, s, h, p, n, g)),
+             *(ctypes.byref(o) for o in out))
+    if err:
+        raise ValueError(f"ssd_scan cannot take B={b}, S={s}, H={h}, P={p}, "
+                         f"N={n}, G={g} (CUDA error {err})")
+    return ScanPlan(*(o.value for o in out))

@@ -14,6 +14,14 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
   (``paged_flash_decode``) for a decode step and
   :func:`paged_prefill_attention` (``paged_flash_prefill``) for a prefill
   chunk, both scoring the block pool in place.
+* The Mamba-2 SSD of the ssm family → :func:`ssd` (``ssd_scan``), the
+  JAX package's ``ops.ssd`` with ``mamba2._ssd_with_state``'s incoming
+  and final state folded in. The JAX package runs its Pallas kernel only on
+  a TPU and only when the chunk divides S (else its chunked jnp path with
+  ``chunk = min(128, S)``), so its own engine's 32-token chunks never reach
+  the kernel there; the port takes the kernel on the card for every S,
+  ragged tails included. The function is the same; the chunking is the
+  kernel's own.
 * A CPU tensor runs each kernel's plain PyTorch version (the CPU tests); a
   CUDA tensor launches the kernel or raises. There is no switch that sends
   a CUDA tensor to the plain version: a caller that wants it calls ``ref``.
@@ -32,6 +40,7 @@ from repro_torch.kernels.analog_matmul import analog_matmul
 from repro_torch.kernels.int4_matmul import int4_matmul
 from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill import paged_flash_prefill
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def use_fused(cfg) -> bool:
@@ -151,3 +160,24 @@ def paged_prefill_attention(q: torch.Tensor, kp: torch.Tensor,
     return paged_flash_prefill(q.contiguous(), kp, vp, tbl, pos, start,
                                scale=scale, k_scale=k_scale,
                                v_scale=v_scale)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor,
+        h0: torch.Tensor | None = None):
+    """Mamba-2 SSD over x [B, S, H, P] with dt [B, S, H], a [H] and gates
+    b / c [B, S, G, N], from the state h0 [B·H, N, P] (None: zero).
+
+    Head ``h`` reads group ``h // (H / G)``: the kernel indexes the group
+    and reads every input through its strides, so neither the repeat of
+    the gates to heads nor the ``(B, H)`` flattening copies is made on the
+    card (the plain version makes both, as the JAX package does). Returns
+    (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
+    """
+    heads, g = x.shape[2], b.shape[2]
+    if heads % g:
+        raise ValueError(f"{heads} SSD heads are not a multiple of {g} "
+                         "groups")
+    h0 = None if h0 is None else h0.float().contiguous()
+    return ssd_scan(x.float(), dt.float(), a.float().contiguous(), b.float(),
+                    c.float(), h0)

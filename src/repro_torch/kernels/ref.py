@@ -269,3 +269,142 @@ def paged_prefill_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     _, l, acc = carry
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 2, 1, 3, 4).reshape(bsz, s, nq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) scan
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor,
+            h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Sequential Mamba-2 SSD recurrence (the slow-but-sure oracle).
+
+    x [BH, S, P], dt [BH, S] (positive), a [BH] (negative), b / c
+    [BH, S, N] (already broadcast from groups to heads), h0 [BH, N, P]
+    optional initial state. Per step ``h = exp(dt·a)·h + (dt·b)ᵀ x`` and
+    ``y = c·h``. Returns y [BH, S, P] in ``x.dtype``.
+    """
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    h = (torch.zeros((bh, n, p), device=x.device) if h0 is None
+         else h0.float())
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)
+        h = (decay[:, None, None] * h
+             + (dtf[:, t, None] * bf[:, t])[:, :, None] * xf[:, t, None, :])
+        ys.append(torch.einsum("zn,znp->zp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, *,
+                    chunk: int = 128) -> torch.Tensor:
+    """Chunk-parallel SSD, the math of the JAX package's Pallas kernel
+    (``kernels/ops.py::ssd_chunked_jnp``), from a zero state.
+
+    Shapes as :func:`ssd_ref`. A ragged tail is padded with ``dt = 0,
+    x = b = c = 0``. Within a chunk of length L the output is
+    ``(C Bᵀ ⊙ exp(min(cums_t - cums_r, 0)) ⊙ [r <= t]) (dt ⊙ X)`` plus the
+    carried state's ``exp(cums_t) C_t h_in``; the clamp before ``exp``
+    keeps the masked (positive) entries from overflowing to inf, which
+    times the mask's 0 would be NaN. Returns y [BH, S, P] in ``x.dtype``.
+    """
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    sc = x.shape[1] // chunk
+    xf = x.reshape(bh, sc, chunk, p).float()
+    dtf = dt.reshape(bh, sc, chunk).float()
+    bf = b.reshape(bh, sc, chunk, n).float()
+    cf = c.reshape(bh, sc, chunk, n).float()
+
+    la = dtf * a[:, None, None]
+    cums = torch.cumsum(la, dim=-1)                        # [bh, sc, L]
+    rel = cums[..., :, None] - cums[..., None, :]
+    mask = torch.tril(torch.ones((chunk, chunk), device=x.device))
+    decay = torch.exp(torch.clamp_max(rel, 0.0)) * mask
+    gates = torch.einsum("zctn,zcrn->zctr", cf, bf)
+    y_intra = torch.einsum("zctr,zcrp->zctp", gates * decay,
+                           dtf[..., None] * xf)
+
+    # the inter-chunk state recurrence, one chunk after the other
+    total = cums[..., -1]                                  # [bh, sc]
+    w_r = torch.exp(total[..., None] - cums) * dtf         # [bh, sc, L]
+    states = torch.einsum("zcrn,zcrp->zcnp", bf * w_r[..., None], xf)
+    h = torch.zeros((bh, n, p), device=x.device)
+    h_ins = []
+    for j in range(sc):
+        h_ins.append(h)                                    # entering chunk j
+        h = torch.exp(total[:, j])[:, None, None] * h + states[:, j]
+    h_in = torch.stack(h_ins, dim=1)
+    y_inter = torch.exp(cums)[..., None] * torch.einsum(
+        "zctn,zcnp->zctp", cf, h_in)
+    y = (y_intra + y_inter).reshape(bh, sc * chunk, p)
+    return y[:, :s].to(x.dtype)
+
+
+def ssd_decode_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+                    a: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor):
+    """One token of the SSD recurrence (serving decode): h [BH, N, P],
+    x_t [BH, P], dt_t [BH], a [BH], b_t / c_t [BH, N] → (h', y [BH, P]).
+    Plain tensor code in the JAX package too (no kernel)."""
+    decay = torch.exp(dt_t * a)
+    h = (decay[:, None, None] * h
+         + (dt_t[:, None] * b_t)[:, :, None] * x_t[:, None, :])
+    y = torch.einsum("zn,znp->zp", c_t, h)
+    return h, y.to(x_t.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor | None = None, *, chunk: int = 128):
+    """Plain version of the ``ssd_scan`` kernel: the whole of the JAX
+    package's ``mamba2._ssd_with_state`` in its op order.
+
+    x [B, S, H, P], dt [B, S, H], a [H], b / c [B, S, G, N] (head ``h``
+    reads group ``h // (H / G)``), h0 [B·H, N, P] optional incoming state.
+    The groups are repeated to heads and ``(B, H)`` flattened (``ops.ssd``),
+    y comes from :func:`ssd_chunked_ref` from a zero state, and the final
+    state and the incoming state's terms (``exp(cums_t) C_t h0`` in y,
+    ``exp(total) h0`` in the state) are added after it, over the whole
+    sequence. Returns (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
+    """
+    bsz, s, heads, pdim = x.shape
+    g = b.shape[2]
+    rep = heads // g
+
+    def to_bh(t):
+        return torch.movedim(torch.repeat_interleave(t, rep, dim=2), 2, 1
+                             ).reshape(bsz * heads, s, -1)
+
+    xf = torch.movedim(x, 2, 1).reshape(bsz * heads, s, pdim)
+    dtf = torch.movedim(dt, 2, 1).reshape(bsz * heads, s)
+    af = a.repeat(bsz)
+    bf, cf = to_bh(b), to_bh(c)
+    # the JAX package's CPU chunk: ``chunk`` when it divides S, else
+    # min(chunk, S) with a padded tail
+    y = ssd_chunked_ref(xf, dtf, af, bf, cf,
+                        chunk=min(chunk, s) if s % chunk else chunk)
+    y = torch.movedim(y.reshape(bsz, heads, s, pdim), 1, 2).float()
+
+    xf, dtf, bf = xf.float(), dtf.float(), bf.float()
+    la = dtf * af[:, None]
+    cums = torch.cumsum(la, dim=-1)
+    total = cums[:, -1]
+    w_r = torch.exp(total[:, None] - cums) * dtf               # [BH, S]
+    h = torch.einsum("zs,zsn,zsp->znp", w_r, bf, xf)
+    if h0 is not None:
+        h0 = h0.float()
+        y_carry = torch.einsum("zs,zsn,znp->zsp", torch.exp(cums),
+                               cf.float(), h0)
+        y = y + torch.movedim(y_carry.reshape(bsz, heads, s, pdim), 1, 2)
+        h = h + torch.exp(total)[:, None, None] * h0
+    return y, h

@@ -18,6 +18,14 @@ kernels instead (the CPU tests):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --paged
 
+``--arch mamba2-130m`` serves the ssm family: every prefill (chunk) runs
+the ``ssd_scan`` kernel and every projection the deployment's MVM kernel.
+An attention-free stack has no KV to page, so ``--paged`` is inert there
+and the engine says why:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --arch mamba2-130m
+
 The prefix cache, speculative decoding, drift, the open-loop front door
 and tensor parallelism of the JAX package's launcher are not ported yet.
 """
@@ -186,14 +194,20 @@ def main(argv=None):
         step_tokens=args.step_tokens, cache_dtype=cache_dtype,
         paged=args.paged, kv_block_size=args.kv_block_size,
         kv_blocks=args.kv_blocks))
+    for feature, why in eng.gating_reasons.items():
+        print(f"[serve] --{feature} is inert for {cfg.name}: {why}")
     t0 = time.perf_counter()
     results = eng.run(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in results.values())
     lats = sorted(eng.finished_at[r.uid] - t0 for r in reqs)
-    mode = ("paged" + ("-int8" if acfg.kv_bits == 8 else "")
-            if eng.pool is not None else "contiguous")
-    print(f"[serve] continuous ({where}, {mode} kv, {args.cache_dtype}): "
+    if cfg.family == "ssm":
+        mode = "per-slot ssm state"
+    elif eng.pool is not None:
+        mode = "paged" + ("-int8" if acfg.kv_bits == 8 else "") + " kv"
+    else:
+        mode = "contiguous kv"
+    print(f"[serve] continuous ({where}, {mode}, {args.cache_dtype}): "
           f"{total} tokens across {len(reqs)} mixed-length requests in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.decode_steps} decode "
           f"steps, {eng.mixed_steps} fused mixed steps, "

@@ -1,11 +1,12 @@
-"""Model assembly, dense family: a pre-norm decoder LM.
+"""Model assembly, dense and ssm families: a pre-norm decoder LM.
 
 Parameters keep the reference's layout: the layer stack is scan-stacked,
 every leaf of ``params["blocks"]`` carries a leading ``[L]`` axis, and the
 embedding and LM head are ``padded_vocab`` wide. PyTorch has no ``scan``,
 so :func:`apply_blocks` is a loop over ``l`` that indexes each leaf (a view,
-no copy). The moe / ssm / hybrid / vlm / audio families come with a later
-slice and are refused here.
+no copy). The dense family's layer is attention + MLP; the ssm family's
+(mamba2-130m) is one Mamba-2 mixer with no FFN. The moe / hybrid / vlm /
+audio families come with a later slice and are refused here.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ import torch
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels)
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
-_PORTED_FAMILIES = ("dense",)
+_PORTED_FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg) -> None:
-    """Raise for a family this slice does not port."""
+def _require_ported(cfg) -> None:
+    """Raise for a family this port does not run yet."""
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (this port runs the "
-            "dense family; moe, ssm, hybrid, vlm and audio come later)")
+            "dense and ssm families; moe, hybrid, vlm and audio come later)")
 
 
 def tree_index(tree, i: int):
@@ -80,6 +82,29 @@ def apply_attn_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     return x + h, {"attn": st_a, "ffn": st_f}, new_cache
 
 
+def init_mamba_layer(gen: torch.Generator, cfg, dtype=torch.float32,
+                     device=None) -> dict:
+    """Init one ssm-family block: ln1 and the Mamba-2 mixer (no FFN)."""
+    return {"ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
+            "mixer": M.init_mamba(gen, cfg, dtype, device)}
+
+
+def mamba_layer_labels(p: dict) -> dict:
+    """Labels mirroring ``init_mamba_layer`` structure."""
+    return {"ln1": L.norm_labels(p["ln1"]),
+            "mixer": M.mamba_labels(p["mixer"])}
+
+
+def apply_mamba_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
+                      ctx: AnalogCtx, cache=None,
+                      seq_mask: torch.Tensor | None = None):
+    """One mamba block with its residual. Returns (x, stats, cache)."""
+    h, st_m, new_cache = M.mamba(
+        p["mixer"], L.apply_norm(p["ln1"], x, cfg.norm), cfg, acfg, ctx,
+        cache, seq_mask=seq_mask)
+    return x + h, {"mixer": st_m}, new_cache
+
+
 # ---------------------------------------------------------------------------
 # the layer stack
 # ---------------------------------------------------------------------------
@@ -87,14 +112,17 @@ def apply_attn_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
 def init_blocks(gen: torch.Generator, cfg, dtype=torch.float32,
                 device=None) -> dict:
     """Init the layer stack: every leaf stacked to ``[L, ...]``."""
-    _require_dense(cfg)
-    return tree_stack([init_attn_layer(gen, cfg, dtype, device)
+    _require_ported(cfg)
+    init = init_mamba_layer if cfg.family == "ssm" else init_attn_layer
+    return tree_stack([init(gen, cfg, dtype, device)
                        for _ in range(cfg.num_layers)])
 
 
 def blocks_labels(params_blocks: dict, cfg) -> dict:
     """Labels of the stacked blocks (one label set, shared by all layers)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return mamba_layer_labels(params_blocks)
     return attn_layer_labels(params_blocks)
 
 
@@ -108,9 +136,12 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     ``[L, ...]``. Each layer writes its slice of the buffers and pools in
     place. The contiguous layout shares one host-int ``pos``; the slot
     layouts carry per-layer cursors ``pos`` [L, B], which come back
-    advanced (rows fully masked by ``seq_mask`` [B, S] keep theirs).
+    advanced (rows fully masked by ``seq_mask`` [B, S] keep theirs). The
+    ssm family's ``conv`` / ``ssm`` state has no cursor: each layer's new
+    state is copied into its slice.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
+    ssm = cfg.family == "ssm"
     n_layers = next(iter(params_blocks["ln1"].values())).shape[0]
     slots = caches is not None and "start" in caches
     stats, new_pos = [], []
@@ -120,16 +151,24 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
         if caches is not None:
             cache_l = {k: (v if k == "pos" and not slots else v[i])
                        for k, v in caches.items()}
-        x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx, positions,
-                                     cache_l, seq_mask)
+        if ssm:
+            x, st, nc = apply_mamba_layer(p_l, x, cfg, acfg, ctx, cache_l,
+                                          seq_mask)
+            if nc is not None:
+                for name in ("conv", "ssm"):
+                    caches[name][i].copy_(nc[name])
+        else:
+            x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx, positions,
+                                         cache_l, seq_mask)
+            if slots:
+                new_pos.append(nc["pos"])
         stats.append(st)
-        if slots:
-            new_pos.append(nc["pos"])
     new_caches = None
     if caches is not None:
         new_caches = dict(caches)
-        new_caches["pos"] = (torch.stack(new_pos) if slots
-                             else caches["pos"] + x.shape[1])
+        if not ssm:
+            new_caches["pos"] = (torch.stack(new_pos) if slots
+                                 else caches["pos"] + x.shape[1])
     return x, tree_stack(stats), new_caches
 
 
@@ -139,7 +178,7 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
 
 def init_model(gen: torch.Generator, cfg, dtype=torch.float32, device=None):
     """Returns ``(params, labels)`` with random weights from ``gen``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     emb_scale = cfg.d_model ** -0.5
     params: dict[str, Any] = {}
     emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
@@ -168,7 +207,7 @@ def model_labels(params: dict, cfg) -> dict:
 
 def embed_inputs(params: dict, cfg, inputs: dict):
     """→ (x [B, S, d], positions [B, S]) for token inputs."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = inputs["tokens"]
     x = params["embed"]["tokens"][tokens]
     bsz, s = tokens.shape
@@ -226,12 +265,20 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
     ``{"k", "v": [L, B, T, KV, hd], "pos": 0}`` by default, the per-slot
     or paged layout of the continuous engine with ``per_slot`` /
     ``paged`` (every layer shares one logical→physical block mapping, so
-    one host-side allocation covers the stack)."""
-    _require_dense(cfg)
-    one = L.init_cache(cfg, batch, max_len, dtype, device="meta",
-                       per_slot=per_slot, paged=paged,
-                       kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-                       kv_bits=kv_bits)
+    one host-side allocation covers the stack).
+
+    The ssm family keeps a state per row instead of a KV cache:
+    ``{"conv": [L, B, W-1, C] at dtype, "ssm": [L, B, H, N, P] fp32}``, the
+    same whatever the layout (``max_len`` and the paging options do not
+    apply)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        one = M.init_mamba_cache(cfg, batch, dtype, device="meta")
+    else:
+        one = L.init_cache(cfg, batch, max_len, dtype, device="meta",
+                           per_slot=per_slot, paged=paged,
+                           kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+                           kv_bits=kv_bits)
     out = {}
     for name, leaf in one.items():
         if isinstance(leaf, int):
@@ -252,9 +299,13 @@ def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
     (zeroed at admission), ``"table"`` / ``"wtable"`` (the slot's read /
     write block-table rows) or ``"pool"`` (shared physical storage,
     untouched at admission). The engine gathers and scatters one slot's
-    rows with these, without knowing the layout.
+    rows with these, without knowing the layout. The ssm family's leaves
+    (``conv``, ``ssm``) are per-slot state whatever ``paged`` says: an
+    attention-free stack has no KV to page.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"conv": 1, "ssm": 1}, {"conv": "state", "ssm": "state"}
     if paged:
         axes = {"kp": -1, "vp": -1, "tbl": 1, "wtbl": 1, "pos": 1,
                 "start": 1}

@@ -27,6 +27,11 @@ mixed-length traffic instead:
   ``paged_flash_prefill``, both scoring the pool in place and reading only
   each row's live blocks. ``AnalogConfig.kv_bits = 8`` stores the pool as
   int8 with per token/head scales.
+* **ssm stacks** (mamba2-130m) keep a per-slot recurrent state (``conv``
+  tail, ``ssm`` state) instead of a KV cache: every chunk forward runs the
+  hand-written ``ssd_scan`` kernel from the slot's state, every decode
+  step the one-token recurrence. ``paged=True`` allocates no pool there
+  and records why in ``gating_reasons``, as the reference does.
 * **Per-request sampling and stop conditions** — temperature, top-k,
   top-p and ``greedy_first`` ride along as per-row tensors
   (``sampling.sample_logits_batched``). Randomness is counter-based: the
@@ -159,19 +164,25 @@ class SchedulerConfig:
     tp: int = 1
 
 
-_SERVING = "ROADMAP section 1, item 5 (serving features)"
+_SERVING = "ROADMAP section 1, item 9 (serving features)"
 #: SchedulerConfig fields of features not ported: (off value, where queued)
 _NOT_PORTED = {
     "prefix_cache": (False, _SERVING + ": prefix caching"),
     "speculative": (False, _SERVING + ": speculative decoding"),
-    "drift_dt": (0.0, "ROADMAP section 1, item 4 (devices): drift"),
-    "recalibrate": (False, "ROADMAP section 1, item 4 (devices): "
+    "drift_dt": (0.0, "ROADMAP section 1, item 8 (devices): drift"),
+    "recalibrate": (False, "ROADMAP section 1, item 8 (devices): "
                            "recalibration"),
     "max_queue": (0, _SERVING + ": request lifecycle (shedding)"),
     "fault_tolerant": (False, _SERVING + ": request lifecycle (chaos "
                                          "recovery)"),
-    "tp": (1, "ROADMAP section 1, item 6 (tensor parallelism)"),
+    "tp": (1, "ROADMAP section 1, item 10 (tensor parallelism)"),
 }
+
+
+#: why ``SchedulerConfig.paged`` is inert on an ssm stack (the reference's
+#: reason; its prefix cache over state snapshots is not ported yet)
+_SSM_NOT_PAGED = ("attention-free ssm stacks have no KV to page (per-slot "
+                  "state is O(1))")
 
 
 class _Slot:
@@ -208,8 +219,10 @@ class ServeEngine:
 
     ``submit`` / ``step`` expose the loop (e.g. to admit requests
     mid-decode). The engine runs where ``params`` live: on the card the
-    paged layout runs the paged-attention kernels, on the CPU their plain
-    versions. Not ported (see the module docstring): prefix caching,
+    paged layout runs the paged-attention kernels and an ssm stack the
+    ``ssd_scan`` kernel, on the CPU their plain versions. A requested
+    option that cannot run on the model's family is recorded in
+    ``gating_reasons`` (the reference's field). Not ported (see the module docstring): prefix caching,
     speculative decoding, drift and recalibration, deadlines, shedding,
     chaos recovery and tensor parallelism.
     """
@@ -233,18 +246,25 @@ class ServeEngine:
         self.cfg, self.acfg, self.scfg = cfg, acfg, scfg
         self.device = params["embed"]["tokens"].device
         b = scfg.num_slots
+        # a requested feature that cannot run on this family is recorded
+        # with its reason (the launcher prints these), never dropped quietly
+        self.gating_reasons: dict[str, str] = {}
+        # attention-free ssm stacks have no KV to page: no pool, and the
+        # per-slot state layout either way
+        paged = scfg.paged and cfg.family != "ssm"
+        if scfg.paged and not paged:
+            self.gating_reasons["paged"] = _SSM_NOT_PAGED
         self.pool: Optional[KVPool] = None
-        kv_bits = acfg.kv_bits if scfg.paged else 0
-        if scfg.paged:
+        kv_bits = acfg.kv_bits if paged else 0
+        if paged:
             n_pool = scfg.kv_blocks or b * self.caches_tbl_width
             self.pool = KVPool(n_pool, scfg.kv_block_size)
         self.caches = T.init_caches(cfg, b, scfg.max_len, scfg.cache_dtype,
-                                    self.device, per_slot=True,
-                                    paged=scfg.paged,
+                                    self.device, per_slot=True, paged=paged,
                                     kv_block_size=scfg.kv_block_size,
                                     kv_blocks=scfg.kv_blocks or None,
                                     kv_bits=kv_bits)
-        self._axes, self._kinds = T.cache_slot_spec(cfg, paged=scfg.paged,
+        self._axes, self._kinds = T.cache_slot_spec(cfg, paged=paged,
                                                     kv_bits=kv_bits)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Optional[_Slot]] = [None] * b

@@ -24,6 +24,7 @@ from repro_torch.kernels import int4_matmul as k_int4
 from repro_torch.kernels import paged_attention as k_decode
 from repro_torch.kernels import paged_prefill as k_prefill
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as k_ssd
 from repro_torch.launch import serve
 from repro_torch.models import build
 from repro_torch.models import model as model_mod
@@ -63,7 +64,8 @@ def test_port_files_exist():
                 "kernels/_paged.py", "kernels/csrc/paged_attention.cu",
                 "kernels/csrc/paged_prefill.cu",
                 "kernels/csrc/paged_common.cuh", "serve/kv_pool.py",
-                "serve/scheduler.py"):
+                "serve/scheduler.py", "kernels/ssd_scan.py",
+                "kernels/csrc/ssd_scan.cu", "models/mamba2.py"):
         assert (port / rel).is_file(), rel
 
 
@@ -119,6 +121,23 @@ def test_cpu_tensors_run_the_plain_versions():
     assert (k_decode.launches, k_prefill.launches) == (0, 0)
 
 
+def test_cpu_tensors_run_the_plain_ssd_scan():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 9, 4, 16, generator=g)
+    dt = torch.rand(2, 9, 4, generator=g) * 0.1
+    a = -torch.rand(4, generator=g)
+    b = torch.randn(2, 9, 2, 16, generator=g)
+    c = torch.randn(2, 9, 2, 16, generator=g)
+    h0 = torch.randn(8, 16, 16, generator=g)
+    for state in (None, h0):
+        y, h = k_ssd.ssd_scan(x, dt, a, b, c, state)
+        want = ref.ssd_scan_ref(x, dt, a, b, c, state)
+        torch.testing.assert_close(y, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(h, want[1], rtol=0, atol=0)
+        dispatch.ssd(x, dt, a, b, c, state)
+    assert k_ssd.launches == 0
+
+
 def test_other_devices_are_refused_not_served():
     x = torch.empty(2, 8, device="meta")
     w = torch.empty(8, 4, device="meta")
@@ -138,6 +157,11 @@ def test_other_devices_are_refused_not_served():
     with pytest.raises(ValueError):
         k_prefill.paged_flash_prefill(torch.empty(2, 3, 4, 8, device="meta"),
                                       pool, pool, tbl, cur, cur, scale=1.0)
+    gates = torch.empty(2, 3, 1, 16, device="meta")
+    with pytest.raises(ValueError):
+        k_ssd.ssd_scan(torch.empty(2, 3, 4, 16, device="meta"),
+                       torch.empty(2, 3, 4, device="meta"),
+                       torch.empty(4, device="meta"), gates, gates)
 
 
 def _pool_args(**over):
@@ -225,12 +249,40 @@ def test_cuda_launch_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
-    for mod in (k_decode, k_prefill):
+    for mod in (k_decode, k_prefill, k_ssd):
         mod._lib.cache_clear()
         with pytest.raises(RuntimeError, match="nvcc not found"):
             mod._lib()
         mod._lib.cache_clear()
     assert not build_dir.exists()
+
+
+def test_ssd_scan_on_a_cuda_tensor_without_a_card_raises(monkeypatch,
+                                                         tmp_path):
+    """``ssd_scan``'s launch path (its plan and its entry point) raises
+    without nvcc instead of running the plain version, and builds nothing;
+    the wrapper takes the launch path for any CUDA tensor."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernel would launch")
+    from repro_torch.kernels import _launch
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    _launch.ssd_plan.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _launch.ssd_plan(1, 32, 24, 64, 128, 1)
+    k_ssd._lib.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        k_ssd._lib()
+    k_ssd._lib.cache_clear()
+    _launch.ssd_plan.cache_clear()
+    assert not build_dir.exists()
+    assert k_ssd.launches == 0
 
 
 def test_fused_dispatch_rules():
@@ -262,6 +314,7 @@ def test_kernel_build_setup():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert len(_build.SOURCES) == 5 and "ssd_scan" in _build.SOURCES
     for name in _build.SOURCES:
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
@@ -319,6 +372,15 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
              "bound_ms": 0.5, "bound_by": "bytes" if m == cs.M_DECODE
              else "operations", "max_abs_err": 0.0}
             for site, _, _, _ in cs.SITES for m in (cs.M_DECODE, cs.M_PREFILL)]
+        # mamba2-130m's shapes are timed in the same phase but belong to
+        # another run: they must not enter llama's sums
+        rows[name] += [
+            {"arch": cs.MAMBA, "site": site, "M": m, "col_off": False,
+             "ms": 100.0, "wall_ms": 100.0, "plain_ms": 100.0,
+             "matmul_ms": 100.0, "bound_ms": 100.0,
+             "bound_by": "operations", "max_abs_err": 0.0}
+            for site, _, _, _ in cs.MAMBA_SITES
+            for m in (cs.M_DECODE, cs.MAMBA_M_PREFILL)]
     paged = {}
     for name, kind in (("paged_flash_decode", "decode"),
                        ("paged_flash_prefill", "prefill")):
@@ -329,15 +391,19 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
              "bound_by": "bytes", "max_abs_err": 1e-7 * c}
             for c in cs.PAGED_CONTEXTS for d in cs.POOL_DTYPES
             for s in (cs.DECODE_SPLITS if kind == "decode" else (1,))]
+    ssd = [{"case": name, "rows": b, "tokens": t, "h0": h0,
+            "ms": 0.5 * t, "wall_ms": 0.6 * t, "plain_ms": 2.0 * t,
+            "bound_ms": 0.01 * t, "bound_by": "operations",
+            "max_abs_err": 1e-6 * t} for name, b, t, h0 in cs.SSD_CASES]
     line = cs.kernels_line(rows, {"analog_matmul": 7, "int4_matmul": 9},
                            paged, {"paged_flash_decode": 32,
-                                   "paged_flash_prefill": 16})
+                                   "paged_flash_prefill": 16}, ssd, 24 * 83)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     launches_per_run = cs.LAUNCHES_PER_FORWARD * cs.FORWARDS   # 65 x 17
     assert [k["name"] for k in line["kernels"]] == [
         "analog_matmul", "int4_matmul", "paged_flash_decode",
-        "paged_flash_prefill"]
+        "paged_flash_prefill", "ssd_scan"]
     for k in line["kernels"]:
         assert keys <= set(k)
         assert k["route"] == "cuda" and (ROOT / k["source"]).is_file()
@@ -348,12 +414,21 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
         assert k["ms"] == pytest.approx(launches_per_run)
         assert k["bound_ms"] == pytest.approx(0.5 * launches_per_run)
         assert k["bound_by"] == "bytes"          # 16 decode forwards
-    for k in line["kernels"][2:]:                # the named case
+    for k in line["kernels"][2:4]:               # the named case
         assert k["case"]["context"] == 512 and k["case"]["dtype"] == "bf16"
         assert k["ms"] == pytest.approx(51.2)
         assert k["library_ms"] == 2.0
         assert k["max_abs_err"] == pytest.approx(2048e-7)
-    assert [k["launches"] for k in line["kernels"]] == [7, 9, 32, 16]
+    scan = line["kernels"][4]                    # the engine's chunk
+    assert scan["case"] == {"case": "chunk", "rows": cs.PREFILL_ROWS,
+                            "tokens": cs.ENGINE_CHUNK, "h0": True}
+    assert scan["ms"] == pytest.approx(16.0)
+    assert scan["plain_ms"] == pytest.approx(64.0)
+    assert scan["bound_by"] == "operations" and scan["library_ms"] is None
+    assert scan["max_abs_err"] == pytest.approx(8192e-6)
+    assert [k["launches"] for k in line["kernels"]] == [7, 9, 32, 16,
+                                                        24 * 83]
     assert [k["path"] for k in line["kernels"]] == [
         "static/analog_hw", "static/digital_int4",
-        "continuous/analog_hw/kv16", "continuous/analog_hw/kv16"]
+        "continuous/analog_hw/kv16", "continuous/analog_hw/kv16",
+        "continuous/mamba2-130m/analog_hw"]

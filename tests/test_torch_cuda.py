@@ -9,7 +9,9 @@ It holds the libraries' launch plans (mapping switch, split-K) and the
 MVM kernels against their plain versions at small ragged shapes, where the
 edges of M, N and K are masked, and both paged-attention kernels against
 theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
-1 to 8 decode splits. ``chip_smoke.py`` does the same at the main path's
+1 to 8 decode splits, and ``ssd_scan`` against its plain version at ragged
+sequence lengths, with groups shared by several heads, strided inputs and
+an incoming state. ``chip_smoke.py`` does the same at the main path's
 full-width shapes.
 
 Tolerance: ``analog_matmul`` may differ from its plain version only by one
@@ -18,7 +20,10 @@ error bound ``K * 2^-24 * (|x_q| . |w|) * inv`` of a rounding tie;
 ``int4_matmul`` stays within ``K * 2^-24 * (|x| . |w_deq|)`` per element;
 the paged kernels stay within ``1e-5 + 1e-5 * |plain|`` of their plain
 versions (both run the same fp32 online softmax over the same blocks; only
-the order of the sums inside a block differs).
+the order of the sums inside a block differs); ``ssd_scan``'s y and final
+state stay within ``2e-4 * (1 + |plain|)`` (the kernel and the plain version
+differ only in the order of their sums and in their chunking; the JAX
+package holds its own kernel to its jnp path at 2e-4).
 """
 
 import pytest
@@ -29,6 +34,7 @@ from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import int4_matmul as k_int4
 from repro_torch.kernels import paged_attention as k_decode
 from repro_torch.kernels import paged_prefill as k_prefill
+from repro_torch.kernels import ssd_scan as k_ssd
 
 U32 = 2.0 ** -24
 RAGGED = [(1, 64, 96), (4, 128, 130), (8, 96, 64), (5, 4100, 258),
@@ -248,3 +254,98 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(card):
         k_decode.paged_flash_decode(q[:, :3].contiguous(), kp, vp, tbl, pos,
                                     start, scale=1.0, k_scale=ks,
                                     v_scale=vs)
+
+
+# (B, S, H, P, G, N): ragged S around the kernel's 32-token chunk, groups
+# shared by 1 to 24 heads, and mamba2-130m's head shape (P 64, N 128)
+SSD = [(1, 1, 2, 16, 1, 16), (2, 33, 4, 32, 2, 16), (3, 70, 4, 64, 1, 128),
+       (2, 100, 6, 48, 3, 64), (1, 257, 24, 64, 1, 128),
+       (4, 32, 24, 64, 1, 128)]
+
+
+def _ssd_inputs(dev, b, s, h, p, g, n, seed, wide=False):
+    """x, dt, a, b, c, h0 on the card; with ``wide`` x, b and c are strided
+    views of one [B, S, H*P + 2*G*N + 3] tensor, as the mixer hands them
+    over."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = h * p + 2 * g * n
+    if wide:
+        xbc = torch.randn((b, s, d + 3), generator=gen, device=dev)
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        bg = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        cg = xbc[..., h * p + g * n:d].reshape(b, s, g, n)
+    else:
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        bg = torch.randn((b, s, g, n), generator=gen, device=dev) * 0.3
+        cg = torch.randn((b, s, g, n), generator=gen, device=dev) * 0.3
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev) * 0.5) * 0.5
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+    h0 = torch.randn((b * h, n, p), generator=gen, device=dev)
+    return x, dt, a, bg, cg, h0
+
+
+def _ssd_close(got, want):
+    for out, plain in zip(got, want):
+        assert out.shape == plain.shape and out.dtype == torch.float32
+        assert torch.isfinite(out).all()
+        err = (out - plain).abs()
+        assert (err <= 2e-4 * (1 + plain.abs())).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("shape", SSD, ids=str)
+def test_ssd_scan_matches_plain_version(card, shape, with_h0):
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, *shape, seed=sum(shape))
+    h0 = h0 if with_h0 else None
+    before = k_ssd.launches
+    got = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    assert k_ssd.launches == before + 1
+    _ssd_close(got, ref.ssd_scan_ref(x, dt, a, bg, cg, h0))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_strided_inputs_and_masked_positions(card):
+    """The mixer's strided views give the contiguous inputs' result; a
+    fully masked sequence (dt = 0, x = 0) returns h0 bit for bit; left pads
+    give the unpadded run's state; two runs are equal."""
+    shape = (2, 45, 4, 32, 2, 16)
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, *shape, seed=7, wide=True)
+    assert not x.is_contiguous() and not bg.is_contiguous()
+    got = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    want = k_ssd.ssd_scan(x.contiguous(), dt, a, bg.contiguous(),
+                          cg.contiguous(), h0)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    _ssd_close(got, ref.ssd_scan_ref(x, dt, a, bg, cg, h0))
+    again = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _, h_masked = k_ssd.ssd_scan(torch.zeros_like(x), torch.zeros_like(dt),
+                                 a, bg, cg, h0)
+    assert torch.equal(h_masked, h0)
+    pad = 7
+    pads = lambda t: torch.cat([torch.zeros_like(t[:, :pad]), t], dim=1)
+    _, h_pad = k_ssd.ssd_scan(pads(x), pads(dt), a, pads(bg), pads(cg), h0)
+    err = (h_pad - got[1]).abs()
+    assert (err <= 2e-4 * (1 + got[1].abs())).all(), float(err.max())
+
+
+@pytest.mark.cuda
+def test_ssd_scan_plan_and_refusals(card):
+    from repro_torch.kernels import _launch
+    plan = _launch.ssd_plan(1, 8192, 24, 64, 128, 1)
+    assert plan.chunk == 32 and plan.threads == 256
+    assert 48 * 1024 < plan.smem <= 227 * 1024
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, 1, 9, 4, 16, 2, 16, seed=1)
+    with pytest.raises(ValueError):            # P not a multiple of 16
+        k_ssd.ssd_scan(x[..., :8], dt, a, bg, cg)
+    with pytest.raises(ValueError):            # N above 128
+        big = torch.zeros((1, 9, 2, 144), device=card)
+        k_ssd.ssd_scan(x, dt, a, big, big)
+    with pytest.raises(TypeError):             # fp64
+        k_ssd.ssd_scan(x.double(), dt, a, bg, cg)
+    with pytest.raises(ValueError):            # h0 of the wrong shape
+        k_ssd.ssd_scan(x, dt, a, bg, cg, h0[:2])
+    with pytest.raises(ValueError):            # x not contiguous in P
+        k_ssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                       a, bg, cg)
