@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero:
                pools. Each is held against its plain version and timed
                beside it, beside gather ``kp[tbl]`` + PyTorch's
                ``scaled_dot_product_attention`` (yardstick only) and the
-               card's bound.
+               card's bound, with the kernel's plan (warps of a thread
+               block, query tile, lanes of a warp, keys per warp iteration
+               and per lane, pool blocks in flight).
 6. ssd      -- ``ssd_scan`` at mamba2-130m's shapes (H 24, P 64, N 128,
                G 1; strided views of one projection, as the mixer hands them
                over): the engine's chunk (2 rows x 32 tokens from a nonzero
@@ -53,7 +55,10 @@ Phases, in order; any failure exits non-zero:
                ``analog_hw`` and ``digital_int4`` (``paged=True``, inert for
                an ssm stack, which the engine records). Every request must
                finish, every block come back, and every projection,
-               attention and SSD call run on its kernel.
+               attention and SSD call run on its kernel. Then one decode
+               forward and one chunk forward (2 rows x 32 columns) of the
+               engine at its slots' live context, on the host clock and
+               on the device (CUDA graphs).
 9. reduced  -- reduced llama-3.2-1b and mamba2-130m through the engine on the
                card and on the CPU (plain versions): equal greedy tokens for
                ``fp`` and ``analog_hw`` (llama: paged and per-slot
@@ -602,12 +607,28 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
     cols = torch.arange(chunk, dtype=torch.float64)
     attended = float((context - chunk + 1 + cols).sum()) * rows
     bnd, by = bound_ms(nbytes, 4.0 * PAGED_HD * PAGED_H * attended)
+    pool_dtype = pools[0][0].dtype
+    plan = (kd.decode_plan(PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS, pool_dtype)
+            if decode else kp_.prefill_plan(PAGED_HD, PAGED_BS, pool_dtype))
     del pools
     return {"kind": kind, "context": context, "dtype": dtype,
             "splits": splits, "rows": rows, "chunk": chunk, "ms": ms,
             "wall_ms": wall, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bnd, "bound_by": by, "copies": n,
-            "max_abs_err": float(err.max()), "library_abs_err": lib_err}
+            "max_abs_err": float(err.max()), "library_abs_err": lib_err,
+            "plan": plan_dict(plan)}
+
+
+def plan_dict(plan) -> dict:
+    """A paged kernel's plan as its design parameters: warps of a thread
+    block, query vectors of its tile, the lanes of a warp (tile x key
+    lanes x chunk lanes), the keys a warp takes per iteration (one pool
+    block) and per lane, and the pool blocks in flight per warp."""
+    return {"warps": plan.warps, "tile": plan.tile,
+            "lanes": [plan.tile, plan.key_lanes, plan.chunk_lanes],
+            "keys_per_warp_iteration": PAGED_BS,
+            "keys_per_lane": -(-PAGED_BS // plan.key_lanes),
+            "stages": plan.stages}
 
 
 def phase_paged(torch) -> dict:
@@ -620,12 +641,17 @@ def phase_paged(torch) -> dict:
             for kind, splits in cases:
                 r = paged_case(torch, gen, kind, context, dtype, splits)
                 rows[f"paged_flash_{kind}"].append(r)
+                pl = r["plan"]
                 print(f"  {kind:7s} ctx={context:4d} {dtype:4s} "
                       f"splits={splits}: {r['ms']:.4f} ms (wall "
                       f"{r['wall_ms']:.4f}, plain {r['plain_ms']:.4f}, "
                       f"gather+sdpa {r['library_ms']:.4f}, bound "
                       f"{r['bound_ms']:.4f} by {r['bound_by']}), max err "
-                      f"{r['max_abs_err']:.2e}")
+                      f"{r['max_abs_err']:.2e}; {pl['warps']} warps, tile "
+                      f"{pl['tile']}, lanes {'x'.join(map(str, pl['lanes']))}"
+                      f", {pl['keys_per_warp_iteration']} keys per warp "
+                      f"iteration ({pl['keys_per_lane']} a lane), "
+                      f"{pl['stages']} stages")
                 torch.cuda.empty_cache()
     return rows
 
@@ -988,7 +1014,11 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
           f"({eng.mixed_steps} fused with decode), launches {launches}; "
           f"decode step {res['decode_step_ms']:.2f} ms host, "
           f"{res['decode_device_ms']:.2f} ms device (busy "
-          f"{res['device_busy']:.3f})")
+          f"{res['device_busy']:.3f}); chunk forward "
+          f"{res['chunk_forward_ms']:.2f} ms host, "
+          f"{res['chunk_device_ms']:.2f} ms device by "
+          f"{res['chunk_timing']} (busy {res['chunk_busy']:.3f}, context "
+          f"{res['chunk_context']:.0f})")
     del eng, p
     torch.cuda.empty_cache()
     return res
@@ -1030,9 +1060,67 @@ def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
         return torch.argmax(logits, dim=-1)
 
     dev_ms = graph_ms(torch, step, reps=10)
+    res = {"decode_step_ms": host_ms, "decode_device_ms": dev_ms,
+           "device_busy": dev_ms / host_ms}
+    res.update(chunk_busy(torch, eng, cfg, params, acfg))
     del eng
-    return {"decode_step_ms": host_ms, "decode_device_ms": dev_ms,
-            "device_busy": dev_ms / host_ms}
+    return res
+
+
+def chunk_busy(torch, eng, cfg, params, acfg) -> dict:
+    """Host and device time of one chunk forward of the engine (the
+    forward of its mixed steps): slots 0 and 1 as the 2 compact rows of
+    ``ENGINE_CHUNK`` columns at their live context, as ``_mixed_dispatch``
+    runs it (the chunk's K/V land in the slots' own blocks; the cursors
+    are not advanced). Host clock per synchronized call; the device time
+    by a CUDA graph as for the decode step if one call makes the host
+    wait nowhere (checked with the sync debug mode), else by CUDA events
+    around back-to-back calls, and ``chunk_timing`` says where it
+    waited."""
+    from repro_torch.core.analog import AnalogCtx
+    from repro_torch.models.model import apply as model_apply
+
+    dev = eng.device
+    idx = torch.arange(PREFILL_ROWS, device=dev)
+    sub = eng._gather_rows(idx)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_ROWS, ENGINE_CHUNK),
+                         generator=gen, device=dev)
+    off = eng._dev["off"][:PREFILL_ROWS, None]
+    mask = torch.ones((PREFILL_ROWS, ENGINE_CHUNK), device=dev)
+
+    def chunk():
+        logits, _, _ = model_apply(params, cfg, acfg, AnalogCtx(),
+                                   {"tokens": toks}, caches=sub,
+                                   pos_offset=off, seq_mask=mask,
+                                   last_only=True)
+        return logits
+
+    chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        chunk()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk()
+        timing = "graph"
+    except RuntimeError as e:
+        timing = f"events (the host waits: {str(e).splitlines()[0]})"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if timing == "graph":
+        dev_ms = graph_ms(torch, chunk, reps=5)
+    else:
+        dev_ms = cuda_time_ms(torch, lambda i: chunk(), 1, reps=5, rounds=3)
+    context = float((eng._dev["off"][:PREFILL_ROWS].float()
+                     + ENGINE_CHUNK).mean())
+    return {"chunk_forward_ms": host_ms, "chunk_device_ms": dev_ms,
+            "chunk_busy": dev_ms / host_ms, "chunk_timing": timing,
+            "chunk_context": context}
 
 
 def phase_engine(torch, arch: str = ARCH) -> dict:
@@ -1592,7 +1680,7 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
             "case": {k: r[k] for k in ("rows", "chunk", "context", "dtype",
                                        "splits")},
-            "parity": "ok"})
+            "plan": r.get("plan"), "parity": "ok"})
     r = next(c for c in ssd_rows if c["case"] == SSD_LINE_CASE)
     out.append({
         "name": "ssd_scan", "route": "cuda",

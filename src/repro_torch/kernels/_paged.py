@@ -1,7 +1,11 @@
 """What the two paged-attention wrappers share: the pool's element type
-codes and the checks of the pool, the tables and the cursors."""
+codes, the checks of the pool, the tables and the cursors, and the launch
+plan each library reports for a shape."""
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,3 +51,28 @@ def check_pool(kp, vp, k_scale, v_scale, tbl, pos, start, bsz: int,
 def ptr(t: torch.Tensor | None):
     """A tensor's device pointer, or None."""
     return None if t is None else t.data_ptr()
+
+
+class Plan(NamedTuple):
+    """How a paged kernel runs a shape on the card: each warp of a thread
+    block walks its share of the live pool blocks, one block of ``bs``
+    keys per iteration, split over its lanes."""
+
+    warps: int         # warps of a thread block
+    tile: int          # query vectors of a thread block
+    key_lanes: int     # lanes of a warp splitting a pool block's keys
+    chunk_lanes: int   # lanes of a warp splitting a row, 8 elements each
+    stages: int        # pool blocks in flight per warp (cp.async ring)
+
+
+def plan(fn, *shape: int) -> Plan:
+    """The plan that the library function ``fn`` (``paged_decode_plan`` or
+    ``paged_prefill_plan``) gives for ``shape``; raises ``ValueError`` for
+    a shape its kernel does not take."""
+    out = [ctypes.c_int() for _ in range(5)]
+    err = fn(*(ctypes.c_int(v) for v in shape),
+             *(ctypes.byref(o) for o in out))
+    if err:
+        raise ValueError(f"the paged kernel cannot take {shape} (CUDA error "
+                         f"{err})")
+    return Plan(*(o.value for o in out))

@@ -9,35 +9,41 @@
 // with fp32 scales [P, bs, KV]); tbl [B, NB] and pos / start [B] int32.
 // Row b attends logical positions start[b] <= j <= pos[b].
 //
-// Design (a simple kernel first; speed is later work):
-// * One thread block per (row, kv head, split). The TPU's sequential grid
-//   axis over blocks becomes a loop inside the block over the split's live
-//   logical blocks, in order. Each block reads tbl, pos and start from
-//   device memory and computes its live range itself, max(start / bs,
-//   split start) .. min(pos / bs, split end), so dead blocks are never
-//   read and no host sync is needed per layer. Physical indices are
-//   clamped into the pool, as the TPU's index map clamps them.
-// * A block stages K and V of its kv head (bs x hd) into shared memory as
-//   fp32, dequantizing int8 right after the load, scores the G = H / KV
-//   query heads of the group against them and runs the online softmax in
-//   fp32 with the reference's op order: the -1e30 mask, m = -inf at start,
-//   expf (no fast math), acc / max(l, 1e-30).
-// * With num_splits > 1 each split writes its partial (acc, m, l); a dead
-//   split writes m = -inf, l = 0, acc = 0. paged_merge_kernel combines the
-//   splits of every output element in split order, so results are the
-//   same run to run.
+// What bounds it on this card: the live K/V bytes (8 rows x 512 tokens of
+// llama-3.2-1b's bf16 pool are 8.4 MB, 2.5 us at 3.35 TB/s) cost less
+// than a launch; what set the first design's time was latency: one
+// thread block of 4 warps per (row, kv head) staged each 16-token block
+// behind barriers and ran the softmax with one thread per query head,
+// about 6.8 us per block on an H100. This design is bound by instruction
+// issue on the 64 of 132 SMs that 8 rows x 8 kv heads fill: about 4x the
+// byte bound at 8 x 2048 tokens of the bf16 pool.
 //
-// What bounds it on this card: the bytes of the live K/V (and scales) it
-// reads, once per row and kv head, over HBM bandwidth; the flops (4 * G *
-// hd per key) are far below the fp32 rate. At B = 8 and one split the grid
-// is only B * KV blocks, which is why split-K exists.
+// Design (paged_common.cuh has the shared warp loop and merge):
+// * One thread block per (row, kv head, split, tile of query heads); the
+//   tile holds the G = H / KV heads of the kv head when they fit the
+//   lanes (every model here: one tile). Each block reads tbl, pos and
+//   start from device memory and computes its live range itself,
+//   max(start / bs, split start) .. min(pos / bs, split end), so dead
+//   blocks are never read and no host sync is needed per layer. Physical
+//   indices are clamped into the pool, as the TPU's index map clamps them.
+// * Inside the block up to kDecodeWarps warps take strided shares of the
+//   live blocks, each with its own cp.async ring and online softmax; at
+//   G 4 and hd 64 a warp's lanes are 4 heads x 4 key lanes x 2 chunk
+//   lanes, 4 keys and 32 elements of a row per lane.
+// * With num_splits > 1 each split writes its warp-merged partial (acc, m,
+//   l); a dead split writes m = -inf, l = 0, acc = 0. paged_merge_kernel
+//   combines the splits of every output element in split order, so
+//   results are the same run to run.
 
 #include "paged_common.cuh"
 
+constexpr int kDecodeWarps = 8;
+static_assert(32 * kDecodeWarps <= kMaxThreads, "see __launch_bounds__");
+
 namespace {
 
-template <typename T, bool kQuant>
-__global__ void __launch_bounds__(kPagedThreads)
+template <typename T, bool kQuant, int kCpl, int kKeys>
+__global__ void __launch_bounds__(kMaxThreads)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const float* __restrict__ ksc,
                     const float* __restrict__ vsc,
@@ -45,71 +51,42 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const int* __restrict__ start, float* __restrict__ out,
                     float* __restrict__ o_part, float* __restrict__ m_part,
                     float* __restrict__ l_part, int H, int KV, int hd,
-                    int bs, int NB, int P, int nbs, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
-  const int nsp = gridDim.z;
-  const int G = H / KV, ld = hd + 1;
-  float* q_s = smem;                // [G][hd]
-  float* acc_s = q_s + G * hd;      // [G][hd]
-  float* k_s = acc_s + G * hd;      // [bs][ld]
-  float* v_s = k_s + bs * ld;       // [bs][ld]
-  float* p_s = v_s + bs * ld;       // [G][bs]
-  float* m_s = p_s + G * bs;        // [G]
-  float* l_s = m_s + G;             // [G]
-  float* c_s = l_s + G;             // [G]
+                    int bs, int NB, int P, int nbs, int qtiles, float scale,
+                    PagedPlan p) {
+  extern __shared__ __align__(16) char smem[];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int sp = blockIdx.z / qtiles, qt = blockIdx.z - sp * qtiles;
+  const int nsp = gridDim.z / qtiles;
+  const int G = H / KV;
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const LanePos lp = lane_pos(p, threadIdx.x & 31);
+  const int g0 = qt * p.lq, nr = min(p.lq, G - g0);
+  const bool active = lp.lq_ < nr;
 
   const int p_b = pos[b], s_b = start[b];
   const int first = max(s_b / bs, sp * nbs);
   const int last = min(min(p_b / bs, NB - 1), min((sp + 1) * nbs, NB) - 1);
-  const float* qb = q + ((size_t)b * H + (size_t)h * G) * hd;
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    q_s[e] = qb[e];
-    acc_s[e] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m_s[g] = neg_inf();
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int j = first; j <= last; ++j) {
-    const int phys = min(max(tbl[(size_t)b * NB + j], 0), P - 1);
-    stage_block<T, kQuant>(kp, vp, ksc, vsc, phys, h, KV, hd, bs, k_s, v_s,
-                           ld);
-    __syncthreads();
-    for (int e = threadIdx.x; e < G * bs; e += blockDim.x) {
-      const int g = e / bs, t = e - g * bs;
-      const float* qr = q_s + g * hd;
-      const float* kr = k_s + t * ld;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
-      const int jp = j * bs + t;
-      p_s[e] = (jp >= s_b && jp <= p_b) ? __fmul_rn(s, scale) : -1e30f;
-    }
-    __syncthreads();
-    flash_update(p_s, m_s, l_s, c_s, acc_s, v_s, G, bs, hd, ld,
-                 [&](int, int t) {
-                   const int jp = j * bs + t;
-                   return jp >= s_b && jp <= p_b;
-                 });
-  }
-
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    const int g = e / hd, d = e - g * hd;
-    const size_t hq = (size_t)h * G + g;
-    if (o_part == nullptr)
-      out[((size_t)b * H + hq) * hd + d] = acc_s[e] / fmaxf(l_s[g], 1e-30f);
-    else
-      o_part[(((size_t)b * nsp + sp) * H + hq) * hd + d] = acc_s[e];
-  }
-  if (o_part != nullptr) {
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-      const size_t i = ((size_t)b * nsp + sp) * H + (size_t)h * G + g;
-      m_part[i] = m_s[g];
-      l_part[i] = l_s[g];
-    }
-  }
+  const size_t hq0 = (size_t)h * G + g0;          // first query head
+  LaneState<kCpl> st;
+  init_lane(st, q + ((size_t)b * H + hq0 + lp.lq_) * hd, active, hd, p, lp);
+  attend_share<T, kQuant, kCpl, kKeys>(
+      smem + warp * kStages * p.stage, kp, vp, ksc, vsc,
+      tbl + (size_t)b * NB, h, KV, hd, bs, P, first, last, warp, warps, s_b,
+      p_b, active, scale, p, lp, st);
+  merge_block(smem, st, hd, nr, p, lp,
+              [&](int r, int d, float acc, float l, float m) {
+                const size_t hq = hq0 + r;
+                if (o_part == nullptr) {
+                  out[((size_t)b * H + hq) * hd + d] = acc / fmaxf(l, 1e-30f);
+                  return;
+                }
+                const size_t i = ((size_t)b * nsp + sp) * H + hq;
+                o_part[i * hd + d] = acc;
+                if (d == 0) {
+                  m_part[i] = m;
+                  l_part[i] = l;
+                }
+              });
 }
 
 // Combines the splits of every output element in split order:
@@ -136,29 +113,56 @@ __global__ void paged_merge_kernel(const float* __restrict__ o_part,
   out[i] = o / fmaxf(lt, 1e-30f);
 }
 
-int smem_bytes(int G, int hd, int bs) {
-  return 4 * (2 * G * hd + 2 * bs * (hd + 1) + G * bs + 3 * G);
+bool plan_for(int H, int KV, int hd, int bs, int kv_dtype, uintptr_t addr,
+              PagedPlan* p) {
+  const int elem = kv_dtype == kKvF32 ? 4 : kv_dtype == kKvBF16 ? 2 : 1;
+  return make_plan(H / KV, hd, bs, elem, kv_dtype == kKvI8, kDecodeWarps,
+                   addr, p);
 }
 
 template <typename T, bool kQuant>
-cudaError_t launch(dim3 grid, int smem, cudaStream_t s, const void* q,
-                   const void* kp, const void* vp, const void* ks,
-                   const void* vs, const void* tbl, const void* pos,
-                   const void* start, void* out, void* o_part, void* m_part,
-                   void* l_part, int H, int KV, int hd, int bs, int NB,
-                   int P, int nbs, float scale) {
-  auto kernel = paged_decode_kernel<T, kQuant>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kPagedThreads, smem, s>>>(
-      (const float*)q, (const T*)kp, (const T*)vp, (const float*)ks,
-      (const float*)vs, (const int*)tbl, (const int*)pos,
-      (const int*)start, (float*)out, (float*)o_part, (float*)m_part,
-      (float*)l_part, H, KV, hd, bs, NB, P, nbs, scale);
-  return cudaSuccess;
+cudaError_t launch(dim3 grid, const PagedPlan& p, cudaStream_t s,
+                   const void* q, const void* kp, const void* vp,
+                   const void* ks, const void* vs, const void* tbl,
+                   const void* pos, const void* start, void* out,
+                   void* o_part, void* m_part, void* l_part, int H, int KV,
+                   int hd, int bs, int NB, int P, int nbs, int qtiles,
+                   float scale) {
+  return with_shape(p, [&](auto cpl, auto keys) {
+    auto kernel = paged_decode_kernel<T, kQuant, decltype(cpl)::value,
+                                      decltype(keys)::value>;
+    cudaError_t err = allow_smem(kernel, p.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 32 * p.warps, p.smem, s>>>(
+        (const float*)q, (const T*)kp, (const T*)vp, (const float*)ks,
+        (const float*)vs, (const int*)tbl, (const int*)pos,
+        (const int*)start, (float*)out, (float*)o_part, (float*)m_part,
+        (float*)l_part, H, KV, hd, bs, NB, P, nbs, qtiles, scale, p);
+    return cudaSuccess;
+  });
 }
 
 }  // namespace
+
+// The plan of a decode launch for H query heads on KV kv heads of width hd,
+// pool blocks of bs tokens and pool type kv_dtype (16-byte aligned pool):
+// warps of a thread block, query heads of its tile, and the lanes of a warp
+// over heads, keys and row chunks. Returns 0, or cudaErrorInvalidValue for
+// a shape the kernel does not take.
+extern "C" int paged_decode_plan(int H, int KV, int hd, int bs, int kv_dtype,
+                                 int* warps, int* tile, int* lk, int* ld,
+                                 int* stages) {
+  PagedPlan p;
+  if (H <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bs <= 0 ||
+      kv_dtype < 0 || kv_dtype > 2 || !plan_for(H, KV, hd, bs, kv_dtype, 0, &p))
+    return (int)cudaErrorInvalidValue;
+  *warps = p.warps;
+  *tile = p.lq;
+  *lk = p.lk;
+  *ld = p.ld;
+  *stages = kStages;
+  return 0;
+}
 
 // One paged decode step (see the note at the top). kv_dtype: 0 fp32,
 // 1 bf16, 2 int8 (k_scale / v_scale then required, else ignored). With
@@ -175,31 +179,34 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             float scale, int kv_dtype, void* stream) {
   const bool split = num_splits > 1;
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bs <= 0 ||
-      NB <= 0 || P <= 0 || num_splits < 1 || num_splits > 65535 ||
-      KV > 65535 ||
+      NB <= 0 || P <= 0 || num_splits < 1 || KV > 65535 ||
       split != (o_part != nullptr) || split != (m_part != nullptr) ||
       split != (l_part != nullptr) || kv_dtype < 0 || kv_dtype > 2 ||
       (kv_dtype == kKvI8 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(H / KV, hd, bs);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  PagedPlan p;
+  if (!plan_for(H, KV, hd, bs, kv_dtype, (uintptr_t)kp | (uintptr_t)vp, &p))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV, qtiles = (G + p.lq - 1) / p.lq;
+  if ((long long)num_splits * qtiles > 65535)
+    return (int)cudaErrorInvalidValue;
   const int nbs = (NB + num_splits - 1) / num_splits;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(B, KV, num_splits);
+  dim3 grid(B, KV, num_splits * qtiles);
   cudaError_t err;
   if (kv_dtype == kKvF32)
-    err = launch<float, false>(grid, smem, s, q, kp, vp, k_scale, v_scale,
-                               tbl, pos, start, out, o_part, m_part, l_part,
-                               H, KV, hd, bs, NB, P, nbs, scale);
+    err = launch<float, false>(grid, p, s, q, kp, vp, k_scale, v_scale, tbl,
+                               pos, start, out, o_part, m_part, l_part, H,
+                               KV, hd, bs, NB, P, nbs, qtiles, scale);
   else if (kv_dtype == kKvBF16)
-    err = launch<__nv_bfloat16, false>(grid, smem, s, q, kp, vp, k_scale,
+    err = launch<__nv_bfloat16, false>(grid, p, s, q, kp, vp, k_scale,
                                        v_scale, tbl, pos, start, out, o_part,
                                        m_part, l_part, H, KV, hd, bs, NB, P,
-                                       nbs, scale);
+                                       nbs, qtiles, scale);
   else
-    err = launch<int8_t, true>(grid, smem, s, q, kp, vp, k_scale, v_scale,
-                               tbl, pos, start, out, o_part, m_part, l_part,
-                               H, KV, hd, bs, NB, P, nbs, scale);
+    err = launch<int8_t, true>(grid, p, s, q, kp, vp, k_scale, v_scale, tbl,
+                               pos, start, out, o_part, m_part, l_part, H,
+                               KV, hd, bs, NB, P, nbs, qtiles, scale);
   if (err != cudaSuccess) return (int)err;
   if (split) {
     const size_t total = (size_t)B * H * hd;

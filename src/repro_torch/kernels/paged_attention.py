@@ -6,7 +6,9 @@ Pallas TPU kernel of the JAX package
 (``kernels/paged_attention.py::paged_flash_decode``). Each row reads only
 its live blocks ``start // bs … pos // bs`` through the block table; with
 ``num_splits > 1`` the block loop is split over thread blocks and a second
-kernel of the same library merges the partials in split order.
+kernel of the same library merges the partials in split order. Inside a
+thread block the live blocks are split again over warps, which merge in
+warp order (:func:`decode_plan` reports the mapping).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.paged_decode_ref`) for a CPU tensor; there
@@ -38,6 +40,16 @@ def _lib():
     fn.argtypes = [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(nq: int, nkv: int, hd: int, bs: int,
+                dtype: torch.dtype) -> _paged.Plan:
+    """The library's plan for a decode step of ``nq`` query heads on
+    ``nkv`` kv heads of width ``hd`` over a pool of ``bs``-token blocks of
+    ``dtype`` (builds and loads the library at first use)."""
+    fn = _build.load("paged_attention").paged_decode_plan
+    return _paged.plan(fn, nq, nkv, hd, bs, _paged.KV_DTYPES[dtype])
 
 
 def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

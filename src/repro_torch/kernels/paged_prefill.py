@@ -7,7 +7,9 @@ TPU kernel of the JAX package
 ``b`` sits at logical position ``pos[b] + i`` and attends
 ``start[b] <= j <= pos[b] + i``; only the row's live blocks are read. The
 kernel reads the pool through the read table ``tbl`` and never writes it:
-the chunk's K/V were scattered by the caller, through the write table.
+the chunk's K/V were scattered by the caller, through the write table. A
+thread block holds a tile of query vectors and splits the row's live
+blocks over its warps (:func:`prefill_plan` reports the mapping).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.paged_prefill_ref`) for a CPU tensor;
@@ -39,6 +41,15 @@ def _lib():
     fn.argtypes = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(hd: int, bs: int, dtype: torch.dtype) -> _paged.Plan:
+    """The library's plan for a prefill chunk of rows of width ``hd`` over
+    a pool of ``bs``-token blocks of ``dtype`` (builds and loads the
+    library at first use)."""
+    fn = _build.load("paged_prefill").paged_prefill_plan
+    return _paged.plan(fn, hd, bs, _paged.KV_DTYPES[dtype])
 
 
 def paged_flash_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

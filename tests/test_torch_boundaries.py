@@ -233,6 +233,31 @@ def test_wrapper_argument_check_refuses(case):
         _paged.check_pool(**_pool_args(**bad[0]))
 
 
+@pytest.mark.parametrize("err", [0, 1], ids=["taken", "refused"])
+def test_paged_plan_reads_the_library_answer(err):
+    """``_paged.plan`` passes the shape as C ints and reads the five
+    output ints of ``paged_{decode,prefill}_plan`` into a ``Plan``; a
+    nonzero return (a shape the kernel does not take) raises. The C
+    function is stood in for by one that writes 1..5."""
+    import ctypes
+
+    from repro_torch.kernels import _paged
+    seen = []
+
+    def fn(*args):
+        seen.append([a.value for a in args[:-5]])
+        for i, ref in enumerate(args[-5:]):
+            ctypes.cast(ref, ctypes.POINTER(ctypes.c_int))[0] = i + 1
+        return err
+
+    if err:
+        with pytest.raises(ValueError, match="cannot take"):
+            _paged.plan(fn, 32, 8, 64, 16, 1)
+        return
+    assert _paged.plan(fn, 32, 8, 64, 16, 1) == _paged.Plan(1, 2, 3, 4, 5)
+    assert seen == [[32, 8, 64, 16, 1]]
+
+
 def test_cuda_launch_without_a_card_raises(monkeypatch, tmp_path):
     """A CUDA tensor never falls back to the plain version: without a card
     (and so without a built library) the launch path raises, and it does so

@@ -9,7 +9,9 @@ It holds the libraries' launch plans (mapping switch, split-K) and the
 MVM kernels against their plain versions at small ragged shapes, where the
 edges of M, N and K are masked, and both paged-attention kernels against
 theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
-1 to 8 decode splits, and ``ssd_scan`` against its plain version at ragged
+1 to 8 decode splits, at the edges of their split over warps (tables of
+1 to 40 blocks, more splits than blocks, chunks that are not a multiple
+of the query tile), and ``ssd_scan`` against its plain version at ragged
 sequence lengths, with groups shared by several heads, strided inputs and
 an incoming state. ``chip_smoke.py`` does the same at the main path's
 full-width shapes.
@@ -218,23 +220,90 @@ def test_paged_prefill_matches_plain_version(card, shape, pool, chunk):
                                       vs))
 
 
+# (B, H, KV, hd, bs, NB) at the edges of the kernels' warp split: tables
+# so short that most warps of a thread block take no pool block (NB 1 and
+# 3) or long enough that every warp takes several (NB 40), and hd 96 and
+# 128 under GQA
+WARP_EDGES = [(3, 32, 8, 64, 16, 1), (3, 32, 8, 64, 16, 3),
+              (3, 32, 8, 64, 16, 40), (2, 24, 8, 96, 16, 12),
+              (2, 32, 8, 128, 16, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", ["1", "4", "over"])
+@pytest.mark.parametrize("pool", ["bf16", "i8"])
+@pytest.mark.parametrize("shape", WARP_EDGES, ids=str)
+def test_paged_decode_at_the_warp_split_edges(card, shape, pool, splits):
+    """"over": more splits than the table has blocks, so that whole
+    thread blocks are dead and write m = -inf, l = 0 partials."""
+    b, h, kv, hd, bs, nb = shape
+    n = nb + 3 if splits == "over" else int(splits)
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, b, h, kv, hd, bs, nb, POOL_DTYPES[pool], seed=hd + 7 * nb)
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn((b, h, hd), generator=g, device=card)
+    out = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
+                                      k_scale=ks, v_scale=vs, num_splits=n)
+    _close(out, ref.paged_decode_ref(q, kp, vp, tbl, pos, start, 0.125, ks,
+                                     vs, num_splits=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "i8"])
+@pytest.mark.parametrize("shape,chunk", [
+    (s, c) for s in WARP_EDGES for c in (7, 33) if c <= s[4] * s[5]],
+    ids=str)
+def test_paged_prefill_at_the_warp_split_edges(card, shape, chunk, pool):
+    """Chunks that are not a multiple of the query tile (16 vectors at
+    hd 64, 8 at hd 96 and 128) and fit the table."""
+    b, h, kv, hd, bs, nb = shape
+    kp, vp, ks, vs, tbl, pos, start = _paged_case(
+        card, b, h, kv, hd, bs, nb, POOL_DTYPES[pool], seed=hd + 5 * nb,
+        chunk=chunk)
+    g = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn((b, chunk, h, hd), generator=g, device=card)
+    out = k_prefill.paged_flash_prefill(q, kp, vp, tbl, pos, start,
+                                        scale=0.125, k_scale=ks, v_scale=vs)
+    _close(out, ref.paged_prefill_ref(q, kp, vp, tbl, pos, start, 0.125, ks,
+                                      vs))
+
+
+@pytest.mark.cuda
+def test_paged_plans_fill_the_warps(card):
+    """The libraries' plans at llama-3.2-1b's attention shape: decode holds
+    the 4 heads of a kv head in one tile, prefill 16 query vectors; the
+    lanes of a warp multiply to 32."""
+    for dtype in POOL_DTYPES.values():
+        dec = k_decode.decode_plan(32, 8, 64, 16, dtype)
+        pre = k_prefill.prefill_plan(64, 16, dtype)
+        assert dec.tile == 4 and pre.tile == 16
+        for p in (dec, pre):
+            assert p.tile * p.key_lanes * p.chunk_lanes == 32
+            assert 1 <= p.warps <= 8 and p.stages >= 2
+    with pytest.raises(ValueError):
+        k_decode.decode_plan(3, 2, 64, 16, torch.float32)
+
+
 @pytest.mark.cuda
 def test_paged_kernels_are_deterministic_and_read_only(card):
-    kp, vp, ks, vs, tbl, pos, start = _paged_case(
-        card, 4, 32, 8, 64, 16, 33, torch.bfloat16, seed=3, chunk=32)
-    q = torch.randn((4, 32, 64), device=card)
-    qs = torch.randn((4, 32, 32, 64), device=card)
-    before = kp.clone(), vp.clone()
-    a = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
-                                    num_splits=4)
-    b = k_decode.paged_flash_decode(q, kp, vp, tbl, pos, start, scale=0.125,
-                                    num_splits=4)
-    c = k_prefill.paged_flash_prefill(qs, kp, vp, tbl, pos, start,
-                                      scale=0.125)
-    d = k_prefill.paged_flash_prefill(qs, kp, vp, tbl, pos, start,
-                                      scale=0.125)
-    assert torch.equal(a, b) and torch.equal(c, d)
-    assert torch.equal(kp, before[0]) and torch.equal(vp, before[1])
+    """Bitwise equal run to run (the warps and splits merge in a fixed
+    order), for one and four decode splits and the bf16 and int8 pools."""
+    for dtype in (torch.bfloat16, torch.int8):
+        kp, vp, ks, vs, tbl, pos, start = _paged_case(
+            card, 4, 32, 8, 64, 16, 33, dtype, seed=3, chunk=32)
+        q = torch.randn((4, 32, 64), device=card)
+        qs = torch.randn((4, 32, 32, 64), device=card)
+        before = kp.clone(), vp.clone()
+        for splits in (1, 4):
+            a, b = (k_decode.paged_flash_decode(
+                q, kp, vp, tbl, pos, start, scale=0.125, k_scale=ks,
+                v_scale=vs, num_splits=splits) for _ in range(2))
+            assert torch.equal(a, b)
+        c, d = (k_prefill.paged_flash_prefill(
+            qs, kp, vp, tbl, pos, start, scale=0.125, k_scale=ks, v_scale=vs)
+            for _ in range(2))
+        assert torch.equal(c, d)
+        assert torch.equal(kp, before[0]) and torch.equal(vp, before[1])
 
 
 @pytest.mark.cuda
