@@ -9,12 +9,20 @@ Phases, in order; any failure exits non-zero:
                built from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. kernels  -- each MVM kernel at llama-3.2-1b's main-path shapes (K -> N of
                the qkv, o, gate_up, down projections and the LM head; M = 4
-               for decode, 4 x 32 = 128 for prefill) and at mamba2-130m's
+               for decode, 4 x 32 = 128 for prefill; the continuous
+               engine's M = 8 decode and M = 64 chunk) and at mamba2-130m's
                (in_proj 768 -> 3352, out_proj 1536 -> 768; M = 4 and
                4 x 1024), held against its plain PyTorch version on the same
-               inputs and timed with CUDA events beside the plain version,
-               an fp32 ``torch.matmul`` of the same size (yardstick only) and
-               the card's bound for the work.
+               inputs (analog: at most 1e-4 of the outputs may flip, each
+               one ADC level at a near-tie; the folded ADC bound bit for bit
+               equal to the explicit one) and timed with CUDA events beside
+               the plain version, an fp32 ``torch.matmul`` of the same size
+               (yardstick only) and the card's bound for the work (the
+               tensor-core bound for the mma mapping, the fp32 one beside
+               it); analog_matmul as the main path calls it (bound folded),
+               with the explicit bound, the ``adc_bound`` pass the fold
+               replaced, and the flip rate with the tensor cores carrying
+               the whole K sum (no promotion).
 3. analog   -- full-width llama-3.2-1b (16 layers, random weights from a
                seed) deployed ``analog_hw`` with ``use_pallas=True`` serves 4
                prompts of 32 tokens for 16 greedy tokens; every projection
@@ -97,10 +105,17 @@ LAUNCHES_PER_FORWARD = sum(s[3] for s in SITES)            # 65
 FORWARDS = 1 + NEW_TOKENS                                  # prefill + decode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT_LEN
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3
-# bandwidth and the fp32 rate of the CUDA cores (the ADC contract forbids
-# TF32, so the tensor cores are not used)
+# bandwidth, the fp32 rate of the CUDA cores and the dense TF32 rate of the
+# tensor cores (the mma mapping does two TF32 products per fp32 product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# the ADC parity contract: at most this share of a shape's outputs may flip
+# one level at a near-tie; the share is taken over at least PARITY_OUTPUTS
+# outputs (fresh x draws against the shape's weight copies), so that one
+# flip among a decode shape's 8192 outputs is not read as a rate
+MAX_FLIP_RATE = 1e-4
+PARITY_OUTPUTS = 1 << 17
 U32 = 2.0 ** -24                                           # fp32 unit round-off
 # Fused vs unfused at full width (serve_phase). Site by site on the same
 # inputs the two may differ only by one ADC level where the pre-ADC value
@@ -119,6 +134,9 @@ POOL_DTYPES = ("f32", "bf16", "i8")
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_REQUESTS = 8, 32, 16
 # the engine's compact prefill width: (slots + 2 chunks - slots) // chunk
 PREFILL_ROWS = 2
+# the continuous engine's MVM rows: a decode forward over its slots and a
+# chunk forward of its compact rows
+M_ENGINE_DECODE, M_ENGINE_CHUNK = ENGINE_SLOTS, PREFILL_ROWS * ENGINE_CHUNK
 # mamba2-130m, the ssm family: (site, K, N, sites per forward) of its 24
 # layers (the tied LM head is a plain matmul, as in the reference), the
 # static engine's batch, prompt and new tokens
@@ -297,81 +315,138 @@ def n_copies(nbytes: int) -> int:
     return max(1, math.ceil(200e6 / nbytes))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time of the work on the card and what sets it."""
+def bound_ms(nbytes: float, flops: float,
+             rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time of the work on the card and what sets it: ``flops``
+    at ``rate`` against ``nbytes`` at the HBM bandwidth."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mvm_bounds(nbytes: float, m: int, k: int, n: int, mapping: str) -> dict:
+    """Both bounds of an [M, K] @ [K, N] launch: the fp32 one (2MKN flops at
+    the CUDA cores' rate) and the tensor-core one (2 x 2MKN TF32 flops);
+    ``bound_ms`` is the one of the launch's mapping."""
+    fp32, fp32_by = bound_ms(nbytes, 2.0 * m * k * n)
+    tf32, tf32_by = bound_ms(nbytes, 4.0 * m * k * n, TF32_FLOP_PER_S)
+    mma = mapping == "mma"
+    return {"bound_ms": tf32 if mma else fp32,
+            "bound_by": tf32_by if mma else fp32_by,
+            "fp32_bound_ms": fp32, "mma_bound_ms": tf32}
+
+
+def analog_flips(torch, x, w, beta, bound, off, y_k,
+                 strict: bool = True) -> tuple[int, float]:
+    """Mismatches of ``y_k`` against the plain version; with ``strict``
+    each is checked to be one ADC level at a near-tie of the plain version
+    (|frac(y * inv) - 1/2| within the fp32 dot error bound K * 2^-24 *
+    (|x_q| . |w|) * inv). Returns their count and the largest absolute
+    difference."""
+    from repro_torch.kernels import ref
+
+    m, k = x.shape
+    y_r = ref.analog_matmul_ref(x, w, beta, bound, off)
+    check(bool(torch.isfinite(y_k).all()), "analog_matmul: non-finite")
+    qi, qo = 127.0, 127.0
+    b = torch.clamp_min(bound, 1e-8)
+    x_q = ref.div(beta, qi) * torch.round(
+        ref.clip(x, -beta, beta) * ref.rdiv(qi, beta))
+    y = x_q @ w
+    if off is not None:
+        y = y + off
+    inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
+    v = y * inv
+    tie_dist = (v - torch.floor(v) - 0.5).abs()
+    err_bound = k * U32 * (x_q.abs() @ w.abs()) * inv
+    lsb = ref.div(b, qo).expand_as(y_k)
+    diff = (y_k - y_r).abs()
+    flips = diff != 0
+    n_flip = int(flips.sum())
+    if n_flip and strict:
+        rel = ((diff[flips] - lsb[flips]).abs() / lsb[flips]).max()
+        check(float(rel) < 1e-3,
+              f"analog_matmul {m}x{k}x{w.shape[1]}: a mismatch is not one "
+              f"ADC level (rel dev {float(rel):.3e})")
+        near = tie_dist[flips] <= err_bound[flips]
+        check(bool(near.all()),
+              f"analog_matmul {m}x{k}x{w.shape[1]}: a mismatch is not a "
+              f"near-tie")
+    return n_flip, float(diff.max())
+
+
 def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
-    """One analog_matmul shape: parity against the plain version, times."""
+    """One analog_matmul shape: parity against the plain version (flip
+    rate over at least PARITY_OUTPUTS outputs, with and without promotion
+    on the mma mapping), the folded bound against the explicit one, and
+    times."""
     from repro_torch.kernels import analog_matmul as km
     from repro_torch.kernels import dispatch, ref
 
     dev = torch.device("cuda")
+    lam = 14.0
     copies = n_copies(4 * k * n)
     ws = [torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
           for _ in range(copies)]
     x = torch.randn((m, k), generator=gen, device=dev)
     beta = torch.full((1,), 3.0, device=dev)
-    bounds = [ref.adc_bound(w, beta, 14.0) for w in ws]
+    bounds = [ref.adc_bound(w, beta, lam) for w in ws]
     offs = [0.1 * b * torch.randn((n,), generator=gen, device=dev)
             if with_off else None for b in bounds]
     plan = dispatch.select_blocks(m, k, n, kernel="analog_matmul")
 
+    # the main path's call folds the bound; it must equal the explicit one
+    y_fold = km.analog_matmul(x, ws[0], beta, None, offs[0], lam=lam)
     y_k = km.analog_matmul(x, ws[0], beta, bounds[0], offs[0])
-    y_r = ref.analog_matmul_ref(x, ws[0], beta, bounds[0], offs[0])
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(y_k).all()), "analog_matmul: non-finite")
-    # every mismatch must be one ADC level at a near-tie of the plain
-    # version: |frac(y * inv) - 1/2| within the fp32 dot error bound
-    # K * 2^-24 * (|x_q| . |w|) * inv
-    qi, qo = 127.0, 127.0
-    b = torch.clamp_min(bounds[0], 1e-8)
-    x_q = ref.div(beta, qi) * torch.round(
-        ref.clip(x, -beta, beta) * ref.rdiv(qi, beta))
-    y = x_q @ ws[0]
-    if offs[0] is not None:
-        y = y + offs[0]
-    inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
-    v = y * inv
-    tie_dist = (v - torch.floor(v) - 0.5).abs()
-    err_bound = k * U32 * (x_q.abs() @ ws[0].abs()) * inv
-    lsb = ref.div(b, qo).expand_as(y_k)
-    diff = (y_k - y_r).abs()
-    flips = diff != 0
-    n_flip = int(flips.sum())
-    if n_flip:
-        rel = ((diff[flips] - lsb[flips]).abs() / lsb[flips]).max()
-        check(float(rel) < 1e-3,
-              f"analog_matmul {m}x{k}x{n}: a mismatch is not one ADC level "
-              f"(rel dev {float(rel):.3e})")
-        near = tie_dist[flips] <= err_bound[flips]
-        check(bool(near.all()),
-              f"analog_matmul {m}x{k}x{n}: a mismatch is not a near-tie")
+    check(bool(torch.equal(y_fold, y_k)),
+          f"analog_matmul {m}x{k}x{n}: the folded ADC bound differs from "
+          f"ref.adc_bound's")
+    draws = max(1, math.ceil(PARITY_OUTPUTS / (m * n)))
+    n_flip = n_flip_np = 0
+    max_err = 0.0
+    for d in range(draws):
+        i = d % copies
+        xd = x if d == 0 else torch.randn((m, k), generator=gen, device=dev)
+        yd = y_k if d == 0 else km.analog_matmul(xd, ws[i], beta, bounds[i],
+                                                 offs[i])
+        f, e = analog_flips(torch, xd, ws[i], beta, bounds[i], offs[i], yd)
+        n_flip += f
+        max_err = max(max_err, e)
+        if plan.mapping == "mma":
+            n_flip_np += analog_flips(
+                torch, xd, ws[i], beta, bounds[i], offs[i],
+                km.analog_matmul(xd, ws[i], beta, bounds[i], offs[i],
+                                 promote=False), strict=False)[0]
+    outputs = draws * m * n
+    check(n_flip <= MAX_FLIP_RATE * outputs,
+          f"analog_matmul {m}x{k}x{n}: {n_flip} of {outputs} outputs flip "
+          f"(rate above {MAX_FLIP_RATE:.0e})")
 
     def kernel(i):
-        return km.analog_matmul(x, ws[i], beta, bounds[i], offs[i])
+        return km.analog_matmul(x, ws[i], beta, None, offs[i], lam=lam)
 
     ms = device_ms(torch, kernel, copies)
     wall = cuda_time_ms(torch, kernel, copies)
+    explicit = device_ms(torch, lambda i: km.analog_matmul(
+        x, ws[i], beta, bounds[i], offs[i]), copies)
     plain = device_ms(torch, lambda i: ref.analog_matmul_ref(
-        x, ws[i], beta, bounds[i], offs[i]), copies, reps=5, rounds=3)
+        x, ws[i], beta, None, offs[i], lam=lam), copies, reps=5, rounds=3)
     mm = device_ms(torch, lambda i: x @ ws[i], copies)
-    # the ADC bound that analog_linear computes from the weights on every
-    # call, before the kernel (core/analog.py)
-    bound_calc = device_ms(torch, lambda i: ref.adc_bound(ws[i], beta, 14.0),
+    # the ADC bound pass that analog_linear ran beside every fused call
+    # before the kernel folded it
+    bound_calc = device_ms(torch, lambda i: ref.adc_bound(ws[i], beta, lam),
                            copies)
-    # x, w, beta, bound and col_off read once, the output written once
-    nbytes = 4 * (m * k + k * n + 1 + n + (n if with_off else 0) + m * n)
-    bnd, by = bound_ms(nbytes, 2.0 * m * k * n)
+    # x, w, beta, col_off read once, the output written once
+    nbytes = 4 * (m * k + k * n + 1 + (n if with_off else 0) + m * n)
     return {"M": m, "K": k, "N": n, "col_off": with_off, "ms": ms,
-            "wall_ms": wall, "plain_ms": plain, "matmul_ms": mm,
-            "adc_bound_ms": bound_calc, "bound_ms": bnd, "bound_by": by,
+            "explicit_bound_ms": explicit, "wall_ms": wall,
+            "plain_ms": plain, "matmul_ms": mm, "adc_bound_ms": bound_calc,
+            **mvm_bounds(nbytes, m, k, n, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits, "flips": n_flip,
-            "flip_rate": n_flip / (m * n),
-            "max_abs_err": float(diff.max())}
+            "parity_outputs": outputs, "flip_rate": n_flip / outputs,
+            "flip_rate_unpromoted": (n_flip_np / outputs
+                                     if plan.mapping == "mma" else None),
+            "max_abs_err": max_err}
 
 
 def int4_case(torch, gen, m, k, n) -> dict:
@@ -413,10 +488,9 @@ def int4_case(torch, gen, m, k, n) -> dict:
             for _ in range(n_copies(4 * k * n))]
     mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm))
     nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
-    bnd, by = bound_ms(nbytes, 2.0 * m * k * n)
     return {"M": m, "K": k, "N": n, "ms": ms, "wall_ms": wall,
-            "plain_ms": plain,
-            "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+            "plain_ms": plain, "matmul_ms": mm,
+            **mvm_bounds(nbytes, m, k, n, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits,
             "max_abs_err": float(diff.max()),
             "max_err_over_bound": err_ratio}
@@ -424,38 +498,71 @@ def int4_case(torch, gen, m, k, n) -> dict:
 
 def phase_kernels(torch) -> dict:
     """Parity and times of both kernels at every main-path shape of
-    llama-3.2-1b and mamba2-130m (each row names its ``arch``)."""
+    llama-3.2-1b (static and continuous engine) and mamba2-130m (each row
+    names its ``arch``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"analog_matmul": [], "int4_matmul": []}
     shapes = ([(ARCH, site, k, n, m) for site, k, n, _ in SITES
-               for m in (M_DECODE, M_PREFILL)]
+               for m in (M_DECODE, M_PREFILL, M_ENGINE_DECODE,
+                         M_ENGINE_CHUNK)]
               + [(MAMBA, site, k, n, m) for site, k, n, _ in MAMBA_SITES
                  for m in (M_DECODE, MAMBA_M_PREFILL)])
     for arch, site, k, n, m in shapes:
-        for with_off in (False, True):
+        # the engine's shapes only as the main path runs them (no col_off)
+        offs = ((False,) if m in (M_ENGINE_DECODE, M_ENGINE_CHUNK)
+                else (False, True))
+        for with_off in offs:
             r = analog_case(torch, gen, m, k, n, with_off)
             r["site"], r["arch"] = site, arch
             rows["analog_matmul"].append(r)
+            unprom = ("" if r["flip_rate_unpromoted"] is None else
+                      f", unpromoted {r['flip_rate_unpromoted']:.2e}")
             print(f"  analog_matmul {site:8s} M={m:4d} {k}->{n} "
-                  f"off={int(with_off)}: {r['ms']:.4f} ms (wall "
-                  f"{r['wall_ms']:.4f}, plain "
-                  f"{r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}, "
-                  f"bound {r['bound_ms']:.4f} by {r['bound_by']}; "
-                  f"adc_bound {r['adc_bound_ms']:.4f}; {r['mapping']} "
-                  f"x{r['splits']}), flips {r['flips']} "
-                  f"({r['flip_rate']:.2e})")
+                  f"off={int(with_off)} {r['mapping']} x{r['splits']}: "
+                  f"{r['ms']:.4f} ms folded (explicit bound "
+                  f"{r['explicit_bound_ms']:.4f}, wall {r['wall_ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}; "
+                  f"bound {r['bound_ms']:.4f} by {r['bound_by']}, fp32 "
+                  f"{r['fp32_bound_ms']:.4f}, mma {r['mma_bound_ms']:.4f}; "
+                  f"adc_bound {r['adc_bound_ms']:.4f}), flips {r['flips']} "
+                  f"of {r['parity_outputs']} ({r['flip_rate']:.2e}{unprom})")
         r = int4_case(torch, gen, m, k, n)
         r["site"], r["arch"] = site, arch
         rows["int4_matmul"].append(r)
-        print(f"  int4_matmul   {site:8s} M={m:4d} {k}->{n}: "
-              f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
-              f"{r['plain_ms']:.4f}, matmul "
-              f"{r['matmul_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']}; {r['mapping']} x{r['splits']}), "
-              f"err/bound "
-              f"{r['max_err_over_bound']:.2e}")
+        print(f"  int4_matmul   {site:8s} M={m:4d} {k}->{n} {r['mapping']} "
+              f"x{r['splits']}: {r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}; "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, fp32 "
+              f"{r['fp32_bound_ms']:.4f}, mma {r['mma_bound_ms']:.4f}), "
+              f"err/bound {r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
+    for name, cases in rows.items():
+        for arch, m, tot in forward_totals(cases):
+            print(f"  {name} per {arch} forward at M={m}: "
+                  + ", ".join(f"{key} {val:.4f}" for key, val in tot.items()))
     return rows
+
+
+#: analog sites of one forward, by site name (llama's and mamba2-130m's)
+PER_SITE = {s[0]: s[3] for s in SITES + MAMBA_SITES}
+#: the per-shape times and bounds that forward_totals sums
+TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
+              "adc_bound_ms", "bound_ms", "fp32_bound_ms", "mma_bound_ms")
+
+
+def forward_totals(cases: list) -> list:
+    """(arch, M, {key: total over the sites of one forward}) for every
+    (arch, M) of phase 2, without col_off (which the main path does not
+    use)."""
+    out = {}
+    for r in cases:
+        if r.get("col_off"):
+            continue
+        tot = out.setdefault((r["arch"], r["M"]), {})
+        for key in TOTAL_KEYS:
+            if key in r:
+                tot[key] = tot.get(key, 0.0) + PER_SITE[r["site"]] * r[key]
+    return [(arch, m, tot) for (arch, m), tot in out.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -1613,9 +1720,14 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     ``bound_ms`` and the yardstick ``matmul_ms`` are totals over the
     launches of one static-engine run (1 prefill forward at M = 128 + 16
     decode forwards at M = 4, 65 sites each), summed from the per-shape
-    times of phase 2 (analog: without col_off, which the main path does not
-    use); ``wall_ms`` is the same total by CUDA events around back-to-back
-    calls, host dispatch gaps included. ``launches`` is that run's count.
+    times of phase 2 (without col_off, which the main path does not use);
+    ``bound_ms`` sums each launch's bound (the tensor-core one on the mma
+    mapping), ``fp32_bound_ms`` the fp32 bound of every launch. For
+    ``analog_matmul`` ``ms`` and ``plain_ms`` are the main path's call, the
+    ADC bound folded in; ``explicit_bound_ms`` is the kernel with the bound
+    given and ``adc_bound_ms`` the bound pass that the fold replaced.
+    ``wall_ms`` is the same total by CUDA events around back-to-back calls,
+    host dispatch gaps included. ``launches`` is that run's count.
 
     ``paged_flash_decode`` / ``paged_flash_prefill``: the times are per
     launch at the phase-5 case named in ``case`` (the engine's bf16 pool,
@@ -1638,22 +1750,23 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
                           "src/repro/kernels/analog_matmul.py:157"),
         "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
                         "src/repro/kernels/int4_matmul.py:78")}
-    per_site = {s[0]: s[3] for s in SITES}
     out = []
     for name, (src, replaces) in meta.items():
         shapes = [r for r in rows[name] if not r.get("col_off")
-                  and r.get("arch", ARCH) == ARCH]
-        tot = {"ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0, "matmul_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+                  and r.get("arch", ARCH) == ARCH
+                  and r["M"] in (M_DECODE, M_PREFILL)]
+        keys = ("ms", "wall_ms", "plain_ms", "matmul_ms", "bound_ms",
+                "fp32_bound_ms", "explicit_bound_ms", "adc_bound_ms")
+        tot = {"bytes_ms": 0.0, "ops_ms": 0.0}
         for r in shapes:
-            reps = per_site[r["site"]] * (NEW_TOKENS if r["M"] == M_DECODE
+            reps = PER_SITE[r["site"]] * (NEW_TOKENS if r["M"] == M_DECODE
                                           else 1)
-            for key in ("ms", "wall_ms", "plain_ms", "matmul_ms",
-                        "bound_ms"):
-                tot[key] += reps * r[key]
+            for key in keys:
+                if key in r:
+                    tot[key] = tot.get(key, 0.0) + reps * r[key]
             tot["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
                 reps * r["bound_ms"])
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": LINE_PATHS[name],
             "launches": launches[name],
@@ -1663,7 +1776,12 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
             "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                          else "operations"),
             "library_ms": None, "matmul_ms": tot["matmul_ms"],
-            "wall_ms": tot["wall_ms"], "parity": "ok"})
+            "fp32_bound_ms": tot.get("fp32_bound_ms"),
+            "wall_ms": tot["wall_ms"], "parity": "ok"}
+        if name == "analog_matmul":
+            entry.update(explicit_bound_ms=tot.get("explicit_bound_ms"),
+                         adc_bound_ms=tot.get("adc_bound_ms"))
+        out.append(entry)
     for name, (src, replaces) in PAGED_META.items():
         cases = paged_rows[name]
         r = next(c for c in cases

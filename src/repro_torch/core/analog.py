@@ -174,10 +174,9 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             raise NotImplementedError(
                 "per-tile device state (core/devices.py: drift, faults, "
                 "periphery offsets) is ported with the devices slice")
-        if fused:
-            bound = kref.adc_bound(wf, beta, cfg.out_bound)
+        if fused:  # the kernel folds the ADC bound from wf
             y = dispatch.fused_analog_mvm(
-                xf, wf, None, beta, bound,
+                xf, wf, None, beta, lam=cfg.out_bound,
                 in_bits=cfg.input_bits, out_bits=cfg.output_bits)
             adc_done = True
         else:
@@ -203,9 +202,8 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         else:
             w_int, scale = quant.rtn_quantize(wf, cfg.weight_bits)
             wf = quant.rtn_dequantize(w_int, scale)
-            if fused:
-                bound = kref.adc_bound(wf, beta, cfg.out_bound)
-                y = dispatch.analog_mvm(xf, wf, beta, bound,
+            if fused:  # the kernel folds the ADC bound from wf
+                y = dispatch.analog_mvm(xf, wf, beta, lam=cfg.out_bound,
                                         in_bits=cfg.input_bits,
                                         out_bits=cfg.output_bits)
                 adc_done = True

@@ -2,9 +2,11 @@
 that each CUDA library computes for a shape.
 
 The tiling lives in the ``.cu`` sources alone. Each library exports
-``<name>_plan``, which picks the mapping from M (the GEMV-shaped decode
-kernel for M ≤ 8, the tiled kernel otherwise) and splits K over blocks for
-this card; the wrapper allocates the split-K scratch the plan needs and
+``<name>_plan``, which picks the mapping from M (and, for ``analog_matmul``,
+the DAC width): the GEMV-shaped decode kernel for M ≤ 8, the tensor-core
+kernel otherwise, or the CUDA-core tiled kernel where the DAC lattice is
+not exact in TF32; it splits K over blocks for this card and says how much
+fp32 scratch the launch needs. The wrapper allocates that scratch and
 launches ``<name>_f32`` with the plan's split.
 """
 
@@ -18,31 +20,37 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAPPINGS = ("gemv", "tiled")
+MAPPINGS = ("gemv", "mma", "tiled")
 
 
 class Plan(NamedTuple):
     """How a kernel runs one [M, K] @ [K, N] call on the card."""
 
-    mapping: str        # "gemv" (decode, M ≤ 8) or "tiled"
+    mapping: str        # "gemv" (decode, M ≤ 8), "mma" or "tiled"
     splits: int         # ranges the K loop is split into, one block each
     k_per_split: int    # rows of K per split
+    scratch: int        # fp32 scratch elements of a launch (0: none)
 
 
 @functools.lru_cache(maxsize=None)
-def plan(kernel: str, m: int, k: int, n: int, device_index: int) -> Plan:
+def plan(kernel: str, m: int, k: int, n: int, device_index: int,
+         in_bits: int | None = None) -> Plan:
     """``kernel``'s plan for an [M, K] @ [K, N] call on CUDA device
-    ``device_index`` (builds and loads the library at first use)."""
+    ``device_index`` (builds and loads the library at first use);
+    ``in_bits`` is ``analog_matmul``'s DAC width and None for
+    ``int4_matmul``."""
     fn = getattr(_build.load(kernel), f"{kernel}_plan")
+    shape = (m, k, n) if in_bits is None else (m, k, n, in_bits)
     out = [ctypes.c_int() for _ in range(3)]
-    err = fn(ctypes.c_int(m), ctypes.c_int(k), ctypes.c_int(n),
+    scratch = ctypes.c_longlong()
+    err = fn(*(ctypes.c_int(v) for v in shape),
              ctypes.c_int(sm_count(device_index)),
-             *(ctypes.byref(o) for o in out))
+             *(ctypes.byref(o) for o in out), ctypes.byref(scratch))
     if err:
         raise ValueError(f"{kernel} cannot take the shape M={m}, K={k}, "
                          f"N={n} (CUDA error {err})")
     mapping, splits, rows = (o.value for o in out)
-    return Plan(MAPPINGS[mapping], splits, rows)
+    return Plan(MAPPINGS[mapping], splits, rows, scratch.value)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,11 +59,11 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def scratch(p: Plan, m: int, n: int, device) -> torch.Tensor | None:
-    """The fp32 split-K scratch ``[splits, M, N]`` of a plan, or None."""
-    if p.splits == 1:
+def scratch(p: Plan, device) -> torch.Tensor | None:
+    """The fp32 scratch of a plan's launch, or None when it needs none."""
+    if p.scratch == 0:
         return None
-    return torch.empty((p.splits, m, n), dtype=torch.float32, device=device)
+    return torch.empty((p.scratch,), dtype=torch.float32, device=device)
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

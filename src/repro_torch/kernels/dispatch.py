@@ -51,15 +51,18 @@ def use_fused(cfg) -> bool:
 
 
 def select_blocks(m: int, k: int, n: int, *, kernel: str = "analog_matmul",
-                  device=None) -> _launch.Plan:
+                  device=None, in_bits: int = 8) -> _launch.Plan:
     """The plan ``kernel`` (``"analog_matmul"`` or ``"int4_matmul"``) runs
     for an [M, K] @ [K, N] call on the card: the GEMV-shaped decode mapping
-    for M ≤ 8, the tiled one otherwise, and the split of K over blocks. The
-    CUDA library computes it (this card's SM count), so it needs the card."""
+    for M ≤ 8, else the tensor-core ``mma`` one (``analog_matmul`` with
+    ``in_bits`` > 12: the CUDA-core ``tiled`` one), the split of K over
+    blocks and the scratch. The CUDA library computes it (this card's SM
+    count), so it needs the card."""
     index = torch.device("cuda" if device is None else device).index
     if index is None:
         index = torch.cuda.current_device()
-    return _launch.plan(kernel, m, k, n, index)
+    return _launch.plan(kernel, m, k, n, index,
+                        in_bits if kernel == "analog_matmul" else None)
 
 
 def flatten_batch(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
@@ -69,27 +72,34 @@ def flatten_batch(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
 
 
 def analog_mvm(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
-               bound: torch.Tensor, *, in_bits: int = 8, out_bits: int = 8,
+               bound: torch.Tensor | None = None, *,
+               lam: float | None = None, in_bits: int = 8, out_bits: int = 8,
                col_off: torch.Tensor | None = None) -> torch.Tensor:
     """Fused DAC-quant → MVM → ADC-quant over any leading batch dims.
 
+    Exactly one of ``bound`` [N] (an explicit ADC bound, as a calibration
+    on other weights gives) and ``lam`` (the bound ``lam · β ·
+    max|w_eff[:, n]|`` folded into the kernel's pass over ``w_eff``).
     ``col_off`` [N] is the optional per-column pre-ADC offset. No autograd
     rule; see :func:`fused_analog_mvm`.
     """
     x2, lead = flatten_batch(x.float())
     n = w_eff.shape[-1]
     y = analog_matmul(x2, w_eff.float().contiguous(), beta.float(),
-                      bound.float().contiguous(), col_off, in_bits=in_bits,
-                      out_bits=out_bits)
+                      None if bound is None else bound.float().contiguous(),
+                      col_off, lam=lam, in_bits=in_bits, out_bits=out_bits)
     return y.reshape(*lead, n)
 
 
 def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
                      w_noise: torch.Tensor | None, beta: torch.Tensor,
-                     bound: torch.Tensor, *, in_bits: int = 8,
+                     bound: torch.Tensor | None = None, *,
+                     lam: float | None = None, in_bits: int = 8,
                      out_bits: int = 8) -> torch.Tensor:
     """Fused analog MVM on ``w + w_noise`` (``w_noise`` None at eval, which
-    spares a copy of the weights). Forward only: the autograd rule (fused
+    spares a copy of the weights), against ``bound`` or the bound folded
+    with ``lam`` (see :func:`analog_mvm`; training on ``w + w_noise``
+    passes an explicit bound). Forward only: the autograd rule (fused
     forward, unfused STE backward) belongs to the training port, so a tensor
     that needs a gradient is refused."""
     if torch.is_grad_enabled() and any(
@@ -99,7 +109,7 @@ def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
             "fused_analog_mvm is forward-only: its STE backward is not "
             "ported yet (run under torch.no_grad() or detach the inputs)")
     w_eff = w if w_noise is None else w + w_noise
-    return analog_mvm(x, w_eff, beta, bound, in_bits=in_bits,
+    return analog_mvm(x, w_eff, beta, bound, lam=lam, in_bits=in_bits,
                       out_bits=out_bits)
 
 

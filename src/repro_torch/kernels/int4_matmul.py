@@ -58,10 +58,11 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     _launch.check("scale", scale, torch.float32, (n,), dev)
     plan = _launch.plan("int4_matmul", m, k, n, dev.index)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part = _launch.scratch(plan, m, n, dev)
+    scratch = _launch.scratch(plan, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), None if part is None else part.data_ptr(),
+                 out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  m, k, n, plan.splits, plan.k_per_split, stream)
     if err:
         raise RuntimeError(f"int4_matmul launch failed: CUDA error {err}")

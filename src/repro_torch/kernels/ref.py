@@ -60,17 +60,30 @@ def adc_bound(w_eff: torch.Tensor, beta: torch.Tensor,
     return lam * beta.float() * col_max
 
 
+def check_one_bound(bound: torch.Tensor | None, lam: float | None) -> None:
+    """Raise unless exactly one of an explicit ADC ``bound`` and the
+    ``lam`` that folds it from the weights is given."""
+    if (bound is None) == (lam is None):
+        raise ValueError("give exactly one of bound (the ADC bound) and lam "
+                         "(fold lam * beta * max|w| from the weights)")
+
+
 def analog_matmul_ref(x: torch.Tensor, w_eff: torch.Tensor,
-                      beta: torch.Tensor, bound: torch.Tensor,
+                      beta: torch.Tensor, bound: torch.Tensor | None = None,
                       col_off: torch.Tensor | None = None, *,
-                      in_bits: int = 8, out_bits: int = 8) -> torch.Tensor:
+                      lam: float | None = None, in_bits: int = 8,
+                      out_bits: int = 8) -> torch.Tensor:
     """Plain version of the fused analog MVM.
 
     x [M, K], w_eff [K, N] (already noise-perturbed), beta scalar static
-    input range (eq. 1), bound [N] per-column ADC bound (eq. 2), col_off [N]
-    optional per-column offset added before the ADC. Returns [M, N] in
-    ``x.dtype``.
+    input range (eq. 1), bound [N] per-column ADC bound (eq. 2), or None
+    with ``lam`` for :func:`adc_bound` of ``w_eff`` (exactly one of the
+    two), col_off [N] optional per-column offset added before the ADC.
+    Returns [M, N] in ``x.dtype``.
     """
+    check_one_bound(bound, lam)
+    if bound is None:
+        bound = adc_bound(w_eff, beta, lam)
     xf = x.float()
     qi = qmax(in_bits)
     beta = torch.clamp_min(beta.float(), 1e-8)

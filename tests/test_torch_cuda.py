@@ -7,7 +7,12 @@ a card machine that has only PyTorch:
 
 It holds the libraries' launch plans (mapping switch, split-K) and the
 MVM kernels against their plain versions at small ragged shapes, where the
-edges of M, N and K are masked, and both paged-attention kernels against
+edges of M, N and K are masked: the decode GEMV at M = 1..8, the
+tensor-core mapping at M from 9 to 130 on ragged and misaligned rows (N %
+4 != 0, odd N / 2, K % 32 != 0, base pointers off 16-byte alignment), the
+CUDA-core tiled mapping at a 16-bit DAC, the folded ADC bound bit for bit
+against the explicit one, and every MVM launch bitwise the same run to run
+for one and several K splits; and both paged-attention kernels against
 theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
 1 to 8 decode splits, at the edges of their split over warps (tables of
 1 to 40 blocks, more splits than blocks, chunks that are not a multiple
@@ -55,12 +60,20 @@ def card():
 
 @pytest.mark.cuda
 def test_select_blocks_decode_mapping(card):
+    """M <= 8 takes the GEMV, larger M the tensor cores ("mma"); a DAC
+    wider than 12 bits is not exact in TF32 and takes the CUDA-core tiled
+    mapping (analog_matmul only)."""
     for kernel in ("analog_matmul", "int4_matmul"):
         for m in range(1, 9):
             plan = dispatch.select_blocks(m, 2048, 2048, kernel=kernel)
             assert plan.mapping == "gemv"
         assert dispatch.select_blocks(9, 2048, 2048,
-                                      kernel=kernel).mapping == "tiled"
+                                      kernel=kernel).mapping == "mma"
+    for bits, mapping in ((12, "mma"), (13, "tiled"), (16, "tiled")):
+        assert dispatch.select_blocks(64, 2048, 2048,
+                                      in_bits=bits).mapping == mapping
+        assert dispatch.select_blocks(8, 2048, 2048,
+                                      in_bits=bits).mapping == "gemv"
 
 
 @pytest.mark.cuda
@@ -80,23 +93,28 @@ def test_split_k_covers_k_with_nonempty_splits(card, kernel, m, k, n):
         assert plan.splits > 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [(8, 8), (4, 4)], ids=["i8o8", "i4o4"])
-@pytest.mark.parametrize("with_off", [False, True], ids=["plain", "col_off"])
-@pytest.mark.parametrize("m,k,n", RAGGED)
-def test_analog_matmul_matches_plain_version(card, m, k, n, with_off, bits):
-    in_bits, out_bits = bits
-    g = torch.Generator(device=card).manual_seed(m + k + n)
-    x = torch.randn((m, k), generator=g, device=card)
-    w = torch.randn((k, n), generator=g, device=card) * k ** -0.5
-    beta = torch.full((1,), 2.5, device=card)
+def _analog_inputs(dev, m, k, n, seed, with_off=False, misaligned=False):
+    """x, w, beta, the explicit bound (lam 12) and col_off; ``misaligned``
+    puts w 4 bytes past a 16-byte boundary (contiguous, so the kernel
+    takes it, on its 4-byte copies)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    if misaligned:
+        buf = torch.empty((k * n + 1,), device=dev)
+        w = buf[1:].view(k, n).copy_(w)
+    beta = torch.full((1,), 2.5, device=dev)
     bound = ref.adc_bound(w, beta, 12.0)
-    off = (0.1 * bound * torch.randn((n,), generator=g, device=card)
+    off = (0.1 * bound * torch.randn((n,), generator=g, device=dev)
            if with_off else None)
-    before = k_analog.launches
-    y = k_analog.analog_matmul(x, w, beta, bound, off, in_bits=in_bits,
-                               out_bits=out_bits)
-    assert k_analog.launches == before + 1
+    return x, w, beta, bound, off
+
+
+def _check_analog(y, x, w, beta, bound, off, in_bits, out_bits):
+    """y against the plain version: equal, or one ADC level apart where
+    the plain version's pre-ADC value lies within the fp32 dot error bound
+    of a rounding tie."""
+    k = x.shape[1]
     y_ref = ref.analog_matmul_ref(x, w, beta, bound, off, in_bits=in_bits,
                                   out_bits=out_bits)
     qi, qo = ref.qmax(in_bits), ref.qmax(out_bits)
@@ -116,7 +134,119 @@ def test_analog_matmul_matches_plain_version(card, m, k, n, with_off, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(m, k, n + n % 2) for m, k, n in RAGGED])
+@pytest.mark.parametrize("bits", [(8, 8), (4, 4)], ids=["i8o8", "i4o4"])
+@pytest.mark.parametrize("with_off", [False, True], ids=["plain", "col_off"])
+@pytest.mark.parametrize("m,k,n", RAGGED)
+def test_analog_matmul_matches_plain_version(card, m, k, n, with_off, bits):
+    in_bits, out_bits = bits
+    x, w, beta, bound, off = _analog_inputs(card, m, k, n, m + k + n,
+                                            with_off)
+    before = k_analog.launches
+    y = k_analog.analog_matmul(x, w, beta, bound, off, in_bits=in_bits,
+                               out_bits=out_bits)
+    assert k_analog.launches == before + 1
+    _check_analog(y, x, w, beta, bound, off, in_bits, out_bits)
+
+
+# the tensor-core mapping's edges: (K, N) aligned; K % 32 != 0 with N % 4
+# != 0; odd K; N / 2 odd with K % 4 != 0
+MMA_M = [9, 17, 63, 64, 65, 128, 130]
+MMA_KN = [(256, 384), (300, 258), (515, 130), (97, 66)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("k,n", MMA_KN, ids=str)
+@pytest.mark.parametrize("m", MMA_M)
+def test_analog_mma_mapping_matches_plain_version(card, m, k, n,
+                                                  misaligned):
+    """The mma mapping with the bound folded (the main path's call) equals
+    the explicit-bound launch bit for bit, and the plain version but for
+    near-tie flips."""
+    assert dispatch.select_blocks(m, k, n).mapping == "mma"
+    x, w, beta, bound, off = _analog_inputs(card, m, k, n, m * k + n,
+                                            with_off=True,
+                                            misaligned=misaligned)
+    y = k_analog.analog_matmul(x, w, beta, None, off, lam=12.0)
+    assert torch.equal(y, k_analog.analog_matmul(x, w, beta, bound, off))
+    _check_analog(y, x, w, beta, bound, off, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(9, 300, 258), (37, 515, 257),
+                                   (130, 2048, 384), (64, 4100, 96)])
+def test_analog_tiled_mapping_at_16_bits(card, m, k, n):
+    """A 16-bit DAC's lattice is not exact in TF32: the CUDA-core tiled
+    mapping runs it, folded bound and all."""
+    assert dispatch.select_blocks(m, k, n, in_bits=16).mapping == "tiled"
+    x, w, beta, bound, off = _analog_inputs(card, m, k, n, m + n,
+                                            with_off=True)
+    y = k_analog.analog_matmul(x, w, beta, None, off, lam=12.0, in_bits=16)
+    assert torch.equal(y, k_analog.analog_matmul(x, w, beta, bound, off,
+                                                 in_bits=16))
+    _check_analog(y, x, w, beta, bound, off, 16, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("k,n", [(2048, 2048), (300, 258)], ids=str)
+def test_gemv_mappings_at_every_decode_row_count(card, m, k, n):
+    """Both decode GEMVs at M = 1..8: int4 (conversion-free nibbles) within
+    the fp32 dot bound, analog with the folded bound bit for bit equal to
+    the explicit one."""
+    x, w, beta, bound, off = _analog_inputs(card, m, k, n, m * 7 + n,
+                                            with_off=True)
+    y = k_analog.analog_matmul(x, w, beta, None, off, lam=12.0)
+    assert torch.equal(y, k_analog.analog_matmul(x, w, beta, bound, off))
+    _check_analog(y, x, w, beta, bound, off, 8, 8)
+    g = torch.Generator(device=card).manual_seed(m + k)
+    w_int = torch.randint(-8, 8, (k, n), generator=g, device=card,
+                          dtype=torch.int8)
+    packed = ref.pack_int4(w_int)
+    scale = (torch.rand((n,), generator=g, device=card) + 0.5) * 0.01
+    y4 = k_int4.int4_matmul(x, packed, scale)
+    w_deq = w_int.float() * scale
+    err = (y4 - ref.int4_matmul_ref(x, packed, scale)).abs()
+    assert (err <= k * U32 * (x.abs() @ w_deq.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["analog_matmul", "int4_matmul"])
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 3072), (4, 256, 65536),
+                                   (64, 2048, 2048), (128, 256, 16384),
+                                   (130, 8192, 512)])
+def test_mvm_launches_are_bitwise_deterministic(card, kernel, m, k, n):
+    """The same call twice gives the same bits, with one K split and with
+    several (the splits are added in a fixed order)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((m, k), generator=g, device=card)
+    if kernel == "analog_matmul":
+        w = torch.randn((k, n), generator=g, device=card) * k ** -0.5
+        beta = torch.full((1,), 2.5, device=card)
+        runs = [k_analog.analog_matmul(x, w, beta, lam=12.0)
+                for _ in range(2)]
+    else:
+        packed = ref.pack_int4(torch.randint(
+            -8, 8, (k, n), generator=g, device=card, dtype=torch.int8))
+        scale = torch.rand((n,), generator=g, device=card) + 0.5
+        runs = [k_int4.int4_matmul(x, packed, scale) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_determinism_cases_cover_one_and_several_splits(card):
+    splits = {dispatch.select_blocks(m, k, n, kernel=kernel).splits
+              for kernel in ("analog_matmul", "int4_matmul")
+              for m, k, n in [(4, 256, 65536), (128, 256, 16384),
+                              (64, 2048, 2048), (130, 8192, 512)]}
+    assert 1 in splits and max(splits) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n + n % 2) for m, k, n in RAGGED]
+                         + [(m, k, n) for m in MMA_M
+                            for k, n in [(300, 258), (97, 66), (515, 200)]])
 def test_int4_matmul_matches_plain_version(card, m, k, n):
     g = torch.Generator(device=card).manual_seed(m * k + n)
     w_int = torch.randint(-7, 8, (k, n), generator=g, device=card,
@@ -130,6 +260,26 @@ def test_int4_matmul_matches_plain_version(card, m, k, n):
     y_ref = ref.int4_matmul_ref(x, packed, scale)
     w_deq = w_int.float() * scale
     assert ((y - y_ref).abs() <= k * U32 * (x.abs() @ w_deq.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64, 130])
+def test_int4_matmul_on_misaligned_rows(card, m):
+    """x and the packed weights off their 16-byte boundaries (contiguous
+    views one element in): the copies fall back to narrower ones."""
+    k, n = 260, 384
+    g = torch.Generator(device=card).manual_seed(m)
+    w_int = torch.randint(-8, 8, (k, n), generator=g, device=card,
+                          dtype=torch.int8)
+    packed = ref.pack_int4(w_int)
+    pbuf = torch.empty((k * n // 2 + 1,), dtype=torch.uint8, device=card)
+    packed_off = pbuf[1:].view(k, n // 2).copy_(packed)
+    x = torch.randn((m, k), generator=g, device=card)
+    xbuf = torch.empty((m * k + 1,), device=card)
+    x_off = xbuf[1:].view(m, k).copy_(x)
+    scale = torch.rand((n,), generator=g, device=card) + 0.5
+    y = k_int4.int4_matmul(x_off, packed_off, scale)
+    assert torch.equal(y, k_int4.int4_matmul(x, packed, scale))
 
 
 # (B, H, KV, hd, bs, NB): GQA at llama-3.2-1b's head shape, MHA at
