@@ -47,7 +47,8 @@ Phases, in order; any failure exits non-zero:
                state, ragged left pads), the static prompt (4 x 1024) and a
                long prefill (1 x 8192), each held against its plain version
                (y and the final state) and timed beside it and the card's
-               bound.
+               bound (fp32 and TF32 tensor-core), with the kernel's plan
+               (chunk length, launches, blocks of each, scratch).
 7. mamba    -- full-width mamba2-130m (24 layers, random weights from a seed)
                on the static engine: 4 prompts of 1024 tokens, 32 greedy
                tokens, for ``fp`` (``ssd_scan`` against the plain SSD on the
@@ -154,9 +155,14 @@ SSD_CASES = [("chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
              ("long", 1, 8192, False)]
 SSD_LINE_CASE = "chunk"
 # |kernel - plain| <= SSD_TOL * (1 + |plain|) for y and the final state:
-# the two differ only in the order of their sums and their chunking (the
-# JAX package holds its Pallas kernel to its jnp path at 2e-4)
+# the two differ in the order of their sums, their chunking and the
+# kernel's split-TF32 products, which keep about fp32 accuracy (the JAX
+# package holds its Pallas kernel to its jnp path at 2e-4)
 SSD_TOL = 2e-4
+# the work phase 6's bound counts, fixed so that its rows compare across
+# kernel designs: the chunked algorithm at L = 32 with C B^T per head (the
+# kernel's own chunk and its C B^T per group do less)
+SSD_BOUND_CHUNK = 32
 # fp mamba2-130m at full width, ssd_scan against the plain SSD on the card:
 # relative L2 of the prefill logits (no quantizer in between to flip)
 MAMBA_FP_TOL = 1e-4
@@ -838,18 +844,24 @@ def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
     # the plain version runs a loop over chunks: timed as a graph
     plain_ms = graph_ms(torch, lambda: ref.ssd_scan_ref(*sets[0]), reps=3)
     # each input read once (b / c per group), y and the state written once;
-    # the work of the chunked algorithm at the kernel's chunk L: C B^T
-    # (L N), the intra-chunk y (L P), C h and the state update (2 N P) per
-    # token and head, two operations per FMA
+    # the work of the chunked algorithm at L = SSD_BOUND_CHUNK: C B^T (L N),
+    # the intra-chunk y (L P), C h and the state update (2 N P) per token
+    # and head, two operations per FMA; the tensor-core bound counts three
+    # TF32 products per fp32 product (the kernel's split)
     nbytes = in_bytes + 4 * (heads + rows * tokens * heads * pdim
                              + rows * heads * n * pdim)
     flops = 2.0 * rows * tokens * heads * (
-        plan.chunk * (n + pdim) + 2 * n * pdim)
+        SSD_BOUND_CHUNK * (n + pdim) + 2 * n * pdim)
     bnd, by = bound_ms(nbytes, flops)
+    mma_bnd, mma_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
     del sets
     return {"case": name, "rows": rows, "tokens": tokens, "h0": with_h0,
-            "chunk": plan.chunk, "ms": ms, "wall_ms": wall,
+            "plan": {"chunk": plan.chunk, "launches": plan.launches,
+                     "blocks": list(plan.blocks),
+                     "scratch_mb": plan.scratch / 1e6},
+            "ms": ms, "wall_ms": wall,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "mma_bound_ms": mma_bnd, "mma_bound_by": mma_by,
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             "max_abs_err": max(errs), "y_abs_err": errs[0],
             "state_abs_err": errs[1]}
@@ -869,8 +881,12 @@ def phase_ssd(torch) -> list:
               f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}: {r['gflop']:.3f} GFLOP, {r['mbytes']:.1f} "
-              f"MB), max err y {r['y_abs_err']:.2e} state "
-              f"{r['state_abs_err']:.2e}")
+              f"MB; TF32 bound {r['mma_bound_ms']:.4f} by "
+              f"{r['mma_bound_by']}), max err y {r['y_abs_err']:.2e} state "
+              f"{r['state_abs_err']:.2e}; plan L {r['plan']['chunk']}, "
+              f"{r['plan']['launches']} launches, blocks "
+              f"{r['plan']['blocks']}, scratch {r['plan']['scratch_mb']:.1f} "
+              f"MB")
         torch.cuda.empty_cache()
     return rows
 
@@ -1810,7 +1826,7 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
         "bound_by": r["bound_by"], "library_ms": None,
         "wall_ms": r["wall_ms"],
         "case": {k: r[k] for k in ("case", "rows", "tokens", "h0")},
-        "parity": "ok"})
+        "plan": r.get("plan"), "parity": "ok"})
     return {"kernels": out}
 
 

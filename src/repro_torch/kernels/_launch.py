@@ -83,8 +83,10 @@ class ScanPlan(NamedTuple):
     """How the ``ssd_scan`` kernel runs one scan on the card."""
 
     chunk: int          # tokens per chunk (L)
-    threads: int        # threads of a thread block
-    smem: int           # dynamic shared memory of a thread block, bytes
+    launches: int       # device launches of a scan: 1 (one chunk) or 3
+    blocks: tuple       # thread blocks of each launch, in launch order
+    smem: int           # largest dynamic shared memory of a block, bytes
+    scratch: int        # bytes of device scratch a scan needs (0: none)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +95,15 @@ def ssd_plan(b: int, s: int, h: int, p: int, n: int, g: int) -> ScanPlan:
     [B, S, G, N] (builds and loads the library at first use). Raises
     ``ValueError`` for a shape the kernel does not take."""
     fn = _build.load("ssd_scan").ssd_scan_plan
-    out = [ctypes.c_int() for _ in range(3)]
+    chunk, launches, smem = (ctypes.c_int() for _ in range(3))
+    blocks = (ctypes.c_int * 3)()
+    scratch = ctypes.c_longlong()
     err = fn(*(ctypes.c_int(v) for v in (b, s, h, p, n, g)),
-             *(ctypes.byref(o) for o in out))
+             ctypes.byref(chunk), ctypes.byref(launches), blocks,
+             ctypes.byref(smem), ctypes.byref(scratch))
     if err:
         raise ValueError(f"ssd_scan cannot take B={b}, S={s}, H={h}, P={p}, "
                          f"N={n}, G={g} (CUDA error {err})")
-    return ScanPlan(*(o.value for o in out))
+    return ScanPlan(chunk.value, launches.value,
+                    tuple(blocks[:launches.value]), smem.value,
+                    scratch.value)

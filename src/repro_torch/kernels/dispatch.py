@@ -98,10 +98,16 @@ def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
                      out_bits: int = 8) -> torch.Tensor:
     """Fused analog MVM on ``w + w_noise`` (``w_noise`` None at eval, which
     spares a copy of the weights), against ``bound`` or the bound folded
-    with ``lam`` (see :func:`analog_mvm`; training on ``w + w_noise``
-    passes an explicit bound). Forward only: the autograd rule (fused
-    forward, unfused STE backward) belongs to the training port, so a tensor
-    that needs a gradient is refused."""
+    with ``lam`` (see :func:`analog_mvm`). ``lam`` is refused with a
+    ``w_noise``: the fold would take the bound from ``w + w_noise``, where
+    the reference takes it from the noise-free ``w``, so training on ``w +
+    w_noise`` passes an explicit bound. Forward only: the autograd rule
+    (fused forward, unfused STE backward) belongs to the training port, so
+    a tensor that needs a gradient is refused."""
+    if lam is not None and w_noise is not None:
+        raise ValueError("fused_analog_mvm cannot fold the ADC bound from "
+                         "noisy weights: pass the bound of the noise-free "
+                         "weights (ref.adc_bound(w, beta, lam)) with w_noise")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w, w_noise, beta, bound)):

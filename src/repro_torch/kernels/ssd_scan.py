@@ -5,11 +5,14 @@ kernel of the JAX package (``kernels/ssd_scan.py::ssd_scan``) and folds in
 what ``models/mamba2.py::_ssd_with_state`` adds around it there: the
 incoming state's terms and the final state. It reads x, dt, b and c in the
 mixer's layout through their strides, and b / c per group (no repeat to
-heads).
+heads). A scan of one chunk is one device launch; a longer one is three
+(chunk summaries, the state pass over chunks, the outputs), which share a
+scratch buffer that the wrapper allocates on the current stream.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`) for a CPU tensor; there is no
-fallback from one to the other. ``launches`` counts kernel launches.
+fallback from one to the other. ``launches`` counts scans run on the kernel
+(one per call, whatever the plan's device launches).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from repro_torch.kernels import _build, _launch, ref
 
-#: kernel launches since the last reset (the plain CPU version adds nothing)
+#: scans run on the kernel since the last reset (the plain CPU version adds
+#: nothing)
 launches = 0
 
 _P = ctypes.c_void_p
@@ -35,7 +39,7 @@ def _lib():
     (built and loaded at the first launch)."""
     fn = _build.load("ssd_scan").ssd_scan
     fn.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3
-                   + [_P] + [_L] * 3 + [_P] * 3 + [_I] * 7 + [_P])
+                   + [_P] + [_L] * 3 + [_P] * 3 + [_I] * 7 + [_P] * 2)
     fn.restype = _I
     return fn
 
@@ -87,11 +91,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     plan = _launch.ssd_plan(bsz, s, heads, pdim, n, g)
     y = torch.empty((bsz, s, heads, pdim), dtype=torch.float32, device=dev)
     h = torch.empty((bsz * heads, n, pdim), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((plan.scratch // 4,), dtype=torch.float32,
+                           device=dev) if plan.scratch else None)
     err = _lib()(x.data_ptr(), *x.stride()[:3], dt.data_ptr(),
                  *dt.stride()[:3], a.data_ptr(), b.data_ptr(),
                  *b.stride()[:3], c.data_ptr(), *c.stride()[:3],
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  h.data_ptr(), bsz, s, heads, pdim, n, g, plan.chunk,
+                 None if scratch is None else scratch.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

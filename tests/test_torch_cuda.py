@@ -17,9 +17,10 @@ theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
 1 to 8 decode splits, at the edges of their split over warps (tables of
 1 to 40 blocks, more splits than blocks, chunks that are not a multiple
 of the query tile), and ``ssd_scan`` against its plain version at ragged
-sequence lengths, with groups shared by several heads, strided inputs and
-an incoming state. ``chip_smoke.py`` does the same at the main path's
-full-width shapes.
+sequence lengths (one launch for a single chunk, three with scratch for
+more), with groups shared by several heads, strided inputs and an incoming
+state, bitwise the same run to run and under CUDA-graph replay.
+``chip_smoke.py`` does the same at the main path's full-width shapes.
 
 Tolerance: ``analog_matmul`` may differ from its plain version only by one
 ADC level where the plain version's pre-ADC value lies within the fp32 dot
@@ -29,8 +30,9 @@ the paged kernels stay within ``1e-5 + 1e-5 * |plain|`` of their plain
 versions (both run the same fp32 online softmax over the same blocks; only
 the order of the sums inside a block differs); ``ssd_scan``'s y and final
 state stay within ``2e-4 * (1 + |plain|)`` (the kernel and the plain version
-differ only in the order of their sums and in their chunking; the JAX
-package holds its own kernel to its jnp path at 2e-4).
+differ in the order of their sums, in their chunking and in the kernel's
+split-TF32 products, which keep about fp32 accuracy; the JAX package holds
+its own kernel to its jnp path at 2e-4).
 """
 
 import pytest
@@ -475,11 +477,17 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(card):
                                     v_scale=vs)
 
 
-# (B, S, H, P, G, N): ragged S around the kernel's 32-token chunk, groups
-# shared by 1 to 24 heads, and mamba2-130m's head shape (P 64, N 128)
+# (B, S, H, P, G, N): ragged S around the kernel's chunks (one launch for
+# S <= 64, at L = 32 up to 32 tokens; three launches at L = 64 beyond),
+# groups shared by 1 to 24 heads, one group per head, jamba's N = 16, and
+# mamba2-130m's head shape (P 64, N 128), whose state pass spans 8 tiles
 SSD = [(1, 1, 2, 16, 1, 16), (2, 33, 4, 32, 2, 16), (3, 70, 4, 64, 1, 128),
        (2, 100, 6, 48, 3, 64), (1, 257, 24, 64, 1, 128),
-       (4, 32, 24, 64, 1, 128)]
+       (4, 32, 24, 64, 1, 128), (2, 20, 8, 64, 4, 16),
+       (1, 64, 6, 48, 2, 128), (2, 50, 4, 16, 4, 32),
+       (1, 300, 8, 64, 2, 128), (1, 65, 24, 64, 1, 128)]
+#: the chunk lengths ``ssd_scan_plan`` chooses (``csrc/ssd_scan.cu``)
+SSD_CHUNKS = (32, 64)
 
 
 def _ssd_inputs(dev, b, s, h, p, g, n, seed, wide=False):
@@ -550,11 +558,47 @@ def test_ssd_scan_strided_inputs_and_masked_positions(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 24, 64, 1, 128),
+                                   (1, 300, 8, 64, 2, 128)], ids=str)
+def test_ssd_scan_deterministic_and_graph_replay(card, shape):
+    """One chunk (one launch) and several (three launches with scratch):
+    two runs give the same bits, a fully masked sequence returns h0 bit for
+    bit, and the scan captured in a CUDA graph replays to eager's bits."""
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, *shape, seed=3)
+    eager = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    again = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    assert all(torch.equal(u, v) for u, v in zip(eager, again))
+    _, h_masked = k_ssd.ssd_scan(torch.zeros_like(x), torch.zeros_like(dt),
+                                 a, bg, cg, h0)
+    assert torch.equal(h_masked, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = k_ssd.ssd_scan(x, dt, a, bg, cg, h0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(replayed, eager))
+
+
+@pytest.mark.cuda
 def test_ssd_scan_plan_and_refusals(card):
     from repro_torch.kernels import _launch
     plan = _launch.ssd_plan(1, 8192, 24, 64, 128, 1)
-    assert plan.chunk == 32 and plan.threads == 256
+    assert plan.chunk == 64 and plan.launches == 3
+    assert plan.blocks == (25 * 128, 8 * 24, 24 * 128)
+    assert plan.scratch == 4 * 128 * (24 * 128 * 64 + 64 * 64 + 24)
     assert 48 * 1024 < plan.smem <= 227 * 1024
+    one = _launch.ssd_plan(2, 32, 24, 64, 128, 1)
+    assert (one.chunk, one.launches, one.blocks, one.scratch) == (
+        32, 1, (4 * 24 * 2,), 0)
+    assert _launch.ssd_plan(1, 64, 6, 48, 128, 2)[:3] == (64, 1, (18,))
+    assert _launch.ssd_plan(1, 65, 24, 64, 128, 1).launches == 3
+    for s in (1, 31, 33, 100, 1024, 8193):
+        assert _launch.ssd_plan(4, s, 24, 64, 128, 1).chunk in SSD_CHUNKS
     x, dt, a, bg, cg, h0 = _ssd_inputs(card, 1, 9, 4, 16, 2, 16, seed=1)
     with pytest.raises(ValueError):            # P not a multiple of 16
         k_ssd.ssd_scan(x[..., :8], dt, a, bg, cg)

@@ -159,10 +159,33 @@ def test_training_noise_keeps_the_explicit_bound():
     y = dispatch.fused_analog_mvm(_t(x), _t(w), _t(noise), _t(beta), bound)
     want = tref.analog_matmul_ref(_t(x), _t(w + noise), _t(beta), bound)
     assert torch.equal(y, want)
-    folded = dispatch.fused_analog_mvm(_t(x), _t(w), _t(noise), _t(beta),
-                                       lam=12.0)
-    assert torch.equal(folded, tref.analog_matmul_ref(
-        _t(x), _t(w + noise), _t(beta), lam=12.0))
+    with pytest.raises(ValueError, match="noise-free"):
+        dispatch.fused_analog_mvm(_t(x), _t(w), _t(noise), _t(beta),
+                                  lam=12.0)
+
+
+@pytest.mark.parametrize("with_noise", [True, False],
+                         ids=["noise", "eval"])
+def test_fused_mvm_folds_lam_only_without_noise(with_noise):
+    """``lam`` folds the bound from the weights the kernel is handed, so
+    ``fused_analog_mvm`` refuses it beside a ``w_noise`` (the reference
+    folds from the noise-free ``wf``, ``core/analog.py``); at eval
+    (``w_noise=None``) it is the plain version's folded bound on ``w``."""
+    x, w, beta, _ = _inputs(4, 64, 32, seed=10)
+    noise = (np.random.default_rng(2).standard_normal(w.shape).astype(
+        np.float32) * 0.05 if with_noise else None)
+
+    def call():
+        return dispatch.fused_analog_mvm(
+            _t(x), _t(w), None if noise is None else _t(noise), _t(beta),
+            lam=12.0)
+
+    if with_noise:
+        with pytest.raises(ValueError, match="noise-free"):
+            call()
+    else:
+        assert torch.equal(call(), tref.analog_matmul_ref(
+            _t(x), _t(w), _t(beta), lam=12.0))
 
 
 @pytest.mark.parametrize("fn", ["wrapper", "ref", "analog_mvm",

@@ -16,7 +16,17 @@ Inputs are made from a seed with numpy and handed to both packages:
 * ``dt = 0`` positions are state-transparent: a fully masked chunk leaves
   the state bit for bit, and left pads give the unpadded run's state;
 * the ``ssd_scan`` wrapper and ``dispatch.ssd`` run the plain version on
-  CPU tensors and count no launch.
+  CPU tensors and count no launch;
+* the CUDA kernel's decomposition, emulated here in plain PyTorch at each
+  chunk length its plan chooses: chunk summaries ``S_c = B^T (w x)`` and
+  one ``C B^T`` per group, the state pass ``h_{c+1} = exp(total_c) h_c +
+  S_c`` over chunks, and the outputs ``(C B^T ⊙ decay)(dt x) + exp(cums)
+  (C h_c)``, every product in split TF32 (``cvt.rna.tf32.f32`` by integer
+  operations, ``hi·lo + lo·hi + hi·hi``), equals the reference's
+  ``_ssd_with_state`` within ``2e-4 * (1 + |ref|)`` (the tolerance the
+  card holds the kernel to against its plain version) at small widths and
+  at mamba2-130m's, from zero and from ``h0``, at ragged S and with left
+  pads.
 """
 
 import jax.numpy as jnp
@@ -30,6 +40,7 @@ from repro.kernels.ssd_scan import ssd_scan as ref_ssd_scan
 from repro.models import mamba2 as ref_mamba
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import ssd_scan as k_ssd
+from test_torch_mvm import split_tf32
 
 torch.set_num_threads(2)
 
@@ -206,3 +217,112 @@ def test_wrapper_and_dispatch_run_the_plain_version_on_cpu():
     assert k_ssd.launches == before == 0
     with pytest.raises(ValueError, match="multiple"):
         dispatch.ssd(xt[:, :, :3], dtt[:, :, :3], at[:3], bt, ct)
+
+
+# ---------------------------------------------------------------------------
+# emulation of the CUDA kernel's passes (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+#: the chunk lengths ``ssd_scan_plan`` chooses: 32 for S <= 32, else 64
+KERNEL_CHUNKS = (32, 64)
+#: |emulation - reference| <= SSD_TOL * (1 + |reference|), y and state
+SSD_TOL = 2e-4
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel's mma does it: both operands split into TF32
+    ``hi + lo`` and the products ``lo·hi + hi·lo + hi·hi`` summed in fp32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _kernel_emulation(x, dt, a, b, c, h0, chunk):
+    """The three passes of ``ssd_scan.cu`` in plain PyTorch (a scan of one
+    chunk runs the same arithmetic in one launch). Shapes as
+    ``ssd_scan``; returns (y [B, S, H, P], final state [B·H, N, P])."""
+    bsz, s, heads, pdim = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):          # [B, S, K, ...] -> [B, K, nc, L, ...], padded
+        t = torch.movedim(t, 2, 1)
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3) + (0, pad))
+        return t.reshape(*t.shape[:2], nc, chunk, *t.shape[3:])
+
+    xc = chunks(x)                                   # [B, H, nc, L, P]
+    dtc = chunks(dt[..., None])[..., 0]              # [B, H, nc, L]
+    bc = chunks(b).repeat_interleave(heads // g, 1)  # [B, H, nc, L, N]
+    cc = chunks(c).repeat_interleave(heads // g, 1)
+    cbt = _mm3(chunks(c), chunks(b).transpose(-1, -2))   # per group
+    cbt = cbt.repeat_interleave(heads // g, 1)       # [B, H, nc, L, L]
+    cums = torch.cumsum(dtc * a[None, :, None, None], dim=-1)
+    total = cums[..., -1]
+    # 1. chunk pass: S_c = B^T (w x)
+    w_r = torch.exp(total[..., None] - cums) * dtc
+    sums = _mm3(bc.transpose(-1, -2), w_r[..., None] * xc)   # [.., N, P]
+    # 2. state pass: the state entering each chunk, and the final state
+    h = (torch.zeros(bsz, heads, n, pdim) if h0 is None
+         else h0.reshape(bsz, heads, n, pdim))
+    entering = []
+    for ci in range(nc):
+        entering.append(h)
+        h = torch.exp(total[..., ci])[..., None, None] * h + sums[:, :, ci]
+    hc = torch.stack(entering, dim=2)                # [B, H, nc, N, P]
+    # 3. output pass
+    rel = cums[..., :, None] - cums[..., None, :]
+    mask = torch.ones(chunk, chunk).tril().bool()
+    m = torch.where(mask, cbt * torch.exp(torch.clamp(rel, max=0.0)),
+                    torch.zeros(()))
+    y = (_mm3(m, dtc[..., None] * xc)
+         + torch.exp(cums)[..., None] * _mm3(cc, hc))
+    y = y.reshape(bsz, heads, nc * chunk, pdim)[:, :, :s]
+    return torch.movedim(y, 1, 2), h.reshape(bsz * heads, n, pdim)
+
+
+def _assert_ssd_tol(got, want):
+    got, want = got.numpy(), np.asarray(want)
+    err = np.abs(got - want)
+    assert np.all(err <= SSD_TOL * (1 + np.abs(want))), float(err.max())
+
+
+# (B, S, H, P, G, N): one chunk and ragged multi-chunk S at each L, groups
+# shared by 2 and 3 heads, jamba's N = 16 and P = 48; then mamba2-130m's
+# head widths (H 24, P 64, N 128, G 1) at S up to 256
+EMULATED = [(2, 13, 4, 16, 2, 16), (1, 100, 4, 16, 1, 16),
+            (2, 130, 4, 32, 2, 32), (3, 64, 6, 48, 3, 16),
+            (1, 256, 24, 64, 1, 128), (2, 45, 24, 64, 1, 128)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("chunk", KERNEL_CHUNKS)
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_kernel_passes_match_reference_with_state(shape, chunk, with_h0):
+    x, dt, a, b, c, h0 = _mixer_inputs(3 * sum(shape), *shape,
+                                       with_h0=with_h0)
+    y_ref, h_ref = _reference_with_state(x, dt, a, b, c, h0)
+    y, hf = _kernel_emulation(*_t(x, dt, a, b, c, h0), chunk=chunk)
+    _assert_ssd_tol(y, y_ref)
+    _assert_ssd_tol(hf, h_ref)
+
+
+@pytest.mark.parametrize("chunk", KERNEL_CHUNKS)
+def test_kernel_passes_left_pads_and_masked_state(chunk):
+    """Left pads (dt = x = b = c = 0) are transparent in the emulated
+    passes, as in the reference, and a fully masked sequence returns h0 bit
+    for bit (exp(0) h0 + 0 at every chunk)."""
+    bsz, s, h, p, g, n = 2, 70, 24, 64, 1, 128
+    x, dt, a, b, c, h0 = _mixer_inputs(21, bsz, s, h, p, g, n)
+    pads = np.array([11, 0])
+    live = (np.arange(s)[None] >= pads[:, None]).astype(np.float32)
+    x, dt = x * live[..., None, None], dt * live[..., None]
+    b, c = b * live[..., None, None], c * live[..., None, None]
+    y_ref, h_ref = _reference_with_state(x, dt, a, b, c, h0)
+    y, hf = _kernel_emulation(*_t(x, dt, a, b, c, h0), chunk=chunk)
+    _assert_ssd_tol(y, y_ref)
+    _assert_ssd_tol(hf, h_ref)
+    z = np.zeros_like
+    _, h_masked = _kernel_emulation(*_t(z(x), z(dt), a, b, c, h0),
+                                    chunk=chunk)
+    assert torch.equal(h_masked, torch.from_numpy(h0))
