@@ -47,8 +47,11 @@ Phases, in order; any failure exits non-zero:
                state, ragged left pads), the static prompt (4 x 1024) and a
                long prefill (1 x 8192), each held against its plain version
                (y and the final state) and timed beside it and the card's
-               bound (fp32 and TF32 tensor-core), with the kernel's plan
-               (chunk length, launches, blocks of each, scratch).
+               bound (the recurrence's work on the TF32 tensor cores; PR
+               13's L = 32 fp32 bound beside it), with the kernel's plan
+               (chunk length, launches, blocks of each, scratch) and each
+               pass's time from ``torch.profiler``; a one-launch scan is
+               also held and timed as the three passes.
 7. mamba    -- full-width mamba2-130m (24 layers, random weights from a seed)
                on the static engine: 4 prompts of 1024 tokens, 32 greedy
                tokens, for ``fp`` (``ssd_scan`` against the plain SSD on the
@@ -152,17 +155,18 @@ MAMBA_M_PREFILL = BATCH * MAMBA_PROMPT
 # is what the continuous engine runs, and the kernels line reports it
 SSD_CASES = [("chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
              ("static", BATCH, MAMBA_PROMPT, False),
-             ("long", 1, 8192, False)]
+             ("long", 1, 8192, False),
+             ("mid", PREFILL_ROWS, 48, True)]
 SSD_LINE_CASE = "chunk"
 # |kernel - plain| <= SSD_TOL * (1 + |plain|) for y and the final state:
 # the two differ in the order of their sums, their chunking and the
 # kernel's split-TF32 products, which keep about fp32 accuracy (the JAX
 # package holds its Pallas kernel to its jnp path at 2e-4)
 SSD_TOL = 2e-4
-# the work phase 6's bound counts, fixed so that its rows compare across
-# kernel designs: the chunked algorithm at L = 32 with C B^T per head (the
-# kernel's own chunk and its C B^T per group do less)
-SSD_BOUND_CHUNK = 32
+# PR 13's yardstick, kept beside the bound so that phase 6's rows compare
+# across kernel designs: the chunked algorithm at L = 32 with C B^T per
+# head, at the fp32 rate
+SSD_L32_CHUNK = 32
 # fp mamba2-130m at full width, ssd_scan against the plain SSD on the card:
 # relative L2 of the prefill logits (no quantizer in between to flip)
 MAMBA_FP_TOL = 1e-4
@@ -807,8 +811,10 @@ def ssd_inputs(torch, gen, cfg, rows: int, tokens: int, with_h0: bool,
 def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
              with_h0: bool) -> dict:
     """One ssd_scan case: parity against the plain version (y and the final
-    state), then device times of both beside the card's bound. Input
-    copies rotate so that their bytes exceed the 50 MB L2."""
+    state), then device times of both beside the card's bound, and each
+    device pass's time from the profiler. A scan the plan runs in one
+    launch is also run and timed as the three passes. Input copies rotate
+    so that their bytes exceed the 50 MB L2."""
     from repro_torch.kernels import _launch, ref
     from repro_torch.kernels import ssd_scan as ks
 
@@ -839,32 +845,63 @@ def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
               f"ssd {name}: {what} differs from the plain version by "
               f"{float(err.max()):.3e}")
         errs.append(float(err.max()))
+    passes_ms = None
+    if plan.launches == 1:
+        for out, want in zip(ks.ssd_scan(*sets[0], passes=True), (y_r, h_r)):
+            err = (out - want).abs()
+            check(bool((err <= SSD_TOL * (1 + want.abs())).all()),
+                  f"ssd {name}: the three passes differ from the plain "
+                  f"version by {float(err.max()):.3e}")
+            errs.append(float(err.max()))
+        passes_ms = device_ms(
+            torch, lambda i: ks.ssd_scan(*sets[i], passes=True), len(sets))
     ms = device_ms(torch, kernel, len(sets))
     wall = cuda_time_ms(torch, kernel, len(sets))
+    pass_us = ssd_pass_us(torch, kernel, len(sets))
     # the plain version runs a loop over chunks: timed as a graph
     plain_ms = graph_ms(torch, lambda: ref.ssd_scan_ref(*sets[0]), reps=3)
-    # each input read once (b / c per group), y and the state written once;
-    # the work of the chunked algorithm at L = SSD_BOUND_CHUNK: C B^T (L N),
-    # the intra-chunk y (L P), C h and the state update (2 N P) per token
-    # and head, two operations per FMA; the tensor-core bound counts three
-    # TF32 products per fp32 product (the kernel's split)
+    # each input read once (b / c per group), y and the state written once.
+    # The least work of the function is the recurrence's C h and state
+    # update, 2 N P FMAs per token and head (a chunked form adds L (P + N G
+    # / H)), two operations per FMA; the kernel runs its products as split
+    # TF32 on the tensor cores, three TF32 products per fp32 product
     nbytes = in_bytes + 4 * (heads + rows * tokens * heads * pdim
                              + rows * heads * n * pdim)
-    flops = 2.0 * rows * tokens * heads * (
-        SSD_BOUND_CHUNK * (n + pdim) + 2 * n * pdim)
-    bnd, by = bound_ms(nbytes, flops)
-    mma_bnd, mma_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    flops = 2.0 * rows * tokens * heads * 2 * n * pdim
+    bnd, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    l32_flops = 2.0 * rows * tokens * heads * (
+        SSD_L32_CHUNK * (n + pdim) + 2 * n * pdim)
+    l32_bnd, l32_by = bound_ms(nbytes, l32_flops)
     del sets
     return {"case": name, "rows": rows, "tokens": tokens, "h0": with_h0,
             "plan": {"chunk": plan.chunk, "launches": plan.launches,
                      "blocks": list(plan.blocks),
                      "scratch_mb": plan.scratch / 1e6},
-            "ms": ms, "wall_ms": wall,
+            "ms": ms, "wall_ms": wall, "passes_ms": passes_ms,
+            "pass_us": pass_us,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "mma_bound_ms": mma_bnd, "mma_bound_by": mma_by,
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "l32_bound_ms": l32_bnd, "l32_bound_by": l32_by,
+            "gflop": flops / 1e9, "l32_gflop": l32_flops / 1e9,
+            "mbytes": nbytes / 1e6,
             "max_abs_err": max(errs), "y_abs_err": errs[0],
             "state_abs_err": errs[1]}
+
+
+def ssd_pass_us(torch, fn, n_args: int, reps: int = 10) -> dict:
+    """Device µs per call of each ``ssd_*_kernel`` that ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls after 3 warm-up calls;
+    arguments rotate as in :func:`cuda_time_ms`."""
+    for i in range(3):
+        fn(i % n_args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i % n_args)
+        torch.cuda.synchronize()
+    return {ev.key.split("ssd_")[1].split("_kernel")[0]:
+            ev.device_time * ev.count / reps
+            for ev in prof.key_averages() if "ssd_" in ev.key}
 
 
 def phase_ssd(torch) -> list:
@@ -877,16 +914,20 @@ def phase_ssd(torch) -> list:
     for name, b, s, with_h0 in SSD_CASES:
         r = ssd_case(torch, gen, cfg, name, b, s, with_h0)
         rows.append(r)
+        passes = ("" if r["passes_ms"] is None else
+                  f", as the three passes {r['passes_ms']:.4f} ms")
         print(f"  ssd_scan {name:6s} {b} x {s:4d} h0={int(with_h0)}: "
               f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']}: {r['gflop']:.3f} GFLOP, {r['mbytes']:.1f} "
-              f"MB; TF32 bound {r['mma_bound_ms']:.4f} by "
-              f"{r['mma_bound_by']}), max err y {r['y_abs_err']:.2e} state "
-              f"{r['state_abs_err']:.2e}; plan L {r['plan']['chunk']}, "
-              f"{r['plan']['launches']} launches, blocks "
-              f"{r['plan']['blocks']}, scratch {r['plan']['scratch_mb']:.1f} "
-              f"MB")
+              f"{r['bound_by']}: 3 x {r['gflop']:.3f} GFLOP on TF32, "
+              f"{r['mbytes']:.1f} MB; PR 13's L = 32 fp32 bound "
+              f"{r['l32_bound_ms']:.4f} by {r['l32_bound_by']}: "
+              f"{r['l32_gflop']:.3f} GFLOP){passes}, max err y "
+              f"{r['y_abs_err']:.2e} state {r['state_abs_err']:.2e}; plan L "
+              f"{r['plan']['chunk']}, {r['plan']['launches']} launches, "
+              f"blocks {r['plan']['blocks']}, scratch "
+              f"{r['plan']['scratch_mb']:.1f} MB; device us per pass "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["pass_us"].items()))
         torch.cuda.empty_cache()
     return rows
 
@@ -1754,7 +1795,10 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
 
     ``ssd_scan``: the times are per launch at the phase-6 case named in
     ``case`` (the engine's chunk, ``SSD_LINE_CASE``); ``max_abs_err`` is the
-    largest over all phase-6 cases, y and final state; ``library_ms`` is
+    largest over all phase-6 cases, y and final state; ``bound_ms`` is the
+    recurrence's work (2 N P FMAs per token and head) as split TF32 on the
+    tensor cores against the bytes, ``l32_bound_ms`` PR 13's bound (L = 32
+    work at the fp32 rate); ``library_ms`` is
     null (no single PyTorch call computes an SSD scan); ``launches`` is the
     count of mamba2-130m's continuous ``analog_hw`` run (phase 8).
 
@@ -1823,8 +1867,8 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
         "path": LINE_PATHS["ssd_scan"], "launches": ssd_launches,
         "max_abs_err": max(c["max_abs_err"] for c in ssd_rows),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
-        "wall_ms": r["wall_ms"],
+        "bound_by": r["bound_by"], "l32_bound_ms": r["l32_bound_ms"],
+        "library_ms": None, "wall_ms": r["wall_ms"],
         "case": {k: r[k] for k in ("case", "rows", "tokens", "h0")},
         "plan": r.get("plan"), "parity": "ok"})
     return {"kernels": out}

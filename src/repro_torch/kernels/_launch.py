@@ -90,15 +90,17 @@ class ScanPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def ssd_plan(b: int, s: int, h: int, p: int, n: int, g: int) -> ScanPlan:
+def ssd_plan(b: int, s: int, h: int, p: int, n: int, g: int,
+             passes: bool = False) -> ScanPlan:
     """The ``ssd_scan`` library's plan for x [B, S, H, P] with b / c
-    [B, S, G, N] (builds and loads the library at first use). Raises
-    ``ValueError`` for a shape the kernel does not take."""
+    [B, S, G, N] (builds and loads the library at first use); ``passes``
+    plans the chunk, state and output passes even for a single chunk.
+    Raises ``ValueError`` for a shape the kernel does not take."""
     fn = _build.load("ssd_scan").ssd_scan_plan
     chunk, launches, smem = (ctypes.c_int() for _ in range(3))
     blocks = (ctypes.c_int * 3)()
     scratch = ctypes.c_longlong()
-    err = fn(*(ctypes.c_int(v) for v in (b, s, h, p, n, g)),
+    err = fn(*(ctypes.c_int(v) for v in (b, s, h, p, n, g, int(passes))),
              ctypes.byref(chunk), ctypes.byref(launches), blocks,
              ctypes.byref(smem), ctypes.byref(scratch))
     if err:

@@ -653,11 +653,11 @@ int multi_smem() {
   return 4 * (a > o ? a : o);
 }
 
-Plan make_plan(int B, int S, int H, int P, int N, int G) {
+Plan make_plan(int B, int S, int H, int P, int N, int G, bool passes) {
   Plan q{};
-  q.chunk = S <= 32 ? 32 : S <= 64 ? 64 : kMultiChunk;
+  q.chunk = passes || S > 64 ? kMultiChunk : S <= 32 ? 32 : 64;
   q.chunks = (S + q.chunk - 1) / q.chunk;
-  if (S <= 64) {                     // one chunk: one launch
+  if (!passes && S <= 64) {          // one chunk: one launch
     q.launches = 1;
     q.blocks[0] = P / kSlice * H * B;
     q.smem = q.chunk == 32 ? one_smem<32>() : one_smem<64>();
@@ -711,15 +711,16 @@ cudaError_t launch_multi(const Args& p, int B, float* scratch,
 // The launch plan of one scan: the chunk length L, the device launches (1
 // for a single chunk, else 3), the thread blocks of each launch (0 past
 // the last), the largest dynamic shared memory of a thread block, and the
-// bytes of device scratch the caller must pass (0: none). Returns
-// cudaErrorInvalidValue for a shape the kernel does not take (P and N
-// multiples of 16 up to 64 and 128, H a multiple of G, B up to 65535, at
-// most 65535 chunks), else 0.
+// bytes of device scratch the caller must pass (0: none). Nonzero
+// `passes` plans the three passes even for a single chunk (to time the
+// two against each other). Returns cudaErrorInvalidValue for a shape the
+// kernel does not take (P and N multiples of 16 up to 64 and 128, H a
+// multiple of G, B up to 65535, at most 65535 chunks), else 0.
 extern "C" int ssd_scan_plan(int B, int S, int H, int P, int N, int G,
-                             int* chunk, int* launches, int* blocks,
-                             int* smem, long long* scratch) {
+                             int passes, int* chunk, int* launches,
+                             int* blocks, int* smem, long long* scratch) {
   if (!shape_ok(B, S, H, P, N, G)) return (int)cudaErrorInvalidValue;
-  const Plan q = make_plan(B, S, H, P, N, G);
+  const Plan q = make_plan(B, S, H, P, N, G, passes != 0);
   *chunk = q.chunk;
   *launches = q.launches;
   for (int i = 0; i < 3; ++i) blocks[i] = q.blocks[i];
@@ -729,10 +730,10 @@ extern "C" int ssd_scan_plan(int B, int S, int H, int P, int N, int G,
 }
 
 // One scan (see the note at the top) on `stream`. Strides are in elements;
-// `chunk` must be the plan's and `scratch` hold the plan's scratch bytes
-// (16-byte aligned; null when the plan needs none). Returns the first
-// launch's error from cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for arguments it cannot take.
+// `chunk` must be the plan's for the same `passes` and `scratch` hold the
+// plan's scratch bytes (16-byte aligned; null when the plan needs none).
+// Returns the first launch's error from cudaGetLastError() (0 on success),
+// or cudaErrorInvalidValue for arguments it cannot take.
 extern "C" int ssd_scan(const void* x, long long x_sb, long long x_ss,
                         long long x_sh, const void* dt, long long dt_sb,
                         long long dt_ss, long long dt_sh, const void* a,
@@ -740,13 +741,13 @@ extern "C" int ssd_scan(const void* x, long long x_sb, long long x_ss,
                         long long b_sg, const void* c, long long c_sb,
                         long long c_ss, long long c_sg, const void* h0,
                         void* y, void* h_out, int B, int S, int H, int P,
-                        int N, int G, int chunk, void* scratch,
-                        void* stream) {
+                        int N, int G, int chunk, int passes,
+                        void* scratch, void* stream) {
   if (!shape_ok(B, S, H, P, N, G) || x == nullptr || dt == nullptr ||
       a == nullptr || b == nullptr || c == nullptr || y == nullptr ||
       h_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Plan q = make_plan(B, S, H, P, N, G);
+  const Plan q = make_plan(B, S, H, P, N, G, passes != 0);
   if (chunk != q.chunk || (q.scratch > 0 && scratch == nullptr) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return (int)cudaErrorInvalidValue;

@@ -39,7 +39,7 @@ def _lib():
     (built and loaded at the first launch)."""
     fn = _build.load("ssd_scan").ssd_scan
     fn.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 2 + [_L] * 3
-                   + [_P] + [_L] * 3 + [_P] * 3 + [_I] * 7 + [_P] * 2)
+                   + [_P] + [_L] * 3 + [_P] * 3 + [_I] * 8 + [_P] * 2)
     fn.restype = _I
     return fn
 
@@ -60,7 +60,7 @@ def _check_strided(name: str, t: torch.Tensor, shape, dev) -> None:
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor,
-             h0: torch.Tensor | None = None):
+             h0: torch.Tensor | None = None, *, passes: bool = False):
     """Mamba-2 SSD over a whole sequence, from ``h0``.
 
     x [B, S, H, P], dt [B, S, H], a [H] (negative), b / c [B, S, G, N]
@@ -68,6 +68,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     zero state). On the card every tensor must be fp32 with its last
     dimension contiguous (x, dt, b and c may be strided views); the
     library's plan (``_launch.ssd_plan``) refuses shapes it does not take.
+    ``passes`` runs the chunk, state and output passes even where the plan
+    takes one launch for a single chunk (``chip_smoke.py`` times the two).
     Returns (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
     """
     global launches
@@ -88,7 +90,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _launch.check("a", a, torch.float32, (heads,), dev)
     if h0 is not None:
         _launch.check("h0", h0, torch.float32, (bsz * heads, n, pdim), dev)
-    plan = _launch.ssd_plan(bsz, s, heads, pdim, n, g)
+    plan = _launch.ssd_plan(bsz, s, heads, pdim, n, g, passes)
     y = torch.empty((bsz, s, heads, pdim), dtype=torch.float32, device=dev)
     h = torch.empty((bsz * heads, n, pdim), dtype=torch.float32, device=dev)
     scratch = (torch.empty((plan.scratch // 4,), dtype=torch.float32,
@@ -98,7 +100,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  *b.stride()[:3], c.data_ptr(), *c.stride()[:3],
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  h.data_ptr(), bsz, s, heads, pdim, n, g, plan.chunk,
-                 None if scratch is None else scratch.data_ptr(),
+                 int(passes), None if scratch is None else scratch.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

@@ -533,6 +533,24 @@ def test_ssd_scan_matches_plain_version(card, shape, with_h0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 2, 16, 1, 16),
+                                   (2, 20, 8, 64, 4, 16),
+                                   (2, 32, 24, 64, 1, 128)], ids=str)
+def test_ssd_scan_three_passes_on_one_chunk(card, shape):
+    """A single chunk that the plan runs in one launch, run as the chunk,
+    state and output passes instead (as phase 6 of ``chip_smoke.py`` times
+    it), is the plain version's scan too."""
+    from repro_torch.kernels import _launch
+    b, s, h, p, g, n = shape
+    assert _launch.ssd_plan(b, s, h, p, n, g, passes=True).launches == 3
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, *shape, seed=5)
+    before = k_ssd.launches
+    got = k_ssd.ssd_scan(x, dt, a, bg, cg, h0, passes=True)
+    assert k_ssd.launches == before + 1
+    _ssd_close(got, ref.ssd_scan_ref(x, dt, a, bg, cg, h0))
+
+
+@pytest.mark.cuda
 def test_ssd_scan_strided_inputs_and_masked_positions(card):
     """The mixer's strided views give the contiguous inputs' result; a
     fully masked sequence (dt = 0, x = 0) returns h0 bit for bit; left pads
