@@ -155,8 +155,7 @@ MAMBA_M_PREFILL = BATCH * MAMBA_PROMPT
 # is what the continuous engine runs, and the kernels line reports it
 SSD_CASES = [("chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
              ("static", BATCH, MAMBA_PROMPT, False),
-             ("long", 1, 8192, False),
-             ("mid", PREFILL_ROWS, 48, True)]
+             ("long", 1, 8192, False)]
 SSD_LINE_CASE = "chunk"
 # |kernel - plain| <= SSD_TOL * (1 + |plain|) for y and the final state:
 # the two differ in the order of their sums, their chunking and the
@@ -1797,8 +1796,8 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     ``case`` (the engine's chunk, ``SSD_LINE_CASE``); ``max_abs_err`` is the
     largest over all phase-6 cases, y and final state; ``bound_ms`` is the
     recurrence's work (2 N P FMAs per token and head) as split TF32 on the
-    tensor cores against the bytes, ``l32_bound_ms`` PR 13's bound (L = 32
-    work at the fp32 rate); ``library_ms`` is
+    tensor cores against the bytes (phase 6's rows keep PR 13's L = 32
+    fp32 bound beside it as ``l32_bound_ms``); ``library_ms`` is
     null (no single PyTorch call computes an SSD scan); ``launches`` is the
     count of mamba2-130m's continuous ``analog_hw`` run (phase 8).
 
@@ -1867,8 +1866,8 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
         "path": LINE_PATHS["ssd_scan"], "launches": ssd_launches,
         "max_abs_err": max(c["max_abs_err"] for c in ssd_rows),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "l32_bound_ms": r["l32_bound_ms"],
-        "library_ms": None, "wall_ms": r["wall_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "wall_ms": r["wall_ms"],
         "case": {k: r[k] for k in ("case", "rows", "tokens", "h0")},
         "plan": r.get("plan"), "parity": "ok"})
     return {"kernels": out}

@@ -22,7 +22,7 @@
 //
 // Only the [N, P] recurrence over chunks is sequential. The chunk summary
 // S_c, C B^T and the intra-chunk y do not depend on h_c, so a scan of more
-// than one chunk (L = 64) runs as three launches:
+// than 32 tokens runs at L = 64 as three launches:
 //   1. chunk pass, grid (H + G, chunks, B): a block per (row, chunk, head)
 //      writes S_c [N, P] and total to the scratch; a block per (row,
 //      chunk, group) writes C B^T [L, L] once for all of the group's heads.
@@ -36,13 +36,16 @@
 //      still being copied in; they come in two 64-wide tiles along N, the
 //      second into the buffers the first product is done with, so that
 //      three blocks fit on an SM.
-// A scan of one chunk (S <= 64; L = 32 up to 32 tokens), as every chunk
-// forward of the continuous engine is, is one launch with no scratch, grid
-// (P / 16, H, B): each block does all of the chunk for 16 columns of P
-// (the SSD is independent across P) and recomputes its [L, L] C B^T. It is
-// bound by latency, not work: its 4 warps split the k steps of C B^T and
-// of y between them (partial sums reduced in shared memory in a fixed
-// order), so that no warp runs a long chain of dependent mma.
+// A scan of at most 32 tokens (one chunk at L = 32), as every chunk
+// forward of the continuous engine at its chunk of 32 is, is one launch
+// with no scratch, grid (P / 16, H, B): each block does all of the chunk
+// for 16 columns of P (the SSD is independent across P) and recomputes its
+// [L, L] C B^T. It is bound by latency, not work: its 4 warps split the k
+// steps of C B^T and of y between them (partial sums reduced in shared
+// memory in a fixed order), so that no warp runs a long chain of dependent
+// mma. At 2 x 32 on an H100 it takes well under half the three passes'
+// time; the same kernel at L = 64 lost to the passes at 2 x 48, so a
+// longer scan takes the passes.
 //
 // The chunk products are [M, K] x [K, N] products in shared memory with K
 // = L or N, on the tensor cores by mma.sync.m16n8k8 in split TF32: each
@@ -78,7 +81,8 @@ constexpr int kThreads = 256;        // chunk, state and output passes
 constexpr int kOneThreads = 128;     // the one-chunk kernel: 4 warps
 constexpr int kSlice = 16;           // P columns of a one-chunk block
 constexpr int kAhead = 8;            // chunks the state pass loads ahead
-constexpr int kMultiChunk = 64;      // L of a scan of several chunks
+constexpr int kOneChunk = 32;        // L of a scan in one launch
+constexpr int kMultiChunk = 64;      // L of the three passes
 // padded row lengths (floats) of the staged operands: 4 mod 32 for rows
 // read along K, 8 or 24 mod 32 for rows read across the fragment's M or N
 constexpr int kLdK = kMaxN + 4;      // C or B rows read along N
@@ -283,40 +287,34 @@ __device__ __forceinline__ void load_dt(const Args& p, int row, int head,
 // a scan of one chunk: one launch
 // ---------------------------------------------------------------------------
 
-template <int L>
-struct OneSmem {                     // floats
-  static constexpr int kLdM = L + 4;
-  // C B^T: (L / 32)^2 warp tiles of 32 x 32, the 4 warps' k steps split
-  // over 4 / tiles parts; y [L][16]: L / 32 tiles of 32 x 16 over 4 / (L /
-  // 32) parts. Partial sums meet in red before a fixed-order reduction.
-  static constexpr int kCbTiles = (L / 32) * (L / 32), kCbParts = 4 / kCbTiles;
-  static constexpr int kYTiles = L / 32, kYParts = 4 / kYTiles;
-  static constexpr int kLdY = kSlice + 4;
-  static constexpr int kRedCb = kCbParts > 1 ? kCbParts * L * kLdM : 0;
-  static constexpr int kRedY = kYParts * L * kLdY;
-  static constexpr int kC = 0, kB = kC + L * kLdK, kM = kB + L * kLdK,
-                       kRed = kM + L * kLdM,
-                       kDx = kRed + (kRedCb > kRedY ? kRedCb : kRedY),
-                       kWx = kDx + L * kLdS, kH = kWx + L * kLdS,
-                       kDt = kH + kMaxN * kLdS, kCum = kDt + L,
-                       kFloats = kCum + L;
-};
+namespace one {                      // smem layout, floats
+constexpr int L = kOneChunk, kLdM = L + 4, kLdY = kSlice + 4;
+// C B^T and y are one 32 x 32 and one 32 x 16 warp tile: the 4 warps
+// split the k steps of each and their partial sums meet in red before a
+// fixed-order reduction
+constexpr int kParts = kOneThreads / 32;
+constexpr int kRedCb = kParts * L * kLdM, kRedY = kParts * L * kLdY;
+constexpr int kC = 0, kB = kC + L * kLdK, kM = kB + L * kLdK,
+              kRed = kM + L * kLdM,
+              kDx = kRed + (kRedCb > kRedY ? kRedCb : kRedY),
+              kWx = kDx + L * kLdS, kH = kWx + L * kLdS,
+              kDt = kH + kMaxN * kLdS, kCum = kDt + L, kFloats = kCum + L;
+}  // namespace one
 
-template <int L>
 __global__ void __launch_bounds__(kOneThreads)
 ssd_one_kernel(Args p) {
-  using Sm = OneSmem<L>;
-  constexpr int kLdM = Sm::kLdM, kLdY = Sm::kLdY;
+  constexpr int L = one::L, kLdM = one::kLdM, kLdY = one::kLdY;
+  constexpr int kParts = one::kParts;
   extern __shared__ __align__(16) float smem[];
-  float* c_s = smem + Sm::kC;        // [L][kLdK] C
-  float* b_s = smem + Sm::kB;        // [L][kLdK] B
-  float* m_s = smem + Sm::kM;        // [L][kLdM] (C B^T) ⊙ decay
-  float* red = smem + Sm::kRed;      // partial sums of C B^T, then of y
-  float* dx_s = smem + Sm::kDx;      // [L][kLdS] x, then dt x
-  float* wx_s = smem + Sm::kWx;      // [L][kLdS] w x
-  float* h_s = smem + Sm::kH;        // [N][kLdS] h0
-  float* dt_s = smem + Sm::kDt;
-  float* cum_s = smem + Sm::kCum;
+  float* c_s = smem + one::kC;       // [L][kLdK] C
+  float* b_s = smem + one::kB;       // [L][kLdK] B
+  float* m_s = smem + one::kM;       // [L][kLdM] (C B^T) ⊙ decay
+  float* red = smem + one::kRed;     // partial sums of C B^T, then of y
+  float* dx_s = smem + one::kDx;     // [L][kLdS] x, then dt x
+  float* wx_s = smem + one::kWx;     // [L][kLdS] w x
+  float* h_s = smem + one::kH;       // [N][kLdS] h0
+  float* dt_s = smem + one::kDt;
+  float* cum_s = smem + one::kCum;
 
   const int p0 = blockIdx.x * kSlice, head = blockIdx.y, row = blockIdx.z;
   const int H = p.H, P = p.P, N = p.N, len = p.S;
@@ -338,25 +336,20 @@ ssd_one_kernel(Args p) {
   mvm::cp_wait<1>();
   __syncthreads();
   if (warp == 0) chunk_cums<L>(dt_s, p.a[head], cum_s);
-  {  // C B^T, each warp one 32 x 32 tile over its share of the k steps
-    const int tile = warp % Sm::kCbTiles, part = warp / Sm::kCbTiles;
-    const int m0 = (tile / (L / 32)) * 32, n0 = (tile % (L / 32)) * 32;
+  {  // C B^T: each warp the 32 x 32 tile over every 4th k step
     float acc[2][4][4] = {};
-    warp_mma<2, 4, kLdK, 1, 1, kLdK>(acc, c_s, b_s, m0, n0, N, L, L,
-                                     8 * part, 8 * Sm::kCbParts);
-    if (Sm::kCbParts > 1)
-      store_acc(acc, red + part * L * kLdM, kLdM, m0, n0, L, L, L);
-    else
-      store_acc(acc, m_s, kLdM, m0, n0, L, L, L);
+    warp_mma<2, 4, kLdK, 1, 1, kLdK>(acc, c_s, b_s, 0, 0, N, L, L, 8 * warp,
+                                     8 * kParts);
+    store_acc(acc, red + warp * L * kLdM, kLdM, 0, 0, L, L, L);
   }
   mvm::cp_wait<0>();
   __syncthreads();
   const float total = cum_s[L - 1];
   for (int e = tid; e < L * L; e += kOneThreads) {
     const int t = e / L, r = e - t * L;
-    float v = Sm::kCbParts > 1 ? red[t * kLdM + r] : m_s[t * kLdM + r];
+    float v = red[t * kLdM + r];
 #pragma unroll
-    for (int q = 1; q < Sm::kCbParts; ++q)
+    for (int q = 1; q < kParts; ++q)
       v = __fadd_rn(v, red[q * L * kLdM + t * kLdM + r]);
     m_s[t * kLdM + r] =
         r <= t ? __fmul_rn(v, expf(fminf(__fsub_rn(cum_s[t], cum_s[r]),
@@ -371,17 +364,15 @@ ssd_one_kernel(Args p) {
     dx_s[t * kLdS + q] = __fmul_rn(dt_s[t], xv);
   }
   __syncthreads();
-  {  // y [L][16] = intra + exp(cums) inter: 32 x 16 tiles, k steps split
-    const int tile = warp % Sm::kYTiles, part = warp / Sm::kYTiles;
-    const int m0 = tile * 32;
+  {  // y [L][16] = intra + exp(cums) inter: each warp every 4th k step
     float intra[2][2][4] = {}, inter[2][2][4] = {};
-    warp_mma<2, 2, kLdM, 1, kLdS, 1>(intra, m_s, dx_s, m0, 0, m0 + 32, L,
-                                     kSlice, 8 * part, 8 * Sm::kYParts);
+    warp_mma<2, 2, kLdM, 1, kLdS, 1>(intra, m_s, dx_s, 0, 0, L, L, kSlice,
+                                     8 * warp, 8 * kParts);
     if (has_h0)
-      warp_mma<2, 2, kLdK, 1, kLdS, 1>(inter, c_s, h_s, m0, 0, N, L, kSlice,
-                                       8 * part, 8 * Sm::kYParts);
-    add_carried(intra, inter, cum_s, m0);
-    store_acc(intra, red + part * L * kLdY, kLdY, m0, 0, L, kSlice, L);
+      warp_mma<2, 2, kLdK, 1, kLdS, 1>(inter, c_s, h_s, 0, 0, N, L, kSlice,
+                                       8 * warp, 8 * kParts);
+    add_carried(intra, inter, cum_s, 0);
+    store_acc(intra, red + warp * L * kLdY, kLdY, 0, 0, L, kSlice, L);
   }
   {  // final state [N][16] = exp(total) h0 + B^T (w x); warps 4 x 1
     const float etot = expf(total);
@@ -400,7 +391,7 @@ ssd_one_kernel(Args p) {
     const int t = e / kSlice, q = e - t * kSlice;
     float v = red[t * kLdY + q];
 #pragma unroll
-    for (int part = 1; part < Sm::kYParts; ++part)
+    for (int part = 1; part < kParts; ++part)
       v = __fadd_rn(v, red[part * L * kLdY + t * kLdY + q]);
     y[(size_t)t * H * P + q] = v;
   }
@@ -645,9 +636,6 @@ bool shape_ok(int B, int S, int H, int P, int N, int G) {
 }
 
 template <int L>
-int one_smem() { return 4 * OneSmem<L>::kFloats; }
-
-template <int L>
 int multi_smem() {
   const int a = ChunkSmem<L>::kFloats, o = OutSmem<L>::kFloats;
   return 4 * (a > o ? a : o);
@@ -655,12 +643,12 @@ int multi_smem() {
 
 Plan make_plan(int B, int S, int H, int P, int N, int G, bool passes) {
   Plan q{};
-  q.chunk = passes || S > 64 ? kMultiChunk : S <= 32 ? 32 : 64;
+  q.chunk = passes || S > kOneChunk ? kMultiChunk : kOneChunk;
   q.chunks = (S + q.chunk - 1) / q.chunk;
-  if (!passes && S <= 64) {          // one chunk: one launch
+  if (q.chunk == kOneChunk) {        // one short chunk: one launch
     q.launches = 1;
     q.blocks[0] = P / kSlice * H * B;
-    q.smem = q.chunk == 32 ? one_smem<32>() : one_smem<64>();
+    q.smem = 4 * one::kFloats;
     return q;
   }
   q.launches = 3;
@@ -672,13 +660,12 @@ Plan make_plan(int B, int S, int H, int P, int N, int G, bool passes) {
   return q;
 }
 
-template <int L>
 cudaError_t launch_one(const Args& p, int B, cudaStream_t st) {
   static unsigned told = 0;
-  const int smem = one_smem<L>();
-  cudaError_t err = mvm::allow_smem(ssd_one_kernel<L>, smem, told);
+  const int smem = 4 * one::kFloats;
+  cudaError_t err = mvm::allow_smem(ssd_one_kernel, smem, told);
   if (err != cudaSuccess) return err;
-  ssd_one_kernel<L><<<dim3(p.P / kSlice, p.H, B), kOneThreads, smem, st>>>(p);
+  ssd_one_kernel<<<dim3(p.P / kSlice, p.H, B), kOneThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -761,7 +748,7 @@ extern "C" int ssd_scan(const void* x, long long x_sb, long long x_ss,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (q.launches == 1)
-    err = q.chunk == 32 ? launch_one<32>(p, B, st) : launch_one<64>(p, B, st);
+    err = launch_one(p, B, st);
   else
     err = launch_multi<kMultiChunk>(p, B, (float*)scratch, st);
   return (int)err;

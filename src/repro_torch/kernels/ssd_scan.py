@@ -5,9 +5,10 @@ kernel of the JAX package (``kernels/ssd_scan.py::ssd_scan``) and folds in
 what ``models/mamba2.py::_ssd_with_state`` adds around it there: the
 incoming state's terms and the final state. It reads x, dt, b and c in the
 mixer's layout through their strides, and b / c per group (no repeat to
-heads). A scan of one chunk is one device launch; a longer one is three
-(chunk summaries, the state pass over chunks, the outputs), which share a
-scratch buffer that the wrapper allocates on the current stream.
+heads). A scan of up to 32 tokens (one chunk) is one device launch; a
+longer one is three at chunks of 64 (chunk summaries, the state pass over
+chunks, the outputs), which share a scratch buffer that the wrapper
+allocates on the current stream.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`) for a CPU tensor; there is no
@@ -69,7 +70,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dimension contiguous (x, dt, b and c may be strided views); the
     library's plan (``_launch.ssd_plan``) refuses shapes it does not take.
     ``passes`` runs the chunk, state and output passes even where the plan
-    takes one launch for a single chunk (``chip_smoke.py`` times the two).
+    takes one launch (``chip_smoke.py`` times the two against each other).
     Returns (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
     """
     global launches

@@ -17,8 +17,8 @@ theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
 1 to 8 decode splits, at the edges of their split over warps (tables of
 1 to 40 blocks, more splits than blocks, chunks that are not a multiple
 of the query tile), and ``ssd_scan`` against its plain version at ragged
-sequence lengths (one launch for a single chunk, three with scratch for
-more), with groups shared by several heads, strided inputs and an incoming
+sequence lengths (one launch up to 32 tokens, three with scratch beyond,
+and the three on a single chunk as well), with groups shared by several heads, strided inputs and an incoming
 state, bitwise the same run to run and under CUDA-graph replay.
 ``chip_smoke.py`` does the same at the main path's full-width shapes.
 
@@ -477,8 +477,8 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(card):
                                     v_scale=vs)
 
 
-# (B, S, H, P, G, N): ragged S around the kernel's chunks (one launch for
-# S <= 64, at L = 32 up to 32 tokens; three launches at L = 64 beyond),
+# (B, S, H, P, G, N): ragged S around the kernel's chunks (one launch at
+# L = 32 up to 32 tokens; three launches at L = 64 beyond),
 # groups shared by 1 to 24 heads, one group per head, jamba's N = 16, and
 # mamba2-130m's head shape (P 64, N 128), whose state pass spans 8 tiles
 SSD = [(1, 1, 2, 16, 1, 16), (2, 33, 4, 32, 2, 16), (3, 70, 4, 64, 1, 128),
@@ -613,8 +613,12 @@ def test_ssd_scan_plan_and_refusals(card):
     one = _launch.ssd_plan(2, 32, 24, 64, 128, 1)
     assert (one.chunk, one.launches, one.blocks, one.scratch) == (
         32, 1, (4 * 24 * 2,), 0)
-    assert _launch.ssd_plan(1, 64, 6, 48, 128, 2)[:3] == (64, 1, (18,))
-    assert _launch.ssd_plan(1, 65, 24, 64, 128, 1).launches == 3
+    assert _launch.ssd_plan(1, 64, 6, 48, 128, 2)[:3] == (64, 3, (8, 36, 6))
+    assert _launch.ssd_plan(1, 33, 24, 64, 128, 1).launches == 3
+    forced = _launch.ssd_plan(2, 32, 24, 64, 128, 1, passes=True)
+    assert (forced.chunk, forced.launches, forced.blocks, forced.scratch) == (
+        64, 3, (25 * 2, 8 * 24 * 2, 24 * 2),
+        4 * 2 * (24 * 128 * 64 + 64 * 64 + 24))
     for s in (1, 31, 33, 100, 1024, 8193):
         assert _launch.ssd_plan(4, s, 24, 64, 128, 1).chunk in SSD_CHUNKS
     x, dt, a, bg, cg, h0 = _ssd_inputs(card, 1, 9, 4, 16, 2, 16, seed=1)
