@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero:
 2. kernels  -- each MVM kernel at llama-3.2-1b's main-path shapes (K -> N of
                the qkv, o, gate_up, down projections and the LM head; M = 4
                for decode, 4 x 32 = 128 for prefill; the continuous
-               engine's M = 8 decode and M = 64 chunk) and at mamba2-130m's
-               (in_proj 768 -> 3352, out_proj 1536 -> 768; M = 4 and
-               4 x 1024), held against its plain PyTorch version on the same
+               engine's M = 8 decode and M = 64 chunk), at phi-3-mini-4k's
+               (3072 -> 9216, 3072 -> 3072, 3072 -> 16384, 8192 -> 3072,
+               3072 -> 32256; M = 4, 128 and the eval forward's 64 x 64 =
+               4096) and at mamba2-130m's (in_proj 768 -> 3352, out_proj
+               1536 -> 768; M = 4 and 4 x 1024), held against its plain
+               PyTorch version on the same
                inputs (analog: at most 1e-4 of the outputs may flip, each
                one ADC level at a near-tie; the folded ADC bound bit for bit
                equal to the explicit one) and timed with CUDA events beside
@@ -35,8 +38,9 @@ Phases, in order; any failure exits non-zero:
                live contexts of 128, 512 and 2048 tokens with ragged
                ``start``, 1 and 4 splits; prefill for the engine's 2 compact
                rows x chunk 32 at the same contexts; fp32, bf16 and int8
-               pools. Each is held against its plain version and timed
-               beside it, beside gather ``kp[tbl]`` + PyTorch's
+               pools; the same at phi-3-mini-4k's (MHA, H 32, KV 32, hd 96)
+               at context 512. Each is held against its plain version and
+               timed beside it, beside gather ``kp[tbl]`` + PyTorch's
                ``scaled_dot_product_attention`` (yardstick only) and the
                card's bound, with the kernel's plan (warps of a thread
                block, query tile, lanes of a warp, keys per warp iteration
@@ -77,6 +81,31 @@ Phases, in order; any failure exits non-zero:
                contiguous), and a chunk + decode step's logits within 1e-4.
 10. cli     -- ``repro_torch.launch.serve.main``, continuous (paged) and
                static, and continuous with ``--arch mamba2-130m``.
+11. phi-3   -- phases 3 and 4 for full-width phi-3-mini-4k (32 layers, d
+               3072, 3.82 B fp32 parameters, random from a seed):
+               ``analog_hw`` + ``use_pallas=True`` against unfused,
+               ``digital_int4`` against ``digital_rtn4``, under the same
+               gates.
+12. eval    -- the paper's §3.2 noisy-eval protocol (``eval.harness``) at
+               full width for llama-3.2-1b and phi-3-mini-4k, random
+               weights, ``analog_hw`` on ``analog_matmul``:
+               ``evaluate(..., NoiseSpec("hw"), seeds=10)`` on markov_next
+               (64 x 64 tokens) and induction_copy by the per-seed path
+               (ten instance trees would not fit), printing each seed's
+               seconds, scored tokens/s, launches and peak memory; its
+               first two seeds again (the same chips must give equal logits
+               bits and runs); ``digital_int4`` with no noise on
+               ``int4_matmul``; a two-point gaussian gamma sweep on pinned
+               instances, one seed at a time (both points must perturb the
+               same chip). The scores of random weights gate nothing. Then
+               the reduced models' eval on the card against the CPU with
+               the same instance trees (3 hw seeds): equal scores per task
+               and seed, and no site input apart before a site output is.
+13. best-of-n -- ``serve.engine.sample_candidates`` at full width, both
+               models, ``analog_hw`` on the continuous engine's paged pool
+               (8 slots): 8 mod_add prompts x 8 candidates, then
+               ``best_of_n_accuracy`` at n = 1, 4, 8; candidates/s, and
+               every projection and attention call on its kernel.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -130,8 +159,9 @@ U32 = 2.0 ** -24                                           # fp32 unit round-off
 # only catches gross faults (unrelated logits give about 1.4).
 E2E_TOL = 0.25
 # paged attention at llama-3.2-1b's attention shapes (phase 5) and the
-# continuous engine's geometry (phase 8)
+# continuous engine's geometry (phase 8): heads, kv heads, head dim, block
 PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS = 32, 8, 64, 16
+LLAMA_PAGED = (PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS)
 PAGED_CONTEXTS = (128, 512, 2048)
 DECODE_ROWS, DECODE_SPLITS = 8, (1, 4)
 POOL_DTYPES = ("f32", "bf16", "i8")
@@ -141,6 +171,43 @@ PREFILL_ROWS = 2
 # the continuous engine's MVM rows: a decode forward over its slots and a
 # chunk forward of its compact rows
 M_ENGINE_DECODE, M_ENGINE_CHUNK = ENGINE_SLOTS, PREFILL_ROWS * ENGINE_CHUNK
+# phi-3-mini-4k, the paper's primary subject model: (site, K, N, sites per
+# forward) of its 32 layers and the LM head (padded_vocab 32256); MHA at
+# head dim 96 on the paged kernels (phase 5, at one context); the eval
+# forward's rows, 64 sequences of 64 tokens (phase 12)
+PHI3 = "phi-3-mini-4k"
+PHI3_SITES = [("qkv", 3072, 9216, 32), ("o", 3072, 3072, 32),
+              ("gate_up", 3072, 16384, 32), ("down", 8192, 3072, 32),
+              ("lm_head", 3072, 32256, 1)]
+PHI3_PAGED = (32, 32, 96, 16)
+PHI3_PAGED_CONTEXT = 512
+# the eval forwards' rows (phase 12): markov_next's 64 sequences of 64
+# tokens and induction_copy's 64 of 25 (a ragged last 128-row tile)
+M_EVAL, M_INDUCTION = 64 * 64, 64 * 25
+# the noisy-eval protocol (phase 12): seeds of the per-seed hw path; the
+# first of them run again (the same chips must give the same bits); the
+# pinned gaussian sweep's gamma points and seeds; the reduced card-vs-CPU
+# eval's seeds
+EVAL_SEEDS, EVAL_REPEAT = 10, 2
+SWEEP_GAMMAS, SWEEP_SEEDS = (0.02, 0.04), 2
+REDUCED_EVAL_SEEDS = 3
+# card against CPU on the same instances: before any site output differs
+# (an ADC near-tie flip), a site's input may differ only by the fp32
+# rounding of the digital ops in between (norms, attention, residual
+# adds): |dx| <= SITE_INPUT_TOL * (1 + |x|)
+SITE_INPUT_TOL = 1e-4
+# the positions of each eval task's logits [B, S, V] that its score reads
+# (markov_next skips 4 tokens of context, induction_copy reads the second
+# copy of its 12-token pattern), and their number in one seed at the
+# default sizes (64 sequences each)
+SCORED = {"markov_next": slice(4, None), "induction_copy": slice(13, 24)}
+SCORED_PER_SEED = 64 * (64 - 4) + 64 * 11
+# best-of-n (phase 13): mod_add prompts, candidates per prompt, the n of
+# the accuracy curve, tokens per candidate, the modulus (SEP is token mod)
+BON_PROMPTS, BON_N, BON_NS, BON_MAX_NEW, BON_MOD = 8, 8, (1, 4, 8), 4, 23
+# best-of-n's MVM rows: a decode forward over the engine's 8 slots and a
+# chunk forward of its compact rows, 2 x BestOfNConfig's prefill_chunk 8
+M_BON_DECODE, M_BON_CHUNK = ENGINE_SLOTS, 2 * 8
 # mamba2-130m, the ssm family: (site, K, N, sites per forward) of its 24
 # layers (the tied LM head is a plain matmul, as in the reference), the
 # static engine's batch, prompt and new tokens
@@ -319,6 +386,13 @@ def graph_ms(torch, fn, reps: int = 5, rounds: int = 3) -> float:
     return ms
 
 
+def timing_reps(m: int, k: int, n: int) -> dict:
+    """Calls per round and rounds of a kernel timing: fewer for the eval
+    forward's largest shapes, whose calls take milliseconds each."""
+    return dict(reps=20, rounds=5) if m * k * n < 5e10 else dict(reps=5,
+                                                                  rounds=3)
+
+
 def n_copies(nbytes: int) -> int:
     """Weight copies to rotate so that their sum exceeds L2 four times."""
     return max(1, math.ceil(200e6 / nbytes))
@@ -434,17 +508,18 @@ def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
     def kernel(i):
         return km.analog_matmul(x, ws[i], beta, None, offs[i], lam=lam)
 
-    ms = device_ms(torch, kernel, copies)
-    wall = cuda_time_ms(torch, kernel, copies)
+    reps = timing_reps(m, k, n)
+    ms = device_ms(torch, kernel, copies, **reps)
+    wall = cuda_time_ms(torch, kernel, copies, **reps)
     explicit = device_ms(torch, lambda i: km.analog_matmul(
-        x, ws[i], beta, bounds[i], offs[i]), copies)
+        x, ws[i], beta, bounds[i], offs[i]), copies, **reps)
     plain = device_ms(torch, lambda i: ref.analog_matmul_ref(
         x, ws[i], beta, None, offs[i], lam=lam), copies, reps=5, rounds=3)
-    mm = device_ms(torch, lambda i: x @ ws[i], copies)
+    mm = device_ms(torch, lambda i: x @ ws[i], copies, **reps)
     # the ADC bound pass that analog_linear ran beside every fused call
     # before the kernel folded it
     bound_calc = device_ms(torch, lambda i: ref.adc_bound(ws[i], beta, lam),
-                           copies)
+                           copies, **reps)
     # x, w, beta, col_off read once, the output written once
     nbytes = 4 * (m * k + k * n + 1 + (n if with_off else 0) + m * n)
     return {"M": m, "K": k, "N": n, "col_off": with_off, "ms": ms,
@@ -489,13 +564,14 @@ def int4_case(torch, gen, m, k, n) -> dict:
     def kernel(i):
         return k4.int4_matmul(x, packs[i], scales[i])
 
-    ms = device_ms(torch, kernel, copies)
-    wall = cuda_time_ms(torch, kernel, copies)
+    reps = timing_reps(m, k, n)
+    ms = device_ms(torch, kernel, copies, **reps)
+    wall = cuda_time_ms(torch, kernel, copies, **reps)
     plain = device_ms(torch, lambda i: ref.int4_matmul_ref(
         x, packs[i], scales[i]), copies, reps=5, rounds=3)
     w_mm = [torch.randn((k, n), generator=gen, device=dev)
             for _ in range(n_copies(4 * k * n))]
-    mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm))
+    mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm), **reps)
     nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
     return {"M": m, "K": k, "N": n, "ms": ms, "wall_ms": wall,
             "plain_ms": plain, "matmul_ms": mm,
@@ -505,28 +581,45 @@ def int4_case(torch, gen, m, k, n) -> dict:
             "max_err_over_bound": err_ratio}
 
 
+#: phase 2's MVM rows, (arch, sites, M, static, int4): the rows of each
+#: model's static engine (also held with col_off), continuous engine, eval
+#: forwards (analog_hw and digital_int4) and best-of-n engine (analog_hw
+#: only)
+MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
+            + [(ARCH, SITES, m, False, True) for m in (
+                M_ENGINE_DECODE, M_ENGINE_CHUNK, M_EVAL, M_INDUCTION)]
+            + [(ARCH, SITES, M_BON_CHUNK, False, False)]
+            + [(PHI3, PHI3_SITES, m, True, True) for m in (M_DECODE,
+                                                           M_PREFILL)]
+            + [(PHI3, PHI3_SITES, m, False, True) for m in (M_EVAL,
+                                                            M_INDUCTION)]
+            + [(PHI3, PHI3_SITES, m, False, False) for m in (M_BON_DECODE,
+                                                             M_BON_CHUNK)]
+            + [(MAMBA, MAMBA_SITES, m, True, True) for m in (
+                M_DECODE, MAMBA_M_PREFILL)]
+            + [(MAMBA, MAMBA_SITES, m, False, True) for m in (
+                M_ENGINE_DECODE, M_ENGINE_CHUNK)])
+
+
 def phase_kernels(torch) -> dict:
-    """Parity and times of both kernels at every main-path shape of
-    llama-3.2-1b (static and continuous engine) and mamba2-130m (each row
-    names its ``arch``)."""
+    """Parity and times of both kernels at every main-path shape (each
+    row names its ``arch``): the static engine of every model, the
+    continuous engine of llama-3.2-1b and mamba2-130m, and the eval
+    forwards of both tasks and best-of-n's engine of llama-3.2-1b and
+    phi-3-mini-4k."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"analog_matmul": [], "int4_matmul": []}
-    shapes = ([(ARCH, site, k, n, m) for site, k, n, _ in SITES
-               for m in (M_DECODE, M_PREFILL, M_ENGINE_DECODE,
-                         M_ENGINE_CHUNK)]
-              + [(MAMBA, site, k, n, m) for site, k, n, _ in MAMBA_SITES
-                 for m in (M_DECODE, MAMBA_M_PREFILL)])
-    for arch, site, k, n, m in shapes:
-        # the engine's shapes only as the main path runs them (no col_off)
-        offs = ((False,) if m in (M_ENGINE_DECODE, M_ENGINE_CHUNK)
-                else (False, True))
-        for with_off in offs:
+    shapes = [(arch, site, k, n, m, stat, int4)
+              for arch, sites, m, stat, int4 in MVM_RUNS
+              for site, k, n, _ in sites]
+    for arch, site, k, n, m, stat, int4 in shapes:
+        for with_off in ((False, True) if stat else (False,)):
             r = analog_case(torch, gen, m, k, n, with_off)
             r["site"], r["arch"] = site, arch
             rows["analog_matmul"].append(r)
             unprom = ("" if r["flip_rate_unpromoted"] is None else
                       f", unpromoted {r['flip_rate_unpromoted']:.2e}")
-            print(f"  analog_matmul {site:8s} M={m:4d} {k}->{n} "
+            print(f"  analog_matmul {arch} {site:8s} M={m:4d} {k}->{n} "
                   f"off={int(with_off)} {r['mapping']} x{r['splits']}: "
                   f"{r['ms']:.4f} ms folded (explicit bound "
                   f"{r['explicit_bound_ms']:.4f}, wall {r['wall_ms']:.4f}, "
@@ -535,15 +628,17 @@ def phase_kernels(torch) -> dict:
                   f"{r['fp32_bound_ms']:.4f}, mma {r['mma_bound_ms']:.4f}; "
                   f"adc_bound {r['adc_bound_ms']:.4f}), flips {r['flips']} "
                   f"of {r['parity_outputs']} ({r['flip_rate']:.2e}{unprom})")
-        r = int4_case(torch, gen, m, k, n)
-        r["site"], r["arch"] = site, arch
-        rows["int4_matmul"].append(r)
-        print(f"  int4_matmul   {site:8s} M={m:4d} {k}->{n} {r['mapping']} "
-              f"x{r['splits']}: {r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, "
-              f"plain {r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}; "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, fp32 "
-              f"{r['fp32_bound_ms']:.4f}, mma {r['mma_bound_ms']:.4f}), "
-              f"err/bound {r['max_err_over_bound']:.2e}")
+        if int4:
+            r = int4_case(torch, gen, m, k, n)
+            r["site"], r["arch"] = site, arch
+            rows["int4_matmul"].append(r)
+            print(f"  int4_matmul   {arch} {site:8s} M={m:4d} {k}->{n} "
+                  f"{r['mapping']} x{r['splits']}: {r['ms']:.4f} ms (wall "
+                  f"{r['wall_ms']:.4f}, plain {r['plain_ms']:.4f}, matmul "
+                  f"{r['matmul_ms']:.4f}; bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, fp32 {r['fp32_bound_ms']:.4f}, mma "
+                  f"{r['mma_bound_ms']:.4f}), err/bound "
+                  f"{r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
     for name, cases in rows.items():
         for arch, m, tot in forward_totals(cases):
@@ -552,8 +647,10 @@ def phase_kernels(torch) -> dict:
     return rows
 
 
-#: analog sites of one forward, by site name (llama's and mamba2-130m's)
-PER_SITE = {s[0]: s[3] for s in SITES + MAMBA_SITES}
+#: analog sites of one forward, by (arch, site name)
+PER_SITE = {(arch, s[0]): s[3]
+            for arch, sites in ((ARCH, SITES), (PHI3, PHI3_SITES),
+                                (MAMBA, MAMBA_SITES)) for s in sites}
 #: the per-shape times and bounds that forward_totals sums
 TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
               "adc_bound_ms", "bound_ms", "fp32_bound_ms", "mma_bound_ms")
@@ -570,7 +667,8 @@ def forward_totals(cases: list) -> list:
         tot = out.setdefault((r["arch"], r["M"]), {})
         for key in TOTAL_KEYS:
             if key in r:
-                tot[key] = tot.get(key, 0.0) + PER_SITE[r["site"]] * r[key]
+                tot[key] = tot.get(key, 0.0) + PER_SITE[
+                    r["arch"], r["site"]] * r[key]
     return [(arch, m, tot) for (arch, m), tot in out.items()]
 
 
@@ -578,13 +676,13 @@ def forward_totals(cases: list) -> list:
 # phase 5: the paged-attention kernels
 # ---------------------------------------------------------------------------
 
-def paged_tables(torch, gen, rows: int, context: int, chunk: int):
+def paged_tables(torch, gen, rows: int, context: int, chunk: int,
+                 bs: int = PAGED_BS):
     """Block tables and cursors: row ``b`` starts at a ragged ``start[b]``
     (0 to 4 blocks of left pad) and its last query column attends exactly
     ``context`` tokens. Distinct random physical blocks per row; block 0
     is the sink."""
     dev = torch.device("cuda")
-    bs = PAGED_BS
     start = torch.randint(0, 4 * bs, (rows,), generator=gen, device=dev)
     pos = start + context - chunk               # first column of the chunk
     nb = -(-(4 * bs + context) // bs)
@@ -595,10 +693,12 @@ def paged_tables(torch, gen, rows: int, context: int, chunk: int):
             start.to(torch.int32).contiguous(), npool)
 
 
-def paged_pool(torch, gen, npool: int, dtype: str):
-    """One random pool ``(kp, vp, k_scale, v_scale)`` of ``dtype``."""
+def paged_pool(torch, gen, npool: int, dtype: str, heads=LLAMA_PAGED):
+    """One random pool ``(kp, vp, k_scale, v_scale)`` of ``dtype`` at
+    ``heads`` = (H, KV, hd, block)."""
     dev = torch.device("cuda")
-    shape = (npool, PAGED_BS, PAGED_KV, PAGED_HD)
+    _, nkv, hd, bs = heads
+    shape = (npool, bs, nkv, hd)
     if dtype == "i8":
         return tuple(torch.randint(-127, 128, shape, generator=gen,
                                    device=dev, dtype=torch.int8)
@@ -642,30 +742,31 @@ def gather_sdpa(torch, q, kp, vp, ks, vs, tbl, pos, start, scale):
 
 
 def paged_case(torch, gen, kind: str, context: int, dtype: str,
-               splits: int) -> dict:
-    """One paged kernel case: parity against the plain version (and the
-    yardstick against it, loosely), then device times of the kernel, the
-    plain version and the yardstick beside the card's bound. Pool copies
-    rotate so that the live bytes of all copies exceed the 50 MB L2."""
+               splits: int, heads=LLAMA_PAGED) -> dict:
+    """One paged kernel case at ``heads`` = (H, KV, hd, block): parity
+    against the plain version (and the yardstick against it, loosely),
+    then device times of the kernel, the plain version and the yardstick
+    beside the card's bound. Pool copies rotate so that the live bytes of
+    all copies exceed the 50 MB L2."""
     from repro_torch.kernels import paged_attention as kd
     from repro_torch.kernels import paged_prefill as kp_
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
+    nq, nkv, hd, bs = heads
     decode = kind == "decode"
     rows = DECODE_ROWS if decode else PREFILL_ROWS
     chunk = 1 if decode else ENGINE_CHUNK
-    tbl, pos, start, npool = paged_tables(torch, gen, rows, context, chunk)
+    tbl, pos, start, npool = paged_tables(torch, gen, rows, context, chunk,
+                                          bs)
     elem = {"f32": 4, "bf16": 2, "i8": 1}[dtype]
     live = rows * context                      # tokens the kernel must read
-    kv_bytes = live * PAGED_KV * (2 * PAGED_HD * elem
-                                  + (8 if dtype == "i8" else 0))
-    pools = [paged_pool(torch, gen, npool, dtype)
+    kv_bytes = live * nkv * (2 * hd * elem + (8 if dtype == "i8" else 0))
+    pools = [paged_pool(torch, gen, npool, dtype, heads)
              for _ in range(n_copies(kv_bytes))]
-    qshape = ((rows, PAGED_H, PAGED_HD) if decode
-              else (rows, chunk, PAGED_H, PAGED_HD))
+    qshape = (rows, nq, hd) if decode else (rows, chunk, nq, hd)
     q = torch.randn(qshape, generator=gen, device=dev)
-    scale = PAGED_HD ** -0.5
+    scale = hd ** -0.5
 
     if decode:
         def kernel(i):
@@ -701,7 +802,7 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    name = (f"paged {kind} ctx={context} {dtype}"
+    name = (f"paged {kind} H{nq} KV{nkv} hd{hd} ctx={context} {dtype}"
             + (f" splits={splits}" if decode else ""))
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
     err = (out - want).abs()
@@ -722,43 +823,51 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
     nbytes = (kv_bytes + 2 * 4 * q.numel() + 4 * (tbl.numel() + 2 * rows))
     cols = torch.arange(chunk, dtype=torch.float64)
     attended = float((context - chunk + 1 + cols).sum()) * rows
-    bnd, by = bound_ms(nbytes, 4.0 * PAGED_HD * PAGED_H * attended)
+    bnd, by = bound_ms(nbytes, 4.0 * hd * nq * attended)
     pool_dtype = pools[0][0].dtype
-    plan = (kd.decode_plan(PAGED_H, PAGED_KV, PAGED_HD, PAGED_BS, pool_dtype)
-            if decode else kp_.prefill_plan(PAGED_HD, PAGED_BS, pool_dtype))
+    plan = (kd.decode_plan(nq, nkv, hd, bs, pool_dtype)
+            if decode else kp_.prefill_plan(hd, bs, pool_dtype))
     del pools
-    return {"kind": kind, "context": context, "dtype": dtype,
+    return {"kind": kind, "heads": list(heads), "context": context,
+            "dtype": dtype,
             "splits": splits, "rows": rows, "chunk": chunk, "ms": ms,
             "wall_ms": wall, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bnd, "bound_by": by, "copies": n,
             "max_abs_err": float(err.max()), "library_abs_err": lib_err,
-            "plan": plan_dict(plan)}
+            "plan": plan_dict(plan, bs)}
 
 
-def plan_dict(plan) -> dict:
+def plan_dict(plan, bs: int) -> dict:
     """A paged kernel's plan as its design parameters: warps of a thread
     block, query vectors of its tile, the lanes of a warp (tile x key
     lanes x chunk lanes), the keys a warp takes per iteration (one pool
     block) and per lane, and the pool blocks in flight per warp."""
     return {"warps": plan.warps, "tile": plan.tile,
             "lanes": [plan.tile, plan.key_lanes, plan.chunk_lanes],
-            "keys_per_warp_iteration": PAGED_BS,
-            "keys_per_lane": -(-PAGED_BS // plan.key_lanes),
+            "keys_per_warp_iteration": bs,
+            "keys_per_lane": -(-bs // plan.key_lanes),
             "stages": plan.stages}
 
 
 def phase_paged(torch) -> dict:
-    """Parity and times of both paged kernels at every listed case."""
+    """Parity and times of both paged kernels at every listed case:
+    llama-3.2-1b's heads at every context, phi-3-mini-4k's (MHA, hd 96)
+    at one context, each with the fp32 pool of the best-of-n engine."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {"paged_flash_decode": [], "paged_flash_prefill": []}
-    for context in PAGED_CONTEXTS:
+    cases = ([(ARCH, LLAMA_PAGED, c) for c in PAGED_CONTEXTS]
+             + [(PHI3, PHI3_PAGED, PHI3_PAGED_CONTEXT)])
+    for arch, heads, context in cases:
         for dtype in POOL_DTYPES:
-            cases = [("decode", s) for s in DECODE_SPLITS] + [("prefill", 1)]
-            for kind, splits in cases:
-                r = paged_case(torch, gen, kind, context, dtype, splits)
+            kinds = [("decode", s) for s in DECODE_SPLITS] + [("prefill", 1)]
+            for kind, splits in kinds:
+                r = paged_case(torch, gen, kind, context, dtype, splits,
+                               heads)
+                r["arch"] = arch
                 rows[f"paged_flash_{kind}"].append(r)
                 pl = r["plan"]
-                print(f"  {kind:7s} ctx={context:4d} {dtype:4s} "
+                print(f"  {kind:7s} {arch} H{heads[0]} KV{heads[1]} "
+                      f"hd{heads[2]} ctx={context:4d} {dtype:4s} "
                       f"splits={splits}: {r['ms']:.4f} ms (wall "
                       f"{r['wall_ms']:.4f}, plain {r['plain_ms']:.4f}, "
                       f"gather+sdpa {r['library_ms']:.4f}, bound "
@@ -1462,9 +1571,26 @@ def _deploy_args(deploy: str):
     return argparse.Namespace(deploy=deploy)
 
 
-def serve_phase(torch, deploy: str, base: str) -> dict:
-    """Serve full-width llama-3.2-1b under ``deploy`` on the kernels and
-    check it against the unfused ``base`` deployment of the same weights."""
+#: (layers, d_model, padded_vocab) each full-width model must have
+FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (32, 3072, 32256)}
+
+
+def full_width(torch, arch: str, seed: int = 0):
+    """``arch`` at full width and depth on the card, random weights from
+    ``seed``: ``(cfg, params, labels)``."""
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    cfg, params, labels = build(arch, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
+          == FULL_WIDTH[arch], f"unexpected config {cfg}")
+    return cfg, params, labels
+
+
+def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
+    """Serve full-width ``arch`` under ``deploy`` on the kernels and check
+    it against the unfused ``base`` deployment of the same weights."""
     from repro_torch.kernels import analog_matmul as km
     from repro_torch.kernels import int4_matmul as k4
     from repro_torch.launch.serve import deploy_model
@@ -1473,10 +1599,10 @@ def serve_phase(torch, deploy: str, base: str) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    cfg, params, labels = build(ARCH, gen, device=dev)
+    cfg, params, labels = build(arch, gen, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    check(cfg.num_layers == 16 and cfg.d_model == 2048
-          and cfg.padded_vocab == 128256, f"unexpected config {cfg}")
+    check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
+          == FULL_WIDTH[arch], f"unexpected config {cfg}")
     fused_p, fused_acfg = deploy_model(_deploy_args(deploy), cfg, params,
                                        labels, gen)
     if deploy == "analog_hw":
@@ -1500,7 +1626,7 @@ def serve_phase(torch, deploy: str, base: str) -> dict:
     toks_host = toks.cpu()
     gen_s = time.perf_counter() - t0
     launched, other_launched = counter.launches, other.launches
-    want = LAUNCHES_PER_FORWARD * FORWARDS
+    want = mvm_sites(cfg) * FORWARDS
     check(launched == want, f"{deploy}: {counter.__name__} launched "
           f"{launched} times, expected {want}")
     check(other_launched == 0, f"{deploy}: the other kernel launched "
@@ -1518,17 +1644,20 @@ def serve_phase(torch, deploy: str, base: str) -> dict:
     rel_l2 = float(torch.linalg.vector_norm(lf - lb)
                    / torch.linalg.vector_norm(lb))
     n_sites, n_el, n_flip = site_parity(torch, cfg, fused_p, fused_acfg,
-                                        base_p, base_acfg, prompt)
+                                        base_p, base_acfg, prompt,
+                                        sites=mvm_sites(cfg))
     agree = int((toks_host == base_toks).sum())
     first_agree = int((toks_host[:, 0] == base_toks[:, 0]).sum())
-    res = {"deploy": deploy, "params": n_params, "launches": launched,
+    res = {"arch": arch, "deploy": deploy, "params": n_params,
+           "launches": launched,
            "generate_s": gen_s,
            "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
            "max_logit_diff": float((lf - lb).abs().max()),
            "logit_scale": float(lb.abs().max()), "rel_l2": rel_l2,
            "sites": n_sites, "site_elements": n_el, "site_flips": n_flip,
            "greedy_agree": agree, "first_token_agree": first_agree}
-    print(f"  {deploy}: {n_params / 1e9:.3f}B params, {launched} launches, "
+    print(f"  {arch} {deploy}: {n_params / 1e9:.3f}B params, {launched} "
+          f"launches, "
           f"generate {gen_s:.2f}s; vs {base}: {n_sites} sites on the same "
           f"inputs, {n_flip} of {n_el} outputs one ADC level apart at "
           f"near-ties ({n_flip / n_el:.2e}); end to end max |dlogit| "
@@ -1539,7 +1668,8 @@ def serve_phase(torch, deploy: str, base: str) -> dict:
           f"{rel_l2:.3e} >= {E2E_TOL}")
     res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt))
     res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt)
-    print(f"  {deploy} on the kernels: prefill {res['prefill_ms']:.2f} ms, "
+    print(f"  {arch} {deploy} on the kernels: prefill "
+          f"{res['prefill_ms']:.2f} ms, "
           f"decode {res['decode_ms']:.2f} ms/step, of it on the device "
           f"{res['decode_device_ms']:.2f} ms (busy "
           f"{res['device_busy']:.3f}); unfused {base}: prefill "
@@ -1608,63 +1738,104 @@ def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens,
     pre-ADC value, ``|frac(y * inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) *
     inv``, as in the kernel phase. Returns (sites, elements, flips)."""
     from repro_torch.core import analog as A
-    from repro_torch.core import quant
-    from repro_torch.kernels import ref
-    from repro_torch.models import layers as L
-    from repro_torch.models import mamba2 as M
-    from repro_torch.models import transformer as T
     from repro_torch.serve.decode import prefill
 
-    real = A.analog_linear
     calls = {"a": [], "b": []}
-
-    def recorder(tag):
-        def spy(p, x, acfg, ctx):
-            calls[tag].append((p, x))
-            return real(p, x, acfg, ctx)
-        return spy
-
     for tag, params, acfg in (("a", params_a, acfg_a),
                               ("b", params_b, acfg_b)):
-        L.analog_linear = M.analog_linear = T.analog_linear = recorder(tag)
-        try:
+        with sites_recorded(calls[tag]):
             prefill(params, cfg, acfg, tokens, tokens.shape[1])
-        finally:
-            L.analog_linear = M.analog_linear = T.analog_linear = real
     check(len(calls["a"]) == len(calls["b"]) == sites,
           f"site count {len(calls['a'])}, {len(calls['b'])}")
-    qo = ref.qmax(acfg_b.output_bits)
     ctx = A.AnalogCtx()
     elements = flips = 0
     with torch.no_grad():
-        for i, ((pa, _), (pb, x)) in enumerate(zip(calls["a"], calls["b"])):
-            ya, _ = real(pa, x, acfg_a, ctx)
-            yb, _ = real(pb, x, acfg_b, ctx)
-            w = pb["kernel"].float()
-            if acfg_b.mode == "rtn":
-                w = quant.rtn_dequantize(*quant.rtn_quantize(
-                    w, acfg_b.weight_bits))
-            beta = pb["input_range"].reshape(()).float()
-            x_q = quant.input_quantize(x.float().reshape(-1, w.shape[0]),
-                                       beta, acfg_b.input_bits)
-            b = torch.clamp_min(ref.adc_bound(w, beta, acfg_b.out_bound),
-                                1e-8)
-            inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
-            v = (x_q @ w) * inv
-            err = w.shape[0] * U32 * (x_q.abs() @ w.abs()) * inv
-            diff = (ya - yb).reshape(v.shape).abs()
-            lsb = ref.div(b, qo).expand_as(diff)
-            bad = diff != 0
-            n_bad = int(bad.sum())
-            elements += diff.numel()
-            flips += n_bad
-            if n_bad:
-                level = ((diff[bad] - lsb[bad]).abs() / lsb[bad]).max()
-                tie = (v[bad] - torch.floor(v[bad]) - 0.5).abs()
-                check(float(level) < 1e-3 and bool((tie <= err[bad]).all()),
-                      f"site {i}: a fused/unfused mismatch is not one ADC "
-                      f"level at a near-tie")
+        for i, ((pa, _, _), (pb, x, _)) in enumerate(zip(calls["a"],
+                                                          calls["b"])):
+            ya, _ = A.analog_linear(pa, x, acfg_a, ctx)
+            yb, _ = A.analog_linear(pb, x, acfg_b, ctx)
+            elements += ya.numel()
+            flips += adc_mismatches(torch, pb, x, ya, yb, acfg_b,
+                                    f"site {i}: a fused/unfused")
     return len(calls["b"]), elements, flips
+
+
+@contextlib.contextmanager
+def sites_recorded(log: list):
+    """Inside the block every analog site call of the models appends ``(p,
+    x, y)`` (its params, input and output) to ``log``."""
+    from repro_torch.core import analog as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import transformer as T
+
+    real = A.analog_linear
+
+    def spy(p, x, acfg, ctx):
+        y, stats = real(p, x, acfg, ctx)
+        log.append((p, x, y))
+        return y, stats
+
+    L.analog_linear = M.analog_linear = T.analog_linear = spy
+    try:
+        yield
+    finally:
+        L.analog_linear = M.analog_linear = T.analog_linear = real
+
+
+@contextlib.contextmanager
+def logits_recorded(torch, log: list, keep: int | None = None):
+    """Inside the block every eval-task forward's logits must be finite,
+    and the first ``keep`` of them (all with None) are appended to
+    ``log``."""
+    from repro_torch.eval import tasks
+
+    real = tasks.model_apply
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        check(bool(torch.isfinite(out[0]).all()), "eval: non-finite logits")
+        if keep is None or len(log) < keep:
+            log.append(out[0].clone())
+        return out
+
+    tasks.model_apply = spy
+    try:
+        yield
+    finally:
+        tasks.model_apply = real
+
+
+def adc_mismatches(torch, p, x, ya, yb, acfg, what: str) -> int:
+    """Elements where two outputs ``ya``, ``yb`` of the analog site ``p``
+    on the same input ``x`` differ. Each must be exactly one ADC level at a
+    near-tie of the pre-ADC value of ``acfg``'s unfused path, ``|frac(y *
+    inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) * inv``. Returns their
+    count."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+
+    qo = ref.qmax(acfg.output_bits)
+    w = p["kernel"].float()
+    if acfg.mode == "rtn":
+        w = quant.rtn_dequantize(*quant.rtn_quantize(w, acfg.weight_bits))
+    beta = p["input_range"].reshape(()).float()
+    x_q = quant.input_quantize(x.float().reshape(-1, w.shape[0]), beta,
+                               acfg.input_bits)
+    b = torch.clamp_min(ref.adc_bound(w, beta, acfg.out_bound), 1e-8)
+    inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
+    v = (x_q @ w) * inv
+    err = w.shape[0] * U32 * (x_q.abs() @ w.abs()) * inv
+    diff = (ya - yb).reshape(v.shape).abs()
+    lsb = ref.div(b, qo).expand_as(diff)
+    bad = diff != 0
+    n_bad = int(bad.sum())
+    if n_bad:
+        level = ((diff[bad] - lsb[bad]).abs() / lsb[bad]).max()
+        tie = (v[bad] - torch.floor(v[bad]) - 0.5).abs()
+        check(float(level) < 1e-3 and bool((tie <= err[bad]).all()),
+              f"{what} mismatch is not one ADC level at a near-tie")
+    return n_bad
 
 
 def _leaves(tree):
@@ -1748,12 +1919,471 @@ def phase_cli(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the noisy-eval protocol (paper §3.2) at full width, and the
+# reduced eval on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def eval_tasks(cfg) -> dict:
+    """The paper suite's stand-ins at their default sizes: ``markov_next``
+    (64 x 64 tokens of a Markov corpus over the model's vocabulary) and
+    ``induction_copy`` (64 x 25)."""
+    from repro_torch.data.corpus import MarkovCorpus
+    from repro_torch.eval import tasks
+
+    return {"markov_next": tasks.markov_next(MarkovCorpus(cfg.vocab_size,
+                                                          seed=0)),
+            "induction_copy": tasks.induction_copy(cfg.vocab_size)}
+
+
+class SeedLog:
+    """Wraps an eval task suite (``tasks``) for one ``evaluate`` call:
+    per seed (one call of every task), the seconds since the previous seed
+    ended (the perturbation included), each kernel's launches and the peak
+    device memory. Inside :meth:`recording` every task forward's logits
+    must be finite, and those of the first ``keep`` seeds are kept."""
+
+    def __init__(self, torch, tasks: dict, keep: int = 0):
+        self.torch, self.keep = torch, keep
+        self.names = list(tasks)
+        self.tasks = {n: self._wrap(f) for n, f in tasks.items()}
+        self.seeds: list[dict] = []
+        self.logits: list = []
+        self.calls = 0
+
+    def _wrap(self, fn):
+        def task(p, cfg, acfg):
+            out = fn(p, cfg, acfg)
+            self.calls += 1
+            if self.calls % len(self.names) == 0:
+                self._end_seed()
+            return out
+        return task
+
+    def start(self) -> None:
+        """Zero the launch counts and the memory peak; start the clock."""
+        zero_counts(self.torch)
+        self.torch.cuda.reset_peak_memory_stats()
+        self._last = {n: 0 for n in _counters()}
+        self._t = time.perf_counter()
+
+    def _end_seed(self) -> None:
+        torch = self.torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = {n: m.launches for n, m in _counters().items()}
+        self.seeds.append({
+            "s": now - self._t,
+            "launches": {n: counts[n] - self._last[n] for n in counts
+                         if counts[n] != self._last[n]},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        torch.cuda.reset_peak_memory_stats()
+        self._last, self._t = counts, time.perf_counter()
+
+    def recording(self):
+        """Check and keep the task forwards' logits inside the block."""
+        return logits_recorded(self.torch, self.logits,
+                               keep=self.keep * len(self.names))
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counts since they were last set to 0 (only the
+    kernels that launched)."""
+    return {n: m.launches for n, m in _counters().items() if m.launches}
+
+
+def zero_counts(torch) -> None:
+    """Set every kernel's launch count to 0 once the card is idle."""
+    torch.cuda.synchronize()
+    for m in _counters().values():
+        m.launches = 0
+
+
+def check_runs(res: dict, names, n: int, what: str) -> None:
+    """``evaluate``'s results: ``n`` runs per task, each a share."""
+    for name in names:
+        runs = res[name]["runs"]
+        check(len(runs) == n and all(0.0 <= r <= 1.0 for r in runs),
+              f"{what}: {name} runs {runs}")
+
+
+def phase_eval(torch, arch: str) -> dict:
+    """The §3.2 protocol at full width on the card, random weights from a
+    seed (so the scores check nothing: they are printed as what they are,
+    and every gate is one of the protocol's own invariants):
+
+    * ``evaluate(..., NoiseSpec("hw"), seeds=10)`` by the per-seed path
+      (one perturbed copy at a time: ten instance trees would not fit),
+      ``analog_hw`` on ``analog_matmul``; per seed its seconds, scored
+      tokens per second, launches and peak memory;
+    * the first seeds again: the same chips give equal bits (the task
+      forwards' logits) and equal runs;
+    * the Table-3 ``digital_int4`` deployment, no noise, on
+      ``int4_matmul``;
+    * a two-point gaussian gamma sweep on pinned instances, each seed's
+      instance sampled and applied alone: both gamma points perturb the
+      same chip (the perturbation at the second point is the first one
+      scaled, leaf by leaf on the probes), and the seeds' chips differ.
+    """
+    from repro_torch.core.analog import AnalogConfig, pack_int4_weights
+    from repro_torch.eval.harness import NoiseSpec, evaluate
+    from repro_torch.serve.decode import digital_int4_config
+
+    cfg, params, labels = full_width(torch, arch)
+    sites = mvm_sites(cfg)
+    tasks = eval_tasks(cfg)
+    names = list(tasks)
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    out = {"arch": arch, "seeds": EVAL_SEEDS}
+
+    log = SeedLog(torch, tasks, keep=EVAL_REPEAT)
+    with log.recording():
+        log.start()
+        t0 = time.perf_counter()
+        res = evaluate(params, labels, cfg, acfg, log.tasks,
+                       NoiseSpec("hw"), seeds=EVAL_SEEDS)
+        hw_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == {"analog_matmul": sites * len(tasks) * EVAL_SEEDS},
+          f"{arch} eval hw: launches {launches}")
+    rows = sorted(t.shape[0] * t.shape[1] for t in log.logits[:len(tasks)])
+    check(rows == sorted((M_EVAL, M_INDUCTION)),
+          f"{arch} eval: forwards of {rows} rows, phase 2 holds the MVM "
+          f"kernels at {M_EVAL} and {M_INDUCTION}")
+    check_runs(res, names, EVAL_SEEDS, f"{arch} eval hw")
+    for i, sd in enumerate(log.seeds):
+        sd["scored_tokens_per_s"] = SCORED_PER_SEED / sd["s"]
+        print(f"  {arch} hw seed {i}: {sd['s']:.3f} s, "
+              f"{sd['scored_tokens_per_s']:.0f} scored tokens/s, launches "
+              f"{sd['launches']}, peak {sd['peak_gb']:.2f} GB; "
+              + ", ".join(f"{n} {res[n]['runs'][i]:.4f}" for n in names))
+    out["hw"] = {"results": res, "s": hw_s, "per_seed": log.seeds,
+                 "launches": launches}
+
+    again = SeedLog(torch, tasks, keep=EVAL_REPEAT)
+    with again.recording():
+        again.start()
+        res2 = evaluate(params, labels, cfg, acfg, again.tasks,
+                        NoiseSpec("hw"), seeds=EVAL_REPEAT)
+    check(len(again.logits) == len(log.logits) == EVAL_REPEAT * len(tasks)
+          and all(torch.equal(a, b)
+                  for a, b in zip(log.logits, again.logits)),
+          f"{arch} eval hw: the same chips twice give other logits")
+    check(all(res2[n]["runs"] == res[n]["runs"][:EVAL_REPEAT]
+              for n in names), f"{arch} eval hw: the same chips twice "
+          f"give other runs")
+    del log, again
+
+    p4 = pack_int4_weights(params, labels)
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    res4 = evaluate(p4, labels, cfg, digital_int4_config(
+        AnalogConfig(weight_bits=4)), tasks)
+    torch.cuda.synchronize()
+    int4_s = time.perf_counter() - t0
+    launches4 = launch_counts()
+    check(launches4 == {"int4_matmul": sites * len(tasks)},
+          f"{arch} eval digital_int4: launches {launches4}")
+    check_runs(res4, names, 1, f"{arch} eval digital_int4")
+    out["digital_int4"] = {"results": res4, "s": int4_s,
+                           "launches": launches4}
+    del p4
+    torch.cuda.empty_cache()
+
+    out["gaussian"] = eval_sweep(torch, cfg, params, labels, acfg, tasks)
+    print(f"  {arch} hw over {EVAL_SEEDS} seeds in {hw_s:.2f} s: "
+          + "; ".join(f"{n} {res[n]['mean']:.4f} +- {res[n]['std']:.4f}"
+                      for n in names)
+          + f" (random weights); the same {EVAL_REPEAT} chips twice: equal "
+          f"logits bits and runs; digital_int4: "
+          + "; ".join(f"{n} {res4[n]['mean']:.4f}" for n in names)
+          + f" in {int4_s:.2f} s, launches {launches4}; gaussian sweep "
+          + "; ".join(f"gamma {g}: " + ", ".join(
+              f"{n} {r[n]['mean']:.4f}" for n in names)
+              for g, r in out["gaussian"]["results"].items()))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_sweep(torch, cfg, params, labels, acfg, tasks) -> dict:
+    """The gamma sweep of Fig. 3 on pinned instances, one seed at a time:
+    seed ``s``'s instance (``deployment_instances`` at ``base_seed = 1000
+    s``, the chip ``evaluate`` would draw for seed ``s``) is sampled,
+    evaluated at every gamma, and dropped. Both gamma points must perturb
+    the same chip: on the probe leaves the second perturbation equals
+    the first one scaled by the gamma ratio, within the rounding of the
+    two weight sums."""
+    from repro_torch.eval.harness import (NoiseSpec, deployment_instances,
+                                          evaluate)
+
+    arch = cfg.name
+    names = list(tasks)
+    probes = {"down[0]": lambda t: t["blocks"]["ffn"]["down"]["kernel"][0],
+              "lm_head": lambda t: t["lm_head"]["kernel"]}
+    runs = {g: {n: [] for n in names} for g in SWEEP_GAMMAS}
+    firsts = []
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    for s in range(SWEEP_SEEDS):
+        inst = deployment_instances(params, labels, "gaussian", seeds=1,
+                                    base_seed=1000 * s)
+        deltas = {}
+        for g in SWEEP_GAMMAS:
+            seen = {}
+
+            def first(p, cfg_, acfg_, _seen=seen):
+                _seen.update({k: f(p) - f(params) for k, f in probes.items()})
+                return tasks[names[0]](p, cfg_, acfg_)
+
+            r = evaluate(params, labels, cfg, acfg,
+                         {names[0]: first, **{n: tasks[n] for n in names[1:]}},
+                         NoiseSpec("gaussian", g), seeds=1, instances=inst)
+            for n in names:
+                runs[g][n] += r[n]["runs"]
+            deltas[g] = seen
+        g1, g2 = SWEEP_GAMMAS
+        for k, f in probes.items():
+            d1, d2, w = deltas[g1][k], deltas[g2][k], f(params)
+            # d = fl(fl(w + g inst) - w) is g inst within 2^-24 (|w| + 3
+            # |d|) or so; the bound takes twice that
+            tol = 2.0 ** -21 * (w.abs() * (1 + g2 / g1) + 3 * d2.abs())
+            check(bool((d1 != 0).any()) and bool(
+                ((d2 - (g2 / g1) * d1).abs() <= tol).all()),
+                f"{arch} gamma sweep seed {s}: the gamma points do not "
+                f"perturb the same chip ({k})")
+        firsts.append(deltas[g1]["lm_head"])
+        del inst, deltas
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    check(not torch.equal(firsts[0], firsts[1]),
+          f"{arch} gamma sweep: seeds 0 and 1 perturb the same chip")
+    launches = launch_counts()
+    check(launches == {"analog_matmul": mvm_sites(cfg) * len(tasks)
+                       * SWEEP_SEEDS * len(SWEEP_GAMMAS)},
+          f"{arch} gamma sweep: launches {launches}")
+    results = {g: {n: {"mean": float(np.mean(v)), "std": float(np.std(v)),
+                       "runs": v} for n, v in rg.items()}
+               for g, rg in runs.items()}
+    return {"results": results, "s": sweep_s, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def reduced_eval_check(torch, arch: str) -> dict:
+    """The reduced model's eval on the card (the kernels) against the CPU
+    (their plain versions), ``hw`` noise over 3 seeds: each seed's instance
+    tree is sampled once on the CPU and copied, so both sides add the same
+    tensors. Per task and seed the scores must be equal. Every analog site
+    of every task forward is compared: a site's input may differ beyond
+    ``SITE_INPUT_TOL`` (the digital ops in between) only at a (row,
+    position) that an earlier site's output apart (an ADC near-tie flip)
+    can reach, the same row at that position or after it; and on the
+    CPU's inputs the card's site outputs may differ from the CPU's only by
+    one ADC level at near-ties. Where an argmax differs, the CPU's top-2
+    margin there is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import quant
+    from repro_torch.eval.harness import (NoiseSpec, deployment_instances,
+                                          evaluate)
+    from repro_torch.models import build
+
+    cfg = get_config(arch).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    insts = deployment_instances(params, labels, "hw",
+                                 seeds=REDUCED_EVAL_SEEDS)
+    cuda = torch.device("cuda")
+    tasks = eval_tasks(cfg)
+    names = list(tasks)
+    acfg = A.AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    rec = {}
+    res = {}
+    for side, p, inst in (("cpu", params, insts),
+                          ("cuda", _to(params, cuda),
+                           [_to(t, cuda) for t in insts])):
+        sites, logits = [], []
+        with logits_recorded(torch, logits), sites_recorded(sites):
+            res[side] = evaluate(p, labels, cfg, acfg, tasks,
+                                 NoiseSpec("hw"), seeds=REDUCED_EVAL_SEEDS,
+                                 instances=inst)
+        rec[side] = (sites, [t.cpu() for t in logits])
+    n_sites = mvm_sites(cfg)
+    (sites_c, logits_c), (sites_g, logits_g) = rec["cpu"], rec["cuda"]
+    check(len(logits_c) == len(logits_g) == REDUCED_EVAL_SEEDS * len(names)
+          and len(sites_c) == len(sites_g) == n_sites * len(logits_c),
+          f"reduced {arch} eval: {len(sites_c)} / {len(sites_g)} site calls")
+    ctx = A.AnalogCtx()
+    rows = []
+    for f, (lc, lg) in enumerate(zip(logits_c, logits_g)):
+        seed, name = divmod(f, len(names))
+        name = names[name]
+        first_apart, max_dx, dac_apart = None, 0.0, 0
+        same_flips = elements = 0
+        # the forward is causal and its rows independent: a site output
+        # apart at (row, position) can move later sites' inputs at that
+        # row's position and after it, nowhere else
+        reach = torch.zeros(lc.shape[:2], dtype=torch.bool)
+        for i in range(n_sites):
+            pc, xc, yc = sites_c[f * n_sites + i]
+            pg, xg, yg = sites_g[f * n_sites + i]
+            xg, yg = xg.cpu(), yg.cpu()
+            dx = (xg - xc).abs()
+            apart = (dx > SITE_INPUT_TOL * (1 + xc.abs())).reshape(
+                reach.shape + (-1,)).any(-1)
+            if bool(apart.any()):
+                beta = pc["input_range"].reshape(()).float()
+                dac = int((quant.input_quantize(xg, beta, acfg.input_bits)
+                           != quant.input_quantize(xc, beta,
+                                                   acfg.input_bits)).sum())
+                if first_apart is None:
+                    first_apart, max_dx, dac_apart = i, float(dx.max()), dac
+                check(bool(reach[apart].all()),
+                      f"reduced {arch} eval, seed {seed}, {name}: site {i}'s "
+                      f"input differs where no site output did before (max "
+                      f"|dx| {float(dx.max()):.3e}, {dac} DAC codes apart)")
+            with torch.no_grad():
+                y_same = A.analog_linear(pg, xc.to(cuda), acfg, ctx)[0].cpu()
+            same_flips += adc_mismatches(
+                torch, pc, xc, y_same, yc, acfg,
+                f"reduced {arch} eval, site {i}: a card/cpu")
+            elements += yc.numel()
+            out_apart = ((yg - yc).abs() > 1e-5 * (1 + yc.abs())).reshape(
+                reach.shape + (-1,)).any(-1)
+            reach |= torch.cummax(out_apart.int(), dim=1).values.bool()
+        sl = SCORED[name]
+        a_c, a_g = lc[:, sl].argmax(-1), lg[:, sl].argmax(-1)
+        moved = a_c != a_g
+        top2 = torch.topk(lc[:, sl], 2, dim=-1).values
+        margins = (top2[..., 0] - top2[..., 1])[moved]
+        run_c = res["cpu"][name]["runs"][seed]
+        run_g = res["cuda"][name]["runs"][seed]
+        row = {"seed": seed, "task": name, "score_cpu": run_c,
+               "score_card": run_g, "argmax_apart": int(moved.sum()),
+               "scored": moved.numel(),
+               "cpu_top2_margins": [float(m) for m in margins],
+               "max_dlogit": float((lc - lg).abs().max()),
+               "same_input_flips": same_flips, "site_outputs": elements,
+               "first_input_apart": first_apart, "max_dx": max_dx,
+               "dac_codes_apart": dac_apart}
+        rows.append(row)
+        print(f"  reduced {arch}, hw chip {seed}, {name}: score cpu "
+              f"{run_c:.4f} / card {run_g:.4f}; argmax apart at "
+              f"{row['argmax_apart']} of {row['scored']} scored positions"
+              + (f" (CPU top-2 margins there "
+                 + ", ".join(f"{m:.2e}" for m in row["cpu_top2_margins"])
+                 + ")" if row["argmax_apart"] else "")
+              + f", max |dlogit| {row['max_dlogit']:.2e}; on the CPU's "
+              f"inputs {same_flips} of {elements} site outputs one ADC "
+              f"level apart at near-ties; "
+              + ("no site input apart" if first_apart is None else
+                 f"first site input apart: {first_apart}, only where an "
+                 f"earlier site output apart reaches (max |dx| "
+                 f"{max_dx:.2e}, {dac_apart} DAC codes apart)"))
+        check(run_c == run_g, f"reduced {arch} eval, seed {seed}, {name}: "
+              f"score {run_g} on the card, {run_c} on the cpu")
+    return {"rows": rows, "cpu": res["cpu"], "cuda": res["cuda"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: best-of-n test-time scaling (paper §4.4) at full width
+# ---------------------------------------------------------------------------
+
+def phase_best_of_n(torch, arch: str) -> dict:
+    """``sample_candidates`` on the continuous engine's paged pool (8
+    slots; the pool dtype is the engine's default, fp32, as in the JAX
+    package's harness), ``arch`` at full width under ``analog_hw`` on the
+    kernels: 8 ``mod_add`` prompts x 8 candidates of up to 4 tokens (SEP
+    stops one), then ``best_of_n_accuracy`` at n = 1, 4, 8 with the
+    noisy-oracle PRM. Every candidate must finish and every block come
+    back; every projection and attention call must run on its kernel."""
+    from repro_torch.core.analog import AnalogConfig, perturb_analog_weights
+    from repro_torch.eval.tasks import make_mod_add_data, mod_add_extraction
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.prm import NoisyOraclePRM
+
+    cfg, params, labels = full_width(torch, arch)
+    dev = torch.device("cuda")
+    p = perturb_analog_weights(params, labels, torch.Generator(
+        device=dev).manual_seed(1), "hw")
+    del params
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    prompts, correct = make_mod_add_data(cfg.vocab_size, num=BON_PROMPTS,
+                                         mod=BON_MOD)
+    bcfg = E.BestOfNConfig(temperature=0.8, top_k=50, max_new=BON_MAX_NEW,
+                           stop_tokens=(BON_MOD,), num_slots=ENGINE_SLOTS,
+                           kv_block_size=PAGED_BS)
+    engines = []
+    real = E.ServeEngine
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    E.ServeEngine = Recorded
+    try:
+        zero_counts(torch)
+        t0 = time.perf_counter()
+        answers = E.sample_candidates(
+            p, cfg, acfg, torch.Generator(device=dev).manual_seed(3),
+            prompts, BON_N, bcfg, extract=mod_add_extraction(BON_MOD))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        E.ServeEngine = real
+    launches = launch_counts()
+    check(len(engines) == 1, f"best-of-n {arch}: {len(engines)} engines")
+    eng = engines[0]
+    rows = (eng.scfg.num_slots, eng.prefill_batch * eng.scfg.prefill_chunk)
+    check(rows == (M_BON_DECODE, M_BON_CHUNK),
+          f"best-of-n {arch}: forwards of {rows} rows, phase 2 holds the MVM "
+          f"kernels at {(M_BON_DECODE, M_BON_CHUNK)}")
+    num = BON_PROMPTS * BON_N
+    tokens = sum(len(v) for v in eng.results.values())
+    check(sorted(eng.results) == list(range(num))
+          and all(eng.status[u] == "finished" for u in range(num)),
+          f"best-of-n {arch}: not every candidate finished")
+    check(eng.pool is not None and eng.pool.num_live == 0
+          and eng.pool.num_free == eng.pool.num_blocks,
+          f"best-of-n {arch}: blocks not returned")
+    check(answers.shape == (BON_PROMPTS, BON_N) and answers.min() >= 0
+          and answers.max() < cfg.vocab_size,
+          f"best-of-n {arch}: answers {answers}")
+    layers = cfg.num_layers
+    want = {"analog_matmul": mvm_sites(cfg) * (eng.decode_steps
+                                              + eng.prefill_forwards),
+            "paged_flash_decode": layers * eng.decode_steps,
+            "paged_flash_prefill": layers * eng.prefill_forwards}
+    check(launches == want, f"best-of-n {arch}: launches {launches}, "
+          f"expected {want}")
+    acc = E.best_of_n_accuracy(answers, correct, NoisyOraclePRM(0.75, seed=0),
+                               list(BON_NS))
+    res = {"arch": arch, "candidates": num, "tokens": tokens, "run_s": run_s,
+           "candidates_per_s": num / run_s, "tokens_per_s": tokens / run_s,
+           "decode_steps": eng.decode_steps,
+           "prefill_forwards": eng.prefill_forwards, "launches": launches,
+           "accuracy": acc, "answers": answers.tolist()}
+    print(f"  {arch} best-of-{BON_N}: {num} candidates ({tokens} tokens) of "
+          f"{BON_PROMPTS} mod_add prompts in {run_s:.2f} s "
+          f"({res['candidates_per_s']:.1f} candidates/s, "
+          f"{res['tokens_per_s']:.1f} tokens/s), {eng.decode_steps} decode "
+          f"forwards, {eng.prefill_forwards} chunk forwards, launches "
+          f"{launches}; accuracy (random weights) "
+          + "; ".join(f"{s}: " + ", ".join(
+              f"n={n} {v['mean']:.3f}" for n, v in by_n.items())
+              for s, by_n in acc.items()))
+    del eng, engines, p
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
-#: the run whose launch count each kernel's entry reports: llama-3.2-1b's
-#: static engine (phases 3 and 4) or continuous engine analog_hw run on the
-#: bf16 pool (phase 8), or mamba2-130m's continuous analog_hw run (phase 8)
+#: the run whose times each kernel's entry reports: llama-3.2-1b's static
+#: engine (phases 3 and 4) or continuous engine analog_hw run on the bf16
+#: pool (phase 8), or mamba2-130m's continuous analog_hw run (phase 8)
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -1767,30 +2397,70 @@ PAGED_META = {
                             "src/repro/kernels/paged_prefill.py:193")}
 
 
-def kernels_line(rows: dict, launches: dict, paged_rows: dict,
-                 paged_launches: dict, ssd_rows: list,
-                 ssd_launches: int) -> dict:
+def line_launches(results: dict) -> dict:
+    """Each kernel's launches on every main-path run that drove it, by
+    path: the static engines (phases 3, 4, 7 and 11), the continuous
+    engines (phase 8), the noisy evals (phase 12) and best-of-n (phase
+    13). Each count was read right after its run, with every count set to
+    0 right before it. Not counted: the kernel comparisons (phases 2, 5
+    and 6), the reduced checks against the CPU (phases 9 and 12), the
+    timing replays and the CLI (phase 10)."""
+    out = {name: {} for name in LINE_PATHS}
+
+    def add(path: str, launches: dict) -> None:
+        for name, n in launches.items():
+            if n:
+                out[name][path] = n
+
+    add("static/analog_hw", {"analog_matmul": results["analog"]["launches"]})
+    add("static/digital_int4", {"int4_matmul": results["int4"]["launches"]})
+    add(f"static/{PHI3}/analog_hw",
+        {"analog_matmul": results["phi3_analog"]["launches"]})
+    add(f"static/{PHI3}/digital_int4",
+        {"int4_matmul": results["phi3_int4"]["launches"]})
+    for deploy in ("fp", "analog_hw", "digital_int4"):
+        add(f"static/{MAMBA}/{deploy}",
+            results["mamba_static"][deploy]["launches"])
+    for key, r in results["engine"].items():
+        add(f"continuous/{key}", r["launches"])
+    for key, r in results["engine_mamba"].items():
+        add(f"continuous/{MAMBA}/{key}", r["launches"])
+    for arch in (ARCH, PHI3):
+        ev = results["eval"][arch]
+        for deploy in ("hw", "digital_int4", "gaussian"):
+            add(f"eval/{arch}/{deploy}", ev[deploy]["launches"])
+        add(f"best_of_n/{arch}/analog_hw",
+            results["best_of_n"][arch]["launches"])
+    return out
+
+
+def kernels_line(rows: dict, paged_rows: dict, ssd_rows: list,
+                 launches: dict) -> dict:
     """One entry per kernel.
+
+    ``launches`` is the sum of ``launches_by_path``, the kernel's count on
+    each main-path run that drove it (:func:`line_launches`). The times
+    describe one run only, the one that ``path`` names, so they sum fewer
+    launches than ``launches`` counts:
 
     ``analog_matmul`` / ``int4_matmul``: ``ms``, ``plain_ms``,
     ``bound_ms`` and the yardstick ``matmul_ms`` are totals over the
-    launches of one static-engine run (1 prefill forward at M = 128 + 16
-    decode forwards at M = 4, 65 sites each), summed from the per-shape
-    times of phase 2 (without col_off, which the main path does not use);
-    ``bound_ms`` sums each launch's bound (the tensor-core one on the mma
-    mapping), ``fp32_bound_ms`` the fp32 bound of every launch. For
+    launches of one llama-3.2-1b static-engine run (1 prefill forward at M
+    = 128 + 16 decode forwards at M = 4, 65 sites each), summed from the
+    per-shape times of phase 2 (without col_off, which the main path does
+    not use); ``bound_ms`` sums each launch's bound (the tensor-core one on
+    the mma mapping), ``fp32_bound_ms`` the fp32 bound of every launch. For
     ``analog_matmul`` ``ms`` and ``plain_ms`` are the main path's call, the
     ADC bound folded in; ``explicit_bound_ms`` is the kernel with the bound
     given and ``adc_bound_ms`` the bound pass that the fold replaced.
     ``wall_ms`` is the same total by CUDA events around back-to-back calls,
-    host dispatch gaps included. ``launches`` is that run's count.
+    host dispatch gaps included.
 
     ``paged_flash_decode`` / ``paged_flash_prefill``: the times are per
-    launch at the phase-5 case named in ``case`` (the engine's bf16 pool,
-    one split, context 512); ``library_ms`` is gather ``kp[tbl]`` +
-    ``scaled_dot_product_attention`` on the same inputs; ``max_abs_err``
-    is the largest over all phase-5 cases; ``launches`` is the count of
-    the continuous engine's ``analog_hw`` run (phase 8).
+    launch at the phase-5 case named in ``case`` (llama-3.2-1b's heads, the
+    engine's bf16 pool, one split, context 512); ``library_ms`` is gather
+    ``kp[tbl]`` + ``scaled_dot_product_attention`` on the same inputs;
+    ``max_abs_err`` is the largest over all phase-5 cases.
 
     ``ssd_scan``: the times are per launch at the phase-6 case named in
     ``case`` (the engine's chunk, ``SSD_LINE_CASE``); ``max_abs_err`` is the
@@ -1798,12 +2468,12 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     recurrence's work (2 N P FMAs per token and head) as split TF32 on the
     tensor cores against the bytes (phase 6's rows keep PR 13's L = 32
     fp32 bound beside it as ``l32_bound_ms``); ``library_ms`` is
-    null (no single PyTorch call computes an SSD scan); ``launches`` is the
-    count of mamba2-130m's continuous ``analog_hw`` run (phase 8).
+    null (no single PyTorch call computes an SSD scan)."""
 
-    Each entry's ``path`` names the run its ``launches`` come from
-    (``LINE_PATHS``); the continuous runs' counts of every kernel are in
-    the phase-6 results."""
+    def counts(name):
+        return {"launches": sum(launches[name].values()),
+                "launches_by_path": dict(launches[name])}
+
     meta = {
         "analog_matmul": ("src/repro_torch/kernels/csrc/analog_matmul.cu",
                           "src/repro/kernels/analog_matmul.py:157"),
@@ -1818,8 +2488,8 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
                 "fp32_bound_ms", "explicit_bound_ms", "adc_bound_ms")
         tot = {"bytes_ms": 0.0, "ops_ms": 0.0}
         for r in shapes:
-            reps = PER_SITE[r["site"]] * (NEW_TOKENS if r["M"] == M_DECODE
-                                          else 1)
+            reps = PER_SITE[ARCH, r["site"]] * (
+                NEW_TOKENS if r["M"] == M_DECODE else 1)
             for key in keys:
                 if key in r:
                     tot[key] = tot.get(key, 0.0) + reps * r[key]
@@ -1828,7 +2498,7 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": LINE_PATHS[name],
-            "launches": launches[name],
+            **counts(name),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
@@ -1844,13 +2514,14 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
     for name, (src, replaces) in PAGED_META.items():
         cases = paged_rows[name]
         r = next(c for c in cases
-                 if c["dtype"] == LINE_CASE["dtype"]
+                 if c.get("arch", ARCH) == ARCH
+                 and c["dtype"] == LINE_CASE["dtype"]
                  and c["context"] == LINE_CASE["context"]
                  and c["splits"] == LINE_CASE["splits"])
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": LINE_PATHS[name],
-            "launches": paged_launches[name],
+            **counts(name),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1863,7 +2534,7 @@ def kernels_line(rows: dict, launches: dict, paged_rows: dict,
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:92",
-        "path": LINE_PATHS["ssd_scan"], "launches": ssd_launches,
+        "path": LINE_PATHS["ssd_scan"], **counts("ssd_scan"),
         "max_abs_err": max(c["max_abs_err"] for c in ssd_rows),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
@@ -1892,44 +2563,54 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/10] setup")
+        phase("[1/13] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/10] MVM kernels at llama-3.2-1b and mamba2-130m main-path "
-              "shapes")
+        phase("[2/13] MVM kernels at llama-3.2-1b, phi-3-mini-4k and "
+              "mamba2-130m main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/10] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/13] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/10] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/13] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/10] paged-attention kernels at llama-3.2-1b attention "
-              "shapes")
+        phase("[5/13] paged-attention kernels at llama-3.2-1b and "
+              "phi-3-mini-4k attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/10] ssd_scan at mamba2-130m shapes")
+        phase("[6/13] ssd_scan at mamba2-130m shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/10] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/13] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/10] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/13] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/10] reduced continuous engines, card against cpu")
+        phase("[9/13] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/10] serving CLI")
+        phase("[10/13] serving CLI")
         results["cli"] = phase_cli(torch)
+        phase("[11/13] static engine, phi-3-mini-4k at full width: "
+              "analog_hw (use_pallas=True), digital_int4")
+        results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
+                                             PHI3)
+        results["phi3_int4"] = serve_phase(torch, "digital_int4",
+                                           "digital_rtn4", PHI3)
+        phase("[12/13] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+              "phi-3-mini-4k; reduced eval, card against cpu")
+        results["eval"] = {arch: phase_eval(torch, arch)
+                           for arch in (ARCH, PHI3)}
+        results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
+                                   for arch in (ARCH, PHI3)}
+        phase("[13/13] best-of-n at full width: llama-3.2-1b, "
+              "phi-3-mini-4k")
+        results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
+                                for arch in (ARCH, PHI3)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    line = kernels_line(
-        rows, {"analog_matmul": results["analog"]["launches"],
-               "int4_matmul": results["int4"]["launches"]},
-        paged_rows, {name: results["engine"][LINE_PATHS[name].split(
-            "/", 1)[1]]["launches"][name] for name in PAGED_META},
-        ssd_rows, results["engine_mamba"]["analog_hw"]["launches"][
-            "ssd_scan"])
+    line = kernels_line(rows, paged_rows, ssd_rows, line_launches(results))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

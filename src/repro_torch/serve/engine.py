@@ -1,0 +1,151 @@
+"""Best-of-n test-time compute scaling harness (paper §4.4).
+
+``sample_candidates`` generates n candidate answers per prompt with
+temperature sampling on the continuous-batching :class:`ServeEngine`
+(every (prompt, candidate) pair is one request; slots recycle as
+candidates finish, so candidates of mixed progress never pad each other),
+and ``best_of_n_accuracy`` scores them with a PRM and applies the three
+selection strategies: the Fig. 4 / Table 15 pipeline.
+
+The JAX package's harness is also *fork-aware*: with its radix prefix
+cache it submits one leader per prompt and forks the other n − 1
+candidates onto the leader's prompt blocks. It states, and its tests
+check, that the fork path gives the independent-requests path's answers
+bit for bit. The port's engine has no prefix cache yet (ROADMAP section
+1, item 9), so ``prefix_cache`` defaults to off here and every candidate
+is an independent request.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.serve.decode import digital_int4_config
+from repro_torch.serve.prm import NoisyOraclePRM, select_answer
+from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                         ServeEngine, required_max_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class BestOfNConfig:
+    """Candidate-generation settings for the §4.4 best-of-n harness.
+
+    Attributes:
+        temperature: Sampling temperature for candidate diversity (paper
+            App. F samples every MATH-500 candidate).
+        top_k: Keep only the k most likely tokens per step (0 = off).
+        top_p: Nucleus sampling mass (1.0 = off), as in App. F.
+        max_new: Tokens generated per candidate; beyond 1, the answer is
+            extracted by the ``extract`` hook of :func:`sample_candidates`.
+        greedy_first: Decode this many initial tokens greedily before
+            sampling (the RGS/SGS generation strategies, App. B.1).
+        stop_tokens: Per-candidate stop ids: generation ends early when
+            one is sampled (answer terminator for multi-token tasks).
+        num_slots: In-flight candidate capacity of the serving engine.
+        prefill_chunk: Admission prefill granularity of the engine.
+        int4_serve: Serve RTN weights on the packed-int4 kernel (the
+            Table 3 digital deployment, ``digital_int4_config``).
+        paged: Serve candidates from the block-paged KV pool
+            (attention-free stacks keep their per-slot state instead).
+        prefix_cache: Fork-aware candidate generation on the radix prefix
+            cache; not ported yet, so off, and on raises.
+        kv_block_size: Physical KV block granularity of the paged pool.
+        speculative, drift_dt, recalibrate: the JAX package's speculative
+            decoding and conductance drift and recalibration; not ported
+            yet, and asking for one raises as ``SchedulerConfig`` does.
+    """
+
+    temperature: float = 0.8
+    top_k: int = 0
+    top_p: float = 1.0
+    max_new: int = 1
+    greedy_first: int = 0
+    stop_tokens: tuple = ()
+    num_slots: int = 32
+    prefill_chunk: int = 8
+    int4_serve: bool = False
+    paged: bool = True
+    prefix_cache: bool = False
+    kv_block_size: int = 16
+    speculative: bool = False
+    drift_dt: float = 0.0
+    recalibrate: bool = False
+
+
+def sample_candidates(params, cfg, acfg: AnalogConfig,
+                      generator: torch.Generator, prompts: np.ndarray,
+                      n: int, bcfg: BestOfNConfig = BestOfNConfig(),
+                      extract: Optional[Callable[[np.ndarray], int]] = None,
+                      ) -> np.ndarray:
+    """Generate and extract n candidate answers per prompt.
+
+    Runs ``num_prompts * n`` requests through the continuous-batching
+    engine where ``params`` live. Each candidate's sampling seed is drawn
+    from ``generator`` (the JAX package draws them from its key: the same
+    role, not the same numbers). ``extract`` reduces each generated token
+    sequence to a scalar answer id, a task-level hook (see
+    ``eval.tasks``); the default keeps the first generated token.
+
+    → answers [num_prompts, n] int array.
+    """
+    if bcfg.int4_serve:
+        acfg = digital_int4_config(acfg)
+    if extract is None:
+        extract = lambda toks: int(toks[0])   # noqa: E731
+    num = len(prompts)
+    seeds = torch.randint(0, np.iinfo(np.int32).max, (num * n,),
+                          generator=generator,
+                          device=generator.device).cpu().numpy()
+    max_len = required_max_len(int(np.shape(prompts)[1]), bcfg.max_new,
+                               bcfg.prefill_chunk)
+    # the pool holds every slot at max_len (the JAX package adds room for
+    # the prompt blocks its prefix cache retains, which has no use here)
+    scfg = SchedulerConfig(
+        num_slots=bcfg.num_slots, max_len=max_len,
+        prefill_chunk=bcfg.prefill_chunk, paged=bcfg.paged,
+        prefix_cache=bcfg.prefix_cache, kv_block_size=bcfg.kv_block_size,
+        speculative=bcfg.speculative, drift_dt=bcfg.drift_dt,
+        recalibrate=bcfg.recalibrate)
+    eng = ServeEngine(params, cfg, acfg, scfg)
+    reqs = [Request(uid=i, prompt=np.asarray(prompts[i // n], np.int32),
+                    max_new=bcfg.max_new, temperature=bcfg.temperature,
+                    top_k=bcfg.top_k, top_p=bcfg.top_p,
+                    greedy_first=bcfg.greedy_first,
+                    stop_tokens=tuple(bcfg.stop_tokens), seed=int(seeds[i]))
+            for i in range(num * n)]
+    outs = eng.run(reqs)
+    return np.array([[extract(outs[p * n + i]) for i in range(n)]
+                     for p in range(num)])
+
+
+def best_of_n_accuracy(answers: np.ndarray, correct: np.ndarray,
+                       prm: NoisyOraclePRM, ns: list[int],
+                       strategies=("prm_greedy", "prm_voting", "voting"),
+                       repeats: int = 5, seed: int = 0) -> dict:
+    """Accuracy vs n curves for each strategy (subsampling the n candidates).
+
+    ``answers`` [P, N_max]; for each n, draw ``repeats`` random subsets.
+    """
+    rng = np.random.default_rng(seed)
+    out = {s: {} for s in strategies}
+    num_p, n_max = answers.shape
+    for n in ns:
+        accs = {s: [] for s in strategies}
+        for _ in range(repeats):
+            idx = rng.choice(n_max, size=n, replace=False)
+            sub = answers[:, idx]
+            rewards = np.stack([prm.score(sub[p], correct[p])
+                                for p in range(num_p)])
+            for s in strategies:
+                picked = np.array([select_answer(sub[p], rewards[p], s)
+                                   for p in range(num_p)])
+                accs[s].append(float(np.mean(picked == correct)))
+        for s in strategies:
+            out[s][n] = {"mean": float(np.mean(accs[s])),
+                         "std": float(np.std(accs[s]))}
+    return out

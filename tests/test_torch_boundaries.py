@@ -65,7 +65,9 @@ def test_port_files_exist():
                 "kernels/csrc/paged_prefill.cu",
                 "kernels/csrc/paged_common.cuh", "serve/kv_pool.py",
                 "serve/scheduler.py", "kernels/ssd_scan.py",
-                "kernels/csrc/ssd_scan.cu", "models/mamba2.py"):
+                "kernels/csrc/ssd_scan.cu", "models/mamba2.py",
+                "data/corpus.py", "data/synthetic.py", "eval/tasks.py",
+                "eval/harness.py", "serve/prm.py", "serve/engine.py"):
         assert (port / rel).is_file(), rel
 
 
@@ -397,15 +399,18 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
              "bound_ms": 0.5, "bound_by": "bytes" if m == cs.M_DECODE
              else "operations", "max_abs_err": 0.0}
             for site, _, _, _ in cs.SITES for m in (cs.M_DECODE, cs.M_PREFILL)]
-        # mamba2-130m's shapes are timed in the same phase but belong to
-        # another run: they must not enter llama's sums
+        # every other shape of phase 2 (llama's other paths, mamba2-130m,
+        # phi-3-mini-4k) is timed in the same phase but belongs to other
+        # runs: it must not enter the sums of llama's static run
         rows[name] += [
-            {"arch": cs.MAMBA, "site": site, "M": m, "col_off": False,
+            {"arch": arch, "site": site, "M": m, "col_off": False,
              "ms": 100.0, "wall_ms": 100.0, "plain_ms": 100.0,
              "matmul_ms": 100.0, "bound_ms": 100.0,
              "bound_by": "operations", "max_abs_err": 0.0}
-            for site, _, _, _ in cs.MAMBA_SITES
-            for m in (cs.M_DECODE, cs.MAMBA_M_PREFILL)]
+            for arch, sites, m, _, _ in cs.MVM_RUNS
+            if (arch, m) not in ((cs.ARCH, cs.M_DECODE),
+                                 (cs.ARCH, cs.M_PREFILL))
+            for site, _, _, _ in sites]
     paged = {}
     for name, kind in (("paged_flash_decode", "decode"),
                        ("paged_flash_prefill", "prefill")):
@@ -416,13 +421,24 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
              "bound_by": "bytes", "max_abs_err": 1e-7 * c}
             for c in cs.PAGED_CONTEXTS for d in cs.POOL_DTYPES
             for s in (cs.DECODE_SPLITS if kind == "decode" else (1,))]
+        # phi-3-mini-4k's case at the same context must not be reported
+        paged[name].insert(0, {
+            "arch": cs.PHI3, "kind": kind, "context": 512, "dtype": "bf16",
+            "splits": 1, "rows": 8, "chunk": 1, "ms": 9.0, "wall_ms": 9.0,
+            "plain_ms": 9.0, "library_ms": 9.0, "bound_ms": 9.0,
+            "bound_by": "bytes", "max_abs_err": 0.0})
     ssd = [{"case": name, "rows": b, "tokens": t, "h0": h0,
             "ms": 0.5 * t, "wall_ms": 0.6 * t, "plain_ms": 2.0 * t,
             "bound_ms": 0.01 * t, "bound_by": "operations",
             "max_abs_err": 1e-6 * t} for name, b, t, h0 in cs.SSD_CASES]
-    line = cs.kernels_line(rows, {"analog_matmul": 7, "int4_matmul": 9},
-                           paged, {"paged_flash_decode": 32,
-                                   "paged_flash_prefill": 16}, ssd, 24 * 83)
+    by_path = {"analog_matmul": {"static/analog_hw": 7, "eval/x/hw": 100,
+                                 "best_of_n/x/analog_hw": 3},
+               "int4_matmul": {"static/digital_int4": 9},
+               "paged_flash_decode": {"continuous/analog_hw/kv16": 32,
+                                      "best_of_n/x/analog_hw": 1},
+               "paged_flash_prefill": {"continuous/analog_hw/kv16": 16},
+               "ssd_scan": {"continuous/mamba2-130m/analog_hw": 24 * 83}}
+    line = cs.kernels_line(rows, paged, ssd, by_path)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     launches_per_run = cs.LAUNCHES_PER_FORWARD * cs.FORWARDS   # 65 x 17
@@ -451,9 +467,78 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
     assert scan["plain_ms"] == pytest.approx(64.0)
     assert scan["bound_by"] == "operations" and scan["library_ms"] is None
     assert scan["max_abs_err"] == pytest.approx(8192e-6)
-    assert [k["launches"] for k in line["kernels"]] == [7, 9, 32, 16,
+    assert [k["launches"] for k in line["kernels"]] == [110, 9, 33, 16,
                                                         24 * 83]
+    assert [k["launches_by_path"] for k in line["kernels"]] == list(
+        by_path.values())
     assert [k["path"] for k in line["kernels"]] == [
         "static/analog_hw", "static/digital_int4",
         "continuous/analog_hw/kv16", "continuous/analog_hw/kv16",
         "continuous/mamba2-130m/analog_hw"]
+
+
+def test_chip_smoke_line_launches_counts_every_main_path_run():
+    """Each kernel's ``launches_by_path`` holds its count from every
+    static, continuous, eval and best-of-n run, each run's counts under
+    one path, and nothing for a kernel that a run did not launch."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    names = list(cs.LINE_PATHS)
+    seen = iter(range(1, 1000))
+
+    def counts(*launched):
+        return {n: (next(seen) if n in launched else 0) for n in names}
+
+    attn = ("paged_flash_decode", "paged_flash_prefill")
+    results = {
+        "analog": {"launches": next(seen)}, "int4": {"launches": next(seen)},
+        "phi3_analog": {"launches": next(seen)},
+        "phi3_int4": {"launches": next(seen)},
+        "mamba_static": {"fp": {"launches": counts("ssd_scan")},
+                         "analog_hw": {"launches": counts("analog_matmul",
+                                                          "ssd_scan")},
+                         "digital_int4": {"launches": counts("int4_matmul",
+                                                             "ssd_scan")}},
+        "engine": {"analog_hw/kv16": {"launches": counts("analog_matmul",
+                                                         *attn)},
+                   "digital_int4/kv16": {"launches": counts("int4_matmul",
+                                                            *attn)},
+                   "analog_hw/kv8": {"launches": counts("analog_matmul",
+                                                        *attn)}},
+        "engine_mamba": {"analog_hw": {"launches": counts("analog_matmul",
+                                                          "ssd_scan")},
+                         "digital_int4": {"launches": counts("int4_matmul",
+                                                             "ssd_scan")}},
+        "eval": {arch: {"hw": {"launches": {"analog_matmul": next(seen)}},
+                        "digital_int4": {"launches": {
+                            "int4_matmul": next(seen)}},
+                        "gaussian": {"launches": {
+                            "analog_matmul": next(seen)}}}
+                 for arch in (cs.ARCH, cs.PHI3)},
+        "best_of_n": {arch: {"launches": {"analog_matmul": next(seen),
+                                          **{n: next(seen) for n in attn}}}
+                      for arch in (cs.ARCH, cs.PHI3)}}
+    total = next(seen) - 1
+    out = cs.line_launches(results)
+    assert list(out) == names
+    # every count of every run lands once, under its own path
+    assert sorted(n for paths in out.values() for n in paths.values()) == (
+        list(range(1, total + 1)))
+    assert set(out["analog_matmul"]) == {
+        "static/analog_hw", f"static/{cs.PHI3}/analog_hw",
+        f"static/{cs.MAMBA}/analog_hw", "continuous/analog_hw/kv16",
+        "continuous/analog_hw/kv8", f"continuous/{cs.MAMBA}/analog_hw",
+        *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
+          for kind, d in (("eval", "hw"), ("eval", "gaussian"),
+                          ("best_of_n", "analog_hw")))}
+    assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
+    assert set(out["paged_flash_decode"]) == {
+        "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
+        "continuous/analog_hw/kv8", f"best_of_n/{cs.ARCH}/analog_hw",
+        f"best_of_n/{cs.PHI3}/analog_hw"}
+    assert set(out["ssd_scan"]) == {
+        f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
+    } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")}
