@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
                (3072 -> 9216, 3072 -> 3072, 3072 -> 16384, 8192 -> 3072,
                3072 -> 32256; M = 4, 128 and the eval forward's 64 x 64 =
                4096) and at mamba2-130m's (in_proj 768 -> 3352, out_proj
-               1536 -> 768; M = 4 and 4 x 1024), held against its plain
+               1536 -> 768; M = 4 and 4 x 1024), and at llama's training
+               forward (M = 4 x 256 = 1024, on noisy weights against the
+               bound of the noise-free ones), held against its plain
                PyTorch version on the same
                inputs (analog: at most 1e-4 of the outputs may flip, each
                one ADC level at a near-tie; the folded ADC bound bit for bit
@@ -106,6 +108,23 @@ Phases, in order; any failure exits non-zero:
                (8 slots): 8 mod_add prompts x 8 candidates, then
                ``best_of_n_accuracy`` at n = 1, 4, 8; candidates/s, and
                every projection and attention call on its kernel.
+14. train   -- HWA distillation (paper Fig. 2b): ``distill_recipe`` trains
+               full-width llama-3.2-1b (student a copy of the random
+               teacher) for 4 steps of batch 4 x 256 Markov tokens,
+               ``analog`` on ``analog_matmul`` (w + w_noise against the
+               noise-free bound), KD at temperature 2, remat on. Gates:
+               (i) at each llama site at M = 1024 the fused Function's
+               forward against its plain version and its dx, dw, dbeta
+               against the unfused chain's autograd; (ii) after every step
+               each input range follows the EMA rule of its site's
+               recorded x_std and every analog weight lies within
+               alpha * std (eq. 4); (iii) saved at step 2 and resumed in a
+               fresh Trainer, the run equals the uninterrupted one bit for
+               bit; (iv) finite losses; (v) the reduced llama trains on
+               the card as on the CPU (losses, and upstream gradients
+               wherever no ADC flip reaches). It prints the step time,
+               training tokens/s, peak GB, the device time of the kernel
+               against cuBLAS and the rest, by stage.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -208,6 +227,29 @@ BON_PROMPTS, BON_N, BON_NS, BON_MAX_NEW, BON_MOD = 8, 8, (1, 4, 8), 4, 23
 # best-of-n's MVM rows: a decode forward over the engine's 8 slots and a
 # chunk forward of its compact rows, 2 x BestOfNConfig's prefill_chunk 8
 M_BON_DECODE, M_BON_CHUNK = ENGINE_SLOTS, 2 * 8
+# HWA distillation (phase 14): llama-3.2-1b at full width, batch x sequence
+# of the training forward, steps (the first a warm-up), the step at which
+# the resume check saves, the training-noise gamma (eq. 3; AnalogConfig's
+# default); the training forward's MVM rows (phase 2 holds the kernel there
+# on noisy weights)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME_AT = 4, 256, 4, 2
+M_TRAIN = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_GAMMA = 0.02
+NOISY_RUNS = {(ARCH, M_TRAIN)}
+# gate (i): the fused Function's dx and dw on the card against the unfused
+# chain's rules in float64, each element within DOT_ERR_LAMBDA times the
+# fp32 rounding bound of its k-term dot, sqrt(k) * 2^-24 * (|A|·|B|); dbeta,
+# one fp32 sum over M * K terms, within DBETA_TOL * (1 + sum |terms|)
+DOT_ERR_LAMBDA = 1.0
+DBETA_TOL = 1e-5
+# gate (v): the reduced llama's training on the card against the CPU
+# (train_noise off): rows x tokens, steps; each site's upstream gradient
+# at a row that no ADC flip reached agrees within REDUCED_GRAD_TOL of the
+# tensor's largest magnitude (fp32 sums in another order through the
+# backward), and each step's loss within REDUCED_LOSS_TOL * (1 + |loss|)
+REDUCED_TRAIN_SHAPE, REDUCED_TRAIN_STEPS = (4, 32), 3
+REDUCED_GRAD_TOL = 1e-4
+REDUCED_LOSS_TOL = 1e-4
 # mamba2-130m, the ssm family: (site, K, N, sites per forward) of its 24
 # layers (the tied LM head is a plain matmul, as in the reference), the
 # static engine's batch, prompt and new tokens
@@ -458,11 +500,16 @@ def analog_flips(torch, x, w, beta, bound, off, y_k,
     return n_flip, float(diff.max())
 
 
-def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
+def analog_case(torch, gen, m, k, n, with_off: bool,
+                noisy: bool = False) -> dict:
     """One analog_matmul shape: parity against the plain version (flip
     rate over at least PARITY_OUTPUTS outputs, with and without promotion
-    on the mma mapping), the folded bound against the explicit one, and
-    times."""
+    on the mma mapping), the folded bound against the explicit one, the
+    share of outputs clipped at the ADC, and times. ``noisy``: the training
+    forward's call, on ``w + gamma · colmax · tau`` against the explicit
+    bound of the noise-free ``w`` (no fold: the main path gives the
+    bound)."""
+    from repro_torch.core.noise import gaussian_weight_noise
     from repro_torch.kernels import analog_matmul as km
     from repro_torch.kernels import dispatch, ref
 
@@ -474,16 +521,20 @@ def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
     x = torch.randn((m, k), generator=gen, device=dev)
     beta = torch.full((1,), 3.0, device=dev)
     bounds = [ref.adc_bound(w, beta, lam) for w in ws]
+    if noisy:
+        ws = [w + gaussian_weight_noise(gen, w, TRAIN_GAMMA) for w in ws]
     offs = [0.1 * b * torch.randn((n,), generator=gen, device=dev)
             if with_off else None for b in bounds]
     plan = dispatch.select_blocks(m, k, n, kernel="analog_matmul")
 
-    # the main path's call folds the bound; it must equal the explicit one
-    y_fold = km.analog_matmul(x, ws[0], beta, None, offs[0], lam=lam)
     y_k = km.analog_matmul(x, ws[0], beta, bounds[0], offs[0])
-    check(bool(torch.equal(y_fold, y_k)),
-          f"analog_matmul {m}x{k}x{n}: the folded ADC bound differs from "
-          f"ref.adc_bound's")
+    if not noisy:
+        # the main path's call folds the bound; it must equal the explicit
+        y_fold = km.analog_matmul(x, ws[0], beta, None, offs[0], lam=lam)
+        check(bool(torch.equal(y_fold, y_k)),
+              f"analog_matmul {m}x{k}x{n}: the folded ADC bound differs "
+              f"from ref.adc_bound's")
+    clipped = float((y_k.abs() >= bounds[0]).float().mean())
     draws = max(1, math.ceil(PARITY_OUTPUTS / (m * n)))
     n_flip = n_flip_np = 0
     max_err = 0.0
@@ -506,6 +557,8 @@ def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
           f"(rate above {MAX_FLIP_RATE:.0e})")
 
     def kernel(i):
+        if noisy:
+            return km.analog_matmul(x, ws[i], beta, bounds[i], offs[i])
         return km.analog_matmul(x, ws[i], beta, None, offs[i], lam=lam)
 
     reps = timing_reps(m, k, n)
@@ -514,7 +567,8 @@ def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
     explicit = device_ms(torch, lambda i: km.analog_matmul(
         x, ws[i], beta, bounds[i], offs[i]), copies, **reps)
     plain = device_ms(torch, lambda i: ref.analog_matmul_ref(
-        x, ws[i], beta, None, offs[i], lam=lam), copies, reps=5, rounds=3)
+        x, ws[i], beta, bounds[i] if noisy else None, offs[i],
+        lam=None if noisy else lam), copies, reps=5, rounds=3)
     mm = device_ms(torch, lambda i: x @ ws[i], copies, **reps)
     # the ADC bound pass that analog_linear ran beside every fused call
     # before the kernel folded it
@@ -522,7 +576,8 @@ def analog_case(torch, gen, m, k, n, with_off: bool) -> dict:
                            copies, **reps)
     # x, w, beta, col_off read once, the output written once
     nbytes = 4 * (m * k + k * n + 1 + (n if with_off else 0) + m * n)
-    return {"M": m, "K": k, "N": n, "col_off": with_off, "ms": ms,
+    return {"M": m, "K": k, "N": n, "col_off": with_off, "noisy": noisy,
+            "adc_clipped": clipped, "ms": ms,
             "explicit_bound_ms": explicit, "wall_ms": wall,
             "plain_ms": plain, "matmul_ms": mm, "adc_bound_ms": bound_calc,
             **mvm_bounds(nbytes, m, k, n, plan.mapping),
@@ -583,12 +638,13 @@ def int4_case(torch, gen, m, k, n) -> dict:
 
 #: phase 2's MVM rows, (arch, sites, M, static, int4): the rows of each
 #: model's static engine (also held with col_off), continuous engine, eval
-#: forwards (analog_hw and digital_int4) and best-of-n engine (analog_hw
-#: only)
+#: forwards (analog_hw and digital_int4), best-of-n engine (analog_hw
+#: only) and llama's training forward (on noisy weights, NOISY_RUNS)
 MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(ARCH, SITES, m, False, True) for m in (
                 M_ENGINE_DECODE, M_ENGINE_CHUNK, M_EVAL, M_INDUCTION)]
             + [(ARCH, SITES, M_BON_CHUNK, False, False)]
+            + [(ARCH, SITES, M_TRAIN, False, False)]
             + [(PHI3, PHI3_SITES, m, True, True) for m in (M_DECODE,
                                                            M_PREFILL)]
             + [(PHI3, PHI3_SITES, m, False, True) for m in (M_EVAL,
@@ -614,20 +670,25 @@ def phase_kernels(torch) -> dict:
               for site, k, n, _ in sites]
     for arch, site, k, n, m, stat, int4 in shapes:
         for with_off in ((False, True) if stat else (False,)):
-            r = analog_case(torch, gen, m, k, n, with_off)
+            r = analog_case(torch, gen, m, k, n, with_off,
+                            noisy=(arch, m) in NOISY_RUNS)
             r["site"], r["arch"] = site, arch
             rows["analog_matmul"].append(r)
             unprom = ("" if r["flip_rate_unpromoted"] is None else
                       f", unpromoted {r['flip_rate_unpromoted']:.2e}")
             print(f"  analog_matmul {arch} {site:8s} M={m:4d} {k}->{n} "
-                  f"off={int(with_off)} {r['mapping']} x{r['splits']}: "
-                  f"{r['ms']:.4f} ms folded (explicit bound "
+                  f"off={int(with_off)} {r['mapping']} x{r['splits']}"
+                  + (" noisy: " if r["noisy"] else ": ") +
+                  f"{r['ms']:.4f} ms "
+                  + ("given bound" if r["noisy"] else "folded") +
+                  f" (explicit bound "
                   f"{r['explicit_bound_ms']:.4f}, wall {r['wall_ms']:.4f}, "
                   f"plain {r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}; "
                   f"bound {r['bound_ms']:.4f} by {r['bound_by']}, fp32 "
                   f"{r['fp32_bound_ms']:.4f}, mma {r['mma_bound_ms']:.4f}; "
                   f"adc_bound {r['adc_bound_ms']:.4f}), flips {r['flips']} "
-                  f"of {r['parity_outputs']} ({r['flip_rate']:.2e}{unprom})")
+                  f"of {r['parity_outputs']} ({r['flip_rate']:.2e}{unprom}),"
+                  f" clipped at the ADC {r['adc_clipped']:.2e}")
         if int4:
             r = int4_case(torch, gen, m, k, n)
             r["site"], r["arch"] = site, arch
@@ -2378,6 +2439,614 @@ def phase_best_of_n(torch, arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: HWA distillation (paper Fig. 2b) at full width
+# ---------------------------------------------------------------------------
+
+def train_configs():
+    """The phase's AnalogConfig and TrainConfig (remat on)."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return (AnalogConfig(mode="analog", use_pallas=True, out_bound=14.0,
+                         kappa_init=18.0, gamma_weight=TRAIN_GAMMA),
+            TrainConfig(kd_temperature=2.0, total_steps=100))
+
+
+def within_dot_error(torch, a, ref, scale, k: int) -> float:
+    """max |a - ref| over the fp32 dot error scale ``sqrt(k) * 2^-24 *
+    scale`` (``scale`` = |A|·|B| of the product, ``k`` its length; the
+    probabilistic bound on the rounding of a k-term fp32 dot); fails above
+    ``DOT_ERR_LAMBDA``."""
+    r = float(((a - ref).abs() / (k ** 0.5 * U32 * scale)).max())
+    check(r <= DOT_ERR_LAMBDA, f"{r:.3e} of the fp32 dot error bound")
+    return r
+
+
+def training_site_gradients(torch) -> list:
+    """Gate (i): at each llama site shape at M = M_TRAIN, the fused
+    Function on ``w + w_noise`` against the noise-free bound, on the card.
+    Its forward is held against the kernel's plain version (the ADC
+    contract; this is the Function's own launch, where phase 2 calls the
+    kernel's wrapper). Its dx, dw and dbeta are held against the unfused
+    chain's gradient rules written out here in float64 (the reference's
+    ``_fused_bwd``: dx = g wᵀ where ``|x| <= beta`` and 0 outside, dw =
+    x_qᵀ g, dbeta = sum(where(inside, (x_q - x) / beta, sign(x)) · g wᵀ)),
+    with x_q the DAC codes of the kernel's plain version."""
+    from repro_torch.core.noise import gaussian_weight_noise
+    from repro_torch.kernels import dispatch, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for site, k, n, _ in SITES:
+        x = torch.randn((M_TRAIN, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        beta = torch.tensor(3.0, device=dev)
+        noise = gaussian_weight_noise(gen, w, TRAIN_GAMMA)
+        bound = ref.adc_bound(w, beta, 14.0)
+        g = torch.randn((M_TRAIN, n), generator=gen, device=dev)
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, beta))
+        y = dispatch.fused_analog_mvm(xl, wl, noise, bl, bound)
+        flips, err = analog_flips(torch, x, w + noise, beta.reshape(1),
+                                  bound, None, y.detach())
+        y.backward(g)
+        dx, dw, db = xl.grad, wl.grad, bl.grad
+        del y, xl, wl, bl, noise
+        inside = x.abs() <= beta
+        x_q = ref.div(beta, 127.0) * torch.round(
+            ref.clip(x, -beta, beta) * ref.rdiv(127.0, beta))
+        x64, xq64, b64 = x.double(), x_q.double(), beta.double()
+        gw = g.double() @ w.double().T
+        dx_r = torch.where(inside, gw, torch.zeros_like(gw))
+        dw_r = xq64.T @ g.double()
+        terms = torch.where(inside, (xq64 - x64) / b64, torch.sign(x64)) * gw
+        db_r, terms = terms.sum(), terms.abs().sum()
+        check(not bool(dx[~inside].any()),
+              f"train {site}: dx is not 0 outside the clamp")
+        r_dx = within_dot_error(torch, dx.double(), dx_r,
+                                g.abs() @ w.abs().T, n)
+        r_dw = within_dot_error(torch, dw.double(), dw_r,
+                                x_q.abs().T @ g.abs(), M_TRAIN)
+        d_db = float((db.double() - db_r).abs())
+        check(d_db <= DBETA_TOL * (1 + float(terms)),
+              f"train {site}: dbeta {float(db):.6e} against {float(db_r):.6e}")
+        outputs = M_TRAIN * n
+        check(flips <= MAX_FLIP_RATE * outputs,
+              f"train {site}: {flips} of {outputs} outputs flip")
+        rows.append({"site": site, "K": k, "N": n, "flips": flips,
+                     "outputs": outputs, "max_abs_err": err,
+                     "dx_rel": r_dx, "dw_rel": r_dw, "dbeta_abs": d_db,
+                     "dbeta": float(db_r), "dbeta_terms": float(terms)})
+        print(f"  gate (i) {site:8s} M={M_TRAIN} {k}->{n}: forward flips "
+              f"{flips} of {outputs}; against float64: dx {r_dx:.2e}, dw "
+              f"{r_dw:.2e} of the fp32 dot bound; dbeta {float(db):.6e} vs "
+              f"{float(db_r):.6e} (|d| {d_db:.2e}, sum of |terms| "
+              f"{float(terms):.3e})")
+        del x, w, g, gw, dx, dw, dx_r, dw_r, x64, xq64, x_q, inside, terms
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def training_checked(torch, acfg, log: dict):
+    """Gate (ii) on every step of the training run inside the block: after
+    the update every ``input_range`` equals ``ema_init_update`` (then the
+    decay rule) of the post-AdamW range with the ``x_std`` of that site's
+    forward input, recorded at the site (and equal bit for bit when remat
+    recomputes the site), and every analog weight lies within
+    ``alpha_clip`` standard deviations of its channel."""
+    from repro_torch.checkpoint import flatten_paths
+    from repro_torch.core import analog as A
+    from repro_torch.core import clipping
+    from repro_torch.core.quant import ema_init_update, range_decay_update
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import recipes
+    from repro_torch.train import train_step as ts
+
+    cur = {}
+    site_std = {}
+    real_site, real_ranges = A.analog_linear, ts._update_input_ranges
+    real_clip, real_make = clipping.clip_tree, recipes.make_train_step
+
+    def site(p, x, cfg, ctx):
+        if ctx.training:
+            with torch.no_grad():
+                xf = x.float()
+                std = torch.std(xf, correction=0)
+                frac = torch.mean((xf.abs() > p["input_range"].reshape(())
+                                   .float()).float())
+            ptr = p["input_range"].data_ptr()
+            if ptr in site_std:   # the layer's recomputation under remat
+                check(bool(torch.equal(site_std[ptr][0], std)),
+                      "a recomputed site's input differs from its forward's")
+                log["recomputed_sites"] += 1
+            else:
+                site_std[ptr] = (std, frac)
+        return real_site(p, x, cfg, ctx)
+
+    def ranges(params, stats, step, acfg_):
+        out = real_ranges(params, stats, step, acfg_)
+        old = flatten_paths(cur["params"])
+        new_in, new_out = flatten_paths(params), flatten_paths(out)
+        n = 0
+        for path, v in new_out.items():
+            if not path.endswith("input_range"):
+                continue
+            node = stats
+            for part in path.split("/")[:-1]:
+                node = node[part]
+            stacked = old[path].dim() == 2          # [L, 1] or (1,)
+            for i in range(old[path].shape[0] if stacked else 1):
+                ptr = (old[path][i] if stacked else old[path]).data_ptr()
+                check(ptr in site_std, f"{path}[{i}]: no forward recorded")
+                std, frac = site_std[ptr]
+                x_std = node["x_std"][i] if stacked else node["x_std"]
+                check(bool(torch.equal(x_std, std)),
+                      f"{path}[{i}]: x_std is not its site's")
+                beta = new_in[path][i] if stacked else new_in[path]
+                want = ema_init_update(beta.squeeze(-1), std, step,
+                                       acfg.kappa_init, acfg.init_steps)
+                want = range_decay_update(want, frac, step, acfg.range_decay,
+                                          acfg.input_min_percentage,
+                                          acfg.init_steps)
+                got = v[i] if stacked else v
+                check(bool(torch.equal(got.squeeze(-1),
+                                       torch.clamp_min(want, 1e-6))),
+                      f"{path}[{i}]: the range rule was not applied")
+                n += 1
+        log["ranges_checked"].append(n)
+        return out
+
+    def clip(params, labels, alpha):
+        out = real_clip(params, labels, alpha)
+        lab, flat_out = flatten_paths(labels), flatten_paths(out)
+        worst, clipped, total = 0.0, 0, 0
+        for path, w in flatten_paths(params).items():
+            if lab[path] != "analog_weight":
+                continue
+            wo = flat_out[path]
+            # zeta as clip_weight takes it (the std over axis -2 of the
+            # whole leaf), compared layer by layer: no model-sized
+            # temporaries
+            zeta = (alpha * torch.std(w.float(), dim=-2, keepdim=True,
+                                      correction=0)).to(w.dtype)
+            shape = (-1,) + tuple(w.shape[-2:])
+            for wl, wol, zl in zip(w.reshape(shape), wo.reshape(shape),
+                                   zeta.reshape((-1, 1, w.shape[-1]))):
+                worst = max(worst, float((wol.abs() / zl).max()))
+                clipped += int((wl.abs() > zl).sum())
+            total += w.numel()
+        check(worst <= 1.0, f"a weight lies {worst:.6f} zeta out (eq. 4)")
+        log["clip"].append({"max_over_zeta": worst,
+                            "clipped_share": clipped / total})
+        return out
+
+    def make(*a, **k):
+        step_fn = real_make(*a, **k)
+
+        def wrapped(params, state, batch, key, teacher_params=None):
+            cur["params"] = params
+            site_std.clear()
+            return step_fn(params, state, batch, key, teacher_params)
+        return wrapped
+
+    log.update(recomputed_sites=0, ranges_checked=[], clip=[])
+    L.analog_linear = T.analog_linear = site
+    ts._update_input_ranges = ranges
+    clipping.clip_tree = clip
+    recipes.make_train_step = make
+    try:
+        yield
+    finally:
+        L.analog_linear = T.analog_linear = real_site
+        ts._update_input_ranges = real_ranges
+        clipping.clip_tree = real_clip
+        recipes.make_train_step = real_make
+
+
+def train_lr(tcfg):
+    """The recipes' learning-rate schedule for ``tcfg``."""
+    from repro_torch.optim.schedule import polynomial_with_warmup
+
+    return lambda s: polynomial_with_warmup(
+        s, peak_lr=tcfg.peak_lr, total_steps=tcfg.total_steps,
+        warmup_ratio=tcfg.warmup_ratio)
+
+
+def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
+                       batch) -> dict:
+    """One more step from ``params`` / ``state``, built with marks between
+    its stages (forward and loss, backward, AdamW, range rules and eq. 4),
+    under ``torch.profiler``: device ms per stage (CUDA events), the peak
+    allocated GB of each stage, and the device ms of the ``analog_matmul``
+    kernels (the training forward and its recomputation), of the cuBLAS
+    matmuls (the backward's dx / dw, the attention products, the teacher)
+    and of the rest, with its largest kernels."""
+    from repro_torch.core import clipping
+    from repro_torch.train import train_step as ts
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, torch.cuda.max_memory_allocated()))
+
+    real_loss, real_adam = ts.make_loss_fn, ts.adamw_update
+    real_clip = clipping.clip_tree
+
+    def make_loss(*a, **k):
+        fn = real_loss(*a, **k)
+
+        def loss(*aa, **kk):
+            out = fn(*aa, **kk)
+            mark("forward and loss")
+            return out
+        return loss
+
+    def adam(*a, **k):
+        mark("backward")
+        out = real_adam(*a, **k)
+        mark("AdamW")
+        return out
+
+    def clip(*a, **k):
+        out = real_clip(*a, **k)
+        mark("range rules and eq. 4")
+        return out
+
+    ts.make_loss_fn, ts.adamw_update = make_loss, adam
+    clipping.clip_tree = clip
+    try:
+        step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mark("start")
+            out = step(params, state, batch, noise_key())
+            del out
+            torch.cuda.synchronize()
+    finally:
+        ts.make_loss_fn, ts.adamw_update = real_loss, real_adam
+        clipping.clip_tree = real_clip
+    stages = {name: {"ms": a.elapsed_time(b), "peak_gb": peak / 1e9}
+              for (_, a, _), (name, b, peak) in zip(marks, marks[1:])}
+    res = {"analog_matmul_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    other = []
+    for ev in prof.key_averages():
+        ms = ev.device_time * ev.count / 1e3
+        if ms <= 0:
+            continue
+        key = ev.key.lower()
+        if "analog_" in key:
+            res["analog_matmul_ms"] += ms
+        elif "gemm" in key or "sm90_xmma" in key or "cutlass" in key:
+            res["matmul_ms"] += ms
+        else:
+            res["other_ms"] += ms
+            other.append((ev.key.replace("void at::native::", "")[:90], ms))
+    res["device_ms"] = sum(res.values())
+    res["top_other"] = sorted(other, key=lambda t: -t[1])[:5]
+    res["stages"] = stages
+    return res
+
+
+def noise_key():
+    """The noise key of the phase's trainers (``Trainer(seed=0)``)."""
+    from repro_torch.core.noise import prng_key
+
+    return prng_key(0)
+
+
+def phase_train(torch) -> dict:
+    """``distill_recipe`` at full width on the card (llama-3.2-1b, random
+    weights from seed 0, student a copy of the teacher, tokens from the
+    Markov corpus) on ``analog_matmul``, with gates (i)–(v): the training
+    sites' gradients, eq. 4 and the range rules after every step, a
+    bit-exact resume, finite losses, and the reduced model on the card
+    against the CPU."""
+    import shutil
+
+    import repro_torch.train.recipes as recipes
+    from repro_torch.checkpoint import flatten_paths
+    from repro_torch.data.corpus import MarkovCorpus
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.data.synthetic import teacher_logits
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+
+    out = {"gate_i": training_site_gradients(torch)}
+    acfg, tcfg = train_configs()
+    cfg, params, labels = full_width(torch, ARCH)
+    tokens = MarkovCorpus(cfg.vocab_size, seed=0).sample(
+        TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_SEQ + 1)
+    log = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch)
+    with training_checked(torch, acfg, log):
+        _, trainer = recipes.distill_recipe(
+            params, labels, cfg, tokens, acfg=acfg, tcfg=tcfg,
+            batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, seed=0)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = trainer.history
+    check(len(hist) == TRAIN_STEPS and trainer.skipped_steps == 0
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"train: losses {[h['loss'] for h in hist]}")          # gate (iv)
+    check(log["ranges_checked"] == [mvm_sites(cfg)] * TRAIN_STEPS
+          and len(log["clip"]) == TRAIN_STEPS,
+          f"train: ranges checked {log['ranges_checked']}")     # gate (ii)
+    check(set(launches) == {"analog_matmul"}
+          and launches["analog_matmul"] >= TRAIN_STEPS * mvm_sites(cfg),
+          f"train: launches {launches}")
+    for i, h in enumerate(hist):
+        print(f"  train step {i}{' (warm-up)' if i == 0 else ''}, gates "
+              f"(ii) checked in it: {1e3 * h['dt']:.1f} ms, loss "
+              f"{h['loss']:.6f} (kd {h['kd']:.6f}), grad norm "
+              f"{h['grad_norm']:.4f}, lr {h['lr']:.2e}; weights clipped "
+              f"{log['clip'][i]['clipped_share']:.2e}")
+    print(f"  train llama-3.2-1b, batch {TRAIN_BATCH} x {TRAIN_SEQ}: peak "
+          f"{peak_gb:.2f} GB, analog_matmul launches "
+          f"{launches['analog_matmul']} "
+          f"({launches['analog_matmul'] / TRAIN_STEPS:.0f} per step; remat "
+          f"recomputed {log['recomputed_sites']} site calls)")
+
+    # one more step of the same trainer under the profiler
+    loader = TokenLoader(tokens, TRAIN_BATCH, seed=0)
+    dev = torch.device("cuda")
+
+    def make_batch(raw):
+        inp = torch.as_tensor(raw[:, :-1], dtype=torch.int64, device=dev)
+        return {"tokens": inp,
+                "labels": torch.as_tensor(raw[:, 1:], dtype=torch.int64,
+                                          device=dev),
+                "teacher_logits": teacher_logits(params, cfg, inp)}
+
+    prof = train_step_profile(torch, cfg, acfg, tcfg, labels, trainer.params,
+                              trainer.state, make_batch(next(iter(loader))))
+
+    # gate (iii): save at TRAIN_RESUME_AT, restore in a fresh trainer, step on
+    whole = {k: v.cpu() for k, v in flatten_paths(
+        {"params": trainer.params, "opt": trainer.state["opt"]}).items()}
+    del trainer
+    torch.cuda.empty_cache()
+    step_fn = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+    ckpt_dir = ROOT / "scratch_chip" / "phase14_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        loader = TokenLoader(tokens, TRAIN_BATCH, seed=0)
+        first = Trainer(step_fn, params, ts.init_train_state(params),
+                        ckpt_dir=str(ckpt_dir), ckpt_every=0, log_every=0,
+                        data_state_fn=loader.state, seed=0)
+        first.fit((make_batch(r) for r in loader), TRAIN_RESUME_AT)
+        first.params = first.state = None
+        torch.cuda.empty_cache()
+        t_save = time.perf_counter()
+        loader = TokenLoader(tokens, TRAIN_BATCH, seed=0)
+        second = Trainer(step_fn, params, ts.init_train_state(params),
+                         ckpt_dir=str(ckpt_dir), ckpt_every=0, log_every=0,
+                         data_state_fn=loader.state, seed=0)
+        extra = second.try_resume()
+        t_restore = time.perf_counter()
+        loader.restore(extra["data_state"])
+        second.ckpt_dir = None
+        second.fit((make_batch(r) for r in loader),
+                   TRAIN_STEPS - TRAIN_RESUME_AT)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the step time on the host clock (synchronized by the loss read) from
+    # the resume check's steps, which run no gate (ii) checks; all warm
+    dts = [h["dt"] for h in first.history + second.history]
+    step_ms = 1e3 * sum(dts) / len(dts)
+    print(f"  train llama-3.2-1b, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"{step_ms:.1f} ms per step (mean of {len(dts)}: "
+          + ", ".join(f"{1e3 * d:.1f}" for d in dts)
+          + f"), {M_TRAIN / step_ms * 1e3:.0f} training tokens/s")
+    print(f"  train step on the device (torch.profiler): analog_matmul "
+          f"{prof['analog_matmul_ms']:.2f} ms (forward + remat), cuBLAS "
+          f"matmuls {prof['matmul_ms']:.2f} ms (backward dx / dw, "
+          f"attention, teacher), other {prof['other_ms']:.2f} ms; "
+          f"{prof['device_ms']:.2f} ms of the {step_ms:.1f} ms step; "
+          f"largest other: " + ", ".join(
+              f"{name} {ms:.2f}" for name, ms in prof["top_other"]))
+    print("  train step by stage (CUDA events; peak allocated): " + ", ".join(
+        f"{name} {st['ms']:.1f} ms ({st['peak_gb']:.2f} GB)"
+        for name, st in prof["stages"].items()))
+    resumed = flatten_paths({"params": second.params,
+                             "opt": second.state["opt"]})
+    apart = [k for k, v in resumed.items()
+             if not torch.equal(v.cpu(), whole[k])]
+    check(not apart, f"train resume: {len(apart)} leaves differ, e.g. "
+          f"{apart[:3]}")                                      # gate (iii)
+    print(f"  gate (iii): saved at step {TRAIN_RESUME_AT}, restored in a "
+          f"fresh Trainer and stepped to {TRAIN_STEPS}: {len(resumed)} "
+          f"leaves (params, m, v, count) equal the uninterrupted run's bit "
+          f"for bit (save {t_save - t0:.1f} s incl. {TRAIN_RESUME_AT} "
+          f"steps, restore {t_restore - t_save:.1f} s)")
+    del first, second, whole, resumed, params
+    torch.cuda.empty_cache()
+    out.update(steps=hist, step_ms=step_ms,
+               tokens_per_s=M_TRAIN / step_ms * 1e3, peak_gb=peak_gb,
+               launches=launches, profile=prof, clip=log["clip"],
+               recomputed_sites=log["recomputed_sites"],
+               resume={"save_s": t_save - t0,
+                       "restore_s": t_restore - t_save})
+    out["reduced"] = reduced_train_check(torch)
+    return out
+
+
+def reduced_train_check(torch) -> dict:
+    """Gate (v): the reduced llama trains on the card (the kernels) and on
+    the CPU (their plain versions) from the same weights and batches,
+    ``train_noise`` off. First step: every analog site's input and output
+    are recorded, and its upstream gradient; a site input may differ beyond
+    ``SITE_INPUT_TOL`` only where an earlier site output apart (an ADC
+    near-tie flip) reaches (``reduced_eval_check``'s causal rule), and at
+    every row no flip reached each site's upstream gradient agrees within
+    ``REDUCED_GRAD_TOL`` of its largest magnitude (every gradient leaf too
+    when no flip happened). Each site's backward is then replayed on both
+    sides from its recorded input, parameters and upstream gradient, with
+    the reached rows of that gradient zeroed: its dx and dw (the card's
+    products) agree within ``REDUCED_GRAD_TOL`` of their largest magnitude
+    and its dbeta within ``REDUCED_GRAD_TOL`` of its sum of |terms|. Then
+    ``REDUCED_TRAIN_STEPS`` steps of the train step (remat on): losses
+    within ``REDUCED_LOSS_TOL``."""
+    from repro_torch.checkpoint import flatten_paths, unflatten_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.corpus import MarkovCorpus
+    from repro_torch.data.synthetic import teacher_logits
+    from repro_torch.kernels import ref
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config(ARCH).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    rows, seq = REDUCED_TRAIN_SHAPE
+    toks = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=1).sample(
+        rows * REDUCED_TRAIN_STEPS, seq + 1)).long()
+    batches = []
+    for i in range(REDUCED_TRAIN_STEPS):
+        raw = toks[rows * i:rows * (i + 1)]
+        batches.append({"tokens": raw[:, :-1], "labels": raw[:, 1:],
+                        "teacher_logits": teacher_logits(
+                            params, cfg, raw[:, :-1])})
+    acfg = AnalogConfig(mode="analog", use_pallas=True, train_noise=False,
+                        out_bound=14.0, kappa_init=18.0)
+    tcfg = ts.TrainConfig(kd_temperature=2.0, ce_weight=0.5, peak_lr=1e-3,
+                          total_steps=10)
+    cuda = torch.device("cuda")
+    rec, losses = {}, {}
+    for side, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        p = _to(params, dev)
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in flatten_paths(p).items()}
+        calls = []
+        real = A.analog_linear
+
+        def spy(pp, x, cfg_, ctx):
+            y, st = real(pp, x, cfg_, ctx)
+            entry = [x.detach().cpu(), y.detach().cpu(), None,
+                     {k: v.detach().cpu().clone()
+                      for k, v in flatten_paths(pp).items()}, ctx]
+            y.register_hook(lambda g, e=entry: e.__setitem__(2, g.cpu()))
+            calls.append(entry)
+            return y, st
+
+        L.analog_linear = T.analog_linear = spy
+        try:
+            loss, _ = ts.make_loss_fn(cfg, acfg, dataclasses.replace(
+                tcfg, remat=False))(unflatten_paths(leaves),
+                                    _to(batches[0], dev), (0,))
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        finally:
+            L.analog_linear = T.analog_linear = real
+        rec[side] = (calls, {k: g.cpu() for k, g in zip(leaves, grads)})
+        step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+        state = ts.init_train_state(p)
+        losses[side] = []
+        for b in batches:
+            p, state, m = step(p, state, _to(b, dev), (0,))
+            losses[side].append(float(m["loss"]))
+    (calls_c, grads_c), (calls_g, grads_g) = rec["cpu"], rec["cuda"]
+    check(len(calls_c) == len(calls_g) == mvm_sites(cfg),
+          f"reduced train: {len(calls_c)} / {len(calls_g)} site calls")
+    reach = torch.zeros((rows, seq), dtype=torch.bool)
+    out_flips = 0
+    for i, ((xc, yc, *_), (xg, yg, *_)) in enumerate(zip(calls_c,
+                                                         calls_g)):
+        apart = ((xg - xc).abs() > SITE_INPUT_TOL * (1 + xc.abs())).reshape(
+            rows, seq, -1).any(-1)
+        check(bool(reach[apart].all()), f"reduced train: site {i}'s input "
+              f"differs where no site output did before")
+        o_apart = ((yg - yc).abs() > 1e-5 * (1 + yc.abs())).reshape(
+            rows, seq, -1).any(-1)
+        out_flips += int(o_apart.sum())
+        reach |= torch.cummax(o_apart.int(), dim=1).values.bool()
+    clean = ~reach.any(dim=1)
+    worst = 0.0
+    for i, ((_, _, gc, *_), (_, _, gg, *_)) in enumerate(zip(calls_c,
+                                                             calls_g)):
+        check(gc is not None and gg is not None,
+              f"reduced train: site {i} got no gradient")
+        gc, gg = gc.reshape(rows, seq, -1)[clean], gg.reshape(
+            rows, seq, -1)[clean]
+        if gc.numel():
+            r = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
+            worst = max(worst, r)
+    check(worst <= REDUCED_GRAD_TOL,
+          f"reduced train: an upstream gradient is {worst:.2e} apart")
+    check(bool(clean.any()), "reduced train: every row was reached by a "
+          "flip, so no site gradient can be compared")
+    site_worst = site_dbeta = 0.0
+    for i, (call_c, call_g) in enumerate(zip(calls_c, calls_g)):
+        ga = {}
+        for side, (x, _, g, pp, ctx), dev in (("cpu", call_c, "cpu"),
+                                             ("cuda", call_g, cuda)):
+            g = g * clean.reshape((rows,) + (1,) * (g.dim() - 1))
+            leaves = {k: v.detach().to(dev).requires_grad_()
+                      for k, v in pp.items()}
+            xl = x.detach().to(dev).requires_grad_()
+            y, _ = real(unflatten_paths(leaves), xl, acfg, ctx)
+            gs = torch.autograd.grad(y, [xl, *leaves.values()], g.to(dev),
+                                     allow_unused=True)
+            ga[side] = {k: t.cpu() for k, t in zip(["x", *leaves], gs)
+                        if t is not None}
+        check(set(ga["cpu"]) == set(ga["cuda"]) >= {"x", "kernel",
+                                                    "input_range"},
+              f"reduced train: site {i} gradients {sorted(ga['cuda'])}")
+        for k, gc in ga["cpu"].items():
+            d = float((ga["cuda"][k] - gc).abs().max())
+            if k == "input_range":   # one sum: scaled by its |terms|
+                x, _, g, pp, _ = call_c
+                g = g * clean.reshape((rows,) + (1,) * (g.dim() - 1))
+                beta = pp["input_range"].reshape(())
+                x_q = ref.div(beta, 127.0) * torch.round(
+                    ref.clip(x, -beta, beta) * ref.rdiv(127.0, beta))
+                terms = (torch.where(x.abs() <= beta, (x_q - x) / beta,
+                                     torch.sign(x))
+                         * (g @ pp["kernel"].T)).abs().sum()
+                r = d / max(float(terms), 1e-30)
+                site_dbeta = max(site_dbeta, r)
+            else:
+                r = d / max(float(gc.abs().max()), 1e-30)
+                site_worst = max(site_worst, r)
+            check(r <= REDUCED_GRAD_TOL,
+                  f"reduced train: site {i}'s replayed d{k} is {r:.2e} apart")
+    leaf_worst = None
+    if not reach.any():
+        leaf_worst = max(float((grads_g[k] - g).abs().max()
+                               / g.abs().max().clamp_min(1e-30))
+                         for k, g in grads_c.items())
+        check(leaf_worst <= REDUCED_GRAD_TOL,
+              f"reduced train: a gradient leaf is {leaf_worst:.2e} apart")
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        check(abs(a - b) <= REDUCED_LOSS_TOL * (1 + abs(b)),
+              f"reduced train: losses card {losses['cuda']}, cpu "
+              f"{losses['cpu']}")
+    print(f"  gate (v) reduced llama, {rows} x {seq}: {out_flips} site "
+          f"output positions apart (ADC near-ties), {int(clean.sum())} of "
+          f"{rows} rows unreached; upstream gradients within "
+          f"{worst:.2e} of their max there; replayed on those rows, site "
+          f"dx and dw within {site_worst:.2e} of their max, dbeta within "
+          f"{site_dbeta:.2e} of its sum of |terms|"
+          + ("" if leaf_worst is None else
+             f", every gradient leaf within {leaf_worst:.2e}")
+          + f"; losses card {losses['cuda']} / cpu {losses['cpu']}")
+    return {"site_output_positions_apart": out_flips,
+            "rows_unreached": int(clean.sum()), "grad_rel": worst,
+            "site_grad_rel": site_worst, "site_dbeta_rel": site_dbeta,
+            "leaf_grad_rel": leaf_worst, "losses": losses}
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -2400,11 +3069,12 @@ PAGED_META = {
 def line_launches(results: dict) -> dict:
     """Each kernel's launches on every main-path run that drove it, by
     path: the static engines (phases 3, 4, 7 and 11), the continuous
-    engines (phase 8), the noisy evals (phase 12) and best-of-n (phase
-    13). Each count was read right after its run, with every count set to
-    0 right before it. Not counted: the kernel comparisons (phases 2, 5
-    and 6), the reduced checks against the CPU (phases 9 and 12), the
-    timing replays and the CLI (phase 10)."""
+    engines (phase 8), the noisy evals (phase 12), best-of-n (phase 13)
+    and the HWA distillation run (phase 14). Each count was read right
+    after its run, with every count set to 0 right before it. Not counted:
+    the kernel comparisons (phases 2, 5, 6 and 14's gate (i)), the reduced
+    checks against the CPU (phases 9, 12 and 14), the timing replays, the
+    CLI (phase 10), and phase 14's profiled step and resume check."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -2431,6 +3101,7 @@ def line_launches(results: dict) -> dict:
             add(f"eval/{arch}/{deploy}", ev[deploy]["launches"])
         add(f"best_of_n/{arch}/analog_hw",
             results["best_of_n"][arch]["launches"])
+    add(f"train/{ARCH}/analog", results["train"]["launches"])
     return out
 
 
@@ -2563,50 +3234,53 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/13] setup")
+        phase("[1/14] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/13] MVM kernels at llama-3.2-1b, phi-3-mini-4k and "
+        phase("[2/14] MVM kernels at llama-3.2-1b, phi-3-mini-4k and "
               "mamba2-130m main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/13] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/14] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/13] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/14] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/13] paged-attention kernels at llama-3.2-1b and "
+        phase("[5/14] paged-attention kernels at llama-3.2-1b and "
               "phi-3-mini-4k attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/13] ssd_scan at mamba2-130m shapes")
+        phase("[6/14] ssd_scan at mamba2-130m shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/13] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/14] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/13] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/14] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/13] reduced continuous engines, card against cpu")
+        phase("[9/14] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/13] serving CLI")
+        phase("[10/14] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/13] static engine, phi-3-mini-4k at full width: "
+        phase("[11/14] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/13] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/14] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/13] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/14] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
+        phase("[14/14] HWA distillation at full width, llama-3.2-1b; "
+              "reduced training, card against cpu")
+        results["train"] = phase_train(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

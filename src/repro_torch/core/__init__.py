@@ -1,4 +1,5 @@
-"""Core analog-foundation-model ops (the paper's contribution), eval path."""
+"""Core analog-foundation-model ops (the paper's contribution): the analog
+linear op with its training rules, the quantizers, noise and clipping."""
 
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels,

@@ -10,9 +10,16 @@ goes through. By :attr:`AnalogConfig.mode` it runs:
 * ``di8``    — dynamic per-token input quant + 4-bit weight fake-quant;
 * ``rtn``    — round-to-nearest digital deployment (Table 3).
 
-This port runs the eval/serve forward. The training forward (noise
-injection and the STE autograd rules) and the per-tile device state of
-``core/devices.py`` come with later slices and are refused here.
+With ``AnalogCtx.training`` it runs the hardware-aware training forward
+(paper §3.1, Fig. 2b): ``analog`` draws the eq. (3) weight noise per call
+from the context's key and runs DAC quant → MVM on ``w + w_noise`` → ADC
+quant against the bound of the noise-free weights, with the reference's
+gradients: the clamp-STE / LSQ rules of ``quant.input_quantize``, the
+noise-free backward of :func:`noisy_matmul`, and a pure STE through the
+ADC. ``qat`` / ``di8`` train through STE fake quantizers; ``rtn`` is
+eval-only, as in the reference. The per-tile device state of
+``core/devices.py`` is ignored in training (as the reference does) and
+refused at eval until the devices slice lands.
 
 Deployment-time programming noise is applied once per model instance by
 :func:`perturb_analog_weights`, not inside the forward.
@@ -84,12 +91,24 @@ class AnalogConfig:
 
 @dataclasses.dataclass
 class AnalogCtx:
-    """Per-call context threaded through the model (``generator`` draws
-    training noise; None at eval)."""
+    """Per-call context threaded through the model. ``key`` (a
+    ``core.noise`` key, None at eval) seeds the training noise: the model
+    folds in the layer index and each site's name (:meth:`site`)."""
 
-    generator: Optional[torch.Generator] = None
+    key: Optional[tuple] = None
     training: bool = False
     collect_stats: bool = False
+
+    def fold(self, data: int) -> "AnalogCtx":
+        """This context with ``data`` (a layer index) folded into its key."""
+        if self.key is None:
+            return self
+        return dataclasses.replace(self, key=noise_lib.fold_in(self.key,
+                                                               data))
+
+    def site(self, name: str) -> "AnalogCtx":
+        """The context of the analog site ``name`` (its own noise)."""
+        return self.fold(noise_lib.site_tag(name))
 
 
 def empty_stats() -> dict:
@@ -97,6 +116,46 @@ def empty_stats() -> dict:
     no device work is launched for them."""
     return {"x_std": torch.zeros(()), "x_absmax": torch.zeros(()),
             "clip_frac": torch.zeros(())}
+
+
+# ---------------------------------------------------------------------------
+# matmul with a noise-free backward (paper: "During the backward pass, the
+# noise-free weights are used.")
+# ---------------------------------------------------------------------------
+
+def noisy_matmul_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The reference's ``_noisy_matmul_bwd``: ``dx = g wᵀ`` and ``dw = xᵀ
+    g`` over the flattened rows, both in fp32 against the noise-free
+    ``w``."""
+    in_dim, out_dim = w.shape[-2], w.shape[-1]
+    g32 = g.float()
+    dx = torch.matmul(g32, w.float().T).to(x.dtype)
+    dw = torch.matmul(x.reshape(-1, in_dim).float().T,
+                      g32.reshape(-1, out_dim)).to(w.dtype)
+    return dx, dw
+
+
+class _NoisyMatmul(torch.autograd.Function):
+    """``x @ (w + w_noise)`` forward, ``x @ w`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_noise):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w if w_noise is None else w + w_noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = noisy_matmul_grads(x, w, g)
+        return dx, dw, None
+
+
+def noisy_matmul(x: torch.Tensor, w: torch.Tensor,
+                 w_noise: torch.Tensor | None) -> torch.Tensor:
+    """``x @ (w + w_noise)`` (``w_noise`` None: zero, and no copy of the
+    weights) whose backward differentiates ``x @ w``; the noise gets no
+    gradient."""
+    return _NoisyMatmul.apply(x, w, w_noise)
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +192,17 @@ def linear_labels(p: dict) -> dict:
 
 def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                   ctx: AnalogCtx) -> tuple[torch.Tensor, dict]:
-    """Apply one analog/quantized linear at eval. Returns ``(y, stats)``."""
-    if ctx.training:
-        raise NotImplementedError(
-            "the training forward of analog_linear (noise injection and the "
-            "STE autograd rules) belongs to the HWA training slice")
+    """Apply one analog/quantized linear. Returns ``(y, stats)``; with
+    ``ctx.collect_stats`` the stats (``x_std``, ``x_absmax``,
+    ``clip_frac``, detached, on the input's device) feed the input-range
+    rules the train step applies after each update."""
     w = p["kernel"]
     in_dtype = x.dtype
     stats = empty_stats()
+    if ctx.training and cfg.mode == "rtn":
+        raise NotImplementedError(
+            "mode 'rtn' is the Table-3 digital deployment: eval/serve only, "
+            "as in the reference (no training rules)")
 
     if cfg.mode == "off":
         y = torch.matmul(x, w.to(in_dtype)).to(in_dtype)
@@ -154,9 +216,11 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         beta = p["input_range"].reshape(()).float()
         xf = x.float()
         if ctx.collect_stats:
-            stats = {"x_std": torch.std(xf, correction=0),
-                     "x_absmax": torch.amax(torch.abs(xf)),
-                     "clip_frac": torch.mean((torch.abs(xf) > beta).float())}
+            with torch.no_grad():
+                stats = {"x_std": torch.std(xf, correction=0),
+                         "x_absmax": torch.amax(torch.abs(xf)),
+                         "clip_frac": torch.mean(
+                             (torch.abs(xf) > beta).float())}
         # the fused tile op quantizes inside the kernel
         x_q = None if fused else quant.input_quantize(xf, beta,
                                                       cfg.input_bits)
@@ -170,17 +234,30 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
     adc_done = False
     col_max = None                 # precomputed per-column absmax (int4 path)
     if cfg.mode == "analog":
-        if "device" in p:
+        if "device" in p and not ctx.training:
             raise NotImplementedError(
                 "per-tile device state (core/devices.py: drift, faults, "
                 "periphery offsets) is ported with the devices slice")
-        if fused:  # the kernel folds the ADC bound from wf
+        w_noise = None
+        if ctx.training and cfg.train_noise and ctx.key is not None:
+            with torch.no_grad():
+                w_noise = noise_lib.gaussian_weight_noise(
+                    noise_lib.key_generator(ctx.key, wf.device), wf,
+                    cfg.gamma_weight, cfg.beta_mult)
+        if fused and w_noise is None:  # the kernel folds the bound from wf
             y = dispatch.fused_analog_mvm(
                 xf, wf, None, beta, lam=cfg.out_bound,
                 in_bits=cfg.input_bits, out_bits=cfg.output_bits)
             adc_done = True
+        elif fused:  # the bound of the noise-free weights, given
+            bound = kref.adc_bound(wf.detach(), beta.detach(),
+                                   cfg.out_bound)
+            y = dispatch.fused_analog_mvm(
+                xf, wf, w_noise, beta, bound,
+                in_bits=cfg.input_bits, out_bits=cfg.output_bits)
+            adc_done = True
         else:
-            y = torch.matmul(x_q, wf)
+            y = noisy_matmul(x_q, wf, w_noise)
     elif cfg.mode in ("qat", "di8"):
         w_q = quant.weight_fake_quant(wf, cfg.weight_bits)
         y = torch.matmul(x_q, w_q)
@@ -217,7 +294,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             bound = cfg.out_bound * beta * col_max
         else:
             bound = kref.adc_bound(wf, beta, cfg.out_bound)
-        y = quant.output_quantize(y, bound, cfg.output_bits)
+        y = quant.output_quantize(y, bound.detach(), cfg.output_bits)
 
     y = y.to(in_dtype)
     if "bias" in p:  # bias added in the digital periphery

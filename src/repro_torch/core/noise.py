@@ -6,11 +6,49 @@ channel statistics reduce over ``axis=0`` (the crossbar column). Every
 sampler takes an explicit ``torch.Generator`` on the weights' device; its
 numbers differ from JAX's, so the tests compare distributions, or hand both
 packages one instance drawn by the reference.
+
+Training noise is keyed like the reference's ``jax.random`` keys, but a key
+here is a tuple of ints (:func:`prng_key`, :func:`fold_in`), and each draw
+makes its generator from the key (:func:`key_generator`). A draw is then a
+function of (seed, step, microbatch, layer, site) alone: a layer recomputed
+by ``torch.utils.checkpoint`` draws the noise its forward drew (the
+checkpoint restores only the default generators' states, not an explicit
+generator's), and a resumed run draws what the uninterrupted one would.
 """
 
 from __future__ import annotations
 
+import hashlib
+import struct
+import zlib
+
 import torch
+
+
+def prng_key(seed: int) -> tuple:
+    """The root key of a seed (the reference's ``jax.random.PRNGKey``)."""
+    return (int(seed),)
+
+
+def fold_in(key: tuple, data: int) -> tuple:
+    """A new key from ``key`` and an integer (``jax.random.fold_in``)."""
+    return key + (int(data),)
+
+
+def site_tag(name: str) -> int:
+    """A stable integer for an analog site's name (``"qkv"``, ``"down"``
+    ...), folded into the layer's key so that every site of a layer draws
+    its own noise (paper eq. 3)."""
+    return zlib.crc32(name.encode())
+
+
+def key_generator(key: tuple, device) -> torch.Generator:
+    """A generator on ``device`` seeded from the whole key (a 63-bit
+    BLAKE2b digest of its ints)."""
+    digest = hashlib.blake2b(struct.pack(f"<{len(key)}q", *key),
+                             digest_size=8).digest()
+    seed = int.from_bytes(digest, "little") & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def channel_absmax(w: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -25,6 +25,14 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
 * A CPU tensor runs each kernel's plain PyTorch version (the CPU tests); a
   CUDA tensor launches the kernel or raises. There is no switch that sends
   a CUDA tensor to the plain version: a caller that wants it calls ``ref``.
+* Autograd: :func:`fused_analog_mvm` is a ``torch.autograd.Function`` (the
+  reference's ``jax.custom_vjp``): its forward runs ``analog_matmul`` on
+  the effective weights; its backward replays the unfused STE chain in
+  plain torch, as the JAX package does outside its Pallas kernel (ADC pure
+  pass-through, the noise-free weight rule of ``core.analog.noisy_matmul``,
+  the clamp-STE / LSQ rule of ``core.quant.input_quantize``). The other
+  kernels have no backward, as in the reference; :func:`ssd` refuses an
+  input that needs a gradient.
 
 The kernels are strictly 2-D, so ``[B, S, K]`` activations are flattened
 here. Each kernel's library picks its own tiling for the card from the
@@ -91,32 +99,60 @@ def analog_mvm(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
     return y.reshape(*lead, n)
 
 
+class _FusedAnalogMVM(torch.autograd.Function):
+    """Fused forward on ``w + w_noise``, unfused STE backward (see
+    :func:`fused_analog_mvm`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_noise, beta, bound, lam, in_bits, out_bits):
+        ctx.save_for_backward(x, w, beta)
+        ctx.in_bits = in_bits
+        w_eff = w if w_noise is None else w + w_noise
+        return analog_mvm(x, w_eff, beta, bound, lam=lam, in_bits=in_bits,
+                          out_bits=out_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's _fused_bwd: x_q = input_quantize(x, beta), then
+        # noisy_matmul(x_q, w, 0); the ADC passes g through untouched
+        from repro_torch.core import quant
+        from repro_torch.core.analog import noisy_matmul_grads
+
+        x, w, beta = ctx.saved_tensors
+        xf = x.float()
+        xq, beta_c = quant.input_quantize_fwd(xf, beta.float(), ctx.in_bits)
+        dxq, dw = noisy_matmul_grads(xq, w.float(), g.float())
+        dx, dbeta = quant.input_quantize_grads(xf, beta_c, xq, dxq)
+        return (dx.to(x.dtype), dw.to(w.dtype), None,
+                dbeta.to(beta.dtype).reshape(beta.shape), None, None, None,
+                None)
+
+
 def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
                      w_noise: torch.Tensor | None, beta: torch.Tensor,
                      bound: torch.Tensor | None = None, *,
                      lam: float | None = None, in_bits: int = 8,
                      out_bits: int = 8) -> torch.Tensor:
-    """Fused analog MVM on ``w + w_noise`` (``w_noise`` None at eval, which
-    spares a copy of the weights), against ``bound`` or the bound folded
-    with ``lam`` (see :func:`analog_mvm`). ``lam`` is refused with a
-    ``w_noise``: the fold would take the bound from ``w + w_noise``, where
-    the reference takes it from the noise-free ``w``, so training on ``w +
-    w_noise`` passes an explicit bound. Forward only: the autograd rule
-    (fused forward, unfused STE backward) belongs to the training port, so
-    a tensor that needs a gradient is refused."""
+    """Differentiable fused analog MVM: ``analog_matmul`` forward on ``w +
+    w_noise`` (``w_noise`` None at eval, which spares a copy of the
+    weights) against ``bound`` or the bound folded with ``lam`` (see
+    :func:`analog_mvm`); plain-torch STE backward against the noise-free
+    ``w`` (the reference's ``_fused_bwd``): ``dx`` masked to ``|x| <=
+    beta``, ``dw = x_qᵀ g``, the LSQ ``dbeta``, nothing for the noise or
+    the (detached) bound. ``lam`` is refused with a ``w_noise``: the fold
+    would take the bound from ``w + w_noise``, where the reference takes
+    it from the noise-free ``w``, so training on ``w + w_noise`` passes
+    the explicit bound ``ref.adc_bound(w, beta, lam)``."""
     if lam is not None and w_noise is not None:
         raise ValueError("fused_analog_mvm cannot fold the ADC bound from "
                          "noisy weights: pass the bound of the noise-free "
                          "weights (ref.adc_bound(w, beta, lam)) with w_noise")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, w, w_noise, beta, bound)):
-        raise NotImplementedError(
-            "fused_analog_mvm is forward-only: its STE backward is not "
-            "ported yet (run under torch.no_grad() or detach the inputs)")
-    w_eff = w if w_noise is None else w + w_noise
-    return analog_mvm(x, w_eff, beta, bound, lam=lam, in_bits=in_bits,
-                      out_bits=out_bits)
+    if w_noise is not None:
+        w_noise = w_noise.detach()
+    if bound is not None:
+        bound = bound.detach()
+    return _FusedAnalogMVM.apply(x, w, w_noise, beta, bound, lam,
+                                 int(in_bits), int(out_bits))
 
 
 def can_use_int4(out_dim: int, weight_bits: int) -> bool:
@@ -190,6 +226,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     card (the plain version makes both, as the JAX package does). Returns
     (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
+        raise NotImplementedError(
+            "the SSD has no backward in this port: training the ssm family "
+            "is open (ROADMAP section 1, item 5)")
     heads, g = x.shape[2], b.shape[2]
     if heads % g:
         raise ValueError(f"{heads} SSD heads are not a multiple of {g} "

@@ -200,13 +200,13 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     """
     hd = cfg.head_dim
     if "qkv" in p:
-        qkv, st_qkv = analog_linear(p["qkv"], x, acfg, ctx)
+        qkv, st_qkv = analog_linear(p["qkv"], x, acfg, ctx.site("qkv"))
         q, k, v = _split_qkv(qkv, cfg)
         stats_in = {"qkv": st_qkv}
     else:
-        q, st_q = analog_linear(p["q"], x, acfg, ctx)
-        k, st_k = analog_linear(p["k"], x, acfg, ctx)
-        v, st_v = analog_linear(p["v"], x, acfg, ctx)
+        q, st_q = analog_linear(p["q"], x, acfg, ctx.site("q"))
+        k, st_k = analog_linear(p["k"], x, acfg, ctx.site("k"))
+        v, st_v = analog_linear(p["v"], x, acfg, ctx.site("v"))
         q = q.reshape(*q.shape[:-1], cfg.num_heads, hd)
         k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, hd)
         v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, hd)
@@ -248,7 +248,7 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
             new_cache = None
 
     out = out.reshape(*x.shape[:-1], cfg.num_heads * cfg.head_dim)
-    y, st_o = analog_linear(p["o"], out, acfg, ctx)
+    y, st_o = analog_linear(p["o"], out, acfg, ctx.site("o"))
     return y, {**stats_in, "o": st_o}, new_cache
 
 
@@ -413,12 +413,12 @@ def mlp_labels(p: dict) -> dict:
 def mlp(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig, ctx: AnalogCtx):
     """MLP block over [B, S, d] (analog projections). Returns (y, stats)."""
     if "gate_up" in p:
-        gu, st1 = analog_linear(p["gate_up"], x, acfg, ctx)
+        gu, st1 = analog_linear(p["gate_up"], x, acfg, ctx.site("gate_up"))
         gate, up = torch.chunk(gu, 2, dim=-1)
         h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-        y, st2 = analog_linear(p["down"], h, acfg, ctx)
+        y, st2 = analog_linear(p["down"], h, acfg, ctx.site("down"))
         return y, {"gate_up": st1, "down": st2}
-    h, st1 = analog_linear(p["up"], x, acfg, ctx)
+    h, st1 = analog_linear(p["up"], x, acfg, ctx.site("up"))
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-    y, st2 = analog_linear(p["down"], h, acfg, ctx)
+    y, st2 = analog_linear(p["down"], h, acfg, ctx.site("down"))
     return y, {"up": st1, "down": st2}

@@ -118,7 +118,7 @@ def mamba(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     pdim = cfg.ssm_headdim
     g, n = cfg.ssm_groups, cfg.ssm_state
 
-    zxbcdt, st_in = analog_linear(p["in_proj"], x, acfg, ctx)
+    zxbcdt, st_in = analog_linear(p["in_proj"], x, acfg, ctx.site("in_proj"))
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_ch, heads], dim=-1)
 
     if seq_mask is not None:
@@ -174,7 +174,7 @@ def mamba(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     y = y + p["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["gate_norm"])
-    out, st_out = analog_linear(p["out_proj"], y, acfg, ctx)
+    out, st_out = analog_linear(p["out_proj"], y, acfg, ctx.site("out_proj"))
     return out, {"in_proj": st_in, "out_proj": st_out}, new_cache
 
 

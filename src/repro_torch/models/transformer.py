@@ -3,8 +3,12 @@
 Parameters keep the reference's layout: the layer stack is scan-stacked,
 every leaf of ``params["blocks"]`` carries a leading ``[L]`` axis, and the
 embedding and LM head are ``padded_vocab`` wide. PyTorch has no ``scan``,
-so :func:`apply_blocks` is a loop over ``l`` that indexes each leaf (a view,
-no copy). The dense family's layer is attention + MLP; the ssm family's
+so :func:`apply_blocks` is a loop over ``l`` over views of each leaf
+(``unbind``: no copy, and in training one stacked gradient per leaf). With
+``remat`` each layer runs under ``torch.utils.checkpoint`` (non-reentrant)
+and is recomputed in the backward; its training noise is keyed by (key,
+layer, site), so the recomputed layer draws the noise its forward drew.
+The dense family's layer is attention + MLP; the ssm family's
 (mamba2-130m) is one Mamba-2 mixer with no FFN. The moe / hybrid / vlm /
 audio families come with a later slice and are refused here.
 """
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels)
@@ -36,6 +41,15 @@ def tree_index(tree, i: int):
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def tree_unbind(tree, n: int) -> list:
+    """The ``n`` trees of a stacked tree's leading axis, as views
+    (``unbind``, whose backward stacks the per-layer gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def tree_stack(trees: list):
@@ -129,8 +143,13 @@ def blocks_labels(params_blocks: dict, cfg) -> dict:
 def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                  acfg: AnalogConfig, ctx: AnalogCtx, positions: torch.Tensor,
                  caches: dict | None = None,
-                 seq_mask: torch.Tensor | None = None):
+                 seq_mask: torch.Tensor | None = None, remat: bool = False):
     """Run the layer stack. Returns ``(x, stats, new_caches)``.
+
+    Layer ``i`` gets ``ctx`` with ``i`` folded into its noise key (the
+    reference's ``fold_in(ctx.key, idx)``). ``remat`` (training, no
+    caches) checkpoints each layer: its activations are recomputed in the
+    backward instead of kept.
 
     ``caches`` is :func:`init_caches`' stacked tree, every tensor leaf
     ``[L, ...]``. Each layer writes its slice of the buffers and pools in
@@ -144,21 +163,37 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     ssm = cfg.family == "ssm"
     n_layers = next(iter(params_blocks["ln1"].values())).shape[0]
     slots = caches is not None and "start" in caches
+    if remat and caches is not None:
+        raise ValueError("remat is for training; a forward with caches "
+                         "keeps nothing for a backward")
+    layers = tree_unbind(params_blocks, n_layers)
     stats, new_pos = [], []
     for i in range(n_layers):
-        p_l = tree_index(params_blocks, i)
+        p_l, ctx_l = layers[i], ctx.fold(i)
         cache_l = None
         if caches is not None:
             cache_l = {k: (v if k == "pos" and not slots else v[i])
                        for k, v in caches.items()}
-        if ssm:
-            x, st, nc = apply_mamba_layer(p_l, x, cfg, acfg, ctx, cache_l,
+        if remat:
+            def layer(p_l, x, ctx_l=ctx_l):
+                if ssm:
+                    return apply_mamba_layer(p_l, x, cfg, acfg, ctx_l)[:2]
+                return apply_attn_layer(p_l, x, cfg, acfg, ctx_l,
+                                        positions)[:2]
+
+            # no default generator draws here (the noise has its own key),
+            # so there is no RNG state to stash and restore
+            x, st = torch.utils.checkpoint.checkpoint(
+                layer, p_l, x, use_reentrant=False,
+                preserve_rng_state=False)
+        elif ssm:
+            x, st, nc = apply_mamba_layer(p_l, x, cfg, acfg, ctx_l, cache_l,
                                           seq_mask)
             if nc is not None:
                 for name in ("conv", "ssm"):
                     caches[name][i].copy_(nc[name])
         else:
-            x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx, positions,
+            x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx_l, positions,
                                          cache_l, seq_mask)
             if slots:
                 new_pos.append(nc["pos"])
@@ -223,7 +258,8 @@ def apply_lm_head(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tokens"].T.to(x.dtype))
     else:
-        logits, st = analog_linear(params["lm_head"], x, acfg, ctx)
+        logits, st = analog_linear(params["lm_head"], x, acfg,
+                                   ctx.site("lm_head"))
         stats["lm_head"] = st
     return logits[..., :cfg.vocab_size].float(), stats
 
@@ -232,7 +268,8 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
             inputs: dict, caches: dict | None = None,
             pos_offset: Optional[int | torch.Tensor] = None,
             last_only: bool = False,
-            seq_mask: torch.Tensor | None = None):
+            seq_mask: torch.Tensor | None = None, remat: bool = False,
+            return_hidden: bool = False):
     """Full forward. Returns ``(logits, stats, new_caches)``.
 
     For decode pass single-token inputs with ``caches`` and ``pos_offset``,
@@ -240,17 +277,23 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     or per row ([B, 1] on the device) for the continuous engine's slot
     caches, where rows decode at their own positions. ``seq_mask`` [B, S]
     marks real tokens (see :func:`apply_blocks`). ``last_only`` applies the
-    LM head to the final position only.
+    LM head to the final position only. ``remat`` checkpoints each layer
+    (training). ``return_hidden`` skips the LM head and returns the
+    final-norm hidden states in place of the logits (the chunked-vocab
+    loss applies :func:`apply_lm_head` per chunk).
     """
     x, positions = embed_inputs(params, cfg, inputs)
     if pos_offset is not None:
         positions = positions + pos_offset
     x, st_blocks, new_caches = apply_blocks(params["blocks"], x, cfg, acfg,
-                                            ctx, positions, caches, seq_mask)
+                                            ctx, positions, caches, seq_mask,
+                                            remat)
     stats: dict[str, Any] = {"blocks": st_blocks}
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if last_only:
         x = x[:, -1:]
+    if return_hidden:
+        return x, stats, new_caches
     logits, st = apply_lm_head(params, cfg, acfg, ctx, x)
     stats.update(st)
     return logits, stats, new_caches

@@ -202,18 +202,24 @@ def test_perturb_and_quantize_for_digital():
 
 
 def test_eval_path_refusals():
+    """What the port still refuses: the per-tile device state at eval, and
+    ``rtn`` in training (eval-only, as in the reference). A fused site
+    carries gradients (its STE backward) and runs the kernel's plain
+    version on the CPU, with or without them."""
     p, x = _site(64, 96, seed=2)
     tp, tx = _torch(p), torch.from_numpy(x)
     acfg = port_analog.AnalogConfig(mode="analog")
     with pytest.raises(NotImplementedError):
-        port_analog.analog_linear(tp, tx, acfg,
+        port_analog.analog_linear(tp, tx, port_analog.AnalogConfig(mode="rtn"),
                                   port_analog.AnalogCtx(training=True))
     with pytest.raises(NotImplementedError):
         port_analog.analog_linear({**tp, "device": {}}, tx, acfg, PORT_EVAL)
     fused = port_analog.AnalogConfig(mode="analog", use_pallas=True)
     needs_grad = {**tp, "kernel": tp["kernel"].clone().requires_grad_()}
-    with pytest.raises(NotImplementedError):
-        port_analog.analog_linear(needs_grad, tx, fused, PORT_EVAL)
+    y, _ = port_analog.analog_linear(needs_grad, tx, fused, PORT_EVAL)
+    y.sum().backward()
+    assert needs_grad["kernel"].grad is not None
     with torch.no_grad():
-        port_analog.analog_linear(needs_grad, tx, fused, PORT_EVAL)
+        y_ng, _ = port_analog.analog_linear(needs_grad, tx, fused, PORT_EVAL)
+    assert torch.equal(y.detach(), y_ng)
     assert k_analog.launches == 0 and k_int4.launches == 0

@@ -479,8 +479,9 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
 
 def test_chip_smoke_line_launches_counts_every_main_path_run():
     """Each kernel's ``launches_by_path`` holds its count from every
-    static, continuous, eval and best-of-n run, each run's counts under
-    one path, and nothing for a kernel that a run did not launch."""
+    static, continuous, eval, best-of-n and training run, each run's
+    counts under one path, and nothing for a kernel that a run did not
+    launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -520,7 +521,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
                  for arch in (cs.ARCH, cs.PHI3)},
         "best_of_n": {arch: {"launches": {"analog_matmul": next(seen),
                                           **{n: next(seen) for n in attn}}}
-                      for arch in (cs.ARCH, cs.PHI3)}}
+                      for arch in (cs.ARCH, cs.PHI3)},
+        "train": {"launches": {"analog_matmul": next(seen)}}}
     total = next(seen) - 1
     out = cs.line_launches(results)
     assert list(out) == names
@@ -531,6 +533,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "static/analog_hw", f"static/{cs.PHI3}/analog_hw",
         f"static/{cs.MAMBA}/analog_hw", "continuous/analog_hw/kv16",
         "continuous/analog_hw/kv8", f"continuous/{cs.MAMBA}/analog_hw",
+        f"train/{cs.ARCH}/analog",
         *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
                           ("best_of_n", "analog_hw")))}

@@ -11,8 +11,12 @@ edges of M, N and K are masked: the decode GEMV at M = 1..8, the
 tensor-core mapping at M from 9 to 130 on ragged and misaligned rows (N %
 4 != 0, odd N / 2, K % 32 != 0, base pointers off 16-byte alignment), the
 CUDA-core tiled mapping at a 16-bit DAC, the folded ADC bound bit for bit
-against the explicit one, and every MVM launch bitwise the same run to run
-for one and several K splits; and both paged-attention kernels against
+against the explicit one, every MVM launch bitwise the same run to run
+for one and several K splits, and the training form of
+``dispatch.fused_analog_mvm`` (the kernel forward on noisy weights against
+the noise-free bound; its STE backward on the card equal to the CPU's
+within ``1e-5 * (1 + |cpu|)``, dbeta within 1e-5 of its terms' sum); and
+both paged-attention kernels against
 theirs at ragged tables and cursors, for fp32, bf16 and int8 pools and
 1 to 8 decode splits, at the edges of their split over warps (tables of
 1 to 40 blocks, more splits than blocks, chunks that are not a multiple
@@ -634,3 +638,39 @@ def test_ssd_scan_plan_and_refusals(card):
     with pytest.raises(ValueError):            # x not contiguous in P
         k_ssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
                        a, bg, cg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(9, 64, 96), (130, 515, 257)])
+def test_fused_analog_mvm_training_form(card, m, k, n):
+    """The training forward's call: one launch on ``w + w_noise`` against
+    the explicit bound of the noise-free ``w`` (within the ADC contract of
+    its plain version), then the STE backward (dx, dw, dbeta) on the card
+    against the same Function on the CPU."""
+    x, w, beta, bound, _ = _analog_inputs(card, m, k, n, seed=m + n)
+    g = torch.Generator(device=card).manual_seed(1)
+    noise = 0.02 * torch.amax(w.abs(), dim=0) * torch.randn(
+        (k, n), generator=g, device=card)
+    dy = torch.randn((m, n), generator=g, device=card)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        xl, wl, bl = (t.to(dev).clone().requires_grad_()
+                      for t in (x, w, beta.reshape(())))
+        before = k_analog.launches
+        y = dispatch.fused_analog_mvm(xl, wl, noise.to(dev), bl,
+                                      bound.to(dev))
+        assert k_analog.launches == before + (dev.type == "cuda")
+        y.backward(dy.to(dev))
+        grads.append((y.detach(), xl.grad.cpu(), wl.grad.cpu(),
+                      bl.grad.cpu()))
+    (y_k, dx_k, dw_k, db_k), (_, dx_r, dw_r, db_r) = grads
+    _check_analog(y_k, x, w + noise, beta, bound, None, 8, 8)
+    for a, b in ((dx_k, dx_r), (dw_k, dw_r)):
+        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs())).all())
+    assert bool(torch.equal(dx_k == 0, dx_r == 0))
+    xc, wc, b0 = x.cpu(), w.cpu(), float(beta)
+    xq = ref.div(torch.full((), b0), 127.0) * torch.round(
+        xc.clamp(-b0, b0) * (127.0 / b0))
+    err = torch.where(xc.abs() <= b0, (xq - xc) / b0, torch.sign(xc))
+    terms = (err * (dy.cpu() @ wc.T)).abs().sum()
+    assert abs(float(db_k - db_r)) <= 1e-5 * (1 + float(terms))
