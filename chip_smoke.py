@@ -14,9 +14,14 @@ Phases, in order; any failure exits non-zero:
                (3072 -> 9216, 3072 -> 3072, 3072 -> 16384, 8192 -> 3072,
                3072 -> 32256; M = 4, 128 and the eval forward's 64 x 64 =
                4096) and at mamba2-130m's (in_proj 768 -> 3352, out_proj
-               1536 -> 768; M = 4 and 4 x 1024), and at llama's training
+               1536 -> 768; M = 4 and 4 x 1024), at llama's training
                forward (M = 4 x 256 = 1024, on noisy weights against the
-               bound of the noise-free ones), held against its plain
+               bound of the noise-free ones), at qwen3-moe-30b-a3b's 2-D
+               sites (2048 -> 2560, 2048 -> 2048, 2048 -> 152064; M = 4,
+               128, 8, 64) and its batched expert sites (gate_up 2048 ->
+               1536, down 768 -> 2048, all 128 experts in one launch, at 4
+               and 8 rows per expert; timed beside ``torch.bmm``), held
+               against its plain
                PyTorch version on the same
                inputs (analog: at most 1e-4 of the outputs may flip, each
                one ADC level at a near-tie; the folded ADC bound bit for bit
@@ -41,6 +46,7 @@ Phases, in order; any failure exits non-zero:
                ``start``, 1 and 4 splits; prefill for the engine's 2 compact
                rows x chunk 32 at the same contexts; fp32, bf16 and int8
                pools; the same at phi-3-mini-4k's (MHA, H 32, KV 32, hd 96)
+               and qwen3-moe-30b-a3b's (GQA group 8, H 32, KV 4, hd 64)
                at context 512. Each is held against its plain version and
                timed beside it, beside gather ``kp[tbl]`` + PyTorch's
                ``scaled_dot_product_attention`` (yardstick only) and the
@@ -125,6 +131,33 @@ Phases, in order; any failure exits non-zero:
                wherever no ADC flip reaches). It prints the step time,
                training tokens/s, peak GB, the device time of the kernel
                against cuBLAS and the rest, by stage.
+15. ptq     -- SpinQuant-lite PTQ, the paper's SI8-W4 / DI8-W4 baseline,
+               at full width for llama-3.2-1b (a Hadamard rotation) and
+               phi-3-mini-4k (d 3072: the QR path), random weights:
+               ``fold_norm_scales``, then ``spinquant_ptq`` (the rotation
+               folded into every residual writer and reader, the static
+               ranges calibrated on 16 x 64 tokens). Gates: R R^T = I
+               within 1e-5, the ``off`` log-softmax of the rotated model
+               within 3e-3 of the unrotated one on 2 x 64 tokens, every
+               calibrated range equal to its site's x_absmax from the
+               calibration forward. Then the noisy eval on phase 12's
+               tasks: SI8-W4 (``qat``, plain path), SI8-W4 under hw noise
+               (10 seeds), DI8-W4, ``analog_hw`` (10 seeds, on
+               ``analog_matmul``) and ``digital_int4`` (``int4_matmul``),
+               with seconds per seed, peak GB and launches; the reduced
+               PTQ on the card against the CPU (ranges, greedy tokens).
+16. moe     -- qwen3-moe-30b-a3b (d 2048, 128 experts, top-8) at full
+               width and 6 of its 48 layers (17 GB of fp32 weights):
+               phases 3 and 4 (static engine, ``analog_hw`` fused against
+               unfused and ``digital_int4`` against ``digital_rtn4``; every
+               site, each batched expert site one launch of all 128
+               experts, held on the same inputs; the logits' distance only
+               reported, since a flip may move a token to another expert)
+               and phase 8 (continuous engine, bf16 paged pool, both
+               deployments); the expert launches' rows must be phase 2's.
+               Then reduced qwen3-moe and dbrx on the card against the CPU:
+               routing ids (near-ties counted), every site on the card's
+               inputs within the ADC contract, greedy tokens.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -285,6 +318,48 @@ LINE_CASE = {"dtype": "bf16", "context": 512, "splits": 1}
 # online softmax over the same blocks; only the order of the sums inside
 # a block differs (and expf's last bit)
 PAGED_TOL = 1e-5
+# qwen3-moe-30b-a3b, the moe family (phases 2, 5 and 16): full width (d
+# 2048, 128 experts, top-8, expert d_ff 768, padded vocab 152064) at
+# MOE_LAYERS of its 48 layers (the expert weights take 2.42 GB of fp32 a
+# layer). Its attention follows the repo's config, 32 / 4 heads of
+# d / H = 64 without QK-norm, not the published head_dim 128 (a q
+# projection 4096 wide) with QK-norm. Its 2-D sites (site, K, N, sites per
+# forward), its paged-attention heads (a GQA group of 8 at hd 64) at one
+# context, and its
+# batched expert sites, one launch of all 128 experts each, at the rows per
+# expert that its forwards give them: a sequence routes S * 8 assignments
+# into max(1, int(S * 8 * 1.25 / 128)) slots per expert, so the static
+# prefill (4 x 32) has 8 rows, the static decode (4 x 1) 4, the engine's
+# decode (8 slots) 8 and its chunk (2 x 32) 4
+MOE = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 6
+MOE_EXPERTS = 128
+MOE_DENSE_SITES = [("qkv", 2048, 2560, MOE_LAYERS),
+                   ("o", 2048, 2048, MOE_LAYERS),
+                   ("lm_head", 2048, 152064, 1)]
+MOE_SITES = [("gate_up", 2048, 1536, MOE_LAYERS),
+             ("down", 768, 2048, MOE_LAYERS)]
+MOE_ROWS = {"static prefill": 8, "static decode": 4, "engine decode": 8,
+            "engine chunk": 4}
+MOE_PAGED = (32, 4, 64, PAGED_BS)
+MOE_PAGED_CONTEXT = 512
+# the reduced moe models of phase 16's card-against-CPU check (rmsnorm and
+# layernorm); a routing id may differ only where the CPU's k-th and
+# (k+1)-th router probabilities lie within ROUTE_TIE of each other
+MOE_REDUCED = (MOE, "dbrx-132b")
+ROUTE_TIE = 1e-5
+# SpinQuant-lite PTQ (phase 15), llama-3.2-1b (d 2048: a Hadamard
+# rotation) and phi-3-mini-4k (d 3072: the QR path): the calibration batch,
+# the FP-invariance batch and its bar (the reference test's), the
+# orthogonality bar (largest element of R R^T - I); the reduced PTQ's
+# calibrated ranges card against CPU within PTQ_RANGE_TOL * (1 + |cpu|),
+# the fp32 reduction bound of a max over site inputs that the two reach
+# through differently ordered sums
+PTQ_CALIB = (16, 64)
+PTQ_INV_TOKENS = (2, 64)
+PTQ_INV_TOL = 3e-3
+PTQ_ORTHO_TOL = 1e-5
+PTQ_RANGE_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -636,10 +711,98 @@ def int4_case(torch, gen, m, k, n) -> dict:
             "max_err_over_bound": err_ratio}
 
 
+def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int
+             ) -> dict:
+    """One batched expert shape of ``kernel``: ``e`` experts' [M, K] @
+    [K, N] in one launch, as a MoE site runs it. Each expert's slice is
+    held against the plain version of its own product (analog: near-tie
+    flips only, at most MAX_FLIP_RATE of the e * M * N >= PARITY_OUTPUTS
+    outputs, and the bound folded per expert equal to the explicit [E, N]
+    one bit for bit; int4: the fp32 dot bound), then timed beside the
+    batched plain version, ``torch.bmm`` of the same fp32 sizes (the
+    yardstick, ``matmul_ms``) and the bound of the work: the expert
+    weights' bytes (each input read once, the output written once) against
+    2 E M K N flops."""
+    from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import int4_matmul as k4
+
+    dev = torch.device("cuda")
+    x = torch.randn((e, m, k), generator=gen, device=dev)
+    plan = dispatch.select_blocks(m, k, n, kernel=kernel, experts=e)
+    check(e * m * n >= PARITY_OUTPUTS, "moe case: too few outputs")
+    w_mm = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
+    if kernel == "analog_matmul":
+        lam = 14.0
+        w = w_mm
+        beta = torch.full((1,), 3.0, device=dev)
+        bound = ref.adc_bound(w, beta, lam)
+
+        def call(i):
+            return km.analog_matmul(x, w, beta, None, lam=lam)
+
+        y = call(0)
+        check(bool(torch.equal(y, km.analog_matmul(x, w, beta, bound))),
+              f"batched analog_matmul {e}x{m}x{k}x{n}: the folded bound "
+              f"differs from ref.adc_bound's")
+        n_flip, max_err = 0, 0.0
+        for i in range(e):
+            f, err = analog_flips(torch, x[i], w[i], beta, bound[i], None,
+                                  y[i])
+            n_flip += f
+            max_err = max(max_err, err)
+        check(n_flip <= MAX_FLIP_RATE * e * m * n,
+              f"batched analog_matmul {e}x{m}x{k}x{n}: {n_flip} flips")
+        extra = {"flips": n_flip, "flip_rate": n_flip / (e * m * n)}
+        nbytes = 4 * (e * m * k + e * k * n + 1 + e * m * n)
+
+        def plain(i):
+            return ref.analog_matmul_ref(x, w, beta, lam=lam)
+    else:
+        w_int = torch.randint(-7, 8, (e, k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+        packed = ref.pack_int4(w_int)
+        scale = (torch.rand((e, n), generator=gen, device=dev) + 0.5) * 0.01
+        del w_int
+
+        def call(i):
+            return k4.int4_matmul(x, packed, scale)
+
+        y = call(0)
+        y_ref = ref.int4_matmul_ref(x, packed, scale)
+        w_deq = ref.unpack_int4(packed).float() * scale[:, None, :]
+        err_bound = k * U32 * torch.bmm(x.abs(), w_deq.abs())
+        del w_deq
+        diff = (y - y_ref).abs()
+        check(bool(torch.isfinite(y).all()) and bool(
+            (diff <= err_bound).all()), f"batched int4_matmul "
+            f"{e}x{m}x{k}x{n}: outside the fp32 dot error bound")
+        max_err = float(diff.max())
+        extra = {"max_err_over_bound": float((diff / err_bound).max())}
+        del y_ref, err_bound, diff
+        nbytes = 4 * e * m * k + e * k * n // 2 + 4 * e * n + 4 * e * m * n
+
+        def plain(i):
+            return ref.int4_matmul_ref(x, packed, scale)
+    ms = device_ms(torch, call, 1)
+    wall = cuda_time_ms(torch, call, 1)
+    plain_ms = device_ms(torch, plain, 1, reps=5, rounds=3)
+    bmm = device_ms(torch, lambda i: torch.bmm(x, w_mm), 1)
+    del w_mm
+    return {"E": e, "M": m, "K": k, "N": n, "arch": MOE, "col_off": False,
+            "ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
+            "matmul_ms": bmm, "library": "torch.bmm",
+            **mvm_bounds(nbytes, e * m, k, n, plan.mapping),
+            "mapping": plan.mapping, "splits": plan.splits,
+            "max_abs_err": max_err, **extra}
+
+
 #: phase 2's MVM rows, (arch, sites, M, static, int4): the rows of each
 #: model's static engine (also held with col_off), continuous engine, eval
 #: forwards (analog_hw and digital_int4), best-of-n engine (analog_hw
-#: only) and llama's training forward (on noisy weights, NOISY_RUNS)
+#: only) and llama's training forward (on noisy weights, NOISY_RUNS);
+#: qwen3-moe-30b-a3b's 2-D sites at its engines' rows (its batched expert
+#: sites are MOE_SITES at MOE_ROWS)
 MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(ARCH, SITES, m, False, True) for m in (
                 M_ENGINE_DECODE, M_ENGINE_CHUNK, M_EVAL, M_INDUCTION)]
@@ -654,15 +817,18 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(MAMBA, MAMBA_SITES, m, True, True) for m in (
                 M_DECODE, MAMBA_M_PREFILL)]
             + [(MAMBA, MAMBA_SITES, m, False, True) for m in (
-                M_ENGINE_DECODE, M_ENGINE_CHUNK)])
+                M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(MOE, MOE_DENSE_SITES, m, False, True) for m in (
+                M_DECODE, M_PREFILL, M_ENGINE_DECODE, M_ENGINE_CHUNK)])
 
 
 def phase_kernels(torch) -> dict:
     """Parity and times of both kernels at every main-path shape (each
     row names its ``arch``): the static engine of every model, the
-    continuous engine of llama-3.2-1b and mamba2-130m, and the eval
-    forwards of both tasks and best-of-n's engine of llama-3.2-1b and
-    phi-3-mini-4k."""
+    continuous engine of llama-3.2-1b, mamba2-130m and qwen3-moe-30b-a3b,
+    and the eval forwards of both tasks and best-of-n's engine of
+    llama-3.2-1b and phi-3-mini-4k; qwen3-moe-30b-a3b's batched expert
+    sites at every row count its forwards give them (``moe_case``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"analog_matmul": [], "int4_matmul": []}
     shapes = [(arch, site, k, n, m, stat, int4)
@@ -701,6 +867,21 @@ def phase_kernels(torch) -> dict:
                   f"{r['mma_bound_ms']:.4f}), err/bound "
                   f"{r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
+    for site, k, n, _ in MOE_SITES:
+        for m in sorted(set(MOE_ROWS.values())):
+            for kernel in ("analog_matmul", "int4_matmul"):
+                r = moe_case(torch, gen, kernel, MOE_EXPERTS, m, k, n)
+                r["site"] = site
+                rows[kernel].append(r)
+                print(f"  {kernel} {MOE} {site} E={MOE_EXPERTS} M={m} "
+                      f"{k}->{n} one launch, {r['mapping']} x{r['splits']}: "
+                      f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
+                      f"{r['plain_ms']:.4f}, torch.bmm {r['matmul_ms']:.4f}; "
+                      f"bound {r['bound_ms']:.4f} by {r['bound_by']}), "
+                      + (f"flips {r['flips']} of {MOE_EXPERTS * m * n}"
+                         if "flips" in r else
+                         f"err/bound {r['max_err_over_bound']:.2e}"))
+            torch.cuda.empty_cache()
     for name, cases in rows.items():
         for arch, m, tot in forward_totals(cases):
             print(f"  {name} per {arch} forward at M={m}: "
@@ -711,7 +892,9 @@ def phase_kernels(torch) -> dict:
 #: analog sites of one forward, by (arch, site name)
 PER_SITE = {(arch, s[0]): s[3]
             for arch, sites in ((ARCH, SITES), (PHI3, PHI3_SITES),
-                                (MAMBA, MAMBA_SITES)) for s in sites}
+                                (MAMBA, MAMBA_SITES),
+                                (MOE, MOE_DENSE_SITES + MOE_SITES))
+            for s in sites}
 #: the per-shape times and bounds that forward_totals sums
 TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
               "adc_bound_ms", "bound_ms", "fp32_bound_ms", "mma_bound_ms")
@@ -913,11 +1096,13 @@ def plan_dict(plan, bs: int) -> dict:
 def phase_paged(torch) -> dict:
     """Parity and times of both paged kernels at every listed case:
     llama-3.2-1b's heads at every context, phi-3-mini-4k's (MHA, hd 96)
-    at one context, each with the fp32 pool of the best-of-n engine."""
+    and qwen3-moe-30b-a3b's (GQA group 8, hd 64) at one context, each
+    with every pool dtype (the fp32 pool is the best-of-n engine's)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {"paged_flash_decode": [], "paged_flash_prefill": []}
     cases = ([(ARCH, LLAMA_PAGED, c) for c in PAGED_CONTEXTS]
-             + [(PHI3, PHI3_PAGED, PHI3_PAGED_CONTEXT)])
+             + [(PHI3, PHI3_PAGED, PHI3_PAGED_CONTEXT),
+                (MOE, MOE_PAGED, MOE_PAGED_CONTEXT)])
     for arch, heads, context in cases:
         for dtype in POOL_DTYPES:
             kinds = [("decode", s) for s in DECODE_SPLITS] + [("prefill", 1)]
@@ -1198,9 +1383,10 @@ def mamba_static_phase(torch, cfg, params, labels, deploy: str) -> dict:
                          if "sites" in res else "")
           + f"max |dlogit| {res['max_logit_diff']:.3e}, rel L2 {rel_l2:.3e}, "
           f"greedy tokens agree {res['greedy_agree']}/{BATCH * MAMBA_NEW}; "
-          f"prefill {res['prefill_ms']:.2f} ms, decode "
-          f"{res['decode_ms']:.2f} ms/step, on the device "
-          f"{res['decode_device_ms']:.2f} ms (busy {res['device_busy']:.3f})")
+          f"prefill {res['prefill_ms']:.2f} ms ({res['prefill_device_ms']:.2f}"
+          f" on the device), decode {res['decode_ms']:.2f} ms/step, on the "
+          f"device {res['decode_device_ms']:.2f} ms (busy "
+          f"{res['device_busy']:.3f})")
     del p, base_p
     torch.cuda.empty_cache()
     return res
@@ -1633,17 +1819,30 @@ def _deploy_args(deploy: str):
 
 
 #: (layers, d_model, padded_vocab) each full-width model must have
-FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (32, 3072, 32256)}
+FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (32, 3072, 32256),
+              MOE: (MOE_LAYERS, 2048, 152064)}
+
+
+def model_config(arch: str):
+    """``arch``'s published config; qwen3-moe-30b-a3b cut to MOE_LAYERS of
+    its 48 layers (at full depth its fp32 weights do not fit the card)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == MOE:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+    return cfg
 
 
 def full_width(torch, arch: str, seed: int = 0):
-    """``arch`` at full width and depth on the card, random weights from
-    ``seed``: ``(cfg, params, labels)``."""
+    """``arch`` at full width (and depth, but for ``model_config``'s cut)
+    on the card, random weights from ``seed``: ``(cfg, params,
+    labels)``."""
     from repro_torch.models import build
 
     dev = torch.device("cuda")
-    cfg, params, labels = build(arch, torch.Generator(device=dev).manual_seed(
-        seed), device=dev)
+    cfg, params, labels = build(model_config(arch), torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
     check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
           == FULL_WIDTH[arch], f"unexpected config {cfg}")
     return cfg, params, labels
@@ -1651,7 +1850,9 @@ def full_width(torch, arch: str, seed: int = 0):
 
 def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
     """Serve full-width ``arch`` under ``deploy`` on the kernels and check
-    it against the unfused ``base`` deployment of the same weights."""
+    it against the unfused ``base`` deployment of the same weights: site
+    by site on the same inputs (the ADC contract), and end to end (the
+    logits' relative L2 within E2E_TOL)."""
     from repro_torch.kernels import analog_matmul as km
     from repro_torch.kernels import int4_matmul as k4
     from repro_torch.launch.serve import deploy_model
@@ -1660,7 +1861,7 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    cfg, params, labels = build(arch, gen, device=dev)
+    cfg, params, labels = build(model_config(arch), gen, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
           == FULL_WIDTH[arch], f"unexpected config {cfg}")
@@ -1729,13 +1930,15 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
           f"{rel_l2:.3e} >= {E2E_TOL}")
     res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt))
     res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt)
-    print(f"  {arch} {deploy} on the kernels: prefill "
-          f"{res['prefill_ms']:.2f} ms, "
+    print(f"  {arch} {deploy} on the kernels: {launched // FORWARDS} "
+          f"launches per forward; prefill {res['prefill_ms']:.2f} ms "
+          f"({res['prefill_device_ms']:.2f} on the device), "
           f"decode {res['decode_ms']:.2f} ms/step, of it on the device "
           f"{res['decode_device_ms']:.2f} ms (busy "
           f"{res['device_busy']:.3f}); unfused {base}: prefill "
-          f"{res['unfused']['prefill_ms']:.2f} ms, decode "
-          f"{res['unfused']['decode_ms']:.2f} ms/step, on the device "
+          f"{res['unfused']['prefill_ms']:.2f} ms "
+          f"({res['unfused']['prefill_device_ms']:.2f} on the device), "
+          f"decode {res['unfused']['decode_ms']:.2f} ms/step, on the device "
           f"{res['unfused']['decode_device_ms']:.2f} ms (busy "
           f"{res['unfused']['device_busy']:.3f})")
     del fused_p, base_p
@@ -1747,11 +1950,12 @@ def step_times(torch, cfg, params, acfg, prompt,
                new_tokens: int = NEW_TOKENS) -> dict:
     """Host-clock time of one prefill and of a greedy decode step
     (synchronized, after the main-path run warmed everything up; median of
-    3 rounds), and the device time of one decode step: the step captured
-    as a CUDA graph and replayed back to back, so that the card never
-    waits for the host (launching a graph takes far less than running it;
-    the graph's short gaps between its kernels are in the time). Its share
-    of the host-clock step is ``device_busy``."""
+    3 rounds), and the device time of one decode step and of one prefill:
+    each captured as a CUDA graph and replayed back to back, so that the
+    card never waits for the host (launching a graph takes far less than
+    running it; the graph's short gaps between its kernels are in the
+    time). The decode step's share of the host-clock step is
+    ``device_busy``."""
     from repro_torch.serve.decode import prefill, serve_step
 
     pre, dec = [], []
@@ -1788,6 +1992,8 @@ def step_times(torch, cfg, params, acfg, prompt,
                                            1, reps=10, rounds=3)
     out["device_busy"] = out["decode_device_ms"] / out["decode_ms"]
     del graph
+    out["prefill_device_ms"] = graph_ms(torch, lambda: prefill(
+        params, cfg, acfg, prompt, prompt.shape[1] + new_tokens))
     return out
 
 
@@ -1828,6 +2034,7 @@ def sites_recorded(log: list):
     from repro_torch.core import analog as A
     from repro_torch.models import layers as L
     from repro_torch.models import mamba2 as M
+    from repro_torch.models import moe as MoE
     from repro_torch.models import transformer as T
 
     real = A.analog_linear
@@ -1838,10 +2045,12 @@ def sites_recorded(log: list):
         return y, stats
 
     L.analog_linear = M.analog_linear = T.analog_linear = spy
+    MoE.analog_linear = spy
     try:
         yield
     finally:
         L.analog_linear = M.analog_linear = T.analog_linear = real
+        MoE.analog_linear = real
 
 
 @contextlib.contextmanager
@@ -1871,22 +2080,27 @@ def adc_mismatches(torch, p, x, ya, yb, acfg, what: str) -> int:
     """Elements where two outputs ``ya``, ``yb`` of the analog site ``p``
     on the same input ``x`` differ. Each must be exactly one ADC level at a
     near-tie of the pre-ADC value of ``acfg``'s unfused path, ``|frac(y *
-    inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) * inv``. Returns their
-    count."""
+    inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) * inv``. A batched (MoE)
+    site, kernel [E, K, N] and x [E, ..., K], is held expert by expert.
+    Returns their count."""
     from repro_torch.core import quant
     from repro_torch.kernels import ref
 
     qo = ref.qmax(acfg.output_bits)
     w = p["kernel"].float()
     if acfg.mode == "rtn":
-        w = quant.rtn_dequantize(*quant.rtn_quantize(w, acfg.weight_bits))
+        w = quant.rtn_dequantize(*quant.rtn_quantize(w, acfg.weight_bits,
+                                                     axis=-2))
     beta = p["input_range"].reshape(()).float()
-    x_q = quant.input_quantize(x.float().reshape(-1, w.shape[0]), beta,
-                               acfg.input_bits)
+    k = w.shape[-2]
+    x_q = quant.input_quantize(
+        x.float().reshape(*w.shape[:-2], -1, k), beta, acfg.input_bits)
     b = torch.clamp_min(ref.adc_bound(w, beta, acfg.out_bound), 1e-8)
+    if b.dim() > 1:
+        b = b.unsqueeze(-2)
     inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
     v = (x_q @ w) * inv
-    err = w.shape[0] * U32 * (x_q.abs() @ w.abs()) * inv
+    err = k * U32 * (x_q.abs() @ w.abs()) * inv
     diff = (ya - yb).reshape(v.shape).abs()
     lsb = ref.div(b, qo).expand_as(diff)
     bad = diff != 0
@@ -3047,6 +3261,402 @@ def reduced_train_check(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the SpinQuant-lite PTQ baseline at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def calibration_recorded(log: list):
+    """Inside the block every forward of ``train.recipes`` (the
+    calibration forward of ``calibrate_input_ranges``) appends its stats
+    tree to ``log``."""
+    from repro_torch.train import recipes
+
+    real = recipes.model_apply
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        log.append(out[1])
+        return out
+
+    recipes.model_apply = spy
+    try:
+        yield
+    finally:
+        recipes.model_apply = real
+
+
+def calibrated_sites(torch, params: dict, stats: dict) -> int:
+    """Every ``input_range`` of ``params`` must equal ``max(x_absmax,
+    1e-6)`` of its site in ``stats`` (the calibration forward's), broadcast
+    to its shape, bit for bit. Returns the number of range leaves held."""
+    n = 0
+    for k, v in params.items():
+        sub = stats.get(k) if isinstance(stats, dict) else None
+        if k == "input_range":
+            check(isinstance(stats, dict) and "x_absmax" in stats,
+                  "ptq: an input range without a calibration statistic")
+            want = torch.clamp_min(stats["x_absmax"].to(v.device), 1e-6)
+            check(bool(torch.equal(v, torch.broadcast_to(
+                want[..., None], v.shape))), "ptq: a calibrated input range "
+                "is not its site's x_absmax from the calibration forward")
+            n += 1
+        elif isinstance(v, dict):
+            n += calibrated_sites(torch, v, sub)
+    return n
+
+
+def ptq_eval(torch, cfg, params, labels, tasks, name, acfg, noise,
+             seeds: int, want: dict) -> dict:
+    """One deployment of the PTQ model through ``evaluate`` on the
+    phase-12 tasks: per seed its seconds, launches and peak; each kernel's
+    launches must be ``want`` per seed (kernel name: launches of a seed),
+    and each task ``seeds`` runs, each a share."""
+    from repro_torch.eval.harness import evaluate
+
+    log = SeedLog(torch, tasks)
+    with log.recording():
+        log.start()
+        t0 = time.perf_counter()
+        res = evaluate(params, labels, cfg, acfg, log.tasks, noise,
+                       seeds=seeds)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n = seeds if noise.model != "none" else 1
+    check(launches == {k: v * n for k, v in want.items()},
+          f"{cfg.name} ptq {name}: launches {launches}")
+    check_runs(res, list(tasks), n, f"{cfg.name} ptq {name}")
+    per = [sd["s"] for sd in log.seeds]
+    out = {"results": res, "s": total_s, "per_seed": log.seeds,
+           "launches": launches,
+           "peak_gb": max(sd["peak_gb"] for sd in log.seeds)}
+    print(f"  {cfg.name} ptq {name}: {n} seed(s) in {total_s:.2f} s ("
+          f"{min(per):.3f}-{max(per):.3f} s a seed), peak "
+          f"{out['peak_gb']:.2f} GB, launches {launches}; "
+          + "; ".join(f"{t} {res[t]['mean']:.4f}" for t in tasks)
+          + " (random weights)")
+    return out
+
+
+def phase_ptq(torch, arch: str) -> dict:
+    """SpinQuant-lite PTQ (the paper's SI8-W4 / DI8-W4 baseline) at full
+    width, random weights from a seed: ``fold_norm_scales``, a random
+    rotation (Hadamard at d 2048, the QR path at d 3072), then
+    ``spinquant_ptq`` (the rotation folded into every residual writer and
+    reader, and the static ranges calibrated on a 16 x 64 batch). Gates:
+    R Rᵀ = I within PTQ_ORTHO_TOL, the rotated model's ``off`` log-softmax
+    within PTQ_INV_TOL of the unrotated one on 2 x 64 tokens, every
+    calibrated range equal to its site's x_absmax from the calibration
+    forward. Then the noisy-eval protocol on the phase-12 tasks: SI8-W4
+    (``qat``, W4, no output quantization, the plain path, as the JAX
+    package runs it), SI8-W4 under the hw noise over 10 seeds, DI8-W4,
+    ``analog_hw`` over 10 seeds on ``analog_matmul`` and ``digital_int4``
+    on ``int4_matmul``; gated on the protocol's invariants, not on the
+    scores of random weights."""
+    from repro_torch.core import rotations as rot
+    from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
+                                         pack_int4_weights)
+    from repro_torch.eval.harness import NoiseSpec
+    from repro_torch.models import apply
+    from repro_torch.serve.decode import digital_int4_config
+    from repro_torch.train import recipes
+
+    dev = torch.device("cuda")
+    cfg, params, labels = full_width(torch, arch)
+    sites = mvm_sites(cfg)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    folded = rot.fold_norm_scales(params, cfg)
+    del params
+    r = rot.random_hadamard(gen, cfg.d_model)
+    with rot.full_fp32():
+        ortho = float((r @ r.T - torch.eye(cfg.d_model, device=dev)
+                       ).abs().max())
+    check(ortho <= PTQ_ORTHO_TOL, f"{arch} ptq: |R R^T - I| = {ortho:.3e}")
+    calib = torch.randint(0, cfg.vocab_size, PTQ_CALIB, generator=gen,
+                          device=dev)
+    stats = []
+    with calibration_recorded(stats):
+        ptq = recipes.spinquant_ptq(folded, cfg, calib, None, r=r)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(stats) == 1, f"{arch} ptq: {len(stats)} calibration forwards")
+    n_ranges = calibrated_sites(torch, ptq, stats[0])
+    check(n_ranges == len({ARCH: SITES, PHI3: PHI3_SITES}[arch]),
+          f"{arch} ptq: {n_ranges} calibrated range leaves")
+    toks = torch.randint(0, cfg.vocab_size, PTQ_INV_TOKENS, generator=gen,
+                         device=dev)
+    off = AnalogConfig(mode="off")
+    with torch.no_grad():
+        a, _, _ = apply(folded, cfg, off, AnalogCtx(), {"tokens": toks})
+        b, _, _ = apply(ptq, cfg, off, AnalogCtx(), {"tokens": toks})
+        inv = float((torch.log_softmax(a, -1) - torch.log_softmax(b, -1)
+                     ).abs().max())
+    check(inv <= PTQ_INV_TOL, f"{arch} ptq: the rotated model's log-softmax "
+          f"is {inv:.3e} from the unrotated one")
+    del folded, a, b
+    torch.cuda.empty_cache()
+    kind = "QR" if cfg.d_model & (cfg.d_model - 1) else "Hadamard"
+    print(f"  {arch} ptq: fold + rotate ({kind}, "
+          f"max |R R^T - I| {ortho:.2e}) + calibrate on "
+          f"{PTQ_CALIB[0]} x {PTQ_CALIB[1]} tokens in {ptq_s:.2f} s (peak "
+          f"{ptq_peak:.2f} GB); {n_ranges} range leaves equal their "
+          f"calibration x_absmax; off-mode log-softmax rotated vs not "
+          f"{inv:.2e}")
+    out = {"arch": arch, "ptq_s": ptq_s, "ptq_peak_gb": ptq_peak,
+           "ortho": ortho, "invariance": inv, "ranges": n_ranges}
+    tasks = eval_tasks(cfg)
+    n_tasks = len(tasks)
+    si8 = AnalogConfig(mode="qat", weight_bits=4, output_quant=False)
+    runs = [("si8_w4", si8, NoiseSpec(), {}),
+            ("si8_w4_hw", si8, NoiseSpec("hw"), {}),
+            ("di8_w4", AnalogConfig(mode="di8", weight_bits=4), NoiseSpec(),
+             {}),
+            ("analog_hw", AnalogConfig(mode="analog", train_noise=False,
+                                       use_pallas=True), NoiseSpec("hw"),
+             {"analog_matmul": sites * n_tasks})]
+    for name, acfg, noise, want in runs:
+        out[name] = ptq_eval(torch, cfg, ptq, labels, tasks, name, acfg,
+                             noise, EVAL_SEEDS, want)
+    p4 = pack_int4_weights(ptq, labels)
+    del ptq
+    torch.cuda.empty_cache()
+    out["digital_int4"] = ptq_eval(
+        torch, cfg, p4, labels, tasks, "digital_int4",
+        digital_int4_config(AnalogConfig(weight_bits=4)), NoiseSpec(), 1,
+        {"int4_matmul": sites * n_tasks})
+    del p4
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_ptq_check(torch) -> dict:
+    """The reduced llama-3.2-1b's PTQ on the card against the CPU, the same
+    weights (norm scales made non-trivial), rotation and calibration
+    tokens: every calibrated range within PTQ_RANGE_TOL * (1 + |cpu|), and
+    the same greedy tokens under SI8-W4 and DI8-W4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import rotations as rot
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.models import build
+    from repro_torch.serve.decode import generate
+    from repro_torch.train import recipes
+
+    cfg, params, _ = build(get_config(ARCH).reduce(), 0, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+
+    def scales(node):
+        return {k: (scales(v) if isinstance(v, dict) else
+                    v * (1.0 + 0.3 * torch.randn(v.shape, generator=gen))
+                    if k == "scale" else v) for k, v in node.items()}
+
+    folded = rot.fold_norm_scales(scales(params), cfg)
+    r = rot.random_hadamard(gen, cfg.d_model)
+    calib = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)
+    cuda = torch.device("cuda")
+    host = recipes.spinquant_ptq(folded, cfg, calib, None, r=r)
+    card = recipes.spinquant_ptq(_to(folded, cuda), cfg, calib.to(cuda),
+                                 None, r=r.to(cuda))
+    worst = 0.0
+
+    def ranges(h, c):
+        nonlocal worst
+        for k, v in h.items():
+            if isinstance(v, dict):
+                ranges(v, c[k])
+            elif k == "input_range":
+                d = (c[k].cpu() - v).abs() / (1 + v.abs())
+                worst = max(worst, float(d.max()))
+
+    ranges(host, card)
+    check(worst <= PTQ_RANGE_TOL, f"reduced ptq: calibrated ranges card vs "
+          f"cpu {worst:.3e} (relative)")
+    prompt = torch.randint(0, cfg.vocab_size, (3, 8), generator=gen)
+    for mode in ("qat", "di8"):
+        acfg = AnalogConfig(mode=mode, weight_bits=4,
+                            output_quant=mode != "qat")
+        th = generate(host, cfg, acfg, None, prompt, 6, greedy_first=6)
+        tc = generate(card, cfg, acfg, None, prompt.to(cuda), 6,
+                      greedy_first=6).cpu()
+        check(torch.equal(th, tc), f"reduced ptq {mode}: greedy tokens "
+              f"differ card vs cpu")
+    print(f"  reduced {ARCH} ptq, card vs cpu: calibrated ranges within "
+          f"{worst:.2e} (relative), greedy tokens equal under SI8-W4 and "
+          f"DI8-W4")
+    return {"range_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: qwen3-moe-30b-a3b at full width, reduced depth
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def expert_rows(seen: set):
+    """Inside the block the row count of every batched (expert) MVM launch
+    is added to ``seen``."""
+    from repro_torch.kernels import dispatch
+
+    real = dispatch.analog_matmul, dispatch.int4_matmul
+
+    def wrap(fn):
+        def call(x, *a, **k):
+            if x.dim() == 3:
+                seen.add(int(x.shape[1]))
+            return fn(x, *a, **k)
+        return call
+
+    dispatch.analog_matmul, dispatch.int4_matmul = map(wrap, real)
+    try:
+        yield
+    finally:
+        dispatch.analog_matmul, dispatch.int4_matmul = real
+
+
+@contextlib.contextmanager
+def routes_recorded(torch, log: list):
+    """Inside the block every MoE layer's routing appends ``(ids [B, S,
+    k], router probabilities [B, S, E])``, on the host, to ``log``."""
+    from repro_torch.models import moe as MoE
+
+    real = MoE._route
+
+    def spy(x, router, cfg, capacity):
+        out = real(x, router, cfg, capacity)
+        probs = torch.softmax(torch.matmul(x.float(), router.float()), -1)
+        log.append((out[1].cpu(), probs.cpu()))
+        return out
+
+    MoE._route = spy
+    try:
+        yield
+    finally:
+        MoE._route = real
+
+
+def phase_moe(torch) -> dict:
+    """qwen3-moe-30b-a3b at full width and MOE_LAYERS layers (random
+    weights from a seed): the static engine under ``analog_hw``
+    (``use_pallas=True``, against unfused) and ``digital_int4`` (against
+    ``digital_rtn4``), as phases 3 and 4 (every site, experts included,
+    held to the ADC contract on the same inputs); the continuous engine on
+    the bf16 paged pool under both, as phase 8. Every expert site is one
+    launch per forward, at the rows phase 2 holds (MOE_ROWS)."""
+    out = {}
+    seen = {}
+    for key, deploy, base in (("analog", "analog_hw", "analog_hw"),
+                              ("int4", "digital_int4", "digital_rtn4")):
+        seen[f"static/{deploy}"] = rows = set()
+        with expert_rows(rows):
+            out[key] = serve_phase(torch, deploy, base, MOE)
+    cfg, params, labels = full_width(torch, MOE)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, PAGED_BS)
+    check(heads == MOE_PAGED, f"{MOE}: the engine's paged heads {heads}, "
+          f"phase 5 holds the kernels at {MOE_PAGED}")
+    out["params"] = sum(t.numel() for t in _leaves(params))
+    out["engine"] = {}
+    for deploy in ("analog_hw", "digital_int4"):
+        seen[f"continuous/{deploy}"] = rows = set()
+        with expert_rows(rows):
+            out["engine"][f"{deploy}/kv16"] = engine_phase(
+                torch, cfg, params, labels, deploy, 0)
+    del params
+    torch.cuda.empty_cache()
+    static = {MOE_ROWS["static prefill"], MOE_ROWS["static decode"]}
+    engine = {MOE_ROWS["engine decode"], MOE_ROWS["engine chunk"]}
+    for path, rows in seen.items():
+        want = static if path.startswith("static") else engine
+        check(rows == want, f"{MOE} {path}: expert launches of {sorted(rows)}"
+              f" rows, phase 2 holds the kernels at {sorted(want)}")
+    out["expert_rows"] = {k: sorted(v) for k, v in seen.items()}
+    print(f"  {MOE}: {out['params'] / 1e9:.3f}B params at {MOE_LAYERS} of 48 "
+          f"layers; expert launches' rows {out['expert_rows']}")
+    return out
+
+
+def reduced_moe_check(torch, arch: str) -> dict:
+    """The reduced moe model on the card (the kernels) against the CPU
+    (their plain versions), the same hw-perturbed weights and prompt,
+    ``analog_hw`` fused and ``digital_int4``: each MoE layer's routing ids
+    equal but for tokens whose k-th and (k+1)-th router probabilities on
+    the CPU lie within ROUTE_TIE (counted); every analog site of the
+    card's prefill, experts included, replayed on the CPU from its
+    recorded input within the ADC contract; and, where no route moved, the
+    same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
+                                         analog_linear, pack_int4_weights,
+                                         perturb_analog_weights)
+    from repro_torch.models import build
+    from repro_torch.serve.decode import digital_int4_config, generate, prefill
+
+    cfg, params, labels = build(get_config(arch).reduce(), 0, device="cpu")
+    hw = perturb_analog_weights(params, labels,
+                                torch.Generator().manual_seed(1), "hw")
+    prompt = torch.randint(0, cfg.vocab_size, (3, 12),
+                           generator=torch.Generator().manual_seed(2))
+    out = {}
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for deploy, p, acfg in (
+            ("analog_hw", hw, AnalogConfig(mode="analog", train_noise=False,
+                                           use_pallas=True)),
+            ("digital_int4", pack_int4_weights(params, labels),
+             digital_int4_config(AnalogConfig(weight_bits=4)))):
+        pc = _to(p, cuda)
+        routes = {"cpu": [], "cuda": []}
+        calls = []
+        for where, q, dev in (("cpu", p, cpu), ("cuda", pc, cuda)):
+            with routes_recorded(torch, routes[where]), (
+                    sites_recorded(calls) if where == "cuda"
+                    else contextlib.nullcontext()):
+                prefill(q, cfg, acfg, prompt.to(dev), prompt.shape[1])
+        check(len(routes["cpu"]) == len(routes["cuda"]) == cfg.num_layers,
+              f"reduced {arch}: {len(routes['cuda'])} routed layers")
+        moved = 0
+        k = cfg.top_k
+        for (ids_h, probs), (ids_c, _) in zip(routes["cpu"], routes["cuda"]):
+            diff = (ids_h.sort(-1).values != ids_c.sort(-1).values).any(-1)
+            if bool(diff.any()):
+                top = probs.sort(-1, descending=True).values
+                gap = (top[..., k - 1] - top[..., k])[diff]
+                check(bool((gap <= ROUTE_TIE).all()), f"reduced {arch} "
+                      f"{deploy}: a routing id moved away from a near-tie")
+            moved += int(diff.sum())
+        flips = elements = 0
+        with torch.no_grad():
+            for q, x, y in calls:
+                qh = _to(q, cpu)
+                yh, _ = analog_linear(qh, x.cpu(), acfg, AnalogCtx())
+                elements += yh.numel()
+                if acfg.mode == "analog":
+                    flips += adc_mismatches(torch, qh, x.cpu(), y.cpu(), yh,
+                                            acfg, f"reduced {arch} site")
+                else:
+                    check(bool(((y.cpu() - yh).abs() <= 1e-4 * (
+                        1 + yh.abs())).all()), f"reduced {arch} "
+                          f"digital_int4: a site apart")
+        check(len(calls) == mvm_sites(cfg), f"reduced {arch}: {len(calls)} "
+              f"sites recorded")
+        th = generate(p, cfg, acfg, None, prompt, 6, greedy_first=6)
+        tc = generate(pc, cfg, acfg, None, prompt.to(cuda), 6,
+                      greedy_first=6).cpu()
+        equal = bool(torch.equal(th, tc))
+        check(equal or moved > 0, f"reduced {arch} {deploy}: greedy tokens "
+              f"differ card vs cpu with no route moved")
+        out[deploy] = {"routes_moved": moved, "site_flips": flips,
+                       "site_elements": elements, "tokens_equal": equal}
+        print(f"  reduced {arch} {deploy}, card vs cpu: routing ids equal "
+              f"but {moved} near-tie tokens of {cfg.num_layers} x "
+              f"{prompt.numel()}; {len(calls)} sites on the card's inputs, "
+              f"{flips} of {elements} outputs one ADC level apart at "
+              f"near-ties; greedy tokens "
+              f"{'equal' if equal else 'differ (a route moved)'}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -3068,13 +3678,15 @@ PAGED_META = {
 
 def line_launches(results: dict) -> dict:
     """Each kernel's launches on every main-path run that drove it, by
-    path: the static engines (phases 3, 4, 7 and 11), the continuous
-    engines (phase 8), the noisy evals (phase 12), best-of-n (phase 13)
-    and the HWA distillation run (phase 14). Each count was read right
-    after its run, with every count set to 0 right before it. Not counted:
-    the kernel comparisons (phases 2, 5, 6 and 14's gate (i)), the reduced
-    checks against the CPU (phases 9, 12 and 14), the timing replays, the
-    CLI (phase 10), and phase 14's profiled step and resume check."""
+    path: the static engines (phases 3, 4, 7, 11 and 16), the continuous
+    engines (phases 8 and 16), the noisy evals (phase 12), best-of-n
+    (phase 13), the HWA distillation run (phase 14) and the PTQ model's
+    evals on the kernels (phase 15). Each count was read right after its
+    run, with every count set to 0 right before it. Not counted: the
+    kernel comparisons (phases 2, 5, 6 and 14's gate (i)), the reduced
+    checks against the CPU (phases 9, 12, 14, 15 and 16), the timing
+    replays, the CLI (phase 10), and phase 14's profiled step and resume
+    check."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -3102,6 +3714,17 @@ def line_launches(results: dict) -> dict:
         add(f"best_of_n/{arch}/analog_hw",
             results["best_of_n"][arch]["launches"])
     add(f"train/{ARCH}/analog", results["train"]["launches"])
+    for arch in (ARCH, PHI3):
+        for deploy in ("analog_hw", "digital_int4"):
+            add(f"ptq/{arch}/{deploy}",
+                results["ptq"][arch][deploy]["launches"])
+    moe = results["moe"]
+    add(f"static/{MOE}/analog_hw", {"analog_matmul":
+                                    moe["analog"]["launches"]})
+    add(f"static/{MOE}/digital_int4", {"int4_matmul":
+                                       moe["int4"]["launches"]})
+    for key, r in moe["engine"].items():
+        add(f"continuous/{MOE}/{key}", r["launches"])
     return out
 
 
@@ -3234,53 +3857,64 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/14] setup")
+        phase("[1/16] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/14] MVM kernels at llama-3.2-1b, phi-3-mini-4k and "
-              "mamba2-130m main-path shapes")
+        phase("[2/16] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+              "mamba2-130m and qwen3-moe-30b-a3b main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/14] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/16] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/14] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/16] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/14] paged-attention kernels at llama-3.2-1b and "
-              "phi-3-mini-4k attention shapes")
+        phase("[5/16] paged-attention kernels at llama-3.2-1b, "
+              "phi-3-mini-4k and qwen3-moe-30b-a3b attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/14] ssd_scan at mamba2-130m shapes")
+        phase("[6/16] ssd_scan at mamba2-130m shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/14] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/16] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/14] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/16] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/14] reduced continuous engines, card against cpu")
+        phase("[9/16] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/14] serving CLI")
+        phase("[10/16] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/14] static engine, phi-3-mini-4k at full width: "
+        phase("[11/16] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/14] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/16] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/14] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/16] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/14] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/16] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
+        phase("[15/16] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+              "phi-3-mini-4k; reduced PTQ, card against cpu")
+        results["ptq"] = {arch: phase_ptq(torch, arch)
+                          for arch in (ARCH, PHI3)}
+        results["reduced_ptq"] = reduced_ptq_check(torch)
+        phase(f"[16/16] {MOE} at full width, {MOE_LAYERS} layers: static "
+              "and continuous engines; reduced moe models, card against "
+              "cpu")
+        results["moe"] = phase_moe(torch)
+        results["reduced_moe"] = {arch: reduced_moe_check(torch, arch)
+                                  for arch in MOE_REDUCED}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

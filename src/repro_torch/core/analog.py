@@ -21,6 +21,12 @@ eval-only, as in the reference. The per-tile device state of
 ``core/devices.py`` is ignored in training (as the reference does) and
 refused at eval until the devices slice lands.
 
+A site's kernel may carry a leading expert dimension (``[E, K, N]``, the
+MoE's batched experts, with ``x`` ``[E, ..., K]``): every per-channel
+range, ADC bound and int4 carrier is then per expert, over its own K, and
+the fused kernels take the experts in one launch. Such a site runs at
+eval only.
+
 Deployment-time programming noise is applied once per model instance by
 :func:`perturb_analog_weights`, not inside the forward.
 """
@@ -118,6 +124,22 @@ def empty_stats() -> dict:
             "clip_frac": torch.zeros(())}
 
 
+@torch.no_grad()
+def input_stats(xf: torch.Tensor, beta: torch.Tensor,
+                dims=None) -> dict:
+    """A site's input statistics over ``dims`` (all of them with None):
+    ``x_std`` (population), ``x_absmax`` and ``clip_frac``, the share of
+    ``|x| > beta``."""
+    clipped = (torch.abs(xf) > beta).float()
+    if dims is None:
+        return {"x_std": torch.std(xf, correction=0),
+                "x_absmax": torch.amax(torch.abs(xf)),
+                "clip_frac": torch.mean(clipped)}
+    return {"x_std": torch.std(xf, dim=dims, correction=0),
+            "x_absmax": torch.amax(torch.abs(xf), dim=dims),
+            "clip_frac": torch.mean(clipped, dim=dims)}
+
+
 # ---------------------------------------------------------------------------
 # matmul with a noise-free backward (paper: "During the backward pass, the
 # noise-free weights are used.")
@@ -203,6 +225,10 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         raise NotImplementedError(
             "mode 'rtn' is the Table-3 digital deployment: eval/serve only, "
             "as in the reference (no training rules)")
+    if ctx.training and w.dim() > 2:
+        raise NotImplementedError(
+            "training a batched (MoE expert) site needs the batched "
+            "launch's STE backward (ROADMAP section 1, item 6)")
 
     if cfg.mode == "off":
         y = torch.matmul(x, w.to(in_dtype)).to(in_dtype)
@@ -216,11 +242,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         beta = p["input_range"].reshape(()).float()
         xf = x.float()
         if ctx.collect_stats:
-            with torch.no_grad():
-                stats = {"x_std": torch.std(xf, correction=0),
-                         "x_absmax": torch.amax(torch.abs(xf)),
-                         "clip_frac": torch.mean(
-                             (torch.abs(xf) > beta).float())}
+            stats = input_stats(xf, beta)
         # the fused tile op quantizes inside the kernel
         x_q = None if fused else quant.input_quantize(xf, beta,
                                                       cfg.input_bits)
@@ -259,7 +281,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         else:
             y = noisy_matmul(x_q, wf, w_noise)
     elif cfg.mode in ("qat", "di8"):
-        w_q = quant.weight_fake_quant(wf, cfg.weight_bits)
+        w_q = quant.weight_fake_quant(wf, cfg.weight_bits, axis=-2)
         y = torch.matmul(x_q, w_q)
     else:  # rtn
         use_int4 = (cfg.use_pallas and cfg.int4_serve
@@ -273,11 +295,12 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                     x_q, p["int4"]["packed"], p["int4"]["scale"])
                 col_max = p["int4"]["colmax"]
             else:             # quantize + pack per call
-                w_int, scale = quant.rtn_quantize(wf, cfg.weight_bits)
+                w_int, scale = quant.rtn_quantize(wf, cfg.weight_bits,
+                                                  axis=-2)
                 wf = quant.rtn_dequantize(w_int, scale)
                 y = dispatch.int4_mvm(x_q, w_int, scale)
         else:
-            w_int, scale = quant.rtn_quantize(wf, cfg.weight_bits)
+            w_int, scale = quant.rtn_quantize(wf, cfg.weight_bits, axis=-2)
             wf = quant.rtn_dequantize(w_int, scale)
             if fused:  # the kernel folds the ADC bound from wf
                 y = dispatch.analog_mvm(xf, wf, beta, lam=cfg.out_bound,
@@ -294,6 +317,8 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             bound = cfg.out_bound * beta * col_max
         else:
             bound = kref.adc_bound(wf, beta, cfg.out_bound)
+        if bound.dim() > 1:   # [E, N]: each expert's columns, every row
+            bound = bound.unsqueeze(-2)
         y = quant.output_quantize(y, bound.detach(), cfg.output_bits)
 
     y = y.to(in_dtype)

@@ -24,7 +24,8 @@ MAPPINGS = ("gemv", "mma", "tiled")
 
 
 class Plan(NamedTuple):
-    """How a kernel runs one [M, K] @ [K, N] call on the card."""
+    """How a kernel runs one [M, K] @ [K, N] call (of each expert) on the
+    card."""
 
     mapping: str        # "gemv" (decode, M ≤ 8), "mma" or "tiled"
     splits: int         # ranges the K loop is split into, one block each
@@ -34,21 +35,23 @@ class Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def plan(kernel: str, m: int, k: int, n: int, device_index: int,
-         in_bits: int | None = None) -> Plan:
-    """``kernel``'s plan for an [M, K] @ [K, N] call on CUDA device
-    ``device_index`` (builds and loads the library at first use);
-    ``in_bits`` is ``analog_matmul``'s DAC width and None for
-    ``int4_matmul``."""
+         in_bits: int | None = None, e: int = 1) -> Plan:
+    """``kernel``'s plan for an [M, K] @ [K, N] call, or for ``e``
+    experts' calls in one launch (keyed on (e, m, k, n); the split of K
+    spreads all ``e`` experts' tiles over the card and the scratch grows by
+    ``e``), on CUDA device ``device_index`` (builds and loads the library
+    at first use); ``in_bits`` is ``analog_matmul``'s DAC width and None
+    for ``int4_matmul``."""
     fn = getattr(_build.load(kernel), f"{kernel}_plan")
-    shape = (m, k, n) if in_bits is None else (m, k, n, in_bits)
+    shape = (e, m, k, n) if in_bits is None else (e, m, k, n, in_bits)
     out = [ctypes.c_int() for _ in range(3)]
     scratch = ctypes.c_longlong()
     err = fn(*(ctypes.c_int(v) for v in shape),
              ctypes.c_int(sm_count(device_index)),
              *(ctypes.byref(o) for o in out), ctypes.byref(scratch))
     if err:
-        raise ValueError(f"{kernel} cannot take the shape M={m}, K={k}, "
-                         f"N={n} (CUDA error {err})")
+        raise ValueError(f"{kernel} cannot take the shape E={e}, M={m}, "
+                         f"K={k}, N={n} (CUDA error {err})")
     mapping, splits, rows = (o.value for o in out)
     return Plan(MAPPINGS[mapping], splits, rows, scratch.value)
 

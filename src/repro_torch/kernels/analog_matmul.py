@@ -7,6 +7,10 @@ The ADC bound is either given, or folded into the kernel's own pass over
 the weights (``lam``): ``(lam · β) · max_k |w_eff[k, n]|``, bit for bit
 what :func:`repro_torch.kernels.ref.adc_bound` computes.
 
+A MoE site's experts run in one launch: x [E, M, K] against w_eff
+[E, K, N], each expert on its own slices (the reference's vmap over
+experts, which Pallas' batching rule turns into a grid dimension).
+
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.analog_matmul_ref`) for a CPU tensor; there
 is no fallback from one to the other. ``launches`` counts kernel launches.
@@ -33,7 +37,7 @@ def _lib():
     """The built library's entry point with its C signature declared
     (built and loaded at the first launch)."""
     fn = _build.load("analog_matmul").analog_matmul_f32
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _I, _I, _I, _P]
     fn.restype = _I
     return fn
@@ -44,16 +48,18 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                   col_off: torch.Tensor | None = None, *,
                   lam: float | None = None, in_bits: int = 8,
                   out_bits: int = 8, promote: bool = True) -> torch.Tensor:
-    """Fused DAC-quant → MVM → ADC-quant of ``x [M, K] @ w_eff [K, N]``.
+    """Fused DAC-quant → MVM → ADC-quant of ``x [M, K] @ w_eff [K, N]``,
+    or of E experts at once: ``x [E, M, K] @ w_eff [E, K, N]``.
 
-    beta: one-element static input range; bound [N]: per-column ADC bound,
-    or None with ``lam`` to fold ``lam · β · max|w_eff[:, n]|`` into the
-    kernel (exactly one of the two); col_off [N] or None: per-column offset
-    added before the ADC. On the card every tensor must be fp32 and
-    contiguous; the library picks its mapping and split-K from the shape
-    and ``in_bits`` (``_launch.plan``). ``promote=False`` only measures
-    what promotion buys: the tensor cores of the ``mma`` mapping then carry
-    the whole K sum. Returns fp32.
+    beta: one-element static input range (shared by the experts); bound
+    [N] ([E, N]): per-column ADC bound, or None with ``lam`` to fold ``lam ·
+    β · max|w_eff[.., :, n]|`` into the kernel (exactly one of the two);
+    col_off [N] ([E, N]) or None: per-column offset added before the ADC.
+    On the card every tensor must be fp32 and contiguous; the library picks
+    its mapping and split-K from the shape and ``in_bits``
+    (``_launch.plan``). ``promote=False`` only measures what promotion
+    buys: the tensor cores of the ``mma`` mapping then carry the whole K
+    sum. Returns fp32.
     """
     global launches
     ref.check_one_bound(bound, lam)
@@ -62,22 +68,25 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                                      in_bits=in_bits, out_bits=out_bits)
     if x.device.type != "cuda":
         raise ValueError(f"analog_matmul runs on cuda or cpu, not {x.device}")
-    if x.dim() != 2 or w_eff.dim() != 2:
-        raise ValueError("analog_matmul takes x [M, K] and w_eff [K, N]")
-    m, k = x.shape
-    n = w_eff.shape[1]
+    if x.dim() not in (2, 3) or w_eff.dim() != x.dim():
+        raise ValueError("analog_matmul takes x [M, K] and w_eff [K, N], "
+                         "or x [E, M, K] and w_eff [E, K, N]")
+    lead = tuple(x.shape[:-2])            # () or (E,)
+    e = x.shape[0] if lead else 1
+    m, k = x.shape[-2:]
+    n = w_eff.shape[-1]
     dev = x.device
-    _launch.check("x", x, torch.float32, (m, k), dev)
-    _launch.check("w_eff", w_eff, torch.float32, (k, n), dev)
+    _launch.check("x", x, torch.float32, lead + (m, k), dev)
+    _launch.check("w_eff", w_eff, torch.float32, lead + (k, n), dev)
     _launch.check("beta", beta.reshape(1), torch.float32, (1,), dev)
     if bound is not None:
-        _launch.check("bound", bound, torch.float32, (n,), dev)
+        _launch.check("bound", bound, torch.float32, lead + (n,), dev)
     if col_off is not None:
-        _launch.check("col_off", col_off, torch.float32, (n,), dev)
+        _launch.check("col_off", col_off, torch.float32, lead + (n,), dev)
     if not (2 <= in_bits <= 24 and 2 <= out_bits <= 24):
         raise ValueError(f"bits out of range: {in_bits}, {out_bits}")
-    plan = _launch.plan("analog_matmul", m, k, n, dev.index, in_bits)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan = _launch.plan("analog_matmul", m, k, n, dev.index, in_bits, e)
+    out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     scratch = _launch.scratch(plan, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(x.data_ptr(), w_eff.data_ptr(), beta.data_ptr(),
@@ -85,7 +94,7 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                  None if col_off is None else col_off.data_ptr(),
                  out.data_ptr(),
                  None if scratch is None else scratch.data_ptr(),
-                 m, k, n, in_bits, out_bits,
+                 e, m, k, n, in_bits, out_bits,
                  0.0 if lam is None else float(lam), plan.splits,
                  plan.k_per_split, int(promote), stream)
     if err:

@@ -32,6 +32,14 @@
 //   when the bound is folded, its partial column max) to scratch, and
 //   analog_finish_kernel adds the splits in a fixed order (deterministic
 //   run to run) and takes the max before the epilogue.
+// * Batched experts (a MoE site): E independent [M, K] @ [K, N] products
+//   in one launch, x [E, M, K], w [E, K, N], bound and col_off [E, N] and
+//   the output [E, M, N], one beta for all. The expert index is
+//   blockIdx.z of the GEMV and folded into blockIdx.y (the M tile) of the
+//   mma and tiled mappings; it offsets every pointer, the scratch too, so
+//   each expert is the 2-D function on its own slices and the folded bound
+//   is each expert's own lam * beta * max_k |w[e, k, n]|. The split of K
+//   is planned over all E * tiles blocks.
 //
 // The host asks analog_matmul_plan for the mapping (from M and in_bits, never
 // from a failure), the split and the scratch of a shape, allocates the
@@ -136,6 +144,16 @@ analog_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ float xs[kM][kGvChunk];
   __shared__ float red[kGvWarps][kGvCols];
   __shared__ float bnd_s[kGvCols];
+  {  // this block's expert (blockIdx.z) and its slices
+    const size_t e = blockIdx.z, splits = gridDim.y;
+    x += e * kM * K;
+    w += e * K * N;
+    if (bound != nullptr) bound += e * N;
+    if (col_off != nullptr) col_off += e * N;
+    out += e * kM * N;
+    if (part != nullptr) part += e * splits * kM * N;
+    if (pmax != nullptr) pmax += e * splits * N;
+  }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int n0 = blockIdx.x * kGvCols + lane * kGvVec;
   const int k_begin = blockIdx.y * k_per_split;
@@ -229,9 +247,21 @@ analog_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     int k_per_split, float qi, float qo, float lam) {
   __shared__ float xs[kBK][kBM + 4];  // transposed: xs[k][m]
   __shared__ float ws[kBK][kBN];
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int mt = blockIdx.y % m_tiles;  // blockIdx.y = expert * m_tiles + mt
+  {
+    const size_t e = blockIdx.y / m_tiles, splits = gridDim.z;
+    x += e * M * K;
+    w += e * K * N;
+    if (bound != nullptr) bound += e * N;
+    if (col_off != nullptr) col_off += e * N;
+    out += e * M * N;
+    if (part != nullptr) part += e * splits * M * N;
+    if (pmax != nullptr) pmax += e * splits * N;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = mt * kBM, n0 = blockIdx.x * kBN;
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const bool fold = bound == nullptr;
@@ -285,7 +315,7 @@ analog_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int gn = n0 + tx + j * (kBN / kTN);
     if (gn >= N) continue;
     // every ty holds the same max; the first row of M tiles writes it
-    if (fold && part != nullptr && ty == 0 && blockIdx.y == 0)
+    if (fold && part != nullptr && ty == 0 && mt == 0)
       pmax[(size_t)blockIdx.z * N + gn] = cmax[j];
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
@@ -389,6 +419,18 @@ analog_mma_kernel(const float* __restrict__ xq, const float* __restrict__ w,
                   int promote) {
   using S = mvm::Shape<kBMm>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int m_tiles = (M + kBMm - 1) / kBMm;
+  const int mt = blockIdx.y % m_tiles;  // blockIdx.y = expert * m_tiles + mt
+  {
+    const size_t e = blockIdx.y / m_tiles, splits = gridDim.z;
+    xq += e * M * Kp;
+    w += e * K * N;
+    if (bound != nullptr) bound += e * N;
+    if (col_off != nullptr) col_off += e * N;
+    out += e * M * N;
+    if (part != nullptr) part += e * splits * M * N;
+    if (pmax != nullptr) pmax += e * splits * N;
+  }
   AnalogTile<kBMm, kVecW> tile;
   tile.a_s = reinterpret_cast<float*>(smem);
   tile.w_s = tile.a_s + mvm::kStages * S::kAFloats;
@@ -397,7 +439,7 @@ analog_mma_kernel(const float* __restrict__ xq, const float* __restrict__ w,
   tile.M = M;
   tile.Kp = Kp;
   tile.N = N;
-  tile.m0 = blockIdx.y * kBMm;
+  tile.m0 = mt * kBMm;
   tile.n0 = blockIdx.x * mvm::kBN;
   const int k_begin = blockIdx.z * k_per_split;
   tile.k_end = min(K, k_begin + k_per_split);
@@ -421,7 +463,7 @@ analog_mma_kernel(const float* __restrict__ xq, const float* __restrict__ w,
       if (f.wm == 0 && f.t == 0) cmax_s[f.wn * mvm::kWN + nj * 8 + f.g] = v;
     }
     __syncthreads();
-    if (part != nullptr && blockIdx.y == 0)
+    if (part != nullptr && mt == 0)
       for (int c = threadIdx.x; c < mvm::kBN; c += mvm::kThreads)
         if (tile.n0 + c < N)
           pmax[(size_t)blockIdx.z * N + tile.n0 + c] = cmax_s[c];
@@ -445,20 +487,26 @@ analog_mma_kernel(const float* __restrict__ xq, const float* __restrict__ w,
 }
 
 // Adds the K splits of every element in split order, takes the folded
-// bound's column max over the splits, then the epilogue.
+// bound's column max over the splits, then the epilogue; element i of the
+// [E, M, N] output reads its expert's scratch slices.
 __global__ void analog_finish_kernel(const float* __restrict__ part,
                                      const float* __restrict__ pmax,
                                      const float* __restrict__ beta_p,
                                      const float* __restrict__ bound,
                                      const float* __restrict__ col_off,
-                                     float* __restrict__ out, int M, int N,
-                                     int splits, float qo, float lam) {
+                                     float* __restrict__ out, int E, int M,
+                                     int N, int splits, float qo, float lam) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)M * N;
-  if (i >= total) return;
+  if (i >= (size_t)E * total) return;
+  const size_t e = i / total, r = i % total;
+  part += e * splits * total;
+  pmax += e * splits * N;
+  if (bound != nullptr) bound += e * N;
+  if (col_off != nullptr) col_off += e * N;
   float y = 0.f;
-  for (int s = 0; s < splits; ++s) y += part[(size_t)s * total + i];
-  const int n = (int)(i % N);
+  for (int s = 0; s < splits; ++s) y += part[(size_t)s * total + r];
+  const int n = (int)(r % N);
   float bnd;
   if (bound != nullptr) {
     bnd = bound[n];
@@ -480,12 +528,20 @@ long long output_tiles(int mapping, int M, int N) {
   return (long long)((N + kBN - 1) / kBN) * ((M + kBM - 1) / kBM);
 }
 
-// fp32 scratch a launch needs: the lattice of the mma mapping, then the
-// splits' partial sums [splits, M, N] and column maxes [splits, N].
-long long scratch_floats(int mapping, int M, int K, int N, int splits) {
-  long long n = mapping == kMma ? (long long)M * lattice_stride(K) : 0;
-  if (splits > 1) n += (long long)splits * (M + 1) * N;
+// fp32 scratch a launch of E experts needs: the lattice of the mma
+// mapping [E, M, Kp], then the splits' partial sums [E, splits, M, N] and
+// column maxes [E, splits, N].
+long long scratch_floats(int mapping, int E, int M, int K, int N,
+                         int splits) {
+  long long n = mapping == kMma ? (long long)E * M * lattice_stride(K) : 0;
+  if (splits > 1) n += (long long)E * splits * (M + 1) * N;
   return n;
+}
+
+// blocks along grid y of the mma and tiled mappings: every expert's M tiles
+long long y_blocks(int mapping, int E, int M) {
+  const int rows = mapping == kMma ? mma_rows(M) : kBM;
+  return (long long)E * ((M + rows - 1) / rows);
 }
 
 template <int kBMm, bool kVecW>
@@ -507,22 +563,23 @@ int launch_mma(dim3 grid, cudaStream_t s, const float* xq, const float* w,
 
 }  // namespace
 
-// The launch plan of an [M, K] @ [K, N] call with an in_bits DAC on a card
-// with `sms` SMs: *mapping is 0 for the GEMV-shaped decode kernel (M <= 8),
-// 1 for the tensor-core kernel (M > 8, in_bits <= 12) and 2 for the tiled
-// CUDA-core kernel (M > 8, in_bits > 12); K is split into *splits ranges of
-// *k_per_split rows; *scratch is the fp32 scratch (elements) the launch
-// needs. Returns 0, or cudaErrorInvalidValue for a shape it cannot take.
-extern "C" int analog_matmul_plan(int M, int K, int N, int in_bits, int sms,
-                                  int* mapping, int* splits,
+// The launch plan of E experts' [M, K] @ [K, N] calls (E = 1: one 2-D
+// call) with an in_bits DAC on a card with `sms` SMs: *mapping is 0 for the
+// GEMV-shaped decode kernel (M <= 8), 1 for the tensor-core kernel (M > 8,
+// in_bits <= 12) and 2 for the tiled CUDA-core kernel (M > 8, in_bits >
+// 12); K is split into *splits ranges of *k_per_split rows; *scratch is the
+// fp32 scratch (elements) the launch needs. Returns 0, or
+// cudaErrorInvalidValue for a shape it cannot take.
+extern "C" int analog_matmul_plan(int E, int M, int K, int N, int in_bits,
+                                  int sms, int* mapping, int* splits,
                                   int* k_per_split, long long* scratch) {
-  if (M <= 0 || K <= 0 || N <= 0 || sms <= 0 || in_bits < 2 || in_bits > 24)
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || sms <= 0 || in_bits < 2 ||
+      in_bits > 24)
     return (int)cudaErrorInvalidValue;
   const int map = mapping_of(M, in_bits);
-  if ((map == kMma && (M + mma_rows(M) - 1) / mma_rows(M) > 65535) ||
-      (map == kTiled && (M + kBM - 1) / kBM > 65535))
+  if (map == kGemv ? E > 65535 : y_blocks(map, E, M) > 65535)
     return (int)cudaErrorInvalidValue;
-  const long long tiles = output_tiles(map, M, N);
+  const long long tiles = (long long)E * output_tiles(map, M, N);
   if (map == kMma)
     plan_split_k(tiles, K, sms, mvm::kBK, kMmaBlocksPerSm, kMmaMinSplitRows,
                  splits, k_per_split);
@@ -530,32 +587,35 @@ extern "C" int analog_matmul_plan(int M, int K, int N, int in_bits, int sms,
     plan_split_k(tiles, K, sms, map == kGemv ? kGvStep : kBK, kBlocksPerSm,
                  kMinSplitRows, splits, k_per_split);
   *mapping = map;
-  *scratch = scratch_floats(map, M, K, N, *splits);
+  *scratch = scratch_floats(map, E, M, K, N, *splits);
   return 0;
 }
 
-// Runs the mapping that M and in_bits select (see analog_matmul_plan) with K
-// split into `splits` ranges of `k_per_split` rows. `scratch` holds the
-// plan's scratch elements (null when it needs none). bound == null folds the
-// ADC bound from the weights: (lam * beta) * max_k |w[k, n]|. col_off may be
-// null. promote = 0 lets the tensor cores carry the whole K range of the mma
-// mapping (to measure what promotion buys; the port passes 1). Returns the
-// launches' first error (0 on success).
+// Runs the mapping that M and in_bits select (see analog_matmul_plan) over
+// E experts (x [E, M, K], w [E, K, N], bound and col_off [E, N], out
+// [E, M, N]; E = 1 is the 2-D call) with K split into `splits` ranges of
+// `k_per_split` rows. `scratch` holds the plan's scratch elements (null
+// when it needs none). bound == null folds each expert's ADC bound from its
+// weights: (lam * beta) * max_k |w[e, k, n]|. col_off may be null. promote
+// = 0 lets the tensor cores carry the whole K range of the mma mapping (to
+// measure what promotion buys; the port passes 1). Returns the launches'
+// first error (0 on success).
 extern "C" int analog_matmul_f32(const void* x, const void* w,
                                  const void* beta, const void* bound,
                                  const void* col_off, void* out,
-                                 void* scratch, int M, int K, int N,
+                                 void* scratch, int E, int M, int K, int N,
                                  int in_bits, int out_bits, float lam,
                                  int splits, int k_per_split, int promote,
                                  void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || in_bits < 2 || in_bits > 24 ||
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || in_bits < 2 || in_bits > 24 ||
       out_bits < 2 || out_bits > 24 || splits < 1 || splits > 65535 ||
       k_per_split <= 0 || (long long)splits * k_per_split < K ||
       (long long)(splits - 1) * k_per_split >= K)
     return (int)cudaErrorInvalidValue;
   const int map = mapping_of(M, in_bits);
-  if ((scratch_floats(map, M, K, N, splits) > 0) != (scratch != nullptr) ||
-      (map == kMma && splits > 1 && k_per_split % mvm::kBK != 0))
+  if ((scratch_floats(map, E, M, K, N, splits) > 0) != (scratch != nullptr) ||
+      (map == kMma && splits > 1 && k_per_split % mvm::kBK != 0) ||
+      (map == kGemv ? E > 65535 : y_blocks(map, E, M) > 65535))
     return (int)cudaErrorInvalidValue;
   const float qi = (float)((1 << (in_bits - 1)) - 1);
   const float qo = (float)((1 << (out_bits - 1)) - 1);
@@ -570,12 +630,12 @@ extern "C" int analog_matmul_f32(const void* x, const void* w,
   float* xq = nullptr;
   if (map == kMma) {
     xq = sc;
-    sc += (size_t)M * lattice_stride(K);
+    sc += (size_t)E * M * lattice_stride(K);
   }
   float* p = splits > 1 ? sc : nullptr;
-  float* pm = splits > 1 ? sc + (size_t)splits * M * N : nullptr;
+  float* pm = splits > 1 ? sc + (size_t)E * splits * M * N : nullptr;
   if (map == kGemv) {
-    dim3 grid((N + kGvCols - 1) / kGvCols, splits);
+    dim3 grid((N + kGvCols - 1) / kGvCols, splits, E);
     const bool vec = (N % kGvVec) == 0 && ((uintptr_t)w % 16) == 0;
 #define ANALOG_GEMV(MM)                                                    \
   case MM:                                                                 \
@@ -593,11 +653,13 @@ extern "C" int analog_matmul_f32(const void* x, const void* w,
     }
 #undef ANALOG_GEMV
   } else if (map == kMma) {
+    // the lattice is row-wise: the E experts' rows are E * M rows of one
     const int kp = lattice_stride(K), rows = mma_rows(M);
-    const size_t lat = (size_t)M * kp;
+    const size_t lat = (size_t)E * M * kp;
     analog_lattice_kernel<<<(unsigned)((lat + 255) / 256), 256, 0, s>>>(
-        xf, bf, xq, M, K, kp, qi);
-    dim3 grid((N + mvm::kBN - 1) / mvm::kBN, (M + rows - 1) / rows, splits);
+        xf, bf, xq, E * M, K, kp, qi);
+    dim3 grid((N + mvm::kBN - 1) / mvm::kBN, (unsigned)y_blocks(map, E, M),
+              splits);
     const bool vec = (N % 4) == 0 && ((uintptr_t)w % 16) == 0;
     int err;
     if (rows == 64)
@@ -616,15 +678,15 @@ extern "C" int analog_matmul_f32(const void* x, const void* w,
                                          qo, lam, promote);
     if (err) return err;
   } else {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+    dim3 grid((N + kBN - 1) / kBN, (unsigned)y_blocks(map, E, M), splits);
     analog_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(
         xf, wf, bf, bnd, off, o, p, pm, M, K, N, k_per_split, qi, qo, lam);
   }
   if (splits > 1) {
-    const size_t total = (size_t)M * N;
+    const size_t total = (size_t)E * M * N;
     const int threads = 256;
     analog_finish_kernel<<<(unsigned)((total + threads - 1) / threads),
-                           threads, 0, s>>>(p, pm, bf, bnd, off, o, M, N,
+                           threads, 0, s>>>(p, pm, bf, bnd, off, o, E, M, N,
                                             splits, qo, lam);
   }
   return (int)cudaGetLastError();

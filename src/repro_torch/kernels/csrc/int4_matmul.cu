@@ -33,6 +33,11 @@
 //   scales.
 // Ragged M and K, and N up to the packed width, are masked (zero-filled x,
 // 0x88 bytes in the GEMV), not padded by the caller.
+// * Batched experts (a MoE site): E independent products in one launch, x
+//   [E, M, K], w_packed [E, K, N/2], scale [E, N], out [E, M, N]. The expert
+//   index is blockIdx.z of the GEMV and folded into blockIdx.y (the M tile)
+//   of the mma mapping; it offsets every pointer and the scratch, and the
+//   split of K is planned over all E * tiles blocks.
 //
 // The host asks int4_matmul_plan for the mapping, the split and the scratch
 // of a shape, allocates the scratch, and launches with int4_matmul_f32,
@@ -133,6 +138,14 @@ int4_gemv_kernel(const float* __restrict__ x,
   __shared__ float xs[kM][kGvChunk];
   __shared__ float red[kGvWarps][kGvCols];
   const int NH = N / 2;
+  {  // this block's expert (blockIdx.z) and its slices
+    const size_t e = blockIdx.z, splits = gridDim.y;
+    x += e * kM * K;
+    wp += e * K * NH;
+    scale += e * N;
+    out += e * kM * N;
+    if (part != nullptr) part += e * splits * kM * N;
+  }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int j0 = blockIdx.x * (kGvCols / 2) + lane * kGvBytes;  // first byte
   const int k_begin = blockIdx.y * k_per_split;
@@ -289,6 +302,15 @@ int4_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
                 int k_per_split) {
   using S = mvm::Shape<kBMm>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int m_tiles = (M + kBMm - 1) / kBMm;
+  {  // blockIdx.y = expert * m_tiles + M tile
+    const size_t e = blockIdx.y / m_tiles, splits = gridDim.z;
+    x += e * M * K;
+    wp += e * K * (N / 2);
+    scale += e * N;
+    out += e * M * N;
+    if (part != nullptr) part += e * splits * M * N;
+  }
   Int4Tile<kBMm, kVecX, kWCopy> tile;
   tile.a_s = reinterpret_cast<float*>(smem);
   tile.w_s = reinterpret_cast<uint8_t*>(tile.a_s +
@@ -298,7 +320,7 @@ int4_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   tile.M = M;
   tile.K = K;
   tile.NH = N / 2;
-  tile.m0 = blockIdx.y * kBMm;
+  tile.m0 = (blockIdx.y % m_tiles) * kBMm;
   tile.n0 = blockIdx.x * mvm::kBN;
   const int k_begin = blockIdx.z * k_per_split;
   tile.k_end = min(K, k_begin + k_per_split);
@@ -320,17 +342,20 @@ int4_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
       }
 }
 
-// Adds the K splits of every element in split order, then scales.
+// Adds the K splits of every element in split order, then scales; element
+// i of the [E, M, N] output reads its expert's scratch slice and scales.
 __global__ void int4_finish_kernel(const float* __restrict__ part,
                                    const float* __restrict__ scale,
-                                   float* __restrict__ out, int M, int N,
-                                   int splits) {
+                                   float* __restrict__ out, int E, int M,
+                                   int N, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)M * N;
-  if (i >= total) return;
+  if (i >= (size_t)E * total) return;
+  const size_t e = i / total, r = i % total;
+  part += e * splits * total;
   float y = 0.f;
-  for (int s = 0; s < splits; ++s) y += part[(size_t)s * total + i];
-  out[i] = y * scale[i % N];
+  for (int s = 0; s < splits; ++s) y += part[(size_t)s * total + r];
+  out[i] = y * scale[e * N + r % N];
 }
 
 // the mma mapping's block rows: 64 for M <= 64 (the engine's chunk), else 128
@@ -341,11 +366,18 @@ int mma_smem_bytes() {
   return mvm::kStages * (mvm::Shape<kBMm>::kAFloats * 4 + kWTileBytes);
 }
 
-// Output tiles of one launch of the mapping that M selects.
+// Output tiles of one expert's product under the mapping that M selects.
 long long output_tiles(int M, int N) {
   if (M <= kMaxM) return (N + kGvCols - 1) / kGvCols;
   return (long long)((N + mvm::kBN - 1) / mvm::kBN) *
          ((M + mma_rows(M) - 1) / mma_rows(M));
+}
+
+// the launch's extent along its expert axis: grid z of the GEMV, grid y
+// (every expert's M tiles) of the mma mapping
+long long expert_blocks(int E, int M) {
+  return M <= kMaxM ? E
+                    : (long long)E * ((M + mma_rows(M) - 1) / mma_rows(M));
 }
 
 template <int kBMm, bool kVecX, int kWCopy>
@@ -385,37 +417,42 @@ int launch_mma_rows(dim3 grid, cudaStream_t s, const float* x,
 
 }  // namespace
 
-// The launch plan of an [M, K] @ [K, N] call (N unpacked) on a card with
-// `sms` SMs: *mapping is 0 for the GEMV-shaped decode kernel (M <= 8) and 1
-// for the tensor-core kernel; K is split into *splits ranges of
-// *k_per_split rows; *scratch is the fp32 scratch (elements) the launch
-// needs. Returns 0, or cudaErrorInvalidValue for a shape it cannot take.
-extern "C" int int4_matmul_plan(int M, int K, int N, int sms, int* mapping,
-                                int* splits, int* k_per_split,
+// The launch plan of E experts' [M, K] @ [K, N] calls (N unpacked; E = 1:
+// one 2-D call) on a card with `sms` SMs: *mapping is 0 for the GEMV-shaped
+// decode kernel (M <= 8) and 1 for the tensor-core kernel; K is split into
+// *splits ranges of *k_per_split rows; *scratch is the fp32 scratch
+// (elements) the launch needs. Returns 0, or cudaErrorInvalidValue for a
+// shape it cannot take.
+extern "C" int int4_matmul_plan(int E, int M, int K, int N, int sms,
+                                int* mapping, int* splits, int* k_per_split,
                                 long long* scratch) {
-  if (M <= 0 || K <= 0 || N <= 0 || (N % 2) != 0 || sms <= 0 ||
-      (M > kMaxM && (M + mma_rows(M) - 1) / mma_rows(M) > 65535))
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || (N % 2) != 0 || sms <= 0 ||
+      expert_blocks(E, M) > 65535)
     return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)E * output_tiles(M, N);
   if (M <= kMaxM)
-    plan_split_k(output_tiles(M, N), K, sms, kGvStep, kBlocksPerSm,
-                 kMinSplitRows, splits, k_per_split);
+    plan_split_k(tiles, K, sms, kGvStep, kBlocksPerSm, kMinSplitRows,
+                 splits, k_per_split);
   else
-    plan_split_k(output_tiles(M, N), K, sms, mvm::kBK, kMmaBlocksPerSm,
-                 kMmaMinSplitRows, splits, k_per_split);
+    plan_split_k(tiles, K, sms, mvm::kBK, kMmaBlocksPerSm, kMmaMinSplitRows,
+                 splits, k_per_split);
   *mapping = M <= kMaxM ? kGemv : kMma;
-  *scratch = *splits > 1 ? (long long)*splits * M * N : 0;
+  *scratch = *splits > 1 ? (long long)E * *splits * M * N : 0;
   return 0;
 }
 
-// Runs the mapping that M selects (see int4_matmul_plan) with K split into
-// `splits` ranges of `k_per_split` rows; N is the unpacked width (even).
-// With splits > 1, `scratch` holds splits * M * N fp32 partial sums (else
-// null). Returns the launches' first error (0 on success).
+// Runs the mapping that M selects (see int4_matmul_plan) over E experts (x
+// [E, M, K], w_packed [E, K, N/2], scale [E, N], out [E, M, N]; E = 1 is
+// the 2-D call) with K split into `splits` ranges of `k_per_split` rows; N
+// is the unpacked width (even). With splits > 1, `scratch` holds E * splits
+// * M * N fp32 partial sums (else null). Returns the launches' first error
+// (0 on success).
 extern "C" int int4_matmul_f32(const void* x, const void* w_packed,
                                const void* scale, void* out, void* scratch,
-                               int M, int K, int N, int splits,
+                               int E, int M, int K, int N, int splits,
                                int k_per_split, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || (N % 2) != 0 || splits < 1 ||
+  if (E <= 0 || expert_blocks(E, M) > 65535 ||
+      M <= 0 || K <= 0 || N <= 0 || (N % 2) != 0 || splits < 1 ||
       splits > 65535 || k_per_split <= 0 ||
       (long long)splits * k_per_split < K ||
       (long long)(splits - 1) * k_per_split >= K ||
@@ -429,7 +466,7 @@ extern "C" int int4_matmul_f32(const void* x, const void* w_packed,
   float* o = (float*)out;
   float* p = (float*)scratch;
   if (M <= kMaxM) {
-    dim3 grid((N + kGvCols - 1) / kGvCols, splits);
+    dim3 grid((N + kGvCols - 1) / kGvCols, splits, E);
     const bool vec =
         ((N / 2) % kGvBytes) == 0 && ((uintptr_t)w_packed % 4) == 0;
 #define INT4_GEMV(MM)                                                      \
@@ -449,7 +486,8 @@ extern "C" int int4_matmul_f32(const void* x, const void* w_packed,
 #undef INT4_GEMV
   } else {
     const int rows = mma_rows(M);
-    dim3 grid((N + mvm::kBN - 1) / mvm::kBN, (M + rows - 1) / rows, splits);
+    dim3 grid((N + mvm::kBN - 1) / mvm::kBN,
+              (unsigned)expert_blocks(E, M), splits);
     const int err =
         rows == 64 ? launch_mma_rows<64>(grid, s, xf, wb, sc, o, p, M, K, N,
                                          k_per_split)
@@ -458,10 +496,10 @@ extern "C" int int4_matmul_f32(const void* x, const void* w_packed,
     if (err) return err;
   }
   if (splits > 1) {
-    const size_t total = (size_t)M * N;
+    const size_t total = (size_t)E * M * N;
     const int threads = 256;
     int4_finish_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                         0, s>>>(p, sc, o, M, N, splits);
+                         0, s>>>(p, sc, o, E, M, N, splits);
   }
   return (int)cudaGetLastError();
 }

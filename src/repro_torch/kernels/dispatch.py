@@ -34,9 +34,12 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
   kernels have no backward, as in the reference; :func:`ssd` refuses an
   input that needs a gradient.
 
-The kernels are strictly 2-D, so ``[B, S, K]`` activations are flattened
-here. Each kernel's library picks its own tiling for the card from the
-shape; :func:`select_blocks` reports it.
+The MVM kernels take one [M, K] @ [K, N] product, or a batch of E
+experts' products in one launch, so ``[B, S, K]`` activations are
+flattened here, and a MoE site's ``[E, ..., K]`` activations against
+``[E, K, N]`` weights keep their expert axis. Each kernel's library picks
+its own tiling for the card from the shape; :func:`select_blocks` reports
+it.
 """
 
 from __future__ import annotations
@@ -59,23 +62,30 @@ def use_fused(cfg) -> bool:
 
 
 def select_blocks(m: int, k: int, n: int, *, kernel: str = "analog_matmul",
-                  device=None, in_bits: int = 8) -> _launch.Plan:
+                  device=None, in_bits: int = 8,
+                  experts: int = 1) -> _launch.Plan:
     """The plan ``kernel`` (``"analog_matmul"`` or ``"int4_matmul"``) runs
-    for an [M, K] @ [K, N] call on the card: the GEMV-shaped decode mapping
-    for M ≤ 8, else the tensor-core ``mma`` one (``analog_matmul`` with
-    ``in_bits`` > 12: the CUDA-core ``tiled`` one), the split of K over
-    blocks and the scratch. The CUDA library computes it (this card's SM
-    count), so it needs the card."""
+    for an [M, K] @ [K, N] call on the card (``experts`` of them in one
+    launch): the GEMV-shaped decode mapping for M ≤ 8, else the
+    tensor-core ``mma`` one (``analog_matmul`` with ``in_bits`` > 12: the
+    CUDA-core ``tiled`` one), the split of K over blocks and the scratch.
+    The CUDA library computes it (this card's SM count), so it needs the
+    card."""
     index = torch.device("cuda" if device is None else device).index
     if index is None:
         index = torch.cuda.current_device()
     return _launch.plan(kernel, m, k, n, index,
-                        in_bits if kernel == "analog_matmul" else None)
+                        in_bits if kernel == "analog_matmul" else None,
+                        experts)
 
 
-def flatten_batch(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
-    """[..., K] → (contiguous [M, K], leading shape)."""
+def flatten_batch(x: torch.Tensor, experts: int = 0
+                  ) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """[..., K] → (contiguous [M, K], leading shape); with ``experts`` E,
+    [E, ..., K] → (contiguous [E, M, K], leading shape)."""
     lead = tuple(x.shape[:-1])
+    if experts:
+        return x.reshape(experts, -1, x.shape[-1]).contiguous(), lead
     return x.reshape(-1, x.shape[-1]).contiguous(), lead
 
 
@@ -88,14 +98,19 @@ def analog_mvm(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
     Exactly one of ``bound`` [N] (an explicit ADC bound, as a calibration
     on other weights gives) and ``lam`` (the bound ``lam · β ·
     max|w_eff[:, n]|`` folded into the kernel's pass over ``w_eff``).
-    ``col_off`` [N] is the optional per-column pre-ADC offset. No autograd
-    rule; see :func:`fused_analog_mvm`.
+    ``col_off`` [N] is the optional per-column pre-ADC offset. A batched
+    (MoE) site has ``w_eff`` [E, K, N], ``x`` [E, ..., K] and ``bound`` /
+    ``col_off`` [E, N]: one launch for all experts. No autograd rule; see
+    :func:`fused_analog_mvm`.
     """
-    x2, lead = flatten_batch(x.float())
+    experts = w_eff.shape[0] if w_eff.dim() == 3 else 0
+    x2, lead = flatten_batch(x.float(), experts)
     n = w_eff.shape[-1]
     y = analog_matmul(x2, w_eff.float().contiguous(), beta.float(),
                       None if bound is None else bound.float().contiguous(),
-                      col_off, lam=lam, in_bits=in_bits, out_bits=out_bits)
+                      None if col_off is None
+                      else col_off.float().contiguous(),
+                      lam=lam, in_bits=in_bits, out_bits=out_bits)
     return y.reshape(*lead, n)
 
 
@@ -142,11 +157,17 @@ def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
     the (detached) bound. ``lam`` is refused with a ``w_noise``: the fold
     would take the bound from ``w + w_noise``, where the reference takes
     it from the noise-free ``w``, so training on ``w + w_noise`` passes
-    the explicit bound ``ref.adc_bound(w, beta, lam)``."""
+    the explicit bound ``ref.adc_bound(w, beta, lam)``. Batched expert
+    weights ``[E, K, N]`` run forward only."""
     if lam is not None and w_noise is not None:
         raise ValueError("fused_analog_mvm cannot fold the ADC bound from "
                          "noisy weights: pass the bound of the noise-free "
                          "weights (ref.adc_bound(w, beta, lam)) with w_noise")
+    if w.dim() > 2 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, beta)):
+        raise NotImplementedError(
+            "a batched (MoE expert) fused site has no backward yet: the STE "
+            "backward of the batched launch is ROADMAP section 1, item 6")
     if w_noise is not None:
         w_noise = w_noise.detach()
     if bound is not None:
@@ -166,19 +187,24 @@ def int4_mvm_packed(x_q: torch.Tensor, w_packed: torch.Tensor,
 
     ``x_q`` is already DAC-quantized; ``w_packed`` [K, N//2] holds two int4
     nibbles per byte (``core.analog.pack_int4_weights``); ``scale`` the
-    per-column dequant scales [N]. The caller applies output quantization.
+    per-column dequant scales [N] (any shape of N elements). A batched
+    (MoE) site has ``w_packed`` [E, K, N//2], ``x_q`` [E, ..., K] and
+    ``scale`` of E·N elements: one launch for all experts. The caller
+    applies output quantization.
     """
-    x2, lead = flatten_batch(x_q.float())
+    experts = w_packed.shape[0] if w_packed.dim() == 3 else 0
+    x2, lead = flatten_batch(x_q.float(), experts)
     n = w_packed.shape[-1] * 2
     y = int4_matmul(x2, w_packed.contiguous(),
-                    scale.reshape(-1).float().contiguous())
+                    scale.reshape(tuple(w_packed.shape[:-2]) + (n,))
+                    .float().contiguous())
     return y.reshape(*lead, n)
 
 
 def int4_mvm(x_q: torch.Tensor, w_int: torch.Tensor,
              scale: torch.Tensor) -> torch.Tensor:
     """:func:`int4_mvm_packed` with on-the-fly packing of the int8-carrier
-    RTN output ``w_int`` [K, N] (N even)."""
+    RTN output ``w_int`` [K, N] or [E, K, N] (N even)."""
     return int4_mvm_packed(x_q, ref.pack_int4(w_int), scale)
 
 

@@ -55,8 +55,9 @@ def round_up(v: int, mult: int) -> int:
 
 def adc_bound(w_eff: torch.Tensor, beta: torch.Tensor,
               lam: float) -> torch.Tensor:
-    """Per-column ADC bound of eq. (2): ``lam * beta * max|W[:, i]|`` [N]."""
-    col_max = torch.amax(torch.abs(w_eff.float()), dim=0)
+    """Per-column ADC bound of eq. (2): ``lam * beta * max|W[:, i]|`` [N],
+    or [E, N] for batched experts ``[E, K, N]`` (each over its own K)."""
+    col_max = torch.amax(torch.abs(w_eff.float()), dim=-2)
     return lam * beta.float() * col_max
 
 
@@ -79,7 +80,9 @@ def analog_matmul_ref(x: torch.Tensor, w_eff: torch.Tensor,
     input range (eq. 1), bound [N] per-column ADC bound (eq. 2), or None
     with ``lam`` for :func:`adc_bound` of ``w_eff`` (exactly one of the
     two), col_off [N] optional per-column offset added before the ADC.
-    Returns [M, N] in ``x.dtype``.
+    Returns [M, N] in ``x.dtype``. Batched experts: x [E, M, K], w_eff
+    [E, K, N], bound and col_off [E, N], one shared beta; each expert is
+    the 2-D function on its own slices (the reference's vmap).
     """
     check_one_bound(bound, lam)
     if bound is None:
@@ -91,20 +94,22 @@ def analog_matmul_ref(x: torch.Tensor, w_eff: torch.Tensor,
 
     y = torch.matmul(x_q, w_eff.float())
     if col_off is not None:
-        y = y + col_off.float()[None, :]
+        y = y + col_off.float()[..., None, :]
 
     qo = qmax(out_bits)
-    b = torch.clamp_min(bound.float(), 1e-8)[None, :]
+    b = torch.clamp_min(bound.float(), 1e-8)[..., None, :]
     inv = rdiv(qo, b) * ADC_TIE_BREAK
     y_q = clip(div(b, qo) * torch.round(y * inv), -b, b)
     return y_q.to(x.dtype)
 
 
 def unpack_int4(w_packed: torch.Tensor) -> torch.Tensor:
-    """[K, N//2] uint8 → [K, N] int32 in [-8, 7] (low nibble = column 2j)."""
+    """[..., K, N//2] uint8 → [..., K, N] int32 in [-8, 7] (low nibble =
+    column 2j)."""
     lo = (w_packed & 0x0F).to(torch.int32) - 8
     hi = (w_packed >> 4).to(torch.int32) - 8
-    return torch.stack([lo, hi], dim=-1).reshape(w_packed.shape[0], -1)
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *w_packed.shape[:-1], -1)
 
 
 def int4_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
@@ -113,15 +118,17 @@ def int4_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
 
     w_packed [K, N//2] uint8 holds column 2j in the low nibble and 2j+1 in
     the high nibble, each storing ``int4 + 8``; scale [N] per-column.
+    Batched experts: x [E, M, K], w_packed [E, K, N//2], scale [E, N].
     """
-    w = unpack_int4(w_packed).float() * scale.float()[None, :]
+    w = unpack_int4(w_packed).float() * scale.float()[..., None, :]
     return torch.matmul(x.float(), w).to(x.dtype)
 
 
 def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
-    """Pack int4 values in an int8 carrier ([K, N], N even) to [K, N//2]."""
+    """Pack int4 values in an int8 carrier ([..., K, N], N even) to
+    [..., K, N//2]."""
     u = (w_int.to(torch.int32) + 8).to(torch.uint8)
-    return u[:, 0::2] | (u[:, 1::2] << 4)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
 
 
 # ---------------------------------------------------------------------------

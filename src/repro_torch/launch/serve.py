@@ -26,6 +26,10 @@ and the engine says why:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --arch mamba2-130m
 
+``--arch qwen3-moe-30b-a3b`` (or ``dbrx-132b``) serves the moe family:
+each expert site is one launch of the deployment's MVM kernel over all
+experts.
+
 The prefix cache, speculative decoding, drift, the open-loop front door
 and tensor parallelism of the JAX package's launcher are not ported yet.
 """

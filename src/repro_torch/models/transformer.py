@@ -1,4 +1,4 @@
-"""Model assembly, dense and ssm families: a pre-norm decoder LM.
+"""Model assembly, dense, moe and ssm families: a pre-norm decoder LM.
 
 Parameters keep the reference's layout: the layer stack is scan-stacked,
 every leaf of ``params["blocks"]`` carries a leading ``[L]`` axis, and the
@@ -8,9 +8,12 @@ so :func:`apply_blocks` is a loop over ``l`` over views of each leaf
 ``remat`` each layer runs under ``torch.utils.checkpoint`` (non-reentrant)
 and is recomputed in the backward; its training noise is keyed by (key,
 layer, site), so the recomputed layer draws the noise its forward drew.
-The dense family's layer is attention + MLP; the ssm family's
-(mamba2-130m) is one Mamba-2 mixer with no FFN. The moe / hybrid / vlm /
-audio families come with a later slice and are refused here.
+The dense family's layer is attention + MLP, the moe family's
+(qwen3-moe-30b-a3b, dbrx-132b) attention + a routed MoE FFN
+(``models/moe.py``; eval only, its training waits for the batched
+launch's STE backward); the ssm family's (mamba2-130m) is one Mamba-2
+mixer with no FFN. The hybrid, vlm and audio families come with a later
+slice and are refused here.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MoE
 
-_PORTED_FAMILIES = ("dense", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _require_ported(cfg) -> None:
@@ -33,7 +37,8 @@ def _require_ported(cfg) -> None:
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (this port runs the "
-            "dense and ssm families; moe, hybrid, vlm and audio come later)")
+            "dense, moe and ssm families; hybrid, vlm and audio come later: "
+            "ROADMAP section 1, item 7)")
 
 
 def tree_index(tree, i: int):
@@ -64,35 +69,63 @@ def tree_stack(trees: list):
 # per-layer blocks
 # ---------------------------------------------------------------------------
 
+def _ffn_kind(cfg) -> str:
+    """The FFN of the family's attention blocks: ``"moe"`` or ``"dense"``."""
+    return "moe" if cfg.family == "moe" else "dense"
+
+
+def _init_ffn(gen: torch.Generator, cfg, kind: str, dtype=torch.float32,
+              device=None) -> dict:
+    """Init the FFN of one block: dense MLP or MoE by ``kind``."""
+    if kind == "moe":
+        return MoE.init_moe(gen, cfg, dtype, device)
+    return L.init_mlp(gen, cfg, dtype, device)
+
+
+def _ffn_labels(p: dict, kind: str) -> dict:
+    """Labels for one block FFN, dispatching on ``kind``."""
+    return MoE.moe_labels(p) if kind == "moe" else L.mlp_labels(p)
+
+
+def _apply_ffn(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
+               ctx: AnalogCtx, kind: str):
+    """Apply one block FFN (dense or MoE). Returns (y, stats)."""
+    if kind == "moe":
+        return MoE.moe(p, x, cfg, acfg, ctx)
+    return L.mlp(p, x, cfg, acfg, ctx)
+
+
 def init_attn_layer(gen: torch.Generator, cfg, dtype=torch.float32,
-                    device=None) -> dict:
+                    device=None, ffn_kind: str = "dense") -> dict:
     """Init one pre-norm attention block (ln1/attn/ln2/ffn)."""
     return {"ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
             "attn": L.init_attention(gen, cfg, dtype, device),
             "ln2": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "ffn": L.init_mlp(gen, cfg, dtype, device)}
+            "ffn": _init_ffn(gen, cfg, ffn_kind, dtype, device)}
 
 
-def attn_layer_labels(p: dict) -> dict:
+def attn_layer_labels(p: dict, ffn_kind: str = "dense") -> dict:
     """Labels mirroring ``init_attn_layer`` structure."""
     return {"ln1": L.norm_labels(p["ln1"]),
             "attn": L.attention_labels(p["attn"]),
             "ln2": L.norm_labels(p["ln2"]),
-            "ffn": L.mlp_labels(p["ffn"])}
+            "ffn": _ffn_labels(p["ffn"], ffn_kind)}
 
 
 def apply_attn_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
                      ctx: AnalogCtx, positions: torch.Tensor, cache=None,
-                     seq_mask: torch.Tensor | None = None):
+                     seq_mask: torch.Tensor | None = None,
+                     ffn_kind: str = "dense"):
     """One attention block with residuals. Returns (x, stats, cache).
     ``seq_mask`` [B, S] goes to the slot cache layouts (see
-    ``layers.attention``)."""
+    ``layers.attention``); a MoE FFN routes every column of x, masked ones
+    too, as the reference does."""
     h, st_a, new_cache = L.attention(
         p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg, acfg, ctx,
         positions, cache, seq_mask)
     x = x + h
-    h, st_f = L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, cfg.norm), cfg, acfg,
-                    ctx)
+    h, st_f = _apply_ffn(p["ffn"], L.apply_norm(p["ln2"], x, cfg.norm), cfg,
+                         acfg, ctx, ffn_kind)
     return x + h, {"attn": st_a, "ffn": st_f}, new_cache
 
 
@@ -127,9 +160,13 @@ def init_blocks(gen: torch.Generator, cfg, dtype=torch.float32,
                 device=None) -> dict:
     """Init the layer stack: every leaf stacked to ``[L, ...]``."""
     _require_ported(cfg)
-    init = init_mamba_layer if cfg.family == "ssm" else init_attn_layer
-    return tree_stack([init(gen, cfg, dtype, device)
-                       for _ in range(cfg.num_layers)])
+    if cfg.family == "ssm":
+        layers = [init_mamba_layer(gen, cfg, dtype, device)
+                  for _ in range(cfg.num_layers)]
+    else:
+        layers = [init_attn_layer(gen, cfg, dtype, device, _ffn_kind(cfg))
+                  for _ in range(cfg.num_layers)]
+    return tree_stack(layers)
 
 
 def blocks_labels(params_blocks: dict, cfg) -> dict:
@@ -137,7 +174,7 @@ def blocks_labels(params_blocks: dict, cfg) -> dict:
     _require_ported(cfg)
     if cfg.family == "ssm":
         return mamba_layer_labels(params_blocks)
-    return attn_layer_labels(params_blocks)
+    return attn_layer_labels(params_blocks, _ffn_kind(cfg))
 
 
 def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
@@ -161,6 +198,7 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     """
     _require_ported(cfg)
     ssm = cfg.family == "ssm"
+    ffn_kind = _ffn_kind(cfg)
     n_layers = next(iter(params_blocks["ln1"].values())).shape[0]
     slots = caches is not None and "start" in caches
     if remat and caches is not None:
@@ -179,7 +217,7 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                 if ssm:
                     return apply_mamba_layer(p_l, x, cfg, acfg, ctx_l)[:2]
                 return apply_attn_layer(p_l, x, cfg, acfg, ctx_l,
-                                        positions)[:2]
+                                        positions, ffn_kind=ffn_kind)[:2]
 
             # no default generator draws here (the noise has its own key),
             # so there is no RNG state to stash and restore
@@ -194,7 +232,7 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                     caches[name][i].copy_(nc[name])
         else:
             x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx_l, positions,
-                                         cache_l, seq_mask)
+                                         cache_l, seq_mask, ffn_kind)
             if slots:
                 new_pos.append(nc["pos"])
         stats.append(st)

@@ -32,6 +32,10 @@ mixed-length traffic instead:
   hand-written ``ssd_scan`` kernel from the slot's state, every decode
   step the one-token recurrence. ``paged=True`` allocates no pool there
   and records why in ``gating_reasons``, as the reference does.
+* **moe stacks** (qwen3-moe-30b-a3b, dbrx-132b) share the dense KV
+  layouts; their routing is per row (one sequence is one routed group),
+  and every column of a chunk, left pads too, competes for its row's
+  expert capacity, as in the reference.
 * **Per-request sampling and stop conditions** — temperature, top-k,
   top-p and ``greedy_first`` ride along as per-row tensors
   (``sampling.sample_logits_batched``). Randomness is counter-based: the

@@ -6,12 +6,15 @@
   paper's method, ``"qat"`` LLM-QAT (SI8-W4).
 * :func:`pretrain_recipe`: plain CE pre-training (toy teachers, the App. A
   comparison).
+* :func:`spinquant_ptq`: SpinQuant-lite PTQ, the paper's SI8-W4 / DI8-W4
+  baseline: fold a random-Hadamard rotation into the residual stream,
+  calibrate static input ranges on a held-out batch; the weights are
+  quantized RTN at eval time (no training).
 
-Both run where the parameters live, or on ``device`` when it is given. A
-resumed run also restores the loader's position from the checkpoint, so it
-consumes the batches the interrupted run would have. The reference's PTQ
-recipe (``calibrate_input_ranges``, ``spinquant_ptq``) comes with
-``core/rotations.py`` (ROADMAP section 1).
+The training recipes run where the parameters live, or on ``device`` when
+it is given. A resumed run also restores the loader's position from the
+checkpoint, so it consumes the batches the interrupted run would have. The
+PTQ recipe runs where the parameters live.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.analog import AnalogConfig
+from repro_torch.core import rotations as rot
+from repro_torch.core.analog import AnalogConfig, AnalogCtx
 from repro_torch.data.loader import TokenLoader
 from repro_torch.data.synthetic import teacher_logits
+from repro_torch.models.model import apply as model_apply
 from repro_torch.optim.schedule import polynomial_with_warmup
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step)
@@ -124,3 +129,111 @@ def pretrain_recipe(params, labels, cfg, tokens: np.ndarray, *,
     trainer = _run(params, labels, cfg, acfg, tcfg, loader, make_batch,
                    num_steps=num_steps, ckpt_dir=ckpt_dir, seed=seed)
     return trainer.params, trainer
+
+
+# ---------------------------------------------------------------------------
+# SpinQuant-lite PTQ
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def calibrate_input_ranges(params: dict, cfg, tokens: torch.Tensor,
+                           scale: float = 1.0) -> dict:
+    """Set every ``input_range`` to ``max(scale * max|x|, 1e-6)`` from one
+    calibration forward (``analog`` without training noise, the plain
+    path), broadcast to the range's shape: the PTQ static-range
+    calibration that the paper (§2) notes tends to do worse than trained
+    ranges. A stacked ``[L]`` statistic sets the ``[L, 1]`` ranges of its
+    layers; a MoE site's statistic is its experts' mean (``models.moe``).
+    Returns a new tree; the other leaves are shared."""
+    ctx = AnalogCtx(collect_stats=True)
+    _, stats, _ = model_apply(params, cfg,
+                              AnalogConfig(mode="analog", train_noise=False),
+                              ctx, {"tokens": tokens})
+
+    def walk(p, s):
+        out = {}
+        for k, v in p.items():
+            if (k == "input_range" and isinstance(s, dict)
+                    and "x_absmax" in s):
+                beta = torch.clamp_min(scale * s["x_absmax"].to(v.device),
+                                       1e-6)
+                out[k] = torch.broadcast_to(beta[..., None], v.shape
+                                            ).to(v.dtype).clone()
+            elif isinstance(v, dict):
+                out[k] = walk(v, s.get(k) if isinstance(s, dict) else None)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, stats)
+
+
+_READERS = ("qkv", "q", "k", "v", "gate_up", "up", "in_proj", "lm_head",
+            "router")
+_WRITERS = ("o", "down", "out_proj", "projector")
+
+
+def _rotate_residual_stream(params: dict, cfg, gen: torch.Generator | None,
+                            *, r: torch.Tensor | None = None):
+    """Fold one random-Hadamard rotation ``R`` (``rotations.
+    random_hadamard`` from ``gen``, or ``r`` when given) into every
+    residual writer and reader. Returns ``(params, R)``.
+
+    Writers (out-side, ``W R``): the embedding rows, attn ``o``, mlp/moe
+    ``down``, mamba ``out_proj``, the vlm projector; a writer's bias is
+    rotated too. Readers (in-side, ``Rᵀ W``): attn ``qkv``, mlp/moe
+    ``gate_up`` / ``up``, mamba ``in_proj``, ``lm_head`` and the routers.
+    A site is matched by its kernel's ``d_model``-wide side, over any
+    leading (layer, expert) dims. As in the reference, the norm scales are
+    not folded here (see :func:`rotations.fold_norm_scales`).
+    """
+    d = cfg.d_model
+    if r is None:
+        r = rot.random_hadamard(gen, d, params["embed"]["tokens"].device)
+
+    def site_of(k, v):
+        kern = v["kernel"]
+        if k in _READERS and kern.shape[-2] == d:
+            return rot.fold_rotation_into_linear(v, r, "in")
+        if k in _WRITERS and kern.shape[-1] == d:
+            return rot.fold_rotation_into_linear(v, r, "out")
+        return v
+
+    def walk(node, path=()):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict) and "kernel" in v:
+                site = site_of(k, v)
+                out[k] = {kk: (walk(vv, path + (k, kk))
+                               if isinstance(vv, dict) else vv)
+                          for kk, vv in site.items()}
+            elif k in ("tokens", "codebooks") and path == ("embed",):
+                with rot.full_fp32():
+                    out[k] = (v.float() @ r).to(v.dtype)
+            elif isinstance(v, dict):
+                out[k] = walk(v, path + (k,))
+            else:
+                out[k] = v
+        return out
+
+    return walk(params), r
+
+
+def _apply_rot(kern: torch.Tensor, r: torch.Tensor, side: str
+               ) -> torch.Tensor:
+    """A kernel ``[..., d_in, d_out]`` times a rotation on its input side
+    (``Rᵀ W``) or output side (``W R``), over any leading dims, in full
+    fp32 (:func:`rotations.fold_rotation_into_linear` on a bare kernel)."""
+    return rot.fold_rotation_into_linear({"kernel": kern}, r, side)["kernel"]
+
+
+def spinquant_ptq(params: dict, cfg, calib_tokens: torch.Tensor,
+                  gen: torch.Generator | None, *, rotate: bool = True,
+                  r: torch.Tensor | None = None) -> dict:
+    """SpinQuant-lite: the rotation (from ``gen``, or ``r``), then the
+    static-range calibration on ``calib_tokens``. Returns params to
+    evaluate with ``AnalogConfig(mode="qat" | "di8", weight_bits=4)``
+    (fake-quant at eval time; no training)."""
+    if rotate:
+        params, _ = _rotate_residual_stream(params, cfg, gen, r=r)
+    return calibrate_input_ranges(params, cfg, calib_tokens)

@@ -479,9 +479,9 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
 
 def test_chip_smoke_line_launches_counts_every_main_path_run():
     """Each kernel's ``launches_by_path`` holds its count from every
-    static, continuous, eval, best-of-n and training run, each run's
-    counts under one path, and nothing for a kernel that a run did not
-    launch."""
+    static, continuous, eval, best-of-n, training and PTQ-eval run (the
+    moe model's static and continuous runs too), each run's counts under
+    one path, and nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -522,7 +522,18 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "best_of_n": {arch: {"launches": {"analog_matmul": next(seen),
                                           **{n: next(seen) for n in attn}}}
                       for arch in (cs.ARCH, cs.PHI3)},
-        "train": {"launches": {"analog_matmul": next(seen)}}}
+        "train": {"launches": {"analog_matmul": next(seen)}},
+        "ptq": {arch: {"analog_hw": {"launches": {
+                           "analog_matmul": next(seen)}},
+                       "digital_int4": {"launches": {
+                           "int4_matmul": next(seen)}}}
+                for arch in (cs.ARCH, cs.PHI3)},
+        "moe": {"analog": {"launches": next(seen)},
+                "int4": {"launches": next(seen)},
+                "engine": {"analog_hw/kv16": {"launches": counts(
+                               "analog_matmul", *attn)},
+                           "digital_int4/kv16": {"launches": counts(
+                               "int4_matmul", *attn)}}}}
     total = next(seen) - 1
     out = cs.line_launches(results)
     assert list(out) == names
@@ -533,15 +544,26 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "static/analog_hw", f"static/{cs.PHI3}/analog_hw",
         f"static/{cs.MAMBA}/analog_hw", "continuous/analog_hw/kv16",
         "continuous/analog_hw/kv8", f"continuous/{cs.MAMBA}/analog_hw",
-        f"train/{cs.ARCH}/analog",
+        f"train/{cs.ARCH}/analog", f"static/{cs.MOE}/analog_hw",
+        f"continuous/{cs.MOE}/analog_hw/kv16",
         *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
-                          ("best_of_n", "analog_hw")))}
+                          ("best_of_n", "analog_hw"), ("ptq", "analog_hw")))}
+    assert set(out["int4_matmul"]) == {
+        "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
+        f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
+        f"continuous/{cs.MAMBA}/digital_int4",
+        f"static/{cs.MOE}/digital_int4",
+        f"continuous/{cs.MOE}/digital_int4/kv16",
+        *(f"{kind}/{arch}/digital_int4" for arch in (cs.ARCH, cs.PHI3)
+          for kind in ("eval", "ptq"))}
     assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
     assert set(out["paged_flash_decode"]) == {
         "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
         "continuous/analog_hw/kv8", f"best_of_n/{cs.ARCH}/analog_hw",
-        f"best_of_n/{cs.PHI3}/analog_hw"}
+        f"best_of_n/{cs.PHI3}/analog_hw",
+        f"continuous/{cs.MOE}/analog_hw/kv16",
+        f"continuous/{cs.MOE}/digital_int4/kv16"}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")}

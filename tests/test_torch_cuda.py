@@ -10,7 +10,9 @@ MVM kernels against their plain versions at small ragged shapes, where the
 edges of M, N and K are masked: the decode GEMV at M = 1..8, the
 tensor-core mapping at M from 9 to 130 on ragged and misaligned rows (N %
 4 != 0, odd N / 2, K % 32 != 0, base pointers off 16-byte alignment), the
-CUDA-core tiled mapping at a 16-bit DAC, the folded ADC bound bit for bit
+CUDA-core tiled mapping at a 16-bit DAC, all three with a leading expert
+dimension in one launch (a MoE site, qwen3-moe-30b-a3b's E = 128 among
+them), the folded ADC bound bit for bit
 against the explicit one, every MVM launch bitwise the same run to run
 for one and several K splits, and the training form of
 ``dispatch.fused_analog_mvm`` (the kernel forward on noisy weights against
@@ -288,10 +290,88 @@ def test_int4_matmul_on_misaligned_rows(card, m):
     assert torch.equal(y, k_int4.int4_matmul(x, packed, scale))
 
 
+# batched experts (a MoE site, one launch): (E, M, K, N, in_bits) over the
+# GEMV (one split and several), the mma mapping (ragged, several M tiles)
+# and the tiled one; qwen3-moe-30b-a3b's gate_up and down at E = 128
+BATCHED = [(3, 4, 300, 258, 8), (2, 8, 4096, 96, 8), (128, 4, 2048, 1536, 8),
+           (128, 8, 768, 2048, 8), (3, 37, 515, 257, 8),
+           (2, 130, 300, 66, 8), (4, 64, 2048, 384, 8), (3, 9, 300, 258, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n,bits", BATCHED, ids=str)
+def test_batched_analog_matmul_matches_plain_version(card, e, m, k, n, bits):
+    """E experts in one launch: each expert's slice against the plain
+    version of its own [M, K] @ [K, N] (near-tie flips only), the bound
+    folded per expert bit for bit equal to the explicit [E, N] one, and
+    the same bits run to run."""
+    g = torch.Generator(device=card).manual_seed(e * m + k + n)
+    x = torch.randn((e, m, k), generator=g, device=card)
+    w = torch.randn((e, k, n), generator=g, device=card) * k ** -0.5
+    w[1:] *= torch.linspace(0.5, 2.0, e - 1, device=card)[:, None, None]
+    beta = torch.full((1,), 2.5, device=card)
+    bound = ref.adc_bound(w, beta, 12.0)
+    off = 0.1 * bound * torch.randn((e, n), generator=g, device=card)
+    plan = dispatch.select_blocks(m, k, n, in_bits=bits, experts=e)
+    assert plan.mapping == ("gemv" if m <= 8 else
+                            "mma" if bits <= 12 else "tiled")
+    before = k_analog.launches
+    y = k_analog.analog_matmul(x, w, beta, None, off, lam=12.0,
+                               in_bits=bits)
+    assert k_analog.launches == before + 1 and y.shape == (e, m, n)
+    assert torch.equal(y, k_analog.analog_matmul(x, w, beta, bound, off,
+                                                 in_bits=bits))
+    assert torch.equal(y, k_analog.analog_matmul(x, w, beta, None, off,
+                                                 lam=12.0, in_bits=bits))
+    for i in range(e):
+        _check_analog(y[i], x[i], w[i], beta, bound[i], off[i], bits, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", [(3, 4, 300, 258), (2, 8, 4096, 96),
+                                     (128, 4, 2048, 1536),
+                                     (128, 8, 768, 2048), (3, 37, 515, 200),
+                                     (2, 130, 260, 384)], ids=str)
+def test_batched_int4_matmul_matches_plain_version(card, e, m, k, n):
+    g = torch.Generator(device=card).manual_seed(e + m * k + n)
+    w_int = torch.randint(-7, 8, (e, k, n), generator=g, device=card,
+                          dtype=torch.int8)
+    packed = ref.pack_int4(w_int)
+    scale = (torch.rand((e, n), generator=g, device=card) + 0.5) * 0.01
+    x = torch.randn((e, m, k), generator=g, device=card)
+    before = k_int4.launches
+    y = k_int4.int4_matmul(x, packed, scale)
+    assert k_int4.launches == before + 1 and y.shape == (e, m, n)
+    assert torch.equal(y, k_int4.int4_matmul(x, packed, scale))
+    y_ref = ref.int4_matmul_ref(x, packed, scale)
+    w_deq = w_int.float() * scale[:, None, :]
+    assert ((y - y_ref).abs() <= k * U32 * (x.abs() @ w_deq.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["analog_matmul", "int4_matmul"])
+def test_batched_plans_spread_the_experts_over_the_card(card, kernel):
+    """A batched plan is keyed on (E, M, K, N): the split of K counts every
+    expert's tiles (so it never grows with E), the scratch grows by E, and
+    one expert plans as the 2-D call."""
+    for m, k, n in [(4, 8192, 128), (64, 4096, 256)]:
+        one = dispatch.select_blocks(m, k, n, kernel=kernel)
+        assert dispatch.select_blocks(m, k, n, kernel=kernel,
+                                      experts=1) == one
+        few = dispatch.select_blocks(m, k, n, kernel=kernel, experts=2)
+        many = dispatch.select_blocks(m, k, n, kernel=kernel, experts=128)
+        assert one.splits >= few.splits >= many.splits >= 1
+        if few.splits == one.splits and one.splits > 1:
+            assert few.scratch == 2 * one.scratch
+    with pytest.raises(ValueError):
+        dispatch.select_blocks(4, 64, 64, kernel=kernel, experts=70000)
+
+
 # (B, H, KV, hd, bs, NB): GQA at llama-3.2-1b's head shape, MHA at
-# phi-3-mini-4k's, a tiny one, and hd 128 (over 48 KB of shared memory)
-PAGED = [(3, 32, 8, 64, 16, 9), (4, 32, 32, 96, 8, 7), (2, 4, 2, 16, 4, 11),
-         (2, 16, 2, 128, 16, 5)]
+# phi-3-mini-4k's, a GQA group of 8 at qwen3-moe-30b-a3b's, a tiny one, and
+# hd 128 (over 48 KB of shared memory)
+PAGED = [(3, 32, 8, 64, 16, 9), (4, 32, 32, 96, 8, 7), (3, 32, 4, 64, 16, 9),
+         (2, 4, 2, 16, 4, 11), (2, 16, 2, 128, 16, 5)]
 POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8}
 
 
