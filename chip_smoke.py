@@ -20,7 +20,14 @@ Phases, in order; any failure exits non-zero:
                sites (2048 -> 2560, 2048 -> 2048, 2048 -> 152064; M = 4,
                128, 8, 64) and its batched expert sites (gate_up 2048 ->
                1536, down 768 -> 2048, all 128 experts in one launch, at 4
-               and 8 rows per expert; timed beside ``torch.bmm``), held
+               and 8 rows per expert; timed beside ``torch.bmm``), at
+               jamba-v0.1-52b's (qkv 4096 -> 6144, o 4096 -> 4096, gate_up
+               4096 -> 28672, down 14336 -> 4096, the mixers' in_proj 4096
+               -> 16544 and out_proj 8192 -> 4096, the head 4096 -> 65536;
+               M = 4, 128, 8, 64; its 16-expert gate_up and down at 4, 20,
+               8 and 10 rows per expert), internvl2-2b's (M = 4 and 4 x
+               (256 + 32), its projector 1024 -> 2048 at 4 x 256) and
+               musicgen-medium's (M = 4, 128; its head 1536 -> 8192), held
                against its plain
                PyTorch version on the same
                inputs (analog: at most 1e-4 of the outputs may flip, each
@@ -45,9 +52,10 @@ Phases, in order; any failure exits non-zero:
                live contexts of 128, 512 and 2048 tokens with ragged
                ``start``, 1 and 4 splits; prefill for the engine's 2 compact
                rows x chunk 32 at the same contexts; fp32, bf16 and int8
-               pools; the same at phi-3-mini-4k's (MHA, H 32, KV 32, hd 96)
-               and qwen3-moe-30b-a3b's (GQA group 8, H 32, KV 4, hd 64)
-               at context 512. Each is held against its plain version and
+               pools; the same at phi-3-mini-4k's (MHA, H 32, KV 32, hd 96),
+               qwen3-moe-30b-a3b's (GQA group 8, H 32, KV 4, hd 64) and
+               jamba-v0.1-52b's (GQA group 4, H 32, KV 8, hd 128) at
+               context 512. Each is held against its plain version and
                timed beside it, beside gather ``kp[tbl]`` + PyTorch's
                ``scaled_dot_product_attention`` (yardstick only) and the
                card's bound, with the kernel's plan (warps of a thread
@@ -63,7 +71,9 @@ Phases, in order; any failure exits non-zero:
                13's L = 32 fp32 bound beside it), with the kernel's plan
                (chunk length, launches, blocks of each, scratch) and each
                pass's time from ``torch.profiler``; a one-launch scan is
-               also held and timed as the three passes.
+               also held and timed as the three passes. The same at
+               jamba-v0.1-52b's heads (H 128, P 64, N 16, G 1: the engine's
+               chunk and a 4 x 1024 prefill, both from a state).
 7. mamba    -- full-width mamba2-130m (24 layers, random weights from a seed)
                on the static engine: 4 prompts of 1024 tokens, 32 greedy
                tokens, for ``fp`` (``ssd_scan`` against the plain SSD on the
@@ -155,9 +165,27 @@ Phases, in order; any failure exits non-zero:
                reported, since a flip may move a token to another expert)
                and phase 8 (continuous engine, bf16 paged pool, both
                deployments); the expert launches' rows must be phase 2's.
-               Then reduced qwen3-moe and dbrx on the card against the CPU:
-               routing ids (near-ties counted), every site on the card's
-               inputs within the ADC contract, greedy tokens.
+               Each row's first greedy token that differs fused against
+               unfused is tied to its origin, an ADC flip at a near-tie
+               with equal inputs, routes moving only after it, or the
+               phase fails. Then reduced qwen3-moe and dbrx on the card
+               against the CPU: routing ids (near-ties counted), every site
+               on the card's inputs within the ADC contract, greedy tokens.
+17. families -- jamba-v0.1-52b (hybrid: d 4096, 16 experts top-2, Mamba-2
+               mixers of 128 heads with N 16, GQA 32 / 8 at hd 128) at full
+               width and one super-block of its four (8 of 32 layers, 13.3
+               B fp32 parameters, 53 GB: built, programmed and packed into
+               its one copy), phases 3 and 4 on the static engine (33 MVM
+               launches per forward, 7 ``ssd_scan`` per prefill, the token
+               attribution of phase 16) and phase 8's continuous engine
+               under ``analog_hw`` (33 MVM launches per forward, 7 scans
+               per chunk forward, 1 paged decode or prefill); then
+               internvl2-2b (vlm: 256 random patch embeddings through the
+               projector ahead of each prompt) and musicgen-medium (audio:
+               4 codebooks a token, a 4 x 2048 head) at full width on the
+               static engine, both deployments; each run's peak memory.
+               Then the three reduced models on the card against the CPU,
+               as phase 16's.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -360,6 +388,55 @@ PTQ_INV_TOKENS = (2, 64)
 PTQ_INV_TOL = 3e-3
 PTQ_ORTHO_TOL = 1e-5
 PTQ_RANGE_TOL = 1e-5
+# jamba-v0.1-52b, the hybrid family (phases 2, 5, 6 and 17): full width (d
+# 4096, attention 32 / 8 heads of hd 128 with rope_theta 0, Mamba-2 mixers
+# of 128 heads of P 64 with N 16 and one group, FFNs of d_ff 14336, MoE of
+# 16 experts top-2 at odd layers, padded vocab 65536) at one super-block of
+# its four: 8 of 32 layers, 13.3 B fp32 parameters (53 GB; the 4 MoE FFNs
+# 45 GB), where a second copy of a leaf does not fit the card. Its 2-D
+# sites (site, K, N, sites per forward), its batched expert sites (16
+# experts, one launch each) and the rows per expert its forwards give them
+# (a sequence of S tokens routes 2 S assignments into max(1, int(S * 2 *
+# 1.25 / 16)) slots per expert: static prefill 4 x 5, static decode 4 x 1,
+# the engine's decode 8 x 1 and chunk 2 x 5), its paged-attention heads (a
+# GQA group of 4 at hd 128) and its mixers per prefill or chunk forward
+JAMBA = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
+JAMBA_SITES = [("qkv", 4096, 6144, 1), ("o", 4096, 4096, 1),
+               ("gate_up", 4096, 28672, 4), ("down", 14336, 4096, 4),
+               ("in_proj", 4096, 16544, 7), ("out_proj", 8192, 4096, 7),
+               ("lm_head", 4096, 65536, 1)]
+JAMBA_EXPERTS = 16
+JAMBA_EXPERT_SITES = [("gate_up", 4096, 28672, 4), ("down", 14336, 4096, 4)]
+JAMBA_ROWS = {"static prefill": 20, "static decode": 4, "engine decode": 8,
+              "engine chunk": 10}
+JAMBA_PAGED = (32, 8, 128, PAGED_BS)
+JAMBA_PAGED_CONTEXT = 512
+JAMBA_MVM_PER_FORWARD = sum(s[3] for s in JAMBA_SITES + JAMBA_EXPERT_SITES)
+JAMBA_MIXERS = 7
+# ssd_scan at jamba's heads (phase 6): the engine's chunk from a state and
+# a long prefill from a state
+JAMBA_SSD_CASES = [("jamba chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
+                   ("jamba prefill", BATCH, 1024, True)]
+# internvl2-2b, the vlm family (phase 17): full width and depth (24 layers,
+# d 2048, 16 / 8 heads of hd 128, padded vocab 92672) with the projector
+# site of its 256 patch embeddings of width 1024, which the static prefill
+# prepends to the prompt: 4 x (256 + 32) rows, the projector's 4 x 256
+INTERNVL = "internvl2-2b"
+INTERNVL_SITES = [("qkv", 2048, 4096, 24), ("o", 2048, 2048, 24),
+                  ("gate_up", 2048, 16384, 24), ("down", 8192, 2048, 24),
+                  ("lm_head", 2048, 92672, 1)]
+INTERNVL_PROJECTOR = [("projector", 1024, 2048, 1)]
+VIT_TOKENS, VIT_DIM = 256, 1024
+M_VLM_PREFILL, M_PROJECTOR = BATCH * (VIT_TOKENS + PROMPT_LEN), BATCH * 256
+# musicgen-medium, the audio family (phase 17): full width and depth (48
+# layers, d 1536, MHA 24 heads, LayerNorm and GELU, 4 codebooks of 2048
+# codes summed at the input and predicted by one head of 4 x 2048)
+MUSICGEN = "musicgen-medium"
+MUSICGEN_SITES = [("qkv", 1536, 4608, 48), ("o", 1536, 1536, 48),
+                  ("up", 1536, 6144, 48), ("down", 6144, 1536, 48),
+                  ("lm_head", 1536, 8192, 1)]
+FAMILY_ARCHS = (JAMBA, INTERNVL, MUSICGEN)
 
 
 class SmokeFailure(RuntimeError):
@@ -711,8 +788,8 @@ def int4_case(torch, gen, m, k, n) -> dict:
             "max_err_over_bound": err_ratio}
 
 
-def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int
-             ) -> dict:
+def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
+             arch: str) -> dict:
     """One batched expert shape of ``kernel``: ``e`` experts' [M, K] @
     [K, N] in one launch, as a MoE site runs it. Each expert's slice is
     held against the plain version of its own product (analog: near-tie
@@ -789,7 +866,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int
     plain_ms = device_ms(torch, plain, 1, reps=5, rounds=3)
     bmm = device_ms(torch, lambda i: torch.bmm(x, w_mm), 1)
     del w_mm
-    return {"E": e, "M": m, "K": k, "N": n, "arch": MOE, "col_off": False,
+    return {"E": e, "M": m, "K": k, "N": n, "arch": arch, "col_off": False,
             "ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
             "matmul_ms": bmm, "library": "torch.bmm",
             **mvm_bounds(nbytes, e * m, k, n, plan.mapping),
@@ -819,7 +896,24 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(MAMBA, MAMBA_SITES, m, False, True) for m in (
                 M_ENGINE_DECODE, M_ENGINE_CHUNK)]
             + [(MOE, MOE_DENSE_SITES, m, False, True) for m in (
-                M_DECODE, M_PREFILL, M_ENGINE_DECODE, M_ENGINE_CHUNK)])
+                M_DECODE, M_PREFILL, M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(JAMBA, JAMBA_SITES, m, False, True) for m in (
+                M_DECODE, M_PREFILL)]
+            + [(JAMBA, JAMBA_SITES, m, False, False) for m in (
+                M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(INTERNVL, INTERNVL_SITES, m, False, True) for m in (
+                M_DECODE, M_VLM_PREFILL)]
+            + [(INTERNVL, INTERNVL_PROJECTOR, M_PROJECTOR, False, True)]
+            + [(MUSICGEN, MUSICGEN_SITES, m, False, True) for m in (
+                M_DECODE, M_PREFILL)])
+#: the batched expert sites of phase 2: (arch, experts, sites, the rows per
+#: expert that its forwards give them, the rows that digital_int4 runs)
+EXPERT_RUNS = [
+    (MOE, MOE_EXPERTS, MOE_SITES, sorted(set(MOE_ROWS.values())),
+     sorted(set(MOE_ROWS.values()))),
+    (JAMBA, JAMBA_EXPERTS, JAMBA_EXPERT_SITES,
+     sorted(set(JAMBA_ROWS.values())),
+     [JAMBA_ROWS["static decode"], JAMBA_ROWS["static prefill"]])]
 
 
 def phase_kernels(torch) -> dict:
@@ -867,21 +961,25 @@ def phase_kernels(torch) -> dict:
                   f"{r['mma_bound_ms']:.4f}), err/bound "
                   f"{r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
-    for site, k, n, _ in MOE_SITES:
-        for m in sorted(set(MOE_ROWS.values())):
-            for kernel in ("analog_matmul", "int4_matmul"):
-                r = moe_case(torch, gen, kernel, MOE_EXPERTS, m, k, n)
-                r["site"] = site
-                rows[kernel].append(r)
-                print(f"  {kernel} {MOE} {site} E={MOE_EXPERTS} M={m} "
-                      f"{k}->{n} one launch, {r['mapping']} x{r['splits']}: "
-                      f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
-                      f"{r['plain_ms']:.4f}, torch.bmm {r['matmul_ms']:.4f}; "
-                      f"bound {r['bound_ms']:.4f} by {r['bound_by']}), "
-                      + (f"flips {r['flips']} of {MOE_EXPERTS * m * n}"
-                         if "flips" in r else
-                         f"err/bound {r['max_err_over_bound']:.2e}"))
-            torch.cuda.empty_cache()
+    for arch, e, sites, m_rows, int4_rows in EXPERT_RUNS:
+        for site, k, n, _ in sites:
+            for m in m_rows:
+                kernels = ("analog_matmul",) + (
+                    ("int4_matmul",) if m in int4_rows else ())
+                for kernel in kernels:
+                    r = moe_case(torch, gen, kernel, e, m, k, n, arch)
+                    r["site"] = site
+                    rows[kernel].append(r)
+                    print(f"  {kernel} {arch} {site} E={e} M={m} {k}->{n} "
+                          f"one launch, {r['mapping']} x{r['splits']}: "
+                          f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
+                          f"{r['plain_ms']:.4f}, torch.bmm "
+                          f"{r['matmul_ms']:.4f}; bound {r['bound_ms']:.4f} "
+                          f"by {r['bound_by']}), "
+                          + (f"flips {r['flips']} of {e * m * n}"
+                             if "flips" in r else
+                             f"err/bound {r['max_err_over_bound']:.2e}"))
+                torch.cuda.empty_cache()
     for name, cases in rows.items():
         for arch, m, tot in forward_totals(cases):
             print(f"  {name} per {arch} forward at M={m}: "
@@ -889,11 +987,15 @@ def phase_kernels(torch) -> dict:
     return rows
 
 
-#: analog sites of one forward, by (arch, site name)
-PER_SITE = {(arch, s[0]): s[3]
-            for arch, sites in ((ARCH, SITES), (PHI3, PHI3_SITES),
-                                (MAMBA, MAMBA_SITES),
-                                (MOE, MOE_DENSE_SITES + MOE_SITES))
+#: analog sites of one forward, by (arch, site name, batched experts)
+PER_SITE = {(arch, s[0], experts): s[3]
+            for arch, sites, experts in (
+                (ARCH, SITES, False), (PHI3, PHI3_SITES, False),
+                (MAMBA, MAMBA_SITES, False), (MOE, MOE_DENSE_SITES, False),
+                (MOE, MOE_SITES, True), (JAMBA, JAMBA_SITES, False),
+                (JAMBA, JAMBA_EXPERT_SITES, True),
+                (INTERNVL, INTERNVL_SITES + INTERNVL_PROJECTOR, False),
+                (MUSICGEN, MUSICGEN_SITES, False))
             for s in sites}
 #: the per-shape times and bounds that forward_totals sums
 TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
@@ -912,7 +1014,7 @@ def forward_totals(cases: list) -> list:
         for key in TOTAL_KEYS:
             if key in r:
                 tot[key] = tot.get(key, 0.0) + PER_SITE[
-                    r["arch"], r["site"]] * r[key]
+                    r["arch"], r["site"], "E" in r] * r[key]
     return [(arch, m, tot) for (arch, m), tot in out.items()]
 
 
@@ -1095,14 +1197,16 @@ def plan_dict(plan, bs: int) -> dict:
 
 def phase_paged(torch) -> dict:
     """Parity and times of both paged kernels at every listed case:
-    llama-3.2-1b's heads at every context, phi-3-mini-4k's (MHA, hd 96)
-    and qwen3-moe-30b-a3b's (GQA group 8, hd 64) at one context, each
-    with every pool dtype (the fp32 pool is the best-of-n engine's)."""
+    llama-3.2-1b's heads at every context, phi-3-mini-4k's (MHA, hd 96),
+    qwen3-moe-30b-a3b's (GQA group 8, hd 64) and jamba-v0.1-52b's (GQA
+    group 4, hd 128) at one context, each with every pool dtype (the fp32
+    pool is the best-of-n engine's)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {"paged_flash_decode": [], "paged_flash_prefill": []}
     cases = ([(ARCH, LLAMA_PAGED, c) for c in PAGED_CONTEXTS]
              + [(PHI3, PHI3_PAGED, PHI3_PAGED_CONTEXT),
-                (MOE, MOE_PAGED, MOE_PAGED_CONTEXT)])
+                (MOE, MOE_PAGED, MOE_PAGED_CONTEXT),
+                (JAMBA, JAMBA_PAGED, JAMBA_PAGED_CONTEXT)])
     for arch, heads, context in cases:
         for dtype in POOL_DTYPES:
             kinds = [("decode", s) for s in DECODE_SPLITS] + [("prefill", 1)]
@@ -1259,18 +1363,23 @@ def ssd_pass_us(torch, fn, n_args: int, reps: int = 10) -> dict:
 
 
 def phase_ssd(torch) -> list:
-    """Parity and times of ssd_scan at mamba2-130m's shapes."""
+    """Parity and times of ssd_scan at mamba2-130m's shapes and at
+    jamba-v0.1-52b's heads (128 of P 64, N 16)."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(MAMBA)
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
-    for name, b, s, with_h0 in SSD_CASES:
+    runs = ([(MAMBA, c) for c in SSD_CASES]
+            + [(JAMBA, c) for c in JAMBA_SSD_CASES])
+    for arch, (name, b, s, with_h0) in runs:
+        cfg = get_config(arch)
         r = ssd_case(torch, gen, cfg, name, b, s, with_h0)
+        r["arch"] = arch
         rows.append(r)
         passes = ("" if r["passes_ms"] is None else
                   f", as the three passes {r['passes_ms']:.4f} ms")
-        print(f"  ssd_scan {name:6s} {b} x {s:4d} h0={int(with_h0)}: "
+        print(f"  ssd_scan {arch} H{cfg.ssm_heads} N{cfg.ssm_state} "
+              f"{name:6s} {b} x {s:4d} h0={int(with_h0)}: "
               f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}: 3 x {r['gflop']:.3f} GFLOP on TF32, "
@@ -1448,25 +1557,53 @@ def _counters():
 def mvm_sites(cfg) -> int:
     """Analog sites of one forward: in_proj and out_proj of every mamba
     layer (the tied LM head is a plain matmul); qkv, o, gate_up and down of
-    every attention layer, and the LM head unless tied."""
+    every attention layer, and the LM head unless tied; a hybrid mixer's
+    two and its FFN's two (a MoE FFN's expert sites one launch each). The
+    vlm's projector runs only in a prefill with patch embeddings."""
     if cfg.family == "ssm":
         return 2 * cfg.num_layers
     return 4 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
 
 
+def attn_layers(cfg) -> int:
+    """Attention layers of the stack (one per hybrid super-block)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def mixer_layers(cfg) -> int:
+    """Mamba-2 mixers of the stack: one ``ssd_scan`` launch each per
+    prefill or chunk forward."""
+    return cfg.num_layers - attn_layers(cfg)
+
+
+def moe_layers(cfg) -> int:
+    """Routed MoE FFNs of the stack."""
+    if cfg.family == "moe":
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers // 2
+    return 0
+
+
 def engine_phase(torch, cfg, params, labels, deploy: str,
-                 kv_bits: int) -> dict:
+                 kv_bits: int, inplace: bool = False) -> dict:
     """Serve the mixed workload at full width with ``paged=True`` under
     ``deploy``; check that every request finished, every block came back
     (an ssm stack has no pool and must say why) and every call ran on its
-    kernel; measure tokens/s and the device busy share of a decode
-    step."""
+    kernel; measure tokens/s, the peak memory and the device busy share
+    of a decode step. ``inplace`` deploys into ``params`` itself (a model
+    whose second copy does not fit the card)."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
                                              required_max_len)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    p, acfg = deploy_model(_deploy_args(deploy), cfg, params, labels, gen)
+    p, acfg = deploy_model(_deploy_args(deploy), cfg, params, labels, gen,
+                           inplace=inplace)
     mvm = "analog_matmul"
     if deploy == "analog_hw":
         acfg = dataclasses.replace(acfg, use_pallas=True)
@@ -1483,12 +1620,14 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
     eng = ServeEngine(p, cfg, acfg, scfg)
     counters = _counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for m in counters.values():
         m.launches = 0
     t0 = time.perf_counter()
     results = eng.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: m.launches for name, m in counters.items()}
     tag = f"{cfg.name} {deploy} kv_bits={kv_bits}"
     total = sum(len(v) for v in results.values())
@@ -1508,17 +1647,16 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
         check(pool.num_live == 0 and pool.num_free == pool.num_blocks,
               f"{tag}: blocks not returned ({pool.num_live} live, "
               f"{pool.num_free}/{pool.num_blocks} free)")
-    layers, forwards = cfg.num_layers, eng.decode_steps + eng.prefill_forwards
-    want = {mvm: mvm_sites(cfg) * forwards}
-    if ssm:
-        want["ssd_scan"] = layers * eng.prefill_forwards
-    else:
-        want.update(paged_flash_decode=layers * eng.decode_steps,
-                    paged_flash_prefill=layers * eng.prefill_forwards)
+    forwards = eng.decode_steps + eng.prefill_forwards
+    want = {mvm: mvm_sites(cfg) * forwards,
+            "ssd_scan": mixer_layers(cfg) * eng.prefill_forwards,
+            "paged_flash_decode": attn_layers(cfg) * eng.decode_steps,
+            "paged_flash_prefill": attn_layers(cfg) * eng.prefill_forwards}
     for name, n in launches.items():
         check(n == want.get(name, 0), f"{tag}: {name} launched {n} times, "
               f"expected {want.get(name, 0)}")
     res = {"deploy": deploy, "kv_bits": kv_bits, "run_s": run_s,
+           "peak_gb": peak_gb,
            "tokens": total, "tokens_per_s": total / run_s,
            "decode_steps": eng.decode_steps, "mixed_steps": eng.mixed_steps,
            "prefill_forwards": eng.prefill_forwards,
@@ -1528,7 +1666,8 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
            "gating_reasons": dict(eng.gating_reasons)}
     res.update(engine_busy(torch, cfg, p, acfg, scfg))
     print(f"  {tag}: {total} tokens of {len(reqs)} requests in {run_s:.2f}s "
-          f"({res['tokens_per_s']:.1f} tok/s), {eng.decode_steps} decode "
+          f"({res['tokens_per_s']:.1f} tok/s, peak {peak_gb:.2f} GB), "
+          f"{eng.decode_steps} decode "
           f"forwards, {eng.prefill_forwards} chunk forwards "
           f"({eng.mixed_steps} fused with decode), launches {launches}; "
           f"decode step {res['decode_step_ms']:.2f} ms host, "
@@ -1820,18 +1959,44 @@ def _deploy_args(deploy: str):
 
 #: (layers, d_model, padded_vocab) each full-width model must have
 FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (32, 3072, 32256),
-              MOE: (MOE_LAYERS, 2048, 152064)}
+              MOE: (MOE_LAYERS, 2048, 152064),
+              JAMBA: (JAMBA_LAYERS, 4096, 65536),
+              INTERNVL: (24, 2048, 92672), MUSICGEN: (48, 1536, 2048)}
 
 
 def model_config(arch: str):
     """``arch``'s published config; qwen3-moe-30b-a3b cut to MOE_LAYERS of
-    its 48 layers (at full depth its fp32 weights do not fit the card)."""
+    its 48 layers and jamba-v0.1-52b to one super-block (JAMBA_LAYERS) of
+    its four (at full depth their fp32 weights do not fit the card)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     if arch == MOE:
         cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, num_layers=JAMBA_LAYERS)
     return cfg
+
+
+def model_prompt(torch, cfg, gen, rows: int, tokens: int):
+    """A random prompt of ``cfg``'s family and its extra inputs: tokens
+    [rows, tokens] (audio: [rows, tokens, codebooks]) and, for the vlm,
+    ``patch_embeds`` [rows, vit_tokens, vit_dim] (None otherwise)."""
+    dev = gen.device
+    shape = (rows, tokens) + ((cfg.num_codebooks,) if cfg.family == "audio"
+                              else ())
+    prompt = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device=dev)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patch_embeds": torch.randn(
+            (rows, cfg.vit_tokens, cfg.vit_dim), generator=gen, device=dev)}
+    return prompt, extra
+
+
+def prefix_len(cfg, extra) -> int:
+    """Cache positions ahead of the prompt (the vlm's patch tokens)."""
+    return cfg.vit_tokens if extra is not None else 0
 
 
 def full_width(torch, arch: str, seed: int = 0):
@@ -1852,102 +2017,224 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
     """Serve full-width ``arch`` under ``deploy`` on the kernels and check
     it against the unfused ``base`` deployment of the same weights: site
     by site on the same inputs (the ADC contract), and end to end (the
-    logits' relative L2 within E2E_TOL)."""
-    from repro_torch.kernels import analog_matmul as km
-    from repro_torch.kernels import int4_matmul as k4
+    logits' relative L2 within E2E_TOL). The model is built from the seed
+    for this deployment alone and deployed in place (one copy of the
+    weights is alive; the unfused ``digital_rtn4`` adds only one layer's
+    quantized leaf at a time). Every kernel's launches are counted; a
+    model with experts has each greedy token that differs between the two
+    runs attributed (:func:`token_attribution`). The peak memory of the
+    whole phase is reported."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.models import build
     from repro_torch.serve.decode import generate, prefill
 
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     cfg, params, labels = build(model_config(arch), gen, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
           == FULL_WIDTH[arch], f"unexpected config {cfg}")
     fused_p, fused_acfg = deploy_model(_deploy_args(deploy), cfg, params,
-                                       labels, gen)
+                                       labels, gen, inplace=True)
+    mvm = "analog_matmul"
     if deploy == "analog_hw":
         fused_acfg = dataclasses.replace(fused_acfg, use_pallas=True)
         base_p = fused_p                  # same programmed (noisy) weights
         base_acfg = dataclasses.replace(fused_acfg, use_pallas=False)
-        counter, other = km, k4
     else:
         base_p, base_acfg = deploy_model(_deploy_args(base), cfg, params,
                                          labels, gen)
-        counter, other = k4, km
+        mvm = "int4_matmul"
     del params
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
-                           generator=gen, device=dev)
+    prompt, extra = model_prompt(torch, cfg, gen, BATCH, PROMPT_LEN)
+    pre = prefix_len(cfg, extra)
+    projector = 1 if extra is not None else 0
 
-    torch.cuda.synchronize()
-    km.launches = k4.launches = 0
+    zero_counts(torch)
     t0 = time.perf_counter()
     toks = generate(fused_p, cfg, fused_acfg, gen, prompt, NEW_TOKENS,
-                    greedy_first=NEW_TOKENS)
+                    greedy_first=NEW_TOKENS, extra_inputs=extra)
     toks_host = toks.cpu()
     gen_s = time.perf_counter() - t0
-    launched, other_launched = counter.launches, other.launches
-    want = mvm_sites(cfg) * FORWARDS
-    check(launched == want, f"{deploy}: {counter.__name__} launched "
-          f"{launched} times, expected {want}")
-    check(other_launched == 0, f"{deploy}: the other kernel launched "
-          f"{other_launched} times")
-    check(tuple(toks_host.shape) == (BATCH, NEW_TOKENS)
+    kernel_launches = launch_counts()
+    launched = kernel_launches.get(mvm, 0)
+    want = {mvm: mvm_sites(cfg) * FORWARDS + projector}
+    if mixer_layers(cfg):
+        want["ssd_scan"] = mixer_layers(cfg)              # the prefill
+    for name in _counters():
+        got = kernel_launches.get(name, 0)
+        check(got == want.get(name, 0), f"{arch} {deploy}: {name} launched "
+              f"{got} times, expected {want.get(name, 0)}")
+    shape = (BATCH, NEW_TOKENS) + ((cfg.num_codebooks,)
+                                   if cfg.family == "audio" else ())
+    check(tuple(toks_host.shape) == shape
           and int(toks_host.min()) >= 0
           and int(toks_host.max()) < cfg.vocab_size,
           f"{deploy}: bad tokens {toks_host}")
 
-    lf, _, _ = prefill(fused_p, cfg, fused_acfg, prompt, PROMPT_LEN + 1)
-    lb, _, _ = prefill(base_p, cfg, base_acfg, prompt, PROMPT_LEN + 1)
+    max_len = pre + PROMPT_LEN + 1
+    lf, _, _ = prefill(fused_p, cfg, fused_acfg, prompt, max_len, extra)
+    lb, _, _ = prefill(base_p, cfg, base_acfg, prompt, max_len, extra)
     base_toks = generate(base_p, cfg, base_acfg, gen, prompt, NEW_TOKENS,
-                         greedy_first=NEW_TOKENS).cpu()
+                         greedy_first=NEW_TOKENS, extra_inputs=extra).cpu()
     check(bool(torch.isfinite(lf).all()), f"{deploy}: non-finite logits")
     rel_l2 = float(torch.linalg.vector_norm(lf - lb)
                    / torch.linalg.vector_norm(lb))
     n_sites, n_el, n_flip = site_parity(torch, cfg, fused_p, fused_acfg,
                                         base_p, base_acfg, prompt,
-                                        sites=mvm_sites(cfg))
+                                        sites=mvm_sites(cfg) + projector,
+                                        extra=extra)
     agree = int((toks_host == base_toks).sum())
     first_agree = int((toks_host[:, 0] == base_toks[:, 0]).sum())
     res = {"arch": arch, "deploy": deploy, "params": n_params,
-           "launches": launched,
+           "launches": launched, "kernel_launches": kernel_launches,
            "generate_s": gen_s,
            "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
            "max_logit_diff": float((lf - lb).abs().max()),
            "logit_scale": float(lb.abs().max()), "rel_l2": rel_l2,
            "sites": n_sites, "site_elements": n_el, "site_flips": n_flip,
            "greedy_agree": agree, "first_token_agree": first_agree}
-    print(f"  {arch} {deploy}: {n_params / 1e9:.3f}B params, {launched} "
-          f"launches, "
+    print(f"  {arch} {deploy}: {n_params / 1e9:.3f}B params, launches "
+          f"{kernel_launches}, "
           f"generate {gen_s:.2f}s; vs {base}: {n_sites} sites on the same "
           f"inputs, {n_flip} of {n_el} outputs one ADC level apart at "
           f"near-ties ({n_flip / n_el:.2e}); end to end max |dlogit| "
           f"{res['max_logit_diff']:.3e} (|logit| <= "
           f"{res['logit_scale']:.3e}), rel L2 {rel_l2:.3e}, greedy tokens "
-          f"agree {agree}/{BATCH * NEW_TOKENS}, first {first_agree}/{BATCH}")
+          f"agree {agree}/{toks_host.numel()}, first "
+          f"{first_agree}/{toks_host[:, 0].numel()}")
     check(rel_l2 < E2E_TOL, f"{deploy}: fused vs unfused logits rel L2 "
           f"{rel_l2:.3e} >= {E2E_TOL}")
-    res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt))
-    res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt)
+    if cfg.num_experts:
+        res["attribution"] = token_attribution(
+            torch, cfg, fused_p, fused_acfg, base_p, base_acfg, prompt,
+            toks_host, f"{arch} {deploy}")
+    res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt,
+                          extra=extra))
+    if arch not in FAMILY_ARCHS:
+        # phase 17 times the fused steps only: jamba's unfused digital_rtn4
+        # steps quantize a 7.5 GB expert leaf per site call, which a
+        # captured graph would keep, and the unfused times of the others
+        # are yardsticks the script's time budget leaves out
+        res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt,
+                                    extra=extra)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    unf = res.get("unfused")
     print(f"  {arch} {deploy} on the kernels: {launched // FORWARDS} "
           f"launches per forward; prefill {res['prefill_ms']:.2f} ms "
           f"({res['prefill_device_ms']:.2f} on the device), "
           f"decode {res['decode_ms']:.2f} ms/step, of it on the device "
           f"{res['decode_device_ms']:.2f} ms (busy "
-          f"{res['device_busy']:.3f}); unfused {base}: prefill "
-          f"{res['unfused']['prefill_ms']:.2f} ms "
-          f"({res['unfused']['prefill_device_ms']:.2f} on the device), "
-          f"decode {res['unfused']['decode_ms']:.2f} ms/step, on the device "
-          f"{res['unfused']['decode_device_ms']:.2f} ms (busy "
-          f"{res['unfused']['device_busy']:.3f})")
+          f"{res['device_busy']:.3f}); peak {res['peak_gb']:.2f} GB"
+          + ("" if unf is None else
+             f"; unfused {base}: prefill {unf['prefill_ms']:.2f} ms "
+             f"({unf['prefill_device_ms']:.2f} on the device), decode "
+             f"{unf['decode_ms']:.2f} ms/step, on the device "
+             f"{unf['decode_device_ms']:.2f} ms (busy "
+             f"{unf['device_busy']:.3f})"))
     del fused_p, base_p
     torch.cuda.empty_cache()
     return res
 
 
+def token_attribution(torch, cfg, pa, acfg_a, pb, acfg_b, prompt,
+                      toks_a, what: str) -> dict:
+    """Tie each row's first greedy token that differs between the fused
+    (a) and unfused (b) runs to its cause, or fail. Both runs are repeated
+    with every analog site call and every MoE routing recorded (the fused
+    run must give its tokens again). Up to that token the two runs fed the
+    row the same tokens, and a row's computation reads only its own row,
+    so the first site output of the row that differs, in call order over
+    the forwards up to that token, must have equal inputs in both runs and
+    differ only by ADC levels at near-ties of the unfused pre-ADC value
+    (``adc_mismatches``): that flip is the origin. A route of the row may
+    move only after it (its router input moved with it), and then only
+    where the unfused run's k-th and (k+1)-th router probabilities lie
+    within twice the two runs' probability shift, so it is counted with
+    its gap. A differing token with no differing site output before it, a
+    site that parts with unequal inputs, or a route that moved before the
+    origin fails the phase."""
+    from repro_torch.serve.decode import generate
+
+    logs = {}
+    for tag, p, acfg in (("a", pa, acfg_a), ("b", pb, acfg_b)):
+        sites, routes = [], []
+        with sites_recorded(sites), routes_recorded(torch, routes, sites):
+            toks = generate(p, cfg, acfg, None, prompt, NEW_TOKENS,
+                            greedy_first=NEW_TOKENS).cpu()
+        logs[tag] = (toks, sites, routes)
+    check(torch.equal(logs["a"][0], toks_a), f"{what}: the fused run gave "
+          f"other tokens when repeated")
+    n_sites, n_routed = mvm_sites(cfg), moe_layers(cfg)
+    for tag in "ab":
+        check(len(logs[tag][1]) == n_sites * FORWARDS
+              and len(logs[tag][2]) == n_routed * FORWARDS,
+              f"{what}: {len(logs[tag][1])} sites, {len(logs[tag][2])} "
+              f"routings recorded")
+    bsz = prompt.shape[0]
+    ta, tb = logs["a"][0], logs["b"][0]
+    rows, moved_routes, max_gap_share = [], 0, 0.0
+    for b in range(bsz):
+        diff = (ta[b] != tb[b]).reshape(NEW_TOKENS, -1).any(-1)
+        if not bool(diff.any()):
+            continue
+        t = int(torch.nonzero(diff)[0])
+        origin = None
+        for i in range(n_sites * (t + 1)):
+            (p, xa, ya), (_, xb, yb) = logs["a"][1][i], logs["b"][1][i]
+            expert = p["kernel"].dim() > 2
+            c = ya.shape[1] // bsz if expert else 0
+
+            def row(v):
+                return v[:, b * c:(b + 1) * c] if expert else v[b]
+
+            if torch.equal(row(ya), row(yb)):
+                continue
+            check(torch.equal(row(xa), row(xb)), f"{what}: row {b}, site "
+                  f"{i % n_sites} of forward {i // n_sites}: its inputs "
+                  f"differ before any site output of the row did")
+            flips = adc_mismatches(torch, p, row(xb), row(ya), row(yb),
+                                   acfg_b, f"{what}: row {b} origin")
+            origin = {"forward": i // n_sites, "site": i % n_sites,
+                      "flips": flips, "call": i}
+            break
+        check(origin is not None, f"{what}: row {b}'s token {t} differs "
+              f"with no site output of the row apart before it")
+        n_moved = 0
+        for j in range(n_routed * (t + 1)):
+            (ids_a, pr_a, _), (ids_b, pr_b, call) = (logs["a"][2][j],
+                                                     logs["b"][2][j])
+            moved = (ids_a[b].sort(-1).values
+                     != ids_b[b].sort(-1).values).any(-1)
+            if not bool(moved.any()):
+                continue
+            check(call > origin["call"], f"{what}: row {b}: a route moved "
+                  f"before any site output of the row did")
+            top = pr_b[b].sort(-1, descending=True).values
+            k = cfg.top_k
+            gap = (top[..., k - 1] - top[..., k])[moved]
+            shift = (pr_a[b] - pr_b[b]).abs().amax(-1)[moved]
+            max_gap_share = max(max_gap_share,
+                                float((gap / shift.clamp_min(1e-30)).max()))
+            n_moved += int(moved.sum())
+        moved_routes += n_moved
+        rows.append({"row": b, "token": t, **origin, "routes_moved": n_moved})
+    res = {"differing_rows": rows, "routes_moved": moved_routes,
+           "max_gap_over_shift": max_gap_share}
+    print(f"  {what}: {len(rows)} of {bsz} rows part; each first differing "
+          f"token follows an ADC near-tie flip ("
+          + ", ".join(f"row {r['row']} token {r['token']}: forward "
+                      f"{r['forward']} site {r['site']}, {r['flips']} flips, "
+                      f"{r['routes_moved']} routes moved" for r in rows)
+          + f"); every moved route after its row's origin (largest "
+          f"k-th to (k+1)-th gap over the probability shift "
+          f"{max_gap_share:.3f})")
+    return res
+
+
 def step_times(torch, cfg, params, acfg, prompt,
-               new_tokens: int = NEW_TOKENS) -> dict:
+               new_tokens: int = NEW_TOKENS, extra=None) -> dict:
     """Host-clock time of one prefill and of a greedy decode step
     (synchronized, after the main-path run warmed everything up; median of
     3 rounds), and the device time of one decode step and of one prefill:
@@ -1955,15 +2242,17 @@ def step_times(torch, cfg, params, acfg, prompt,
     card never waits for the host (launching a graph takes far less than
     running it; the graph's short gaps between its kernels are in the
     time). The decode step's share of the host-clock step is
-    ``device_busy``."""
+    ``device_busy``. ``extra`` goes to the prefill (the vlm's patch
+    embeddings)."""
     from repro_torch.serve.decode import prefill, serve_step
 
+    max_len = prefix_len(cfg, extra) + prompt.shape[1] + new_tokens
     pre, dec = [], []
     for _ in range(3):                     # median of 3 rounds
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches, pos = prefill(params, cfg, acfg, prompt,
-                                      prompt.shape[1] + new_tokens)
+        logits, caches, pos = prefill(params, cfg, acfg, prompt, max_len,
+                                      extra)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
         tok = torch.argmax(logits, dim=-1)
@@ -1993,12 +2282,12 @@ def step_times(torch, cfg, params, acfg, prompt,
     out["device_busy"] = out["decode_device_ms"] / out["decode_ms"]
     del graph
     out["prefill_device_ms"] = graph_ms(torch, lambda: prefill(
-        params, cfg, acfg, prompt, prompt.shape[1] + new_tokens))
+        params, cfg, acfg, prompt, max_len, extra))
     return out
 
 
 def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens,
-                sites: int = LAUNCHES_PER_FORWARD):
+                sites: int = LAUNCHES_PER_FORWARD, extra=None):
     """Every analog site of one prefill, fused (a) against unfused (b) on
     the same input: the input path b's own forward gave that site. Every
     mismatch must be exactly one ADC level at a near-tie of path b's
@@ -2011,7 +2300,8 @@ def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens,
     for tag, params, acfg in (("a", params_a, acfg_a),
                               ("b", params_b, acfg_b)):
         with sites_recorded(calls[tag]):
-            prefill(params, cfg, acfg, tokens, tokens.shape[1])
+            prefill(params, cfg, acfg, tokens,
+                    prefix_len(cfg, extra) + tokens.shape[1], extra)
     check(len(calls["a"]) == len(calls["b"]) == sites,
           f"site count {len(calls['a'])}, {len(calls['b'])}")
     ctx = A.AnalogCtx()
@@ -2086,6 +2376,15 @@ def adc_mismatches(torch, p, x, ya, yb, acfg, what: str) -> int:
     from repro_torch.core import quant
     from repro_torch.kernels import ref
 
+    if p["kernel"].dim() > 2:      # expert by expert: one [K, N] at a time
+        k = p["kernel"].shape[-2]
+        xs = x.reshape(p["kernel"].shape[0], -1, k)
+        ya = ya.reshape(xs.shape[:2] + (-1,))
+        yb = yb.reshape(ya.shape)
+        return sum(adc_mismatches(
+            torch, {"kernel": p["kernel"][e], "input_range":
+                    p["input_range"]}, xs[e], ya[e], yb[e], acfg, what)
+            for e in range(xs.shape[0]))
     qo = ref.qmax(acfg.output_bits)
     w = p["kernel"].float()
     if acfg.mode == "rtn":
@@ -3516,9 +3815,11 @@ def expert_rows(seen: set):
 
 
 @contextlib.contextmanager
-def routes_recorded(torch, log: list):
+def routes_recorded(torch, log: list, sites: list | None = None):
     """Inside the block every MoE layer's routing appends ``(ids [B, S,
-    k], router probabilities [B, S, E])``, on the host, to ``log``."""
+    k], router probabilities [B, S, E])``, on the host, to ``log``; with
+    ``sites`` (a ``sites_recorded`` log) also the number of site calls
+    made before it."""
     from repro_torch.models import moe as MoE
 
     real = MoE._route
@@ -3526,7 +3827,8 @@ def routes_recorded(torch, log: list):
     def spy(x, router, cfg, capacity):
         out = real(x, router, cfg, capacity)
         probs = torch.softmax(torch.matmul(x.float(), router.float()), -1)
-        log.append((out[1].cpu(), probs.cpu()))
+        log.append((out[1].cpu(), probs.cpu())
+                   + (() if sites is None else (len(sites),)))
         return out
 
     MoE._route = spy
@@ -3576,15 +3878,17 @@ def phase_moe(torch) -> dict:
     return out
 
 
-def reduced_moe_check(torch, arch: str) -> dict:
-    """The reduced moe model on the card (the kernels) against the CPU
+def reduced_card_check(torch, arch: str) -> dict:
+    """The reduced ``arch`` on the card (the kernels) against the CPU
     (their plain versions), the same hw-perturbed weights and prompt,
     ``analog_hw`` fused and ``digital_int4``: each MoE layer's routing ids
     equal but for tokens whose k-th and (k+1)-th router probabilities on
     the CPU lie within ROUTE_TIE (counted); every analog site of the
     card's prefill, experts included, replayed on the CPU from its
     recorded input within the ADC contract; and, where no route moved, the
-    same greedy tokens."""
+    same greedy tokens. Any family: a vlm's prompt carries patch
+    embeddings, an audio prompt one token per codebook, and a model
+    without experts routes nothing."""
     from repro_torch.configs import get_config
     from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
                                          analog_linear, pack_int4_weights,
@@ -3595,10 +3899,12 @@ def reduced_moe_check(torch, arch: str) -> dict:
     cfg, params, labels = build(get_config(arch).reduce(), 0, device="cpu")
     hw = perturb_analog_weights(params, labels,
                                 torch.Generator().manual_seed(1), "hw")
-    prompt = torch.randint(0, cfg.vocab_size, (3, 12),
-                           generator=torch.Generator().manual_seed(2))
+    prompt, extra = model_prompt(torch, cfg, torch.Generator().manual_seed(2),
+                                 3, 12)
+    pre = prefix_len(cfg, extra)
     out = {}
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    extra_c = None if extra is None else _to(extra, cuda)
     for deploy, p, acfg in (
             ("analog_hw", hw, AnalogConfig(mode="analog", train_noise=False,
                                            use_pallas=True)),
@@ -3607,12 +3913,14 @@ def reduced_moe_check(torch, arch: str) -> dict:
         pc = _to(p, cuda)
         routes = {"cpu": [], "cuda": []}
         calls = []
-        for where, q, dev in (("cpu", p, cpu), ("cuda", pc, cuda)):
+        for where, q, dev, ex in (("cpu", p, cpu, extra),
+                                  ("cuda", pc, cuda, extra_c)):
             with routes_recorded(torch, routes[where]), (
                     sites_recorded(calls) if where == "cuda"
                     else contextlib.nullcontext()):
-                prefill(q, cfg, acfg, prompt.to(dev), prompt.shape[1])
-        check(len(routes["cpu"]) == len(routes["cuda"]) == cfg.num_layers,
+                prefill(q, cfg, acfg, prompt.to(dev),
+                        pre + prompt.shape[1], ex)
+        check(len(routes["cpu"]) == len(routes["cuda"]) == moe_layers(cfg),
               f"reduced {arch}: {len(routes['cuda'])} routed layers")
         moved = 0
         k = cfg.top_k
@@ -3637,22 +3945,82 @@ def reduced_moe_check(torch, arch: str) -> dict:
                     check(bool(((y.cpu() - yh).abs() <= 1e-4 * (
                         1 + yh.abs())).all()), f"reduced {arch} "
                           f"digital_int4: a site apart")
-        check(len(calls) == mvm_sites(cfg), f"reduced {arch}: {len(calls)} "
-              f"sites recorded")
-        th = generate(p, cfg, acfg, None, prompt, 6, greedy_first=6)
+        want_sites = mvm_sites(cfg) + (1 if extra is not None else 0)
+        check(len(calls) == want_sites, f"reduced {arch}: {len(calls)} "
+              f"sites recorded, expected {want_sites}")
+        th = generate(p, cfg, acfg, None, prompt, 6, greedy_first=6,
+                      extra_inputs=extra)
         tc = generate(pc, cfg, acfg, None, prompt.to(cuda), 6,
-                      greedy_first=6).cpu()
+                      greedy_first=6, extra_inputs=extra_c).cpu()
         equal = bool(torch.equal(th, tc))
         check(equal or moved > 0, f"reduced {arch} {deploy}: greedy tokens "
               f"differ card vs cpu with no route moved")
         out[deploy] = {"routes_moved": moved, "site_flips": flips,
                        "site_elements": elements, "tokens_equal": equal}
-        print(f"  reduced {arch} {deploy}, card vs cpu: routing ids equal "
-              f"but {moved} near-tie tokens of {cfg.num_layers} x "
-              f"{prompt.numel()}; {len(calls)} sites on the card's inputs, "
+        print(f"  reduced {arch} {deploy}, card vs cpu: "
+              + (f"routing ids equal but {moved} near-tie tokens of "
+                 f"{moe_layers(cfg)} x {prompt.shape[0] * prompt.shape[1]}; "
+                 if moe_layers(cfg) else "")
+              + f"{len(calls)} sites on the card's inputs, "
               f"{flips} of {elements} outputs one ADC level apart at "
               f"near-ties; greedy tokens "
               f"{'equal' if equal else 'differ (a route moved)'}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid, vlm and audio families at full width
+# ---------------------------------------------------------------------------
+
+def phase_families(torch) -> dict:
+    """jamba-v0.1-52b at full width and one super-block (random weights
+    from a seed, built and deployed once per run: one copy of its 53 GB
+    fits the card, a second does not): the static engine under
+    ``analog_hw`` (fused against unfused) and ``digital_int4`` (against
+    ``digital_rtn4``), as phases 3 and 4, every forward 33 MVM launches
+    (each expert site one launch of all 16 experts) and every prefill 7
+    ``ssd_scan`` launches; the continuous engine on the bf16 paged pool
+    under ``analog_hw``, as phase 8, every decode forward 33 MVM launches
+    and 1 paged decode, every chunk forward 33, 7 scans and 1 paged
+    prefill. The expert launches' rows and the engine's attention heads
+    must be those phases 2 and 5 hold. Then internvl2-2b (256 random patch
+    embeddings ahead of each prompt) and musicgen-medium (4 codebooks) at
+    full width on the static engine under both deployments."""
+    out = {}
+    seen = {}
+    for arch in FAMILY_ARCHS:
+        for key, deploy, base in (("analog", "analog_hw", "analog_hw"),
+                                  ("int4", "digital_int4", "digital_rtn4")):
+            seen[f"static/{arch}/{deploy}"] = rows = set()
+            with expert_rows(rows):
+                out[f"{arch}/{key}"] = serve_phase(torch, deploy, base, arch)
+            torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, labels = full_width(torch, JAMBA)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, PAGED_BS)
+    check(heads == JAMBA_PAGED, f"{JAMBA}: the engine's paged heads "
+          f"{heads}, phase 5 holds the kernels at {JAMBA_PAGED}")
+    check(mvm_sites(cfg) == JAMBA_MVM_PER_FORWARD
+          and mixer_layers(cfg) == JAMBA_MIXERS and attn_layers(cfg) == 1,
+          f"{JAMBA}: {mvm_sites(cfg)} sites, {mixer_layers(cfg)} mixers")
+    seen[f"continuous/{JAMBA}/analog_hw"] = rows = set()
+    with expert_rows(rows):
+        out["engine"] = engine_phase(torch, cfg, params, labels, "analog_hw",
+                                     0, inplace=True)
+    out["engine"]["build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    static = {JAMBA_ROWS["static prefill"], JAMBA_ROWS["static decode"]}
+    engine = {JAMBA_ROWS["engine decode"], JAMBA_ROWS["engine chunk"]}
+    for path, rows in seen.items():
+        want = (set() if JAMBA not in path
+                else static if path.startswith("static") else engine)
+        check(rows == want, f"{path}: expert launches of {sorted(rows)} "
+              f"rows, phase 2 holds the kernels at {sorted(want)}")
+    out["expert_rows"] = {k: sorted(v) for k, v in seen.items() if v}
+    print(f"  {JAMBA}: expert launches' rows {out['expert_rows']}; peaks "
+          + ", ".join(f"{k} {v['peak_gb']:.2f} GB" for k, v in out.items()
+                      if isinstance(v, dict) and "peak_gb" in v))
     return out
 
 
@@ -3678,15 +4046,17 @@ PAGED_META = {
 
 def line_launches(results: dict) -> dict:
     """Each kernel's launches on every main-path run that drove it, by
-    path: the static engines (phases 3, 4, 7, 11 and 16), the continuous
-    engines (phases 8 and 16), the noisy evals (phase 12), best-of-n
+    path: the static engines (phases 3, 4, 7, 11, 16 and 17), the
+    continuous engines (phases 8, 16 and 17), the noisy evals (phase 12),
+    best-of-n
     (phase 13), the HWA distillation run (phase 14) and the PTQ model's
     evals on the kernels (phase 15). Each count was read right after its
     run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and 14's gate (i)), the reduced
-    checks against the CPU (phases 9, 12, 14, 15 and 16), the timing
-    replays, the CLI (phase 10), and phase 14's profiled step and resume
-    check."""
+    checks against the CPU (phases 9, 12, 14, 15, 16 and 17), the timing
+    replays and the fused-against-unfused checks after each run (site
+    parity, the token attribution), the CLI (phase 10), and phase 14's
+    profiled step and resume check."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -3725,6 +4095,13 @@ def line_launches(results: dict) -> dict:
                                        moe["int4"]["launches"]})
     for key, r in moe["engine"].items():
         add(f"continuous/{MOE}/{key}", r["launches"])
+    fam = results["families"]
+    for arch in FAMILY_ARCHS:
+        for key, deploy in (("analog", "analog_hw"), ("int4",
+                                                      "digital_int4")):
+            add(f"static/{arch}/{deploy}",
+                fam[f"{arch}/{key}"]["kernel_launches"])
+    add(f"continuous/{JAMBA}/analog_hw/kv16", fam["engine"]["launches"])
     return out
 
 
@@ -3782,7 +4159,7 @@ def kernels_line(rows: dict, paged_rows: dict, ssd_rows: list,
                 "fp32_bound_ms", "explicit_bound_ms", "adc_bound_ms")
         tot = {"bytes_ms": 0.0, "ops_ms": 0.0}
         for r in shapes:
-            reps = PER_SITE[ARCH, r["site"]] * (
+            reps = PER_SITE[ARCH, r["site"], False] * (
                 NEW_TOKENS if r["M"] == M_DECODE else 1)
             for key in keys:
                 if key in r:
@@ -3857,64 +4234,72 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/16] setup")
+        phase("[1/17] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/16] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
-              "mamba2-130m and qwen3-moe-30b-a3b main-path shapes")
+        phase("[2/17] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+              "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
+              "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/16] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/17] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/16] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/17] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/16] paged-attention kernels at llama-3.2-1b, "
-              "phi-3-mini-4k and qwen3-moe-30b-a3b attention shapes")
+        phase("[5/17] paged-attention kernels at llama-3.2-1b, "
+              "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
+              "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/16] ssd_scan at mamba2-130m shapes")
+        phase("[6/17] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/16] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/17] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/16] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/17] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/16] reduced continuous engines, card against cpu")
+        phase("[9/17] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/16] serving CLI")
+        phase("[10/17] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/16] static engine, phi-3-mini-4k at full width: "
+        phase("[11/17] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/16] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/17] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/16] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/17] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/16] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/17] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/16] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/17] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/16] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/17] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
-        results["reduced_moe"] = {arch: reduced_moe_check(torch, arch)
+        results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
+        phase(f"[17/17] {JAMBA} at full width, one super-block: static and "
+              f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
+              "on the static engine; reduced models, card against cpu")
+        results["families"] = phase_families(torch)
+        results["reduced_families"] = {arch: reduced_card_check(torch, arch)
+                                       for arch in FAMILY_ARCHS}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -184,16 +184,36 @@ def noisy_matmul(x: torch.Tensor, w: torch.Tensor,
 # parameter construction / labeling
 # ---------------------------------------------------------------------------
 
+def scaled_randn(gen: torch.Generator | None, shape, scale: float,
+                 dtype=torch.float32, device=None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """``(randn(shape) * scale).to(dtype)``, drawn in fp32 from ``gen``.
+    With ``out`` the result is written there and returned: an fp32 ``out``
+    is drawn into directly, with no temporary (``randn(out=)`` draws what
+    ``randn`` draws), which is how a stacked parameter tree is filled
+    layer by layer without a second copy of a leaf."""
+    if out is None:
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+    if out.dtype == torch.float32:
+        torch.randn(shape, generator=gen, dtype=torch.float32, out=out)
+        return out.mul_(scale)
+    return out.copy_(scaled_randn(gen, shape, scale, device=out.device))
+
+
 def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, *,
                 use_bias: bool, dtype=torch.float32,
-                scale: float | None = None, device=None) -> dict:
+                scale: float | None = None, device=None,
+                out: dict | None = None) -> dict:
     """Initialize one analog-capable linear site: ``kernel`` [in, out],
-    ``input_range`` (the eq.-1 DAC range beta, shape (1,)), and ``bias``."""
+    ``input_range`` (the eq.-1 DAC range beta, shape (1,)), and ``bias``.
+    ``out`` (a site dict of preallocated leaves) receives the kernel in
+    place (:func:`scaled_randn`)."""
     if scale is None:
         scale = in_dim ** -0.5
-    kernel = torch.randn((in_dim, out_dim), generator=gen, device=device,
-                         dtype=torch.float32) * scale
-    p = {"kernel": kernel.to(dtype),
+    kernel = scaled_randn(gen, (in_dim, out_dim), scale, dtype, device,
+                          None if out is None else out["kernel"])
+    p = {"kernel": kernel,
          "input_range": torch.full((1,), 3.0, device=device)}
     if use_bias:
         p["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
@@ -345,20 +365,31 @@ def _map_sites(params: dict, labels: dict,
     return out
 
 
-def _per_matrix(w: torch.Tensor, fn) -> torch.Tensor:
-    """Apply ``fn`` to each [K, N] matrix of a stacked [..., K, N] leaf."""
-    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
-    return torch.stack([fn(m) for m in flat]).reshape(w.shape)
+def _per_matrix(w: torch.Tensor, fn, inplace: bool = False) -> torch.Tensor:
+    """Apply ``fn`` to each [K, N] matrix of a stacked [..., K, N] leaf,
+    matrix by matrix into a new leaf (or into ``w`` itself with
+    ``inplace``), so the only temporaries are one matrix's."""
+    out = w if inplace else torch.empty_like(w)
+    src = w.reshape((-1,) + tuple(w.shape[-2:]))
+    dst = out.view((-1,) + tuple(w.shape[-2:]))
+    for m, o in zip(src, dst):
+        o.copy_(fn(m))
+    return out
 
 
 def perturb_analog_weights(params: dict, labels: dict, gen: torch.Generator,
-                           model: str, gamma: float = 0.0) -> dict:
+                           model: str, gamma: float = 0.0,
+                           inplace: bool = False) -> dict:
     """Simulate one chip programming: perturb every analog weight once
-    (``"hw"`` PCM Hermes, ``"gaussian"`` at ``gamma``, or ``"none"``)."""
+    (``"hw"`` PCM Hermes, ``"gaussian"`` at ``gamma``, or ``"none"``).
+    ``inplace`` overwrites the weights of ``params`` (the returned tree
+    shares them): the model's one copy, for models whose second copy would
+    not fit the card."""
     if model == "none":
         return params
     return _map_sites(params, labels, lambda w: _per_matrix(
-        w, lambda m: noise_lib.apply_eval_noise(gen, m, model, gamma)))
+        w, lambda m: noise_lib.apply_eval_noise(gen, m, model, gamma),
+        inplace))
 
 
 def sample_noise_instances(params: dict, labels: dict, gen: torch.Generator,
@@ -412,19 +443,22 @@ def pack_int4_weights(params: dict, labels: dict | None = None,
     ``input_range``. Stacked [L, K, N] weights keep their leading dims.
     """
     def pack_site(w):
-        flat = w.reshape((-1,) + tuple(w.shape[-2:]))
-        packed, scale, colmax = [], [], []
-        for wk in flat:
+        # filled matrix by matrix into preallocated carriers
+        k, n = w.shape[-2:]
+        lead = tuple(w.shape[:-2])
+        out = {"packed": torch.empty(lead + (k, n // 2), dtype=torch.uint8,
+                                     device=w.device),
+               "scale": torch.empty(lead + (n,), device=w.device),
+               "colmax": torch.empty(lead + (n,), device=w.device)}
+        views = [out[key].view((-1,) + tuple(out[key].shape[len(lead):]))
+                 for key in ("packed", "scale", "colmax")]
+        for wk, pk, sc, cm in zip(w.reshape(-1, k, n), *views):
             w_int, s = quant.rtn_quantize(wk.float(), bits)
             deq = quant.rtn_dequantize(w_int, s)
-            packed.append(kref.pack_int4(w_int))
-            scale.append(s[0])
-            colmax.append(torch.amax(torch.abs(deq), dim=0))
-        lead = tuple(w.shape[:-2])
-        return {"packed": torch.stack(packed).reshape(
-                    lead + tuple(packed[0].shape)),
-                "scale": torch.stack(scale).reshape(lead + (-1,)),
-                "colmax": torch.stack(colmax).reshape(lead + (-1,))}
+            pk.copy_(kref.pack_int4(w_int))
+            sc.copy_(s[0])
+            cm.copy_(torch.amax(torch.abs(deq), dim=0))
+        return out
 
     def walk(p, lab):
         if not isinstance(p, dict):

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.ref import clip, div, qmax, rdiv
+from repro_torch.kernels.ref import abs_max, clip, div, qmax, rdiv
 
 __all__ = ["qmax", "round_ste", "input_quantize", "dynamic_input_quantize",
            "output_quantize", "weight_fake_quant", "rtn_quantize",
@@ -145,17 +145,17 @@ def rtn_quantize(w: torch.Tensor, bits: int, axis: int = 0):
     """Round-to-nearest PTQ: ``(w_int int8 in [-Q, Q], scale)`` with
     per-channel scales (keepdim along ``axis``)."""
     q = qmax(bits)
-    beta = torch.clamp_min(torch.amax(torch.abs(w), dim=axis, keepdim=True),
-                           1e-12)
+    beta = torch.clamp_min(abs_max(w, axis, keepdim=True), 1e-12)
     scale = div(beta, q)
-    w_int = torch.clamp(torch.round(w * rdiv(q, beta)), -q, q)
+    # in place after the one product: a leaf's temporaries stay one copy
+    w_int = (w * rdiv(q, beta)).round_().clamp_(-q, q)
     return w_int.to(torch.int8), scale
 
 
 def rtn_dequantize(w_int: torch.Tensor, scale: torch.Tensor,
                    dtype=torch.float32) -> torch.Tensor:
     """Dequantize an RTN int carrier back to ``w_int * scale``."""
-    return w_int.to(dtype) * scale.to(dtype)
+    return w_int.to(dtype).mul_(scale.to(dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -57,8 +57,16 @@ def adc_bound(w_eff: torch.Tensor, beta: torch.Tensor,
               lam: float) -> torch.Tensor:
     """Per-column ADC bound of eq. (2): ``lam * beta * max|W[:, i]|`` [N],
     or [E, N] for batched experts ``[E, K, N]`` (each over its own K)."""
-    col_max = torch.amax(torch.abs(w_eff.float()), dim=-2)
-    return lam * beta.float() * col_max
+    return lam * beta.float() * abs_max(w_eff.float(), -2)
+
+
+def abs_max(w: torch.Tensor, dim: int, keepdim: bool = False
+            ) -> torch.Tensor:
+    """``amax(|w|, dim)`` without the ``|w|`` temporary (a whole leaf of
+    expert weights): ``|max(amax(w), -amin(w))|``, the same value (the
+    outer ``abs`` only clears the sign of a zero)."""
+    return torch.abs(torch.maximum(torch.amax(w, dim=dim, keepdim=keepdim),
+                                   -torch.amin(w, dim=dim, keepdim=keepdim)))
 
 
 def check_one_bound(bound: torch.Tensor | None, lam: float | None) -> None:

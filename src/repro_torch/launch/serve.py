@@ -28,7 +28,15 @@ and the engine says why:
 
 ``--arch qwen3-moe-30b-a3b`` (or ``dbrx-132b``) serves the moe family:
 each expert site is one launch of the deployment's MVM kernel over all
-experts.
+experts. ``--arch jamba-v0.1-52b`` serves the hybrid family on either
+engine (its attention layers on the paged pool with ``--paged``, its
+mixers' state per slot). ``--arch internvl2-2b`` (vlm) and
+``--arch musicgen-medium`` (audio, 4 codebooks per token) run on the
+static engine only, as in the reference; asking for the continuous engine
+falls back to the static one and says so:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --arch musicgen-medium
 
 The prefix cache, speculative decoding, drift, the open-loop front door
 and tensor parallelism of the JAX package's launcher are not ported yet.
@@ -55,14 +63,18 @@ from repro_torch.serve.scheduler import (Request, SchedulerConfig,
 DEPLOYS = ("fp", "analog", "analog_hw", "digital_rtn4", "digital_int4")
 
 
-def deploy_model(args, cfg, params, labels, generator: torch.Generator):
-    """Apply the selected deployment transform. Returns ``(params, acfg)``."""
+def deploy_model(args, cfg, params, labels, generator: torch.Generator,
+                 inplace: bool = False):
+    """Apply the selected deployment transform. Returns ``(params, acfg)``.
+    ``inplace`` programs the chip into ``params`` itself (``analog_hw``),
+    for a model whose second copy would not fit the card."""
     if args.deploy == "fp":
         return params, AnalogConfig(mode="off")
     if args.deploy == "analog":
         return params, AnalogConfig(mode="analog", train_noise=False)
     if args.deploy == "analog_hw":
-        params = perturb_analog_weights(params, labels, generator, "hw")
+        params = perturb_analog_weights(params, labels, generator, "hw",
+                                        inplace=inplace)
         print("[serve] applied one simulated PCM chip programming")
         return params, AnalogConfig(mode="analog", train_noise=False)
     if args.deploy == "digital_rtn4":
@@ -153,11 +165,12 @@ def main(argv=None):
         cfg = cfg.reduce()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     cfg, params, labels = build(cfg, gen, device=device)
-    params, acfg = deploy_model(args, cfg, params, labels, gen)
+    params, acfg = deploy_model(args, cfg, params, labels, gen, inplace=True)
     if args.noise_model != "none":
         if acfg.mode == "analog":
             params = perturb_analog_weights(params, labels, gen,
-                                            args.noise_model, args.noise_gamma)
+                                            args.noise_model, args.noise_gamma,
+                                            inplace=True)
             print(f"[serve] applied {args.noise_model} eval noise")
         else:
             print(f"[serve] WARNING: --noise-model {args.noise_model} "
@@ -173,12 +186,21 @@ def main(argv=None):
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
 
+    if cfg.family in ("audio", "vlm") and args.engine == "continuous":
+        # the continuous engine does not serve multi-codebook / patch-embed
+        # families (nor does the reference's): the lockstep path does
+        print(f"[serve] family={cfg.family!r}: falling back to the static "
+              "engine (continuous batching not wired for it)")
+        args.engine = "static"
+
     if args.engine == "static":
         if args.paged:
             print("[serve] --paged/--kv-bits are continuous-engine "
                   "options: ignored on the static path")
         prompts = torch.randint(0, cfg.vocab_size, (args.num_requests, 4),
                                 generator=gen, device=device)
+        if cfg.family == "audio":          # one token per codebook
+            prompts = prompts[..., None].repeat(1, 1, cfg.num_codebooks)
         t0 = time.perf_counter()
         toks = generate(params, cfg, acfg, gen, prompts, args.new_tokens,
                         temperature=0.8, top_k=50, cache_dtype=cache_dtype)
@@ -205,12 +227,14 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in results.values())
     lats = sorted(eng.finished_at[r.uid] - t0 for r in reqs)
-    if cfg.family == "ssm":
-        mode = "per-slot ssm state"
-    elif eng.pool is not None:
+    if eng.pool is not None:
         mode = "paged" + ("-int8" if acfg.kv_bits == 8 else "") + " kv"
     else:
         mode = "contiguous kv"
+    if cfg.family == "ssm":
+        mode = "per-slot ssm state"
+    elif cfg.family == "hybrid":
+        mode += " + per-slot ssm state"
     print(f"[serve] continuous ({where}, {mode}, {args.cache_dtype}): "
           f"{total} tokens across {len(reqs)} mixed-length requests in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.decode_steps} decode "

@@ -77,25 +77,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def sub(out: dict | None, key: str):
+    """``out[key]``, or None without ``out`` (the preallocated leaves an
+    init function writes into; see ``core.analog.scaled_randn``)."""
+    return None if out is None else out[key]
+
+
 def init_attention(gen: torch.Generator, cfg, dtype=torch.float32,
-                   device=None) -> dict:
-    """Init GQA attention params (fused qkv or split q/k/v analog sites)."""
+                   device=None, out: dict | None = None) -> dict:
+    """Init GQA attention params (fused qkv or split q/k/v analog sites).
+    ``out`` receives the kernels in place."""
     hd = cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     p = {}
     if cfg.fused_qkv:
         qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
         p["qkv"] = init_linear(gen, cfg.d_model, qkv_out,
-                               use_bias=cfg.qkv_bias, **kw)
+                               use_bias=cfg.qkv_bias, out=sub(out, "qkv"),
+                               **kw)
     else:
-        p["q"] = init_linear(gen, cfg.d_model, cfg.num_heads * hd,
-                             use_bias=cfg.qkv_bias, **kw)
-        p["k"] = init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd,
-                             use_bias=cfg.qkv_bias, **kw)
-        p["v"] = init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd,
-                             use_bias=cfg.qkv_bias, **kw)
+        for name, width in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                            ("v", cfg.num_kv_heads)):
+            p[name] = init_linear(gen, cfg.d_model, width * hd,
+                                  use_bias=cfg.qkv_bias, out=sub(out, name),
+                                  **kw)
     p["o"] = init_linear(gen, cfg.num_heads * hd, cfg.d_model,
-                         use_bias=False, **kw)
+                         use_bias=False, out=sub(out, "o"), **kw)
     return p
 
 
@@ -391,18 +398,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
 
 
 def init_mlp(gen: torch.Generator, cfg, dtype=torch.float32,
-             device=None) -> dict:
-    """Init MLP params: SwiGLU (fused gate_up) for silu, plain GELU else."""
+             device=None, out: dict | None = None) -> dict:
+    """Init MLP params: SwiGLU (fused gate_up) for silu, plain GELU else.
+    ``out`` receives the kernels in place."""
     kw = dict(dtype=dtype, device=device)
     if cfg.act == "silu":
         return {"gate_up": init_linear(gen, cfg.d_model, 2 * cfg.d_ff,
-                                       use_bias=False, **kw),
+                                       use_bias=False,
+                                       out=sub(out, "gate_up"), **kw),
                 "down": init_linear(gen, cfg.d_ff, cfg.d_model,
-                                    use_bias=False, **kw)}
+                                    use_bias=False, out=sub(out, "down"),
+                                    **kw)}
     return {"up": init_linear(gen, cfg.d_model, cfg.d_ff, use_bias=True,
-                              **kw),
+                              out=sub(out, "up"), **kw),
             "down": init_linear(gen, cfg.d_ff, cfg.d_model, use_bias=True,
-                                **kw)}
+                                out=sub(out, "down"), **kw)}
 
 
 def mlp_labels(p: dict) -> dict:

@@ -35,14 +35,16 @@ def _dims(cfg):
 
 
 def init_mamba(gen: torch.Generator, cfg, dtype=torch.float32,
-               device=None) -> dict:
-    """Init one SSD mixer: analog in/out projections + digital scan params."""
+               device=None, out: dict | None = None) -> dict:
+    """Init one SSD mixer: analog in/out projections + digital scan params.
+    ``out`` receives the projection kernels in place."""
     d_inner, heads, _, conv_ch, d_in_proj = _dims(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     conv_w = torch.randn((cfg.conv_width, conv_ch), generator=gen, **f32)
     return {
         "in_proj": init_linear(gen, cfg.d_model, d_in_proj, use_bias=False,
-                               dtype=dtype, device=device),
+                               dtype=dtype, device=device,
+                               out=None if out is None else out["in_proj"]),
         "conv_w": (conv_w * cfg.conv_width ** -0.5).to(dtype),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
         "a_log": torch.log(torch.linspace(1.0, 16.0, heads, **f32)),
@@ -51,7 +53,9 @@ def init_mamba(gen: torch.Generator, cfg, dtype=torch.float32,
         "dt_bias": torch.log(torch.expm1(torch.full((heads,), 0.01, **f32))),
         "gate_norm": torch.ones((d_inner,), dtype=dtype, device=device),
         "out_proj": init_linear(gen, d_inner, cfg.d_model, use_bias=False,
-                                dtype=dtype, device=device),
+                                dtype=dtype, device=device,
+                                out=None if out is None
+                                else out["out_proj"]),
     }
 
 

@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
-                                     empty_stats, input_stats, linear_labels)
+                                     empty_stats, input_stats, linear_labels,
+                                     scaled_randn)
 
 
 def moe_capacity(seq_len: int, num_experts: int, top_k: int,
@@ -43,23 +44,25 @@ def moe_capacity(seq_len: int, num_experts: int, top_k: int,
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.float32,
-             device=None) -> dict:
+             device=None, out: dict | None = None) -> dict:
     """Init MoE params: a digital fp32 router [d, E] and the batched
     analog expert sites ``gate_up`` [E, d, 2f] and ``down`` [E, f, d],
-    each with one input range."""
+    each with one input range. ``out`` receives the expert kernels in
+    place (no second copy of an expert leaf)."""
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
 
-    def batched(din, dout):
-        kernel = torch.randn((e, din, dout), generator=gen, device=device,
-                             dtype=torch.float32) * din ** -0.5
-        return {"kernel": kernel.to(dtype),
+    def batched(din, dout, name):
+        kernel = scaled_randn(gen, (e, din, dout), din ** -0.5, dtype,
+                              device,
+                              None if out is None else out[name]["kernel"])
+        return {"kernel": kernel,
                 "input_range": torch.full((1,), 3.0, device=device)}
 
     router = torch.randn((d, e), generator=gen, device=device,
                          dtype=torch.float32) * d ** -0.5
     return {"router": {"kernel": router},
-            "gate_up": batched(d, 2 * f),
-            "down": batched(f, d)}
+            "gate_up": batched(d, 2 * f, "gate_up"),
+            "down": batched(f, d, "down")}
 
 
 def moe_labels(p: dict) -> dict:

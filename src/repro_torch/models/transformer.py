@@ -1,4 +1,4 @@
-"""Model assembly, dense, moe and ssm families: a pre-norm decoder LM.
+"""Model assembly, all six families: a pre-norm decoder LM.
 
 Parameters keep the reference's layout: the layer stack is scan-stacked,
 every leaf of ``params["blocks"]`` carries a leading ``[L]`` axis, and the
@@ -8,37 +8,57 @@ so :func:`apply_blocks` is a loop over ``l`` over views of each leaf
 ``remat`` each layer runs under ``torch.utils.checkpoint`` (non-reentrant)
 and is recomputed in the backward; its training noise is keyed by (key,
 layer, site), so the recomputed layer draws the noise its forward drew.
-The dense family's layer is attention + MLP, the moe family's
-(qwen3-moe-30b-a3b, dbrx-132b) attention + a routed MoE FFN
-(``models/moe.py``; eval only, its training waits for the batched
-launch's STE backward); the ssm family's (mamba2-130m) is one Mamba-2
-mixer with no FFN. The hybrid, vlm and audio families come with a later
-slice and are refused here.
+
+The families' layers:
+
+* dense, vlm and audio: attention + MLP; vlm prepends the ``projector``
+  site's image of ``patch_embeds``, audio sums one embedding per codebook
+  and its head predicts every codebook (``[..., K, V]`` logits);
+* moe (qwen3-moe-30b-a3b, dbrx-132b): attention + a routed MoE FFN
+  (``models/moe.py``; eval only, its training waits for the batched
+  launch's STE backward);
+* ssm (mamba2-130m): one Mamba-2 mixer with no FFN;
+* hybrid (jamba-v0.1-52b): super-blocks of ``attn_every`` layers, the
+  reference's nested layout ``{"attn", "mamba" [attn_every - 1],
+  "dense_ffn" [half - 1], "moe_ffn" [half]}`` stacked ``[n_sb]``: one
+  attention layer at ``attn_every // 2``, a Mamba-2 mixer elsewhere, each
+  mixer followed by its own FFN, MoE at odd positions. Its noise context
+  folds the super-block index, then the layer's position in it.
+
+Only the serving path runs for hybrid, vlm and audio: training them
+raises (:func:`forward`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
-                                     init_linear, linear_labels)
+                                     init_linear, linear_labels,
+                                     scaled_randn)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+#: training each family needs what is not ported yet, by ROADMAP item
+_NOT_TRAINED = {
+    "hybrid": "training the hybrid family (jamba) needs the ssd_scan "
+              "backward and the batched expert site's STE backward "
+              "(ROADMAP section 1, items 5 and 6)",
+    "vlm": "training the vlm family (internvl2) is not ported: this port "
+           "serves it (ROADMAP section 1, item 12)",
+    "audio": "training the audio family (musicgen) is not ported: this "
+             "port serves it (ROADMAP section 1, item 12)"}
 
 
-def _require_ported(cfg) -> None:
-    """Raise for a family this port does not run yet."""
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (this port runs the "
-            "dense, moe and ssm families; hybrid, vlm and audio come later: "
-            "ROADMAP section 1, item 7)")
+def _check_family(cfg) -> None:
+    """Raise for a family the reference does not have."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def tree_index(tree, i: int):
@@ -65,21 +85,67 @@ def tree_stack(trees: list):
     return torch.stack(trees)
 
 
+def _first_leaf(tree):
+    """The first tensor leaf of a nested tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _fill(slot, got) -> None:
+    """Copy the leaves of ``got`` into ``slot`` but those an init function
+    already wrote in place."""
+    if isinstance(slot, dict):
+        for k in slot:
+            _fill(slot[k], got[k])
+    elif got.data_ptr() != slot.data_ptr():
+        slot.copy_(got)
+
+
+def stacked_init(n: int, init_one: Callable, gen, device,
+                 out: dict | None = None) -> dict:
+    """``n`` layers of ``init_one(gen, out, device)`` stacked on a new
+    leading axis, drawn in layer order into ``out`` (allocated here when
+    None). The stack is allocated once, its shapes from a pass of
+    ``init_one`` on the meta device (which draws nothing), and each layer
+    is drawn into its slice: ``init_one`` writes its large random leaves
+    into the slice it is given and the small ones are copied in, so the
+    peak is the stack plus one layer's small leaves, never two copies of
+    a leaf."""
+    if out is None:
+        shapes = init_one(None, None, torch.device("meta"))
+        out = _tree_empty(shapes, n, device)
+    for i in range(n):
+        slot = tree_index(out, i)
+        _fill(slot, init_one(gen, slot, device))
+    return out
+
+
+def _tree_empty(shapes, n: int, device):
+    """Uninitialised ``[n, ...]`` leaves of ``shapes``' shapes and
+    dtypes."""
+    if isinstance(shapes, dict):
+        return {k: _tree_empty(v, n, device) for k, v in shapes.items()}
+    return torch.empty((n,) + tuple(shapes.shape), dtype=shapes.dtype,
+                       device=device)
+
+
 # ---------------------------------------------------------------------------
 # per-layer blocks
 # ---------------------------------------------------------------------------
 
 def _ffn_kind(cfg) -> str:
-    """The FFN of the family's attention blocks: ``"moe"`` or ``"dense"``."""
+    """The FFN of the family's attention blocks: ``"moe"`` or ``"dense"``
+    (hybrid attention layers have a dense one)."""
     return "moe" if cfg.family == "moe" else "dense"
 
 
 def _init_ffn(gen: torch.Generator, cfg, kind: str, dtype=torch.float32,
-              device=None) -> dict:
+              device=None, out: dict | None = None) -> dict:
     """Init the FFN of one block: dense MLP or MoE by ``kind``."""
     if kind == "moe":
-        return MoE.init_moe(gen, cfg, dtype, device)
-    return L.init_mlp(gen, cfg, dtype, device)
+        return MoE.init_moe(gen, cfg, dtype, device, out=out)
+    return L.init_mlp(gen, cfg, dtype, device, out=out)
 
 
 def _ffn_labels(p: dict, kind: str) -> dict:
@@ -96,12 +162,15 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
 
 
 def init_attn_layer(gen: torch.Generator, cfg, dtype=torch.float32,
-                    device=None, ffn_kind: str = "dense") -> dict:
+                    device=None, ffn_kind: str = "dense",
+                    out: dict | None = None) -> dict:
     """Init one pre-norm attention block (ln1/attn/ln2/ffn)."""
     return {"ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "attn": L.init_attention(gen, cfg, dtype, device),
+            "attn": L.init_attention(gen, cfg, dtype, device,
+                                     out=L.sub(out, "attn")),
             "ln2": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "ffn": _init_ffn(gen, cfg, ffn_kind, dtype, device)}
+            "ffn": _init_ffn(gen, cfg, ffn_kind, dtype, device,
+                             out=L.sub(out, "ffn"))}
 
 
 def attn_layer_labels(p: dict, ffn_kind: str = "dense") -> dict:
@@ -130,10 +199,12 @@ def apply_attn_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
 
 
 def init_mamba_layer(gen: torch.Generator, cfg, dtype=torch.float32,
-                     device=None) -> dict:
-    """Init one ssm-family block: ln1 and the Mamba-2 mixer (no FFN)."""
+                     device=None, out: dict | None = None) -> dict:
+    """Init one mamba block: ln1 and the Mamba-2 mixer (no FFN; a hybrid
+    super-block keeps its mixers' FFNs apart)."""
     return {"ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "mixer": M.init_mamba(gen, cfg, dtype, device)}
+            "mixer": M.init_mamba(gen, cfg, dtype, device,
+                                  out=L.sub(out, "mixer"))}
 
 
 def mamba_layer_labels(p: dict) -> dict:
@@ -156,25 +227,135 @@ def apply_mamba_layer(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
 # the layer stack
 # ---------------------------------------------------------------------------
 
+def _init_ffn_block(gen, cfg, kind: str, dtype, device,
+                    out: dict | None = None) -> dict:
+    """A hybrid mixer's FFN: ``{"ln2", "ffn"}``."""
+    return {"ln2": L.init_norm(cfg.d_model, cfg.norm, dtype, device),
+            "ffn": _init_ffn(gen, cfg, kind, dtype, device,
+                             out=L.sub(out, "ffn"))}
+
+
+def _init_super_block(gen, cfg, dtype, device, out: dict | None = None
+                      ) -> dict:
+    """One jamba super-block in the reference's nested layout: its
+    attention layer (dense FFN), ``attn_every - 1`` mixers, ``half - 1``
+    dense and ``half`` MoE FFNs, each group stacked."""
+    half = cfg.attn_every // 2
+
+    def ffns(kind):
+        return lambda g, o, d: _init_ffn_block(g, cfg, kind, dtype, d, o)
+
+    return {
+        "attn": init_attn_layer(gen, cfg, dtype, device, "dense",
+                                out=L.sub(out, "attn")),
+        "mamba": stacked_init(
+            cfg.attn_every - 1,
+            lambda g, o, d: init_mamba_layer(g, cfg, dtype, d, out=o),
+            gen, device, out=L.sub(out, "mamba")),
+        "dense_ffn": stacked_init(half - 1, ffns("dense"), gen, device,
+                                  out=L.sub(out, "dense_ffn")),
+        "moe_ffn": stacked_init(half, ffns("moe"), gen, device,
+                                out=L.sub(out, "moe_ffn"))}
+
+
 def init_blocks(gen: torch.Generator, cfg, dtype=torch.float32,
                 device=None) -> dict:
-    """Init the layer stack: every leaf stacked to ``[L, ...]``."""
-    _require_ported(cfg)
+    """Init the layer stack, every leaf stacked to ``[L, ...]`` (hybrid:
+    ``[n_sb, ...]`` super-blocks, each with its own stacked groups), drawn
+    layer by layer into the stack (:func:`stacked_init`)."""
+    _check_family(cfg)
+    if cfg.family == "hybrid":
+        return stacked_init(
+            cfg.num_layers // cfg.attn_every,
+            lambda g, o, d: _init_super_block(g, cfg, dtype, d, o),
+            gen, device)
     if cfg.family == "ssm":
-        layers = [init_mamba_layer(gen, cfg, dtype, device)
-                  for _ in range(cfg.num_layers)]
+        def one(g, o, d):
+            return init_mamba_layer(g, cfg, dtype, d, out=o)
     else:
-        layers = [init_attn_layer(gen, cfg, dtype, device, _ffn_kind(cfg))
-                  for _ in range(cfg.num_layers)]
-    return tree_stack(layers)
+        def one(g, o, d):
+            return init_attn_layer(g, cfg, dtype, d, _ffn_kind(cfg), out=o)
+    return stacked_init(cfg.num_layers, one, gen, device)
 
 
 def blocks_labels(params_blocks: dict, cfg) -> dict:
     """Labels of the stacked blocks (one label set, shared by all layers)."""
-    _require_ported(cfg)
+    _check_family(cfg)
     if cfg.family == "ssm":
         return mamba_layer_labels(params_blocks)
+    if cfg.family == "hybrid":
+        p = params_blocks
+        return {"attn": attn_layer_labels(p["attn"], "dense"),
+                "mamba": mamba_layer_labels(p["mamba"]),
+                "dense_ffn": {"ln2": L.norm_labels(p["dense_ffn"]["ln2"]),
+                              "ffn": _ffn_labels(p["dense_ffn"]["ffn"],
+                                                 "dense")},
+                "moe_ffn": {"ln2": L.norm_labels(p["moe_ffn"]["ln2"]),
+                            "ffn": _ffn_labels(p["moe_ffn"]["ffn"], "moe")}}
     return attn_layer_labels(params_blocks, _ffn_kind(cfg))
+
+
+def _copy_state(dst: dict, src: dict) -> None:
+    """Write a mixer's new ``conv`` / ``ssm`` state into its cache slice."""
+    for name in ("conv", "ssm"):
+        dst[name].copy_(src[name])
+
+
+def _hybrid_sb_apply(p_sb: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
+                     ctx: AnalogCtx, positions: torch.Tensor,
+                     cache_sb: dict | None = None,
+                     seq_mask: torch.Tensor | None = None):
+    """One jamba super-block: layers ``0 .. attn_every - 1``, attention at
+    ``attn_every // 2``, a mixer and its FFN elsewhere (MoE at odd ``j``,
+    dense at even), as the reference's ``_hybrid_sb_apply``. Layer ``j``
+    gets ``ctx`` with ``j`` folded in. Each mixer's new state is written
+    into its slice of ``cache_sb["mamba"]``. Returns ``(x, stats,
+    attention cache)``; the stats mirror the super-block's params (attn /
+    mamba / dense_ffn / moe_ffn, the groups stacked)."""
+    half = cfg.attn_every // 2
+    new_attn = None
+    st_attn, st_mamba, st_dense, st_moe = None, [], [], []
+    m_idx = 0
+    for j in range(cfg.attn_every):
+        ctx_j = ctx.fold(j)
+        if j == half:
+            c = None if cache_sb is None else cache_sb["attn"]
+            x, st_attn, new_attn = apply_attn_layer(
+                p_sb["attn"], x, cfg, acfg, ctx_j, positions, c, seq_mask,
+                "dense")
+            continue
+        c = (None if cache_sb is None
+             else tree_index(cache_sb["mamba"], m_idx))
+        x, st_m, nc = apply_mamba_layer(tree_index(p_sb["mamba"], m_idx), x,
+                                        cfg, acfg, ctx_j, c, seq_mask)
+        if nc is not None:
+            _copy_state(c, nc)
+        st_mamba.append(st_m)
+        m_idx += 1
+        kind = "moe" if j % 2 == 1 else "dense"
+        if kind == "moe":
+            fp = tree_index(p_sb["moe_ffn"], j // 2)
+        else:
+            fp = tree_index(p_sb["dense_ffn"], j // 2 - (1 if j > half
+                                                          else 0))
+        h, st_f = _apply_ffn(fp["ffn"], L.apply_norm(fp["ln2"], x, cfg.norm),
+                             cfg, acfg, ctx_j, kind)
+        x = x + h
+        (st_moe if kind == "moe" else st_dense).append({"ffn": st_f})
+    stats = {"attn": st_attn, "mamba": tree_stack(st_mamba),
+             "dense_ffn": tree_stack(st_dense),
+             "moe_ffn": tree_stack(st_moe)}
+    return x, stats, new_attn
+
+
+def _layer_cache(caches: dict | None, i: int, slots: bool):
+    """Layer (or super-block) ``i``'s view of the stacked caches; the
+    contiguous layout's host-int ``pos`` is shared by all layers."""
+    if caches is None:
+        return None
+    return {k: (_layer_cache(v, i, slots) if isinstance(v, dict)
+                else v if k == "pos" and not slots else v[i])
+            for k, v in caches.items()}
 
 
 def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
@@ -184,23 +365,26 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     """Run the layer stack. Returns ``(x, stats, new_caches)``.
 
     Layer ``i`` gets ``ctx`` with ``i`` folded into its noise key (the
-    reference's ``fold_in(ctx.key, idx)``). ``remat`` (training, no
-    caches) checkpoints each layer: its activations are recomputed in the
+    reference's ``fold_in(ctx.key, idx)``; hybrid: super-block ``i``, then
+    the layer's position in it). ``remat`` (training, no caches)
+    checkpoints each layer: its activations are recomputed in the
     backward instead of kept.
 
     ``caches`` is :func:`init_caches`' stacked tree, every tensor leaf
-    ``[L, ...]``. Each layer writes its slice of the buffers and pools in
-    place. The contiguous layout shares one host-int ``pos``; the slot
-    layouts carry per-layer cursors ``pos`` [L, B], which come back
-    advanced (rows fully masked by ``seq_mask`` [B, S] keep theirs). The
-    ssm family's ``conv`` / ``ssm`` state has no cursor: each layer's new
-    state is copied into its slice.
+    ``[L, ...]`` (hybrid: the nested ``{"attn", "mamba"}`` tree, ``[n_sb,
+    ...]`` and ``[n_sb, attn_every - 1, ...]``). Each layer writes its
+    slice of the buffers, pools and states in place. The contiguous layout
+    shares one host-int ``pos``; the slot layouts carry per-layer cursors
+    ``pos`` [L, B], which come back advanced (rows fully masked by
+    ``seq_mask`` [B, S] keep theirs). A mamba layer's ``conv`` / ``ssm``
+    state has no cursor: each layer's new state is copied into its slice.
     """
-    _require_ported(cfg)
-    ssm = cfg.family == "ssm"
+    _check_family(cfg)
+    fam = cfg.family
     ffn_kind = _ffn_kind(cfg)
-    n_layers = next(iter(params_blocks["ln1"].values())).shape[0]
-    slots = caches is not None and "start" in caches
+    n_layers = _first_leaf(params_blocks).shape[0]
+    attn = caches["attn"] if fam == "hybrid" and caches else caches
+    slots = attn is not None and "start" in attn
     if remat and caches is not None:
         raise ValueError("remat is for training; a forward with caches "
                          "keeps nothing for a backward")
@@ -208,13 +392,13 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     stats, new_pos = [], []
     for i in range(n_layers):
         p_l, ctx_l = layers[i], ctx.fold(i)
-        cache_l = None
-        if caches is not None:
-            cache_l = {k: (v if k == "pos" and not slots else v[i])
-                       for k, v in caches.items()}
-        if remat:
+        cache_l = _layer_cache(caches, i, slots)
+        if fam == "hybrid":
+            x, st, nc = _hybrid_sb_apply(p_l, x, cfg, acfg, ctx_l, positions,
+                                         cache_l, seq_mask)
+        elif remat:
             def layer(p_l, x, ctx_l=ctx_l):
-                if ssm:
+                if fam == "ssm":
                     return apply_mamba_layer(p_l, x, cfg, acfg, ctx_l)[:2]
                 return apply_attn_layer(p_l, x, cfg, acfg, ctx_l,
                                         positions, ffn_kind=ffn_kind)[:2]
@@ -224,24 +408,28 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
             x, st = torch.utils.checkpoint.checkpoint(
                 layer, p_l, x, use_reentrant=False,
                 preserve_rng_state=False)
-        elif ssm:
+        elif fam == "ssm":
             x, st, nc = apply_mamba_layer(p_l, x, cfg, acfg, ctx_l, cache_l,
                                           seq_mask)
             if nc is not None:
-                for name in ("conv", "ssm"):
-                    caches[name][i].copy_(nc[name])
+                _copy_state(cache_l, nc)
         else:
             x, st, nc = apply_attn_layer(p_l, x, cfg, acfg, ctx_l, positions,
                                          cache_l, seq_mask, ffn_kind)
-            if slots:
-                new_pos.append(nc["pos"])
+        if slots and fam != "ssm":
+            new_pos.append(nc["pos"])
         stats.append(st)
     new_caches = None
     if caches is not None:
         new_caches = dict(caches)
-        if not ssm:
-            new_caches["pos"] = (torch.stack(new_pos) if slots
-                                 else caches["pos"] + x.shape[1])
+        if fam != "ssm":
+            new_attn = dict(attn)
+            new_attn["pos"] = (torch.stack(new_pos) if slots
+                               else attn["pos"] + x.shape[1])
+            if fam == "hybrid":
+                new_caches["attn"] = new_attn
+            else:
+                new_caches = new_attn
     return x, tree_stack(stats), new_caches
 
 
@@ -250,16 +438,30 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
 # ---------------------------------------------------------------------------
 
 def init_model(gen: torch.Generator, cfg, dtype=torch.float32, device=None):
-    """Returns ``(params, labels)`` with random weights from ``gen``."""
-    _require_ported(cfg)
+    """Returns ``(params, labels)`` with random weights from ``gen``. Every
+    leaf is drawn once into its final storage (no second copy of a leaf
+    is ever alive: a full-width model fills the card with one copy)."""
+    _check_family(cfg)
     emb_scale = cfg.d_model ** -0.5
     params: dict[str, Any] = {}
-    emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
-                      device=device, dtype=torch.float32) * emb_scale
-    params["embed"] = {"tokens": emb.to(dtype)}
+    if cfg.family == "audio":
+        params["embed"] = {"codebooks": scaled_randn(
+            gen, (cfg.num_codebooks, cfg.vocab_size, cfg.d_model),
+            emb_scale, dtype, device)}
+    else:
+        params["embed"] = {"tokens": scaled_randn(
+            gen, (cfg.padded_vocab, cfg.d_model), emb_scale, dtype, device)}
+    if cfg.family == "vlm":
+        params["projector"] = init_linear(gen, cfg.vit_dim, cfg.d_model,
+                                          use_bias=True, dtype=dtype,
+                                          device=device)
     params["blocks"] = init_blocks(gen, cfg, dtype, device)
     params["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype, device)
-    if not cfg.tie_embeddings:
+    if cfg.family == "audio":
+        params["lm_head"] = init_linear(
+            gen, cfg.d_model, cfg.num_codebooks * cfg.vocab_size,
+            use_bias=False, dtype=dtype, device=device)
+    elif not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.padded_vocab,
                                         use_bias=False, dtype=dtype,
                                         device=device)
@@ -270,35 +472,48 @@ def model_labels(params: dict, cfg) -> dict:
     """The label tree of a parameter tree (the reference's ``labels`` of
     ``init_model``), e.g. for weights carried across from a checkpoint."""
     labels: dict[str, Any] = {
-        "embed": {"tokens": "digital"},
+        "embed": {k: "digital" for k in params["embed"]},
         "blocks": blocks_labels(params["blocks"], cfg),
         "final_norm": L.norm_labels(params["final_norm"])}
-    if "lm_head" in params:
-        labels["lm_head"] = linear_labels(params["lm_head"])
+    for site in ("projector", "lm_head"):
+        if site in params:
+            labels[site] = linear_labels(params[site])
     return labels
 
 
 def embed_inputs(params: dict, cfg, inputs: dict):
-    """→ (x [B, S, d], positions [B, S]) for token inputs."""
-    _require_ported(cfg)
+    """→ (x [B, S, d], positions [B, S]). Audio tokens are ``[B, S, K]``,
+    one per codebook, and their embeddings are summed; the vlm's patch
+    embeddings are prepended in :func:`forward`."""
+    _check_family(cfg)
     tokens = inputs["tokens"]
-    x = params["embed"]["tokens"][tokens]
-    bsz, s = tokens.shape
+    if cfg.family == "audio":
+        emb = params["embed"]["codebooks"]                   # [K, V, d]
+        x = emb[0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):
+            x = x + emb[k][tokens[..., k]]
+    else:
+        x = params["embed"]["tokens"][tokens]
+    bsz, s = tokens.shape[:2]
     positions = torch.arange(s, device=tokens.device)[None].expand(bsz, s)
     return x, positions
 
 
 def apply_lm_head(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
                   x: torch.Tensor):
-    """Project hidden states to vocab-sliced fp32 logits. Returns
-    ``(logits, stats)``."""
+    """Project hidden states to fp32 logits: vocab-sliced ``[..., V]``, or
+    audio's ``[..., K, V]`` (one site of ``K · V`` outputs, not sliced).
+    Returns ``(logits, stats)``."""
     stats = {}
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.family != "audio":
         logits = torch.matmul(x, params["embed"]["tokens"].T.to(x.dtype))
     else:
         logits, st = analog_linear(params["lm_head"], x, acfg,
                                    ctx.site("lm_head"))
         stats["lm_head"] = st
+    if cfg.family == "audio":
+        return logits.reshape(*x.shape[:-1], cfg.num_codebooks,
+                              cfg.vocab_size).float(), stats
     return logits[..., :cfg.vocab_size].float(), stats
 
 
@@ -310,23 +525,36 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
             return_hidden: bool = False):
     """Full forward. Returns ``(logits, stats, new_caches)``.
 
-    For decode pass single-token inputs with ``caches`` and ``pos_offset``,
-    the RoPE position of the token: a host int for the contiguous cache,
-    or per row ([B, 1] on the device) for the continuous engine's slot
-    caches, where rows decode at their own positions. ``seq_mask`` [B, S]
-    marks real tokens (see :func:`apply_blocks`). ``last_only`` applies the
-    LM head to the final position only. ``remat`` checkpoints each layer
-    (training). ``return_hidden`` skips the LM head and returns the
-    final-norm hidden states in place of the logits (the chunked-vocab
-    loss applies :func:`apply_lm_head` per chunk).
+    ``inputs``: ``{"tokens": ...}`` ([B, S], audio [B, S, K]), and for
+    vlm optionally ``"patch_embeds"`` [B, vit_tokens, vit_dim], run
+    through the ``projector`` site and prepended (the positions then count
+    them). For decode pass single-token inputs with ``caches`` and
+    ``pos_offset``, the RoPE position of the token: a host int for the
+    contiguous cache, or per row ([B, 1] on the device) for the continuous
+    engine's slot caches, where rows decode at their own positions.
+    ``seq_mask`` [B, S] marks real tokens (see :func:`apply_blocks`).
+    ``last_only`` applies the LM head to the final position only. ``remat``
+    checkpoints each layer (training). ``return_hidden`` skips the LM head
+    and returns the final-norm hidden states in place of the logits (the
+    chunked-vocab loss applies :func:`apply_lm_head` per chunk).
     """
+    if ctx.training and cfg.family in _NOT_TRAINED:
+        raise NotImplementedError(_NOT_TRAINED[cfg.family])
     x, positions = embed_inputs(params, cfg, inputs)
+    stats: dict[str, Any] = {}
+    if cfg.family == "vlm" and "patch_embeds" in inputs:
+        pe, st = analog_linear(params["projector"], inputs["patch_embeds"],
+                               acfg, ctx.site("projector"))
+        stats["projector"] = st
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+        bsz, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(bsz, s)
     if pos_offset is not None:
         positions = positions + pos_offset
     x, st_blocks, new_caches = apply_blocks(params["blocks"], x, cfg, acfg,
                                             ctx, positions, caches, seq_mask,
                                             remat)
-    stats: dict[str, Any] = {"blocks": st_blocks}
+    stats["blocks"] = st_blocks
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if last_only:
         x = x[:, -1:]
@@ -335,6 +563,15 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     logits, st = apply_lm_head(params, cfg, acfg, ctx, x)
     stats.update(st)
     return logits, stats, new_caches
+
+
+def _stack_meta(tree: dict, lead: tuple, device) -> dict:
+    """Zeros ``lead + shape`` for every meta tensor leaf of ``tree`` (ints,
+    the contiguous layout's host ``pos``, pass through)."""
+    return {k: (v if isinstance(v, int)
+                else torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                                 device=device))
+            for k, v in tree.items()}
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
@@ -351,27 +588,30 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
     The ssm family keeps a state per row instead of a KV cache:
     ``{"conv": [L, B, W-1, C] at dtype, "ssm": [L, B, H, N, P] fp32}``, the
     same whatever the layout (``max_len`` and the paging options do not
-    apply)."""
-    _require_ported(cfg)
-    if cfg.family == "ssm":
-        one = M.init_mamba_cache(cfg, batch, dtype, device="meta")
-    else:
-        one = L.init_cache(cfg, batch, max_len, dtype, device="meta",
-                           per_slot=per_slot, paged=paged,
-                           kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-                           kv_bits=kv_bits)
-    out = {}
-    for name, leaf in one.items():
-        if isinstance(leaf, int):
-            out[name] = leaf
-        else:
-            out[name] = torch.zeros((cfg.num_layers,) + tuple(leaf.shape),
-                                    dtype=leaf.dtype, device=device)
-    return out
+    apply). The hybrid family nests both: ``{"attn": the attention leaves
+    [n_sb, ...], "mamba": the state leaves [n_sb, attn_every - 1, ...]}``;
+    only its attention leaves are paged."""
+    _check_family(cfg)
+    attn = mamba = None
+    if cfg.family != "ssm":
+        attn = L.init_cache(cfg, batch, max_len, dtype, device="meta",
+                            per_slot=per_slot, paged=paged,
+                            kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+                            kv_bits=kv_bits)
+    if cfg.family in ("ssm", "hybrid"):
+        mamba = M.init_mamba_cache(cfg, batch, dtype, device="meta")
+    if cfg.family == "hybrid":
+        n_sb = cfg.num_layers // cfg.attn_every
+        return {"attn": _stack_meta(attn, (n_sb,), device),
+                "mamba": _stack_meta(mamba, (n_sb, cfg.attn_every - 1),
+                                     device)}
+    return _stack_meta(attn if mamba is None else mamba, (cfg.num_layers,),
+                       device)
 
 
 def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
-    """``(axes, kinds)`` of the slot cache tree of :func:`init_caches`.
+    """``(axes, kinds)`` of the slot cache tree of :func:`init_caches`,
+    mirroring its structure.
 
     ``axes`` gives the slot (request) axis of each leaf, ``-1`` for
     pool-wide leaves with no slot axis (the paged pools, passed through
@@ -380,21 +620,29 @@ def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
     (zeroed at admission), ``"table"`` / ``"wtable"`` (the slot's read /
     write block-table rows) or ``"pool"`` (shared physical storage,
     untouched at admission). The engine gathers and scatters one slot's
-    rows with these, without knowing the layout. The ssm family's leaves
-    (``conv``, ``ssm``) are per-slot state whatever ``paged`` says: an
-    attention-free stack has no KV to page.
+    rows with these, without knowing the layout. The mamba leaves
+    (``conv``, ``ssm``) are per-slot state whatever ``paged`` says (an
+    attention-free stack has no KV to page); a hybrid stack's carry an
+    extra leading per-super-block axis, which shifts their slot axis by
+    one.
     """
-    _require_ported(cfg)
-    if cfg.family == "ssm":
-        return {"conv": 1, "ssm": 1}, {"conv": "state", "ssm": "state"}
+    _check_family(cfg)
     if paged:
-        axes = {"kp": -1, "vp": -1, "tbl": 1, "wtbl": 1, "pos": 1,
-                "start": 1}
-        kinds = {"kp": "pool", "vp": "pool", "tbl": "table",
-                 "wtbl": "wtable", "pos": "pos", "start": "start"}
+        attn_axes = {"kp": -1, "vp": -1, "tbl": 1, "wtbl": 1, "pos": 1,
+                     "start": 1}
+        attn_kinds = {"kp": "pool", "vp": "pool", "tbl": "table",
+                      "wtbl": "wtable", "pos": "pos", "start": "start"}
         if kv_bits == 8:
-            axes.update(ks=-1, vs=-1)
-            kinds.update(ks="pool", vs="pool")
-        return axes, kinds
-    return ({"k": 1, "v": 1, "pos": 1, "start": 1},
-            {"k": "state", "v": "state", "pos": "pos", "start": "start"})
+            attn_axes.update(ks=-1, vs=-1)
+            attn_kinds.update(ks="pool", vs="pool")
+    else:
+        attn_axes = {"k": 1, "v": 1, "pos": 1, "start": 1}
+        attn_kinds = {"k": "state", "v": "state", "pos": "pos",
+                      "start": "start"}
+    mamba_kinds = {"conv": "state", "ssm": "state"}
+    if cfg.family == "ssm":
+        return {"conv": 1, "ssm": 1}, mamba_kinds
+    if cfg.family == "hybrid":
+        return ({"attn": attn_axes, "mamba": {"conv": 2, "ssm": 2}},
+                {"attn": attn_kinds, "mamba": mamba_kinds})
+    return attn_axes, attn_kinds

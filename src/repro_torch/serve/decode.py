@@ -28,20 +28,26 @@ def digital_int4_config(acfg: AnalogConfig) -> AnalogConfig:
 
 @torch.no_grad()
 def prefill(params, cfg, acfg: AnalogConfig, tokens: torch.Tensor,
-            max_len: int, cache_dtype=torch.float32):
-    """Run the prompt [B, S] through the model, filling a fresh cache of
-    ``max_len``. Returns ``(last_logits [B, V], caches, next_pos)``."""
+            max_len: int, extra_inputs: dict | None = None,
+            cache_dtype=torch.float32):
+    """Run the prompt [B, S] (audio [B, S, K]) through the model, filling a
+    fresh cache of ``max_len``; ``extra_inputs`` joins the model inputs
+    (the vlm's ``patch_embeds``, which the cache holds ahead of the text).
+    Returns ``(last_logits [B, V] (audio [B, K, V]), caches, next_pos)``,
+    ``next_pos`` counting the prefix."""
     caches = T.init_caches(cfg, tokens.shape[0], max_len, cache_dtype,
                            tokens.device)
     logits, _, caches = model_apply(params, cfg, acfg, AnalogCtx(),
-                                    {"tokens": tokens}, caches=caches)
-    return logits[:, -1], caches, tokens.shape[1]
+                                    {"tokens": tokens, **(extra_inputs or {})},
+                                    caches=caches)
+    return logits[:, -1], caches, logits.shape[1]
 
 
 @torch.no_grad()
 def serve_step(params, cfg, acfg: AnalogConfig, token: torch.Tensor,
                caches, pos, seq_mask: torch.Tensor | None = None):
-    """One decode step: token [B, 1] → (logits [B, V], caches).
+    """One decode step: token [B, 1] (audio [B, 1, K]) → (logits [B, V]
+    (audio [B, K, V]), caches).
 
     ``pos`` is the RoPE position: a host int for the contiguous cache, or
     per row ([B, 1] on the device) for the continuous engine's slot
@@ -60,17 +66,22 @@ def serve_step(params, cfg, acfg: AnalogConfig, token: torch.Tensor,
 def generate(params, cfg, acfg: AnalogConfig, generator: torch.Generator,
              prompt: torch.Tensor, num_new: int, *, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0, greedy_first: int = 0,
+             extra_inputs: dict | None = None,
              cache_dtype=torch.float32) -> torch.Tensor:
-    """Batched ancestral sampling. Returns tokens [B, num_new].
+    """Batched ancestral sampling. Returns tokens [B, num_new] (audio
+    [B, num_new, K], one per codebook).
 
     The first ``greedy_first`` tokens are argmax picks. As in the
     reference's ``scan``, every one of the ``num_new`` steps runs a decode
     forward, the last one included, so a call runs ``1 + num_new``
-    forwards.
+    forwards. ``extra_inputs`` goes to the prefill (see :func:`prefill`);
+    a vlm's cache is sized for its ``vit_tokens`` prefix either way, as
+    the reference sizes it.
     """
-    max_len = prompt.shape[1] + num_new
+    max_len = prompt.shape[1] + num_new + (
+        cfg.vit_tokens if cfg.family == "vlm" else 0)
     logits, caches, pos = prefill(params, cfg, acfg, prompt, max_len,
-                                  cache_dtype=cache_dtype)
+                                  extra_inputs, cache_dtype=cache_dtype)
     toks = []
     for i in range(num_new):
         if i < greedy_first:
@@ -79,7 +90,7 @@ def generate(params, cfg, acfg: AnalogConfig, generator: torch.Generator,
             tok = sample_logits(generator, logits, temperature=temperature,
                                 top_k=top_k, top_p=top_p)
         logits, caches = serve_step(params, cfg, acfg, tok[:, None], caches,
-                                    pos)
+                                    pos)             # audio: [B, 1, K]
         pos += 1
         toks.append(tok)
     return torch.stack(toks, dim=1)

@@ -36,6 +36,12 @@ mixed-length traffic instead:
   layouts; their routing is per row (one sequence is one routed group),
   and every column of a chunk, left pads too, competes for its row's
   expert capacity, as in the reference.
+* **hybrid stacks** (jamba-v0.1-52b) nest both: the attention leaves of
+  every super-block (contiguous per slot, or paged on the pool) and the
+  per-slot state of its mixers. The engine walks the nested cache tree
+  with ``models.transformer.cache_slot_spec``. The vlm and audio families
+  are served by the static engine only, as in the reference: this engine
+  refuses them.
 * **Per-request sampling and stop conditions** — temperature, top-k,
   top-p and ``greedy_first`` ride along as per-row tensors
   (``sampling.sample_logits_batched``). Randomness is counter-based: the
@@ -189,6 +195,24 @@ _SSM_NOT_PAGED = ("attention-free ssm stacks have no KV to page (per-slot "
                   "state is O(1))")
 
 
+def _map_leaves(fn, tree: dict, *others: dict) -> dict:
+    """``fn(leaf, *other leaves)`` over a nested cache tree and the trees
+    that mirror it (``cache_slot_spec``'s axes and kinds)."""
+    return {k: (_map_leaves(fn, v, *(o[k] for o in others))
+                if isinstance(v, dict) else fn(v, *(o[k] for o in others)))
+            for k, v in tree.items()}
+
+
+def _walk(tree: dict, *others: dict):
+    """The leaves of a nested cache tree, each with the leaves of the
+    mirroring trees at its path, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, *(o[k] for o in others))
+        else:
+            yield (v,) + tuple(o[k] for o in others)
+
+
 class _Slot:
     """Host-side bookkeeping of one in-flight request."""
 
@@ -246,6 +270,12 @@ class ServeEngine:
             raise NotImplementedError(
                 f"chaos_hook is not ported yet ({_SERVING}: request "
                 "lifecycle)")
+        if cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(
+                f"continuous batching is not wired for family="
+                f"{cfg.family!r} (multi-codebook tokens / patch-embed "
+                "prefill), as in the reference: serve it with the static "
+                "engine (serve.decode.generate)")
         self.params = params
         self.cfg, self.acfg, self.scfg = cfg, acfg, scfg
         self.device = params["embed"]["tokens"].device
@@ -445,11 +475,10 @@ class ServeEngine:
         ``pos`` cursor 0, state rows zeroed, block-table rows set to
         ``table`` (all zeros, the sink, on retirement). Pool leaves are
         untouched: stale blocks are masked, never attended."""
-        for name, kind in self._kinds.items():
-            ax = self._axes[name]
+        for leaf, ax, kind in _walk(self.caches, self._axes, self._kinds):
             if kind == "pool":
                 continue
-            row = self.caches[name].select(ax, b)
+            row = leaf.select(ax, b)
             if kind in ("table", "wtable"):
                 row.copy_(torch.as_tensor(table, device=self.device))
             elif kind == "start":
@@ -568,17 +597,16 @@ class ServeEngine:
     def _gather_rows(self, idx: torch.Tensor) -> dict:
         """The cache rows of slots ``idx`` as a compact batch (pool leaves
         pass through whole)."""
-        return {name: leaf if self._axes[name] < 0
-                else leaf.index_select(self._axes[name], idx)
-                for name, leaf in self.caches.items()}
+        return _map_leaves(lambda leaf, ax: leaf if ax < 0
+                           else leaf.index_select(ax, idx),
+                           self.caches, self._axes)
 
     def _scatter_rows(self, sub: dict, idx: torch.Tensor) -> None:
         """Write a compact batch back to its slots (``idx`` rows are
         distinct; pool leaves were updated in place)."""
-        for name, leaf in sub.items():
-            ax = self._axes[name]
+        for leaf, full, ax in _walk(sub, self.caches, self._axes):
             if ax >= 0:
-                self.caches[name].index_copy_(ax, idx, leaf)
+                full.index_copy_(ax, idx, leaf)
 
     @torch.no_grad()
     def _mixed_dispatch(self, decode_rows: list[int],

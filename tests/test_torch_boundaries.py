@@ -480,8 +480,9 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
 def test_chip_smoke_line_launches_counts_every_main_path_run():
     """Each kernel's ``launches_by_path`` holds its count from every
     static, continuous, eval, best-of-n, training and PTQ-eval run (the
-    moe model's static and continuous runs too), each run's counts under
-    one path, and nothing for a kernel that a run did not launch."""
+    moe model's static and continuous runs too, and phase 17's hybrid, vlm
+    and audio runs), each run's counts under one path, and nothing for a
+    kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -533,7 +534,16 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
                 "engine": {"analog_hw/kv16": {"launches": counts(
                                "analog_matmul", *attn)},
                            "digital_int4/kv16": {"launches": counts(
-                               "int4_matmul", *attn)}}}}
+                               "int4_matmul", *attn)}}},
+        "families": {
+            **{f"{arch}/{key}": {"kernel_launches": {
+                mvm: next(seen), **({"ssd_scan": next(seen)}
+                                    if arch == cs.JAMBA else {})}}
+               for arch in cs.FAMILY_ARCHS
+               for key, mvm in (("analog", "analog_matmul"),
+                                ("int4", "int4_matmul"))},
+            "engine": {"launches": counts("analog_matmul", "ssd_scan",
+                                          *attn)}}}
     total = next(seen) - 1
     out = cs.line_launches(results)
     assert list(out) == names
@@ -548,7 +558,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/analog_hw/kv16",
         *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
-                          ("best_of_n", "analog_hw"), ("ptq", "analog_hw")))}
+                          ("best_of_n", "analog_hw"), ("ptq", "analog_hw"))),
+        *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
+        f"continuous/{cs.JAMBA}/analog_hw/kv16"}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -556,14 +568,18 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"static/{cs.MOE}/digital_int4",
         f"continuous/{cs.MOE}/digital_int4/kv16",
         *(f"{kind}/{arch}/digital_int4" for arch in (cs.ARCH, cs.PHI3)
-          for kind in ("eval", "ptq"))}
+          for kind in ("eval", "ptq")),
+        *(f"static/{arch}/digital_int4" for arch in cs.FAMILY_ARCHS)}
     assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
     assert set(out["paged_flash_decode"]) == {
         "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
         "continuous/analog_hw/kv8", f"best_of_n/{cs.ARCH}/analog_hw",
         f"best_of_n/{cs.PHI3}/analog_hw",
         f"continuous/{cs.MOE}/analog_hw/kv16",
-        f"continuous/{cs.MOE}/digital_int4/kv16"}
+        f"continuous/{cs.MOE}/digital_int4/kv16",
+        f"continuous/{cs.JAMBA}/analog_hw/kv16"}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
-    } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")}
+    } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")
+         } | {f"static/{cs.JAMBA}/{d}" for d in ("analog_hw", "digital_int4")
+              } | {f"continuous/{cs.JAMBA}/analog_hw/kv16"}

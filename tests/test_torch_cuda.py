@@ -52,8 +52,11 @@ from repro_torch.kernels import paged_prefill as k_prefill
 from repro_torch.kernels import ssd_scan as k_ssd
 
 U32 = 2.0 ** -24
+# (M, K, N) over both mappings; the last two at jamba-v0.1-52b's down
+# (K 14336, the largest K of any site: 448 promoted spans on mma)
 RAGGED = [(1, 64, 96), (4, 128, 130), (8, 96, 64), (5, 4100, 258),
-          (37, 300, 257), (130, 515, 96)]
+          (37, 300, 257), (130, 515, 96), (4, 14336, 4096),
+          (64, 14336, 4096)]
 
 
 @pytest.fixture
@@ -292,10 +295,13 @@ def test_int4_matmul_on_misaligned_rows(card, m):
 
 # batched experts (a MoE site, one launch): (E, M, K, N, in_bits) over the
 # GEMV (one split and several), the mma mapping (ragged, several M tiles)
-# and the tiled one; qwen3-moe-30b-a3b's gate_up and down at E = 128
+# and the tiled one; qwen3-moe-30b-a3b's gate_up and down at E = 128;
+# jamba-v0.1-52b's down (K 14336) at E = 16, at its decode's 4 rows and its
+# engine chunk's 10
 BATCHED = [(3, 4, 300, 258, 8), (2, 8, 4096, 96, 8), (128, 4, 2048, 1536, 8),
            (128, 8, 768, 2048, 8), (3, 37, 515, 257, 8),
-           (2, 130, 300, 66, 8), (4, 64, 2048, 384, 8), (3, 9, 300, 258, 16)]
+           (2, 130, 300, 66, 8), (4, 64, 2048, 384, 8), (3, 9, 300, 258, 16),
+           (16, 4, 14336, 4096, 8), (16, 10, 14336, 4096, 8)]
 
 
 @pytest.mark.cuda
@@ -331,7 +337,8 @@ def test_batched_analog_matmul_matches_plain_version(card, e, m, k, n, bits):
 @pytest.mark.parametrize("e,m,k,n", [(3, 4, 300, 258), (2, 8, 4096, 96),
                                      (128, 4, 2048, 1536),
                                      (128, 8, 768, 2048), (3, 37, 515, 200),
-                                     (2, 130, 260, 384)], ids=str)
+                                     (2, 130, 260, 384),
+                                     (16, 4, 14336, 4096)], ids=str)
 def test_batched_int4_matmul_matches_plain_version(card, e, m, k, n):
     g = torch.Generator(device=card).manual_seed(e + m * k + n)
     w_int = torch.randint(-7, 8, (e, k, n), generator=g, device=card,
@@ -368,10 +375,12 @@ def test_batched_plans_spread_the_experts_over_the_card(card, kernel):
 
 
 # (B, H, KV, hd, bs, NB): GQA at llama-3.2-1b's head shape, MHA at
-# phi-3-mini-4k's, a GQA group of 8 at qwen3-moe-30b-a3b's, a tiny one, and
-# hd 128 (over 48 KB of shared memory)
+# phi-3-mini-4k's, a GQA group of 8 at qwen3-moe-30b-a3b's, a tiny one, hd
+# 128 (over 48 KB of shared memory), and jamba-v0.1-52b's GQA group of 4 at
+# hd 128
 PAGED = [(3, 32, 8, 64, 16, 9), (4, 32, 32, 96, 8, 7), (3, 32, 4, 64, 16, 9),
-         (2, 4, 2, 16, 4, 11), (2, 16, 2, 128, 16, 5)]
+         (2, 4, 2, 16, 4, 11), (2, 16, 2, 128, 16, 5),
+         (3, 32, 8, 128, 16, 9)]
 POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8}
 
 
@@ -563,13 +572,15 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 # (B, S, H, P, G, N): ragged S around the kernel's chunks (one launch at
 # L = 32 up to 32 tokens; three launches at L = 64 beyond),
-# groups shared by 1 to 24 heads, one group per head, jamba's N = 16, and
-# mamba2-130m's head shape (P 64, N 128), whose state pass spans 8 tiles
+# groups shared by 1 to 24 heads, one group per head, jamba's N = 16 (and
+# its 128 heads of P 64 on one group), and mamba2-130m's head shape (P 64,
+# N 128), whose state pass spans 8 tiles
 SSD = [(1, 1, 2, 16, 1, 16), (2, 33, 4, 32, 2, 16), (3, 70, 4, 64, 1, 128),
        (2, 100, 6, 48, 3, 64), (1, 257, 24, 64, 1, 128),
        (4, 32, 24, 64, 1, 128), (2, 20, 8, 64, 4, 16),
        (1, 64, 6, 48, 2, 128), (2, 50, 4, 16, 4, 32),
-       (1, 300, 8, 64, 2, 128), (1, 65, 24, 64, 1, 128)]
+       (1, 300, 8, 64, 2, 128), (1, 65, 24, 64, 1, 128),
+       (2, 70, 128, 64, 1, 16)]
 #: the chunk lengths ``ssd_scan_plan`` chooses (``csrc/ssd_scan.cu``)
 SSD_CHUNKS = (32, 64)
 

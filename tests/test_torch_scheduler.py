@@ -346,7 +346,9 @@ def test_unported_lifecycle_and_families_raise(carried):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.submit(PS.Request(uid=0, prompt=_prompt(cfg, 4), **kw))
     # the moe family is served (tests/test_torch_moe.py holds its engines
-    # against the reference); the hybrid family is not ported yet
+    # against the reference, tests/test_torch_hybrid_engine.py the hybrid
+    # family's); the vlm and audio families are not served by this engine
+    # in either package
     moe = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduce(),
                               capacity_factor=4.0)
     _, mp, _ = port_build(moe, 0, device="cpu")
@@ -355,8 +357,10 @@ def test_unported_lifecycle_and_families_raise(carried):
         kv_block_size=4)).run([PS.Request(uid=0, prompt=_prompt(moe, 5),
                                           max_new=3, temperature=0.0)])
     assert len(out[0]) == 3 and all(0 <= t < moe.vocab_size for t in out[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PS.ServeEngine(tp, get_config("jamba-v0.1-52b").reduce(), acfg)
+    for arch in ("internvl2-2b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError,
+                           match="continuous batching is not wired"):
+            PS.ServeEngine(tp, get_config(arch).reduce(), acfg)
     # the port keeps the reference's field names, in its order, less the
     # fields that only tune features not ported; the defaults differ only
     # where a feature is not ported
