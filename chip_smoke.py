@@ -14,13 +14,15 @@ Phases, in order; any failure exits non-zero:
                (3072 -> 9216, 3072 -> 3072, 3072 -> 16384, 8192 -> 3072,
                3072 -> 32256; M = 4, 128 and the eval forward's 64 x 64 =
                4096) and at mamba2-130m's (in_proj 768 -> 3352, out_proj
-               1536 -> 768; M = 4 and 4 x 1024), at llama's training
-               forward (M = 4 x 256 = 1024, on noisy weights against the
-               bound of the noise-free ones), at qwen3-moe-30b-a3b's 2-D
+               1536 -> 768; M = 4 and 4 x 1024), at the training forwards
+               of llama, mamba2-130m and the 1-layer qwen3-moe (M = 4 x
+               256 = 1024, on noisy weights against the bound of the
+               noise-free ones), at qwen3-moe-30b-a3b's 2-D
                sites (2048 -> 2560, 2048 -> 2048, 2048 -> 152064; M = 4,
                128, 8, 64) and its batched expert sites (gate_up 2048 ->
                1536, down 768 -> 2048, all 128 experts in one launch, at 4
-               and 8 rows per expert; timed beside ``torch.bmm``), at
+               and 8 rows per expert, and at the training forward's 80 on
+               noisy weights; timed beside ``torch.bmm``), at
                jamba-v0.1-52b's (qkv 4096 -> 6144, o 4096 -> 4096, gate_up
                4096 -> 28672, down 14336 -> 4096, the mixers' in_proj 4096
                -> 16544 and out_proj 8192 -> 4096, the head 4096 -> 65536;
@@ -64,8 +66,9 @@ Phases, in order; any failure exits non-zero:
 6. ssd      -- ``ssd_scan`` at mamba2-130m's shapes (H 24, P 64, N 128,
                G 1; strided views of one projection, as the mixer hands them
                over): the engine's chunk (2 rows x 32 tokens from a nonzero
-               state, ragged left pads), the static prompt (4 x 1024) and a
-               long prefill (1 x 8192), each held against its plain version
+               state, ragged left pads), the static prompt (4 x 1024), a
+               long prefill (1 x 8192) and the training scan (4 x 256),
+               each held against its plain version
                (y and the final state) and timed beside it and the card's
                bound (the recurrence's work on the TF32 tensor cores; PR
                13's L = 32 fp32 bound beside it), with the kernel's plan
@@ -186,6 +189,23 @@ Phases, in order; any failure exits non-zero:
                static engine, both deployments; each run's peak memory.
                Then the three reduced models on the card against the CPU,
                as phase 16's.
+
+18. train families -- HWA distillation (phase 14's recipe, gates and
+               times) of mamba2-130m at full width and depth (24 layers,
+               ``analog_matmul`` and ``ssd_scan``, the SSD's backward
+               through its autograd rule) and qwen3-moe-30b-a3b at full
+               width and 1 of its 48 layers (both expert sites one batched
+               launch each, 80 rows per expert; the router trained through
+               the combine weights and the aux loss). Gates: (i) the
+               batched expert site's dx, dw and dbeta at E 128 x 80 rows
+               against float64, and the SSD rule's gradients at 4 x 256
+               against the float64 recurrence; (ii)-(iv) after every step
+               as phase 14, each step's launches counted (forward, remat,
+               teacher), the aux loss finite and the router's gradient
+               finite and nonzero; (v) reduced mamba2-130m, qwen3-moe,
+               dbrx and jamba trained on the card against the CPU (site
+               inputs and gradients by the causal rule, routes moved only
+               at near-ties or after a site output apart, losses).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -325,7 +345,8 @@ MAMBA_M_PREFILL = BATCH * MAMBA_PROMPT
 # is what the continuous engine runs, and the kernels line reports it
 SSD_CASES = [("chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
              ("static", BATCH, MAMBA_PROMPT, False),
-             ("long", 1, 8192, False)]
+             ("long", 1, 8192, False),
+             ("train", TRAIN_BATCH, TRAIN_SEQ, False)]
 SSD_LINE_CASE = "chunk"
 # |kernel - plain| <= SSD_TOL * (1 + |plain|) for y and the final state:
 # the two differ in the order of their sums, their chunking and the
@@ -437,6 +458,33 @@ MUSICGEN_SITES = [("qkv", 1536, 4608, 48), ("o", 1536, 1536, 48),
                   ("up", 1536, 6144, 48), ("down", 6144, 1536, 48),
                   ("lm_head", 1536, 8192, 1)]
 FAMILY_ARCHS = (JAMBA, INTERNVL, MUSICGEN)
+# HWA distillation of the ssm and moe families (phase 18), as phase 14's:
+# mamba2-130m at full width and depth (24 layers) and qwen3-moe-30b-a3b at
+# full width and MOE_TRAIN_LAYERS of its 48 layers (1.236 B fp32
+# parameters: the student, the teacher, the gradients and two moments fill
+# about llama's 59.7 GB; two layers would not fit the card); the training
+# forward's rows per expert: max(1, int(256 * 8 * 1.25 / 128)) = 20
+# capacity slots per sequence, 4 sequences
+TRAIN_FAMILY_ARCHS = (MAMBA, MOE)
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_ROWS = TRAIN_BATCH * max(
+    1, int(TRAIN_SEQ * 8 * 1.25 / MOE_EXPERTS))                   # 80
+# phase 2's label for the training forward of the 1-layer qwen3-moe (its
+# sites' launches per forward differ from the 6-layer serving model's)
+MOE_TRAIN = f"{MOE}/train"
+MOE_TRAIN_DENSE_SITES = [(s, k, n, 1) for s, k, n, _ in MOE_DENSE_SITES]
+MOE_TRAIN_SITES = [(s, k, n, MOE_TRAIN_LAYERS) for s, k, n, _ in MOE_SITES]
+NOISY_RUNS |= {(MAMBA, M_TRAIN), (MOE_TRAIN, M_TRAIN)}
+# gate (i) of phase 18, the SSD autograd rule at mamba2-130m's training
+# scan (4 x 256 from a zero state): each gradient (x, dt, a, b, c) of the
+# kernel forward + plain-version backward within SSD_GRAD_TOL of that
+# gradient's largest magnitude of the sequential recurrence's autograd in
+# float64 (the plain version's fp32 sums against exact ones)
+SSD_GRAD_TOL = 1e-4
+# gate (v) of phase 18: the reduced models trained on the card against
+# the CPU (every family that trains but the dense one, which phase 14
+# holds)
+REDUCED_TRAIN_ARCHS = (MAMBA, MOE, "dbrx-132b", JAMBA)
 
 
 class SmokeFailure(RuntimeError):
@@ -789,7 +837,7 @@ def int4_case(torch, gen, m, k, n) -> dict:
 
 
 def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
-             arch: str) -> dict:
+             arch: str, noisy: bool = False) -> dict:
     """One batched expert shape of ``kernel``: ``e`` experts' [M, K] @
     [K, N] in one launch, as a MoE site runs it. Each expert's slice is
     held against the plain version of its own product (analog: near-tie
@@ -799,7 +847,9 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
     batched plain version, ``torch.bmm`` of the same fp32 sizes (the
     yardstick, ``matmul_ms``) and the bound of the work: the expert
     weights' bytes (each input read once, the output written once) against
-    2 E M K N flops."""
+    2 E M K N flops. ``noisy`` (analog): the training forward's call, on
+    ``w + gamma · colmax_e · tau`` (each expert's own column scale)
+    against the explicit [E, N] bound of the noise-free ``w``."""
     from repro_torch.kernels import analog_matmul as km
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import int4_matmul as k4
@@ -810,16 +860,22 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
     check(e * m * n >= PARITY_OUTPUTS, "moe case: too few outputs")
     w_mm = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
     if kernel == "analog_matmul":
+        from repro_torch.core.noise import gaussian_weight_noise
+
         lam = 14.0
-        w = w_mm
         beta = torch.full((1,), 3.0, device=dev)
-        bound = ref.adc_bound(w, beta, lam)
+        bound = ref.adc_bound(w_mm, beta, lam)
+        w = w_mm + gaussian_weight_noise(gen, w_mm, TRAIN_GAMMA,
+                                         axis=-2) if noisy else w_mm
 
         def call(i):
+            if noisy:
+                return km.analog_matmul(x, w, beta, bound)
             return km.analog_matmul(x, w, beta, None, lam=lam)
 
         y = call(0)
-        check(bool(torch.equal(y, km.analog_matmul(x, w, beta, bound))),
+        check(noisy or bool(torch.equal(y, km.analog_matmul(x, w, beta,
+                                                            bound))),
               f"batched analog_matmul {e}x{m}x{k}x{n}: the folded bound "
               f"differs from ref.adc_bound's")
         n_flip, max_err = 0, 0.0
@@ -834,6 +890,8 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
         nbytes = 4 * (e * m * k + e * k * n + 1 + e * m * n)
 
         def plain(i):
+            if noisy:
+                return ref.analog_matmul_ref(x, w, beta, bound)
             return ref.analog_matmul_ref(x, w, beta, lam=lam)
     else:
         w_int = torch.randint(-7, 8, (e, k, n), generator=gen, device=dev,
@@ -867,7 +925,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
     bmm = device_ms(torch, lambda i: torch.bmm(x, w_mm), 1)
     del w_mm
     return {"E": e, "M": m, "K": k, "N": n, "arch": arch, "col_off": False,
-            "ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
+            "noisy": noisy, "ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
             "matmul_ms": bmm, "library": "torch.bmm",
             **mvm_bounds(nbytes, e * m, k, n, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits,
@@ -877,9 +935,10 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
 #: phase 2's MVM rows, (arch, sites, M, static, int4): the rows of each
 #: model's static engine (also held with col_off), continuous engine, eval
 #: forwards (analog_hw and digital_int4), best-of-n engine (analog_hw
-#: only) and llama's training forward (on noisy weights, NOISY_RUNS);
-#: qwen3-moe-30b-a3b's 2-D sites at its engines' rows (its batched expert
-#: sites are MOE_SITES at MOE_ROWS)
+#: only) and the training forwards of llama, mamba2-130m and the 1-layer
+#: qwen3-moe (on noisy weights, NOISY_RUNS); qwen3-moe-30b-a3b's 2-D sites
+#: at its engines' rows (its batched expert sites are MOE_SITES at
+#: MOE_ROWS, and at MOE_TRAIN_ROWS in training)
 MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(ARCH, SITES, m, False, True) for m in (
                 M_ENGINE_DECODE, M_ENGINE_CHUNK, M_EVAL, M_INDUCTION)]
@@ -895,8 +954,10 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
                 M_DECODE, MAMBA_M_PREFILL)]
             + [(MAMBA, MAMBA_SITES, m, False, True) for m in (
                 M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(MAMBA, MAMBA_SITES, M_TRAIN, False, False)]
             + [(MOE, MOE_DENSE_SITES, m, False, True) for m in (
                 M_DECODE, M_PREFILL, M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(MOE_TRAIN, MOE_TRAIN_DENSE_SITES, M_TRAIN, False, False)]
             + [(JAMBA, JAMBA_SITES, m, False, True) for m in (
                 M_DECODE, M_PREFILL)]
             + [(JAMBA, JAMBA_SITES, m, False, False) for m in (
@@ -907,13 +968,15 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(MUSICGEN, MUSICGEN_SITES, m, False, True) for m in (
                 M_DECODE, M_PREFILL)])
 #: the batched expert sites of phase 2: (arch, experts, sites, the rows per
-#: expert that its forwards give them, the rows that digital_int4 runs)
+#: expert that its forwards give them, the rows that digital_int4 runs,
+#: whether the launch is the training forward's on noisy weights)
 EXPERT_RUNS = [
     (MOE, MOE_EXPERTS, MOE_SITES, sorted(set(MOE_ROWS.values())),
-     sorted(set(MOE_ROWS.values()))),
+     sorted(set(MOE_ROWS.values())), False),
+    (MOE_TRAIN, MOE_EXPERTS, MOE_TRAIN_SITES, [MOE_TRAIN_ROWS], [], True),
     (JAMBA, JAMBA_EXPERTS, JAMBA_EXPERT_SITES,
      sorted(set(JAMBA_ROWS.values())),
-     [JAMBA_ROWS["static decode"], JAMBA_ROWS["static prefill"]])]
+     [JAMBA_ROWS["static decode"], JAMBA_ROWS["static prefill"]], False)]
 
 
 def phase_kernels(torch) -> dict:
@@ -961,17 +1024,18 @@ def phase_kernels(torch) -> dict:
                   f"{r['mma_bound_ms']:.4f}), err/bound "
                   f"{r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
-    for arch, e, sites, m_rows, int4_rows in EXPERT_RUNS:
+    for arch, e, sites, m_rows, int4_rows, noisy in EXPERT_RUNS:
         for site, k, n, _ in sites:
             for m in m_rows:
                 kernels = ("analog_matmul",) + (
                     ("int4_matmul",) if m in int4_rows else ())
                 for kernel in kernels:
-                    r = moe_case(torch, gen, kernel, e, m, k, n, arch)
+                    r = moe_case(torch, gen, kernel, e, m, k, n, arch, noisy)
                     r["site"] = site
                     rows[kernel].append(r)
                     print(f"  {kernel} {arch} {site} E={e} M={m} {k}->{n} "
-                          f"one launch, {r['mapping']} x{r['splits']}: "
+                          f"one launch{' noisy' if noisy else ''}, "
+                          f"{r['mapping']} x{r['splits']}: "
                           f"{r['ms']:.4f} ms (wall {r['wall_ms']:.4f}, plain "
                           f"{r['plain_ms']:.4f}, torch.bmm "
                           f"{r['matmul_ms']:.4f}; bound {r['bound_ms']:.4f} "
@@ -992,8 +1056,10 @@ PER_SITE = {(arch, s[0], experts): s[3]
             for arch, sites, experts in (
                 (ARCH, SITES, False), (PHI3, PHI3_SITES, False),
                 (MAMBA, MAMBA_SITES, False), (MOE, MOE_DENSE_SITES, False),
-                (MOE, MOE_SITES, True), (JAMBA, JAMBA_SITES, False),
-                (JAMBA, JAMBA_EXPERT_SITES, True),
+                (MOE, MOE_SITES, True),
+                (MOE_TRAIN, MOE_TRAIN_DENSE_SITES, False),
+                (MOE_TRAIN, MOE_TRAIN_SITES, True),
+                (JAMBA, JAMBA_SITES, False), (JAMBA, JAMBA_EXPERT_SITES, True),
                 (INTERNVL, INTERNVL_SITES + INTERNVL_PROJECTOR, False),
                 (MUSICGEN, MUSICGEN_SITES, False))
             for s in sites}
@@ -2321,26 +2387,13 @@ def site_parity(torch, cfg, params_a, acfg_a, params_b, acfg_b, tokens,
 def sites_recorded(log: list):
     """Inside the block every analog site call of the models appends ``(p,
     x, y)`` (its params, input and output) to ``log``."""
-    from repro_torch.core import analog as A
-    from repro_torch.models import layers as L
-    from repro_torch.models import mamba2 as M
-    from repro_torch.models import moe as MoE
-    from repro_torch.models import transformer as T
-
-    real = A.analog_linear
-
     def spy(p, x, acfg, ctx):
         y, stats = real(p, x, acfg, ctx)
         log.append((p, x, y))
         return y, stats
 
-    L.analog_linear = M.analog_linear = T.analog_linear = spy
-    MoE.analog_linear = spy
-    try:
+    with sites_replaced(spy) as real:
         yield
-    finally:
-        L.analog_linear = M.analog_linear = T.analog_linear = real
-        MoE.analog_linear = real
 
 
 @contextlib.contextmanager
@@ -3040,35 +3093,78 @@ def training_site_gradients(torch) -> list:
     return rows
 
 
+def site_modules():
+    """The model modules whose analog sites a spy replaces: layers,
+    mamba2, moe and transformer each bind ``analog_linear``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+    return (L, M, MoE, T)
+
+
+@contextlib.contextmanager
+def sites_replaced(spy):
+    """Inside the block every analog site of the models calls ``spy``."""
+    from repro_torch.core import analog as A
+
+    mods = site_modules()
+    for mod in mods:
+        mod.analog_linear = spy
+    try:
+        yield A.analog_linear
+    finally:
+        for mod in mods:
+            mod.analog_linear = A.analog_linear
+
+
+def site_input_stats(torch, p, x, rows: int):
+    """(x_std, clip_frac) of a site's forward input as its statistics take
+    them: over the whole input, or for a batched (expert) site per
+    (expert, sequence) over that sequence's C capacity slots, then the mean
+    over the experts and over the ``rows`` sequences (the reference's
+    vmaps; ``models/moe.py``)."""
+    beta = p["input_range"].reshape(()).float()
+    xf = x.float()
+    if p["kernel"].dim() == 3:
+        xr = xf.reshape(p["kernel"].shape[0], rows, -1, xf.shape[-1])
+        std = torch.mean(torch.mean(
+            torch.std(xr, dim=(2, 3), correction=0), dim=0))
+        frac = torch.mean(torch.mean(torch.mean(
+            (xr.abs() > beta).float(), dim=(2, 3)), dim=0))
+        return std, frac
+    return (torch.std(xf, correction=0),
+            torch.mean((xf.abs() > beta).float()))
+
+
 @contextlib.contextmanager
 def training_checked(torch, acfg, log: dict):
     """Gate (ii) on every step of the training run inside the block: after
     the update every ``input_range`` equals ``ema_init_update`` (then the
     decay rule) of the post-AdamW range with the ``x_std`` of that site's
-    forward input, recorded at the site (and equal bit for bit when remat
-    recomputes the site), and every analog weight lies within
-    ``alpha_clip`` standard deviations of its channel."""
+    forward input, recorded at the site (expert sites: per expert and
+    sequence, then averaged; equal bit for bit when remat recomputes the
+    site), and every analog weight lies within ``alpha_clip`` standard
+    deviations of its channel (an expert's channels over its own K). Also
+    each step's kernel launches (``log["step_launches"]``) and, where the
+    model routes, each router gradient, which must be finite and nonzero
+    (``log["router_grad"]``: its largest magnitude)."""
     from repro_torch.checkpoint import flatten_paths
-    from repro_torch.core import analog as A
     from repro_torch.core import clipping
     from repro_torch.core.quant import ema_init_update, range_decay_update
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
     from repro_torch.train import recipes
     from repro_torch.train import train_step as ts
 
     cur = {}
     site_std = {}
-    real_site, real_ranges = A.analog_linear, ts._update_input_ranges
+    real_ranges = ts._update_input_ranges
     real_clip, real_make = clipping.clip_tree, recipes.make_train_step
+    real_adam = ts.adamw_update
 
     def site(p, x, cfg, ctx):
         if ctx.training:
             with torch.no_grad():
-                xf = x.float()
-                std = torch.std(xf, correction=0)
-                frac = torch.mean((xf.abs() > p["input_range"].reshape(())
-                                   .float()).float())
+                std, frac = site_input_stats(torch, p, x, TRAIN_BATCH)
             ptr = p["input_range"].data_ptr()
             if ptr in site_std:   # the layer's recomputation under remat
                 check(bool(torch.equal(site_std[ptr][0], std)),
@@ -3120,7 +3216,7 @@ def training_checked(torch, acfg, log: dict):
                 continue
             wo = flat_out[path]
             # zeta as clip_weight takes it (the std over axis -2 of the
-            # whole leaf), compared layer by layer: no model-sized
+            # whole leaf), compared matrix by matrix: no model-sized
             # temporaries
             zeta = (alpha * torch.std(w.float(), dim=-2, keepdim=True,
                                       correction=0)).to(w.dtype)
@@ -3135,25 +3231,45 @@ def training_checked(torch, acfg, log: dict):
                             "clipped_share": clipped / total})
         return out
 
+    def adam(params, grads, *a, **k):
+        worst = None
+        for path, g in flatten_paths(grads).items():
+            if "router" in path:
+                m = float(g.abs().max())
+                check(math.isfinite(m) and m > 0,
+                      f"{path}: the router's gradient is {m}")
+                worst = m if worst is None else min(worst, m)
+        if worst is not None:
+            log["router_grad"].append(worst)
+        return real_adam(params, grads, *a, **k)
+
     def make(*a, **k):
         step_fn = real_make(*a, **k)
 
         def wrapped(params, state, batch, key, teacher_params=None):
             cur["params"] = params
             site_std.clear()
-            return step_fn(params, state, batch, key, teacher_params)
+            before = launch_counts()
+            out = step_fn(params, state, batch, key, teacher_params)
+            after = launch_counts()
+            log["step_launches"].append(
+                {n: after[n] - before.get(n, 0) for n in after
+                 if after[n] != before.get(n, 0)})
+            return out
         return wrapped
 
-    log.update(recomputed_sites=0, ranges_checked=[], clip=[])
-    L.analog_linear = T.analog_linear = site
+    log.update(recomputed_sites=0, ranges_checked=[], clip=[],
+               step_launches=[], router_grad=[])
     ts._update_input_ranges = ranges
+    ts.adamw_update = adam
     clipping.clip_tree = clip
     recipes.make_train_step = make
     try:
-        yield
+        with sites_replaced(site) as real_site:
+            yield
     finally:
-        L.analog_linear = T.analog_linear = real_site
         ts._update_input_ranges = real_ranges
+        ts.adamw_update = real_adam
         clipping.clip_tree = real_clip
         recipes.make_train_step = real_make
 
@@ -3173,9 +3289,10 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
     its stages (forward and loss, backward, AdamW, range rules and eq. 4),
     under ``torch.profiler``: device ms per stage (CUDA events), the peak
     allocated GB of each stage, and the device ms of the ``analog_matmul``
-    kernels (the training forward and its recomputation), of the cuBLAS
-    matmuls (the backward's dx / dw, the attention products, the teacher)
-    and of the rest, with its largest kernels."""
+    kernels (the training forward and its recomputation), of the
+    ``ssd_scan`` kernels (the same), of the cuBLAS matmuls (the backward's
+    dx / dw, the attention products, the teacher, the SSD's plain-version
+    backward) and of the rest, with its largest kernels."""
     from repro_torch.core import clipping
     from repro_torch.train import train_step as ts
 
@@ -3226,7 +3343,8 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
         clipping.clip_tree = real_clip
     stages = {name: {"ms": a.elapsed_time(b), "peak_gb": peak / 1e9}
               for (_, a, _), (name, b, peak) in zip(marks, marks[1:])}
-    res = {"analog_matmul_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    res = {"analog_matmul_ms": 0.0, "ssd_scan_ms": 0.0, "matmul_ms": 0.0,
+           "other_ms": 0.0}
     other = []
     for ev in prof.key_averages():
         ms = ev.device_time * ev.count / 1e3
@@ -3235,6 +3353,8 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
         key = ev.key.lower()
         if "analog_" in key:
             res["analog_matmul_ms"] += ms
+        elif "ssd_" in key:
+            res["ssd_scan_ms"] += ms
         elif "gemm" in key or "sm90_xmma" in key or "cutlass" in key:
             res["matmul_ms"] += ms
         else:
@@ -3253,13 +3373,47 @@ def noise_key():
     return prng_key(0)
 
 
-def phase_train(torch) -> dict:
-    """``distill_recipe`` at full width on the card (llama-3.2-1b, random
-    weights from seed 0, student a copy of the teacher, tokens from the
-    Markov corpus) on ``analog_matmul``, with gates (i)–(v): the training
-    sites' gradients, eq. 4 and the range rules after every step, a
-    bit-exact resume, finite losses, and the reduced model on the card
-    against the CPU."""
+def train_model(torch, arch: str):
+    """``arch`` for HWA training on the card, random weights from seed 0:
+    llama-3.2-1b and mamba2-130m at full width and depth, qwen3-moe at
+    full width and MOE_TRAIN_LAYERS of its 48 layers. ``(cfg, params,
+    labels)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    if arch == ARCH:
+        return full_width(torch, ARCH)
+    cfg = get_config(arch)
+    if arch == MOE:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    dev = torch.device("cuda")
+    cfg, params, labels = build(cfg, torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    want = {MAMBA: (24, 768), MOE: (MOE_TRAIN_LAYERS, 2048)}[arch]
+    check((cfg.num_layers, cfg.d_model) == want, f"unexpected config {cfg}")
+    return cfg, params, labels
+
+
+def train_step_launches(cfg) -> dict:
+    """Kernel launches of one training step with remat: every analog site
+    of the forward, and again every site of the stack in its
+    recomputation (the untied LM head runs once); each mixer's
+    ``ssd_scan`` in the forward and its recomputation (the backward
+    differentiates the plain version and launches nothing)."""
+    head = 0 if cfg.tie_embeddings else 1
+    out = {"analog_matmul": 2 * mvm_sites(cfg) - head}
+    if mixer_layers(cfg):
+        out["ssd_scan"] = 2 * mixer_layers(cfg)
+    return out
+
+
+def train_run(torch, arch: str) -> dict:
+    """``distill_recipe`` at full width on the card (``train_model``,
+    student a copy of the teacher, tokens from the Markov corpus) on the
+    kernels, with gates (ii)–(iv): eq. 4 and the range rules after every
+    step, each step's launches, a bit-exact resume, finite losses (and,
+    where the model routes, its aux loss and the router's gradient). Then
+    one more step under the profiler."""
     import shutil
 
     import repro_torch.train.recipes as recipes
@@ -3270,42 +3424,60 @@ def phase_train(torch) -> dict:
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
 
-    out = {"gate_i": training_site_gradients(torch)}
     acfg, tcfg = train_configs()
-    cfg, params, labels = full_width(torch, ARCH)
+    cfg, params, labels = train_model(torch, arch)
+    n_params = sum(t.numel() for t in _leaves(params))
     tokens = MarkovCorpus(cfg.vocab_size, seed=0).sample(
         TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_SEQ + 1)
-    log = {}
+    log, rows_seen = {}, set()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(torch)
-    with training_checked(torch, acfg, log):
+    with training_checked(torch, acfg, log), expert_rows(rows_seen):
         _, trainer = recipes.distill_recipe(
             params, labels, cfg, tokens, acfg=acfg, tcfg=tcfg,
             batch_size=TRAIN_BATCH, num_steps=TRAIN_STEPS, seed=0)
     torch.cuda.synchronize()
     launches = launch_counts()
+    check(rows_seen == ({MOE_TRAIN_ROWS} if moe_layers(cfg) else set()),
+          f"train {arch}: expert launches of {sorted(rows_seen)} rows, "
+          f"phase 2 holds the kernel at {MOE_TRAIN_ROWS}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = trainer.history
     check(len(hist) == TRAIN_STEPS and trainer.skipped_steps == 0
           and all(math.isfinite(h["loss"]) for h in hist),
-          f"train: losses {[h['loss'] for h in hist]}")          # gate (iv)
+          f"train {arch}: losses {[h['loss'] for h in hist]}")   # gate (iv)
     check(log["ranges_checked"] == [mvm_sites(cfg)] * TRAIN_STEPS
           and len(log["clip"]) == TRAIN_STEPS,
-          f"train: ranges checked {log['ranges_checked']}")     # gate (ii)
-    check(set(launches) == {"analog_matmul"}
-          and launches["analog_matmul"] >= TRAIN_STEPS * mvm_sites(cfg),
-          f"train: launches {launches}")
+          f"train {arch}: ranges checked {log['ranges_checked']}")
+    per_step = train_step_launches(cfg)
+    check(log["step_launches"] == [per_step] * TRAIN_STEPS,
+          f"train {arch}: launches per step {log['step_launches']}, "
+          f"expected {per_step}")
+    # the teacher's logits of each batch: a digital forward, its mixers'
+    # scans on the kernel
+    teacher = {"ssd_scan": mixer_layers(cfg)} if mixer_layers(cfg) else {}
+    check(launches == {k: TRAIN_STEPS * (per_step.get(k, 0)
+                                         + teacher.get(k, 0))
+                       for k in per_step},
+          f"train {arch}: launches {launches}")
+    routed = moe_layers(cfg) > 0
+    if routed:
+        check(all(math.isfinite(h["aux"]) and h["aux"] > 0 for h in hist)
+              and len(log["router_grad"]) == TRAIN_STEPS,
+              f"train {arch}: aux {[h['aux'] for h in hist]}, router "
+              f"gradients {log['router_grad']}")
     for i, h in enumerate(hist):
-        print(f"  train step {i}{' (warm-up)' if i == 0 else ''}, gates "
-              f"(ii) checked in it: {1e3 * h['dt']:.1f} ms, loss "
-              f"{h['loss']:.6f} (kd {h['kd']:.6f}), grad norm "
-              f"{h['grad_norm']:.4f}, lr {h['lr']:.2e}; weights clipped "
-              f"{log['clip'][i]['clipped_share']:.2e}")
-    print(f"  train llama-3.2-1b, batch {TRAIN_BATCH} x {TRAIN_SEQ}: peak "
-          f"{peak_gb:.2f} GB, analog_matmul launches "
-          f"{launches['analog_matmul']} "
-          f"({launches['analog_matmul'] / TRAIN_STEPS:.0f} per step; remat "
-          f"recomputed {log['recomputed_sites']} site calls)")
+        print(f"  train {arch} step {i}{' (warm-up)' if i == 0 else ''}, "
+              f"gates (ii) checked in it: {1e3 * h['dt']:.1f} ms, loss "
+              f"{h['loss']:.6f} (kd {h['kd']:.6f}"
+              + (f", aux {h['aux']:.6f}, router grad max "
+                 f"{log['router_grad'][i]:.3e}" if routed else "")
+              + f"), grad norm {h['grad_norm']:.4f}, lr {h['lr']:.2e}; "
+              f"weights clipped {log['clip'][i]['clipped_share']:.2e}")
+    print(f"  train {arch} ({n_params / 1e9:.3f}B params), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: peak {peak_gb:.2f} GB, launches "
+          f"{launches} ({per_step} per step, teacher {teacher} per batch; "
+          f"remat recomputed {log['recomputed_sites']} site calls)")
 
     # one more step of the same trainer under the profiler
     loader = TokenLoader(tokens, TRAIN_BATCH, seed=0)
@@ -3327,7 +3499,7 @@ def phase_train(torch) -> dict:
     del trainer
     torch.cuda.empty_cache()
     step_fn = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
-    ckpt_dir = ROOT / "scratch_chip" / "phase14_ckpt"
+    ckpt_dir = ROOT / "scratch_chip" / f"train_ckpt_{arch}"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     t0 = time.perf_counter()
     try:
@@ -3355,59 +3527,313 @@ def phase_train(torch) -> dict:
     # the resume check's steps, which run no gate (ii) checks; all warm
     dts = [h["dt"] for h in first.history + second.history]
     step_ms = 1e3 * sum(dts) / len(dts)
-    print(f"  train llama-3.2-1b, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+    print(f"  train {arch}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
           f"{step_ms:.1f} ms per step (mean of {len(dts)}: "
           + ", ".join(f"{1e3 * d:.1f}" for d in dts)
           + f"), {M_TRAIN / step_ms * 1e3:.0f} training tokens/s")
-    print(f"  train step on the device (torch.profiler): analog_matmul "
-          f"{prof['analog_matmul_ms']:.2f} ms (forward + remat), cuBLAS "
-          f"matmuls {prof['matmul_ms']:.2f} ms (backward dx / dw, "
-          f"attention, teacher), other {prof['other_ms']:.2f} ms; "
-          f"{prof['device_ms']:.2f} ms of the {step_ms:.1f} ms step; "
-          f"largest other: " + ", ".join(
+    print(f"  train {arch} step on the device (torch.profiler): "
+          f"analog_matmul {prof['analog_matmul_ms']:.2f} ms (forward + "
+          f"remat), ssd_scan {prof['ssd_scan_ms']:.2f} ms (the same), cuBLAS "
+          f"matmuls {prof['matmul_ms']:.2f} ms (the plain-torch backward's "
+          f"dx / dw and SSD products, attention, teacher), other "
+          f"{prof['other_ms']:.2f} ms; {prof['device_ms']:.2f} ms of the "
+          f"{step_ms:.1f} ms step; largest other: " + ", ".join(
               f"{name} {ms:.2f}" for name, ms in prof["top_other"]))
-    print("  train step by stage (CUDA events; peak allocated): " + ", ".join(
-        f"{name} {st['ms']:.1f} ms ({st['peak_gb']:.2f} GB)"
-        for name, st in prof["stages"].items()))
+    print(f"  train {arch} step by stage (CUDA events; peak allocated): "
+          + ", ".join(f"{name} {st['ms']:.1f} ms ({st['peak_gb']:.2f} GB)"
+                      for name, st in prof["stages"].items()))
     resumed = flatten_paths({"params": second.params,
                              "opt": second.state["opt"]})
     apart = [k for k, v in resumed.items()
              if not torch.equal(v.cpu(), whole[k])]
-    check(not apart, f"train resume: {len(apart)} leaves differ, e.g. "
-          f"{apart[:3]}")                                      # gate (iii)
-    print(f"  gate (iii): saved at step {TRAIN_RESUME_AT}, restored in a "
-          f"fresh Trainer and stepped to {TRAIN_STEPS}: {len(resumed)} "
-          f"leaves (params, m, v, count) equal the uninterrupted run's bit "
-          f"for bit (save {t_save - t0:.1f} s incl. {TRAIN_RESUME_AT} "
-          f"steps, restore {t_restore - t_save:.1f} s)")
+    check(not apart, f"train {arch} resume: {len(apart)} leaves differ, "
+          f"e.g. {apart[:3]}")                                 # gate (iii)
+    print(f"  gate (iii) {arch}: saved at step {TRAIN_RESUME_AT}, restored "
+          f"in a fresh Trainer and stepped to {TRAIN_STEPS}: "
+          f"{len(resumed)} leaves (params, m, v, count) equal the "
+          f"uninterrupted run's bit for bit (save {t_save - t0:.1f} s incl. "
+          f"{TRAIN_RESUME_AT} steps, restore {t_restore - t_save:.1f} s)")
     del first, second, whole, resumed, params
     torch.cuda.empty_cache()
-    out.update(steps=hist, step_ms=step_ms,
-               tokens_per_s=M_TRAIN / step_ms * 1e3, peak_gb=peak_gb,
-               launches=launches, profile=prof, clip=log["clip"],
-               recomputed_sites=log["recomputed_sites"],
-               resume={"save_s": t_save - t0,
-                       "restore_s": t_restore - t_save})
-    out["reduced"] = reduced_train_check(torch)
+    return {"params": n_params, "steps": hist, "step_ms": step_ms,
+            "tokens_per_s": M_TRAIN / step_ms * 1e3, "peak_gb": peak_gb,
+            "launches": launches, "launches_per_step": per_step,
+            "profile": prof, "clip": log["clip"],
+            "router_grad": log["router_grad"],
+            "recomputed_sites": log["recomputed_sites"],
+            "resume": {"save_s": t_save - t0,
+                       "restore_s": t_restore - t_save}}
+
+
+def phase_train(torch) -> dict:
+    """HWA distillation of llama-3.2-1b at full width on ``analog_matmul``
+    (``train_run``), with gates (i)–(v): the training sites' gradients,
+    eq. 4 and the range rules after every step, a bit-exact resume,
+    finite losses, and the reduced model on the card against the CPU."""
+    out = {"gate_i": training_site_gradients(torch)}
+    out.update(train_run(torch, ARCH))
+    out["reduced"] = reduced_train_check(torch, ARCH)
     return out
 
 
-def reduced_train_check(torch) -> dict:
-    """Gate (v): the reduced llama trains on the card (the kernels) and on
-    the CPU (their plain versions) from the same weights and batches,
+# ---------------------------------------------------------------------------
+# phase 18: HWA distillation of the ssm and moe families at full width
+# ---------------------------------------------------------------------------
+
+def expert_site_gradients(torch) -> list:
+    """Gate (i) of phase 18 at qwen3-moe's batched expert sites (all 128
+    experts, MOE_TRAIN_ROWS rows each): the fused Function on ``w +
+    w_noise`` (each expert's own noise scale) against the noise-free [E,
+    N] bound, on the card. Its forward is held expert by expert against
+    the kernel's plain version (the ADC contract); its dx, each expert's
+    dw and the shared dbeta against the unfused chain's rules written out
+    in float64 per expert (dx[e] = g[e] w[e]ᵀ inside the clamp and 0
+    outside, dw[e] = x_q[e]ᵀ g[e], dbeta = the LSQ sum over every expert
+    and row)."""
+    from repro_torch.core.noise import gaussian_weight_noise
+    from repro_torch.kernels import dispatch, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    e, m = MOE_EXPERTS, MOE_TRAIN_ROWS
+    rows = []
+    for site, k, n, _ in MOE_SITES:
+        x = torch.randn((e, m, k), generator=gen, device=dev)
+        w = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
+        beta = torch.tensor(3.0, device=dev)
+        noise = gaussian_weight_noise(gen, w, TRAIN_GAMMA, axis=-2)
+        bound = ref.adc_bound(w, beta, 14.0)                    # [E, N]
+        g = torch.randn((e, m, n), generator=gen, device=dev)
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, beta))
+        y = dispatch.fused_analog_mvm(xl, wl, noise, bl, bound)
+        flips, err = 0, 0.0
+        for i in range(e):
+            f, d = analog_flips(torch, x[i], w[i] + noise[i],
+                                beta.reshape(1), bound[i], None,
+                                y[i].detach())
+            flips, err = flips + f, max(err, d)
+        y.backward(g)
+        dx, dw, db = xl.grad, wl.grad, bl.grad
+        del y, xl, wl, bl, noise
+        inside = x.abs() <= beta
+        x_q = ref.div(beta, 127.0) * torch.round(
+            ref.clip(x, -beta, beta) * ref.rdiv(127.0, beta))
+        x64, xq64, b64 = x.double(), x_q.double(), beta.double()
+        gw = g.double() @ w.double().transpose(-1, -2)
+        dx_r = torch.where(inside, gw, torch.zeros_like(gw))
+        dw_r = xq64.transpose(-1, -2) @ g.double()
+        terms = torch.where(inside, (xq64 - x64) / b64, torch.sign(x64)) * gw
+        db_r, terms = terms.sum(), terms.abs().sum()
+        check(not bool(dx[~inside].any()),
+              f"train expert {site}: dx is not 0 outside the clamp")
+        r_dx = within_dot_error(torch, dx.double(), dx_r,
+                                g.abs() @ w.abs().transpose(-1, -2), n)
+        r_dw = within_dot_error(torch, dw.double(), dw_r,
+                                x_q.abs().transpose(-1, -2) @ g.abs(), m)
+        d_db = float((db.double() - db_r).abs())
+        check(d_db <= DBETA_TOL * (1 + float(terms)),
+              f"train expert {site}: dbeta {float(db):.6e} against "
+              f"{float(db_r):.6e}")
+        outputs = e * m * n
+        check(flips <= MAX_FLIP_RATE * outputs,
+              f"train expert {site}: {flips} of {outputs} outputs flip")
+        rows.append({"site": site, "E": e, "M": m, "K": k, "N": n,
+                     "flips": flips, "outputs": outputs,
+                     "max_abs_err": err, "dx_rel": r_dx, "dw_rel": r_dw,
+                     "dbeta_abs": d_db, "dbeta": float(db_r),
+                     "dbeta_terms": float(terms)})
+        print(f"  gate (i) expert {site:8s} E={e} M={m} {k}->{n}: forward "
+              f"flips {flips} of {outputs}; against float64: dx {r_dx:.2e}, "
+              f"dw {r_dw:.2e} of the fp32 dot bound; dbeta {float(db):.6e} "
+              f"vs {float(db_r):.6e} (|d| {d_db:.2e}, sum of |terms| "
+              f"{float(terms):.3e})")
+        del x, w, g, gw, dx, dw, dx_r, dw_r, x64, xq64, x_q, inside, terms
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_sequential64(torch, x, dt, a, b, c):
+    """The SSD recurrence, token by token, in the inputs' dtype (float64
+    here): ``h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_tᵀ``, ``y_t = c_t
+    h_t`` from a zero state, head ``h`` reading group ``h // (H / G)``.
+    x [B, S, H, P], dt [B, S, H], a [H], b / c [B, S, G, N] → y [B, S, H,
+    P]."""
+    bsz, s, heads, pdim = x.shape
+    rep = heads // b.shape[2]
+    bh = torch.repeat_interleave(b, rep, dim=2)
+    ch = torch.repeat_interleave(c, rep, dim=2)
+    h = torch.zeros((bsz, heads, b.shape[3], pdim), dtype=x.dtype,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * a)                            # [B, H]
+        h = (decay[..., None, None] * h
+             + (dt[:, t, :, None] * bh[:, t])[..., None] * x[:, t, :, None])
+        ys.append(torch.einsum("zhn,zhnp->zhp", ch[:, t], h))
+    return torch.stack(ys, dim=1)
+
+
+def ssd_gradients(torch) -> dict:
+    """Gate (i) of phase 18 at mamba2-130m's training scan (TRAIN_BATCH x
+    TRAIN_SEQ, H 24, P 64, N 128, zero state; x, b and c strided views of
+    one projection, as the mixer hands them over): ``dispatch.ssd``'s
+    autograd rule launches ``ssd_scan`` once and nothing in its backward;
+    its gradients of x, dt, a, b and c, from a random upstream gradient of
+    y (no cache reads the final state), each within SSD_GRAD_TOL of that
+    gradient's largest magnitude of the sequential recurrence's autograd
+    in float64."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ssd_scan as ks
+
+    cfg = get_config(MAMBA)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(180)
+    heads, pdim = cfg.ssm_heads, cfg.ssm_headdim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    d_inner = heads * pdim
+    bsz, s = TRAIN_BATCH, TRAIN_SEQ
+    xbc0 = torch.nn.functional.silu(torch.randn(
+        (bsz, s, d_inner + 2 * g * n), generator=gen, device=dev))
+    dt0 = torch.nn.functional.softplus(
+        torch.randn((bsz, s, heads), generator=gen, device=dev)
+        + math.log(math.expm1(0.01)))
+    a0 = -torch.linspace(1.0, 16.0, heads, device=dev)
+    gy = torch.randn((bsz, s, heads, pdim), generator=gen, device=dev)
+
+    def split(xbc):
+        return (xbc[..., :d_inner].reshape(bsz, s, heads, pdim),
+                xbc[..., d_inner:d_inner + g * n].reshape(bsz, s, g, n),
+                xbc[..., d_inner + g * n:].reshape(bsz, s, g, n))
+
+    grads = {}
+    for name, dtype in (("card", torch.float32), ("f64", torch.float64)):
+        xbc, dt, a = (t.to(dtype).clone().requires_grad_()
+                      for t in (xbc0, dt0, a0))
+        x, b, c = split(xbc)
+        if name == "card":
+            before = ks.launches
+            y, _ = dispatch.ssd(x, dt, a, b, c)
+            check(ks.launches == before + 1, "train ssd: the forward did "
+                  "not launch ssd_scan once")
+            y.backward(gy)
+            torch.cuda.synchronize()
+            check(ks.launches == before + 1, "train ssd: the backward "
+                  "launched ssd_scan")
+        else:
+            ssd_sequential64(torch, x, dt, a, b, c).backward(gy.double())
+        gx, gb, gc = split(xbc.grad)
+        grads[name] = {"x": gx, "dt": dt.grad, "a": a.grad, "b": gb,
+                       "c": gc}
+    rel = {}
+    for k, want in grads["f64"].items():
+        got = grads["card"][k]
+        check(bool(torch.isfinite(got).all()), f"train ssd: d{k} is not "
+              f"finite")
+        rel[k] = float((got.double() - want).abs().max()
+                       / want.abs().max().clamp_min(1e-300))
+        check(rel[k] <= SSD_GRAD_TOL, f"train ssd: d{k} is {rel[k]:.2e} of "
+              f"its largest magnitude from float64")
+    worst = max(rel, key=rel.get)
+    print(f"  gate (i) ssd_scan {MAMBA} {bsz} x {s} H{heads} N{n}: one "
+          f"launch forward, none backward; gradients against the float64 "
+          f"recurrence (max |d| over max |grad|): "
+          + ", ".join(f"d{k} {v:.2e}" for k, v in rel.items())
+          + f"; worst d{worst}")
+    return {"rel": rel, "worst": worst}
+
+
+def phase_train_families(torch) -> dict:
+    """HWA distillation of mamba2-130m and qwen3-moe-30b-a3b at full width
+    (``train_run``: gates (ii)–(iv) and the launch counts of every step)
+    after gate (i) at their new shapes (the batched expert site's STE
+    backward at E 128 and MOE_TRAIN_ROWS rows, the SSD autograd rule at
+    the training scan); then gate (v), the reduced mamba2-130m,
+    qwen3-moe-30b-a3b, dbrx-132b and jamba-v0.1-52b trained on the card
+    against the CPU."""
+    out = {"gate_i": {"experts": expert_site_gradients(torch),
+                      "ssd": ssd_gradients(torch)}}
+    for arch in TRAIN_FAMILY_ARCHS:
+        out[arch] = train_run(torch, arch)
+    out["reduced"] = {arch: reduced_train_check(torch, arch)
+                      for arch in REDUCED_TRAIN_ARCHS}
+    return out
+
+
+def _by_row(t, p, rows: int, seq: int):
+    """A site tensor's elements by (row, position) of the batch: [rows,
+    seq, -1] for a 2-D site; for a batched (expert) site, whose [E, B·C,
+    ·] rows are each sequence's capacity slots, [rows, E · C · ·]: its
+    elements by row only (``seq`` unused)."""
+    if p["kernel"].dim() == 3:
+        e = p["kernel"].shape[0]
+        return t.reshape(e, rows, -1).transpose(0, 1).reshape(rows, -1)
+    return t.reshape(rows, seq, -1)
+
+
+def _rows_masked(g, p, clean):
+    """``g`` with the rows that ``clean`` [rows] rules out zeroed."""
+    if p["kernel"].dim() == 3:
+        e = p["kernel"].shape[0]
+        mask = clean.to(g.dtype).reshape(1, -1, 1)
+        return (g.reshape(e, clean.numel(), -1) * mask).reshape(g.shape)
+    return g * clean.reshape((-1,) + (1,) * (g.dim() - 1)).to(g.dtype)
+
+
+def row_losses(torch, cfg, tcfg, logits, batch, routes: list):
+    """Each row's share of a step's loss, so that the loss is their mean:
+    ``kd_beta`` times the row's KD and ``ce_weight`` times its CE from
+    ``logits`` (the LM head site's output, padded vocab), and
+    ``aux_loss_weight`` times the mean over the routed layers of the row's
+    Switch loss, ``E · sum_e density_e · mean_s probs_e`` (``routes``:
+    ``routes_recorded``'s ids and probabilities)."""
+    from repro_torch.train.distill import ce_loss, kd_loss
+
+    lg = logits[..., :cfg.vocab_size].float()
+    e = cfg.num_experts
+    out = []
+    for r in range(lg.shape[0]):
+        share = (tcfg.kd_beta * kd_loss(
+            lg[r:r + 1], batch["teacher_logits"][r:r + 1],
+            tcfg.kd_temperature)
+            + tcfg.ce_weight * ce_loss(lg[r:r + 1], batch["labels"][r:r + 1]))
+        if routes:
+            aux = []
+            for ids, probs, _ in routes:
+                density = torch.bincount(ids[r, :, 0], minlength=e).float()
+                aux.append(e * torch.sum(density / ids.shape[1]
+                                         * torch.mean(probs[r], dim=0)))
+            share = share + tcfg.aux_loss_weight * torch.mean(
+                torch.stack(aux))
+        out.append(share)
+    return torch.stack(out)
+
+
+def reduced_train_check(torch, arch: str) -> dict:
+    """Gate (v): the reduced ``arch`` trains on the card (the kernels) and
+    on the CPU (their plain versions) from the same weights and batches,
     ``train_noise`` off. First step: every analog site's input and output
-    are recorded, and its upstream gradient; a site input may differ beyond
-    ``SITE_INPUT_TOL`` only where an earlier site output apart (an ADC
-    near-tie flip) reaches (``reduced_eval_check``'s causal rule), and at
-    every row no flip reached each site's upstream gradient agrees within
-    ``REDUCED_GRAD_TOL`` of its largest magnitude (every gradient leaf too
-    when no flip happened). Each site's backward is then replayed on both
-    sides from its recorded input, parameters and upstream gradient, with
-    the reached rows of that gradient zeroed: its dx and dw (the card's
-    products) agree within ``REDUCED_GRAD_TOL`` of their largest magnitude
-    and its dbeta within ``REDUCED_GRAD_TOL`` of its sum of |terms|. Then
-    ``REDUCED_TRAIN_STEPS`` steps of the train step (remat on): losses
-    within ``REDUCED_LOSS_TOL``."""
+    are recorded, and its upstream gradient, and every MoE routing; a
+    site input may differ beyond ``SITE_INPUT_TOL`` only where an earlier
+    site output apart (an ADC near-tie flip) reaches
+    (``reduced_eval_check``'s causal rule: the rest of the row; a batched
+    expert site's slots are a row's, so there the whole row), and a
+    routing id may differ only where the CPU's k-th and (k+1)-th router
+    probabilities lie within ROUTE_TIE or where an earlier site output
+    apart reached it; its row then counts as reached (the capacity ranks
+    of the row's later tokens move with it).
+    At every row nothing reached, each site's upstream gradient agrees
+    within ``REDUCED_GRAD_TOL`` of its largest magnitude (every gradient
+    leaf too when nothing was reached). Each site's backward is then
+    replayed on both sides from its recorded input, parameters and
+    upstream gradient, with the reached rows of that gradient zeroed: its
+    dx and dw (the card's products) agree within ``REDUCED_GRAD_TOL`` of
+    their largest magnitude and its dbeta within ``REDUCED_GRAD_TOL`` of
+    its sum of |terms|. Then ``REDUCED_TRAIN_STEPS`` steps of the train
+    step (remat on): losses within ``REDUCED_LOSS_TOL``; where a route
+    moved, the first step's loss row by row on the unreached rows
+    (``row_losses``), since the reached rows train other experts and the
+    later steps start from parameters they moved apart (reported)."""
     from repro_torch.checkpoint import flatten_paths, unflatten_paths
     from repro_torch.configs import get_config
     from repro_torch.core import analog as A
@@ -3416,11 +3842,9 @@ def reduced_train_check(torch) -> dict:
     from repro_torch.data.synthetic import teacher_logits
     from repro_torch.kernels import ref
     from repro_torch.models import build
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
     from repro_torch.train import train_step as ts
 
-    cfg = get_config(ARCH).reduce()
+    cfg = get_config(arch).reduce()
     cfg, params, labels = build(cfg, 0, device="cpu")
     rows, seq = REDUCED_TRAIN_SHAPE
     toks = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=1).sample(
@@ -3441,8 +3865,7 @@ def reduced_train_check(torch) -> dict:
         p = _to(params, dev)
         leaves = {k: v.detach().clone().requires_grad_()
                   for k, v in flatten_paths(p).items()}
-        calls = []
-        real = A.analog_linear
+        calls, routes = [], []
 
         def spy(pp, x, cfg_, ctx):
             y, st = real(pp, x, cfg_, ctx)
@@ -3453,107 +3876,165 @@ def reduced_train_check(torch) -> dict:
             calls.append(entry)
             return y, st
 
-        L.analog_linear = T.analog_linear = spy
-        try:
+        with sites_replaced(spy) as real, routes_recorded(
+                torch, routes, calls):
             loss, _ = ts.make_loss_fn(cfg, acfg, dataclasses.replace(
                 tcfg, remat=False))(unflatten_paths(leaves),
                                     _to(batches[0], dev), (0,))
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        finally:
-            L.analog_linear = T.analog_linear = real
-        rec[side] = (calls, {k: g.cpu() for k, g in zip(leaves, grads)})
+        rec[side] = (calls, routes,
+                     {k: g.cpu() for k, g in zip(leaves, grads)})
         step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
         state = ts.init_train_state(p)
         losses[side] = []
         for b in batches:
             p, state, m = step(p, state, _to(b, dev), (0,))
             losses[side].append(float(m["loss"]))
-    (calls_c, grads_c), (calls_g, grads_g) = rec["cpu"], rec["cuda"]
+    (calls_c, routes_c, grads_c), (calls_g, routes_g, grads_g) = (
+        rec["cpu"], rec["cuda"])
     check(len(calls_c) == len(calls_g) == mvm_sites(cfg),
-          f"reduced train: {len(calls_c)} / {len(calls_g)} site calls")
+          f"reduced train {arch}: {len(calls_c)} / {len(calls_g)} site "
+          f"calls")
+    check(len(routes_c) == len(routes_g) == moe_layers(cfg),
+          f"reduced train {arch}: {len(routes_g)} routed layers")
     reach = torch.zeros((rows, seq), dtype=torch.bool)
-    out_flips = 0
-    for i, ((xc, yc, *_), (xg, yg, *_)) in enumerate(zip(calls_c,
-                                                         calls_g)):
-        apart = ((xg - xc).abs() > SITE_INPUT_TOL * (1 + xc.abs())).reshape(
-            rows, seq, -1).any(-1)
-        check(bool(reach[apart].all()), f"reduced train: site {i}'s input "
-              f"differs where no site output did before")
-        o_apart = ((yg - yc).abs() > 1e-5 * (1 + yc.abs())).reshape(
-            rows, seq, -1).any(-1)
-        out_flips += int(o_apart.sum())
-        reach |= torch.cummax(o_apart.int(), dim=1).values.bool()
+    out_flips = moved = 0
+    pending = list(zip(routes_c, routes_g))
+    k = cfg.top_k
+    for i, ((xc, yc, _, pc, _), (xg, yg, *_)) in enumerate(
+            zip(calls_c, calls_g)):
+        while pending and pending[0][0][2] <= i:   # routes made before it
+            (ids_c, probs, _), (ids_g, _, _) = pending.pop(0)
+            diff = (ids_c.sort(-1).values != ids_g.sort(-1).values).any(-1)
+            if bool(diff.any()):
+                # where nothing reached the token, only a near-tie may move
+                # its route; a reached token's router input differs
+                top = probs.sort(-1, descending=True).values
+                gap = (top[..., k - 1] - top[..., k])[diff & ~reach]
+                check(bool((gap <= ROUTE_TIE).all()), f"reduced train "
+                      f"{arch}: a routing id moved away from a near-tie "
+                      f"where no site output apart reached it")
+                moved += int(diff.sum())
+                reach |= diff.any(-1, keepdim=True)
+        apart = _by_row((xg - xc).abs() > SITE_INPUT_TOL * (1 + xc.abs()),
+                        pc, rows, seq).any(-1)
+        o_apart = _by_row((yg - yc).abs() > 1e-5 * (1 + yc.abs()), pc, rows,
+                          seq).any(-1)
+        if apart.dim() == 1:                        # a batched site: by row
+            check(bool(reach[apart].any(-1).all()), f"reduced train {arch}: "
+                  f"site {i}'s input differs in a row nothing reached")
+            out_flips += int(o_apart.sum())
+            reach |= o_apart[:, None]
+        else:
+            check(bool(reach[apart].all()), f"reduced train {arch}: site "
+                  f"{i}'s input differs where no site output did before")
+            out_flips += int(o_apart.sum())
+            reach |= torch.cummax(o_apart.int(), dim=1).values.bool()
     clean = ~reach.any(dim=1)
     worst = 0.0
-    for i, ((_, _, gc, *_), (_, _, gg, *_)) in enumerate(zip(calls_c,
-                                                             calls_g)):
+    for i, ((_, _, gc, pc, _), (_, _, gg, *_)) in enumerate(zip(calls_c,
+                                                                calls_g)):
         check(gc is not None and gg is not None,
-              f"reduced train: site {i} got no gradient")
-        gc, gg = gc.reshape(rows, seq, -1)[clean], gg.reshape(
-            rows, seq, -1)[clean]
+              f"reduced train {arch}: site {i} got no gradient")
+        gc, gg = (_by_row(t, pc, rows, seq)[clean] for t in (gc, gg))
         if gc.numel():
             r = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
             worst = max(worst, r)
     check(worst <= REDUCED_GRAD_TOL,
-          f"reduced train: an upstream gradient is {worst:.2e} apart")
-    check(bool(clean.any()), "reduced train: every row was reached by a "
-          "flip, so no site gradient can be compared")
+          f"reduced train {arch}: an upstream gradient is {worst:.2e} apart")
+    check(bool(clean.any()), f"reduced train {arch}: every row was reached "
+          f"by a flip or a route, so no site gradient can be compared")
     site_worst = site_dbeta = 0.0
     for i, (call_c, call_g) in enumerate(zip(calls_c, calls_g)):
         ga = {}
         for side, (x, _, g, pp, ctx), dev in (("cpu", call_c, "cpu"),
                                              ("cuda", call_g, cuda)):
-            g = g * clean.reshape((rows,) + (1,) * (g.dim() - 1))
-            leaves = {k: v.detach().to(dev).requires_grad_()
-                      for k, v in pp.items()}
+            g = _rows_masked(g, pp, clean)
+            leaves = {kk: v.detach().to(dev).requires_grad_()
+                      for kk, v in pp.items()}
             xl = x.detach().to(dev).requires_grad_()
-            y, _ = real(unflatten_paths(leaves), xl, acfg, ctx)
+            y, _ = A.analog_linear(unflatten_paths(leaves), xl, acfg, ctx)
             gs = torch.autograd.grad(y, [xl, *leaves.values()], g.to(dev),
                                      allow_unused=True)
-            ga[side] = {k: t.cpu() for k, t in zip(["x", *leaves], gs)
+            ga[side] = {kk: t.cpu() for kk, t in zip(["x", *leaves], gs)
                         if t is not None}
         check(set(ga["cpu"]) == set(ga["cuda"]) >= {"x", "kernel",
                                                     "input_range"},
-              f"reduced train: site {i} gradients {sorted(ga['cuda'])}")
-        for k, gc in ga["cpu"].items():
-            d = float((ga["cuda"][k] - gc).abs().max())
-            if k == "input_range":   # one sum: scaled by its |terms|
+              f"reduced train {arch}: site {i} gradients "
+              f"{sorted(ga['cuda'])}")
+        for kk, gc in ga["cpu"].items():
+            d = float((ga["cuda"][kk] - gc).abs().max())
+            if kk == "input_range":   # one sum: scaled by its |terms|
                 x, _, g, pp, _ = call_c
-                g = g * clean.reshape((rows,) + (1,) * (g.dim() - 1))
+                g = _rows_masked(g, pp, clean)
+                w = pp["kernel"]
+                lead = (w.shape[0],) if w.dim() == 3 else ()
+                x = x.reshape(lead + (-1, w.shape[-2]))
+                g = g.reshape(lead + (-1, w.shape[-1]))
                 beta = pp["input_range"].reshape(())
                 x_q = ref.div(beta, 127.0) * torch.round(
                     ref.clip(x, -beta, beta) * ref.rdiv(127.0, beta))
                 terms = (torch.where(x.abs() <= beta, (x_q - x) / beta,
                                      torch.sign(x))
-                         * (g @ pp["kernel"].T)).abs().sum()
+                         * (g @ w.transpose(-1, -2))).abs().sum()
                 r = d / max(float(terms), 1e-30)
                 site_dbeta = max(site_dbeta, r)
             else:
                 r = d / max(float(gc.abs().max()), 1e-30)
                 site_worst = max(site_worst, r)
-            check(r <= REDUCED_GRAD_TOL,
-                  f"reduced train: site {i}'s replayed d{k} is {r:.2e} apart")
+            check(r <= REDUCED_GRAD_TOL, f"reduced train {arch}: site {i}'s "
+                  f"replayed d{kk} is {r:.2e} apart")
     leaf_worst = None
     if not reach.any():
-        leaf_worst = max(float((grads_g[k] - g).abs().max()
+        leaf_worst = max(float((grads_g[kk] - g).abs().max()
                                / g.abs().max().clamp_min(1e-30))
-                         for k, g in grads_c.items())
+                         for kk, g in grads_c.items())
         check(leaf_worst <= REDUCED_GRAD_TOL,
-              f"reduced train: a gradient leaf is {leaf_worst:.2e} apart")
-    for a, b in zip(losses["cuda"], losses["cpu"]):
-        check(abs(a - b) <= REDUCED_LOSS_TOL * (1 + abs(b)),
-              f"reduced train: losses card {losses['cuda']}, cpu "
-              f"{losses['cpu']}")
-    print(f"  gate (v) reduced llama, {rows} x {seq}: {out_flips} site "
-          f"output positions apart (ADC near-ties), {int(clean.sum())} of "
-          f"{rows} rows unreached; upstream gradients within "
-          f"{worst:.2e} of their max there; replayed on those rows, site "
-          f"dx and dw within {site_worst:.2e} of their max, dbeta within "
-          f"{site_dbeta:.2e} of its sum of |terms|"
+              f"reduced train {arch}: a gradient leaf is {leaf_worst:.2e} "
+              f"apart")
+    print(f"  gate (v) reduced {arch}, {rows} x {seq}: {out_flips} site "
+          f"output positions apart (ADC near-ties)"
+          + (f", {moved} routing ids moved at near-ties" if moe_layers(cfg)
+             else "")
+          + f", {int(clean.sum())} of {rows} rows unreached; upstream "
+          f"gradients within {worst:.2e} of their max there; replayed on "
+          f"those rows, site dx and dw within {site_worst:.2e} of their max, "
+          f"dbeta within {site_dbeta:.2e} of its sum of |terms|"
           + ("" if leaf_worst is None else
              f", every gradient leaf within {leaf_worst:.2e}")
           + f"; losses card {losses['cuda']} / cpu {losses['cpu']}")
+    row_rel = None
+    if moved:
+        # the reached rows train on other experts: the first step's loss
+        # is held row by row where nothing reached (each row's share
+        # rebuilt from the recorded logits and routes, the sum of the
+        # shares checked against the step's loss on both sides); the
+        # later steps start from parameters those rows moved apart
+        shares = {}
+        for side, (calls, routes, _) in rec.items():
+            shares[side] = row_losses(torch, cfg, tcfg, calls[-1][1],
+                                      batches[0], routes)
+            check(abs(float(shares[side].mean()) - losses[side][0])
+                  <= REDUCED_LOSS_TOL * (1 + abs(losses[side][0])),
+                  f"reduced train {arch}: the rows' losses do not add up "
+                  f"to the {side} step's loss")
+        want = shares["cpu"][clean]
+        row_rel = float(((shares["cuda"][clean] - want).abs()
+                         / (1 + want.abs())).max())
+        check(row_rel <= REDUCED_LOSS_TOL, f"reduced train {arch}: an "
+              f"unreached row's loss is {row_rel:.2e} apart")
+        print(f"  gate (v) reduced {arch}: a route moved, so the first "
+              f"step's loss is held on the {int(clean.sum())} unreached "
+              f"rows (within {row_rel:.2e}); later steps' losses card - "
+              f"cpu: " + ", ".join(f"{a - b:.3e}" for a, b in zip(
+                  losses["cuda"][1:], losses["cpu"][1:])))
+    else:
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            check(abs(a - b) <= REDUCED_LOSS_TOL * (1 + abs(b)),
+                  f"reduced train {arch}: losses card {losses['cuda']}, "
+                  f"cpu {losses['cpu']}")
     return {"site_output_positions_apart": out_flips,
+            "routes_moved": moved, "row_loss_rel": row_rel,
             "rows_unreached": int(clean.sum()), "grad_rel": worst,
             "site_grad_rel": site_worst, "site_dbeta_rel": site_dbeta,
             "leaf_grad_rel": leaf_worst, "losses": losses}
@@ -4049,14 +4530,16 @@ def line_launches(results: dict) -> dict:
     path: the static engines (phases 3, 4, 7, 11, 16 and 17), the
     continuous engines (phases 8, 16 and 17), the noisy evals (phase 12),
     best-of-n
-    (phase 13), the HWA distillation run (phase 14) and the PTQ model's
-    evals on the kernels (phase 15). Each count was read right after its
-    run, with every count set to 0 right before it. Not counted: the
-    kernel comparisons (phases 2, 5, 6 and 14's gate (i)), the reduced
-    checks against the CPU (phases 9, 12, 14, 15, 16 and 17), the timing
-    replays and the fused-against-unfused checks after each run (site
-    parity, the token attribution), the CLI (phase 10), and phase 14's
-    profiled step and resume check."""
+    (phase 13), the HWA distillation runs (phases 14 and 18: the student's
+    forward and its remat recomputation, and the teacher's forward that
+    gives each batch its logits) and the PTQ model's evals on the kernels
+    (phase 15). Each count was read right after its run, with every count
+    set to 0 right before it. Not counted: the kernel comparisons (phases
+    2, 5, 6 and the gates (i) of 14 and 18), the reduced checks against
+    the CPU (phases 9, 12, 14, 15, 16, 17 and 18), the timing replays and
+    the fused-against-unfused checks after each run (site parity, the
+    token attribution), the CLI (phase 10), and the training phases'
+    profiled steps and resume checks."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -4084,6 +4567,9 @@ def line_launches(results: dict) -> dict:
         add(f"best_of_n/{arch}/analog_hw",
             results["best_of_n"][arch]["launches"])
     add(f"train/{ARCH}/analog", results["train"]["launches"])
+    for arch in TRAIN_FAMILY_ARCHS:
+        add(f"train/{arch}/analog",
+            results["train_families"][arch]["launches"])
     for arch in (ARCH, PHI3):
         for deploy in ("analog_hw", "digital_int4"):
             add(f"ptq/{arch}/{deploy}",
@@ -4234,72 +4720,76 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/17] setup")
+        phase("[1/18] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/17] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/18] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/17] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/18] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/17] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/18] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/17] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/18] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/17] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/18] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/17] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/18] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/17] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/18] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/17] reduced continuous engines, card against cpu")
+        phase("[9/18] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/17] serving CLI")
+        phase("[10/18] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/17] static engine, phi-3-mini-4k at full width: "
+        phase("[11/18] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/17] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/18] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/17] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/18] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/17] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/18] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/17] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/18] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/17] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/18] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/17] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/18] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
+        phase(f"[18/18] HWA distillation at full width, {MAMBA} and {MOE} "
+              f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
+              "training, card against cpu")
+        results["train_families"] = phase_train_families(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,9 +23,11 @@ refused at eval until the devices slice lands.
 
 A site's kernel may carry a leading expert dimension (``[E, K, N]``, the
 MoE's batched experts, with ``x`` ``[E, ..., K]``): every per-channel
-range, ADC bound and int4 carrier is then per expert, over its own K, and
-the fused kernels take the experts in one launch. Such a site runs at
-eval only.
+range, ADC bound, int4 carrier and training-noise scale is then per
+expert, over its own K (the reference's vmap over experts), the fused
+kernels take the experts in one launch, and the backward gives each
+expert its own ``dw`` while the experts' shared input range sums its
+gradient over every expert and row.
 
 Deployment-time programming noise is applied once per model instance by
 :func:`perturb_analog_weights`, not inside the forward.
@@ -148,22 +150,31 @@ def input_stats(xf: torch.Tensor, beta: torch.Tensor,
 def noisy_matmul_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     """The reference's ``_noisy_matmul_bwd``: ``dx = g wᵀ`` and ``dw = xᵀ
     g`` over the flattened rows, both in fp32 against the noise-free
-    ``w``."""
+    ``w``. A batched site (``w`` [E, K, N], ``x`` [E, ..., K]) takes each
+    expert's products on its own rows: ``dx[e] = g[e] w[e]ᵀ`` and ``dw[e]
+    = x[e]ᵀ g[e]`` over its ``[rows, ·]`` (the reference's vmap over
+    experts)."""
     in_dim, out_dim = w.shape[-2], w.shape[-1]
-    g32 = g.float()
-    dx = torch.matmul(g32, w.float().T).to(x.dtype)
-    dw = torch.matmul(x.reshape(-1, in_dim).float().T,
-                      g32.reshape(-1, out_dim)).to(w.dtype)
-    return dx, dw
+    lead = (w.shape[0],) if w.dim() == 3 else ()
+    g32 = g.float().reshape(lead + (-1, out_dim))
+    dx = torch.matmul(g32, w.float().transpose(-1, -2))
+    dw = torch.matmul(x.float().reshape(lead + (-1, in_dim)).transpose(-1, -2),
+                      g32)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
 class _NoisyMatmul(torch.autograd.Function):
-    """``x @ (w + w_noise)`` forward, ``x @ w`` backward."""
+    """``x @ (w + w_noise)`` forward, ``x @ w`` backward (a batched ``w``
+    [E, K, N] takes ``x`` [E, ..., K], each expert its own rows)."""
 
     @staticmethod
     def forward(ctx, x, w, w_noise):
         ctx.save_for_backward(x, w)
-        return torch.matmul(x, w if w_noise is None else w + w_noise)
+        w_eff = w if w_noise is None else w + w_noise
+        if w.dim() == 3:
+            y = torch.matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w_eff)
+            return y.reshape(x.shape[:-1] + (w.shape[-1],))
+        return torch.matmul(x, w_eff)
 
     @staticmethod
     def backward(ctx, g):
@@ -245,10 +256,6 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
         raise NotImplementedError(
             "mode 'rtn' is the Table-3 digital deployment: eval/serve only, "
             "as in the reference (no training rules)")
-    if ctx.training and w.dim() > 2:
-        raise NotImplementedError(
-            "training a batched (MoE expert) site needs the batched "
-            "launch's STE backward (ROADMAP section 1, item 6)")
 
     if cfg.mode == "off":
         y = torch.matmul(x, w.to(in_dtype)).to(in_dtype)
@@ -282,10 +289,11 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                 "periphery offsets) is ported with the devices slice")
         w_noise = None
         if ctx.training and cfg.train_noise and ctx.key is not None:
+            # each column's scale over its own K: per expert on [E, K, N]
             with torch.no_grad():
                 w_noise = noise_lib.gaussian_weight_noise(
                     noise_lib.key_generator(ctx.key, wf.device), wf,
-                    cfg.gamma_weight, cfg.beta_mult)
+                    cfg.gamma_weight, cfg.beta_mult, axis=-2)
         if fused and w_noise is None:  # the kernel folds the bound from wf
             y = dispatch.fused_analog_mvm(
                 xf, wf, None, beta, lam=cfg.out_bound,

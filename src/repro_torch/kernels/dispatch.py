@@ -30,9 +30,13 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
   the effective weights; its backward replays the unfused STE chain in
   plain torch, as the JAX package does outside its Pallas kernel (ADC pure
   pass-through, the noise-free weight rule of ``core.analog.noisy_matmul``,
-  the clamp-STE / LSQ rule of ``core.quant.input_quantize``). The other
-  kernels have no backward, as in the reference; :func:`ssd` refuses an
-  input that needs a gradient.
+  the clamp-STE / LSQ rule of ``core.quant.input_quantize``), a batched
+  expert site's per expert. :func:`ssd` wraps ``ssd_scan`` in an autograd
+  rule whose backward differentiates the plain version
+  (``ref.ssd_scan_ref``) rebuilt from the saved inputs: the reference's
+  gradient is XLA's derivative of that same chunked jnp math, and the
+  forward stays on the kernel. The paged kernels have no backward, as in
+  the reference.
 
 The MVM kernels take one [M, K] @ [K, N] product, or a batch of E
 experts' products in one launch, so ``[B, S, K]`` activations are
@@ -158,16 +162,15 @@ def fused_analog_mvm(x: torch.Tensor, w: torch.Tensor,
     would take the bound from ``w + w_noise``, where the reference takes
     it from the noise-free ``w``, so training on ``w + w_noise`` passes
     the explicit bound ``ref.adc_bound(w, beta, lam)``. Batched expert
-    weights ``[E, K, N]`` run forward only."""
+    weights ``[E, K, N]`` (``x`` [E, ..., K], ``bound`` [E, N]) run
+    forward as one launch; backward each expert's ``dx`` and ``dw`` on its
+    own rows, and ``dbeta`` summed over every expert and row (the
+    reference's vmaps over experts and sequences sum the shared range's
+    gradient so)."""
     if lam is not None and w_noise is not None:
         raise ValueError("fused_analog_mvm cannot fold the ADC bound from "
                          "noisy weights: pass the bound of the noise-free "
                          "weights (ref.adc_bound(w, beta, lam)) with w_noise")
-    if w.dim() > 2 and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, beta)):
-        raise NotImplementedError(
-            "a batched (MoE expert) fused site has no backward yet: the STE "
-            "backward of the batched launch is ROADMAP section 1, item 6")
     if w_noise is not None:
         w_noise = w_noise.detach()
     if bound is not None:
@@ -240,6 +243,37 @@ def paged_prefill_attention(q: torch.Tensor, kp: torch.Tensor,
                                v_scale=v_scale)
 
 
+class _SSD(torch.autograd.Function):
+    """``ssd_scan`` forward; backward through the plain version rebuilt
+    from the saved inputs (see :func:`ssd`)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        return ssd_scan(x, dt, a, b, c, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        saved = ctx.saved_tensors
+        ins = [None if t is None else t.detach().requires_grad_(need)
+               for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in ins if t is not None and t.requires_grad]
+        outs, grads = [], []
+        with torch.enable_grad():
+            y, h = ref.ssd_scan_ref(*ins)
+        for out, g in ((y, g_y), (h, g_h)):
+            if g is not None:   # the final state: None where no cache reads it
+                outs.append(out)
+                grads.append(g)
+        if not wanted or not outs:
+            return (None,) * len(ins)
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       allow_unused=True))
+        return tuple(next(got) if t is not None and t.requires_grad
+                     else None for t in ins)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         b: torch.Tensor, c: torch.Tensor,
         h0: torch.Tensor | None = None):
@@ -251,16 +285,21 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the gates to heads nor the ``(B, H)`` flattening copies is made on the
     card (the plain version makes both, as the JAX package does). Returns
     (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
+
+    Differentiable: on the card the forward launches the kernel and the
+    backward rebuilds ``ref.ssd_scan_ref`` from the saved inputs and
+    differentiates it (with the upstream gradients of y and of the final
+    state; the masked entries' ``exp`` is clamped there, so their
+    backward is 0, not ``inf · 0``); on the CPU the plain version is
+    differentiated directly.
     """
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
-        raise NotImplementedError(
-            "the SSD has no backward in this port: training the ssm family "
-            "is open (ROADMAP section 1, item 5)")
     heads, g = x.shape[2], b.shape[2]
     if heads % g:
         raise ValueError(f"{heads} SSD heads are not a multiple of {g} "
                          "groups")
-    h0 = None if h0 is None else h0.float().contiguous()
-    return ssd_scan(x.float(), dt.float(), a.float().contiguous(), b.float(),
-                    c.float(), h0)
+    args = (x.float(), dt.float(), a.float().contiguous(), b.float(),
+            c.float(), None if h0 is None else h0.float().contiguous())
+    if x.device.type == "cpu" or not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args)):
+        return ssd_scan(*args)
+    return _SSD.apply(*args)

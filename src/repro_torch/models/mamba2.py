@@ -7,7 +7,10 @@ prefill chunk runs on the hand-written ``ssd_scan`` kernel
 (``kernels.dispatch.ssd``), which also folds in the incoming state and
 returns the final one; a single decode token runs the plain one-step
 recurrence (``kernels.ref.ssd_decode_step``), which is plain tensor code in
-the JAX package too.
+the JAX package too. In training (no cache) every digital parameter
+(``conv_w``, ``conv_b``, ``dt_bias``, ``a_log``, ``d_skip``,
+``gate_norm``) gets its gradient through the SSD's autograd rule
+(``dispatch.ssd``: the kernel forward, the plain version's backward).
 
 Parameters keep the reference's names and layout, so weights carry across
 through ``checkpoint.params_from_numpy`` unchanged. The reference's

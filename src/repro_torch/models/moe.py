@@ -26,6 +26,16 @@ Statistics follow the reference: each expert site's input statistics are
 taken per (sequence, expert) over that expert's ``C`` slots, empty slots
 included, then averaged over the experts and over the sequences; the
 router reports the Switch load-balancing loss as ``aux_loss``.
+
+In training the gradients take the forward's paths back: to the tokens
+through the dispatch into ``[E, B·C, d]`` (a dropped assignment, written
+to the spare row, gets none), to the experts through the two batched
+sites' STE rules, and to the router through the combine weights and
+through ``aux_loss`` (whose top-1 density carries none, as in the
+reference). Every backward op is deterministic: each token's ``k``
+copies are taken by an ``expand`` (whose gradient is a sum over them)
+and permuted by ``order``, so no scatter adds two gradients into one
+row.
 """
 
 from __future__ import annotations
@@ -137,17 +147,16 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg, capacity: int):
 def moe(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig, ctx: AnalogCtx):
     """MoE FFN over x [B, S, d]. Returns ``(y, stats)``, stats with
     ``router.aux_loss``."""
-    if ctx.training:
-        raise NotImplementedError(
-            "training the moe family needs the STE backward of the batched "
-            "expert launch (ROADMAP section 1, item 6)")
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     capacity = moe_capacity(s, e, k, cfg.capacity_factor)
     weights, _, row, order, aux = _route(x, p["router"]["kernel"], cfg,
                                          capacity)
-    tok = order // k                                             # [B, S·k]
-    src = torch.gather(x, 1, tok[..., None].expand(b, s * k, d))
+    # token ``order // k`` of each sorted assignment: its k copies, then a
+    # permutation (a gather by ``order // k`` would scatter-add k gradients
+    # into each token row in its backward)
+    copies = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+    src = torch.gather(copies, 1, order[..., None].expand(b, s * k, d))
 
     # every sequence's capacity slots of an expert, stacked: [E, B·C, d]
     buf = torch.zeros((e * b * capacity + 1, d), dtype=x.dtype,

@@ -15,8 +15,7 @@ The families' layers:
   site's image of ``patch_embeds``, audio sums one embedding per codebook
   and its head predicts every codebook (``[..., K, V]`` logits);
 * moe (qwen3-moe-30b-a3b, dbrx-132b): attention + a routed MoE FFN
-  (``models/moe.py``; eval only, its training waits for the batched
-  launch's STE backward);
+  (``models/moe.py``);
 * ssm (mamba2-130m): one Mamba-2 mixer with no FFN;
 * hybrid (jamba-v0.1-52b): super-blocks of ``attn_every`` layers, the
   reference's nested layout ``{"attn", "mamba" [attn_every - 1],
@@ -25,8 +24,8 @@ The families' layers:
   mixer followed by its own FFN, MoE at odd positions. Its noise context
   folds the super-block index, then the layer's position in it.
 
-Only the serving path runs for hybrid, vlm and audio: training them
-raises (:func:`forward`).
+Four families train: dense, moe, ssm and hybrid. Only the serving path
+runs for vlm and audio: training them raises (:func:`forward`).
 """
 
 from __future__ import annotations
@@ -46,9 +45,6 @@ from repro_torch.models import moe as MoE
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 #: training each family needs what is not ported yet, by ROADMAP item
 _NOT_TRAINED = {
-    "hybrid": "training the hybrid family (jamba) needs the ssd_scan "
-              "backward and the batched expert site's STE backward "
-              "(ROADMAP section 1, items 5 and 6)",
     "vlm": "training the vlm family (internvl2) is not ported: this port "
            "serves it (ROADMAP section 1, item 12)",
     "audio": "training the audio family (musicgen) is not ported: this "
@@ -367,8 +363,9 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     Layer ``i`` gets ``ctx`` with ``i`` folded into its noise key (the
     reference's ``fold_in(ctx.key, idx)``; hybrid: super-block ``i``, then
     the layer's position in it). ``remat`` (training, no caches)
-    checkpoints each layer: its activations are recomputed in the
-    backward instead of kept.
+    checkpoints each layer (hybrid: each super-block, as the reference's
+    scan body): its activations are recomputed in the backward instead of
+    kept.
 
     ``caches`` is :func:`init_caches`' stacked tree, every tensor leaf
     ``[L, ...]`` (hybrid: the nested ``{"attn", "mamba"}`` tree, ``[n_sb,
@@ -393,11 +390,11 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     for i in range(n_layers):
         p_l, ctx_l = layers[i], ctx.fold(i)
         cache_l = _layer_cache(caches, i, slots)
-        if fam == "hybrid":
-            x, st, nc = _hybrid_sb_apply(p_l, x, cfg, acfg, ctx_l, positions,
-                                         cache_l, seq_mask)
-        elif remat:
+        if remat:
             def layer(p_l, x, ctx_l=ctx_l):
+                if fam == "hybrid":
+                    return _hybrid_sb_apply(p_l, x, cfg, acfg, ctx_l,
+                                            positions)[:2]
                 if fam == "ssm":
                     return apply_mamba_layer(p_l, x, cfg, acfg, ctx_l)[:2]
                 return apply_attn_layer(p_l, x, cfg, acfg, ctx_l,
@@ -408,6 +405,9 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
             x, st = torch.utils.checkpoint.checkpoint(
                 layer, p_l, x, use_reentrant=False,
                 preserve_rng_state=False)
+        elif fam == "hybrid":
+            x, st, nc = _hybrid_sb_apply(p_l, x, cfg, acfg, ctx_l, positions,
+                                         cache_l, seq_mask)
         elif fam == "ssm":
             x, st, nc = apply_mamba_layer(p_l, x, cfg, acfg, ctx_l, cache_l,
                                           seq_mask)

@@ -480,9 +480,10 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
 def test_chip_smoke_line_launches_counts_every_main_path_run():
     """Each kernel's ``launches_by_path`` holds its count from every
     static, continuous, eval, best-of-n, training and PTQ-eval run (the
-    moe model's static and continuous runs too, and phase 17's hybrid, vlm
-    and audio runs), each run's counts under one path, and nothing for a
-    kernel that a run did not launch."""
+    moe model's static and continuous runs too, phase 17's hybrid, vlm
+    and audio runs, and phase 18's training of mamba2-130m, whose scans
+    count too, and of qwen3-moe-30b-a3b), each run's counts under one
+    path, and nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -524,6 +525,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
                                           **{n: next(seen) for n in attn}}}
                       for arch in (cs.ARCH, cs.PHI3)},
         "train": {"launches": {"analog_matmul": next(seen)}},
+        "train_families": {
+            cs.MAMBA: {"launches": counts("analog_matmul", "ssd_scan")},
+            cs.MOE: {"launches": counts("analog_matmul")}},
         "ptq": {arch: {"analog_hw": {"launches": {
                            "analog_matmul": next(seen)}},
                        "digital_int4": {"launches": {
@@ -554,7 +558,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "static/analog_hw", f"static/{cs.PHI3}/analog_hw",
         f"static/{cs.MAMBA}/analog_hw", "continuous/analog_hw/kv16",
         "continuous/analog_hw/kv8", f"continuous/{cs.MAMBA}/analog_hw",
-        f"train/{cs.ARCH}/analog", f"static/{cs.MOE}/analog_hw",
+        f"train/{cs.ARCH}/analog", f"train/{cs.MAMBA}/analog",
+        f"train/{cs.MOE}/analog", f"static/{cs.MOE}/analog_hw",
         f"continuous/{cs.MOE}/analog_hw/kv16",
         *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
@@ -582,4 +587,5 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")
          } | {f"static/{cs.JAMBA}/{d}" for d in ("analog_hw", "digital_int4")
-              } | {f"continuous/{cs.JAMBA}/analog_hw/kv16"}
+              } | {f"continuous/{cs.JAMBA}/analog_hw/kv16",
+                   f"train/{cs.MAMBA}/analog"}

@@ -765,3 +765,125 @@ def test_fused_analog_mvm_training_form(card, m, k, n):
     err = torch.where(xc.abs() <= b0, (xq - xc) / b0, torch.sign(xc))
     terms = (err * (dy.cpu() @ wc.T)).abs().sum()
     assert abs(float(db_k - db_r)) <= 1e-5 * (1 + float(terms))
+
+
+#: (E, rows per expert, K, N) of the batched training form: E 4 / 16 /
+#: 128 at the 8-row GEMV and at qwen3-moe's 80 training rows on mma, K up
+#: to jamba's 14336
+BATCHED_TRAIN = [(4, 8, 300, 258), (4, 80, 515, 130), (16, 8, 14336, 256),
+                 (16, 80, 14336, 256), (128, 8, 768, 2048),
+                 (128, 80, 2048, 1536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", BATCHED_TRAIN, ids=str)
+def test_batched_fused_training_form(card, e, m, k, n):
+    """A batched expert site's training call: one launch for all experts
+    on ``w + w_noise`` (each expert's own noise scale) against the
+    explicit [E, N] bound of the noise-free ``w`` (each expert within the
+    ADC contract of its plain version), then the STE backward (dx, each
+    expert's dw, the shared dbeta) on the card against the same Function
+    on the CPU within ``1e-5 * (1 + |cpu|)``, dbeta within 1e-5 of its
+    terms' sum."""
+    g = torch.Generator(device=card).manual_seed(e + m + k + n)
+    x = torch.randn((e, m, k), generator=g, device=card)
+    w = torch.randn((e, k, n), generator=g, device=card) * k ** -0.5
+    w[1:] *= torch.linspace(0.5, 2.0, e - 1, device=card)[:, None, None]
+    beta = torch.full((1,), 2.5, device=card)
+    bound = ref.adc_bound(w, beta, 12.0)
+    noise = 0.02 * torch.amax(w.abs(), dim=1, keepdim=True) * torch.randn(
+        (e, k, n), generator=g, device=card)
+    dy = torch.randn((e, m, n), generator=g, device=card)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        xl, wl, bl = (t.to(dev).clone().requires_grad_()
+                      for t in (x, w, beta.reshape(())))
+        before = k_analog.launches
+        y = dispatch.fused_analog_mvm(xl, wl, noise.to(dev), bl,
+                                      bound.to(dev))
+        assert k_analog.launches == before + (dev.type == "cuda")
+        y.backward(dy.to(dev))
+        assert k_analog.launches == before + (dev.type == "cuda")
+        grads.append((y.detach(), xl.grad.cpu(), wl.grad.cpu(),
+                      bl.grad.cpu()))
+    (y_k, dx_k, dw_k, db_k), (_, dx_r, dw_r, db_r) = grads
+    for i in range(e):
+        _check_analog(y_k[i], x[i], w[i] + noise[i], beta, bound[i], None,
+                      8, 8)
+    for a, b in ((dx_k, dx_r), (dw_k, dw_r)):
+        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs())).all())
+    assert bool(torch.equal(dx_k == 0, dx_r == 0))
+    xc, wc, b0 = x.cpu(), w.cpu(), float(beta)
+    xq = ref.div(torch.full((), b0), 127.0) * torch.round(
+        xc.clamp(-b0, b0) * (127.0 / b0))
+    err = torch.where(xc.abs() <= b0, (xq - xc) / b0, torch.sign(xc))
+    terms = (err * (dy.cpu() @ wc.transpose(-1, -2))).abs().sum()
+    assert abs(float(db_k - db_r)) <= 1e-5 * (1 + float(terms))
+
+
+def _ssd_f64(x, dt, a, b, c):
+    """The SSD recurrence token by token in float64 from a zero state
+    (head h reads group h // (H / G)): y [B, S, H, P]."""
+    bsz, s, heads, p = x.shape
+    rep = heads // b.shape[2]
+    bh = torch.repeat_interleave(b, rep, dim=2)
+    ch = torch.repeat_interleave(c, rep, dim=2)
+    h = torch.zeros((bsz, heads, b.shape[3], p), dtype=x.dtype,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        h = (torch.exp(dt[:, t] * a)[..., None, None] * h
+             + (dt[:, t, :, None] * bh[:, t])[..., None] * x[:, t, :, None])
+        ys.append(torch.einsum("zhn,zhnp->zhp", ch[:, t], h))
+    return torch.stack(ys, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 70, 8, 64, 2, 16),
+                                   (2, 100, 24, 64, 1, 128)], ids=str)
+def test_ssd_autograd_rule_matches_float64(card, shape):
+    """``dispatch.ssd`` with inputs that need a gradient (x, b and c
+    strided views of one projection): the forward launches ``ssd_scan``
+    once, the backward launches nothing (it differentiates the plain
+    version rebuilt from the saved inputs), and the gradients of x, dt, a,
+    b and c from an upstream gradient of y lie within 1e-4 of each
+    gradient's largest magnitude of the recurrence's autograd in
+    float64; with the final state's gradient too, h0 included."""
+    b_, s, h, p, g, n = shape
+    x, dt, a, bg, cg, h0 = _ssd_inputs(card, b_, s, h, p, g, n, seed=s,
+                                       wide=True)
+    gen = torch.Generator(device=card).manual_seed(7)
+    gy = torch.randn((b_, s, h, p), generator=gen, device=card)
+    base = x._base
+    got = {}
+    for kind in ("kernel", "f64"):
+        dtype = torch.float32 if kind == "kernel" else torch.float64
+        xbc = base.to(dtype).clone().requires_grad_()
+        dtl, al = (t.to(dtype).clone().requires_grad_() for t in (dt, a))
+        xl = xbc[..., :h * p].reshape(b_, s, h, p)
+        bl = xbc[..., h * p:h * p + g * n].reshape(b_, s, g, n)
+        cl = xbc[..., h * p + g * n:h * p + 2 * g * n].reshape(b_, s, g, n)
+        if kind == "kernel":
+            before = k_ssd.launches
+            y, _ = dispatch.ssd(xl, dtl, al, bl, cl)
+            assert k_ssd.launches == before + 1
+            y.backward(gy)
+            assert k_ssd.launches == before + 1
+        else:
+            _ssd_f64(xl, dtl, al, bl, cl).backward(gy.double())
+        got[kind] = (xbc.grad, dtl.grad, al.grad)
+    for a_, b64 in zip(got["kernel"], got["f64"]):
+        assert torch.isfinite(a_).all()
+        err = (a_.double() - b64).abs().max()
+        assert float(err) <= 1e-4 * float(b64.abs().max())
+    # the final state's gradient and an incoming state: against the plain
+    # version differentiated directly on the card
+    outs = []
+    for fn in (dispatch.ssd, ref.ssd_scan_ref):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, dt, a, bg, cg, h0)]
+        y, hf = fn(*leaves)
+        torch.autograd.backward([y, hf], [gy, torch.ones_like(hf)])
+        outs.append([t.grad for t in leaves])
+    for a_, b_ in zip(*outs):
+        assert float((a_ - b_).abs().max()) <= 1e-4 * float(b_.abs().max())

@@ -208,19 +208,35 @@ def test_moe_permutation_equivariance_without_drops():
 
 
 def test_moe_training_is_refused():
+    """Nothing of a MoE layer refuses training any more (the batched
+    site's STE backward and the router's gradient are ported; the values
+    are held against the reference in ``test_torch_train_ops.py``): the
+    layer, a batched ``analog_linear`` site and the fused batched MVM each
+    run a training forward whose backward reaches the input, the experts
+    and the router, and the fused forward alone still runs without
+    autograd."""
     cfg = _cfg()
-    p = _moe_params(cfg, 0)
-    x = torch.randn((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 6"):
-        _run(p, x, cfg, training=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PA.analog_linear(p["gate_up"], x.expand(4, 4, -1),
-                         PA.AnalogConfig(mode="analog"),
-                         PA.AnalogCtx(training=True))
-    w = p["gate_up"]["kernel"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dispatch.fused_analog_mvm(x.expand(4, 4, -1), w, None,
-                                  p["gate_up"]["input_range"], lam=12.0)
+    p = {k: {kk: v.clone().requires_grad_(True) for kk, v in site.items()}
+         for k, site in _moe_params(cfg, 0).items()}
+    x = torch.randn((1, 4, cfg.d_model), requires_grad=True)
+    y, st = _run(p, x, cfg, PA.AnalogConfig(mode="analog"), training=True,
+                 key=(1,))
+    (y.sum() + st["router"]["aux_loss"]).backward()
+    for g in (x.grad, p["router"]["kernel"].grad, p["gate_up"]["kernel"].grad,
+              p["down"]["kernel"].grad, p["down"]["input_range"].grad):
+        assert g is not None and bool(torch.isfinite(g).all())
+    assert bool(p["router"]["kernel"].grad.abs().sum() > 0)
+    xe = x.detach().expand(4, 4, -1).clone().requires_grad_(True)
+    ys, _ = PA.analog_linear(p["gate_up"], xe, PA.AnalogConfig(mode="analog"),
+                             PA.AnalogCtx(training=True))
+    ys.sum().backward()
+    assert xe.grad.shape == xe.shape
+    w = p["gate_up"]["kernel"].detach().clone().requires_grad_(True)
+    beta = p["gate_up"]["input_range"]
+    bound = ref.adc_bound(w.detach(), beta.detach(), 12.0)
+    yf = dispatch.fused_analog_mvm(xe, w, None, beta, bound)
+    yf.sum().backward()
+    assert w.grad.shape == w.shape and bool(w.grad.abs().sum() > 0)
     with torch.no_grad():       # the forward alone runs
         y = dispatch.fused_analog_mvm(x.expand(4, 4, -1), w, None,
                                       p["gate_up"]["input_range"], lam=12.0)

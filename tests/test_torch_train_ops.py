@@ -19,6 +19,8 @@ sum over all M·K elements whose fp32 order differs from XLA's, within
 ``assert_adc_parity``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,21 +28,26 @@ import pytest
 import torch
 from conftest import assert_adc_parity
 
+from repro.configs import get_config
 from repro.core import analog as ref_analog
 from repro.core import clipping as ref_clipping
 from repro.core import quant as ref_quant
 from repro.kernels import dispatch as ref_dispatch
 from repro.kernels import ref as jref
+from repro.models import mamba2 as ref_mamba
+from repro.models import moe as ref_moe
 from repro.optim import adamw as ref_adamw
 from repro.optim import compression as ref_compression
 from repro.optim import schedule as ref_schedule
 from repro.train import distill as ref_distill
 from repro_torch.core import analog as PA
 from repro_torch.core import clipping
+from repro_torch.core import noise as noise_lib
 from repro_torch.core import quant
 from repro_torch.kernels import analog_matmul as k_analog
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ref as kref
+from repro_torch.models import moe as PM
 from repro_torch.optim import adamw, compression, schedule
 from repro_torch.train import distill
 
@@ -263,6 +270,266 @@ def test_fused_refuses_a_folded_bound_beside_noise():
                                   torch.tensor(1.0), lam=12.0)
 
 
+# ---------------------------------------------------------------------------
+# the batched (MoE expert) site, the SSD and the MoE layer in training
+# ---------------------------------------------------------------------------
+
+E_SITE, K_SITE, N_SITE = 4, 24, 20
+
+
+def _batched_site(seed, with_noise):
+    """x [E, 2, 3, K] with edge elements, w [E, K, N] with each expert on
+    its own scale, eq. (3) noise per expert, the noise-free [E, N] bound
+    and an upstream gradient, as numpy."""
+    rng = np.random.default_rng(seed)
+    beta = np.float32(1.7)
+    x = edge_inputs(rng, (E_SITE, 2, 3, K_SITE), beta, 8)
+    scale = (2.0 ** np.arange(E_SITE))[:, None, None]
+    w = (rng.standard_normal((E_SITE, K_SITE, N_SITE)) * scale
+         * K_SITE ** -0.5).astype(np.float32)
+    colmax = np.abs(w).max(1, keepdims=True)
+    nz = ((0.02 * colmax * rng.standard_normal(w.shape)).astype(np.float32)
+          if with_noise else np.zeros_like(w))
+    bound = np.asarray(jax.vmap(lambda ww: jref.adc_bound(
+        ww, jnp.asarray(beta), 14.0))(jnp.asarray(w)))
+    g = rng.standard_normal((E_SITE, 2, 3, N_SITE)).astype(np.float32)
+    return x, w, nz, beta, bound, g
+
+
+@pytest.mark.parametrize("with_noise", [True, False], ids=["noise", "clean"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_batched_site_backward_matches_the_reference_vmap(fused, with_noise):
+    """A batched expert site's STE backward against ``jax.vjp`` of the
+    reference's per-expert site vmapped over the experts (its
+    ``dispatch.fused_analog_mvm`` with the Pallas kernel in interpret
+    mode; unfused ``noisy_matmul ∘ input_quantize``), the input range
+    shared: dx and each expert's dw on its own rows (the 2-D helper took
+    ``w.T`` of all three dims and one dw over every row), dbeta summed
+    over every expert and row."""
+    x, w, nz, beta, bound, g = _batched_site(11, with_noise)
+    if fused:
+        def one(xx, ww, nn, bb, bd):
+            return ref_dispatch.fused_analog_mvm(xx, ww, nn, bb, bd)
+    else:
+        def one(xx, ww, nn, bb, bd):
+            return ref_analog.noisy_matmul(
+                ref_quant.input_quantize(xx, bb, 8), ww, nn)
+    y_r, vjp = jax.vjp(
+        lambda xx, ww, bb: jax.vmap(one, in_axes=(0, 0, 0, None, 0))(
+            xx, ww, jnp.asarray(nz), bb, jnp.asarray(bound)),
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta))
+    dx_r, dw_r, db_r = vjp(jnp.asarray(g))
+
+    xt, wt, bt = t(x, True), t(w, True), t(beta, True)
+    if fused:
+        bound_t = kref.adc_bound(wt.detach(), bt.detach(), 14.0)
+        np.testing.assert_array_equal(bound_t.numpy(), bound)
+        y = dispatch.fused_analog_mvm(xt, wt, t(nz) if with_noise else None,
+                                      bt, bound_t)
+        assert_adc_parity(y.detach().numpy(), np.asarray(y_r),
+                          (bound / 127.0)[:, None, None, :])
+    else:
+        y = PA.noisy_matmul(quant.input_quantize(xt, bt, 8), wt, t(nz))
+        close(y, y_r)
+    y.backward(torch.from_numpy(g))
+    close(xt.grad, dx_r)
+    close(wt.grad, dw_r)
+    np.testing.assert_array_equal(xt.grad.numpy() == 0,
+                                  np.asarray(dx_r) == 0)
+    xq = np.asarray(ref_quant.input_quantize(jnp.asarray(x), beta, 8))
+    inside = np.abs(x) <= beta
+    err = np.where(inside, (xq - x) / beta, np.sign(x))
+    dxq = np.einsum("eabn,ekn->eabk", g, w)
+    assert abs(float(bt.grad) - float(db_r)) <= DBETA_TOL * (
+        1 + np.abs(err * dxq).sum())
+    # each expert's dw is its own rows' x_qᵀ g
+    for e in range(E_SITE):
+        close(wt.grad[e], xq[e].reshape(-1, K_SITE).T
+              @ g[e].reshape(-1, N_SITE))
+    assert k_analog.launches == 0
+
+
+def test_batched_training_noise_is_per_expert(monkeypatch):
+    """A batched site's training noise is each expert's own eq. (3) draw:
+    ``noise / (gamma · colmax_e)`` over the expert's own K has mean 0 and
+    std 1 within 5 standard errors for every expert (experts whose scales
+    differ by 8x; the max over the experts would shrink the small ones'
+    std), and the experts' draws are uncorrelated within 5 / sqrt(n)."""
+    gamma = 0.05
+    calls = []
+    real = noise_lib.gaussian_weight_noise
+
+    def spy(gen, w, g, beta_mult=0.0, axis=0):
+        out = real(gen, w, g, beta_mult, axis)
+        calls.append((w.detach().clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(noise_lib, "gaussian_weight_noise", spy)
+    rng = np.random.default_rng(4)
+    w = (rng.standard_normal((4, 96, 80))
+         * (2.0 ** np.arange(4))[:, None, None]).astype(np.float32)
+    p = {"kernel": t(w, True), "input_range": t([3.0], True)}
+    for use_pallas in (False, True):
+        acfg = PA.AnalogConfig(mode="analog", gamma_weight=gamma,
+                               use_pallas=use_pallas)
+        y, _ = PA.analog_linear(p, torch.randn(4, 6, 96), acfg,
+                                PA.AnalogCtx(key=(3, 1), training=True))
+        y.sum().backward()
+    assert len(calls) == 2
+    assert torch.equal(calls[0][1], calls[1][1])   # keyed, not stateful
+    wt, nz = calls[0]
+    colmax = torch.amax(torch.abs(wt), dim=1, keepdim=True)
+    z = (nz / (gamma * colmax)).double()
+    n = z[0].numel()
+    for e in range(4):
+        assert abs(float(z[e].mean())) < 5 / n ** 0.5, e
+        assert abs(float(z[e].std()) - 1) < 5 / (2 * n) ** 0.5, e
+        for f in range(e):
+            a, b = z[e].reshape(-1), z[f].reshape(-1)
+            corr = float(((a - a.mean()) * (b - b.mean())).mean()
+                         / (a.std() * b.std()))
+            assert abs(corr) < 5 / n ** 0.5, (e, f, corr)
+
+
+#: |port - reference| <= SSD_GRAD_TOL * (1 + |reference|) for every SSD
+#: gradient: both differentiate the same chunked fp32 math, whose sums run
+#: in other orders (test_torch_ssd.py's SSD_TOL is 2e-4)
+SSD_GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("shape", [(2, 13, 4, 16, 2, 8),
+                                   (1, 130, 4, 8, 1, 16)], ids=str)
+def test_ssd_gradients_match_the_reference(shape, with_h0):
+    """``dispatch.ssd``'s gradients (x, dt, a, b, c and h0, from the
+    upstream gradients of y and of the final state) against ``jax.vjp``
+    of the reference's ``mamba2._ssd_with_state`` (its chunked jnp path,
+    which XLA differentiates); and the autograd Function that the card
+    runs (kernel forward, the plain version rebuilt and differentiated in
+    the backward), run here on CPU tensors, equal to differentiating the
+    plain version directly, bit for bit, with and without the final
+    state's gradient."""
+    bsz, s, h, p, g, n = shape
+    rng = np.random.default_rng(sum(shape))
+    ins = [rng.standard_normal((bsz, s, h, p)),
+           np.log1p(np.exp(0.5 * rng.standard_normal((bsz, s, h)))) * 0.5,
+           -np.exp(0.3 * rng.standard_normal(h)),
+           0.3 * rng.standard_normal((bsz, s, g, n)),
+           0.3 * rng.standard_normal((bsz, s, g, n))]
+    if with_h0:
+        ins.append(rng.standard_normal((bsz * h, n, p)))
+    ins = [v.astype(np.float32) for v in ins]
+    gy = rng.standard_normal((bsz, s, h, p)).astype(np.float32)
+    gh = rng.standard_normal((bsz * h, n, p)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: ref_mamba._ssd_with_state(*a),
+                     *map(jnp.asarray, ins))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+
+    def grads(fn, with_gh=True):
+        leaves = [t(v, True) for v in ins]
+        y, hf = fn(*leaves)
+        torch.autograd.backward(
+            [y, hf] if with_gh else [y],
+            [torch.from_numpy(gy), torch.from_numpy(gh)][:2 if with_gh
+                                                         else 1])
+        return [v.grad for v in leaves]
+
+    got = grads(dispatch.ssd)
+    for name, a, b in zip(("x", "dt", "a", "b", "c", "h0"), got, want):
+        b = np.asarray(b, np.float64)
+        err = np.abs(a.numpy() - b)
+        assert np.all(err <= SSD_GRAD_TOL * (1 + np.abs(b))), (
+            name, float(err.max()))
+    for with_gh in (True, False):
+        direct = grads(dispatch.ssd, with_gh)
+        via_fn = grads(dispatch._SSD.apply if with_h0 else
+                       (lambda *a: dispatch._SSD.apply(*a, None)), with_gh)
+        for a, b in zip(direct, via_fn):
+            assert torch.equal(a, b)
+
+
+def _moe_cfg(arch):
+    return dataclasses.replace(get_config(arch).reduce(),
+                               capacity_factor=1.25)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_layer_gradients_match_the_reference(arch, fused):
+    """The MoE layer in training (noise off, statistics on): the gradients
+    of ``sum(y · g) + 0.3 · aux_loss`` with respect to x, the router, both
+    expert kernels and both input ranges against ``jax.grad`` of the
+    reference's ``models/moe.py::moe``; a dropped assignment's token row
+    gets no gradient through it, the site statistics are detached and
+    ``aux_loss`` is not."""
+    cfg = _moe_cfg(arch)
+    rng = np.random.default_rng(6)
+    p = jax.tree.map(np.asarray, ref_moe.init_moe(jax.random.PRNGKey(2),
+                                                  cfg))
+    x = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    kw = dict(mode="analog", train_noise=False, use_pallas=fused)
+
+    def ref_loss(pp, xx):
+        y, st = ref_moe.moe(pp, xx, cfg, ref_analog.AnalogConfig(**kw),
+                            ref_analog.AnalogCtx(key=None, training=True,
+                                                 collect_stats=True))
+        return jnp.sum(y * g) + 0.3 * st["router"]["aux_loss"], (y, st)
+
+    (l_r, (y_r, st_r)), (gp_r, gx_r) = jax.value_and_grad(
+        ref_loss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+
+    pt = jax.tree.map(lambda v: t(v, True), p)
+    xt = t(x, True)
+    y, st = PM.moe(pt, xt, cfg, PA.AnalogConfig(**kw),
+                   PA.AnalogCtx(training=True, collect_stats=True))
+    assert st["router"]["aux_loss"].requires_grad
+    assert not any(v.requires_grad for site in ("gate_up", "down")
+                   for v in st[site].values())
+    loss = (y * torch.from_numpy(g)).sum() + 0.3 * st["router"]["aux_loss"]
+    close(loss, l_r)
+    close(y, y_r)
+    close(st["router"]["aux_loss"], st_r["router"]["aux_loss"])
+    loss.backward()
+    close(xt.grad, gx_r)
+    close(pt["router"]["kernel"].grad, gp_r["router"]["kernel"])
+    assert bool(pt["router"]["kernel"].grad.abs().sum() > 0)
+    for site in ("gate_up", "down"):
+        close(pt[site]["kernel"].grad, gp_r[site]["kernel"])
+        close(pt[site]["input_range"].grad, gp_r[site]["input_range"])
+
+
+def test_moe_dropped_assignments_get_no_gradient():
+    """With a capacity of 1 most assignments drop to the spare row: each
+    token's gradient is the sum over its kept assignments only, which a
+    moe whose dropped experts are cut out of the combine reproduces."""
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduce(),
+                              capacity_factor=0.01)
+    gen = torch.Generator().manual_seed(3)
+    p = PM.init_moe(gen, cfg)
+    x = torch.randn((2, 12, cfg.d_model), generator=gen, requires_grad=True)
+    acfg = PA.AnalogConfig(mode="off")
+    cap = PM.moe_capacity(12, cfg.num_experts, cfg.top_k, 0.01)
+    _, _, row, order, _ = PM._route(x.detach(), p["router"]["kernel"], cfg,
+                                    cap)
+    drop = cfg.num_experts * 2 * cap
+    assert int((row == drop).sum()) > 0
+    # the tokens whose every assignment dropped get no expert gradient:
+    # theirs comes through the router only, so with the router frozen
+    # (detached) their rows of x.grad are exactly 0
+    p_frozen = dict(p, router={"kernel": p["router"]["kernel"].detach()})
+    y, _ = PM.moe(p_frozen, x, cfg, acfg, PA.AnalogCtx(training=True))
+    y.sum().backward()
+    kept = torch.zeros((2, 12 * cfg.top_k), dtype=torch.bool)
+    kept.scatter_(1, order, row < drop)
+    tok_kept = kept.reshape(2, 12, cfg.top_k).any(-1)
+    assert bool((~tok_kept).any()) and bool(tok_kept.any())
+    grad_rows = x.grad.abs().sum(-1)
+    assert bool((grad_rows[~tok_kept] == 0).all())
+    assert bool((grad_rows[tok_kept] > 0).all())
+
+
 def _ref_site(p, x, acfg, training=True):
     return ref_analog.analog_linear(
         p, x, acfg, ref_analog.AnalogCtx(key=None, training=training,
@@ -323,8 +590,10 @@ def test_analog_linear_training_gradients(mode, fused):
 
 def test_training_forward_refusals_and_device_state():
     """``rtn`` is eval-only; the per-tile ``device`` sub-dict is ignored in
-    training (as the reference does) and refused at eval; the SSD refuses
-    an input that needs a gradient (no backward yet)."""
+    training (as the reference does) and refused at eval; the SSD, which
+    refused an input that needs a gradient before its backward was
+    ported, now differentiates it (``test_ssd_gradients_match_the_
+    reference`` holds the values)."""
     p = {"kernel": torch.randn(16, 8), "input_range": torch.full((1,), 2.0)}
     x = torch.randn(2, 3, 16)
     train = PA.AnalogCtx(training=True)
@@ -337,9 +606,11 @@ def test_training_forward_refusals_and_device_state():
     with pytest.raises(NotImplementedError):
         PA.analog_linear({**p, "device": {}}, x, acfg, PA.AnalogCtx())
     xs = torch.randn(1, 4, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="SSD"):
-        dispatch.ssd(xs, torch.rand(1, 4, 2), -torch.rand(2),
-                     torch.randn(1, 4, 1, 4), torch.randn(1, 4, 1, 4))
+    y, h = dispatch.ssd(xs, torch.rand(1, 4, 2), -torch.rand(2),
+                        torch.randn(1, 4, 1, 4), torch.randn(1, 4, 1, 4))
+    assert y.requires_grad and h.requires_grad
+    y.sum().backward()
+    assert xs.grad is not None and bool(torch.isfinite(xs.grad).all())
 
 
 def test_training_noise_is_drawn_from_the_key_and_detached():
