@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
 2. kernels  -- each MVM kernel at llama-3.2-1b's main-path shapes (K -> N of
                the qkv, o, gate_up, down projections and the LM head; M = 4
                for decode, 4 x 32 = 128 for prefill; the continuous
-               engine's M = 8 decode and M = 64 chunk), at phi-3-mini-4k's
+               engine's M = 8 decode and M = 64 chunk; each with and
+               without ``col_off``, which phase 19's device model adds to
+               every launch), at phi-3-mini-4k's
                (3072 -> 9216, 3072 -> 3072, 3072 -> 16384, 8192 -> 3072,
                3072 -> 32256; M = 4, 128 and the eval forward's 64 x 64 =
                4096) and at mamba2-130m's (in_proj 768 -> 3352, out_proj
@@ -206,6 +208,25 @@ Phases, in order; any failure exits non-zero:
                dbrx and jamba trained on the card against the CPU (site
                inputs and gradients by the causal rule, routes moved only
                at near-ties or after a site output apart, losses).
+
+19. devices -- the per-tile device model (``core.devices``: programming
+               gain, drift, periphery offsets, stuck columns, dead tiles)
+               on full-width llama-3.2-1b: (a) the static engine as phase
+               3 on a 48 h old chip (offsets 0.01, 1 % stuck columns and
+               dead tiles), fused against unfused under phase 3's gates,
+               every one of the 65 launches per forward with ``col_off``;
+               (b) phase 8's 16 requests on the bf16 pool with the drift
+               clock spanning about 200 h and the watchdog on: at least
+               one recalibration, each lowering the tile scale error,
+               ``nu`` / ``dead`` / ``stuck`` and every leaf's storage
+               kept, no request, slot or block evicted, then phase 8's
+               decode and chunk forward times on that chip; (c) the
+               8-slot decode forward as a CUDA graph replayed after an
+               ``advance`` and after a ``recalibrate``, equal to the eager
+               forward bit for bit; (d) reduced llama-3.2-1b, mamba2-130m,
+               qwen3-moe-30b-a3b and jamba-v0.1-52b on the engine with
+               drift and recalibration, card against CPU on the same chip
+               (one seed, a CPU generator) under phase 16's causal rule.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -485,6 +506,18 @@ SSD_GRAD_TOL = 1e-4
 # the CPU (every family that trains but the dense one, which phase 14
 # holds)
 REDUCED_TRAIN_ARCHS = (MAMBA, MOE, "dbrx-132b", JAMBA)
+
+
+# phase 19, the per-tile device model: DeviceConfig's defaults plus
+# periphery offsets, stuck columns and dead tiles, drawn from DEVICE_SEED;
+# the static engine's chip age (hours); the hours the continuous engine's
+# clock spans and its watchdog; the reduced models held card against CPU
+DEVICE_FAULTS = dict(sigma_offset=0.01, p_stuck_col=0.01, p_dead_tile=0.01)
+DEVICE_SEED = 5
+DEVICE_AGE_H = 48.0
+DEVICE_ENGINE_H = 200.0
+DEVICE_RECAL = dict(recal_interval=8, recal_threshold=0.15)
+DEVICE_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
 
 
 class SmokeFailure(RuntimeError):
@@ -940,8 +973,10 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
 #: at its engines' rows (its batched expert sites are MOE_SITES at
 #: MOE_ROWS, and at MOE_TRAIN_ROWS in training)
 MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
-            + [(ARCH, SITES, m, False, True) for m in (
-                M_ENGINE_DECODE, M_ENGINE_CHUNK, M_EVAL, M_INDUCTION)]
+            + [(ARCH, SITES, m, True, True) for m in (
+                M_ENGINE_DECODE, M_ENGINE_CHUNK)]
+            + [(ARCH, SITES, m, False, True) for m in (M_EVAL,
+                                                       M_INDUCTION)]
             + [(ARCH, SITES, M_BON_CHUNK, False, False)]
             + [(ARCH, SITES, M_TRAIN, False, False)]
             + [(PHI3, PHI3_SITES, m, True, True) for m in (M_DECODE,
@@ -1070,8 +1105,8 @@ TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
 
 def forward_totals(cases: list) -> list:
     """(arch, M, {key: total over the sites of one forward}) for every
-    (arch, M) of phase 2, without col_off (which the main path does not
-    use)."""
+    (arch, M) of phase 2, without col_off (which only phase 19's ageing
+    chip adds)."""
     out = {}
     for r in cases:
         if r.get("col_off"):
@@ -1656,13 +1691,21 @@ def moe_layers(cfg) -> int:
 
 
 def engine_phase(torch, cfg, params, labels, deploy: str,
-                 kv_bits: int, inplace: bool = False) -> dict:
+                 kv_bits: int, inplace: bool = False,
+                 chip: bool = False) -> dict:
     """Serve the mixed workload at full width with ``paged=True`` under
     ``deploy``; check that every request finished, every block came back
     (an ssm stack has no pool and must say why) and every call ran on its
     kernel; measure tokens/s, the peak memory and the device busy share
     of a decode step. ``inplace`` deploys into ``params`` itself (a model
-    whose second copy does not fit the card)."""
+    whose second copy does not fit the card). ``chip`` (``analog_hw``)
+    serves on an ageing chip (:func:`attach_chip`) with the drift clock
+    spanning about DEVICE_ENGINE_H hours and the watchdog on
+    (DEVICE_RECAL): it must reprogram at least once, each time lowering
+    the tile scale error, keep ``nu`` / ``dead`` / ``stuck`` bit for bit
+    and every leaf's storage, and evict nothing; every non-expert
+    launch carries ``col_off``; the busy and graph checks then run
+    (:func:`devices_graph_check`)."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
                                              required_max_len)
@@ -1683,14 +1726,28 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
                            prefill_chunk=ENGINE_CHUNK,
                            cache_dtype=torch.bfloat16, paged=True,
                            kv_block_size=PAGED_BS)
-    eng = ServeEngine(p, cfg, acfg, scfg)
+    run_scfg, recals, with_off = scfg, [], {}
+    if chip:
+        check(deploy == "analog_hw", f"{deploy}: the device model is analog")
+        p = attach_chip(torch, p, labels, 0.0)
+        # the CLI's estimate of the run's engine steps
+        steps = (sum(r.max_new for r in reqs) // ENGINE_SLOTS + len(reqs))
+        run_scfg = dataclasses.replace(
+            scfg, drift_dt=DEVICE_ENGINE_H / steps, recalibrate=True,
+            **DEVICE_RECAL)
+        leaves = chip_leaves(p)
+        kept = {k: v.clone() for k, v in leaves.items()
+                if k.rsplit("/", 1)[1] in ("nu", "dead", "stuck")}
+        ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+    eng = ServeEngine(p, cfg, acfg, run_scfg)
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for m in counters.values():
         m.launches = 0
     t0 = time.perf_counter()
-    results = eng.run(reqs)
+    with col_off_counted(with_off), recal_recorded(recals):
+        results = eng.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1721,7 +1778,33 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
     for name, n in launches.items():
         check(n == want.get(name, 0), f"{tag}: {name} launched {n} times, "
               f"expected {want.get(name, 0)}")
-    res = {"deploy": deploy, "kv_bits": kv_bits, "run_s": run_s,
+    drift = {}
+    if chip:
+        tag += " on an ageing chip"
+        experts = 2 * moe_layers(cfg) * forwards
+        expect = {"col_off": want[mvm] - experts, "plain": experts}
+        check(with_off == {k: v for k, v in expect.items() if v},
+              f"{tag}: analog_matmul calls {with_off}, expected {expect}")
+        check(eng.recal_count >= 1 and len(recals) == eng.recal_count,
+              f"{tag}: {eng.recal_count} recalibrations, "
+              f"{len(recals)} recorded")
+        check(all(after < before for before, after in recals),
+              f"{tag}: a recalibration did not lower the tile scale error "
+              f"{recals}")
+        leaves = chip_leaves(p)
+        check({k: v.data_ptr() for k, v in leaves.items()} == ptrs,
+              f"{tag}: a device leaf was replaced, not written")
+        check(all(torch.equal(leaves[k], v) for k, v in kept.items()),
+              f"{tag}: nu, dead or stuck changed across recalibrations")
+        drift = {"drift_hours": eng.drift_hours,
+                 "watchdog_checks": eng.watchdog_checks,
+                 "recal_count": eng.recal_count,
+                 "recal_s": eng.recal_time,
+                 "tile_scale_err": [list(r) for r in recals],
+                 "dead_tiles": eng.dead_tiles,
+                 "stuck_cols": eng.stuck_cols,
+                 "col_off_launches": with_off.get("col_off", 0)}
+    res = {"deploy": deploy, "kv_bits": kv_bits, "run_s": run_s, **drift,
            "peak_gb": peak_gb,
            "tokens": total, "tokens_per_s": total / run_s,
            "decode_steps": eng.decode_steps, "mixed_steps": eng.mixed_steps,
@@ -1731,6 +1814,16 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
            "phase_s": dict(eng.phase_time), "launches": launches,
            "gating_reasons": dict(eng.gating_reasons)}
     res.update(engine_busy(torch, cfg, p, acfg, scfg))
+    if chip:
+        res["graph"] = devices_graph_check(torch, cfg, p, acfg, scfg)
+        print(f"  {tag}: {eng.drift_hours:.1f} h deployed, "
+              f"{eng.watchdog_checks} watchdog checks, {eng.recal_count} "
+              f"recalibrations in {eng.recal_time:.3f} s (tile scale error "
+              + ", ".join(f"{a:.4f} -> {b:.4f}" for a, b in recals)
+              + f"; {eng.tile_scale_err:.4f} at the end), {eng.dead_tiles} "
+              f"dead tiles, {eng.stuck_cols} stuck columns; no request, "
+              f"slot or block evicted; nu, dead, stuck and every leaf's "
+              f"storage kept; {with_off} analog_matmul calls by col_off")
     print(f"  {tag}: {total} tokens of {len(reqs)} requests in {run_s:.2f}s "
           f"({res['tokens_per_s']:.1f} tok/s, peak {peak_gb:.2f} GB), "
           f"{eng.decode_steps} decode "
@@ -2079,7 +2172,8 @@ def full_width(torch, arch: str, seed: int = 0):
     return cfg, params, labels
 
 
-def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
+def serve_phase(torch, deploy: str, base: str, arch: str = ARCH,
+                chip: bool = False) -> dict:
     """Serve full-width ``arch`` under ``deploy`` on the kernels and check
     it against the unfused ``base`` deployment of the same weights: site
     by site on the same inputs (the ADC contract), and end to end (the
@@ -2089,7 +2183,10 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
     quantized leaf at a time). Every kernel's launches are counted; a
     model with experts has each greedy token that differs between the two
     runs attributed (:func:`token_attribution`). The peak memory of the
-    whole phase is reported."""
+    whole phase is reported. ``chip`` (``analog_hw``) serves the
+    programmed weights on an ageing, faulty chip (:func:`attach_chip`,
+    DEVICE_AGE_H old): every non-expert site's launch must carry
+    ``col_off``; the unfused steps are not timed."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.models import build
     from repro_torch.serve.decode import generate, prefill
@@ -2113,19 +2210,31 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
                                          labels, gen)
         mvm = "int4_matmul"
     del params
+    if chip:
+        check(deploy == "analog_hw", f"{deploy}: the device model is analog")
+        fused_p = base_p = attach_chip(torch, fused_p, labels, DEVICE_AGE_H)
+        deploy = f"{deploy}+devices"
     prompt, extra = model_prompt(torch, cfg, gen, BATCH, PROMPT_LEN)
     pre = prefix_len(cfg, extra)
     projector = 1 if extra is not None else 0
 
     zero_counts(torch)
+    with_off = {}
     t0 = time.perf_counter()
-    toks = generate(fused_p, cfg, fused_acfg, gen, prompt, NEW_TOKENS,
-                    greedy_first=NEW_TOKENS, extra_inputs=extra)
-    toks_host = toks.cpu()
+    with col_off_counted(with_off):
+        toks = generate(fused_p, cfg, fused_acfg, gen, prompt, NEW_TOKENS,
+                        greedy_first=NEW_TOKENS, extra_inputs=extra)
+        toks_host = toks.cpu()
     gen_s = time.perf_counter() - t0
     kernel_launches = launch_counts()
     launched = kernel_launches.get(mvm, 0)
     want = {mvm: mvm_sites(cfg) * FORWARDS + projector}
+    if chip:
+        experts = 2 * moe_layers(cfg) * FORWARDS     # the expert sites'
+        expect = {"col_off": want[mvm] - experts, "plain": experts}
+        check(with_off == {k: v for k, v in expect.items() if v},
+              f"{arch} {deploy}: analog_matmul calls {with_off}, expected "
+              f"{expect}: every non-expert site's with col_off")
     if mixer_layers(cfg):
         want["ssd_scan"] = mixer_layers(cfg)              # the prefill
     for name in _counters():
@@ -2155,6 +2264,7 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
     first_agree = int((toks_host[:, 0] == base_toks[:, 0]).sum())
     res = {"arch": arch, "deploy": deploy, "params": n_params,
            "launches": launched, "kernel_launches": kernel_launches,
+           "col_off_launches": with_off.get("col_off", 0),
            "generate_s": gen_s,
            "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
            "max_logit_diff": float((lf - lb).abs().max()),
@@ -2178,11 +2288,12 @@ def serve_phase(torch, deploy: str, base: str, arch: str = ARCH) -> dict:
             toks_host, f"{arch} {deploy}")
     res.update(step_times(torch, cfg, fused_p, fused_acfg, prompt,
                           extra=extra))
-    if arch not in FAMILY_ARCHS:
+    if arch not in FAMILY_ARCHS and not chip:
         # phase 17 times the fused steps only: jamba's unfused digital_rtn4
         # steps quantize a 7.5 GB expert leaf per site call, which a
         # captured graph would keep, and the unfused times of the others
-        # are yardsticks the script's time budget leaves out
+        # are yardsticks the script's time budget leaves out (phase 19's
+        # too)
         res["unfused"] = step_times(torch, cfg, base_p, base_acfg, prompt,
                                     extra=extra)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2424,9 +2535,12 @@ def adc_mismatches(torch, p, x, ya, yb, acfg, what: str) -> int:
     on the same input ``x`` differ. Each must be exactly one ADC level at a
     near-tie of the pre-ADC value of ``acfg``'s unfused path, ``|frac(y *
     inv) - 1/2| <= K * 2^-24 * (|x_q| . |w|) * inv``. A batched (MoE)
-    site, kernel [E, K, N] and x [E, ..., K], is held expert by expert.
-    Returns their count."""
-    from repro_torch.core import quant
+    site, kernel [E, K, N] and x [E, ..., K], is held expert by expert. A
+    site with per-tile device state (``analog``) is held on its corrupted
+    weights and column offsets against the bound of its pristine weights,
+    as ``analog_linear`` runs it (the offset's own rounding added to the
+    tie's reach). Returns their count."""
+    from repro_torch.core import devices, quant
     from repro_torch.kernels import ref
 
     if p["kernel"].dim() > 2:      # expert by expert: one [K, N] at a time
@@ -2447,12 +2561,16 @@ def adc_mismatches(torch, p, x, ya, yb, acfg, what: str) -> int:
     k = w.shape[-2]
     x_q = quant.input_quantize(
         x.float().reshape(*w.shape[:-2], -1, k), beta, acfg.input_bits)
-    b = torch.clamp_min(ref.adc_bound(w, beta, acfg.out_bound), 1e-8)
+    bound = ref.adc_bound(w, beta, acfg.out_bound)
+    b = torch.clamp_min(bound, 1e-8)
     if b.dim() > 1:
         b = b.unsqueeze(-2)
+    off = torch.zeros(())
+    if "device" in p and acfg.mode == "analog":
+        w, off = devices.corrupt_weights(w, p["device"], bound)
     inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
-    v = (x_q @ w) * inv
-    err = k * U32 * (x_q.abs() @ w.abs()) * inv
+    v = (x_q @ w + off) * inv
+    err = (k * U32 * (x_q.abs() @ w.abs()) + U32 * off.abs()) * inv
     diff = (ya - yb).reshape(v.shape).abs()
     lsb = ref.div(b, qo).expand_as(diff)
     bad = diff != 0
@@ -4506,6 +4624,291 @@ def phase_families(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the per-tile device model
+# ---------------------------------------------------------------------------
+
+def attach_chip(torch, params: dict, labels: dict, age_h: float) -> dict:
+    """``params`` with per-tile device state (``DeviceConfig`` defaults and
+    DEVICE_FAULTS, drawn on a CPU generator from DEVICE_SEED, so the same
+    chip on the card and on the CPU) aged ``age_h`` hours."""
+    from repro_torch.core import devices
+
+    chip = devices.attach_device_state(
+        params, labels, torch.Generator().manual_seed(DEVICE_SEED),
+        devices.DeviceConfig(**DEVICE_FAULTS))
+    return devices.advance(chip, age_h)
+
+
+def chip_leaves(params: dict, prefix: str = "") -> dict:
+    """Every device-state leaf of ``params`` by its path."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(chip_leaves(v, f"{prefix}{k}/"))
+        elif "/device/" in f"/{prefix}":
+            out[prefix + k] = v
+    return out
+
+
+@contextlib.contextmanager
+def col_off_counted(seen: dict):
+    """Inside the block every ``analog_matmul`` call adds one to
+    ``seen["col_off"]`` when it carries a column offset, else to
+    ``seen["plain"]``."""
+    from repro_torch.kernels import dispatch
+
+    real = dispatch.analog_matmul
+
+    def call(x, w, beta, bound=None, col_off=None, **k):
+        key = "plain" if col_off is None else "col_off"
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, w, beta, bound, col_off, **k)
+
+    dispatch.analog_matmul = call
+    try:
+        yield
+    finally:
+        dispatch.analog_matmul = real
+
+
+@contextlib.contextmanager
+def recal_recorded(log: list):
+    """Inside the block every recalibration appends the mean tile scale
+    error before and after it to ``log``."""
+    from repro_torch.core import devices
+
+    real = devices.recalibrate
+
+    def spy(params, gen):
+        before = devices.health(params)["mean_scale_err"]
+        out = real(params, gen)
+        log.append((before, devices.health(params)["mean_scale_err"]))
+        return out
+
+    devices.recalibrate = spy
+    try:
+        yield
+    finally:
+        devices.recalibrate = real
+
+
+def devices_graph_check(torch, cfg, params, acfg, scfg) -> dict:
+    """The engine's 8-slot decode forward on an ageing chip, captured as a
+    CUDA graph once, then replayed as is, after an ``advance`` and after a
+    ``recalibrate``: each replay's logits equal the eager forward's at the
+    same state bit for bit (the clock and the recalibration write into the
+    leaves the graph reads)."""
+    from repro_torch.core import devices
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, acfg, scfg)
+    rng = np.random.default_rng(17)
+    for i in range(ENGINE_SLOTS):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, 64).astype(np.int32), max_new=32,
+            temperature=0.0))
+    while any(s is None or s.prefilling for s in eng.slots):
+        eng.step()
+    eng._refresh_device_state()
+    d = eng._dev
+
+    def step():
+        return serve_step(params, cfg, acfg, d["toks"][:, None], eng.caches,
+                          d["off"][:, None], seq_mask=d["active"][:, None])[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    res = {}
+    for tick in ("captured", "advance", "recalibrate"):
+        if tick == "advance":
+            devices.advance(params, 24.0)
+        elif tick == "recalibrate":
+            devices.recalibrate(params, torch.Generator().manual_seed(3))
+        graph.replay()
+        replayed = out.clone()
+        eager = step()
+        check(torch.equal(replayed, eager), f"devices graph: the replay "
+              f"after {tick} differs from the eager forward")
+        res[tick] = float(replayed.abs().max())
+    del graph, eng
+    print("  8-slot decode forward on an ageing chip as a CUDA graph: replay "
+          "equals the eager forward bit for bit as captured, after a 24 h "
+          "advance and after a recalibration")
+    return res
+
+
+@contextlib.contextmanager
+def device_sites_recorded(log: list):
+    """:func:`sites_recorded` with each call's device clock and calibration
+    (``t``, ``t_prog``, ``gain``, ``off``) copied at the call, since the
+    engine moves them in place afterwards."""
+    def spy(p, x, acfg, ctx):
+        y, stats = real(p, x, acfg, ctx)
+        snap = None
+        if "device" in p:
+            snap = {k: p["device"][k].clone()
+                    for k in ("t", "t_prog", "gain", "off")}
+        log.append((p, x, y, snap))
+        return y, stats
+
+    with sites_replaced(spy) as real:
+        yield
+
+
+def reduced_devices_check(torch, arch: str) -> dict:
+    """The reduced ``arch`` served by the continuous engine on an ageing
+    chip, on the card (the kernels) and on the CPU (their plain versions):
+    the same hw-programmed weights, the same chip (:func:`attach_chip`:
+    one seed on a CPU generator) and greedy requests, the drift clock on
+    and the watchdog tripping. Gates, phase 16's causal rule: the same
+    schedule, health reads and recalibrations on both; every site call of
+    the card replayed on the CPU from its input and its device state at
+    that call within the ADC contract; up to the first site output that
+    differs between the runs (the origin) every site input within
+    SITE_INPUT_TOL; a routing id moved only at a router near-tie or after
+    the origin; a differing token only after an origin."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
+                                         analog_linear,
+                                         perturb_analog_weights)
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                             ServeEngine, required_max_len)
+
+    cfg, params, labels = build(get_config(arch).reduce(), 0, device="cpu")
+    hw = perturb_analog_weights(params, labels,
+                                torch.Generator().manual_seed(1), "hw")
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 5 + 3 * i
+                                               ).astype(np.int32),
+                    max_new=8, temperature=0.0) for i in range(4)]
+    scfg = SchedulerConfig(
+        num_slots=2, prefill_chunk=8, paged=cfg.family != "ssm",
+        kv_block_size=4, drift_dt=DEVICE_ENGINE_H / 16, recalibrate=True,
+        recal_interval=4, recal_threshold=0.1,
+        max_len=max(required_max_len(len(r.prompt), r.max_new, 8)
+                    for r in reqs))
+    runs = {}
+    for where in ("cpu", "cuda"):
+        chip = attach_chip(torch, hw, labels, 0.0)
+        if where == "cuda":
+            chip = _to(chip, torch.device("cuda"))
+        calls, routes = [], []
+        eng = ServeEngine(chip, cfg, acfg, scfg)
+        with device_sites_recorded(calls), routes_recorded(torch, routes,
+                                                            calls):
+            out = eng.run(reqs)
+        runs[where] = (out, calls, routes, eng)
+    (out_h, calls_h, routes_h, eng_h), (out_c, calls_c, routes_c, eng_c) = (
+        runs["cpu"], runs["cuda"])
+    what = f"reduced {arch} on an ageing chip"
+    sched = ("decode_steps", "prefill_forwards", "watchdog_checks",
+             "recal_count", "drift_hours")
+    check(all(getattr(eng_h, k) == getattr(eng_c, k) for k in sched)
+          and eng_c.recal_count >= 1 and len(calls_h) == len(calls_c)
+          and len(routes_h) == len(routes_c),
+          f"{what}: card and cpu ran other schedules: "
+          + str({k: (getattr(eng_h, k), getattr(eng_c, k)) for k in sched}))
+    cpu = torch.device("cpu")
+    flips = elements = 0
+    origin = None
+    with torch.no_grad():
+        for i, ((p, x, y, snap), (_, xh, yh_run, _)) in enumerate(
+                zip(calls_c, calls_h)):
+            q = _to(p, cpu)
+            if snap is not None:
+                q["device"].update(_to(snap, cpu))
+            xc = x.cpu()
+            yh, _ = analog_linear(q, xc, acfg, AnalogCtx())
+            elements += yh.numel()
+            flips += adc_mismatches(torch, q, xc, y.cpu(), yh, acfg,
+                                    f"{what}: site call {i}")
+            if origin is None:
+                check(bool(((xc - xh).abs()
+                            <= SITE_INPUT_TOL * (1 + xh.abs())).all()),
+                      f"{what}: site call {i}'s input apart before any "
+                      f"site output was")
+                if not torch.equal(y.cpu(), yh_run):
+                    origin = i
+    moved = 0
+    k = cfg.top_k
+    for (ids_h, probs, n_h), (ids_c, _, _) in zip(routes_h, routes_c):
+        diff = (ids_h.sort(-1).values != ids_c.sort(-1).values).any(-1)
+        if bool(diff.any()):
+            top = probs.sort(-1, descending=True).values
+            gap = (top[..., k - 1] - top[..., k])[diff]
+            check(bool((gap <= ROUTE_TIE).all())
+                  or (origin is not None and n_h > origin),
+                  f"{what}: a routing id moved away from a near-tie before "
+                  f"any site output apart")
+            moved += int(diff.sum())
+    equal = all(np.array_equal(out_h[r.uid], out_c[r.uid]) for r in reqs)
+    check(equal or origin is not None, f"{what}: greedy tokens differ card "
+          f"vs cpu with no site output apart")
+    check(all(len(out_c[r.uid]) == r.max_new for r in reqs),
+          f"{what}: a request did not complete")
+    res = {"recal_count": eng_c.recal_count,
+           "watchdog_checks": eng_c.watchdog_checks,
+           "site_calls": len(calls_c), "site_flips": flips,
+           "site_elements": elements, "origin": origin,
+           "routes_moved": moved, "tokens_equal": equal}
+    print(f"  {what}, card vs cpu: {eng_c.drift_hours:.0f} h, "
+          f"{eng_c.watchdog_checks} watchdog checks and {eng_c.recal_count} "
+          f"recalibrations on both; {len(calls_c)} site calls on the card's "
+          f"inputs, {flips} of {elements} outputs one ADC level apart at "
+          f"near-ties; first site output apart "
+          f"{'none' if origin is None else f'at call {origin}'}, "
+          f"{moved} routing ids moved; greedy tokens "
+          f"{'equal' if equal else 'differ after it'}")
+    return res
+
+
+def phase_devices(torch, static_pristine: dict,
+                  engine_pristine: dict) -> dict:
+    """Phase 19: full-width llama-3.2-1b on an ageing, faulty chip. (a) The
+    static engine, ``analog_hw`` fused against unfused on a DEVICE_AGE_H
+    old chip (phase 3's gates; 65 launches per forward, each with
+    ``col_off``). (b) Phase 8's 16 requests on the bf16 pool with the
+    drift clock spanning about DEVICE_ENGINE_H hours and the watchdog
+    reprogramming in place; then its decode and chunk forward times with
+    device state, beside phase 8's without it. (c) The 8-slot decode
+    forward's CUDA graph replayed after a tick and after a recalibration.
+    (d) The reduced dense, ssm, moe and hybrid models on the engine with
+    drift and recalibration, card against cpu. The times are printed
+    beside phases 3's and 8's on the pristine chip
+    (``static_pristine``, ``engine_pristine``)."""
+    out = {"static": serve_phase(torch, "analog_hw", "analog_hw", chip=True)}
+    cfg, params, labels = full_width(torch, ARCH)
+    out["engine"] = engine_phase(torch, cfg, params, labels, "analog_hw", 0,
+                                 inplace=True, chip=True)
+    del params
+    torch.cuda.empty_cache()
+    for what, aged, pristine, keys in (
+            ("static engine", out["static"], static_pristine,
+             ("tokens_per_s", "prefill_ms", "prefill_device_ms", "decode_ms",
+              "decode_device_ms", "device_busy", "peak_gb")),
+            ("continuous engine", out["engine"], engine_pristine,
+             ("tokens_per_s", "decode_step_ms", "decode_device_ms",
+              "chunk_forward_ms", "chunk_device_ms", "device_busy",
+              "chunk_busy", "peak_gb"))):
+        print(f"  {ARCH} {what}, ageing chip (pristine): "
+              + ", ".join(f"{k} {aged[k]:.3f} ({pristine[k]:.3f})"
+                          for k in keys))
+    out["reduced"] = {arch: reduced_devices_check(torch, arch)
+                      for arch in DEVICE_REDUCED}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -4533,10 +4936,12 @@ def line_launches(results: dict) -> dict:
     (phase 13), the HWA distillation runs (phases 14 and 18: the student's
     forward and its remat recomputation, and the teacher's forward that
     gives each batch its logits) and the PTQ model's evals on the kernels
-    (phase 15). Each count was read right after its run, with every count
-    set to 0 right before it. Not counted: the kernel comparisons (phases
-    2, 5, 6 and the gates (i) of 14 and 18), the reduced checks against
-    the CPU (phases 9, 12, 14, 15, 16, 17 and 18), the timing replays and
+    (phase 15), and the ageing chip's static and continuous runs (phase
+    19, every launch with ``col_off``). Each count was read right after
+    its run, with every count set to 0 right before it. Not counted: the
+    kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
+    the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18
+    and 19), phase 19's graph check, the timing replays and
     the fused-against-unfused checks after each run (site parity, the
     token attribution), the CLI (phase 10), and the training phases'
     profiled steps and resume checks."""
@@ -4588,6 +4993,10 @@ def line_launches(results: dict) -> dict:
             add(f"static/{arch}/{deploy}",
                 fam[f"{arch}/{key}"]["kernel_launches"])
     add(f"continuous/{JAMBA}/analog_hw/kv16", fam["engine"]["launches"])
+    dev = results["devices"]
+    add("devices/static/analog_hw", {"analog_matmul":
+                                     dev["static"]["launches"]})
+    add("devices/continuous/analog_hw/kv16", dev["engine"]["launches"])
     return out
 
 
@@ -4604,9 +5013,10 @@ def kernels_line(rows: dict, paged_rows: dict, ssd_rows: list,
     ``bound_ms`` and the yardstick ``matmul_ms`` are totals over the
     launches of one llama-3.2-1b static-engine run (1 prefill forward at M
     = 128 + 16 decode forwards at M = 4, 65 sites each), summed from the
-    per-shape times of phase 2 (without col_off, which the main path does
-    not use); ``bound_ms`` sums each launch's bound (the tensor-core one on
-    the mma mapping), ``fp32_bound_ms`` the fp32 bound of every launch. For
+    per-shape times of phase 2 without col_off (that run carries none; the
+    devices paths of phase 19 carry it on every launch); ``bound_ms``
+    sums each launch's bound (the tensor-core one on the mma mapping),
+    ``fp32_bound_ms`` the fp32 bound of every launch. For
     ``analog_matmul`` ``ms`` and ``plain_ms`` are the main path's call, the
     ADC bound folded in; ``explicit_bound_ms`` is the kernel with the bound
     given and ``adc_bound_ms`` the bound pass that the fold replaced.
@@ -4720,76 +5130,81 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/18] setup")
+        phase("[1/19] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/18] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/19] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/18] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/19] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/18] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/19] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/18] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/19] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/18] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/19] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/18] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/19] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/18] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/19] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/18] reduced continuous engines, card against cpu")
+        phase("[9/19] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/18] serving CLI")
+        phase("[10/19] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/18] static engine, phi-3-mini-4k at full width: "
+        phase("[11/19] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/18] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/19] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/18] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/19] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/18] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/19] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/18] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/19] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/18] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/19] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/18] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/19] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/18] HWA distillation at full width, {MAMBA} and {MOE} "
+        phase(f"[18/19] HWA distillation at full width, {MAMBA} and {MOE} "
               f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
               "training, card against cpu")
         results["train_families"] = phase_train_families(torch)
+        phase(f"[19/19] devices: full-width {ARCH} on an ageing chip "
+              "(static and continuous engines, the drift clock, the "
+              "watchdog, CUDA graphs); reduced families, card against cpu")
+        results["devices"] = phase_devices(
+            torch, results["analog"], results["engine"]["analog_hw/kv16"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

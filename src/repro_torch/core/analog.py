@@ -17,9 +17,14 @@ quant against the bound of the noise-free weights, with the reference's
 gradients: the clamp-STE / LSQ rules of ``quant.input_quantize``, the
 noise-free backward of :func:`noisy_matmul`, and a pure STE through the
 ADC. ``qat`` / ``di8`` train through STE fake quantizers; ``rtn`` is
-eval-only, as in the reference. The per-tile device state of
-``core/devices.py`` is ignored in training (as the reference does) and
-refused at eval until the devices slice lands.
+eval-only, as in the reference.
+
+At eval an ``analog`` site that carries a ``"device"`` sub-dict
+(``core/devices.py``: per-tile drift, faults and periphery offsets) runs
+on ``devices.corrupt_weights``' effective weights and per-column offset,
+against the ADC bound of its pristine weights, fused (one
+``analog_matmul`` launch with ``col_off``) or unfused; training, like the
+reference, and the ``rtn`` / ``qat`` / ``di8`` modes ignore the sub-dict.
 
 A site's kernel may carry a leading expert dimension (``[E, K, N]``, the
 MoE's batched experts, with ``x`` ``[E, ..., K]``): every per-channel
@@ -40,6 +45,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import devices as devices_lib
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import quant
 from repro_torch.kernels import dispatch
@@ -243,6 +249,13 @@ def linear_labels(p: dict) -> dict:
 # the op
 # ---------------------------------------------------------------------------
 
+def _per_expert(v: torch.Tensor) -> torch.Tensor:
+    """A per-column vector for the rows of a site's output: [N] as it is,
+    a batched site's [E, N] as [E, 1, N] (each expert's columns, every
+    row)."""
+    return v.unsqueeze(-2) if v.dim() > 1 else v
+
+
 def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                   ctx: AnalogCtx) -> tuple[torch.Tensor, dict]:
     """Apply one analog/quantized linear. Returns ``(y, stats)``; with
@@ -283,10 +296,6 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
     adc_done = False
     col_max = None                 # precomputed per-column absmax (int4 path)
     if cfg.mode == "analog":
-        if "device" in p and not ctx.training:
-            raise NotImplementedError(
-                "per-tile device state (core/devices.py: drift, faults, "
-                "periphery offsets) is ported with the devices slice")
         w_noise = None
         if ctx.training and cfg.train_noise and ctx.key is not None:
             # each column's scale over its own K: per expert on [E, K, N]
@@ -294,7 +303,31 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                 w_noise = noise_lib.gaussian_weight_noise(
                     noise_lib.key_generator(ctx.key, wf.device), wf,
                     cfg.gamma_weight, cfg.beta_mult, axis=-2)
-        if fused and w_noise is None:  # the kernel folds the bound from wf
+        dev = p.get("device") if not ctx.training else None
+        if dev is not None:
+            # per-tile device path (eval and serving only): both paths run
+            # on the same corrupted weights and offsets, against the ADC
+            # bound of the pristine weights (the ADC range is set at
+            # programming time and does not track drift)
+            with torch.no_grad():       # kref.adc_bound, its colmax kept
+                colmax = kref.abs_max(wf, -2)
+                bound = cfg.out_bound * beta * colmax
+                w_dev, col_off = devices_lib.corrupt_weights(wf, dev, bound,
+                                                             colmax)
+            if fused:
+                y = dispatch.analog_mvm(xf, w_dev, beta, bound,
+                                        in_bits=cfg.input_bits,
+                                        out_bits=cfg.output_bits,
+                                        col_off=col_off)
+            else:
+                if x_q is None:
+                    x_q = quant.input_quantize(xf, beta, cfg.input_bits)
+                y = noisy_matmul(x_q, w_dev, None) + _per_expert(col_off)
+                if cfg.output_quant:
+                    y = quant.output_quantize(y, _per_expert(bound),
+                                              cfg.output_bits)
+            adc_done = True
+        elif fused and w_noise is None:  # the kernel folds the bound from wf
             y = dispatch.fused_analog_mvm(
                 xf, wf, None, beta, lam=cfg.out_bound,
                 in_bits=cfg.input_bits, out_bits=cfg.output_bits)
@@ -345,9 +378,8 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             bound = cfg.out_bound * beta * col_max
         else:
             bound = kref.adc_bound(wf, beta, cfg.out_bound)
-        if bound.dim() > 1:   # [E, N]: each expert's columns, every row
-            bound = bound.unsqueeze(-2)
-        y = quant.output_quantize(y, bound.detach(), cfg.output_bits)
+        y = quant.output_quantize(y, _per_expert(bound).detach(),
+                                  cfg.output_bits)
 
     y = y.to(in_dtype)
     if "bias" in p:  # bias added in the digital periphery
@@ -392,9 +424,14 @@ def perturb_analog_weights(params: dict, labels: dict, gen: torch.Generator,
     (``"hw"`` PCM Hermes, ``"gaussian"`` at ``gamma``, or ``"none"``).
     ``inplace`` overwrites the weights of ``params`` (the returned tree
     shares them): the model's one copy, for models whose second copy would
-    not fit the card."""
+    not fit the card. It runs before ``devices.attach_device_state`` and
+    refuses a tree with device state, as the reference does."""
     if model == "none":
         return params
+    if devices_lib.has_device_state(params):
+        raise ValueError("perturb_analog_weights runs before "
+                         "attach_device_state: this tree already carries "
+                         "device state")
     return _map_sites(params, labels, lambda w: _per_matrix(
         w, lambda m: noise_lib.apply_eval_noise(gen, m, model, gamma),
         inplace))

@@ -38,8 +38,20 @@ falls back to the static one and says so:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --arch musicgen-medium
 
-The prefix cache, speculative decoding, drift, the open-loop front door
-and tensor parallelism of the JAX package's launcher are not ported yet.
+``--drift-hours H`` serves an analog deployment on an ageing chip: per-tile
+device state (``core.devices``: programming gain, drift, periphery
+offsets; ``--fault-prob`` adds stuck columns and dead tiles) is attached
+after the chip programming, and the continuous engine's clock advances
+about ``H`` hours over the run (``H`` over the estimated engine steps per
+step). ``--recalibrate`` lets its watchdog reprogram the chip in place,
+and the report line ends with the drift telemetry:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --deploy analog_hw --drift-hours 48 --recalibrate \
+        --fault-prob 0.01
+
+The prefix cache, speculative decoding, the open-loop front door and
+tensor parallelism of the JAX package's launcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import devices
 from repro_torch.core.analog import (AnalogConfig, pack_int4_weights,
                                      perturb_analog_weights)
 from repro_torch.core.noise import validate_noise_config
@@ -146,6 +159,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="extra eval-time weight perturbation on analog "
                          "deployments (gaussian needs --noise-gamma > 0)")
     ap.add_argument("--noise-gamma", type=float, default=0.0)
+    ap.add_argument("--drift-hours", type=float, default=0.0,
+                    help="total deployment hours of conductance drift, "
+                         "spread (approximately) across the serve run: "
+                         "attaches per-tile device state to the analog "
+                         "weights and ticks the engine's drift clock each "
+                         "worked step")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="let the drift watchdog reprogram the analog "
+                         "tiles in place when the per-tile scale error "
+                         "trips its threshold (needs --drift-hours > 0)")
+    ap.add_argument("--fault-prob", type=float, default=0.0,
+                    help="per-column stuck-fault and per-tile dead-tile "
+                         "probability of the attached device state "
+                         "(--drift-hours mode; faults are permanent: "
+                         "recalibration never clears them)")
     return ap.parse_args(argv)
 
 
@@ -197,6 +225,9 @@ def main(argv=None):
         if args.paged:
             print("[serve] --paged/--kv-bits are continuous-engine "
                   "options: ignored on the static path")
+        if args.drift_hours or args.recalibrate:
+            print("[serve] --drift-hours/--recalibrate are "
+                  "continuous-engine options: ignored on the static path")
         prompts = torch.randint(0, cfg.vocab_size, (args.num_requests, 4),
                                 generator=gen, device=device)
         if cfg.family == "audio":          # one token per codebook
@@ -215,13 +246,21 @@ def main(argv=None):
     chunk = args.prefill_chunk
     max_len = max(required_max_len(len(r.prompt), r.max_new, chunk)
                   for r in reqs)
+    params, drift_dt, est_steps = attach_drift(args, params, labels, acfg,
+                                               reqs)
     eng = ServeEngine(params, cfg, acfg, SchedulerConfig(
         num_slots=args.num_slots, max_len=max_len, prefill_chunk=chunk,
         step_tokens=args.step_tokens, cache_dtype=cache_dtype,
         paged=args.paged, kv_block_size=args.kv_block_size,
-        kv_blocks=args.kv_blocks))
+        kv_blocks=args.kv_blocks, drift_dt=drift_dt,
+        recalibrate=args.recalibrate,
+        # the watchdog's cadence scaled to the workload, so that a short
+        # run still reads health a few times
+        recal_interval=max(1, est_steps // 8) if drift_dt else 25))
+    flags = {"drift": "--drift-hours"}
     for feature, why in eng.gating_reasons.items():
-        print(f"[serve] --{feature} is inert for {cfg.name}: {why}")
+        flag = flags.get(feature, "--" + feature.replace("_", "-"))
+        print(f"[serve] {flag} is inert for {cfg.name}: {why}")
     t0 = time.perf_counter()
     results = eng.run(reqs)
     dt = time.perf_counter() - t0
@@ -235,15 +274,47 @@ def main(argv=None):
         mode = "per-slot ssm state"
     elif cfg.family == "hybrid":
         mode += " + per-slot ssm state"
+    drift = ""
+    if eng.drift_enabled:
+        drift = (f", drift: {eng.drift_hours:.1f}h deployed, "
+                 f"tile_err={eng.tile_scale_err:.3f}, {eng.dead_tiles} dead "
+                 f"tiles, {eng.stuck_cols} stuck cols, {eng.recal_count} "
+                 f"recals ({eng.watchdog_checks} watchdog checks)")
     print(f"[serve] continuous ({where}, {mode}, {args.cache_dtype}): "
           f"{total} tokens across {len(reqs)} mixed-length requests in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s, {eng.decode_steps} decode "
           f"steps, {eng.mixed_steps} fused mixed steps, "
           f"{eng.decode_tokens_during_admission} decode tokens emitted "
           f"during admission, p50 latency "
-          f"{lats[len(lats) // 2] * 1e3:.0f}ms; {latency_report(eng)}); "
-          f"sample: {results[0][:8].tolist()}")
+          f"{lats[len(lats) // 2] * 1e3:.0f}ms{drift}; "
+          f"{latency_report(eng)}); sample: {results[0][:8].tolist()}")
     return results
+
+
+def attach_drift(args, params, labels, acfg, reqs):
+    """``--drift-hours``: per-tile device state on an analog deployment
+    (drawn on a CPU generator from ``--seed``, after the chip programming)
+    and the clock's hours per engine step. Returns ``(params, drift_dt,
+    est_steps)``; a digital deployment is warned about and keeps its
+    params, with the clock off. The step count is an estimate (admission
+    interleaves with decode); the engine reports the exact hours."""
+    est_steps = max(1, sum(r.max_new for r in reqs) // args.num_slots
+                    + args.num_requests)
+    if args.drift_hours <= 0:
+        return params, 0.0, est_steps
+    if acfg.mode != "analog":
+        print("[serve] WARNING: --drift-hours needs an analog deployment "
+              f"(deploy={args.deploy!r} has no crossbar tiles to age): "
+              "drift clock inert")
+        return params, 0.0, est_steps
+    dcfg = devices.DeviceConfig(p_stuck_col=args.fault_prob,
+                                p_dead_tile=args.fault_prob)
+    seed = int(np.random.SeedSequence([args.seed, 2]).generate_state(1)[0])
+    params = devices.attach_device_state(
+        params, labels, torch.Generator().manual_seed(seed), dcfg)
+    print(f"[serve] per-tile device state attached (~{args.drift_hours:g}h "
+          f"drift over ~{est_steps} steps)")
+    return params, args.drift_hours / est_steps, est_steps
 
 
 def lat_stats(vals) -> str:

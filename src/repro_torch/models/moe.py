@@ -85,7 +85,14 @@ def moe_labels(p: dict) -> dict:
 def _expert_site(p: dict) -> dict:
     """The batched site handed to ``analog_linear``: the kernel, the input
     range and, when ``pack_int4_weights`` attached it, the packed-int4
-    carrier (the reference packs per call; both give the same weights)."""
+    carrier (the reference packs per call; both give the same weights).
+
+    A ``"device"`` sub-dict (``core/devices.py``) is left out on purpose:
+    the reference builds each expert's site from ``kernel`` and
+    ``input_range`` alone (``src/repro/models/moe.py:95-102``), so its
+    experts serve pristine weights under the device model, though
+    ``attach_device_state`` gives them state that ``health`` and
+    ``recalibrate`` count and redraw. The port does the same."""
     site = {"kernel": p["kernel"], "input_range": p["input_range"]}
     if "int4" in p:
         site["int4"] = p["int4"]

@@ -55,9 +55,15 @@ class BestOfNConfig:
         prefix_cache: Fork-aware candidate generation on the radix prefix
             cache; not ported yet, so off, and on raises.
         kv_block_size: Physical KV block granularity of the paged pool.
-        speculative, drift_dt, recalibrate: the JAX package's speculative
-            decoding and conductance drift and recalibration; not ported
-            yet, and asking for one raises as ``SchedulerConfig`` does.
+        speculative: The JAX package's speculative decoding; not ported
+            yet, and on raises as ``SchedulerConfig`` does.
+        drift_dt: Deployment hours of conductance drift per engine step,
+            passed to the engine (``SchedulerConfig.drift_dt``): the
+            clock runs on params with per-tile device state and is inert,
+            with its reason in the engine's ``gating_reasons``, on
+            params without.
+        recalibrate: Let the engine's drift watchdog reprogram the chip
+            in place (``SchedulerConfig.recalibrate``).
     """
 
     temperature: float = 0.8

@@ -50,15 +50,29 @@ mixed-length traffic instead:
   row-independent, so a request draws the same tokens solo or mid-batch
   (the admission-parity contract). The draws are not the JAX package's:
   only greedy output is compared with it.
+* **Drift clock and watchdog** (``SchedulerConfig.drift_dt``,
+  ``recalibrate``) — on params with per-tile device state
+  (``core.devices.attach_device_state``) every worked engine step (a
+  decode block is one) advances the chip's deployment clock by
+  ``drift_dt`` hours, in place, so the step's leaves, and any CUDA graph
+  over them, age with it; an idle iteration does not tick. Every
+  ``recal_interval`` worked steps the watchdog reads per-tile health on
+  the host, and with ``recalibrate=True`` it reprograms the chip in place
+  (``core.devices.recalibrate``: fresh gain and offset instances, the
+  clock's calibration point moved to now) when the mean ``|tile scale -
+  1|`` over live tiles exceeds ``recal_threshold``. Recalibration evicts
+  nothing: no KV block, slot or request. Its generator is seeded from
+  ``0x5ECA1`` and the recalibration count, so a run gives the same bits
+  twice.
 
 Cursors (``pos``, ``start``) live on the device; the engine keeps host
 mirrors and reads the device once per engine step, for the sampled tokens.
 
 **What this port does not run yet.** The JAX package's engine also has
-radix prefix caching, speculative decoding, conductance drift and
-recalibration, request deadlines, shedding and chaos recovery, and tensor
-parallelism. Their ``SchedulerConfig`` / ``Request`` fields keep their
-names here but default to off, and asking for one raises
+radix prefix caching, speculative decoding, request deadlines, shedding
+and chaos recovery (the watchdog's fault-tolerant health read with it),
+and tensor parallelism. Their ``SchedulerConfig`` / ``Request`` fields
+keep their names here but default to off, and asking for one raises
 ``NotImplementedError`` naming its ROADMAP item. The reference's default is
 ``prefix_cache=True``; greedy decode with the prefix cache is bitwise equal
 to decode without it, so the tests hold this engine against the
@@ -77,6 +91,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import devices
 from repro_torch.core.analog import AnalogConfig, AnalogCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.model import apply as model_apply
@@ -148,12 +163,19 @@ class SchedulerConfig:
     slot at ``max_len``). The pool dtype is ``cache_dtype`` unless
     ``AnalogConfig.kv_bits == 8``.
 
+    ``drift_dt > 0`` runs the deployment clock (hours per worked step)
+    on params with per-tile device state, and ``recalibrate=True`` the
+    watchdog: every ``recal_interval`` worked steps a health read, and a
+    reprogramming when the mean tile scale error exceeds
+    ``recal_threshold`` (see the module docstring). Without device state
+    the clock is inert and ``gating_reasons["drift"]`` says why; without a
+    running clock so is the watchdog (``gating_reasons["recalibrate"]``).
+
     The remaining fields are the JAX package's, for features not ported
     yet (see the module docstring). They default to off here, and turning
-    one on raises: ``prefix_cache``, ``speculative``, ``drift_dt``,
-    ``recalibrate``, ``max_queue``, ``fault_tolerant``, ``tp``. The
-    fields that only tune those features (the prefix cache's salt, the
-    drafter's, recalibration's) come with them.
+    one on raises: ``prefix_cache``, ``speculative``, ``max_queue``,
+    ``fault_tolerant``, ``tp``. The fields that only tune those features
+    (the prefix cache's salt, the drafter's) come with them.
     """
 
     num_slots: int = 4
@@ -169,6 +191,8 @@ class SchedulerConfig:
     speculative: bool = False
     drift_dt: float = 0.0
     recalibrate: bool = False
+    recal_interval: int = 25
+    recal_threshold: float = 0.1
     max_queue: int = 0
     fault_tolerant: bool = False
     tp: int = 1
@@ -179,9 +203,6 @@ _SERVING = "ROADMAP section 1, item 9 (serving features)"
 _NOT_PORTED = {
     "prefix_cache": (False, _SERVING + ": prefix caching"),
     "speculative": (False, _SERVING + ": speculative decoding"),
-    "drift_dt": (0.0, "ROADMAP section 1, item 8 (devices): drift"),
-    "recalibrate": (False, "ROADMAP section 1, item 8 (devices): "
-                           "recalibration"),
     "max_queue": (0, _SERVING + ": request lifecycle (shedding)"),
     "fault_tolerant": (False, _SERVING + ": request lifecycle (chaos "
                                          "recovery)"),
@@ -250,9 +271,12 @@ class ServeEngine:
     paged layout runs the paged-attention kernels and an ssm stack the
     ``ssd_scan`` kernel, on the CPU their plain versions. A requested
     option that cannot run on the model's family is recorded in
-    ``gating_reasons`` (the reference's field). Not ported (see the module docstring): prefix caching,
-    speculative decoding, drift and recalibration, deadlines, shedding,
-    chaos recovery and tensor parallelism.
+    ``gating_reasons`` (the reference's field). The drift clock and its
+    watchdog report ``drift_hours``, ``recal_count``, ``recal_time``,
+    ``watchdog_checks``, ``tile_scale_err``, ``dead_tiles`` and
+    ``stuck_cols``. Not ported (see the module docstring): prefix caching,
+    speculative decoding, deadlines, shedding, chaos recovery and tensor
+    parallelism.
     """
 
     def __init__(self, params, cfg, acfg: AnalogConfig,
@@ -288,6 +312,21 @@ class ServeEngine:
         paged = scfg.paged and cfg.family != "ssm"
         if scfg.paged and not paged:
             self.gating_reasons["paged"] = _SSM_NOT_PAGED
+        # the drift clock ages per-tile device state: over pristine
+        # weights it would advance nothing, and the watchdog needs it
+        self._drift = scfg.drift_dt > 0 and devices.has_device_state(params)
+        if scfg.drift_dt > 0 and not self._drift:
+            self.gating_reasons["drift"] = (
+                "drift_dt > 0 but params carry no per-tile device state "
+                "(core.devices.attach_device_state): the deployment clock "
+                "would advance nothing")
+        self._recal = bool(scfg.recalibrate) and self._drift
+        if scfg.recalibrate and not self._recal:
+            self.gating_reasons["recalibrate"] = (
+                "recalibration needs an active drift clock (drift_dt > 0 "
+                "and per-tile device state attached to the params)")
+        if self._recal and scfg.recal_interval < 1:
+            raise ValueError("recal_interval must be >= 1")
         self.pool: Optional[KVPool] = None
         kv_bits = acfg.kv_bits if paged else 0
         if paged:
@@ -320,6 +359,20 @@ class ServeEngine:
         #: (decode tokens, prefill tokens) per step, bounded
         self.step_token_log: collections.deque[tuple[int, int]] = (
             collections.deque(maxlen=4096))
+        # the drift clock and watchdog: deployment hours, health reads,
+        # in-place reprogrammings and their host time; tile_scale_err is
+        # the latest read (mean |scale - 1| over live tiles), dead_tiles
+        # and stuck_cols the permanent faults
+        self.drift_hours = 0.0
+        self.recal_count = 0
+        self.recal_time = 0.0
+        self.watchdog_checks = 0
+        self.tile_scale_err = 0.0
+        self.dead_tiles = 0
+        self.stuck_cols = 0
+        self._steps_since_check = 0
+        if self._drift:
+            self._read_health()
         self._admit_seq = 0
         # host mirrors of the per-slot state
         self._pos = np.zeros(b, np.int64)       # cache write cursor
@@ -381,6 +434,10 @@ class ServeEngine:
         else:
             return
         self.phase_time[kind] += time.perf_counter() - t0
+        # the chip ages only while it computes: an idle iteration
+        # returned above, so the clock ticks worked steps only
+        if self._drift:
+            self._advance_drift()
 
     def run(self, requests: Sequence[Request] = ()) -> dict[int, np.ndarray]:
         """Drive until every queued or submitted request completes."""
@@ -389,6 +446,18 @@ class ServeEngine:
         while self.queue or any(s is not None for s in self.slots):
             self.step()
         return self.results
+
+    @property
+    def drift_enabled(self) -> bool:
+        """True when every worked step advances the drift clock
+        (``drift_dt > 0`` on params with device state)."""
+        return self._drift
+
+    @property
+    def recal_enabled(self) -> bool:
+        """True when the watchdog may reprogram the chip in place
+        (``recalibrate=True`` on a drift-enabled engine)."""
+        return self._recal
 
     @property
     def num_active(self) -> int:
@@ -501,6 +570,44 @@ class ServeEngine:
             self.pool.release(uid)
             self._reset_slot(b, start=0,
                              table=np.zeros(self.caches_tbl_width, np.int32))
+
+    # ------------------------------------------------------------------
+    # the drift clock and its watchdog
+    # ------------------------------------------------------------------
+
+    def _read_health(self) -> None:
+        """Read per-tile health into the telemetry; a non-finite read
+        raises (the reference's fault-tolerant skip comes with the request
+        lifecycle, ROADMAP section 1, item 9)."""
+        h = devices.health(self.params)
+        if not np.isfinite(h["mean_scale_err"]):
+            raise ValueError(f"non-finite tile health read: "
+                             f"{h['mean_scale_err']}")
+        self.tile_scale_err = h["mean_scale_err"]
+        self.dead_tiles = h["dead_tiles"]
+        self.stuck_cols = h["stuck_cols"]
+
+    def _advance_drift(self) -> None:
+        """Tick the deployment clock after a worked step; every
+        ``recal_interval`` ticks read health and, past ``recal_threshold``
+        with ``recalibrate=True``, reprogram the chip in place (the leaves
+        of ``self.params`` are written, never replaced; caches, pool and
+        slots are untouched)."""
+        devices.advance(self.params, self.scfg.drift_dt)
+        self.drift_hours += self.scfg.drift_dt
+        self._steps_since_check += 1
+        if self._steps_since_check < self.scfg.recal_interval:
+            return
+        self._steps_since_check = 0
+        self._read_health()
+        self.watchdog_checks += 1
+        if self._recal and self.tile_scale_err > self.scfg.recal_threshold:
+            t0 = time.perf_counter()
+            gen = torch.Generator().manual_seed(0x5ECA1 + self.recal_count)
+            devices.recalibrate(self.params, gen)
+            self.recal_count += 1
+            self._read_health()
+            self.recal_time += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     # the step

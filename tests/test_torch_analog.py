@@ -202,18 +202,26 @@ def test_perturb_and_quantize_for_digital():
 
 
 def test_eval_path_refusals():
-    """What the port still refuses: the per-tile device state at eval, and
-    ``rtn`` in training (eval-only, as in the reference). A fused site
-    carries gradients (its STE backward) and runs the kernel's plain
-    version on the CPU, with or without them."""
+    """What the port still refuses: ``rtn`` in training (eval-only, as in
+    the reference). The per-tile device state runs at eval since the
+    devices slice (``tests/test_torch_devices.py``): a null one changes no
+    bit. A fused site carries gradients (its STE backward) and runs the
+    kernel's plain version on the CPU, with or without them."""
+    from repro_torch.core import devices as port_devices
+
     p, x = _site(64, 96, seed=2)
     tp, tx = _torch(p), torch.from_numpy(x)
     acfg = port_analog.AnalogConfig(mode="analog")
     with pytest.raises(NotImplementedError):
         port_analog.analog_linear(tp, tx, port_analog.AnalogConfig(mode="rtn"),
                                   port_analog.AnalogCtx(training=True))
-    with pytest.raises(NotImplementedError):
-        port_analog.analog_linear({**tp, "device": {}}, tx, acfg, PORT_EVAL)
+    null = port_devices.attach_device_state(
+        {"l": tp}, {"l": port_analog.linear_labels(tp)}, torch.Generator(),
+        port_devices.DeviceConfig(sigma_gain=0.0, nu_median=0.0,
+                                  nu_sigma=0.0))
+    assert torch.equal(
+        port_analog.analog_linear(null["l"], tx, acfg, PORT_EVAL)[0],
+        port_analog.analog_linear(tp, tx, acfg, PORT_EVAL)[0])
     fused = port_analog.AnalogConfig(mode="analog", use_pallas=True)
     needs_grad = {**tp, "kernel": tp["kernel"].clone().requires_grad_()}
     y, _ = port_analog.analog_linear(needs_grad, tx, fused, PORT_EVAL)

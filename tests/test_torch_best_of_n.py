@@ -193,8 +193,7 @@ def test_sampled_candidates_are_deterministic_in_the_generator(carried):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("prefix_cache", True, "item 9"), ("speculative", True, "item 9"),
-    ("drift_dt", 0.5, "item 8"), ("recalibrate", True, "item 8")])
+    ("prefix_cache", True, "item 9"), ("speculative", True, "item 9")])
 def test_features_not_ported_raise(carried, field, value, item):
     cfg, pp = carried[0], carried[4]
     bcfg = dataclasses.replace(port_engine.BestOfNConfig(num_slots=2),
@@ -204,6 +203,39 @@ def test_features_not_ported_raise(carried, field, value, item):
         port_engine.sample_candidates(
             pp, cfg, PA.AnalogConfig(mode="off"), torch.Generator(),
             _prompts(cfg), 2, bcfg)
+
+
+@pytest.mark.parametrize("field,value,gated", [
+    ("drift_dt", 0.5, {"drift"}),
+    ("recalibrate", True, {"recalibrate"})])
+def test_drift_options_reach_the_engine_and_gate(carried, monkeypatch,
+                                                 field, value, gated):
+    """``drift_dt`` / ``recalibrate`` pass through to the engine, which
+    gates them as the reference's does on params without device state
+    (``gating_reasons``, not a raise): the candidates are those of a run
+    without them."""
+    cfg, pp = carried[0], carried[4]
+    engines = []
+
+    class Spy(port_engine.ServeEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    monkeypatch.setattr(port_engine, "ServeEngine", Spy)
+    bcfg = port_engine.BestOfNConfig(num_slots=2)
+
+    def run(b):
+        return port_engine.sample_candidates(
+            pp, cfg, PA.AnalogConfig(mode="off"),
+            torch.Generator().manual_seed(0), _prompts(cfg), 2, b)
+
+    got = run(dataclasses.replace(bcfg, **{field: value}))
+    eng = engines[-1]
+    assert getattr(eng.scfg, field) == value
+    assert set(eng.gating_reasons) == gated
+    assert not eng.drift_enabled and not eng.recal_enabled
+    np.testing.assert_array_equal(got, run(bcfg))
 
 
 def test_config_fields_are_the_references():

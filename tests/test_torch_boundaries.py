@@ -481,9 +481,10 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     """Each kernel's ``launches_by_path`` holds its count from every
     static, continuous, eval, best-of-n, training and PTQ-eval run (the
     moe model's static and continuous runs too, phase 17's hybrid, vlm
-    and audio runs, and phase 18's training of mamba2-130m, whose scans
-    count too, and of qwen3-moe-30b-a3b), each run's counts under one
-    path, and nothing for a kernel that a run did not launch."""
+    and audio runs, phase 18's training of mamba2-130m, whose scans
+    count too, and of qwen3-moe-30b-a3b, and phase 19's static and
+    continuous runs on an ageing chip), each run's counts under one path,
+    and nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -547,7 +548,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
                for key, mvm in (("analog", "analog_matmul"),
                                 ("int4", "int4_matmul"))},
             "engine": {"launches": counts("analog_matmul", "ssd_scan",
-                                          *attn)}}}
+                                          *attn)}},
+        "devices": {"static": {"launches": next(seen)},
+                    "engine": {"launches": counts("analog_matmul", *attn)}}}
     total = next(seen) - 1
     out = cs.line_launches(results)
     assert list(out) == names
@@ -565,7 +568,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
                           ("best_of_n", "analog_hw"), ("ptq", "analog_hw"))),
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
-        f"continuous/{cs.JAMBA}/analog_hw/kv16"}
+        f"continuous/{cs.JAMBA}/analog_hw/kv16",
+        "devices/static/analog_hw", "devices/continuous/analog_hw/kv16"}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -582,7 +586,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"best_of_n/{cs.PHI3}/analog_hw",
         f"continuous/{cs.MOE}/analog_hw/kv16",
         f"continuous/{cs.MOE}/digital_int4/kv16",
-        f"continuous/{cs.JAMBA}/analog_hw/kv16"}
+        f"continuous/{cs.JAMBA}/analog_hw/kv16",
+        "devices/continuous/analog_hw/kv16"}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")

@@ -887,3 +887,99 @@ def test_ssd_autograd_rule_matches_float64(card, shape):
         outs.append([t.grad for t in leaves])
     for a_, b_ in zip(*outs):
         assert float((a_ - b_).abs().max()) <= 1e-4 * float(b_.abs().max())
+
+
+def _device_site(lead, k, n, dev):
+    """A site of weights ``lead + (k, n)`` with device state attached (on
+    a CPU generator) and aged 12 h, on ``dev``, and the CPU's copy."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import devices as D
+
+    g = torch.Generator().manual_seed(0)
+    p = {"kernel": torch.randn(lead + (k, n), generator=g) * k ** -0.5,
+         "input_range": torch.full((1,), 2.5)}
+    dcfg = D.DeviceConfig(sigma_offset=0.01, p_stuck_col=0.05,
+                          p_dead_tile=0.1)
+    cpu = D.attach_device_state({"l": p}, {"l": A.linear_labels(p)},
+                                torch.Generator().manual_seed(1), dcfg)
+    D.advance(cpu, 12.0)
+    on_dev = {"l": {key: ({kk: vv.to(dev) for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.to(dev))
+                    for key, v in cpu["l"].items()}}
+    return cpu, on_dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,k,n", [((), 600, 3352), ((4,), 300, 520)],
+                         ids=["site", "experts"])
+def test_device_site_on_the_card_matches_the_cpu(card, lead, k, n):
+    """A site with per-tile device state (tiles of 200 x 240 at K 600, N
+    3352: the span does not divide by 256) is one ``analog_matmul`` launch
+    with ``col_off`` ([N], or [E, N] for four experts in one launch),
+    against the plain version on the CPU's corrupted weights and offsets
+    (``_check_analog``, expert by expert)."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import devices as D
+
+    cpu, dev = _device_site(lead, k, n, card)
+    x = torch.randn(lead + (8, k), generator=torch.Generator().manual_seed(2))
+    acfg = A.AnalogConfig(mode="analog", use_pallas=True)
+    before = k_analog.launches
+    y, _ = A.analog_linear(dev["l"], x.to(card), acfg, A.AnalogCtx())
+    torch.cuda.synchronize()
+    assert k_analog.launches == before + 1
+    site = cpu["l"]
+    beta = site["input_range"]
+    bound = ref.adc_bound(site["kernel"], beta, acfg.out_bound)
+    w_eff, off = D.corrupt_weights(site["kernel"], site["device"], bound)
+    y = y.cpu()
+    if not lead:
+        _check_analog(y, x, w_eff, beta, bound, off, 8, 8)
+        return
+    for e in range(lead[0]):
+        _check_analog(y[e], x[e], w_eff[e], beta, bound[e], off[e], 8, 8)
+
+
+@pytest.mark.cuda
+def test_device_clock_and_recalibration_in_place_on_the_card(card):
+    """``advance`` and ``recalibrate`` write into the leaves on the card
+    (every ``data_ptr`` kept); one seed redraws the CPU's bits; a CUDA
+    graph captured before a tick replays the new state, equal to the eager
+    call bit for bit."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import devices as D
+
+    cpu, dev = _device_site((3,), 512, 768, card)
+    leaves = dev["l"]["device"]
+    ptrs = {key: v.data_ptr() for key, v in leaves.items()}
+    layer = {key: (v[1] if not isinstance(v, dict) else
+                   {kk: vv[1] for kk, vv in v.items()})
+             for key, v in dev["l"].items() if key != "input_range"}
+    layer["input_range"] = dev["l"]["input_range"]
+    x = torch.randn((8, 512), device=card)
+    acfg = A.AnalogConfig(mode="analog", use_pallas=True)
+
+    def step():
+        return A.analog_linear(layer, x, acfg, A.AnalogCtx())[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for tick in ("advance", "recalibrate"):
+        if tick == "advance":
+            assert D.advance(dev, 30.0) is dev
+            D.advance(cpu, 30.0)
+        else:
+            assert D.recalibrate(dev, torch.Generator().manual_seed(3)) is dev
+            D.recalibrate(cpu, torch.Generator().manual_seed(3))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, step())
+        assert {key: v.data_ptr() for key, v in leaves.items()} == ptrs
+        for key in ("t", "t_prog", "gain", "off", "nu", "dead", "stuck"):
+            assert torch.equal(leaves[key].cpu(), cpu["l"]["device"][key])

@@ -20,7 +20,9 @@ holds equal to the packed-int4 kernel.
   solo tokens; stop tokens; ``greedy_first`` and ``top_k = 1``; the token
   budget split with no starvation; out-of-blocks backpressure; block
   conservation; ``submit``'s capacity checks.
-* Every ``SchedulerConfig`` feature that is not ported raises.
+* Every ``SchedulerConfig`` feature that is not ported raises; the drift
+  clock and the watchdog gate as the reference's on params without
+  device state.
 
 Sampling randomness does not cross between the packages, so sampled
 requests are held only to the port's own contracts.
@@ -326,14 +328,36 @@ def test_submit_validates_capacity(carried):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("speculative", True), ("drift_dt", 0.5),
-    ("recalibrate", True), ("max_queue", 4), ("fault_tolerant", True),
-    ("tp", 2)])
+    ("prefix_cache", True), ("speculative", True), ("max_queue", 4),
+    ("fault_tolerant", True), ("tp", 2)])
 def test_unported_features_raise(carried, field, value):
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
         PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+
+
+@pytest.mark.parametrize("field,value,gated", [
+    ("drift_dt", 0.5, {"drift"}),
+    ("recalibrate", True, {"recalibrate"})])
+def test_drift_and_recalibrate_gate_without_device_state(carried, field,
+                                                         value, gated):
+    """The reference's gating: on params without per-tile device state the
+    drift clock is inert (``gating_reasons["drift"]``), and without a
+    running clock so is the watchdog (``["recalibrate"]``); the engine
+    serves as without them. ``tests/test_torch_devices_engine.py`` holds
+    both running."""
+    cfg, _, _, _, tp, _ = carried
+    scfg = dataclasses.replace(PS.SchedulerConfig(num_slots=2, max_len=32,
+                                                  prefill_chunk=8),
+                               **{field: value})
+    eng = PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+    assert set(eng.gating_reasons) == gated
+    assert not eng.drift_enabled and not eng.recal_enabled
+    out = eng.run([PS.Request(uid=0, prompt=_prompt(cfg, 5), max_new=4,
+                              temperature=0.0)])
+    assert len(out[0]) == 4 and eng.drift_hours == 0.0
+    assert eng.watchdog_checks == eng.recal_count == 0
 
 
 def test_unported_lifecycle_and_families_raise(carried):
@@ -367,10 +391,13 @@ def test_unported_lifecycle_and_families_raise(carried):
     ours, theirs = PS.SchedulerConfig(), RS.SchedulerConfig()
     names = [f.name for f in dataclasses.fields(ours)]
     tuning = {"cache_salt", "state_snapshots", "draft_k", "draft",
-              "draft_layers", "recal_interval", "recal_threshold"}
+              "draft_layers"}
     assert names == [f.name for f in dataclasses.fields(theirs)
                      if f.name not in tuning]
     assert theirs.prefix_cache and not ours.prefix_cache
+    for name in ("drift_dt", "recalibrate", "recal_interval",
+                 "recal_threshold"):
+        assert getattr(ours, name) == getattr(theirs, name)
 
 
 def test_batched_sampler_rows_are_independent():

@@ -42,6 +42,7 @@ from repro.optim import schedule as ref_schedule
 from repro.train import distill as ref_distill
 from repro_torch.core import analog as PA
 from repro_torch.core import clipping
+from repro_torch.core import devices as PD
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import quant
 from repro_torch.kernels import analog_matmul as k_analog
@@ -590,8 +591,9 @@ def test_analog_linear_training_gradients(mode, fused):
 
 def test_training_forward_refusals_and_device_state():
     """``rtn`` is eval-only; the per-tile ``device`` sub-dict is ignored in
-    training (as the reference does) and refused at eval; the SSD, which
-    refused an input that needs a gradient before its backward was
+    training (as the reference does), and at eval a null device state
+    (no variation, no faults, at ``t = 0``) changes no bit; the SSD,
+    which refused an input that needs a gradient before its backward was
     ported, now differentiates it (``test_ssd_gradients_match_the_
     reference`` holds the values)."""
     p = {"kernel": torch.randn(16, 8), "input_range": torch.full((1,), 2.0)}
@@ -603,8 +605,12 @@ def test_training_forward_refusals_and_device_state():
     y_dev, _ = PA.analog_linear({**p, "device": {}}, x, acfg, train)
     y, _ = PA.analog_linear(p, x, acfg, train)
     assert torch.equal(y, y_dev)
-    with pytest.raises(NotImplementedError):
-        PA.analog_linear({**p, "device": {}}, x, acfg, PA.AnalogCtx())
+    null = PD.attach_device_state(
+        {"l": p}, {"l": PA.linear_labels(p)}, torch.Generator(),
+        PD.DeviceConfig(sigma_gain=0.0, nu_median=0.0, nu_sigma=0.0))
+    y_null, _ = PA.analog_linear(null["l"], x, acfg, PA.AnalogCtx())
+    assert torch.equal(y_null, PA.analog_linear(p, x, acfg,
+                                                PA.AnalogCtx())[0])
     xs = torch.randn(1, 4, 2, 8, requires_grad=True)
     y, h = dispatch.ssd(xs, torch.rand(1, 4, 2), -torch.rand(2),
                         torch.randn(1, 4, 1, 4), torch.randn(1, 4, 1, 4))
