@@ -126,9 +126,12 @@ Phases, in order; any failure exits non-zero:
                and seed, and no site input apart before a site output is.
 13. best-of-n -- ``serve.engine.sample_candidates`` at full width, both
                models, ``analog_hw`` on the continuous engine's paged pool
-               (8 slots): 8 mod_add prompts x 8 candidates, then
-               ``best_of_n_accuracy`` at n = 1, 4, 8; candidates/s, and
-               every projection and attention call on its kernel.
+               (8 slots): 8 mod_add prompts x 8 candidates, fork-aware on
+               the prefix cache (leaders, then the forks on their prompt
+               blocks), then ``best_of_n_accuracy`` at n = 1, 4, 8;
+               candidates/s, and every projection and attention call on
+               its kernel; then the same with ``prefix_cache=False`` and
+               the same generator seed: equal answers, candidates/s.
 14. train   -- HWA distillation (paper Fig. 2b): ``distill_recipe`` trains
                full-width llama-3.2-1b (student a copy of the random
                teacher) for 4 steps of batch 4 x 256 Markov tokens,
@@ -227,6 +230,34 @@ Phases, in order; any failure exits non-zero:
                qwen3-moe-30b-a3b and jamba-v0.1-52b on the engine with
                drift and recalibration, card against CPU on the same chip
                (one seed, a CPU generator) under phase 16's causal rule.
+
+20. prefix  -- the radix prefix cache (on by default in every engine
+               above): 16 greedy requests in 4 groups, each group sharing
+               a 256-token system prompt, each request its own suffix of
+               32-224 tokens and 16-64 new tokens, through phase 8's
+               geometry (8 slots, chunk 32, block 16; the pool sized to
+               keep every prompt block). (a) full-width llama-3.2-1b,
+               ``analog_hw`` + ``use_pallas=True``: cold (no cache), then
+               one engine with the cache that serves the workload twice
+               (prime, warm under new uids), on the bf16 pool and on the
+               int8 pool; (b) full-width mamba2-130m, ``analog_hw``, the
+               same three runs on the state-snapshot pool (``paged=True``,
+               inert for KV; the pool at its auto size, 8 x 34 snapshots).
+               Gates: prime and warm tokens equal cold bit for bit; the
+               warm pass hits on every request, llama skipping each padded
+               prompt but its last chunk, mamba restoring at least 16
+               snapshots and launching fewer ``ssd_scan`` than cold;
+               blocks and snapshots conserved; no indexed block or
+               snapshot rewritten and no cache leaf replaced; every
+               projection, attention, prefill and scan call on its kernel,
+               as the engine's counters say. It prints tokens/s, chunk
+               forwards and mean TTFT of each run and the pools' GB. (c)
+               reduced llama, mamba2-130m, qwen3-moe and jamba with the
+               cache, card against CPU: a partial tail (block 48, chunk
+               32, a 64-token prompt; copied on write where the family
+               takes tails), eviction under an undersized pool, and
+               fork-aware ``sample_candidates`` against the independent
+               path.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -518,6 +549,22 @@ DEVICE_AGE_H = 48.0
 DEVICE_ENGINE_H = 200.0
 DEVICE_RECAL = dict(recal_interval=8, recal_threshold=0.15)
 DEVICE_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
+
+# phase 20: the radix prefix cache and the state-snapshot pool. 4 groups of
+# 4 greedy requests; a group shares a 256-token system prompt, each request
+# adds its own suffix of 32-224 tokens (a multiple of the chunk, so a
+# group's prompts share their left-pad count and with it their chain keys)
+# and asks for 16-64 new tokens
+PREFIX_GROUPS, PREFIX_PER_GROUP, PREFIX_SYSTEM = 4, 4, 256
+PREFIX_SUFFIX_CHUNKS = (1, 7)
+PREFIX_NEW = (16, 64)
+PREFIX_WARM_UID = 1000
+PREFIX_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
+#: the engine counters each phase-20 run reads as deltas
+PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
+                   "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+                   "prefix_skipped_tokens", "prefix_cow_copies",
+                   "state_snaps_captured", "state_snap_restores")
 
 
 class SmokeFailure(RuntimeError):
@@ -1761,15 +1808,19 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
               and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
               f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
               f"{len(out)}/{r.max_new} tokens")
-    pool = eng.pool
     ssm = cfg.family == "ssm"
     if ssm:
-        check(pool is None and "paged" in eng.gating_reasons,
+        check(eng.pool is None and "paged" in eng.gating_reasons,
               f"{tag}: paged on an ssm stack is not inert and explained")
-    else:
-        check(pool.num_live == 0 and pool.num_free == pool.num_blocks,
-              f"{tag}: blocks not returned ({pool.num_live} live, "
-              f"{pool.num_free}/{pool.num_blocks} free)")
+    # the prefix cache (on by default) retains released prompt blocks and
+    # snapshots: every one is live, free or cached, and none stays live
+    for pool in (eng.pool, eng.state_pool):
+        if pool is not None:
+            check(pool.num_live == 0
+                  and pool.num_free + pool.num_cached == pool.num_blocks,
+                  f"{tag}: blocks not returned ({pool.num_live} live, "
+                  f"{pool.num_free} free, {pool.num_cached} cached of "
+                  f"{pool.num_blocks})")
     forwards = eng.decode_steps + eng.prefill_forwards
     want = {mvm: mvm_sites(cfg) * forwards,
             "ssd_scan": mixer_layers(cfg) * eng.prefill_forwards,
@@ -3038,9 +3089,11 @@ def phase_best_of_n(torch, arch: str) -> dict:
     slots; the pool dtype is the engine's default, fp32, as in the JAX
     package's harness), ``arch`` at full width under ``analog_hw`` on the
     kernels: 8 ``mod_add`` prompts x 8 candidates of up to 4 tokens (SEP
-    stops one), then ``best_of_n_accuracy`` at n = 1, 4, 8 with the
-    noisy-oracle PRM. Every candidate must finish and every block come
-    back; every projection and attention call must run on its kernel."""
+    stops one), fork-aware on the prefix cache (the default), then
+    ``best_of_n_accuracy`` at n = 1, 4, 8 with the noisy-oracle PRM. Every
+    candidate must finish and no block stay live; every projection and
+    attention call must run on its kernel. Then the same candidates with
+    ``prefix_cache=False`` and the same generator seed: equal answers."""
     from repro_torch.core.analog import AnalogConfig, perturb_analog_weights
     from repro_torch.eval.tasks import make_mod_add_data, mod_add_extraction
     from repro_torch.serve import engine as E
@@ -3065,20 +3118,25 @@ def phase_best_of_n(torch, arch: str) -> dict:
             super().__init__(*a, **k)
             engines.append(self)
 
-    E.ServeEngine = Recorded
-    try:
-        zero_counts(torch)
-        t0 = time.perf_counter()
-        answers = E.sample_candidates(
-            p, cfg, acfg, torch.Generator(device=dev).manual_seed(3),
-            prompts, BON_N, bcfg, extract=mod_add_extraction(BON_MOD))
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-    finally:
-        E.ServeEngine = real
+    def candidates(b):
+        E.ServeEngine = Recorded
+        try:
+            zero_counts(torch)
+            t0 = time.perf_counter()
+            answers = E.sample_candidates(
+                p, cfg, acfg, torch.Generator(device=dev).manual_seed(3),
+                prompts, BON_N, b, extract=mod_add_extraction(BON_MOD))
+            torch.cuda.synchronize()
+            return answers, time.perf_counter() - t0
+        finally:
+            E.ServeEngine = real
+
+    answers, run_s = candidates(bcfg)
     launches = launch_counts()
     check(len(engines) == 1, f"best-of-n {arch}: {len(engines)} engines")
     eng = engines[0]
+    check(eng.prefix_enabled and eng.prefix_lookups == BON_PROMPTS * BON_N,
+          f"best-of-n {arch}: not fork-aware on the prefix cache")
     rows = (eng.scfg.num_slots, eng.prefill_batch * eng.scfg.prefill_chunk)
     check(rows == (M_BON_DECODE, M_BON_CHUNK),
           f"best-of-n {arch}: forwards of {rows} rows, phase 2 holds the MVM "
@@ -3089,7 +3147,7 @@ def phase_best_of_n(torch, arch: str) -> dict:
           and all(eng.status[u] == "finished" for u in range(num)),
           f"best-of-n {arch}: not every candidate finished")
     check(eng.pool is not None and eng.pool.num_live == 0
-          and eng.pool.num_free == eng.pool.num_blocks,
+          and eng.pool.num_free + eng.pool.num_cached == eng.pool.num_blocks,
           f"best-of-n {arch}: blocks not returned")
     check(answers.shape == (BON_PROMPTS, BON_N) and answers.min() >= 0
           and answers.max() < cfg.vocab_size,
@@ -3103,16 +3161,32 @@ def phase_best_of_n(torch, arch: str) -> dict:
           f"expected {want}")
     acc = E.best_of_n_accuracy(answers, correct, NoisyOraclePRM(0.75, seed=0),
                                list(BON_NS))
+    indep, indep_s = candidates(dataclasses.replace(bcfg,
+                                                    prefix_cache=False))
+    check(np.array_equal(answers, indep), f"best-of-n {arch}: fork-aware "
+          f"answers {answers.tolist()} against independent "
+          f"{indep.tolist()}")
     res = {"arch": arch, "candidates": num, "tokens": tokens, "run_s": run_s,
            "candidates_per_s": num / run_s, "tokens_per_s": tokens / run_s,
+           "independent_s": indep_s,
+           "independent_candidates_per_s": num / indep_s,
+           "independent_prefill_forwards": engines[-1].prefill_forwards,
            "decode_steps": eng.decode_steps,
-           "prefill_forwards": eng.prefill_forwards, "launches": launches,
+           "prefill_forwards": eng.prefill_forwards,
+           "prefix_hits": eng.prefix_hits,
+           "prefix_skipped_tokens": eng.prefix_skipped_tokens,
+           "prefix_cow_copies": eng.prefix_cow_copies, "launches": launches,
            "accuracy": acc, "answers": answers.tolist()}
     print(f"  {arch} best-of-{BON_N}: {num} candidates ({tokens} tokens) of "
-          f"{BON_PROMPTS} mod_add prompts in {run_s:.2f} s "
+          f"{BON_PROMPTS} mod_add prompts in {run_s:.2f} s fork-aware "
           f"({res['candidates_per_s']:.1f} candidates/s, "
-          f"{res['tokens_per_s']:.1f} tokens/s), {eng.decode_steps} decode "
-          f"forwards, {eng.prefill_forwards} chunk forwards, launches "
+          f"{res['tokens_per_s']:.1f} tokens/s; independent "
+          f"{res['independent_candidates_per_s']:.1f} candidates/s, equal "
+          f"answers), {eng.decode_steps} decode forwards, "
+          f"{eng.prefill_forwards} chunk forwards (independent "
+          f"{res['independent_prefill_forwards']}), prefix hits "
+          f"{eng.prefix_hits}, {eng.prefix_skipped_tokens} tokens skipped, "
+          f"{eng.prefix_cow_copies} tail copies, launches "
           f"{launches}; accuracy (random weights) "
           + "; ".join(f"{s}: " + ", ".join(
               f"n={n} {v['mean']:.3f}" for n, v in by_n.items())
@@ -4915,6 +4989,361 @@ def phase_devices(torch, static_pristine: dict,
 #: the run whose times each kernel's entry reports: llama-3.2-1b's static
 #: engine (phases 3 and 4) or continuous engine analog_hw run on the bf16
 #: pool (phase 8), or mamba2-130m's continuous analog_hw run (phase 8)
+
+# ---------------------------------------------------------------------------
+# phase 20: the radix prefix cache, the state-snapshot pool, fork-aware
+# best-of-n
+# ---------------------------------------------------------------------------
+
+def prefix_requests(cfg) -> list:
+    """Phase 20's workload: PREFIX_GROUPS system prompts (from a seed),
+    PREFIX_PER_GROUP requests each, interleaved across the groups so that
+    later requests of a group can hit the blocks of earlier ones."""
+    from repro_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(20)
+    systems = [rng.integers(0, cfg.vocab_size, PREFIX_SYSTEM)
+               for _ in range(PREFIX_GROUPS)]
+    reqs = []
+    for j in range(PREFIX_PER_GROUP):
+        for g in range(PREFIX_GROUPS):
+            lo, hi = PREFIX_SUFFIX_CHUNKS
+            suffix = rng.integers(0, cfg.vocab_size, ENGINE_CHUNK * int(
+                rng.integers(lo, hi + 1)))
+            reqs.append(Request(
+                uid=len(reqs), prompt=np.concatenate([systems[g], suffix])
+                .astype(np.int32), max_new=int(rng.integers(
+                    PREFIX_NEW[0], PREFIX_NEW[1] + 1)), temperature=0.0))
+    return reqs
+
+
+def leaf_ptrs(eng) -> dict:
+    """The storage pointer of every cache leaf the prefix cache writes (all
+    but the ``pos`` cursors, which each decode step returns anew)."""
+    from repro_torch.serve.scheduler import _walk
+
+    return {i: leaf.data_ptr() for i, (leaf, kind) in enumerate(
+        _walk(eng.caches, eng._kinds)) if kind != "pos"}
+
+
+def indexed_rows(torch, index: dict, leaves: list):
+    """``(key -> slot, slots, [(leaf, axis, its rows of those slots)])``
+    of a pool's index now."""
+    slots = sorted(set(index.values()))
+    rows = [(leaf, ax, leaf.index_select(ax, torch.as_tensor(
+        slots, device=leaf.device)).clone()) for leaf, ax in leaves]
+    return dict(index), slots, rows
+
+
+def rows_kept(torch, index: dict, kept) -> bool:
+    """Every slot still indexed under the key it had when ``kept`` was
+    taken holds the same bytes (an evicted slot may be reused)."""
+    before, slots, rows = kept
+    same = sorted({s for k, s in before.items() if index.get(k) == s})
+    for leaf, ax, old in rows:
+        pos = torch.as_tensor([slots.index(s) for s in same],
+                              device=leaf.device)
+        idx = torch.as_tensor(same, device=leaf.device)
+        if not torch.equal(leaf.index_select(ax, idx),
+                           old.index_select(ax, pos)):
+            return False
+    return True
+
+
+def cache_leaves(eng, kind: str) -> list:
+    """``(leaf, axis)`` of every cache leaf of ``kind``: "pool", the paged
+    KV pools, by their block axis 1; "spool", the snapshot pools, by their
+    snapshot axis (the sibling state leaf's slot axis)."""
+    from repro_torch.serve.scheduler import _walk
+
+    if kind == "spool":
+        return [(snap, ax) for _, snap, ax in eng._snapshot_leaves()]
+    return [(leaf, 1) for leaf, k in _walk(eng.caches, eng._kinds)
+            if k == kind]
+
+
+def prefix_run(torch, eng, reqs, tag: str, mvm: str) -> dict:
+    """Serve ``reqs`` on ``eng`` (every launch count set to 0 right before,
+    read right after): every request must finish with its budget, and each
+    kernel must have launched as the engine's counters say."""
+    cfg = eng.cfg
+    before = {k: getattr(eng, k) for k in PREFIX_COUNTERS}
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    d = {k: getattr(eng, k) - before[k] for k in PREFIX_COUNTERS}
+    for r in reqs:
+        out = results[r.uid]
+        check(eng.status[r.uid] == "finished" and len(out) == r.max_new
+              and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+              f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
+              f"{len(out)}/{r.max_new} tokens")
+    want = {mvm: mvm_sites(cfg) * (d["decode_steps"]
+                                   + d["prefill_forwards"]),
+            "ssd_scan": mixer_layers(cfg) * d["prefill_forwards"],
+            "paged_flash_decode": attn_layers(cfg) * d["decode_steps"],
+            "paged_flash_prefill": attn_layers(cfg) * d["prefill_forwards"]}
+    want = {k: v for k, v in want.items() if v}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    tokens = sum(r.max_new for r in reqs)
+    ttft = [eng.first_token_at[r.uid] - eng.submit_time[r.uid]
+            for r in reqs]
+    res = {"run_s": run_s, "tokens": tokens, "tokens_per_s": tokens / run_s,
+           "ttft_ms": 1e3 * float(np.mean(ttft)), "launches": launches,
+           **d, "out": {r.uid: results[r.uid] for r in reqs}}
+    print(f"  {tag}: {tokens} tokens in {run_s:.2f} s ("
+          f"{res['tokens_per_s']:.1f} tok/s), {d['decode_steps']} decode / "
+          f"{d['prefill_forwards']} chunk forwards ({d['prefill_chunks']} "
+          f"chunks), mean TTFT {res['ttft_ms']:.1f} ms; prefix hits "
+          f"{d['prefix_hits']}/{d['prefix_lookups']}, "
+          f"{d['prefix_skipped_tokens']} prefill tokens skipped, "
+          f"{d['prefix_cow_copies']} tail copies, snapshots "
+          f"{d['state_snaps_captured']} captured / "
+          f"{d['state_snap_restores']} restored; launches {launches}")
+    return res
+
+
+def same_tokens(a: dict, b: dict, shift: int, what: str) -> None:
+    """Every request's tokens in ``a`` (uids + ``shift``) equal ``b``'s."""
+    bad = [u for u in b if not np.array_equal(a[u + shift], b[u])]
+    check(not bad, f"{what}: greedy tokens differ for requests {bad}")
+
+
+def prefix_engine(torch, cfg, p, acfg, tag: str, mvm: str) -> dict:
+    """Phase 20 (a) / (b) for one model and deployment: cold (no cache),
+    then prime and warm on one engine with the cache. Gates: prime and
+    warm tokens equal cold bit for bit; the warm pass hits on every
+    request, a KV family skipping each padded prompt but its last chunk;
+    the pools conserved; no indexed block or snapshot rewritten; every
+    cache leaf kept (the cache writes in place); each kernel launched as
+    the engine's counters say."""
+    from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
+                                             padded_prompt_len,
+                                             required_max_len)
+
+    reqs = prefix_requests(cfg)
+    max_len = max(required_max_len(len(r.prompt), r.max_new, ENGINE_CHUNK)
+                  for r in reqs)
+    # room for every prompt block beside the slots' worst case, so the
+    # warm pass finds the whole workload cached
+    prompt_blocks = sum(-(-padded_prompt_len(len(r.prompt), ENGINE_CHUNK)
+                          // PAGED_BS) for r in reqs)
+    width = -(-max_len // PAGED_BS)
+    scfg = SchedulerConfig(num_slots=ENGINE_SLOTS, max_len=max_len,
+                           prefill_chunk=ENGINE_CHUNK,
+                           cache_dtype=torch.bfloat16, paged=True,
+                           kv_block_size=PAGED_BS,
+                           kv_blocks=ENGINE_SLOTS * width + prompt_blocks,
+                           prefix_cache=False)
+    eng = ServeEngine(p, cfg, acfg, scfg)
+    cold = prefix_run(torch, eng, reqs, f"{tag} cold", mvm)
+    del eng
+    eng = ServeEngine(p, cfg, acfg, dataclasses.replace(scfg,
+                                                        prefix_cache=True))
+    check(eng.prefix_enabled, f"{tag}: prefix cache off")
+    ptrs = leaf_ptrs(eng)
+    prime = prefix_run(torch, eng, reqs, f"{tag} prime", mvm)
+    kept = [(pool, indexed_rows(torch, pool._index, cache_leaves(eng, kind)))
+            for pool, kind in ((eng.pool, "pool"), (eng.state_pool, "spool"))
+            if pool is not None]
+    warm_reqs = [dataclasses.replace(r, uid=r.uid + PREFIX_WARM_UID)
+                 for r in reqs]
+    warm = prefix_run(torch, eng, warm_reqs, f"{tag} warm", mvm)
+    same_tokens(prime["out"], cold["out"], 0, f"{tag}: prime against cold")
+    same_tokens(warm["out"], cold["out"], PREFIX_WARM_UID,
+                f"{tag}: warm against cold")
+    n = len(reqs)
+    check(warm["prefix_lookups"] == warm["prefix_hits"] == n,
+          f"{tag}: the warm pass hit {warm['prefix_hits']} of "
+          f"{warm['prefix_lookups']} requests")
+    skip = sum(padded_prompt_len(len(r.prompt), ENGINE_CHUNK) - ENGINE_CHUNK
+               for r in reqs)
+    if eng.pool is not None:
+        check(warm["prefix_skipped_tokens"] == skip,
+              f"{tag}: warm skipped {warm['prefix_skipped_tokens']} of "
+              f"{skip} prompt tokens")
+    else:
+        check(warm["state_snap_restores"] >= n
+              and warm["launches"]["ssd_scan"] < cold["launches"]["ssd_scan"],
+              f"{tag}: {warm['state_snap_restores']} snapshot restores, "
+              f"ssd_scan {warm['launches']['ssd_scan']} warm against "
+              f"{cold['launches']['ssd_scan']} cold")
+    check(all(rows_kept(torch, pool._index, k) for pool, k in kept),
+          f"{tag}: an indexed block or snapshot was rewritten")
+    check(leaf_ptrs(eng) == ptrs,
+          f"{tag}: a cache leaf was replaced, not written")
+    pools = {}
+    for name, pool in (("kv", eng.pool), ("snapshots", eng.state_pool)):
+        if pool is None:
+            continue
+        check(pool.num_live == 0
+              and pool.num_free + pool.num_cached == pool.num_blocks,
+              f"{tag}: {name} pool not conserved ({pool.num_live} live, "
+              f"{pool.num_free} free, {pool.num_cached} cached of "
+              f"{pool.num_blocks})")
+        pools[name] = {"blocks": pool.num_blocks, "cached": pool.num_cached,
+                       "evictions": pool.evictions}
+    snap_gb = sum(leaf.numel() * leaf.element_size()
+                  for leaf, _ in cache_leaves(eng, "spool")) / 1e9
+    pool_gb = sum(leaf.numel() * leaf.element_size()
+                  for leaf, _ in cache_leaves(eng, "pool")) / 1e9
+    print(f"  {tag}: prime and warm equal cold bit for bit; warm hit "
+          f"{n}/{n}; chunk forwards {cold['prefill_forwards']} cold, "
+          f"{warm['prefill_forwards']} warm; mean TTFT "
+          f"{cold['ttft_ms']:.1f} -> {warm['ttft_ms']:.1f} ms; tokens/s "
+          f"{cold['tokens_per_s']:.1f} / {prime['tokens_per_s']:.1f} / "
+          f"{warm['tokens_per_s']:.1f} (cold / prime / warm); KV pool "
+          f"{pool_gb:.2f} GB, snapshot pool {snap_gb:.2f} GB; pools {pools}")
+    out = {"pools": pools, "snapshot_gb": snap_gb, "kv_pool_gb": pool_gb}
+    for name, r in (("cold", cold), ("prime", prime), ("warm", warm)):
+        out[name] = {k: v for k, v in r.items() if k != "out"}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_prefix_check(torch, arch: str) -> dict:
+    """Phase 20 (c): the reduced ``arch`` (analog_hw, fused) with the cache
+    on, on the card (the kernels) and on the CPU (their plain versions),
+    the same weights. Each case gives equal greedy tokens on both and warm
+    equal to cold: a partial tail (block 48, chunk 32, a 64-token prompt:
+    one full block and a 16-token tail, copied on write where the family
+    has KV and takes tails), eviction under an undersized pool (KV, or the
+    snapshot pool on an ssm stack), and fork-aware ``sample_candidates``
+    against the independent path (sampled, on each device; greedy, card
+    against CPU). The fork case runs a model with experts at the no-drop
+    capacity of the reference's fork test: its independent path serves the
+    contiguous cache, and with capacity drops the contiguous and paged
+    layouts may route a token apart, fork or no fork."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig, perturb_analog_weights
+    from repro_torch.models import build
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                             ServeEngine)
+
+    cfg, params, labels = build(get_config(arch).reduce(), 0, device="cpu")
+    hw = perturb_analog_weights(params, labels,
+                                torch.Generator().manual_seed(1), "hw")
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    devs = {"cpu": hw, "cuda": _to(hw, torch.device("cuda"))}
+    rng = np.random.default_rng(21)
+    kv = cfg.family != "ssm"
+
+    def serve(scfg, runs):
+        out = {}
+        for where, p in devs.items():
+            eng = ServeEngine(p, cfg, acfg, scfg)
+            res = {}
+            for reqs in runs:
+                res.update(eng.run(reqs))
+            out[where] = (res, eng)
+        bad = [u for u in out["cpu"][0]
+               if not np.array_equal(out["cpu"][0][u], out["cuda"][0][u])]
+        check(not bad, f"reduced {arch} prefix: card and cpu differ for "
+              f"requests {bad}")
+        return out["cuda"]
+
+    res = {}
+    # (1) the partial tail
+    p64 = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    geo = dict(num_slots=2, max_len=72, prefill_chunk=32, paged=True,
+               kv_block_size=48)
+    first = [Request(uid=0, prompt=p64, max_new=6, temperature=0.0)]
+    again = [Request(uid=1, prompt=p64, max_new=6, temperature=0.0)]
+    cold, _ = serve(SchedulerConfig(prefix_cache=False, **geo), [first])
+    warm, eng = serve(SchedulerConfig(**geo), [first, again])
+    check(np.array_equal(warm[0], cold[0]) and np.array_equal(warm[1],
+                                                              cold[0]),
+          f"reduced {arch} tail: warm differs from cold")
+    cow = cfg.family in ("dense", "moe")
+    check(eng.prefix_cow_copies == (1 if cow else 0)
+          and eng.prefix_skipped_tokens == (32 if cow else 0),
+          f"reduced {arch} tail: {eng.prefix_cow_copies} copies, "
+          f"{eng.prefix_skipped_tokens} tokens skipped")
+    res["tail"] = {"cow_copies": eng.prefix_cow_copies,
+                   "skipped": eng.prefix_skipped_tokens}
+    # (2) eviction under pressure: 3 blocks a request, 2 slots, 7 blocks
+    # (or 3 snapshot slots), so retained prompts must be evicted
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, 16).astype(np.int32), max_new=4,
+        temperature=0.0) for i in range(5)]
+    geo = dict(num_slots=2, max_len=24, prefill_chunk=8, paged=True,
+               kv_block_size=8)
+    roomy, _ = serve(SchedulerConfig(prefix_cache=False, **geo), [reqs])
+    tight = (dict(kv_blocks=7) if kv else dict(state_snapshots=3))
+    got, eng = serve(SchedulerConfig(**geo, **tight), [reqs])
+    pool = eng.pool if kv else eng.state_pool
+    check(all(np.array_equal(got[u], roomy[u]) for u in roomy)
+          and pool.evictions > 0 and pool.num_live == 0
+          and pool.num_free + pool.num_cached == pool.num_blocks,
+          f"reduced {arch} eviction: {pool.evictions} evictions, tokens "
+          f"or blocks apart")
+    res["evictions"] = pool.evictions
+    # (3) fork-aware best-of-n: sampled fork == independent on each device,
+    # greedy fork card == cpu
+    prompts = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    fork = E.BestOfNConfig(temperature=0.9, top_k=13, max_new=3,
+                           num_slots=4, prefill_chunk=4, kv_block_size=4)
+    indep = dataclasses.replace(fork, paged=False, prefix_cache=False)
+    greedy = {}
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    for where, p in devs.items():
+        a, b = (E.sample_candidates(p, cfg, acfg,
+                                    torch.Generator().manual_seed(5),
+                                    prompts, 3, c) for c in (fork, indep))
+        check(np.array_equal(a, b), f"reduced {arch} best-of-n on {where}: "
+              f"fork {a.tolist()} against independent {b.tolist()}")
+        greedy[where] = E.sample_candidates(
+            p, cfg, acfg, torch.Generator().manual_seed(5), prompts, 3,
+            dataclasses.replace(fork, greedy_first=fork.max_new))
+    check(np.array_equal(greedy["cpu"], greedy["cuda"]),
+          f"reduced {arch} greedy best-of-n: card and cpu differ")
+    print(f"  reduced {arch} prefix cache, card against cpu: equal tokens, "
+          f"warm equal cold; tail case {res['tail']}; {res['evictions']} "
+          f"evictions under pressure; fork-aware best-of-n equal to the "
+          f"independent path on both")
+    return res
+
+
+def phase_prefix(torch) -> dict:
+    """Phase 20: (a) full-width llama-3.2-1b, analog_hw on the kernels, on
+    the bf16 pool (cold / prime / warm) and the int8 pool; (b) full-width
+    mamba2-130m, analog_hw, on the snapshot pool (``paged=True``, inert
+    for KV); (c) the reduced models, card against CPU."""
+    from repro_torch.launch.serve import deploy_model
+
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    print(f"  phase 20's numbers on {gpu_name_and_power()}")
+    out = {}
+    for arch in (ARCH, MAMBA):
+        cfg, params, labels = (full_width(torch, arch) if arch == ARCH
+                               else build(arch, torch.Generator(
+                                   device=dev).manual_seed(0), device=dev))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        p, acfg = deploy_model(_deploy_args("analog_hw"), cfg, params,
+                               labels, gen, inplace=True)
+        acfg = dataclasses.replace(acfg, use_pallas=True)
+        pools = (0, 8) if arch == ARCH else (0,)
+        for kv_bits in pools:
+            key = f"{arch}/kv{kv_bits or 16}" if arch == ARCH else arch
+            out[key] = prefix_engine(
+                torch, cfg, p, dataclasses.replace(acfg, kv_bits=kv_bits),
+                f"{cfg.name} analog_hw"
+                + (f" kv_bits={kv_bits}" if arch == ARCH else ""),
+                "analog_matmul")
+        del p, params
+        torch.cuda.empty_cache()
+    out["reduced"] = {arch: reduced_prefix_check(torch, arch)
+                      for arch in PREFIX_REDUCED}
+    return out
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -4937,11 +5366,13 @@ def line_launches(results: dict) -> dict:
     forward and its remat recomputation, and the teacher's forward that
     gives each batch its logits) and the PTQ model's evals on the kernels
     (phase 15), and the ageing chip's static and continuous runs (phase
-    19, every launch with ``col_off``). Each count was read right after
+    19, every launch with ``col_off``), and phase 20's cold, prime and
+    warm runs of the prefix cache. Each count was read right after
     its run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
-    the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18
-    and 19), phase 19's graph check, the timing replays and
+    the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18,
+    19 and 20), phase 13's independent best-of-n run (the check of the
+    fork-aware one), phase 19's graph check, the timing replays and
     the fused-against-unfused checks after each run (site parity, the
     token attribution), the CLI (phase 10), and the training phases'
     profiled steps and resume checks."""
@@ -4997,6 +5428,11 @@ def line_launches(results: dict) -> dict:
     add("devices/static/analog_hw", {"analog_matmul":
                                      dev["static"]["launches"]})
     add("devices/continuous/analog_hw/kv16", dev["engine"]["launches"])
+    for key, r in results["prefix"].items():
+        if key == "reduced":
+            continue
+        for run in ("cold", "prime", "warm"):
+            add(f"prefix/{key}/{run}", r[run]["launches"])
     return out
 
 
@@ -5130,81 +5566,85 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/19] setup")
+        phase("[1/20] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/19] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/20] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/19] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/20] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/19] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/20] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/19] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/20] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/19] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/20] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/19] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/20] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/19] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/20] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/19] reduced continuous engines, card against cpu")
+        phase("[9/20] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/19] serving CLI")
+        phase("[10/20] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/19] static engine, phi-3-mini-4k at full width: "
+        phase("[11/20] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/19] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/20] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/19] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/20] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/19] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/20] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/19] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/20] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/19] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/20] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/19] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/20] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/19] HWA distillation at full width, {MAMBA} and {MOE} "
+        phase(f"[18/20] HWA distillation at full width, {MAMBA} and {MOE} "
               f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
               "training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/19] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/20] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
+        phase(f"[20/20] prefix cache: full-width {ARCH} (bf16 and int8 "
+              f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
+              "reduced models, card against cpu")
+        results["prefix"] = phase_prefix(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -50,14 +50,26 @@ and the report line ends with the drift telemetry:
         --reduced --deploy analog_hw --drift-hours 48 --recalibrate \
         --fault-prob 0.01
 
-The prefix cache, speculative decoding, the open-loop front door and
-tensor parallelism of the JAX package's launcher are not ported yet.
+The continuous engine runs the radix prefix cache by default, as the
+reference's does: with ``--paged`` admissions reuse the KV blocks (and,
+for the ssm and hybrid families, the state snapshots) of earlier prompts,
+retired prompts stay cached, and the report line gives the hit rate, the
+prefill tokens skipped and the copy-on-write tail copies.
+``--no-prefix-cache`` frees blocks at retirement instead; ``--cache-salt``
+roots the cache's keys (deployment, tenancy):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --paged --no-prefix-cache --cache-salt 7
+
+Speculative decoding, the open-loop front door and tensor parallelism of
+the JAX package's launcher are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -154,6 +166,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8],
                     help="8 = int8 KV pool with per-token/head scales "
                          "(implies --paged)")
+    ap.add_argument("--prefix-cache", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="radix prefix caching on the paged pool: "
+                         "admissions reuse content-matching KV blocks "
+                         "(ssm / hybrid: state snapshots), retired prompts "
+                         "stay LRU-cached (--no-prefix-cache frees blocks "
+                         "eagerly)")
+    ap.add_argument("--cache-salt", type=int, default=0,
+                    help="salt folded into every prefix-cache block key: "
+                         "keeps apart entries whose KV would differ for "
+                         "reasons outside the token ids (deployment "
+                         "config, tenancy)")
     ap.add_argument("--noise-model", default="none",
                     choices=["none", "hw", "gaussian"],
                     help="extra eval-time weight perturbation on analog "
@@ -181,6 +205,7 @@ def main(argv=None):
     """CLI entry point. Returns ``{uid: generated ids}`` from the
     continuous engine, or the static engine's tokens [num_requests,
     new_tokens] (on the host)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     validate_noise_config(args.noise_model, args.noise_gamma)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -252,7 +277,8 @@ def main(argv=None):
         num_slots=args.num_slots, max_len=max_len, prefill_chunk=chunk,
         step_tokens=args.step_tokens, cache_dtype=cache_dtype,
         paged=args.paged, kv_block_size=args.kv_block_size,
-        kv_blocks=args.kv_blocks, drift_dt=drift_dt,
+        kv_blocks=args.kv_blocks, prefix_cache=args.prefix_cache,
+        cache_salt=args.cache_salt, drift_dt=drift_dt,
         recalibrate=args.recalibrate,
         # the watchdog's cadence scaled to the workload, so that a short
         # run still reads health a few times
@@ -260,7 +286,10 @@ def main(argv=None):
     flags = {"drift": "--drift-hours"}
     for feature, why in eng.gating_reasons.items():
         flag = flags.get(feature, "--" + feature.replace("_", "-"))
-        print(f"[serve] {flag} is inert for {cfg.name}: {why}")
+        # --prefix-cache is on by default: its reason is printed only
+        # when the flag was given
+        if feature != "prefix_cache" or flag in argv:
+            print(f"[serve] {flag} is inert for {cfg.name}: {why}")
     t0 = time.perf_counter()
     results = eng.run(reqs)
     dt = time.perf_counter() - t0
@@ -274,6 +303,19 @@ def main(argv=None):
         mode = "per-slot ssm state"
     elif cfg.family == "hybrid":
         mode += " + per-slot ssm state"
+    prefix = ""
+    if eng.prefix_enabled:
+        hit_rate = (eng.prefix_hits / eng.prefix_lookups
+                    if eng.prefix_lookups else 0.0)
+        idx_pool = eng.pool if eng.pool is not None else eng.state_pool
+        snaps = (f", {eng.state_snaps_captured} state snapshots "
+                 f"({eng.state_snap_restores} restored)"
+                 if eng.state_pool is not None else "")
+        prefix = (f", prefix cache: {hit_rate:.0%} hit rate, "
+                  f"{eng.prefix_skipped_tokens} prefill tokens skipped, "
+                  f"{eng.prefix_cow_copies} copy-on-write tails, "
+                  f"{idx_pool.num_cached} blocks retained, "
+                  f"{idx_pool.evictions} evictions{snaps}")
     drift = ""
     if eng.drift_enabled:
         drift = (f", drift: {eng.drift_hours:.1f}h deployed, "
@@ -286,7 +328,7 @@ def main(argv=None):
           f"steps, {eng.mixed_steps} fused mixed steps, "
           f"{eng.decode_tokens_during_admission} decode tokens emitted "
           f"during admission, p50 latency "
-          f"{lats[len(lats) // 2] * 1e3:.0f}ms{drift}; "
+          f"{lats[len(lats) // 2] * 1e3:.0f}ms{prefix}{drift}; "
           f"{latency_report(eng)}); sample: {results[0][:8].tolist()}")
     return results
 

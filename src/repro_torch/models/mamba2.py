@@ -200,14 +200,28 @@ def _ssd_with_state(xh, dt, a, bg, cg, h0=None):
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32,
-                     device=None) -> dict:
+                     device=None, state_snaps: int = 0) -> dict:
     """Serving-time SSM state, slot-major: ``conv`` [B, W-1, C] at
-    ``dtype`` and ``ssm`` [B, H, N, P], always fp32. The reference's
-    prefix-cache snapshot pools (``state_snaps``) come with prefix caching
-    (ROADMAP section 1, item 9)."""
+    ``dtype`` and ``ssm`` [B, H, N, P], always fp32.
+
+    ``state_snaps > 0`` adds the prefix cache's snapshot pools
+    ``conv_snap`` [NS, W-1, C] and ``ssm_snap`` [NS, H, N, P]: NS
+    content-addressed copies of a slot's state, captured at KV-block
+    boundaries during prefill and restored at admission
+    (``serve.kv_pool.StateSnapshotPool`` hands out the NS-axis ids). The
+    mixer passes them through untouched. With ``conv_width == 1`` the
+    conv leaves are zero-width."""
     _, heads, _, conv_ch, _ = _dims(cfg)
-    return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, heads, cfg.ssm_state, cfg.ssm_headdim),
-                           dtype=torch.float32, device=device)}
+
+    def state(n: int, suffix: str = "") -> dict:
+        return {
+            "conv" + suffix: torch.zeros((n, cfg.conv_width - 1, conv_ch),
+                                         dtype=dtype, device=device),
+            "ssm" + suffix: torch.zeros(
+                (n, heads, cfg.ssm_state, cfg.ssm_headdim),
+                dtype=torch.float32, device=device)}
+
+    cache = state(batch)
+    if state_snaps:
+        cache.update(state(state_snaps, "_snap"))
+    return cache

@@ -577,7 +577,7 @@ def _stack_meta(tree: dict, lead: tuple, device) -> dict:
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
                 device=None, *, per_slot: bool = False, paged: bool = False,
                 kv_block_size: int = 16, kv_blocks: int | None = None,
-                kv_bits: int = 0) -> dict:
+                kv_bits: int = 0, state_snaps: int = 0) -> dict:
     """Stacked KV caches for :func:`apply_blocks`, every tensor leaf of
     ``layers.init_cache`` with a leading ``[L]`` axis: the contiguous
     ``{"k", "v": [L, B, T, KV, hd], "pos": 0}`` by default, the per-slot
@@ -590,7 +590,10 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
     same whatever the layout (``max_len`` and the paging options do not
     apply). The hybrid family nests both: ``{"attn": the attention leaves
     [n_sb, ...], "mamba": the state leaves [n_sb, attn_every - 1, ...]}``;
-    only its attention leaves are paged."""
+    only its attention leaves are paged. ``state_snaps > 0`` adds the
+    prefix cache's ``conv_snap`` / ``ssm_snap`` pools to every mamba cache
+    (``mamba2.init_mamba_cache``); the attention-only families ignore
+    it."""
     _check_family(cfg)
     attn = mamba = None
     if cfg.family != "ssm":
@@ -599,7 +602,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
                             kv_block_size=kv_block_size, kv_blocks=kv_blocks,
                             kv_bits=kv_bits)
     if cfg.family in ("ssm", "hybrid"):
-        mamba = M.init_mamba_cache(cfg, batch, dtype, device="meta")
+        mamba = M.init_mamba_cache(cfg, batch, dtype, device="meta",
+                                   state_snaps=state_snaps)
     if cfg.family == "hybrid":
         n_sb = cfg.num_layers // cfg.attn_every
         return {"attn": _stack_meta(attn, (n_sb,), device),
@@ -609,7 +613,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
                        device)
 
 
-def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
+def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0,
+                    state_snaps: bool = False):
     """``(axes, kinds)`` of the slot cache tree of :func:`init_caches`,
     mirroring its structure.
 
@@ -617,14 +622,23 @@ def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
     pool-wide leaves with no slot axis (the paged pools, passed through
     whole). ``kinds`` labels each leaf: ``"start"`` (set to the left-pad
     count at admission), ``"pos"`` (the write cursor), ``"state"``
-    (zeroed at admission), ``"table"`` / ``"wtable"`` (the slot's read /
-    write block-table rows) or ``"pool"`` (shared physical storage,
-    untouched at admission). The engine gathers and scatters one slot's
-    rows with these, without knowing the layout. The mamba leaves
-    (``conv``, ``ssm``) are per-slot state whatever ``paged`` says (an
-    attention-free stack has no KV to page); a hybrid stack's carry an
-    extra leading per-super-block axis, which shifts their slot axis by
-    one.
+    (zeroed at admission, or restored from a snapshot), ``"table"`` /
+    ``"wtable"`` (the slot's read / write block-table rows; the write row
+    sends shared prefix-hit blocks to the sink) or ``"pool"`` (shared
+    physical storage, untouched at admission but for the prefix cache's
+    copy-on-write of a partial tail; every pool leaf keeps its block axis
+    at position 1, after the stacked layer axis). The engine gathers and
+    scatters one slot's rows with these, without knowing the layout. The
+    mamba leaves (``conv``, ``ssm``) are per-slot state whatever ``paged``
+    says (an attention-free stack has no KV to page); a hybrid stack's
+    carry an extra leading per-super-block axis, which shifts their slot
+    axis by one.
+
+    ``state_snaps=True`` (the ssm and hybrid prefix cache) adds the
+    ``conv_snap`` / ``ssm_snap`` leaves of ``init_caches(state_snaps >
+    0)``: kind ``"spool"`` with axis ``-1``, passed through gathers whole
+    and written only by the engine's snapshot capture and read by its
+    restore, which index them on the sibling ``"state"`` leaf's slot axis.
     """
     _check_family(cfg)
     if paged:
@@ -639,10 +653,16 @@ def cache_slot_spec(cfg, paged: bool = False, kv_bits: int = 0):
         attn_axes = {"k": 1, "v": 1, "pos": 1, "start": 1}
         attn_kinds = {"k": "state", "v": "state", "pos": "pos",
                       "start": "start"}
+    mamba_axes = {"conv": 1, "ssm": 1}
     mamba_kinds = {"conv": "state", "ssm": "state"}
+    if state_snaps:
+        mamba_axes.update(conv_snap=-1, ssm_snap=-1)
+        mamba_kinds.update(conv_snap="spool", ssm_snap="spool")
     if cfg.family == "ssm":
-        return {"conv": 1, "ssm": 1}, mamba_kinds
+        return mamba_axes, mamba_kinds
     if cfg.family == "hybrid":
-        return ({"attn": attn_axes, "mamba": {"conv": 2, "ssm": 2}},
+        return ({"attn": attn_axes,
+                 "mamba": {k: (v + 1 if v >= 0 else v)
+                           for k, v in mamba_axes.items()}},
                 {"attn": attn_kinds, "mamba": mamba_kinds})
     return attn_axes, attn_kinds

@@ -7,13 +7,15 @@ candidates finish, so candidates of mixed progress never pad each other),
 and ``best_of_n_accuracy`` scores them with a PRM and applies the three
 selection strategies: the Fig. 4 / Table 15 pipeline.
 
-The JAX package's harness is also *fork-aware*: with its radix prefix
-cache it submits one leader per prompt and forks the other n − 1
-candidates onto the leader's prompt blocks. It states, and its tests
-check, that the fork path gives the independent-requests path's answers
-bit for bit. The port's engine has no prefix cache yet (ROADMAP section
-1, item 9), so ``prefix_cache`` defaults to off here and every candidate
-is an independent request.
+Best-of-n is the shared-prefix workload: the n candidates of a prompt
+prefill the same tokens before they part at the first sampled one. On the
+paged engine's radix prefix cache the harness is *fork-aware*: it submits
+one leader per prompt, steps until the leaders' prompt blocks (and, on an
+ssm or hybrid stack, their state snapshots) are in the index, then forks
+the other n − 1 candidates, whose admissions map onto the leader's blocks
+and re-run only the last chunk. Each candidate keeps its own sampling
+state, and serving is deterministic, so the fork path gives the
+independent-requests path's answers bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.serve.decode import digital_int4_config
 from repro_torch.serve.prm import NoisyOraclePRM, select_answer
 from repro_torch.serve.scheduler import (Request, SchedulerConfig,
-                                         ServeEngine, required_max_len)
+                                         ServeEngine, padded_prompt_len,
+                                         required_max_len)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +56,9 @@ class BestOfNConfig:
         paged: Serve candidates from the block-paged KV pool
             (attention-free stacks keep their per-slot state instead).
         prefix_cache: Fork-aware candidate generation on the radix prefix
-            cache; not ported yet, so off, and on raises.
+            cache: one leader per prompt, the other n − 1 forked at the
+            shared prefix. The answers are bitwise those of independent
+            requests; off runs every candidate as one.
         kv_block_size: Physical KV block granularity of the paged pool.
         speculative: The JAX package's speculative decoding; not ported
             yet, and on raises as ``SchedulerConfig`` does.
@@ -76,7 +81,7 @@ class BestOfNConfig:
     prefill_chunk: int = 8
     int4_serve: bool = False
     paged: bool = True
-    prefix_cache: bool = False
+    prefix_cache: bool = True
     kv_block_size: int = 16
     speculative: bool = False
     drift_dt: float = 0.0
@@ -97,6 +102,10 @@ def sample_candidates(params, cfg, acfg: AnalogConfig,
     sequence to a scalar answer id, a task-level hook (see
     ``eval.tasks``); the default keeps the first generated token.
 
+    With the prefix cache on (``bcfg.paged`` and ``bcfg.prefix_cache``, any
+    family) generation is fork-aware (see the module docstring); the
+    answers are bitwise those of the independent path.
+
     → answers [num_prompts, n] int array.
     """
     if bcfg.int4_serve:
@@ -107,14 +116,25 @@ def sample_candidates(params, cfg, acfg: AnalogConfig,
     seeds = torch.randint(0, np.iinfo(np.int32).max, (num * n,),
                           generator=generator,
                           device=generator.device).cpu().numpy()
-    max_len = required_max_len(int(np.shape(prompts)[1]), bcfg.max_new,
-                               bcfg.prefill_chunk)
-    # the pool holds every slot at max_len (the JAX package adds room for
-    # the prompt blocks its prefix cache retains, which has no use here)
+    plen = int(np.shape(prompts)[1])
+    max_len = required_max_len(plen, bcfg.max_new, bcfg.prefill_chunk)
+    bs = bcfg.kv_block_size
+    # room beyond the slots' capacity so that every prompt's blocks stay
+    # cached across the run (a leader may retire before its forks are
+    # admitted); only prompt blocks are retained, so size by the padded
+    # prompt, as the JAX package does
+    prompt_blocks = -(-padded_prompt_len(plen, bcfg.prefill_chunk) // bs)
+    kv_blocks = (bcfg.num_slots * -(-max_len // bs)
+                 + num * (prompt_blocks + 1)) if bcfg.paged else 0
+    # the same room in the ssm / hybrid snapshot pool: every prompt's
+    # boundary snapshots must outlive the leader-to-fork gap
+    state_snaps = ((bcfg.num_slots + num) * prompt_blocks
+                   if bcfg.paged and bcfg.prefix_cache else 0)
     scfg = SchedulerConfig(
         num_slots=bcfg.num_slots, max_len=max_len,
         prefill_chunk=bcfg.prefill_chunk, paged=bcfg.paged,
-        prefix_cache=bcfg.prefix_cache, kv_block_size=bcfg.kv_block_size,
+        prefix_cache=bcfg.prefix_cache, kv_block_size=bs,
+        kv_blocks=kv_blocks, state_snapshots=state_snaps,
         speculative=bcfg.speculative, drift_dt=bcfg.drift_dt,
         recalibrate=bcfg.recalibrate)
     eng = ServeEngine(params, cfg, acfg, scfg)
@@ -124,7 +144,22 @@ def sample_candidates(params, cfg, acfg: AnalogConfig,
                     greedy_first=bcfg.greedy_first,
                     stop_tokens=tuple(bcfg.stop_tokens), seed=int(seeds[i]))
             for i in range(num * n)]
-    outs = eng.run(reqs)
+    if eng.prefix_enabled and n > 1:
+        # leaders first (one candidate per prompt), stepped until every
+        # leader's prompt is prefilled and indexed...
+        for p in range(num):
+            eng.submit(reqs[p * n])
+        while eng.queue or any(s is not None and s.prefilling
+                               for s in eng.slots):
+            eng.step()
+        # ...then the siblings, whose admissions map onto the leaders'
+        # prompt blocks (live or retained) and skip to the last chunk
+        for p in range(num):
+            for i in range(1, n):
+                eng.submit(reqs[p * n + i])
+        outs = eng.run()
+    else:
+        outs = eng.run(reqs)
     return np.array([[extract(outs[p * n + i]) for i in range(n)]
                      for p in range(num)])
 

@@ -1,8 +1,7 @@
 """Refcounted block allocator + radix prefix index for the paged KV cache.
 
 A pure-Python copy of the JAX package's ``serve/kv_pool.py`` (the port
-imports nothing of that package), without its state-snapshot pool, which
-serves only the ssm and hybrid families.
+imports nothing of that package), its state-snapshot pool included.
 
 The paged slot cache (``models.layers.init_cache(paged=True)``) stores KV
 state in a pool of fixed-size physical blocks shared by every slot:
@@ -33,10 +32,14 @@ Physical block 0 is reserved as the **write sink**: rows that are retired,
 masked or write-protected keep executing static-shape scatter-writes, which
 must land somewhere harmless (``models.layers._paged_slot_attention``).
 
-The continuous engine of this port runs without the prefix cache (its
-``SchedulerConfig.prefix_cache`` raises), so it uses ``admit`` with no hit
-blocks and ``release``; the index, the LRU and the speculative rewind
-window are here so that the pool is whole when those features are ported.
+The refcount, LRU and eviction machinery is shared with
+:class:`StateSnapshotPool`, the content-addressed index of the SSM
+recurrence and conv-tail snapshots that gives the ssm and hybrid families
+their prefix cache (``serve.scheduler``): a KV block holds the tokens of
+one block, a snapshot the recurrent summary of the whole prefix up to a
+block boundary, indexed under the same chain key. The speculative rewind
+window is here so that the pool is whole when speculative decoding is
+ported.
 
 Pure host-side Python; the device only sees the block-table rows this
 hands out.
@@ -68,7 +71,7 @@ class RewindError(RuntimeError):
 
 class _RefcountedPool:
     """Refcount + LRU-of-cached machinery for content-addressed device
-    blocks.
+    slots (KV blocks, state snapshots).
 
     Every usable slot is in exactly one of three states:
 
@@ -78,14 +81,14 @@ class _RefcountedPool:
       LRU of released-but-cached slots awaiting reuse or eviction.
 
     ``free + live + cached == num_blocks`` always (the conservation
-    invariant the churn tests assert).
+    invariant the churn tests assert for both subclasses).
     """
 
     def __init__(self, num_blocks: int, block_size: int, salt: int = 0,
                  reserve_sink: bool = False):
         """All blocks start free; ``salt`` roots every hash chain.
         ``reserve_sink`` shifts ids to 1-based so physical slot 0 stays a
-        write sink."""
+        write sink (the KV pool); snapshot slots are plain 0-based."""
         if num_blocks < 1 or block_size < 1:
             raise ValueError("num_blocks and block_size must be >= 1")
         self.num_blocks = num_blocks
@@ -138,7 +141,8 @@ class _RefcountedPool:
     # ------------------------------------------------------------------
 
     def owns(self, uid: int) -> bool:
-        """True while request ``uid`` holds at least one block."""
+        """True while request ``uid`` holds at least one slot (lets the
+        engine's retirement release best-effort snapshot acquisitions)."""
         return uid in self._owned
 
     def begin_window(self, uids: Iterable[int]) -> None:
@@ -425,3 +429,73 @@ class KVPool(_RefcountedPool):
             if b in self._lru:
                 self._lru.move_to_end(b)
         return hit, tail
+
+
+class StateSnapshotPool(_RefcountedPool):
+    """Content-addressed pool of SSM recurrence / conv-tail snapshots.
+
+    The device side is the ``*_snap`` leaves ``init_mamba_cache`` adds to
+    every mamba cache: ``conv_snap [NS, W-1, C]`` / ``ssm_snap [NS, H, N,
+    P]`` (NS = ``num_blocks`` here). This class hands out the NS-axis slot
+    ids and indexes them under the same chain keys as the KV pool
+    (``prefix_keys``), so a key hit means "the snapshot is the exact
+    recurrent state after that whole padded prefix".
+
+    Its lifecycle is the KV pool's, with two differences:
+
+    * **acquire is best-effort**: a prefill that cannot get a snapshot
+      slot (all live) skips capturing that boundary; the request still
+      serves correctly, the boundary stays cold.
+    * **no sharing while live**: a snapshot is written once by its
+      capturing request (refcount 1), then registered and released at the
+      prefill-to-decode flip, after which it is immutable cached content.
+      A restore copies the snapshot into the slot's state rows, so
+      matchers never hold references.
+
+    Slot ids are 0-based (no write sink: a snapshot is only ever written
+    by the copy that captures it).
+    """
+
+    def acquire(self, uid: int) -> Optional[int]:
+        """Pop one snapshot slot for request ``uid`` (evicting the LRU
+        cached snapshot if none is free). ``None`` when every slot is
+        live: capture is best-effort, never a failure."""
+        if not self._free:
+            if not self._lru:
+                return None
+            self._evict_one(frozenset())
+        s = self._free.pop()
+        self._ref[s] = 1
+        self._owned.setdefault(uid, []).append(s)
+        return s
+
+    def register(self, key, slot: int) -> None:
+        """Index snapshot ``slot`` under chain ``key`` (first writer wins:
+        a concurrent duplicate's slot goes back to the free list at its
+        owner's release, like an unindexed KV block)."""
+        if key in self._index:
+            return
+        self._index[key] = slot
+        self._block_keys.setdefault(slot, []).append((_FULL, key))
+
+    def has(self, key) -> bool:
+        """True when ``key`` already resolves to a cached or live snapshot
+        (a prefill skips capturing an indexed boundary)."""
+        return key in self._index
+
+    def match_deepest(self, keys: Sequence) -> Optional[tuple[int, int]]:
+        """Deepest indexed snapshot along a prompt's key chain.
+
+        Walks ``keys`` from the deepest boundary backwards and returns
+        ``(depth, slot)``, the depth in blocks (the snapshot summarizes
+        the first ``depth * block_size`` padded tokens), or ``None`` when
+        no boundary is indexed. Gaps are fine: a snapshot at depth ``m``
+        summarizes the whole prefix. The hit moves to the LRU's MRU end.
+        """
+        for i in range(len(keys) - 1, -1, -1):
+            s = self._index.get(keys[i])
+            if s is not None:
+                if s in self._lru:
+                    self._lru.move_to_end(s)
+                return i + 1, s
+        return None

@@ -27,11 +27,37 @@ mixed-length traffic instead:
   ``paged_flash_prefill``, both scoring the pool in place and reading only
   each row's live blocks. ``AnalogConfig.kv_bits = 8`` stores the pool as
   int8 with per token/head scales.
+* **Radix prefix caching** (``SchedulerConfig.prefix_cache``, on by
+  default, every family; it needs ``paged=True``) -- admission matches the
+  padded prompt against the pool's content-addressed block index
+  (``KVPool.match_prefix``) and maps the slot's block-table row onto the
+  shared physical blocks. The slot's ``pos`` cursor starts past the hit,
+  rounded down to a chunk boundary, and the last chunk always runs, so the
+  first-token logits exist. A chunk that overlaps the hit re-scores the
+  shared blocks but never rewrites them: the slot's write table sends
+  those writes to the sink block. A matched partial tail is copied on
+  write into a fresh private block (one in-place copy per pool leaf). A
+  prompt's full blocks and its partial tail are indexed when its prefill
+  completes, and retirement keeps zero-ref indexed blocks in an LRU,
+  evicted only under allocation pressure. Serving is deterministic and
+  every layer row-independent, and a skip keeps the chunk grid, so warm
+  greedy decode equals cold bit for bit.
+* **State snapshots** (ssm and hybrid) -- an SSM state summarizes its
+  whole prefix, so a skip needs the state at the skip point: prefill
+  copies the slot's ``conv`` / ``ssm`` rows into a content-addressed
+  snapshot pool (``kv_pool.StateSnapshotPool``, the ``*_snap`` cache
+  leaves) at every chunk boundary that is also a block boundary, indexed
+  under the KV blocks' chain keys and registered at the prefill-to-decode
+  flip. A warm admission copies the deepest matching snapshot into the
+  slot's state rows and starts its cursor there. A hybrid stack skips to
+  the snapshot only as far as the KV hit reaches (it takes no partial
+  tail); a pure ssm stack runs the snapshot pool without a KV pool.
 * **ssm stacks** (mamba2-130m) keep a per-slot recurrent state (``conv``
   tail, ``ssm`` state) instead of a KV cache: every chunk forward runs the
   hand-written ``ssd_scan`` kernel from the slot's state, every decode
-  step the one-token recurrence. ``paged=True`` allocates no pool there
-  and records why in ``gating_reasons``, as the reference does.
+  step the one-token recurrence. ``paged=True`` allocates no KV pool there
+  and records why in ``gating_reasons``, as the reference does; it still
+  turns on the prefix cache's snapshot pool.
 * **moe stacks** (qwen3-moe-30b-a3b, dbrx-132b) share the dense KV
   layouts; their routing is per row (one sequence is one routed group),
   and every column of a chunk, left pads too, competes for its row's
@@ -67,18 +93,18 @@ mixed-length traffic instead:
 
 Cursors (``pos``, ``start``) live on the device; the engine keeps host
 mirrors and reads the device once per engine step, for the sampled tokens.
+Every device write of the prefix cache (the copy-on-write block copy, the
+snapshot capture and restore, the table rows) goes into the existing
+leaves in place, so CUDA graphs captured over them stay valid.
 
 **What this port does not run yet.** The JAX package's engine also has
-radix prefix caching, speculative decoding, request deadlines, shedding
-and chaos recovery (the watchdog's fault-tolerant health read with it),
-and tensor parallelism. Their ``SchedulerConfig`` / ``Request`` fields
-keep their names here but default to off, and asking for one raises
-``NotImplementedError`` naming its ROADMAP item. The reference's default is
-``prefix_cache=True``; greedy decode with the prefix cache is bitwise equal
-to decode without it, so the tests hold this engine against the
-reference's with ``prefix_cache=False``. The step is not split into
-``step_begin`` / ``step_commit`` (that split serves the async front end,
-not ported either).
+speculative decoding, request deadlines, shedding and chaos recovery (the
+watchdog's fault-tolerant health read with it), and tensor parallelism.
+Their ``SchedulerConfig`` / ``Request`` fields keep their names here but
+default to off, and asking for one raises ``NotImplementedError`` naming
+its ROADMAP item. The step is not split into ``step_begin`` /
+``step_commit`` (that split serves the async front end, not ported
+either).
 """
 
 from __future__ import annotations
@@ -96,7 +122,7 @@ from repro_torch.core.analog import AnalogConfig, AnalogCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.model import apply as model_apply
 from repro_torch.serve.decode import serve_step
-from repro_torch.serve.kv_pool import KVPool
+from repro_torch.serve.kv_pool import SINK_BLOCK, KVPool, StateSnapshotPool
 from repro_torch.serve.sampling import request_uniforms, sample_logits_batched
 
 
@@ -163,6 +189,16 @@ class SchedulerConfig:
     slot at ``max_len``). The pool dtype is ``cache_dtype`` unless
     ``AnalogConfig.kv_bits == 8``.
 
+    ``prefix_cache`` (default on; it needs ``paged=True``, every family)
+    runs the radix prefix cache: admission reuses content-matching blocks,
+    retirement keeps released prompt blocks in an LRU. The dense and moe
+    families share KV blocks; ssm and hybrid stacks also (ssm: only) run
+    the content-addressed state-snapshot pool, of ``state_snapshots``
+    slots (0 = ``num_slots * ceil(max_len / kv_block_size)``). Greedy
+    decode is bitwise the same with it and without it. ``cache_salt``
+    roots every chain key, keeping apart entries whose KV would differ for
+    reasons outside the token ids (deployment, tenancy).
+
     ``drift_dt > 0`` runs the deployment clock (hours per worked step)
     on params with per-tile device state, and ``recalibrate=True`` the
     watchdog: every ``recal_interval`` worked steps a health read, and a
@@ -172,10 +208,9 @@ class SchedulerConfig:
     running clock so is the watchdog (``gating_reasons["recalibrate"]``).
 
     The remaining fields are the JAX package's, for features not ported
-    yet (see the module docstring). They default to off here, and turning
-    one on raises: ``prefix_cache``, ``speculative``, ``max_queue``,
-    ``fault_tolerant``, ``tp``. The fields that only tune those features
-    (the prefix cache's salt, the drafter's) come with them.
+    yet (see the module docstring). They default to off, and turning one
+    on raises: ``speculative``, ``max_queue``, ``fault_tolerant``, ``tp``.
+    The fields that only tune the drafter come with speculative decoding.
     """
 
     num_slots: int = 4
@@ -187,7 +222,9 @@ class SchedulerConfig:
     paged: bool = False
     kv_block_size: int = 16
     kv_blocks: int = 0
-    prefix_cache: bool = False
+    prefix_cache: bool = True
+    cache_salt: int = 0
+    state_snapshots: int = 0
     speculative: bool = False
     drift_dt: float = 0.0
     recalibrate: bool = False
@@ -201,7 +238,6 @@ class SchedulerConfig:
 _SERVING = "ROADMAP section 1, item 9 (serving features)"
 #: SchedulerConfig fields of features not ported: (off value, where queued)
 _NOT_PORTED = {
-    "prefix_cache": (False, _SERVING + ": prefix caching"),
     "speculative": (False, _SERVING + ": speculative decoding"),
     "max_queue": (0, _SERVING + ": request lifecycle (shedding)"),
     "fault_tolerant": (False, _SERVING + ": request lifecycle (chaos "
@@ -211,9 +247,15 @@ _NOT_PORTED = {
 
 
 #: why ``SchedulerConfig.paged`` is inert on an ssm stack (the reference's
-#: reason; its prefix cache over state snapshots is not ported yet)
+#: reason: the prefix cache runs on the snapshot pool alone there)
 _SSM_NOT_PAGED = ("attention-free ssm stacks have no KV to page (per-slot "
-                  "state is O(1))")
+                  "state is O(1)); prefix caching still runs via the "
+                  "state-snapshot pool")
+
+#: why ``SchedulerConfig.prefix_cache`` is inert without the paged pool
+_PREFIX_NOT_PAGED = ("prefix caching needs the paged engine "
+                     "(SchedulerConfig.paged=True): content-addressed reuse "
+                     "is keyed on KV-block-aligned prefixes")
 
 
 def _map_leaves(fn, tree: dict, *others: dict) -> dict:
@@ -238,9 +280,10 @@ class _Slot:
     """Host-side bookkeeping of one in-flight request."""
 
     def __init__(self, req: Request, toks: np.ndarray, mask: np.ndarray,
-                 npad: int, chunk: int, seq: int):
+                 npad: int, chunk: int, seq: int, skip: int = 0):
         """The left-padded prompt ``toks`` / ``mask`` split into
-        ``chunk``-sized pieces; ``seq`` is the admission order."""
+        ``chunk``-sized pieces, the first ``skip // chunk`` of which a
+        prefix-cache hit already covers; ``seq`` is the admission order."""
         self.req = req
         self.out: list[int] = []
         self.count = 0                 # tokens sampled so far
@@ -248,8 +291,17 @@ class _Slot:
         self.mask = mask               # 1 = real token
         self.npad = npad               # left-pad count
         self.nchunks = len(toks) // chunk
-        self.chunk = 0                 # next prefill chunk to run
+        self.chunk = skip // chunk     # next prefill chunk to run
         self.seq = seq
+        # the prefix cache: the slot's physical block row, its chain keys
+        # and how many leading blocks came from the index (shared, never
+        # registered again); the (key, snapshot slot) pairs captured in
+        # this prefill and the depth (in blocks) of the restored snapshot
+        self.blocks: list[int] = []
+        self.keys: list = []
+        self.hit_full = 0
+        self.snaps: list[tuple] = []
+        self.hit_snap = 0
 
     @property
     def prefilling(self) -> bool:
@@ -274,9 +326,12 @@ class ServeEngine:
     ``gating_reasons`` (the reference's field). The drift clock and its
     watchdog report ``drift_hours``, ``recal_count``, ``recal_time``,
     ``watchdog_checks``, ``tile_scale_err``, ``dead_tiles`` and
-    ``stuck_cols``. Not ported (see the module docstring): prefix caching,
-    speculative decoding, deadlines, shedding, chaos recovery and tensor
-    parallelism.
+    ``stuck_cols``, the prefix cache ``prefix_lookups``, ``prefix_hits``,
+    ``prefix_hit_tokens``, ``prefix_skipped_tokens``,
+    ``prefix_cow_copies``, ``state_snaps_captured`` and
+    ``state_snap_restores`` (the reference's names). Not ported (see the
+    module docstring): speculative decoding, deadlines, shedding, chaos
+    recovery and tensor parallelism.
     """
 
     def __init__(self, params, cfg, acfg: AnalogConfig,
@@ -312,6 +367,12 @@ class ServeEngine:
         paged = scfg.paged and cfg.family != "ssm"
         if scfg.paged and not paged:
             self.gating_reasons["paged"] = _SSM_NOT_PAGED
+        # the prefix cache, every family: dense, moe and hybrid share KV
+        # blocks; ssm and hybrid also snapshot their state at block
+        # boundaries, so a hit is a (KV blocks, state snapshot) pair
+        self._prefix = scfg.prefix_cache and scfg.paged
+        if scfg.prefix_cache and not self._prefix:
+            self.gating_reasons["prefix_cache"] = _PREFIX_NOT_PAGED
         # the drift clock ages per-tile device state: over pristine
         # weights it would advance nothing, and the watchdog needs it
         self._drift = scfg.drift_dt > 0 and devices.has_device_state(params)
@@ -331,14 +392,23 @@ class ServeEngine:
         kv_bits = acfg.kv_bits if paged else 0
         if paged:
             n_pool = scfg.kv_blocks or b * self.caches_tbl_width
-            self.pool = KVPool(n_pool, scfg.kv_block_size)
+            self.pool = KVPool(n_pool, scfg.kv_block_size,
+                               salt=scfg.cache_salt)
+        self.state_pool: Optional[StateSnapshotPool] = None
+        state_snaps = 0
+        if self._prefix and cfg.family in ("ssm", "hybrid"):
+            state_snaps = (scfg.state_snapshots
+                           or b * self.caches_tbl_width)
+            self.state_pool = StateSnapshotPool(
+                state_snaps, scfg.kv_block_size, salt=scfg.cache_salt)
+        self._paged = paged
         self.caches = T.init_caches(cfg, b, scfg.max_len, scfg.cache_dtype,
                                     self.device, per_slot=True, paged=paged,
                                     kv_block_size=scfg.kv_block_size,
                                     kv_blocks=scfg.kv_blocks or None,
-                                    kv_bits=kv_bits)
-        self._axes, self._kinds = T.cache_slot_spec(cfg, paged=paged,
-                                                    kv_bits=kv_bits)
+                                    kv_bits=kv_bits, state_snaps=state_snaps)
+        self._axes, self._kinds = T.cache_slot_spec(
+            cfg, paged=paged, kv_bits=kv_bits, state_snaps=state_snaps > 0)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Optional[_Slot]] = [None] * b
         self.results: dict[int, np.ndarray] = {}
@@ -359,6 +429,16 @@ class ServeEngine:
         #: (decode tokens, prefill tokens) per step, bounded
         self.step_token_log: collections.deque[tuple[int, int]] = (
             collections.deque(maxlen=4096))
+        # the prefix cache: admissions looked up and hit, the padded prompt
+        # positions the cache covered and those the prefill never ran,
+        # copy-on-write tail copies, state snapshots captured and restored
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_skipped_tokens = 0
+        self.prefix_cow_copies = 0
+        self.state_snaps_captured = 0
+        self.state_snap_restores = 0
         # the drift clock and watchdog: deployment hours, health reads,
         # in-place reprogrammings and their host time; tile_scale_err is
         # the latest read (mean |scale - 1| over live tiles), dead_tiles
@@ -448,6 +528,19 @@ class ServeEngine:
         return self.results
 
     @property
+    def prefix_enabled(self) -> bool:
+        """True when this engine runs the radix prefix cache
+        (``prefix_cache`` with ``paged=True``, any family; ssm and hybrid
+        on the state-snapshot pool)."""
+        return self._prefix
+
+    @property
+    def paged_enabled(self) -> bool:
+        """True when the KV cache lives in the block pool (``paged=True``
+        on a family with attention)."""
+        return self._paged
+
+    @property
     def drift_enabled(self) -> bool:
         """True when every worked step advances the drift clock
         (``drift_dt > 0`` on params with device state)."""
@@ -504,8 +597,10 @@ class ServeEngine:
             self._admit_request(self.queue.popleft(), free.pop(0), plan)
 
     def _plan_admission(self, req: Request) -> Optional[dict]:
-        """The queue head's padded prompt layout, or None when the pool
-        cannot cover its blocks (backpressure)."""
+        """The queue head's padded prompt layout and its prefix-cache match,
+        or None when the pool cannot cover the blocks it still needs
+        (backpressure). Consumed by :meth:`_admit_request` in the same
+        iteration, so nothing can intervene between the two."""
         c = self.scfg.prefill_chunk
         plen = len(req.prompt)
         padded = padded_prompt_len(plen, c)
@@ -514,51 +609,210 @@ class ServeEngine:
         toks[npad:] = np.asarray(req.prompt, np.int64)
         mask = np.zeros(padded, np.float32)
         mask[npad:] = 1.0
-        if self.pool is not None and not self.pool.can_alloc(
-                self._blocks_needed(req)):
-            return None
-        return dict(toks=toks, mask=mask, npad=npad)
+        keys, hit, tail, snap = [], [], None, None
+        if self._prefix:
+            idx = self.pool if self.pool is not None else self.state_pool
+            keys = idx.prefix_keys(toks, npad)
+            if self.pool is not None:
+                hit, tail = self.pool.match_prefix(toks, npad, keys=keys)
+            if self.state_pool is not None:
+                # a state family skips only to a boundary with a snapshot,
+                # short of the last chunk (it re-runs for the first-token
+                # logits) and, on a hybrid stack, within the KV hit (the
+                # skipped positions' attention reads the cached blocks);
+                # the hybrid takes no tail, whose region re-runs anyway
+                limit = (padded - c) // self.scfg.kv_block_size
+                if self.pool is not None:
+                    limit = min(limit, len(hit))
+                    tail = None
+                snap = self.state_pool.match_deepest(keys[:limit])
+        if self.pool is not None:
+            need = self._blocks_needed(req) - len(hit)
+            # hit blocks stop being evictable when admission takes them;
+            # the copy-on-write source must survive until the copy
+            protect = frozenset(hit) | (
+                frozenset((tail[0],)) if tail else frozenset())
+            if not self.pool.can_alloc(need, protect):
+                return None
+        return dict(toks=toks, mask=mask, npad=npad, keys=keys, hit=hit,
+                    tail=tail, snap=snap)
 
     def _admit_request(self, req: Request, b: int, plan: dict) -> None:
-        """Bind slot ``b`` to ``req``: allocate its blocks, reset its cache
-        rows and plan its chunks. No model math: the chunks stream through
-        the following fused steps."""
-        row = None
+        """Bind slot ``b`` to ``req``: map its block-table row onto the
+        prefix-hit blocks plus fresh private ones, reset its cache rows with
+        ``pos`` past the (chunk-aligned) hit, copy a matched partial tail or
+        restore a matched snapshot, and plan only the remaining chunks. No
+        model math: the chunks stream through the following fused steps."""
+        c = self.scfg.prefill_chunk
+        toks, npad = plan["toks"], plan["npad"]
+        hit, tail, snap = plan["hit"], plan["tail"], plan["snap"]
+        padded, nhit = len(toks), len(hit)
+        row = wrow = None
+        skip, blocks, hit_tokens = 0, [], 0
         if self.pool is not None:
-            blocks = self.pool.admit(req.uid, [], self._blocks_needed(req))
+            protect = frozenset((tail[0],)) if tail else frozenset()
+            fresh = self.pool.admit(req.uid, hit,
+                                    self._blocks_needed(req) - nhit, protect)
+            blocks = list(hit) + fresh
             row = np.zeros(self.caches_tbl_width, np.int32)
             row[:len(blocks)] = blocks
-        self._reset_slot(b, start=plan["npad"], table=row)
-        self._pos[b], self._start[b] = 0, plan["npad"]
+            # write protection: the chunk writes that land in shared
+            # prefix-hit blocks go to the sink instead
+            wrow = row.copy()
+            wrow[:nhit] = SINK_BLOCK
+            bs = self.pool.block_size
+            hit_tokens = min(nhit * bs + (tail[1] if tail else 0), padded)
+            # pos starts past the hit, rounded down to a chunk boundary;
+            # the last chunk always re-runs so the first-token logits exist
+            skip = min(hit_tokens - hit_tokens % c, padded - c)
+        if self.state_pool is not None:
+            # a state family skips exactly to the restored snapshot (or not
+            # at all): the recurrence cannot jump past tokens it never
+            # consumed. Snapshots are captured at chunk boundaries only.
+            skip = snap[0] * self.state_pool.block_size if snap else 0
+            assert skip % c == 0
+            hit_tokens = max(hit_tokens, skip)
+            if snap:
+                self.state_snap_restores += 1
+        if self._prefix:
+            # one lookup per admission (a backpressured head's retries
+            # would deflate the hit rate)
+            self.prefix_lookups += 1
+            if hit_tokens:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += hit_tokens
+                self.prefix_skipped_tokens += skip
+        self._reset_slot(b, start=npad, pos=skip, table=row, wtable=wrow,
+                         restore=snap[1] if snap else None)
+        if tail:
+            self._copy_block(tail[0], blocks[nhit])
+            self.prefix_cow_copies += 1
+        self._pos[b], self._start[b] = skip, npad
         self._temp[b], self._topp[b] = req.temperature, req.top_p
         self._topk[b] = req.top_k
-        self.slots[b] = _Slot(req, plan["toks"], plan["mask"], plan["npad"],
-                              self.scfg.prefill_chunk, self._admit_seq)
+        slot = _Slot(req, toks, plan["mask"], npad, c, self._admit_seq,
+                     skip=skip)
+        slot.blocks, slot.keys, slot.hit_full = blocks, plan["keys"], nhit
+        slot.hit_snap = snap[0] if snap else 0
+        self.slots[b] = slot
         self.status[req.uid] = "prefill"
         self._admit_seq += 1
         self._dirty = True
 
-    def _reset_slot(self, b: int, start: int,
-                    table: Optional[np.ndarray]) -> None:
-        """Reset slot ``b``'s cache rows on the device: ``start`` marker,
-        ``pos`` cursor 0, state rows zeroed, block-table rows set to
-        ``table`` (all zeros, the sink, on retirement). Pool leaves are
-        untouched: stale blocks are masked, never attended."""
-        for leaf, ax, kind in _walk(self.caches, self._axes, self._kinds):
+    def _reset_slot(self, b: int, start: int, pos: int,
+                    table: Optional[np.ndarray],
+                    wtable: Optional[np.ndarray],
+                    restore: Optional[int] = None) -> None:
+        """Reset slot ``b``'s cache rows on the device, in place:
+        ``start`` marker, ``pos`` cursor, state rows zeroed (or copied from
+        snapshot slot ``restore`` of their ``*_snap`` sibling), read and
+        write block-table rows set to ``table`` / ``wtable`` (all zeros,
+        the sink, on retirement). Pool leaves are untouched: stale blocks
+        are masked, never attended."""
+        dev = self.device
+        rows = {kind: torch.as_tensor(r, device=dev) for kind, r in
+                (("table", table), ("wtable", wtable)) if r is not None}
+
+        def rec(tree: dict, axes: dict, kinds: dict) -> None:
+            for name, leaf in tree.items():
+                if isinstance(leaf, dict):
+                    rec(leaf, axes[name], kinds[name])
+                    continue
+                kind = kinds[name]
+                if kind in ("pool", "spool"):
+                    continue
+                row = leaf.select(axes[name], b)
+                if kind in rows:
+                    row.copy_(rows[kind])
+                elif kind == "start":
+                    row.fill_(start)
+                elif kind == "pos":
+                    row.fill_(pos)
+                elif restore is not None:
+                    row.copy_(tree[name + "_snap"].select(axes[name],
+                                                          restore))
+                else:
+                    row.zero_()
+
+        rec(self.caches, self._axes, self._kinds)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy physical block ``src`` into ``dst`` on every pool leaf (the
+        copy-on-write of a frozen partial tail): the block axis of every
+        pool leaf is 1, after the stacked layer axis."""
+        for leaf, kind in _walk(self.caches, self._kinds):
             if kind == "pool":
-                continue
-            row = leaf.select(ax, b)
-            if kind in ("table", "wtable"):
-                row.copy_(torch.as_tensor(table, device=self.device))
-            elif kind == "start":
-                row.fill_(start)
-            else:                                  # pos, state
-                row.zero_()
+                leaf.select(1, dst).copy_(leaf.select(1, src))
+
+    def _snapshot_leaves(self):
+        """``(state leaf, its snapshot pool, slot axis)`` of every mamba
+        state leaf of the cache tree."""
+        def rec(tree: dict, axes: dict, kinds: dict):
+            for name, leaf in tree.items():
+                if isinstance(leaf, dict):
+                    yield from rec(leaf, axes[name], kinds[name])
+                elif kinds[name] == "spool":
+                    src = name[:-len("_snap")]
+                    yield tree[src], leaf, axes[src]
+
+        return rec(self.caches, self._axes, self._kinds)
+
+    def _register_slot(self, s: _Slot) -> None:
+        """Index the slot's freshly computed prompt blocks when its prefill
+        completes: private full blocks under their chain keys, and the
+        frozen partial tail (its content below the fill is immutable from
+        here on: writes are append-only)."""
+        bs = self.pool.block_size
+        nfull = len(s.toks) // bs
+        self.pool.register(s.keys[s.hit_full:nfull],
+                           s.blocks[s.hit_full:nfull])
+        fill = len(s.toks) % bs
+        if fill and nfull < len(s.blocks):
+            parent = (s.keys[nfull - 1] if nfull
+                      else (self.pool.salt, s.npad))
+            self.pool.register_tail(parent, s.blocks[nfull], fill,
+                                    s.toks[nfull * bs:])
+
+    def _maybe_snapshot(self, b: int, s: _Slot) -> None:
+        """Capture slot ``b``'s SSM / conv state into the snapshot pool
+        when its prefill cursor just landed on a block boundary: the state
+        at ``m * kv_block_size`` tokens summarizes exactly the padded
+        prompt blocks chain key ``keys[m - 1]`` addresses. Best-effort:
+        with every snapshot slot live the boundary stays cold."""
+        bs = self.state_pool.block_size
+        p = int(self._pos[b])
+        if p % bs:
+            return
+        m = p // bs
+        if m < 1 or m <= s.hit_snap or m > len(s.keys):
+            return
+        key = s.keys[m - 1]
+        if self.state_pool.has(key) or any(k == key for k, _ in s.snaps):
+            return
+        dst = self.state_pool.acquire(s.req.uid)
+        if dst is None:
+            return
+        for state, snap, ax in self._snapshot_leaves():
+            snap.select(ax, dst).copy_(state.select(ax, b))
+        s.snaps.append((key, dst))
+        self.state_snaps_captured += 1
+
+    def _register_snaps(self, s: _Slot) -> None:
+        """Index the snapshots captured in the slot's prefill (at the
+        prefill-to-decode flip, beside :meth:`_register_slot`) and drop
+        the request's ownership: indexed snapshots wait in the pool's LRU,
+        a first-writer-wins loser goes back to the free list."""
+        for key, dst in s.snaps:
+            self.state_pool.register(key, dst)
+        if s.snaps:
+            self.state_pool.release(s.req.uid)
 
     def _retire_slot(self, b: int, status: str) -> None:
-        """Retire slot ``b``: record its output, release its blocks and
-        point its block tables at the sink, so that the freed row's
-        masked writes cannot land in blocks the next admission gets."""
+        """Retire slot ``b``: record its output, release every pool
+        reference it holds (KV blocks, the copy-on-write tail, snapshots
+        captured and never registered) and point its block tables at the
+        sink, so that the freed row's masked writes cannot land in blocks
+        the next admission gets, or in retained cache blocks."""
         slot = self.slots[b]
         uid = slot.req.uid
         self.results[uid] = np.array(slot.out, np.int32)
@@ -566,10 +820,14 @@ class ServeEngine:
         self.status[uid] = status
         self.slots[b] = None
         self._dirty = True
+        if self.state_pool is not None and self.state_pool.owns(uid):
+            self.state_pool.release(uid)
         if self.pool is not None:
+            # indexed zero-ref blocks stay in the pool's LRU for reuse,
+            # the rest return to the free list
             self.pool.release(uid)
-            self._reset_slot(b, start=0,
-                             table=np.zeros(self.caches_tbl_width, np.int32))
+            zrow = np.zeros(self.caches_tbl_width, np.int32)
+            self._reset_slot(b, start=0, pos=0, table=zrow, wtable=zrow)
 
     # ------------------------------------------------------------------
     # the drift clock and its watchdog
@@ -770,9 +1028,10 @@ class ServeEngine:
                     decode_rows=decode_rows, k=k, n_dec=n_dec)
 
     def _mixed_commit(self, p: dict) -> None:
-        """Host bookkeeping of the fused step: chunk cursors, phase flips
-        with the sampled first token, decode-token appends. One host read
-        for the step's tokens."""
+        """Host bookkeeping of the fused step: chunk cursors, snapshot
+        capture, phase flips (block and snapshot registration, the sampled
+        first token), decode-token appends. One host read for the step's
+        tokens."""
         c = self.scfg.prefill_chunk
         pf_rows, k = p["pf_rows"], p["k"]
         both = (torch.cat([p["first"], p["dec"]]) if k else p["first"])
@@ -782,7 +1041,17 @@ class ServeEngine:
             s = self.slots[b]
             s.chunk += 1
             self._pos[b] += c                  # the chunk advanced the row
+            if self.state_pool is not None:
+                self._maybe_snapshot(b, s)
             if not s.prefilling:               # prompt done: first token
+                if self._prefix:
+                    # index the prompt's blocks and snapshots before the
+                    # first token can retire the request (release must
+                    # see the entries to retain the blocks)
+                    if self.pool is not None:
+                        self._register_slot(s)
+                    if self.state_pool is not None:
+                        self._register_snaps(s)
                 self._dirty = True             # row flips to decode phase
                 self._append_token(b, int(first[i]))
         if k:

@@ -9,13 +9,16 @@ llama-3.2-1b and phi-3-mini-4k.
   reference's answers for ``max_new`` 1 and 3 with ``extract_before_stop``
   and a stop token, on the paged and the contiguous engine, under ``off``,
   ``analog_hw`` (the reference's instance carried across) and the int4
-  deployment. The reference runs its default, fork-aware path on its prefix
-  cache; the port runs every candidate as an independent request (it has no
-  prefix cache yet), which the reference states gives the same answers.
+  deployment. Both packages run their default, fork-aware path on the
+  prefix cache when paged; the contiguous port runs every candidate as an
+  independent request.
+* Fork-aware candidates equal independent ones (sampled, the same
+  generator seed), for the dense and the hybrid family, as the reference's
+  ``test_fork_sample_candidates_matches_independent``.
 * Sampled candidates are held to the port's own contracts: shape, range,
   determinism in the generator. Their draws are torch's, not the
   reference's.
-* The features that are not ported raise as ``SchedulerConfig`` does.
+* Speculative decoding, not ported, raises as ``SchedulerConfig`` does.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ from repro.serve import prm as ref_prm
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.core import analog as PA
 from repro_torch.eval import tasks as port_tasks
+from repro_torch.models import build as port_build
 from repro_torch.models import transformer as T
 from repro_torch.serve import engine as port_engine
 from repro_torch.serve import prm as port_prm
@@ -193,7 +197,7 @@ def test_sampled_candidates_are_deterministic_in_the_generator(carried):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("prefix_cache", True, "item 9"), ("speculative", True, "item 9")])
+    ("speculative", True, "item 9")])
 def test_features_not_ported_raise(carried, field, value, item):
     cfg, pp = carried[0], carried[4]
     bcfg = dataclasses.replace(port_engine.BestOfNConfig(num_slots=2),
@@ -203,6 +207,72 @@ def test_features_not_ported_raise(carried, field, value, item):
         port_engine.sample_candidates(
             pp, cfg, PA.AnalogConfig(mode="off"), torch.Generator(),
             _prompts(cfg), 2, bcfg)
+
+
+def test_prefix_cache_runs_fork_aware(carried, monkeypatch):
+    """The former ``prefix_cache`` case of ``test_features_not_ported_raise``:
+    the prefix cache is on by default and runs, and the forks hit as the
+    reference's do (its pool and engine counters, the same prompts: the
+    three 5-token prompts share one root key, so one frozen tail serves
+    only its own prompt's forks)."""
+    cfg, params, pp = carried[0], carried[1], carried[4]
+    assert port_engine.BestOfNConfig().prefix_cache
+    engines = []
+    for mod in (port_engine, ref_engine):
+        class Spy(mod.ServeEngine):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                engines.append(self)
+
+        monkeypatch.setattr(mod, "ServeEngine", Spy)
+    got = port_engine.sample_candidates(
+        pp, cfg, PA.AnalogConfig(mode="off"), torch.Generator(),
+        _prompts(cfg), 3, port_engine.BestOfNConfig(num_slots=2))
+    ref_engine.sample_candidates(
+        params, cfg, ref_analog.AnalogConfig(mode="off"),
+        jax.random.PRNGKey(0), _prompts(cfg), 3,
+        ref_engine.BestOfNConfig(num_slots=2))
+    ours, theirs = engines
+    assert got.shape == (3, 3) and ours.prefix_enabled
+    names = ("prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+             "prefix_skipped_tokens", "prefix_cow_copies")
+    assert ({k: getattr(ours, k) for k in names}
+            == {k: getattr(theirs, k) for k in names})
+    assert ours.prefix_lookups == 9 and ours.prefix_cow_copies > 0
+
+
+def _fork_against_independent(cfg, pp):
+    prompts = np.stack([np.random.default_rng(s).integers(
+        0, cfg.vocab_size, 9).astype(np.int32) for s in range(2)])
+    fork = port_engine.BestOfNConfig(temperature=0.9, top_k=13, max_new=3,
+                                     num_slots=4, prefill_chunk=4)
+    indep = dataclasses.replace(fork, paged=False, prefix_cache=False)
+    a = port_engine.sample_candidates(
+        pp, cfg, PA.AnalogConfig(mode="off"),
+        torch.Generator().manual_seed(5), prompts, 3, fork)
+    b = port_engine.sample_candidates(
+        pp, cfg, PA.AnalogConfig(mode="off"),
+        torch.Generator().manual_seed(5), prompts, 3, indep)
+    np.testing.assert_array_equal(a, b)
+    return a
+
+
+def test_fork_candidates_equal_independent_dense(carried):
+    """Fork-aware best-of-n (leaders, then n − 1 forks on the prefix cache)
+    gives the independent requests' answers for every candidate seed (the
+    reference's ``test_fork_sample_candidates_matches_independent``,
+    dense: KV-block sharing)."""
+    a = _fork_against_independent(carried[0], carried[4])
+    assert len(np.unique(a)) > 1            # sampled, not one answer
+
+
+def test_fork_candidates_equal_independent_hybrid():
+    """The same on reduced jamba-v0.1-52b (KV blocks and state snapshots,
+    at the no-drop capacity of the reference's case)."""
+    cfg = get_config("jamba-v0.1-52b").reduce()
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    _, pp, _ = port_build(cfg, 0, device="cpu")
+    _fork_against_independent(cfg, pp)
 
 
 @pytest.mark.parametrize("field,value,gated", [

@@ -482,9 +482,10 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     static, continuous, eval, best-of-n, training and PTQ-eval run (the
     moe model's static and continuous runs too, phase 17's hybrid, vlm
     and audio runs, phase 18's training of mamba2-130m, whose scans
-    count too, and of qwen3-moe-30b-a3b, and phase 19's static and
-    continuous runs on an ageing chip), each run's counts under one path,
-    and nothing for a kernel that a run did not launch."""
+    count too, and of qwen3-moe-30b-a3b, phase 19's static and
+    continuous runs on an ageing chip, and phase 20's cold, prime and
+    warm runs of the prefix cache), each run's counts under one path, and
+    nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -550,8 +551,20 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
             "engine": {"launches": counts("analog_matmul", "ssd_scan",
                                           *attn)}},
         "devices": {"static": {"launches": next(seen)},
-                    "engine": {"launches": counts("analog_matmul", *attn)}}}
+                    "engine": {"launches": counts("analog_matmul", *attn)}},
+        "prefix": {
+            **{f"{cs.ARCH}/kv{bits}": {run: {"launches": counts(
+                "analog_matmul", *attn)} for run in ("cold", "prime", "warm")}
+               for bits in (16, 8)},
+            cs.MAMBA: {run: {"launches": counts("analog_matmul", "ssd_scan")}
+                       for run in ("cold", "prime", "warm")},
+            "reduced": {arch: {} for arch in cs.PREFIX_REDUCED}}}
     total = next(seen) - 1
+    prefix = {f"prefix/{key}/{run}" for key in (
+        f"{cs.ARCH}/kv16", f"{cs.ARCH}/kv8", cs.MAMBA)
+        for run in ("cold", "prime", "warm")}
+    prefix_kv = {p for p in prefix if cs.MAMBA not in p}
+    prefix_ssm = prefix - prefix_kv
     out = cs.line_launches(results)
     assert list(out) == names
     # every count of every run lands once, under its own path
@@ -569,7 +582,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
                           ("best_of_n", "analog_hw"), ("ptq", "analog_hw"))),
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
-        "devices/static/analog_hw", "devices/continuous/analog_hw/kv16"}
+        "devices/static/analog_hw", "devices/continuous/analog_hw/kv16",
+        *prefix}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -587,10 +601,10 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/analog_hw/kv16",
         f"continuous/{cs.MOE}/digital_int4/kv16",
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
-        "devices/continuous/analog_hw/kv16"}
+        "devices/continuous/analog_hw/kv16", *prefix_kv}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")
          } | {f"static/{cs.JAMBA}/{d}" for d in ("analog_hw", "digital_int4")
               } | {f"continuous/{cs.JAMBA}/analog_hw/kv16",
-                   f"train/{cs.MAMBA}/analog"}
+                   f"train/{cs.MAMBA}/analog"} | prefix_ssm

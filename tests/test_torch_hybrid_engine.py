@@ -4,7 +4,8 @@ reduced) against the JAX package's engine.
 Weights and the hw noise instance of ``analog_hw`` are drawn by the
 reference and carried across as numpy. The engines run the reference
 scheduler tests' no-drop capacity, the reference's with
-``prefix_cache=False`` (the port has no prefix cache yet) and one decode
+``prefix_cache=False`` (``tests/test_torch_prefix_state.py`` holds the
+prefix cache) and one decode
 step per engine step (its jitted steps compile once per deployment; a
 greedy token does not depend on the decode block), the port's with its
 default blocks of up to 8. Greedy tokens must be equal, paged and per-slot
@@ -104,9 +105,13 @@ def test_engine_matches_reference_paged_and_contiguous(carried, deploy):
             np.testing.assert_array_equal(got[uid], want[uid],
                                           err_msg=f"{uid} paged={paged}")
         assert (eng.pool is not None) == paged
-        assert not eng.gating_reasons
+        # the prefix cache, on by default, needs the paged pool
+        assert set(eng.gating_reasons) == (set() if paged
+                                           else {"prefix_cache"})
         if paged:
-            assert eng.pool.num_free == eng.pool.num_blocks
+            pool = eng.pool
+            assert pool.num_live == 0
+            assert pool.num_free + pool.num_cached == pool.num_blocks
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])

@@ -1,12 +1,14 @@
 """The port's pure-Python KV pool (``repro_torch.serve.kv_pool``) against
 the reference's own pool tests.
 
-Every test of ``tests/test_kv_pool.py`` that does not use the state
-snapshot pool (which serves only the ssm and hybrid families and is not
-ported), run unchanged on both classes: the reference's ``KVPool`` and the
-port's copy. Refcount and block conservation under randomized churn, LRU
+Every test of ``tests/test_kv_pool.py``, run unchanged on both packages'
+classes: the reference's ``KVPool`` / ``StateSnapshotPool`` and the port's
+copies. Refcount and block conservation under randomized churn, LRU
 retention and eviction order, the radix chain index, frozen partial tails,
-and the unknown/double-release error contract.
+the unknown/double-release error contract, and the state-snapshot pool's
+best-effort acquire and deepest match. The snapshot pool's churn also runs
+op by op beside the reference's pool, which must give the same slots,
+index and LRU after every operation.
 """
 
 import types
@@ -24,6 +26,7 @@ def kv(request):
     ``OutOfBlocksError`` of the reference or of the port."""
     mod = ref_pool if request.param == "reference" else port_pool
     return types.SimpleNamespace(KVPool=mod.KVPool,
+                                 StateSnapshotPool=mod.StateSnapshotPool,
                                  SINK_BLOCK=mod.SINK_BLOCK,
                                  OutOfBlocksError=mod.OutOfBlocksError)
 
@@ -31,7 +34,7 @@ def kv(request):
 def test_port_pool_is_its_own_code():
     assert port_pool.KVPool is not ref_pool.KVPool
     assert port_pool.SINK_BLOCK == ref_pool.SINK_BLOCK == 0
-    assert not hasattr(port_pool, "StateSnapshotPool")
+    assert port_pool.StateSnapshotPool is not ref_pool.StateSnapshotPool
 
 
 def _toks(rng, n, vocab=64):
@@ -291,3 +294,131 @@ def test_zero_fill_tail_is_ignored(kv):
     pool.register_tail(keys[0], blocks[1], 0, toks[:0])
     assert pool.match_prefix(toks, 0) == (blocks[:1], None)
     assert not pool._tails
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_snapshot_pool_randomized_churn_conservation(kv, seed):
+    """Randomized acquire / register / release churn on the state-snapshot
+    pool: slot conservation (free + live + cached == pool size), refcount
+    bookkeeping, first-writer-wins registration, and best-effort acquire
+    (``None`` only when every slot is live)."""
+    rng = np.random.default_rng(seed)
+    total = 12
+    pool = kv.StateSnapshotPool(num_blocks=total, block_size=4)
+    live: dict[int, list[int]] = {}              # uid -> acquired slots
+    registered: dict[tuple, int] = {}            # shadow index
+    next_uid, next_key = 0, 0
+
+    def check():
+        assert pool.num_free + pool.num_live + pool.num_cached == total
+        assert sum(pool._ref.values()) == sum(
+            len(v) for v in pool._owned.values())
+        assert not (set(pool._ref) & set(pool._free))
+        assert not (set(pool._ref) & set(pool._lru))
+        assert not (set(pool._lru) & set(pool._free))
+        for key, slot in registered.items():
+            got = pool.match_deepest([key])
+            if got is not None:                  # may have been evicted
+                assert got == (1, slot)
+
+    for _ in range(400):
+        op = rng.random()
+        if op < 0.5 and len(live) < 4:           # acquire a snapshot batch
+            uid = next_uid
+            next_uid += 1
+            slots = []
+            for _ in range(int(rng.integers(1, 4))):
+                s = pool.acquire(uid)
+                if s is None:                    # all live
+                    assert pool.num_free == 0 and pool.num_cached == 0
+                    break
+                slots.append(s)
+            if slots:
+                live[uid] = slots
+            for k in [k for k, v in registered.items()
+                      if pool._index.get(k) != v]:
+                del registered[k]
+        elif live:                               # register and release
+            uid = int(rng.choice(list(live)))
+            for s in live.pop(uid):
+                if rng.random() < 0.8:
+                    key = ("chain", next_key % 7)   # collisions on purpose
+                    next_key += 1
+                    pool.register(key, s)
+                    registered.setdefault(key, s)   # first writer wins
+            pool.release(uid)
+        check()
+
+    for uid in list(live):
+        live.pop(uid)
+        pool.release(uid)
+        check()
+    assert pool.num_live == 0
+    assert pool.num_free + pool.num_cached == total
+
+
+def test_snapshot_match_deepest_walks_backwards(kv):
+    """``match_deepest`` returns the deepest registered chain point even
+    when shallower links were never captured (one snapshot summarizes the
+    whole prefix up to its depth)."""
+    pool = kv.StateSnapshotPool(num_blocks=4, block_size=4)
+    keys = [("k", i) for i in range(4)]
+    a = pool.acquire(0)
+    pool.register(keys[2], a)                   # only depth 3 registered
+    pool.release(0)
+    assert pool.match_deepest(keys) == (3, a)
+    assert pool.match_deepest(keys[:2]) is None
+    assert a in pool._lru                       # cached, refreshed to MRU
+    assert pool.has(keys[2]) and not pool.has(keys[1])
+
+
+def _snap_state(pool) -> tuple:
+    return (list(pool._free), dict(pool._ref),
+            {u: list(v) for u, v in pool._owned.items()}, dict(pool._index),
+            list(pool._lru), pool.evictions)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_snapshot_pool_op_by_op_beside_the_reference(seed):
+    """One random sequence of acquire, register, match and release (with
+    evictions and all-live acquires) applied to the port's pool and the
+    reference's: every return value and the free list, refcounts, owners,
+    index, LRU order and eviction count agree after every operation."""
+    rng = np.random.default_rng(seed)
+    pools = [port_pool.StateSnapshotPool(num_blocks=6, block_size=4,
+                                         salt=seed),
+             ref_pool.StateSnapshotPool(num_blocks=6, block_size=4,
+                                        salt=seed)]
+    toks = [_toks(rng, 16) for _ in range(5)]
+    live: set = set()
+    for step in range(300):
+        op = rng.random()
+        if op < 0.45:
+            uid = int(rng.integers(0, 6))
+            got = [p.acquire(uid) for p in pools]
+            if got[0] is not None:
+                live.add(uid)
+        elif op < 0.7 and live:
+            uid = int(rng.choice(sorted(live)))
+            t = toks[int(rng.integers(0, len(toks)))]
+            depth = int(rng.integers(1, 5))
+            got = []
+            for p in pools:
+                key = p.prefix_keys(t, 0)[depth - 1]
+                slots = p._owned.get(uid, [])
+                if slots:
+                    p.register(key, slots[-1])
+                got.append(p.has(key))
+        elif op < 0.85:
+            t = toks[int(rng.integers(0, len(toks)))]
+            got = [p.match_deepest(p.prefix_keys(t, 0)) for p in pools]
+        elif live:
+            uid = int(rng.choice(sorted(live)))
+            live.discard(uid)
+            got = [p.release(uid) for p in pools]
+        else:
+            continue
+        assert got[0] == got[1], step
+        assert _snap_state(pools[0]) == _snap_state(pools[1]), step
+    for p in pools:
+        assert p.num_free + p.num_live + p.num_cached == 6

@@ -266,8 +266,10 @@ def test_engine_paged_is_inert_and_says_why(carried):
                          PS.SchedulerConfig(**geo))
     assert eng.pool is None and ref.pool is None
     assert set(eng.gating_reasons) == set(ref.gating_reasons) == {"paged"}
-    assert ref.gating_reasons["paged"].startswith(eng.gating_reasons["paged"])
-    assert set(eng.caches) == {"conv", "ssm"}
+    assert ref.gating_reasons["paged"] == eng.gating_reasons["paged"]
+    # the prefix cache (on by default) runs on the snapshot pool alone
+    assert eng.prefix_enabled and eng.state_pool is not None
+    assert set(eng.caches) == {"conv", "ssm", "conv_snap", "ssm_snap"}
     reqs = _churn(cfg)[:3]
     _eq(eng.run([PS.Request(**r) for r in reqs]),
         ref.run([RS.Request(**r) for r in reqs]))

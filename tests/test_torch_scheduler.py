@@ -5,7 +5,8 @@ Weights are built by the reference from a JAX key and carried across as
 numpy (``params_from_numpy``); the hw noise instance of ``analog_hw`` is
 drawn once by the reference and applied on both sides. The reference's
 engine runs with ``prefix_cache=False`` (greedy decode with the prefix cache
-is bitwise equal to decode without it, and the port has none yet). Its
+is bitwise equal to decode without it; ``tests/test_torch_prefix_cache.py``
+holds the port's prefix cache against the reference's). Its
 digital_int4 counterpart is its unfused RTN-W4 path, which its own suite
 holds equal to the packed-int4 kernel.
 
@@ -20,9 +21,9 @@ holds equal to the packed-int4 kernel.
   solo tokens; stop tokens; ``greedy_first`` and ``top_k = 1``; the token
   budget split with no starvation; out-of-blocks backpressure; block
   conservation; ``submit``'s capacity checks.
-* Every ``SchedulerConfig`` feature that is not ported raises; the drift
-  clock and the watchdog gate as the reference's on params without
-  device state.
+* Every ``SchedulerConfig`` feature that is not ported raises, and the
+  prefix cache runs; the drift clock and the watchdog gate as the
+  reference's on params without device state.
 
 Sampling randomness does not cross between the packages, so sampled
 requests are held only to the port's own contracts.
@@ -303,10 +304,13 @@ def test_out_of_blocks_backpressure_and_conservation(carried):
         eng.step()
         max_in_flight = max(max_in_flight, eng.num_active)
         assert eng.pool.num_live <= 5
-        assert eng.pool.num_live + eng.pool.num_free == total
+        # the prefix cache (on by default) keeps released prompt blocks
+        assert (eng.pool.num_live + eng.pool.num_free
+                + eng.pool.num_cached == total)
     assert max_in_flight <= 2
     _eq(eng.results, want)
-    assert eng.pool.num_live == 0 and eng.pool.num_free == total
+    assert eng.pool.num_live == 0
+    assert eng.pool.num_free + eng.pool.num_cached == total
     # retired slots point at the sink
     assert int(eng.caches["tbl"].abs().sum()) == 0
 
@@ -328,13 +332,34 @@ def test_submit_validates_capacity(carried):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("speculative", True), ("max_queue", 4),
-    ("fault_tolerant", True), ("tp", 2)])
+    ("speculative", True), ("max_queue", 4), ("fault_tolerant", True),
+    ("tp", 2)])
 def test_unported_features_raise(carried, field, value):
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
         PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+
+
+def test_prefix_cache_is_ported(carried):
+    """The former ``prefix_cache`` case of ``test_unported_features_raise``:
+    asking for the prefix cache no longer raises. It is on by default and
+    runs on the paged engine: a repeated prompt hits and gives its first
+    run's tokens."""
+    cfg, _, _, _, tp, _ = carried
+    assert PS.SchedulerConfig().prefix_cache
+    eng = PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"),
+                         PS.SchedulerConfig(num_slots=2, max_len=32,
+                                            prefill_chunk=4, paged=True,
+                                            kv_block_size=4))
+    assert eng.prefix_enabled and not eng.gating_reasons
+    p = _prompt(cfg, 9)
+    first = eng.run([PS.Request(uid=0, prompt=p, max_new=4,
+                                temperature=0.0)])[0]
+    again = eng.run([PS.Request(uid=1, prompt=p, max_new=4,
+                                temperature=0.0)])[1]
+    np.testing.assert_array_equal(first, again)
+    assert eng.prefix_hits == 1 and eng.prefix_skipped_tokens == 8
 
 
 @pytest.mark.parametrize("field,value,gated", [
@@ -346,13 +371,14 @@ def test_drift_and_recalibrate_gate_without_device_state(carried, field,
     drift clock is inert (``gating_reasons["drift"]``), and without a
     running clock so is the watchdog (``["recalibrate"]``); the engine
     serves as without them. ``tests/test_torch_devices_engine.py`` holds
-    both running."""
+    both running. The engine is not paged, so the prefix cache, on by
+    default, is gated too (as the reference's)."""
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(num_slots=2, max_len=32,
                                                   prefill_chunk=8),
                                **{field: value})
     eng = PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
-    assert set(eng.gating_reasons) == gated
+    assert set(eng.gating_reasons) == gated | {"prefix_cache"}
     assert not eng.drift_enabled and not eng.recal_enabled
     out = eng.run([PS.Request(uid=0, prompt=_prompt(cfg, 5), max_new=4,
                               temperature=0.0)])
@@ -386,17 +412,16 @@ def test_unported_lifecycle_and_families_raise(carried):
                            match="continuous batching is not wired"):
             PS.ServeEngine(tp, get_config(arch).reduce(), acfg)
     # the port keeps the reference's field names, in its order, less the
-    # fields that only tune features not ported; the defaults differ only
-    # where a feature is not ported
+    # fields that only tune the drafter, not ported; the defaults differ
+    # only where a feature is not ported
     ours, theirs = PS.SchedulerConfig(), RS.SchedulerConfig()
     names = [f.name for f in dataclasses.fields(ours)]
-    tuning = {"cache_salt", "state_snapshots", "draft_k", "draft",
-              "draft_layers"}
+    tuning = {"draft_k", "draft", "draft_layers"}
     assert names == [f.name for f in dataclasses.fields(theirs)
                      if f.name not in tuning]
-    assert theirs.prefix_cache and not ours.prefix_cache
-    for name in ("drift_dt", "recalibrate", "recal_interval",
-                 "recal_threshold"):
+    assert ours.prefix_cache == theirs.prefix_cache
+    for name in ("cache_salt", "state_snapshots", "drift_dt", "recalibrate",
+                 "recal_interval", "recal_threshold"):
         assert getattr(ours, name) == getattr(theirs, name)
 
 
