@@ -43,7 +43,13 @@ Phases, in order; any failure exits non-zero:
                it); analog_matmul as the main path calls it (bound folded),
                with the explicit bound, the ``adc_bound`` pass the fold
                replaced, and the flip rate with the tensor cores carrying
-               the whole K sum (no promotion).
+               the whole K sum (no promotion). Phase 21's rows too:
+               llama-3.2-1b's verify windows (M = 16, 24, 40), the chunk
+               forward's LM head on the last position (M = 2), and the int4
+               drafter's prompt prefills (int4_matmul at each padded prompt
+               of phase 20's workload, its head at M = 1; parity and the
+               kernel's time). 10 calls x 3 rounds a timing (3 x 3 at the
+               eval's largest shapes).
 3. analog   -- full-width llama-3.2-1b (16 layers, random weights from a
                seed) deployed ``analog_hw`` with ``use_pallas=True`` serves 4
                prompts of 32 tokens for 16 greedy tokens; every projection
@@ -64,7 +70,13 @@ Phases, in order; any failure exits non-zero:
                ``scaled_dot_product_attention`` (yardstick only) and the
                card's bound, with the kernel's plan (warps of a thread
                block, query tile, lanes of a warp, keys per warp iteration
-               and per lane, pool blocks in flight).
+               and per lane, pool blocks in flight). Then
+               ``paged_flash_prefill`` at phase 21's verify windows (S = 2,
+               3, 5 columns over 8 rows, cursors odd and crossing a block)
+               at llama-3.2-1b's and qwen3-moe-30b-a3b's heads on the three
+               pools, against the plain version, and the verify seam
+               (each column against ``paged_flash_decode`` at its cursor:
+               largest difference, bitwise columns; reported, not gated).
 6. ssd      -- ``ssd_scan`` at mamba2-130m's shapes (H 24, P 64, N 128,
                G 1; strided views of one projection, as the mixer hands them
                over): the engine's chunk (2 rows x 32 tokens from a nonzero
@@ -234,7 +246,7 @@ Phases, in order; any failure exits non-zero:
 20. prefix  -- the radix prefix cache (on by default in every engine
                above): 16 greedy requests in 4 groups, each group sharing
                a 256-token system prompt, each request its own suffix of
-               32-224 tokens and 16-64 new tokens, through phase 8's
+               32-224 tokens and 16-40 new tokens, through phase 8's
                geometry (8 slots, chunk 32, block 16; the pool sized to
                keep every prompt block). (a) full-width llama-3.2-1b,
                ``analog_hw`` + ``use_pallas=True``: cold (no cache), then
@@ -259,6 +271,33 @@ Phases, in order; any failure exits non-zero:
                fork-aware ``sample_candidates`` against the independent
                path.
 
+21. spec    -- speculative decoding on phase 20's workload and geometry
+               (k = 4), each engine's prefix cache primed by the first
+               prompt of each group: (a) full-width llama-3.2-1b ``fp``
+               non-speculative and with the ngram, self and int4 drafters,
+               ``analog_hw`` + ``use_pallas=True`` non-speculative and with
+               the ngram and int4 drafters. Gates: every request's tokens
+               equal the non-speculative run's bit for bit, or, re-run
+               with its forwards recorded (the re-run must give the run's
+               tokens), its first differing token is explained: ``fp`` at
+               a top-2 near-tie of the logits, ``analog_hw`` by phase 16's
+               causal rule (the first differing site output of the row has
+               inputs within SITE_INPUT_TOL and differs only by ADC levels
+               at near-ties); the self drafter accepts at least 0.99 of its
+               proposals in ``fp``, each rejection at a near-tie; every
+               kernel launched as the engine's counters say, every MVM
+               launch at a shape phase 2 held; no ``RewindError``, blocks
+               conserved, no indexed block rewritten, no cache leaf
+               replaced. It prints tokens/s, acceptance, windows, tokens a
+               row and window and forwards by kind of each run, and the
+               ``[8, 5]`` verify forward's and the int4 draft forward's host
+               and device ms (graph replay). (b) reduced llama,
+               qwen3-moe (no-drop capacity), mamba2-130m and jamba in mode
+               off, paged at block 4 and contiguous, card against CPU:
+               ngram, self, int4, an all-reject ``draft_fn`` and a stop
+               token inside a window give equal tokens and spec counters,
+               equal to non-speculative; mamba2 and jamba gated.
+
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
 """
@@ -266,6 +305,7 @@ as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -554,10 +594,12 @@ DEVICE_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
 # 4 greedy requests; a group shares a 256-token system prompt, each request
 # adds its own suffix of 32-224 tokens (a multiple of the chunk, so a
 # group's prompts share their left-pad count and with it their chain keys)
-# and asks for 16-64 new tokens
+# and asks for 16-40 new tokens (cut from 16-64 so that the script,
+# which runs this workload in phases 20 and 21, keeps inside its time
+# limit)
 PREFIX_GROUPS, PREFIX_PER_GROUP, PREFIX_SYSTEM = 4, 4, 256
 PREFIX_SUFFIX_CHUNKS = (1, 7)
-PREFIX_NEW = (16, 64)
+PREFIX_NEW = (16, 40)
 PREFIX_WARM_UID = 1000
 PREFIX_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
 #: the engine counters each phase-20 run reads as deltas
@@ -565,6 +607,30 @@ PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
                    "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
                    "prefix_skipped_tokens", "prefix_cow_copies",
                    "state_snaps_captured", "state_snap_restores")
+
+# phase 21: speculative decoding on the continuous engine, phase 20's
+# workload and geometry with draft_k = SPEC_K: the fp deployment
+# non-speculative and with each drafter, analog_hw (use_pallas=True) with
+# the ngram and int4 drafters; the self drafter in fp must accept at least
+# SPEC_SELF_ACCEPT of its proposals. A verify window runs 8 slots x (k + 1)
+# columns, k in 1, 2, 4 as the window's clipping gives it (k = 0 is a
+# decode step): the MVM rows M_VERIFY and the prefill kernel's chunks
+# SPEC_CHUNKS (phase 5 holds it there at odd cursors that cross a block,
+# at llama's and qwen3-moe's heads). The reduced models are held card
+# against CPU in mode off, paged at block 4 and contiguous.
+SPEC_K = 4
+SPEC_FP_DRAFTS = ("ngram", "self", "int4")
+SPEC_HW_DRAFTS = ("ngram", "int4")
+SPEC_SELF_ACCEPT = 0.99
+SPEC_WINDOWS = (1, 2, SPEC_K)
+M_VERIFY = tuple(ENGINE_SLOTS * (k + 1) for k in SPEC_WINDOWS)
+SPEC_CHUNKS = tuple(k + 1 for k in SPEC_WINDOWS)
+SPEC_PAGED = ((ARCH, LLAMA_PAGED), (MOE, MOE_PAGED))
+SPEC_REDUCED = (ARCH, MOE, MAMBA, JAMBA)
+#: the engine counters each phase-21 run reads as deltas
+SPEC_COUNTERS = PREFIX_COUNTERS + ("mixed_steps", "spec_steps",
+                                   "spec_proposed", "spec_accepted",
+                                   "draft_forwards")
 
 
 class SmokeFailure(RuntimeError):
@@ -709,9 +775,11 @@ def graph_ms(torch, fn, reps: int = 5, rounds: int = 3) -> float:
 
 
 def timing_reps(m: int, k: int, n: int) -> dict:
-    """Calls per round and rounds of a kernel timing: fewer for the eval
-    forward's largest shapes, whose calls take milliseconds each."""
-    return dict(reps=20, rounds=5) if m * k * n < 5e10 else dict(reps=5,
+    """Calls per round and rounds of a phase-2 timing: fewer for the eval
+    forward's largest shapes, whose calls take milliseconds each (cut
+    from 20 x 5 and 5 x 3 to keep the script inside its time limit; the
+    parity checks do not depend on them)."""
+    return dict(reps=10, rounds=3) if m * k * n < 5e10 else dict(reps=3,
                                                                   rounds=3)
 
 
@@ -868,8 +936,9 @@ def analog_case(torch, gen, m, k, n, with_off: bool,
             "max_abs_err": max_err}
 
 
-def int4_case(torch, gen, m, k, n) -> dict:
-    """One int4_matmul shape: parity against the plain version, times."""
+def int4_case(torch, gen, m, k, n, timed: bool = True) -> dict:
+    """One int4_matmul shape: parity against the plain version, times
+    (without ``timed`` the kernel's device time alone)."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import int4_matmul as k4
 
@@ -901,13 +970,19 @@ def int4_case(torch, gen, m, k, n) -> dict:
 
     reps = timing_reps(m, k, n)
     ms = device_ms(torch, kernel, copies, **reps)
+    nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
+    if not timed:
+        return {"M": m, "K": k, "N": n, "ms": ms,
+                **mvm_bounds(nbytes, m, k, n, plan.mapping),
+                "mapping": plan.mapping, "splits": plan.splits,
+                "max_abs_err": float(diff.max()),
+                "max_err_over_bound": err_ratio}
     wall = cuda_time_ms(torch, kernel, copies, **reps)
     plain = device_ms(torch, lambda i: ref.int4_matmul_ref(
         x, packs[i], scales[i]), copies, reps=5, rounds=3)
     w_mm = [torch.randn((k, n), generator=gen, device=dev)
             for _ in range(n_copies(4 * k * n))]
     mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm), **reps)
-    nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
     return {"M": m, "K": k, "N": n, "ms": ms, "wall_ms": wall,
             "plain_ms": plain, "matmul_ms": mm,
             **mvm_bounds(nbytes, m, k, n, plan.mapping),
@@ -1025,6 +1100,8 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(ARCH, SITES, m, False, True) for m in (M_EVAL,
                                                        M_INDUCTION)]
             + [(ARCH, SITES, M_BON_CHUNK, False, False)]
+            + [(ARCH, SITES, m, False, False) for m in M_VERIFY
+               if m != M_BON_CHUNK]
             + [(ARCH, SITES, M_TRAIN, False, False)]
             + [(PHI3, PHI3_SITES, m, True, True) for m in (M_DECODE,
                                                            M_PREFILL)]
@@ -1049,6 +1126,25 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
             + [(INTERNVL, INTERNVL_PROJECTOR, M_PROJECTOR, False, True)]
             + [(MUSICGEN, MUSICGEN_SITES, m, False, True) for m in (
                 M_DECODE, M_PREFILL)])
+
+
+def draft_prefill_rows() -> list:
+    """The rows of the int4 drafter's prompt prefills in phase 21: one
+    whole padded prompt of phase 20's workload each (``int4_matmul`` only;
+    phase 2 holds the kernel there), its LM head on the last position
+    alone."""
+    from repro_torch.serve.scheduler import padded_prompt_len
+
+    return sorted({padded_prompt_len(len(r.prompt), ENGINE_CHUNK)
+                   for r in prefix_requests(model_config(ARCH))})
+
+
+#: the LM head of a chunk forward and of the drafter's prompt prefill runs
+#: on the last position of each row only (``last_only``): analog_matmul at
+#: the chunk forward's PREFILL_ROWS rows, int4_matmul at 1 row
+HEAD_ROWS = [("analog_matmul", PREFILL_ROWS), ("int4_matmul", 1)]
+
+
 #: the batched expert sites of phase 2: (arch, experts, sites, the rows per
 #: expert that its forwards give them, the rows that digital_int4 runs,
 #: whether the launch is the training forward's on noisy weights)
@@ -1106,6 +1202,32 @@ def phase_kernels(torch) -> dict:
                   f"{r['mma_bound_ms']:.4f}), err/bound "
                   f"{r['max_err_over_bound']:.2e}")
         torch.cuda.empty_cache()
+    # the int4 drafter's prompt prefills (phase 21) and the LM head's rows
+    # under last_only: parity and the kernel's time
+    head = [s for s in SITES if s[0] == "lm_head"]
+    runs = [(m, site) for m in draft_prefill_rows() for site in SITES
+            if site[0] != "lm_head"]
+    for kernel, m in HEAD_ROWS:
+        site, k, n, _ = head[0]
+        if kernel == "analog_matmul":
+            r = analog_case(torch, gen, m, k, n, False)
+            r["site"], r["arch"], r["partial"] = site, ARCH, True
+            rows["analog_matmul"].append(r)
+            print(f"  analog_matmul {ARCH} {site:8s} M={m:4d} {k}->{n} "
+                  f"last position, {r['mapping']} x{r['splits']}: "
+                  f"{r['ms']:.4f} ms, flips {r['flips']} of "
+                  f"{r['parity_outputs']}")
+        else:
+            runs.append((m, head[0]))
+    for m, (site, k, n, _) in runs:
+        r = int4_case(torch, gen, m, k, n, timed=False)
+        r["site"], r["arch"], r["partial"] = site, ARCH, True
+        rows["int4_matmul"].append(r)
+        print(f"  int4_matmul   {ARCH} {site:8s} M={m:4d} {k}->{n} "
+              f"draft prefill, {r['mapping']} x{r['splits']}: "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}), err/bound {r['max_err_over_bound']:.2e}")
+    torch.cuda.empty_cache()
     for arch, e, sites, m_rows, int4_rows, noisy in EXPERT_RUNS:
         for site, k, n, _ in sites:
             for m in m_rows:
@@ -1153,10 +1275,11 @@ TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
 def forward_totals(cases: list) -> list:
     """(arch, M, {key: total over the sites of one forward}) for every
     (arch, M) of phase 2, without col_off (which only phase 19's ageing
-    chip adds)."""
+    chip adds) and without the rows of part of a forward (phase 21's
+    drafter prefills and LM heads on the last position)."""
     out = {}
     for r in cases:
-        if r.get("col_off"):
+        if r.get("col_off") or r.get("partial"):
             continue
         tot = out.setdefault((r["arch"], r["M"]), {})
         for key in TOTAL_KEYS:
@@ -1331,6 +1454,56 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
             "plan": plan_dict(plan, bs)}
 
 
+def verify_case(torch, gen, s: int, dtype: str, heads) -> dict:
+    """``paged_flash_prefill`` at a verify window of ``s`` columns over the
+    engine's 8 slots at ``heads`` = (H, KV, hd, block): every row's cursor
+    odd, and its window crossing a block boundary (``pos = 16 j - 1``, at
+    contexts of 320 to 656). Held against the plain version at PAGED_TOL
+    (the gate), then the verify seam, reported and not gated: each column
+    against ``paged_flash_decode`` at cursor ``pos + i`` (one split, the
+    decode steps the window replaces), its largest difference and whether
+    it is bitwise. The kernel's device time on one pool (warm L2)."""
+    from repro_torch.kernels import paged_attention as kd
+    from repro_torch.kernels import paged_prefill as kp_
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    nq, nkv, hd, bs = heads
+    rows = DECODE_ROWS
+    start = torch.randint(0, 4 * bs, (rows,), generator=gen, device=dev)
+    pos = bs * (20 + 3 * torch.arange(rows, device=dev)) - 1
+    nb = -(-int(pos.max() + s) // bs)
+    npool = 1 + rows * nb
+    perm = torch.randperm(npool - 1, generator=gen, device=dev) + 1
+    tbl = perm.reshape(rows, nb).to(torch.int32).contiguous()
+    pos, start = (t.to(torch.int32).contiguous() for t in (pos, start))
+    kp, vp, ks, vs = paged_pool(torch, gen, npool, dtype, heads)
+    q = torch.randn((rows, s, nq, hd), generator=gen, device=dev)
+    scale = hd ** -0.5
+    out = kp_.paged_flash_prefill(q, kp, vp, tbl, pos, start, scale=scale,
+                                  k_scale=ks, v_scale=vs)
+    want = ref.paged_prefill_ref(q, kp, vp, tbl, pos, start, scale, ks, vs)
+    torch.cuda.synchronize()
+    name = f"verify S={s} H{nq} KV{nkv} hd{hd} {dtype}"
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = (out - want).abs()
+    check(bool((err <= PAGED_TOL * (1 + want.abs())).all()),
+          f"{name}: differs from the plain version by {float(err.max()):.3e}")
+    seam, bitwise = 0.0, 0
+    for i in range(s):
+        dec = kd.paged_flash_decode(q[:, i].contiguous(), kp, vp, tbl,
+                                    pos + i, start, scale=scale, k_scale=ks,
+                                    v_scale=vs, num_splits=1)
+        seam = max(seam, float((out[:, i] - dec).abs().max()))
+        bitwise += bool(torch.equal(out[:, i], dec))
+    ms = device_ms(torch, lambda i: kp_.paged_flash_prefill(
+        q, kp, vp, tbl, pos, start, scale=scale, k_scale=ks, v_scale=vs), 1)
+    return {"kind": "verify", "heads": list(heads), "dtype": dtype,
+            "chunk": s, "rows": rows, "ms": ms,
+            "max_abs_err": float(err.max()), "seam_max_abs": seam,
+            "seam_bitwise_columns": bitwise}
+
+
 def plan_dict(plan, bs: int) -> dict:
     """A paged kernel's plan as its design parameters: warps of a thread
     block, query vectors of its tile, the lanes of a warp (tile x key
@@ -1375,6 +1548,20 @@ def phase_paged(torch) -> dict:
                       f", {pl['keys_per_warp_iteration']} keys per warp "
                       f"iteration ({pl['keys_per_lane']} a lane), "
                       f"{pl['stages']} stages")
+                torch.cuda.empty_cache()
+    # the verify windows of phase 21 (chunks of 2, 3 and 5 columns)
+    for arch, heads in SPEC_PAGED:
+        for dtype in POOL_DTYPES:
+            for s in SPEC_CHUNKS:
+                r = verify_case(torch, gen, s, dtype, heads)
+                r["arch"] = arch
+                rows["paged_flash_prefill"].append(r)
+                print(f"  verify  {arch} H{heads[0]} KV{heads[1]} "
+                      f"hd{heads[2]} S={s} {dtype:4s} odd cursors across a "
+                      f"block: {r['ms']:.4f} ms (warm L2), max err "
+                      f"{r['max_abs_err']:.2e}; seam against {s} decode "
+                      f"steps: max |d| {r['seam_max_abs']:.2e}, "
+                      f"{r['seam_bitwise_columns']} of {s} columns bitwise")
                 torch.cuda.empty_cache()
     return rows
 
@@ -5197,7 +5384,8 @@ def prefix_engine(torch, cfg, p, acfg, tag: str, mvm: str) -> dict:
           f"{cold['tokens_per_s']:.1f} / {prime['tokens_per_s']:.1f} / "
           f"{warm['tokens_per_s']:.1f} (cold / prime / warm); KV pool "
           f"{pool_gb:.2f} GB, snapshot pool {snap_gb:.2f} GB; pools {pools}")
-    out = {"pools": pools, "snapshot_gb": snap_gb, "kv_pool_gb": pool_gb}
+    out = {"pools": pools, "snapshot_gb": snap_gb, "kv_pool_gb": pool_gb,
+           "tokens": {u: v.tolist() for u, v in cold["out"].items()}}
     for name, r in (("cold", cold), ("prime", prime), ("warm", warm)):
         out[name] = {k: v for k, v in r.items() if k != "out"}
     del eng
@@ -5344,6 +5532,758 @@ def phase_prefix(torch) -> dict:
                       for arch in PREFIX_REDUCED}
     return out
 
+# ---------------------------------------------------------------------------
+# phase 21: speculative decoding
+# ---------------------------------------------------------------------------
+
+#: uid offset of the requests that prime a phase-21 engine's prefix cache
+SPEC_PRIME_UID = 2000
+
+
+@contextlib.contextmanager
+def mvm_rows(seen: dict):
+    """Inside the block the shape ``(M, K, N)`` of every 2-D MVM launch is
+    added to ``seen[kernel name]``."""
+    from repro_torch.kernels import dispatch
+
+    names = ("analog_matmul", "int4_matmul")
+    real = {n: getattr(dispatch, n) for n in names}
+
+    def wrap(name):
+        def call(x, w, *a, **k):
+            if x.dim() == 2:
+                n = w.shape[-1] * (2 if name == "int4_matmul" else 1)
+                seen.setdefault(name, set()).add(
+                    (int(x.shape[0]), int(x.shape[1]), int(n)))
+            return real[name](x, w, *a, **k)
+        return call
+
+    for n in names:
+        setattr(dispatch, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(dispatch, n, real[n])
+
+
+@contextlib.contextmanager
+def spec_recorded(torch, eng, log: list, sites: bool):
+    """Inside the block every target forward of ``eng`` that scores
+    generated tokens (a decode step, a mixed step's decode substep, a
+    verify window; not a prompt chunk and not the drafter) appends a
+    record to ``log``: each row's uid (None: not decoding), its first
+    position ``off`` and its mask [B, S], and the logits [B, S, V]
+    (without ``sites``) or every analog site call's ``(p, x, y)``
+    (with)."""
+    from repro_torch.core import analog as A
+    from repro_torch.serve import decode as D
+    from repro_torch.serve import scheduler as S
+
+    reals = {D: D.model_apply, S: S.model_apply}
+    cur = {"rec": None}
+    real_site = A.analog_linear
+
+    def make(real):
+        def spy(params, cfg, acfg, ctx, inputs, **kw):
+            if (params is not eng.params or kw.get("last_only")
+                    or kw.get("caches") is eng.draft_caches):
+                return real(params, cfg, acfg, ctx, inputs, **kw)
+            rec = {"uids": [s.req.uid if s is not None and not s.prefilling
+                            else None for s in eng.slots],
+                   "off": kw["pos_offset"].reshape(-1).clone(),
+                   "mask": kw["seq_mask"].clone(), "sites": []}
+            cur["rec"] = rec if sites else None
+            try:
+                out = real(params, cfg, acfg, ctx, inputs, **kw)
+            finally:
+                cur["rec"] = None
+            if not sites:
+                rec["logits"] = out[0].clone()
+            log.append(rec)
+            return out
+        return spy
+
+    def site_spy(p, x, acfg, ctx):
+        y, st = real_site(p, x, acfg, ctx)
+        if cur["rec"] is not None:
+            cur["rec"]["sites"].append((p, x.detach().clone(),
+                                        y.detach().clone()))
+        return y, st
+
+    for mod, real in reals.items():
+        mod.model_apply = make(real)
+    try:
+        if sites:
+            with sites_replaced(site_spy):
+                yield
+        else:
+            yield
+    finally:
+        for mod, real in reals.items():
+            mod.model_apply = real
+
+
+def spec_positions(log: list) -> dict:
+    """``(uid, position) -> (record, row, column)`` of the last recorded
+    forward that scored the position (a window's rejected columns are
+    scored again by a later one; its kept columns never are)."""
+    out = {}
+    for i, rec in enumerate(log):
+        off = rec["off"].tolist()
+        mask = rec["mask"].cpu()
+        for b, uid in enumerate(rec["uids"]):
+            if uid is None:
+                continue
+            for c in range(mask.shape[1]):
+                if mask[b, c] > 0:
+                    out[uid, int(off[b]) + c] = (i, b, c)
+    return out
+
+
+def spec_logit_tie(torch, req, t: int, base: tuple, spec: tuple,
+                   what: str) -> dict:
+    """The fp rule for a request whose token ``t`` parts: at the position
+    that produced it, the two runs' logits differ by at most fp32 rounding
+    (``SITE_INPUT_TOL * (1 + |logit|)``), and the non-speculative top-2
+    gap is at most twice their largest difference."""
+    q = len(req.prompt) - 1 + t
+    where = []
+    for log, pos in (base, spec):
+        check(t >= 1 and (req.uid, q) in pos, f"{what}: request {req.uid} "
+              f"parts at token {t}, which no recorded forward scored")
+        i, b, c = pos[req.uid, q]
+        where.append(log[i]["logits"][b, c].float())
+    lb, ls = where
+    d = (ls - lb).abs()
+    check(bool((d <= SITE_INPUT_TOL * (1 + lb.abs())).all()),
+          f"{what}: request {req.uid} token {t}: logits differ by "
+          f"{float(d.max()):.3e}, beyond fp32 rounding")
+    top = torch.topk(lb, 2).values
+    gap = float(top[0] - top[1])
+    check(gap <= 2 * float(d.max()), f"{what}: request {req.uid} token {t} "
+          f"parts with a top-2 gap {gap:.3e} above twice the runs' "
+          f"difference {float(d.max()):.3e}")
+    return {"uid": req.uid, "token": t, "top2_gap": gap,
+            "max_dlogit": float(d.max())}
+
+
+@contextlib.contextmanager
+def spec_self_ties(torch, ties: list):
+    """Inside the block every rejected proposal of a model drafter must be
+    a near-tie: for a row whose window accepts ``i < k`` drafts, the
+    drafter's logits of step ``i`` (the draw ``d_{i+1}``) and the window's
+    column ``i`` (the same input token at the same position) differ by at
+    most fp32 rounding, ``SITE_INPUT_TOL * (1 + |logit|)``, and the
+    window's top-2 gap there is at most twice their largest difference
+    (greedy rows). Each rejection's gap and difference go to ``ties``."""
+    from repro_torch.serve import scheduler as S
+
+    real_fwd, real_verify = S.ServeEngine._draft_forward, S.ServeEngine._verify
+    real_sv = S.speculative_verify
+    state = {"draft": [], "rows": None}
+
+    def fwd(self, toks, off, active):
+        logits = real_fwd(self, toks, off, active)
+        state["draft"].append(logits)
+        return logits
+
+    def verify(self, decode_rows, drafts):
+        state["rows"] = decode_rows
+        try:
+            return real_verify(self, decode_rows, drafts)
+        finally:
+            state["draft"], state["rows"] = [], None
+
+    def sv(logits, drafts, *a, **k):
+        target, n_acc = real_sv(logits, drafts, *a, **k)
+        kk = drafts.shape[0]
+        if state["rows"] is not None and kk:
+            steps = state["draft"][-(kk + 1):]
+            acc = n_acc.cpu()
+            for b in state["rows"]:
+                i = int(acc[b])
+                if i == kk:
+                    continue
+                ld, lv = steps[i][b].float(), logits[b, i].float()
+                d = (ld - lv).abs()
+                gap = torch.topk(lv, 2).values
+                gap = float(gap[0] - gap[1])
+                check(bool((d <= SITE_INPUT_TOL * (1 + lv.abs())).all())
+                      and gap <= 2 * float(d.max()), f"a rejected proposal "
+                      f"is no near-tie: top-2 gap {gap:.3e}, logits apart by "
+                      f"{float(d.max()):.3e}")
+                ties.append({"top2_gap": gap, "max_dlogit": float(d.max())})
+        return target, n_acc
+
+    S.ServeEngine._draft_forward, S.ServeEngine._verify = fwd, verify
+    S.speculative_verify = sv
+    try:
+        yield
+    finally:
+        S.ServeEngine._draft_forward = real_fwd
+        S.ServeEngine._verify = real_verify
+        S.speculative_verify = real_sv
+
+
+def spec_site_flips(torch, p, xa, xb, ya, yb, acfg, what: str) -> int:
+    """:func:`adc_mismatches` for inputs that may differ by fp32 rounding:
+    each mismatch of ``ya`` against ``yb`` must be one ADC level at a
+    near-tie of ``xb``'s pre-ADC value, the tie's reach the fp32 dot error
+    bound plus what the two inputs' DAC codes move it,
+    ``|x_qa - x_qb| . |w|``. Returns their count."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+
+    qo = ref.qmax(acfg.output_bits)
+    w = p["kernel"].float()
+    beta = p["input_range"].reshape(()).float()
+    k = w.shape[-2]
+    qa, qb = (quant.input_quantize(v.float().reshape(-1, k), beta,
+                                   acfg.input_bits) for v in (xa, xb))
+    b = torch.clamp_min(ref.adc_bound(w, beta, acfg.out_bound), 1e-8)
+    inv = ref.rdiv(qo, b) * ref.ADC_TIE_BREAK
+    v = (qb @ w) * inv
+    reach = (k * U32 * (qb.abs() @ w.abs()) + (qa - qb).abs() @ w.abs()) * inv
+    diff = (ya - yb).reshape(v.shape).abs()
+    lsb = ref.div(b, qo).expand_as(diff)
+    bad = diff != 0
+    n_bad = int(bad.sum())
+    if n_bad:
+        level = ((diff[bad] - lsb[bad]).abs() / lsb[bad]).max()
+        tie = (v[bad] - torch.floor(v[bad]) - 0.5).abs()
+        check(float(level) < 1e-3 and bool((tie <= reach[bad]).all()),
+              f"{what} mismatch is not one ADC level at a near-tie")
+    return n_bad
+
+
+def spec_site_origin(torch, cfg, acfg, req, t: int, base: tuple,
+                     spec: tuple, what: str) -> dict:
+    """The analog_hw rule (phase 16's causal rule across the two runs) for
+    a request whose token ``t`` parts: walking its generated positions up
+    to the one that produced ``t``, site by site in call order, the first
+    site output of the row that differs must have inputs within
+    SITE_INPUT_TOL (the verify window scores attention on the prefill
+    kernel, a decode step on the decode kernel) and differ only by ADC
+    levels at near-ties (:func:`spec_site_flips`)."""
+    n_sites = mvm_sites(cfg)
+    plen = len(req.prompt)
+    check(t >= 1, f"{what}: request {req.uid} parts at its first token, "
+          f"which both runs score in the same prompt chunk")
+    for q in range(plen, plen + t):
+        recs = []
+        for log, pos in (spec, base):
+            check((req.uid, q) in pos, f"{what}: request {req.uid} position "
+                  f"{q} not recorded")
+            i, b, c = pos[req.uid, q]
+            rec = log[i]
+            check(len(rec["sites"]) == n_sites, f"{what}: "
+                  f"{len(rec['sites'])} site calls recorded in a forward")
+            recs.append((rec, b, c))
+        for s in range(n_sites):
+            rows = []
+            for rec, b, c in recs:
+                p, x, y = rec["sites"][s]
+                bsz, cols = rec["mask"].shape
+                rows.append((p, x.reshape(bsz, cols, -1)[b, c],
+                             y.reshape(bsz, cols, -1)[b, c]))
+            (p, xa, ya), (_, xb, yb) = rows
+            if torch.equal(ya, yb):
+                continue
+            dx = (xa - xb).abs()
+            check(bool((dx <= SITE_INPUT_TOL * (1 + xb.abs())).all()),
+                  f"{what}: request {req.uid} position {q} site {s}: its "
+                  f"inputs differ by {float(dx.max()):.3e} before any site "
+                  f"output of the row did")
+            flips = spec_site_flips(torch, p, xa, xb, ya, yb, acfg,
+                                    f"{what}: request {req.uid} origin")
+            return {"uid": req.uid, "token": t, "position": q, "site": s,
+                    "flips": flips, "max_dx": float(dx.max())}
+    check(False, f"{what}: request {req.uid}'s token {t} differs with no "
+          f"site output of the row apart before it")
+
+
+def spec_scfg(torch, reqs, draft):
+    """Phase 20's engine with the prefix cache on and, for a ``draft``,
+    speculative windows of SPEC_K proposals."""
+    from repro_torch.serve.scheduler import (SchedulerConfig,
+                                             padded_prompt_len,
+                                             required_max_len)
+
+    max_len = max(required_max_len(len(r.prompt), r.max_new, ENGINE_CHUNK)
+                  for r in reqs)
+    prompt_blocks = sum(-(-padded_prompt_len(len(r.prompt), ENGINE_CHUNK)
+                          // PAGED_BS) for r in reqs)
+    return SchedulerConfig(
+        num_slots=ENGINE_SLOTS, max_len=max_len, prefill_chunk=ENGINE_CHUNK,
+        cache_dtype=torch.bfloat16, paged=True, kv_block_size=PAGED_BS,
+        kv_blocks=ENGINE_SLOTS * -(-max_len // PAGED_BS) + prompt_blocks,
+        speculative=draft is not None, draft=draft or "int4",
+        draft_k=SPEC_K)
+
+
+def spec_pass(torch, eng, reqs, tag: str, mvm, seen: dict) -> dict:
+    """Serve ``reqs`` on ``eng`` (every launch count set to 0 right before,
+    read right after): each request finishes with its budget, and each
+    kernel launched as the engine's counters say: the target's MVM kernel
+    at every site of its decode steps, windows and chunks, the int4
+    drafter's at every site of the drafter's forwards, the decode kernel
+    at every decode step that is no window, the prefill kernel at every
+    chunk forward and window."""
+    from repro_torch.serve.kv_pool import RewindError
+
+    cfg = eng.cfg
+    before = {k: getattr(eng, k) for k in SPEC_COUNTERS}
+    rows = {"rows": 0}
+    real_commit = eng._spec_commit
+
+    def commit(p):
+        if p["k"]:
+            rows["rows"] += len(p["decode_rows"])
+        real_commit(p)
+
+    eng._spec_commit = commit
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    try:
+        with mvm_rows(seen):
+            results = eng.run(reqs)
+        torch.cuda.synchronize()
+    except RewindError as e:
+        check(False, f"{tag}: {e}")
+    finally:
+        eng._spec_commit = real_commit
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    d = {k: getattr(eng, k) - before[k] for k in SPEC_COUNTERS}
+    for r in reqs:
+        out = results[r.uid]
+        check(eng.status[r.uid] == "finished" and len(out) == r.max_new
+              and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+              f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
+              f"{len(out)}/{r.max_new} tokens")
+    want = collections.Counter()
+    if mvm:
+        want[mvm] += mvm_sites(cfg) * (d["decode_steps"]
+                                       + d["prefill_forwards"])
+    if eng.draft_acfg is not None and eng.draft_acfg.int4_serve:
+        want["int4_matmul"] += mvm_sites(eng.draft_cfg) * d["draft_forwards"]
+    want["paged_flash_decode"] += attn_layers(cfg) * (d["decode_steps"]
+                                                      - d["spec_steps"])
+    want["paged_flash_prefill"] += attn_layers(cfg) * (
+        d["prefill_forwards"] + d["spec_steps"])
+    want = {k: v for k, v in want.items() if v}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    tokens = sum(r.max_new for r in reqs)
+    windows = d["spec_steps"]
+    res = {"run_s": run_s, "tokens": tokens, "tokens_per_s": tokens / run_s,
+           "launches": launches, **d,
+           "acceptance": d["spec_accepted"] / max(1, d["spec_proposed"]),
+           "tokens_per_row_window": ((d["spec_accepted"] + rows["rows"])
+                                     / max(1, rows["rows"])),
+           "forwards": {"draft": d["draft_forwards"], "verify": windows,
+                        "decode": d["decode_steps"] - windows,
+                        "chunk": d["prefill_forwards"]},
+           "out": {r.uid: results[r.uid] for r in reqs}}
+    return res
+
+
+def spec_leaders(reqs) -> list:
+    """The priming pass of a phase-21 engine: the workload's first request
+    of each group, asking for its first token only (its prompt is indexed
+    at the flip; the first token is sampled in the prompt's last chunk,
+    so no window runs)."""
+    return [dataclasses.replace(r, uid=r.uid + SPEC_PRIME_UID, max_new=1)
+            for r in reqs[:PREFIX_GROUPS]]
+
+
+def spec_engine(torch, cfg, p, acfg, reqs, draft, mvm, tag: str,
+                seen: dict) -> dict:
+    """One phase-21 run: an engine (``draft`` None: not speculative) whose
+    prefix cache is primed (:func:`spec_leaders`), then the workload.
+    Gates: the primed first tokens equal the workload's, every request
+    hits, the pool conserved, no indexed block rewritten, no cache leaf
+    replaced (phase 20's), no ``RewindError``."""
+    from repro_torch.serve.scheduler import ServeEngine
+
+    eng = ServeEngine(p, cfg, acfg, spec_scfg(torch, reqs, draft))
+    check(eng.spec_enabled == (draft is not None), f"{tag}: spec_enabled "
+          f"{eng.spec_enabled}")
+    ptrs = leaf_ptrs(eng)
+    prime = spec_pass(torch, eng, spec_leaders(reqs), f"{tag} prime", mvm,
+                      seen)
+    kept = indexed_rows(torch, eng.pool._index, cache_leaves(eng, "pool"))
+    run = spec_pass(torch, eng, reqs, tag, mvm, seen)
+    same_tokens(prime["out"], {r.uid: run["out"][r.uid][:1]
+                               for r in reqs[:PREFIX_GROUPS]},
+                SPEC_PRIME_UID, f"{tag}: the priming pass against the "
+                "workload")
+    check(run["prefix_hits"] == len(reqs), f"{tag}: {run['prefix_hits']} "
+          f"of {len(reqs)} requests hit the primed cache")
+    check(rows_kept(torch, eng.pool._index, kept),
+          f"{tag}: an indexed block was rewritten")
+    check(leaf_ptrs(eng) == ptrs, f"{tag}: a cache leaf was replaced")
+    pool = eng.pool
+    check(pool.num_live == 0
+          and pool.num_free + pool.num_cached == pool.num_blocks
+          and not pool._window, f"{tag}: pool not conserved "
+          f"({pool.num_live} live, {pool.num_free} free, {pool.num_cached} "
+          f"cached of {pool.num_blocks})")
+    if draft == "int4":
+        check(eng.draft_acfg.int4_serve and eng.draft_acfg.kv_bits == 0,
+              f"{tag}: the drafter is not the packed int4 deployment")
+    f = run["forwards"]
+    print(f"  {tag}: {run['tokens']} tokens in {run['run_s']:.2f} s "
+          f"({run['tokens_per_s']:.1f} tok/s); "
+          + (f"acceptance {run['acceptance']:.4f}, {run['spec_steps']} "
+             f"verify windows, {run['tokens_per_row_window']:.2f} tokens a "
+             f"row and window; " if draft else "")
+          + f"forwards: {f['draft']} draft, {f['verify']} verify, "
+          f"{f['decode']} decode, {f['chunk']} chunk; launches "
+          f"{run['launches']}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"prime": {k: v for k, v in prime.items() if k != "out"}, **run}
+
+
+def spec_record(torch, cfg, p, acfg, reqs, draft, need: dict, want: dict,
+                sites: bool, what: str) -> list:
+    """The recorded re-run of a phase-21 run (primed as it was), stepped
+    until each request of ``need`` has its first ``need[uid]`` tokens;
+    every request's tokens so far must be a prefix of ``want`` (the run's
+    own). Returns the log of :func:`spec_recorded`."""
+    from repro_torch.serve.scheduler import ServeEngine
+
+    eng = ServeEngine(p, cfg, acfg, spec_scfg(torch, reqs, draft))
+    eng.run(spec_leaders(reqs))
+    log = []
+
+    def tokens(uid):
+        if uid in eng.results:
+            return eng.results[uid]
+        s = next((s for s in eng.slots if s is not None
+                  and s.req.uid == uid), None)
+        return np.asarray(s.out if s else [], np.int32)
+
+    with spec_recorded(torch, eng, log, sites):
+        for r in reqs:
+            eng.submit(r)
+        while (eng.queue or any(s is not None for s in eng.slots)) and any(
+                len(tokens(u)) < n for u, n in need.items()):
+            eng.step()
+    for r in reqs:
+        got = tokens(r.uid)
+        check(np.array_equal(got, want[r.uid][:len(got)]), f"{what}: the "
+              f"recorded re-run gave request {r.uid} other tokens")
+    del eng
+    return log
+
+
+def spec_forward_ms(torch, fn) -> dict:
+    """Host ms of one synchronized call of ``fn`` (median of 3) and its
+    device ms: a CUDA graph replayed back to back when one call makes the
+    host wait nowhere (the sync debug mode), else CUDA events around
+    back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        timing = "graph"
+    except RuntimeError as e:
+        timing = f"events (the host waits: {str(e).splitlines()[0]})"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dev = (graph_ms(torch, fn, reps=5) if timing == "graph" else
+           cuda_time_ms(torch, lambda i: fn(), 1, reps=5, rounds=3))
+    host_ms = sorted(host)[1]
+    return {"host_ms": host_ms, "device_ms": dev, "busy": dev / host_ms,
+            "timing": timing}
+
+
+def spec_forward_times(torch, cfg, p, acfg) -> dict:
+    """The verify forward ``[8, SPEC_K + 1]`` and the int4 drafter's decode
+    forward ``[8, 1]`` of an int4-drafting engine over 8 prefilled slots
+    (256-token prompts, as phase 8's decode step): host and device ms."""
+    from repro_torch.core.analog import AnalogCtx
+    from repro_torch.serve import scheduler as S
+    from repro_torch.serve.decode import serve_step
+
+    # a budget no slot spends before the last prompt is in
+    budget = 96 + ENGINE_SLOTS * 256 // (PREFILL_ROWS * ENGINE_CHUNK)
+    reqs = [S.Request(uid=i, prompt=np.random.default_rng(11 + i).integers(
+        0, cfg.vocab_size, 256).astype(np.int32), max_new=budget,
+        temperature=0.0) for i in range(ENGINE_SLOTS)]
+    eng = S.ServeEngine(p, cfg, acfg, spec_scfg(torch, reqs, "int4"))
+    for r in reqs:
+        eng.submit(r)
+    while any(s is None or s.prefilling for s in eng.slots):
+        eng.step()
+    eng._refresh_device_state()
+    d = eng._dev
+    window = torch.cat([d["toks"][:, None]] * (SPEC_K + 1), dim=1)
+    mask = d["active"][:, None].expand(ENGINE_SLOTS, SPEC_K + 1).contiguous()
+
+    def verify():
+        logits, _, _ = S.model_apply(p, cfg, acfg, AnalogCtx(),
+                                     {"tokens": window}, caches=eng.caches,
+                                     pos_offset=d["off"][:, None],
+                                     seq_mask=mask)
+        return logits
+
+    def draft():
+        logits, _ = serve_step(eng.draft_params, eng.draft_cfg,
+                               eng.draft_acfg, d["toks"][:, None],
+                               eng.draft_caches, d["off"][:, None],
+                               seq_mask=d["active"][:, None])
+        return logits
+
+    out = {"verify": spec_forward_ms(torch, verify),
+           "draft": spec_forward_ms(torch, draft)}
+    del eng
+    return out
+
+
+def spec_parity(torch, cfg, p, acfg, reqs, base: dict, specs: dict,
+                what: str) -> dict:
+    """Every request's tokens of each speculative run in ``specs`` (by
+    drafter) against the non-speculative tokens ``base``, bit for bit.
+    Where requests part, the runs are re-run recorded
+    (:func:`spec_record`, the non-speculative one once, each as far as
+    its parting tokens) and each first differing token is tied to its
+    origin: fp by :func:`spec_logit_tie`, analog_hw by
+    :func:`spec_site_origin`."""
+    parted = {}
+    for draft, run in specs.items():
+        parted[draft] = {}
+        for r in reqs:
+            a, b = run["out"][r.uid], base[r.uid]
+            if not np.array_equal(a, b):
+                parted[draft][r.uid] = int(np.nonzero(a != b)[0][0])
+    sites = acfg.mode != "off"
+    need = collections.Counter()
+    for pd in parted.values():
+        for u, t in pd.items():
+            need[u] = max(need[u], t + 1)
+    base_log = (spec_record(torch, cfg, p, acfg, reqs, None, need, base,
+                            sites, f"{what} non-speculative")
+                if need else None)
+    res = {}
+    for draft, pd in parted.items():
+        tag = f"{what} {draft} drafter"
+        res[draft] = {"equal": len(reqs) - len(pd), "requests": len(reqs),
+                      "parted": []}
+        if pd:
+            spec_log = spec_record(torch, cfg, p, acfg, reqs, draft,
+                                   {u: t + 1 for u, t in pd.items()},
+                                   specs[draft]["out"], sites, tag)
+            bp, sp = spec_positions(base_log), spec_positions(spec_log)
+            for r in reqs:
+                if r.uid not in pd:
+                    continue
+                t = pd[r.uid]
+                res[draft]["parted"].append(
+                    spec_logit_tie(torch, r, t, (base_log, bp),
+                                   (spec_log, sp), tag) if not sites else
+                    spec_site_origin(torch, cfg, acfg, r, t, (base_log, bp),
+                                     (spec_log, sp), tag))
+            del spec_log
+            torch.cuda.empty_cache()
+        print(f"  {tag}: {res[draft]['equal']} of {len(reqs)} requests equal "
+              f"non-speculative bit for bit" + (
+                  "" if not pd else "; the others part at near-ties: "
+                  + "; ".join(", ".join(f"{k} {v:.3g}" if isinstance(v, float)
+                                        else f"{k} {v}" for k, v in x.items())
+                              for x in res[draft]["parted"])))
+    return res
+
+
+def reduced_spec_check(torch, arch: str) -> dict:
+    """Phase 21 (b): the reduced ``arch`` (mode off; moe at the no-drop
+    capacity) on the card and on the CPU, the same weights, paged at block
+    4 and contiguous: the ngram, self and int4 drafters, an all-reject
+    ``draft_fn`` and a stop token inside a window. Tokens and the three
+    spec counters equal the CPU's, and equal non-speculative tokens; the
+    ssm and hybrid families are gated with the reason and serve as
+    before."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import (Request, SchedulerConfig,
+                                             ServeEngine)
+
+    cfg = get_config(arch).reduce()
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    cfg, params, _ = build(cfg, 0, device="cpu")
+    acfg = AnalogConfig(mode="off")
+    devs = {"cpu": params, "cuda": _to(params, torch.device("cuda"))}
+    rng = np.random.default_rng(21)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), max_new=10, temperature=0.0) for i, n in enumerate(
+            (5, 9, 14))]
+    spec = cfg.family in ("dense", "moe")
+    out = {}
+    for paged in (True, False):
+        geo = dict(num_slots=3, max_len=48, prefill_chunk=4, paged=paged,
+                   kv_block_size=4, draft_k=SPEC_K)
+        base = ServeEngine(params, cfg, acfg, SchedulerConfig(**geo)).run(
+            list(reqs))
+        # the stop token: the third token of the first request
+        stop = (int(base[0][2]),)
+        cases = {"ngram": {}, "self": {}, "int4": {}, "reject": {},
+                 "stop": {}} if spec else {"ngram": {}}
+        for case in cases:
+            draft = case if case in ("ngram", "self", "int4") else "self"
+            run = ([dataclasses.replace(reqs[0], stop_tokens=stop)]
+                   + reqs[1:]) if case == "stop" else reqs
+            got = {}
+            for where, p in devs.items():
+                fn = None
+                if case == "reject":
+                    def fn(ctx, k, ref=base):
+                        uid = next(r.uid for r in reqs if np.array_equal(
+                            ctx[:len(r.prompt)], r.prompt))
+                        n = len(ctx) - len(reqs[uid].prompt)
+                        return (ref[uid][n:n + k] + 1) % cfg.vocab_size
+                eng = ServeEngine(p, cfg, acfg, SchedulerConfig(
+                    speculative=True, draft=draft, **geo), draft_fn=fn)
+                toks = eng.run([dataclasses.replace(r) for r in run])
+                got[where] = (toks, tuple(getattr(eng, k) for k in (
+                    "spec_steps", "spec_proposed", "spec_accepted")), eng)
+            (tc, cc, eng), (tg, cg, _) = got["cpu"], got["cuda"]
+            tag = (f"reduced {arch} {'paged' if paged else 'contiguous'} "
+                   f"{case}")
+            check(all(np.array_equal(tc[u], tg[u]) for u in tc),
+                  f"{tag}: card and cpu tokens differ")
+            check(cc == cg, f"{tag}: spec counters {cg} on the card, {cc} "
+                  f"on the cpu")
+            want = base if case != "stop" else {
+                **base, 0: base[0][:list(base[0]).index(stop[0]) + 1]}
+            check(all(np.array_equal(tc[u], want[u]) for u in want),
+                  f"{tag}: speculative tokens differ from non-speculative")
+            if spec:
+                check(cc[0] > 0, f"{tag}: no window ran")
+                check(case != "reject" or cc[2] == 0,
+                      f"{tag}: {cc[2]} proposals accepted")
+            else:
+                check(cc[0] == 0 and "speculative" in eng.gating_reasons,
+                      f"{tag}: not gated")
+            cases[case] = dict(zip(("spec_steps", "spec_proposed",
+                                    "spec_accepted"), cc))
+        out["paged" if paged else "contiguous"] = cases
+    print(f"  reduced {arch} speculative, card against cpu (mode off): "
+          + ("equal tokens and spec counters, equal to non-speculative: "
+             + "; ".join(f"{lay} " + ", ".join(
+                 f"{c} {v['spec_accepted']}/{v['spec_proposed']}"
+                 for c, v in cs.items()) for lay, cs in out.items())
+             if spec else "gated (" + eng.gating_reasons["speculative"][:48]
+             + "...), equal tokens"))
+    return out
+
+
+def phase_speculative(torch, rows: dict | None = None,
+                      base_hw: dict | None = None) -> dict:
+    """Phase 21: (a) full-width llama-3.2-1b on phase 20's workload and
+    geometry, its prefix cache primed: fp non-speculative and with the
+    ngram, self and int4 drafters; analog_hw (``use_pallas=True``)
+    non-speculative (its tokens equal to ``base_hw``, phase 20's of the
+    same engine, when given) and with the ngram and int4 drafters. Gates:
+    equal tokens bit for bit, or each parting request explained at a
+    near-tie (:func:`spec_parity`); the self drafter accepts at least
+    SPEC_SELF_ACCEPT of its proposals in fp, each rejection at a near-tie
+    of the drafter's logits against the window's (:func:`spec_self_ties`);
+    the kernels launched as the counters say; no ``RewindError``, the pool
+    conserved. Every MVM launch's rows must be among phase 2's (``rows``,
+    when given). The verify and draft forwards' host and device ms. (b)
+    the reduced models, card against CPU (:func:`reduced_spec_check`)."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.launch.serve import deploy_model
+
+    print(f"  phase 21's numbers on {gpu_name_and_power()}")
+    cfg, params, labels = full_width(torch, ARCH)
+    reqs = prefix_requests(cfg)
+    seen, out = {}, {}
+
+    t0 = time.perf_counter()
+    seconds = out["seconds"] = {}
+
+    def deployment(deploy, p, acfg, mvm, drafts, earlier):
+        runs = {}
+        run = spec_engine(torch, cfg, p, acfg, reqs, None, mvm,
+                          f"{cfg.name} {deploy} non-speculative", seen)
+        base = run.pop("out")
+        out[f"{deploy}/base"] = run
+        if earlier is not None:
+            same_tokens(earlier, base, 0, f"{deploy}: phase 20's tokens "
+                        f"against the non-speculative run")
+        for draft in drafts:
+            ties = []
+            with (spec_self_ties(torch, ties) if draft == "self"
+                  else contextlib.nullcontext()):
+                runs[draft] = spec_engine(torch, cfg, p, acfg, reqs, draft,
+                                          mvm, f"{cfg.name} {deploy} "
+                                          f"{draft} drafter", seen)
+            if draft == "self":
+                acc = runs[draft]["acceptance"]
+                check(acc >= SPEC_SELF_ACCEPT, f"{deploy} self: the drafter "
+                      f"accepted {acc:.4f} of its proposals")
+                runs[draft]["rejections_at_ties"] = ties
+        seconds[f"{deploy} runs"] = time.perf_counter() - t0
+        parity = spec_parity(torch, cfg, p, acfg, reqs, base, runs,
+                             f"{cfg.name} {deploy}")
+        seconds[f"{deploy} parity"] = time.perf_counter() - t0
+        for draft, run in runs.items():
+            run.pop("out")
+            out[f"{deploy}/{draft}"] = {**run, "parity": parity[draft]}
+
+    deployment("fp", params, AnalogConfig(mode="off"), None, SPEC_FP_DRAFTS,
+               None)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p, acfg = deploy_model(_deploy_args("analog_hw"), cfg, params, labels,
+                           gen, inplace=True)
+    acfg = dataclasses.replace(acfg, use_pallas=True)
+    deployment("analog_hw", p, acfg, "analog_matmul", SPEC_HW_DRAFTS,
+               base_hw)
+    for deploy in ("fp", "analog_hw"):
+        base = out[f"{deploy}/base"]
+        for draft in (SPEC_FP_DRAFTS if deploy == "fp" else SPEC_HW_DRAFTS):
+            r = out[f"{deploy}/{draft}"]
+            r["tokens_per_s_over_base"] = (r["tokens_per_s"]
+                                           / base["tokens_per_s"])
+    out["times"] = spec_forward_times(torch, cfg, p, acfg)
+    seconds["forward times"] = time.perf_counter() - t0
+    t = out["times"]
+    print(f"  {cfg.name} analog_hw: verify forward [{ENGINE_SLOTS}, "
+          f"{SPEC_K + 1}] {t['verify']['host_ms']:.2f} ms host, "
+          f"{t['verify']['device_ms']:.2f} ms device ({t['verify']['timing']}"
+          f"); int4 draft forward [{ENGINE_SLOTS}, 1] "
+          f"{t['draft']['host_ms']:.2f} ms host, {t['draft']['device_ms']:.2f}"
+          f" ms device ({t['draft']['timing']})")
+    out["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    if rows is not None:
+        for name, shapes in seen.items():
+            have = {(r["M"], r["K"], r["N"]) for r in rows[name]
+                    if r.get("arch", ARCH) == ARCH and "E" not in r}
+            check(shapes <= have, f"phase 21: {name} launched at (M, K, N) "
+                  f"{sorted(shapes - have)} that phase 2 did not hold")
+    del p, params
+    torch.cuda.empty_cache()
+    out["reduced"] = {arch: reduced_spec_check(torch, arch)
+                      for arch in SPEC_REDUCED}
+    seconds["reduced"] = time.perf_counter() - t0
+    print("  phase 21 seconds since its start: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -5367,12 +6307,14 @@ def line_launches(results: dict) -> dict:
     gives each batch its logits) and the PTQ model's evals on the kernels
     (phase 15), and the ageing chip's static and continuous runs (phase
     19, every launch with ``col_off``), and phase 20's cold, prime and
-    warm runs of the prefix cache. Each count was read right after
+    warm runs of the prefix cache, and phase 21's priming and measured
+    runs of each deployment and drafter. Each count was read right after
     its run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
     the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18,
-    19 and 20), phase 13's independent best-of-n run (the check of the
-    fork-aware one), phase 19's graph check, the timing replays and
+    19, 20 and 21), phase 13's independent best-of-n run (the check of the
+    fork-aware one), phase 21's recorded re-runs and forward timings,
+    phase 19's graph check, the timing replays and
     the fused-against-unfused checks after each run (site parity, the
     token attribution), the CLI (phase 10), and the training phases'
     profiled steps and resume checks."""
@@ -5433,6 +6375,11 @@ def line_launches(results: dict) -> dict:
             continue
         for run in ("cold", "prime", "warm"):
             add(f"prefix/{key}/{run}", r[run]["launches"])
+    for key, r in results["speculative"].items():
+        if key in ("times", "shapes", "reduced", "phase_s", "seconds"):
+            continue
+        add(f"speculative/{key}/prime", r["prime"]["launches"])
+        add(f"speculative/{key}", r["launches"])
     return out
 
 
@@ -5519,8 +6466,8 @@ def kernels_line(rows: dict, paged_rows: dict, ssd_rows: list,
         r = next(c for c in cases
                  if c.get("arch", ARCH) == ARCH
                  and c["dtype"] == LINE_CASE["dtype"]
-                 and c["context"] == LINE_CASE["context"]
-                 and c["splits"] == LINE_CASE["splits"])
+                 and c.get("context") == LINE_CASE["context"]
+                 and c.get("splits") == LINE_CASE["splits"])
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": LINE_PATHS[name],
@@ -5566,85 +6513,94 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/20] setup")
+        phase("[1/21] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/20] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/21] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/20] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/21] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/20] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/21] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/20] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/21] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/20] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/21] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/20] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/21] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/20] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/21] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/20] reduced continuous engines, card against cpu")
+        phase("[9/21] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/20] serving CLI")
+        phase("[10/21] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/20] static engine, phi-3-mini-4k at full width: "
+        phase("[11/21] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/20] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/21] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/20] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/21] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/20] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/21] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/20] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/21] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/20] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/21] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/20] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/21] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/20] HWA distillation at full width, {MAMBA} and {MOE} "
+        phase(f"[18/21] HWA distillation at full width, {MAMBA} and {MOE} "
               f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
               "training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/20] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/21] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
-        phase(f"[20/20] prefix cache: full-width {ARCH} (bf16 and int8 "
+        phase(f"[20/21] prefix cache: full-width {ARCH} (bf16 and int8 "
               f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
               "reduced models, card against cpu")
         results["prefix"] = phase_prefix(torch)
+        phase(f"[21/21] speculative decoding: full-width {ARCH} (fp with "
+              "the ngram, self and int4 drafters; analog_hw with ngram and "
+              "int4) on phase 20's workload; reduced models, card against "
+              "cpu")
+        t21 = time.perf_counter()
+        base_hw = {int(u): np.asarray(v, np.int32) for u, v in
+                   results["prefix"][f"{ARCH}/kv16"]["tokens"].items()}
+        results["speculative"] = phase_speculative(torch, rows, base_hw)
+        results["speculative"]["phase_s"] = time.perf_counter() - t21
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

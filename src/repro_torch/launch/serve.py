@@ -61,8 +61,20 @@ roots the cache's keys (deployment, tenancy):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduced --paged --no-prefix-cache --cache-salt 7
 
-Speculative decoding, the open-loop front door and tensor parallelism of
-the JAX package's launcher are not ported yet.
+``--speculative`` turns the continuous engine's pure-decode steps into
+draft-and-verify windows on the dense and moe families: ``--draft``
+proposes ``--draft-k`` tokens a slot (``int4``: the digital int4
+deployment of the same weights on the packed-int4 kernel; ``self``: the
+target; ``ngram``: host prompt lookup), the target scores the window in one
+forward, and exact-match verification keeps the output that of
+non-speculative serving. ``--draft-layers N`` keeps the model drafter's
+first N blocks. The report line gives the windows and the acceptance:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --paged --speculative --draft ngram
+
+The open-loop front door and tensor parallelism of the JAX package's
+launcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -178,6 +190,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "keeps apart entries whose KV would differ for "
                          "reasons outside the token ids (deployment "
                          "config, tenancy)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-and-verify speculative decoding: the "
+                         "drafter proposes --draft-k tokens per slot per "
+                         "step, the target verifies the whole window in "
+                         "one forward; exact-match verification keeps the "
+                         "output that of non-speculative decoding "
+                         "(attention families only)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative window length (tokens proposed per "
+                         "slot per step)")
+    ap.add_argument("--draft", default="int4",
+                    choices=["int4", "self", "ngram"],
+                    help="drafter: int4 = RTN-int4 digital deployment of "
+                         "the target weights (packed-int4 kernel), self = "
+                         "the target drafts for itself, ngram = host "
+                         "prompt lookup (no draft forward)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="truncate the model drafter to its first N blocks "
+                         "(0 = full depth; layer-skip self-speculation)")
     ap.add_argument("--noise-model", default="none",
                     choices=["none", "hw", "gaussian"],
                     help="extra eval-time weight perturbation on analog "
@@ -253,6 +284,9 @@ def main(argv=None):
         if args.drift_hours or args.recalibrate:
             print("[serve] --drift-hours/--recalibrate are "
                   "continuous-engine options: ignored on the static path")
+        if args.speculative:
+            print("[serve] --speculative is a continuous-engine option: "
+                  "ignored on the static path")
         prompts = torch.randint(0, cfg.vocab_size, (args.num_requests, 4),
                                 generator=gen, device=device)
         if cfg.family == "audio":          # one token per codebook
@@ -278,7 +312,9 @@ def main(argv=None):
         step_tokens=args.step_tokens, cache_dtype=cache_dtype,
         paged=args.paged, kv_block_size=args.kv_block_size,
         kv_blocks=args.kv_blocks, prefix_cache=args.prefix_cache,
-        cache_salt=args.cache_salt, drift_dt=drift_dt,
+        cache_salt=args.cache_salt, speculative=args.speculative,
+        draft_k=args.draft_k, draft=args.draft,
+        draft_layers=args.draft_layers, drift_dt=drift_dt,
         recalibrate=args.recalibrate,
         # the watchdog's cadence scaled to the workload, so that a short
         # run still reads health a few times
@@ -316,6 +352,11 @@ def main(argv=None):
                   f"{eng.prefix_cow_copies} copy-on-write tails, "
                   f"{idx_pool.num_cached} blocks retained, "
                   f"{idx_pool.evictions} evictions{snaps}")
+    spec = ""
+    if eng.spec_enabled:
+        spec = (f", speculative ({eng.scfg.draft} drafter, k="
+                f"{eng.scfg.draft_k}): {eng.spec_steps} verify windows, "
+                f"{eng.spec_acceptance:.0%} draft acceptance")
     drift = ""
     if eng.drift_enabled:
         drift = (f", drift: {eng.drift_hours:.1f}h deployed, "
@@ -328,7 +369,7 @@ def main(argv=None):
           f"steps, {eng.mixed_steps} fused mixed steps, "
           f"{eng.decode_tokens_during_admission} decode tokens emitted "
           f"during admission, p50 latency "
-          f"{lats[len(lats) // 2] * 1e3:.0f}ms{prefix}{drift}; "
+          f"{lats[len(lats) // 2] * 1e3:.0f}ms{prefix}{spec}{drift}; "
           f"{latency_report(eng)}); sample: {results[0][:8].tolist()}")
     return results
 

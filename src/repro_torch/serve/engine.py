@@ -60,8 +60,17 @@ class BestOfNConfig:
             shared prefix. The answers are bitwise those of independent
             requests; off runs every candidate as one.
         kv_block_size: Physical KV block granularity of the paged pool.
-        speculative: The JAX package's speculative decoding; not ported
-            yet, and on raises as ``SchedulerConfig`` does.
+        speculative: Draft-and-verify decoding of every candidate
+            (``SchedulerConfig.speculative``): exact-match verification
+            keeps each candidate's tokens, and so the answers, those of
+            non-speculative serving, greedy and sampled alike. The dense
+            and moe families speculate; ssm and hybrid stacks decode as
+            before, with the reason in the engine's ``gating_reasons``.
+        draft_k: Proposals a slot per verify window.
+        draft: The drafter: ``"int4"`` (the digital int4 deployment of the
+            same weights on the packed kernel), ``"self"`` (the target
+            itself) or ``"ngram"`` (host prompt lookup, no draft
+            forward).
         drift_dt: Deployment hours of conductance drift per engine step,
             passed to the engine (``SchedulerConfig.drift_dt``): the
             clock runs on params with per-tile device state and is inert,
@@ -84,6 +93,8 @@ class BestOfNConfig:
     prefix_cache: bool = True
     kv_block_size: int = 16
     speculative: bool = False
+    draft_k: int = 4
+    draft: str = "int4"
     drift_dt: float = 0.0
     recalibrate: bool = False
 
@@ -135,7 +146,8 @@ def sample_candidates(params, cfg, acfg: AnalogConfig,
         prefill_chunk=bcfg.prefill_chunk, paged=bcfg.paged,
         prefix_cache=bcfg.prefix_cache, kv_block_size=bs,
         kv_blocks=kv_blocks, state_snapshots=state_snaps,
-        speculative=bcfg.speculative, drift_dt=bcfg.drift_dt,
+        speculative=bcfg.speculative, draft_k=bcfg.draft_k,
+        draft=bcfg.draft, drift_dt=bcfg.drift_dt,
         recalibrate=bcfg.recalibrate)
     eng = ServeEngine(params, cfg, acfg, scfg)
     reqs = [Request(uid=i, prompt=np.asarray(prompts[i // n], np.int32),

@@ -37,9 +37,10 @@ The refcount, LRU and eviction machinery is shared with
 recurrence and conv-tail snapshots that gives the ssm and hybrid families
 their prefix cache (``serve.scheduler``): a KV block holds the tokens of
 one block, a snapshot the recurrent summary of the whole prefix up to a
-block boundary, indexed under the same chain key. The speculative rewind
-window is here so that the pool is whole when speculative decoding is
-ported.
+block boundary, indexed under the same chain key. The rewind floor and window
+(:meth:`KVPool.rewind_floor`, :meth:`KVPool.check_rewind`,
+``begin_window`` / ``end_window``) are the contract the engine's
+speculative windows commit under (``serve.scheduler``).
 
 Pure host-side Python; the device only sees the block-table rows this
 hands out.

@@ -1,9 +1,11 @@
 """Token sampling: temperature / top-k / top-p, drawn from a generator
-(:func:`sample_logits`), and the per-request batched sampler of the
-continuous engine (:func:`sample_logits_batched`)."""
+(:func:`sample_logits`), the per-request batched sampler of the continuous
+engine (:func:`sample_logits_batched`) and the exact-match verification of
+its speculative windows (:func:`speculative_verify`)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -97,3 +99,59 @@ def request_uniforms(seeds, counts, vocab: int, device) -> torch.Tensor:
         rows.append(torch.rand((vocab,), generator=g, device=device))
     u = torch.stack(rows)
     return torch.clamp(u, torch.finfo(u.dtype).tiny, 1.0 - 2.0 ** -24)
+
+
+def speculative_verify(logits: torch.Tensor, drafts: torch.Tensor, seeds,
+                       counts, greedy_first, temperature, top_k, top_p, *,
+                       use_top_k: bool = True, use_top_p: bool = True):
+    """Exact-match accept / reject and the bonus draw of a draft-and-verify
+    window.
+
+    ``logits`` [B, k+1, V] are the target's scores of the window
+    ``[last token, d_1 .. d_k]``; ``drafts`` [k, B] the proposals ``d_1 ..
+    d_k``. ``seeds``, ``counts`` and ``greedy_first`` [B] (host ints) are
+    each row's seed, token count and greedy horizon as the non-speculative
+    loop carries them; ``temperature``, ``top_p`` [B] fp32 and ``top_k``
+    [B] int (host arrays) its filters.
+
+    Column ``i`` draws what the non-speculative loop would draw at token
+    count ``counts + i``: the same :func:`sample_logits_batched` over the
+    flattened ``(k+1)·B`` rows, each sampled row's noise from
+    :func:`request_uniforms` at ``(seed, count + i)``, greedy where ``count
+    + i < greedy_first`` or the temperature is 0 (no noise is drawn there).
+    ``d_{i+1}`` is accepted iff it equals column ``i``'s draw and every
+    earlier draft was accepted; a column's draw is consumed only then, when
+    the window's prefix is the non-speculative history, so the emitted
+    ``target[0 .. n_acc]`` are the non-speculative tokens, the last one the
+    bonus draw at the first rejected (or the window's last) position.
+
+    Returns ``(target [k+1, B] int64, n_acc [B] int64)``: emit ``n_acc +
+    1`` tokens a row.
+    """
+    b, kp1, v = logits.shape
+    dev = logits.device
+    cnt = (np.asarray(counts, np.int64)[None, :]
+           + np.arange(kp1, dtype=np.int64)[:, None]).reshape(-1)
+    temp = np.tile(np.asarray(temperature, np.float32), kp1)
+    greedy = (cnt < np.tile(np.asarray(greedy_first, np.int64), kp1)) | (
+        temp <= 0.0)
+    uniforms = None
+    noisy = np.flatnonzero(~greedy)
+    if len(noisy):
+        seed = np.tile(np.asarray(seeds, np.int64), kp1)
+        uniforms = torch.full((kp1 * b, v), 0.5, device=dev)
+        uniforms[torch.as_tensor(noisy, device=dev)] = request_uniforms(
+            seed[noisy], cnt[noisy], v, dev)
+    flat = logits.transpose(0, 1).reshape(kp1 * b, v)
+    target = sample_logits_batched(
+        flat, torch.as_tensor(temp, device=dev),
+        torch.as_tensor(np.tile(np.asarray(top_k, np.int64), kp1),
+                        device=dev),
+        torch.as_tensor(np.tile(np.asarray(top_p, np.float32), kp1),
+                        device=dev),
+        torch.as_tensor(greedy, device=dev), uniforms,
+        use_top_k=use_top_k, use_top_p=use_top_p).reshape(kp1, b)
+    if kp1 == 1:
+        return target, torch.zeros(b, dtype=torch.int64, device=dev)
+    match = (drafts.to(target.dtype) == target[:-1]).long()       # [k, B]
+    return target, torch.cumprod(match, dim=0).sum(dim=0)

@@ -68,6 +68,26 @@ mixed-length traffic instead:
   with ``models.transformer.cache_slot_spec``. The vlm and audio families
   are served by the static engine only, as in the reference: this engine
   refuses them.
+* **Speculative decoding** (``SchedulerConfig.speculative``, the dense and
+  moe families) -- a pure-decode step becomes a draft-and-verify window: a
+  drafter (``SchedulerConfig.draft``: the digital int4 deployment of the
+  same weights on the packed-int4 kernel, the target itself, or host-side
+  prompt lookup) proposes ``draft_k`` tokens a slot, and one ``[num_slots,
+  k+1]`` forward scores all ``k+1`` positions at each row's own cursor (on
+  the paged pool through ``paged_flash_prefill``). Verification is exact
+  match (``sampling.speculative_verify``): each column draws the token the
+  non-speculative loop would draw at that count, so the emitted tokens are
+  the non-speculative ones for greedy and sampled rows alike. Rejected
+  positions roll back as a ``pos`` rewind, in place, checked against the
+  pool's rewind floor (``KVPool.check_rewind``: never into shared or
+  frozen blocks). A model drafter keeps a contiguous per-slot cache of its
+  own, prefilled with the whole padded prompt at the prefill-to-decode
+  flip and advanced by the decode token of every mixed step, and rewound
+  by the same ``delta`` as the target. ssm and hybrid stacks decode as
+  before and ``gating_reasons["speculative"]`` says why: a cursor rewind
+  cannot roll back a recurrent state. The drift clock ticks once per
+  engine step, so with ``drift_dt > 0`` a speculative run ages the chip on
+  another step grid than a non-speculative one.
 * **Per-request sampling and stop conditions** — temperature, top-k,
   top-p and ``greedy_first`` ride along as per-row tensors
   (``sampling.sample_logits_batched``). Randomness is counter-based: the
@@ -98,8 +118,8 @@ snapshot capture and restore, the table rows) goes into the existing
 leaves in place, so CUDA graphs captured over them stay valid.
 
 **What this port does not run yet.** The JAX package's engine also has
-speculative decoding, request deadlines, shedding and chaos recovery (the
-watchdog's fault-tolerant health read with it), and tensor parallelism.
+request deadlines, shedding and chaos recovery (the watchdog's
+fault-tolerant health read with it), and tensor parallelism.
 Their ``SchedulerConfig`` / ``Request`` fields keep their names here but
 default to off, and asking for one raises ``NotImplementedError`` naming
 its ROADMAP item. The step is not split into ``step_begin`` /
@@ -118,12 +138,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import devices
-from repro_torch.core.analog import AnalogConfig, AnalogCtx
+from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
+                                     pack_int4_weights)
 from repro_torch.models import transformer as T
 from repro_torch.models.model import apply as model_apply
-from repro_torch.serve.decode import serve_step
+from repro_torch.serve.decode import digital_int4_config, serve_step
 from repro_torch.serve.kv_pool import SINK_BLOCK, KVPool, StateSnapshotPool
-from repro_torch.serve.sampling import request_uniforms, sample_logits_batched
+from repro_torch.serve.sampling import (request_uniforms,
+                                        sample_logits_batched,
+                                        speculative_verify)
 
 
 def padded_prompt_len(plen: int, chunk: int) -> int:
@@ -199,6 +222,19 @@ class SchedulerConfig:
     roots every chain key, keeping apart entries whose KV would differ for
     reasons outside the token ids (deployment, tenancy).
 
+    ``speculative=True`` turns pure-decode steps into draft-and-verify
+    windows on the dense and moe families (see the module docstring); the
+    output is the non-speculative output. ``draft`` picks the drafter:
+    ``"int4"`` (the digital int4 deployment of the same weights,
+    ``decode.digital_int4_config`` with ``weight_bits=4``, its packed
+    carriers built once), ``"self"`` (the target's own deployment:
+    acceptance 1 but for near-ties) or ``"ngram"`` (host prompt lookup,
+    no draft forward). ``draft_k`` is the window's proposals a slot, clipped
+    so that no row writes past its budget; ``draft_layers > 0`` keeps the
+    model drafter's first n blocks. On the ssm and hybrid families it is
+    inert and ``gating_reasons["speculative"]`` says why; mixed steps stay
+    non-speculative.
+
     ``drift_dt > 0`` runs the deployment clock (hours per worked step)
     on params with per-tile device state, and ``recalibrate=True`` the
     watchdog: every ``recal_interval`` worked steps a health read, and a
@@ -209,8 +245,7 @@ class SchedulerConfig:
 
     The remaining fields are the JAX package's, for features not ported
     yet (see the module docstring). They default to off, and turning one
-    on raises: ``speculative``, ``max_queue``, ``fault_tolerant``, ``tp``.
-    The fields that only tune the drafter come with speculative decoding.
+    on raises: ``max_queue``, ``fault_tolerant``, ``tp``.
     """
 
     num_slots: int = 4
@@ -226,6 +261,9 @@ class SchedulerConfig:
     cache_salt: int = 0
     state_snapshots: int = 0
     speculative: bool = False
+    draft_k: int = 4
+    draft: str = "int4"
+    draft_layers: int = 0
     drift_dt: float = 0.0
     recalibrate: bool = False
     recal_interval: int = 25
@@ -238,7 +276,6 @@ class SchedulerConfig:
 _SERVING = "ROADMAP section 1, item 9 (serving features)"
 #: SchedulerConfig fields of features not ported: (off value, where queued)
 _NOT_PORTED = {
-    "speculative": (False, _SERVING + ": speculative decoding"),
     "max_queue": (0, _SERVING + ": request lifecycle (shedding)"),
     "fault_tolerant": (False, _SERVING + ": request lifecycle (chaos "
                                          "recovery)"),
@@ -256,6 +293,41 @@ _SSM_NOT_PAGED = ("attention-free ssm stacks have no KV to page (per-slot "
 _PREFIX_NOT_PAGED = ("prefix caching needs the paged engine "
                      "(SchedulerConfig.paged=True): content-addressed reuse "
                      "is keyed on KV-block-aligned prefixes")
+
+
+#: why ``SchedulerConfig.speculative`` is inert on the ssm and hybrid
+#: families (the reference's reason)
+_SPEC_RECURRENT = ("speculative rollback is a pos-cursor rewind, which only "
+                   "rolls back attention KV; ssm/hybrid recurrent state is "
+                   "cumulative and has no per-position cursor: these "
+                   "families decode non-speculatively")
+
+
+def _ngram_propose(ctx: np.ndarray, k: int, max_n: int = 3) -> np.ndarray:
+    """Prompt-lookup drafting: the continuation of the most recent earlier
+    occurrence of the context's longest matching suffix n-gram (n =
+    ``max_n`` down to 1), else the last token repeated. Host numpy over the
+    request's context; exact-match verification makes any proposal safe."""
+    ctx = np.asarray(ctx, np.int32)
+    n_ctx = len(ctx)
+    if n_ctx == 0:
+        return np.zeros(k, np.int32)
+    out = np.full(k, int(ctx[-1]), np.int32)
+    for n in range(min(max_n, n_ctx - 1), 0, -1):
+        pat = ctx[n_ctx - n:]
+        for j in range(n_ctx - n - 1, -1, -1):
+            if np.array_equal(ctx[j:j + n], pat):
+                cont = ctx[j + n:j + n + k]
+                out[:len(cont)] = cont
+                return out
+    return out
+
+
+def _slice_layers(tree, n: int):
+    """The first ``n`` layers of a stacked block tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def _map_leaves(fn, tree: dict, *others: dict) -> dict:
@@ -329,17 +401,26 @@ class ServeEngine:
     ``stuck_cols``, the prefix cache ``prefix_lookups``, ``prefix_hits``,
     ``prefix_hit_tokens``, ``prefix_skipped_tokens``,
     ``prefix_cow_copies``, ``state_snaps_captured`` and
-    ``state_snap_restores`` (the reference's names). Not ported (see the
-    module docstring): speculative decoding, deadlines, shedding, chaos
-    recovery and tensor parallelism.
+    ``state_snap_restores``, speculative decoding ``spec_steps``,
+    ``spec_proposed`` and ``spec_accepted`` (the reference's names) and
+    ``draft_forwards`` (the model drafter's forwards: window steps,
+    catch-ups and prompt prefills). Not ported (see the module docstring):
+    deadlines, shedding, chaos recovery and tensor parallelism.
     """
 
     def __init__(self, params, cfg, acfg: AnalogConfig,
                  scfg: SchedulerConfig = SchedulerConfig(), *,
-                 chaos_hook=None):
+                 draft_params=None, draft_cfg=None, draft_acfg=None,
+                 draft_fn=None, chaos_hook=None):
         """Allocate the slot caches (and the block pool when paged) and the
-        host-side request state. ``chaos_hook`` (fault injection) is not
-        ported and raises."""
+        host-side request state.
+
+        The ``draft_*`` keywords replace ``scfg.draft``'s model drafter by
+        an explicit (params, cfg, acfg) triple, each defaulting to the
+        target's (a separately trained small drafter, say), and
+        ``draft_fn(context, k) -> [<= k] ids`` replaces model drafting by
+        a host callable over the request's prompt and generated tokens.
+        ``chaos_hook`` (fault injection) is not ported and raises."""
         for name, (off, where) in _NOT_PORTED.items():
             if getattr(scfg, name) != off:
                 raise NotImplementedError(
@@ -388,6 +469,8 @@ class ServeEngine:
                 "and per-tile device state attached to the params)")
         if self._recal and scfg.recal_interval < 1:
             raise ValueError("recal_interval must be >= 1")
+        self._init_drafter(scfg, draft_params, draft_cfg, draft_acfg,
+                           draft_fn)
         self.pool: Optional[KVPool] = None
         kv_bits = acfg.kv_bits if paged else 0
         if paged:
@@ -439,6 +522,12 @@ class ServeEngine:
         self.prefix_cow_copies = 0
         self.state_snaps_captured = 0
         self.state_snap_restores = 0
+        # speculative decoding: windows dispatched (k >= 1), drafts
+        # proposed and accepted, the model drafter's forwards
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.draft_forwards = 0
         # the drift clock and watchdog: deployment hours, health reads,
         # in-place reprogrammings and their host time; tile_scale_err is
         # the latest read (mean |scale - 1| over live tiles), dead_tiles
@@ -463,6 +552,63 @@ class ServeEngine:
         self._topp = np.ones(b, np.float32)
         self._dev: dict[str, torch.Tensor] = {}
         self._dirty = True
+
+    def _init_drafter(self, scfg: SchedulerConfig, draft_params, draft_cfg,
+                      draft_acfg, draft_fn) -> None:
+        """Gate speculative decoding by family and build the drafter: a
+        host drafter (``"ngram"`` or ``draft_fn``) has no cache; a model
+        drafter gets its params (the first ``draft_layers`` blocks, the
+        packed-int4 carriers built once for ``"int4"``), its deployment and
+        a contiguous per-slot cache of its own (never paged)."""
+        cfg, acfg, params = self.cfg, self.acfg, self.params
+        self._spec = bool(scfg.speculative) and cfg.family in ("dense",
+                                                               "moe")
+        if scfg.speculative and not self._spec:
+            self.gating_reasons["speculative"] = _SPEC_RECURRENT
+        if self._spec and scfg.draft_k < 1:
+            raise ValueError("draft_k must be >= 1")
+        self.draft_fn = draft_fn
+        self._draft_host = self._spec and (draft_fn is not None
+                                           or scfg.draft == "ngram")
+        self.draft_params = self.draft_cfg = self.draft_acfg = None
+        self.draft_caches = None
+        if not self._spec or self._draft_host:
+            return
+        if scfg.draft not in ("int4", "self"):
+            raise ValueError(f"unknown drafter {scfg.draft!r} (expected "
+                             "'int4', 'self' or 'ngram')")
+        dcfg = draft_cfg if draft_cfg is not None else cfg
+        if draft_cfg is None and scfg.draft_layers:
+            dcfg = dataclasses.replace(
+                cfg, num_layers=min(scfg.draft_layers, cfg.num_layers))
+        dacfg, pack = draft_acfg, False
+        if dacfg is None:
+            if scfg.draft == "self" or acfg.int4_serve:
+                dacfg = acfg        # an int4-served target drafts itself
+            else:
+                # the digital int4 deployment of the same weights on the
+                # packed kernel (its carriers built once, below)
+                dacfg = digital_int4_config(
+                    dataclasses.replace(acfg, weight_bits=4))
+                pack = True
+        dacfg = dataclasses.replace(dacfg, kv_bits=0)
+        dparams = draft_params
+        if dparams is None:
+            dparams = params
+            if dcfg.num_layers < cfg.num_layers:
+                # layer-skip drafting: the first n stacked blocks
+                dparams = dict(params)
+                dparams["blocks"] = _slice_layers(params["blocks"],
+                                                  dcfg.num_layers)
+        if pack:
+            dparams = pack_int4_weights(dparams)
+        self.draft_params, self.draft_cfg, self.draft_acfg = (dparams, dcfg,
+                                                              dacfg)
+        dev = dparams["embed"]["tokens"].device
+        self.draft_caches = T.init_caches(dcfg, scfg.num_slots, scfg.max_len,
+                                          scfg.cache_dtype, dev,
+                                          per_slot=True)
+        self._daxes, self._dkinds = T.cache_slot_spec(dcfg)
 
     # ------------------------------------------------------------------
     # public API
@@ -509,7 +655,15 @@ class ServeEngine:
                                                     prefill_rows))
             kind = "mixed" if decode_rows else "prefill"
         elif decode_rows:
-            self._decode_commit(self._decode_dispatch(decode_rows))
+            # a model drafter takes the window even at k = 0 (a row one
+            # token from its budget): its draft step still consumes the
+            # emitted token, keeping its cache in step; a host drafter has
+            # no cache and falls back to the cheaper decode block
+            if self._spec and (self.draft_caches is not None
+                               or self._spec_k(decode_rows)):
+                self._spec_commit(self._spec_dispatch(decode_rows))
+            else:
+                self._decode_commit(self._decode_dispatch(decode_rows))
             kind = "decode"
         else:
             return
@@ -539,6 +693,17 @@ class ServeEngine:
         """True when the KV cache lives in the block pool (``paged=True``
         on a family with attention)."""
         return self._paged
+
+    @property
+    def spec_enabled(self) -> bool:
+        """True when pure-decode steps run draft-and-verify windows
+        (``speculative=True`` on the dense or moe family)."""
+        return self._spec
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Share of the proposed drafts that the target accepted."""
+        return self.spec_accepted / max(1, self.spec_proposed)
 
     @property
     def drift_enabled(self) -> bool:
@@ -959,17 +1124,23 @@ class ServeEngine:
         self._consume_decode_tokens(p["dec_toks"].cpu().numpy(),
                                     p["decode_rows"])
 
-    def _gather_rows(self, idx: torch.Tensor) -> dict:
+    def _gather_rows(self, idx: torch.Tensor, caches=None,
+                     axes=None) -> dict:
         """The cache rows of slots ``idx`` as a compact batch (pool leaves
-        pass through whole)."""
+        pass through whole); the engine's caches unless ``caches`` and
+        their ``axes`` are given (the drafter's)."""
+        if caches is None:
+            caches, axes = self.caches, self._axes
         return _map_leaves(lambda leaf, ax: leaf if ax < 0
-                           else leaf.index_select(ax, idx),
-                           self.caches, self._axes)
+                           else leaf.index_select(ax, idx), caches, axes)
 
-    def _scatter_rows(self, sub: dict, idx: torch.Tensor) -> None:
+    def _scatter_rows(self, sub: dict, idx: torch.Tensor, caches=None,
+                      axes=None) -> None:
         """Write a compact batch back to its slots (``idx`` rows are
         distinct; pool leaves were updated in place)."""
-        for leaf, full, ax in _walk(sub, self.caches, self._axes):
+        if caches is None:
+            caches, axes = self.caches, self._axes
+        for leaf, full, ax in _walk(sub, caches, axes):
             if ax >= 0:
                 full.index_copy_(ax, idx, leaf)
 
@@ -1004,6 +1175,11 @@ class ServeEngine:
             pf_off[i] = j * c - s.npad
         k = 1 if n_dec else 0
         dec = None
+        if k and self.draft_caches is not None:
+            # keep the model drafter in step through admissions: it
+            # consumes the decode substep's input token (logits unused)
+            d = self._dev
+            self._draft_forward(d["toks"], d["off"], d["active"])
         if k:
             self._decode_forward(decode_rows, 0)
             dec = self._dev["toks"]
@@ -1054,10 +1230,211 @@ class ServeEngine:
                         self._register_snaps(s)
                 self._dirty = True             # row flips to decode phase
                 self._append_token(b, int(first[i]))
+                if (self.draft_caches is not None
+                        and self.slots[b] is not None):
+                    # the model drafter's cache reaches the same position
+                    # before the slot's first window: the whole padded
+                    # prompt in one forward (the drafter has no prefix
+                    # cache; skipped if the first token retired the row)
+                    self._draft_prefill(b, s)
         if k:
             self.decode_steps += k
             self.decode_tokens_during_admission += p["n_dec"] * k
             self._consume_decode_tokens(dec[None], p["decode_rows"])
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    def _spec_k(self, decode_rows: list[int]) -> int:
+        """Proposals a row of the next window: ``draft_k``, clipped so that
+        no row writes past its budget (a window at ``pos`` writes up to
+        ``pos + k``, and ``k <= min(remaining) - 1`` keeps that inside the
+        span its capacity was checked for), below ``draft_k`` to a power
+        of two; 0 when some row has one token left."""
+        head = min(self.slots[b].req.max_new - self.slots[b].count
+                   for b in decode_rows) - 1
+        if head < 1:
+            return 0
+        k = self.scfg.draft_k
+        if k > head:
+            k = 1
+            while k * 2 <= head:
+                k *= 2
+        return k
+
+    def _host_drafts(self, decode_rows: list[int], k: int) -> np.ndarray:
+        """Host proposals ``[k, B]`` for the decode rows: ``draft_fn`` if
+        given, else prompt-lookup n-grams over the prompt and the tokens
+        generated so far. Short proposals are padded with 0, which
+        exact-match verification simply rejects."""
+        drafts = np.zeros((k, self.scfg.num_slots), np.int64)
+        for b in decode_rows:
+            s = self.slots[b]
+            ctx = np.concatenate([s.toks[s.npad:],
+                                  np.asarray(s.out, np.int64)])
+            prop = (np.asarray(self.draft_fn(ctx, k), np.int64)
+                    if self.draft_fn is not None
+                    else _ngram_propose(ctx, k))[:k]
+            drafts[:len(prop), b] = prop
+        return drafts
+
+    def _rewind_pos(self, caches: dict, axes: dict, kinds: dict,
+                    delta: torch.Tensor) -> None:
+        """Roll back speculatively written positions: subtract ``delta[b]``
+        from every ``pos`` cursor of slot ``b``, in place (no leaf is
+        replaced). Nothing moves: K/V past the cursor is never attended
+        (every read is bounded by ``j <= pos + i``) and the next write
+        overwrites it. Safe only above the pool's rewind floor, which
+        :meth:`_spec_commit` checks."""
+        for leaf, ax, kind in _walk(caches, axes, kinds):
+            if kind == "pos":
+                shape = [1] * leaf.dim()
+                shape[ax] = -1
+                leaf.sub_(delta.to(leaf.dtype).view(shape))
+
+    def _draft_forward(self, toks: torch.Tensor, off: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+        """One decode step of the model drafter over every slot (inactive
+        rows masked) on its own cache. Returns the logits [B, V]."""
+        logits, self.draft_caches = serve_step(
+            self.draft_params, self.draft_cfg, self.draft_acfg,
+            toks[:, None], self.draft_caches, off[:, None],
+            seq_mask=active[:, None])
+        self.draft_forwards += 1
+        return logits
+
+    def _draft_prefill(self, b: int, s: _Slot) -> None:
+        """Reset slot ``b`` of the drafter's cache and run the whole padded
+        prompt through the drafter, so that its cursor meets the target's
+        at the prefill-to-decode flip."""
+        caches, axes, kinds = self.draft_caches, self._daxes, self._dkinds
+        for leaf, ax, kind in _walk(caches, axes, kinds):
+            row = leaf.select(ax, b)
+            if kind == "start":
+                row.fill_(s.npad)
+            else:
+                row.zero_()
+        idx = self._tensor(np.array([b], np.int64))
+        sub = self._gather_rows(idx, caches, axes)
+        _, _, sub = model_apply(
+            self.draft_params, self.draft_cfg, self.draft_acfg, AnalogCtx(),
+            {"tokens": self._tensor(s.toks[None])}, caches=sub,
+            pos_offset=self._tensor(np.array([[-s.npad]], np.int64)),
+            seq_mask=self._tensor(s.mask[None]), last_only=True)
+        self._scatter_rows(sub, idx, caches, axes)
+        self.draft_forwards += 1
+
+    def _model_drafts(self, decode_rows: list[int], k: int) -> torch.Tensor:
+        """``k + 1`` drafter decode steps, each sampled with the verifier's
+        counters, so that a drafter equal to the target proposes exactly
+        the verifier's draws. The window takes drafts ``1 .. k``: the
+        drafter's cache then holds exactly the window's tokens, and both
+        caches rewind by the same ``delta``. Returns drafts [k, B]."""
+        d = self._dev
+        toks, out = d["toks"], []
+        for i in range(k + 1):
+            logits = self._draft_forward(toks, d["off"] + i, d["active"])
+            toks = self._sample(logits, decode_rows,
+                                [self.slots[b].count + i
+                                 for b in decode_rows])
+            out.append(toks)
+        return torch.stack(out[:k]) if k else toks.new_zeros((0, len(toks)))
+
+    def _verify(self, decode_rows: list[int],
+                drafts: torch.Tensor) -> tuple:
+        """Score the window ``[last token, d_1 .. d_k]`` in one ``[B, k+1]``
+        forward at each row's own offset (rows not decoding are masked and
+        leave the cache as it was), verify it, and rewind each row's cursor
+        to its old position plus its emitted count. Returns ``(target
+        [k+1, B], n_emit [B], delta [B])``; a model drafter rewinds its own
+        cache by the same ``delta``."""
+        d = self._dev
+        k = drafts.shape[0]
+        nb = self.scfg.num_slots
+        window = torch.cat([d["toks"][:, None], drafts.T.to(d["toks"].dtype)],
+                           dim=1)
+        mask = d["active"][:, None].expand(nb, k + 1).contiguous()
+        logits, _, self.caches = model_apply(
+            self.params, self.cfg, self.acfg, AnalogCtx(),
+            {"tokens": window}, caches=self.caches,
+            pos_offset=d["off"][:, None], seq_mask=mask)
+        seeds = np.zeros(nb, np.int64)
+        counts = np.zeros(nb, np.int64)
+        # rows outside the window draw greedily (no noise; unused)
+        gfirst = np.full(nb, k + 1, np.int64)
+        for b in decode_rows:
+            req = self.slots[b].req
+            seeds[b], counts[b] = req.seed, self.slots[b].count
+            gfirst[b] = req.greedy_first
+        live = [self.slots[b].req for b in decode_rows]
+        target, n_acc = speculative_verify(
+            logits, drafts, seeds, counts, gfirst, self._temp, self._topk,
+            self._topp, use_top_k=any(r.top_k > 0 for r in live),
+            use_top_p=any(r.top_p < 1.0 for r in live))
+        act = d["active"] > 0
+        n_emit = torch.where(act, n_acc + 1, torch.zeros_like(n_acc))
+        delta = torch.where(act, k + 1 - n_emit, torch.zeros_like(n_emit))
+        self._rewind_pos(self.caches, self._axes, self._kinds, delta)
+        bonus = target.gather(0, n_acc[None])[0]
+        d["toks"] = torch.where(act, bonus, d["toks"])
+        d["off"] = d["off"] + n_emit
+        return target, n_emit, delta
+
+    @torch.no_grad()
+    def _spec_dispatch(self, decode_rows: list[int]) -> dict:
+        """One draft-and-verify window over every decode slot: propose
+        ``k`` tokens a row (host drafter, or ``k + 1`` drafter steps),
+        verify all ``k + 1`` positions in one forward, rewind the rejected
+        ones. Opens the pool's rewind window over the rows' requests:
+        releasing one of them before :meth:`_spec_commit` closes it is a
+        pool error (the cancel-vs-rewind ordering contract)."""
+        if self._dirty:
+            self._refresh_device_state()
+        k = self._spec_k(decode_rows)
+        if self._draft_host:
+            drafts = self._tensor(self._host_drafts(decode_rows, k))
+            target, n_emit, _ = self._verify(decode_rows, drafts)
+        else:
+            drafts = self._model_drafts(decode_rows, k)
+            target, n_emit, delta = self._verify(decode_rows, drafts)
+            self._rewind_pos(self.draft_caches, self._daxes, self._dkinds,
+                             delta)
+        if self.pool is not None:
+            self.pool.begin_window(self.slots[b].req.uid
+                                   for b in decode_rows)
+        return dict(target=target, n_emit=n_emit, decode_rows=decode_rows,
+                    k=k)
+
+    def _spec_commit(self, p: dict) -> None:
+        """Read the window back (the step's one host read), close the
+        pool's rewind window, append each row's emitted tokens (a stop
+        token or the budget retires a row mid-window; the rest are
+        dropped) and check the rewind floor of every surviving paged
+        row."""
+        decode_rows, k = p["decode_rows"], p["k"]
+        host = torch.cat([p["target"], p["n_emit"][None]]).cpu().numpy()
+        target, n_emit = host[:-1], host[-1]
+        if self.pool is not None:
+            self.pool.end_window()
+        if k:                         # a k = 0 window is a decode step
+            self.spec_steps += 1
+        self.decode_steps += 1
+        emitted = 0
+        for b in decode_rows:
+            ne = int(n_emit[b])
+            self.spec_proposed += k
+            self.spec_accepted += ne - 1
+            uid = self.slots[b].req.uid
+            for i in range(ne):
+                if self.slots[b] is None:
+                    break                  # stop or budget mid-window
+                self._pos[b] += 1
+                emitted += 1
+                self._append_token(b, int(target[i, b]))
+            if self.pool is not None and self.slots[b] is not None:
+                self.pool.check_rewind(uid, int(self._pos[b]))
+        self.step_token_log.append((emitted, 0))
 
     def _consume_decode_tokens(self, toks: np.ndarray,
                                decode_rows: list[int]) -> None:

@@ -196,17 +196,35 @@ def test_sampled_candidates_are_deterministic_in_the_generator(carried):
     assert len(np.unique(firsts)) > 1       # the candidates differ
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("speculative", True, "item 9")])
-def test_features_not_ported_raise(carried, field, value, item):
+@pytest.mark.parametrize("draft", ["ngram"])
+def test_speculative_is_ported(carried, monkeypatch, draft):
+    """The former ``speculative`` case of ``test_features_not_ported_raise``:
+    ``BestOfNConfig(speculative=True)`` no longer raises; it passes its
+    drafter to the engine, which runs windows, and the answers are the
+    non-speculative ones."""
     cfg, pp = carried[0], carried[4]
-    bcfg = dataclasses.replace(port_engine.BestOfNConfig(num_slots=2),
-                               **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP section 1, "
-                                                  f"{item}"):
-        port_engine.sample_candidates(
-            pp, cfg, PA.AnalogConfig(mode="off"), torch.Generator(),
-            _prompts(cfg), 2, bcfg)
+    engines = []
+    real = port_engine.ServeEngine
+
+    def spy(*a, **kw):
+        engines.append(real(*a, **kw))
+        return engines[-1]
+
+    monkeypatch.setattr(port_engine, "ServeEngine", spy)
+    bcfg = port_engine.BestOfNConfig(num_slots=2, max_new=5)
+
+    def run(b):
+        return port_engine.sample_candidates(
+            pp, cfg, PA.AnalogConfig(mode="off"),
+            torch.Generator().manual_seed(1), _prompts(cfg), 2, b,
+            extract=lambda t: int(np.sum(t)))
+
+    got = run(dataclasses.replace(bcfg, speculative=True, draft=draft,
+                                  draft_k=2))
+    eng = engines[-1]
+    assert eng.spec_enabled and eng.scfg.draft == draft
+    assert eng.scfg.draft_k == 2 and eng.spec_steps > 0
+    np.testing.assert_array_equal(got, run(bcfg))
 
 
 def test_prefix_cache_runs_fork_aware(carried, monkeypatch):
@@ -309,8 +327,10 @@ def test_drift_options_reach_the_engine_and_gate(carried, monkeypatch,
 
 
 def test_config_fields_are_the_references():
-    """No field the reference lacks; the ones left out only tune the
-    speculative drafter, which comes with speculative decoding."""
-    port = {f.name for f in dataclasses.fields(port_engine.BestOfNConfig)}
-    ref = {f.name for f in dataclasses.fields(ref_engine.BestOfNConfig)}
-    assert port <= ref and ref - port == {"draft_k", "draft"}
+    """Every field of the reference, in its order, the drafter's defaults
+    equal."""
+    port, ref = port_engine.BestOfNConfig(), ref_engine.BestOfNConfig()
+    assert ([f.name for f in dataclasses.fields(port)]
+            == [f.name for f in dataclasses.fields(ref)])
+    for name in ("speculative", "draft_k", "draft"):
+        assert getattr(port, name) == getattr(ref, name)

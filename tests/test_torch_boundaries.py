@@ -483,9 +483,10 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     moe model's static and continuous runs too, phase 17's hybrid, vlm
     and audio runs, phase 18's training of mamba2-130m, whose scans
     count too, and of qwen3-moe-30b-a3b, phase 19's static and
-    continuous runs on an ageing chip, and phase 20's cold, prime and
-    warm runs of the prefix cache), each run's counts under one path, and
-    nothing for a kernel that a run did not launch."""
+    continuous runs on an ageing chip, phase 20's cold, prime and warm
+    runs of the prefix cache, and phase 21's priming and measured runs of
+    each speculative deployment and drafter), each run's counts under one
+    path, and nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -559,12 +560,30 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
             cs.MAMBA: {run: {"launches": counts("analog_matmul", "ssd_scan")}
                        for run in ("cold", "prime", "warm")},
             "reduced": {arch: {} for arch in cs.PREFIX_REDUCED}}}
+
+    def spec_run(*launched):
+        return {"prime": {"launches": counts(*launched)},
+                "launches": counts(*launched)}
+
+    spec_keys = {"fp/base": attn, "fp/ngram": attn, "fp/self": attn,
+                 "fp/int4": ("int4_matmul",) + attn,
+                 "analog_hw/base": ("analog_matmul",) + attn,
+                 "analog_hw/ngram": ("analog_matmul",) + attn,
+                 "analog_hw/int4": ("analog_matmul", "int4_matmul") + attn}
+    results["speculative"] = {
+        **{k: spec_run(*v) for k, v in spec_keys.items()},
+        "times": {}, "shapes": {}, "reduced": {}, "seconds": {},
+        "phase_s": 0.0}
     total = next(seen) - 1
     prefix = {f"prefix/{key}/{run}" for key in (
         f"{cs.ARCH}/kv16", f"{cs.ARCH}/kv8", cs.MAMBA)
         for run in ("cold", "prime", "warm")}
     prefix_kv = {p for p in prefix if cs.MAMBA not in p}
     prefix_ssm = prefix - prefix_kv
+    spec = {f"speculative/{k}{run}" for k in spec_keys
+            for run in ("", "/prime")}
+    spec_analog = {p for p in spec if "analog_hw" in p}
+    spec_int4 = {p for p in spec if "int4" in p}
     out = cs.line_launches(results)
     assert list(out) == names
     # every count of every run lands once, under its own path
@@ -583,7 +602,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
         "devices/static/analog_hw", "devices/continuous/analog_hw/kv16",
-        *prefix}
+        *prefix, *spec_analog}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -592,7 +611,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/digital_int4/kv16",
         *(f"{kind}/{arch}/digital_int4" for arch in (cs.ARCH, cs.PHI3)
           for kind in ("eval", "ptq")),
-        *(f"static/{arch}/digital_int4" for arch in cs.FAMILY_ARCHS)}
+        *(f"static/{arch}/digital_int4" for arch in cs.FAMILY_ARCHS),
+        *spec_int4}
     assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
     assert set(out["paged_flash_decode"]) == {
         "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
@@ -601,7 +621,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/analog_hw/kv16",
         f"continuous/{cs.MOE}/digital_int4/kv16",
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
-        "devices/continuous/analog_hw/kv16", *prefix_kv}
+        "devices/continuous/analog_hw/kv16", *prefix_kv, *spec}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")

@@ -332,8 +332,7 @@ def test_submit_validates_capacity(carried):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculative", True), ("max_queue", 4), ("fault_tolerant", True),
-    ("tp", 2)])
+    ("max_queue", 4), ("fault_tolerant", True), ("tp", 2)])
 def test_unported_features_raise(carried, field, value):
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(), **{field: value})
@@ -360,6 +359,28 @@ def test_prefix_cache_is_ported(carried):
                                 temperature=0.0)])[1]
     np.testing.assert_array_equal(first, again)
     assert eng.prefix_hits == 1 and eng.prefix_skipped_tokens == 8
+
+
+def test_speculative_is_ported(carried):
+    """The former ``speculative`` case of ``test_unported_features_raise``:
+    asking for speculative decoding no longer raises. On the dense family
+    the engine runs draft-and-verify windows with each drafter and gives
+    the non-speculative greedy tokens (``tests/test_torch_speculative.py``
+    holds the rest)."""
+    cfg, _, _, _, tp, _ = carried
+    acfg = PA.AnalogConfig(mode="off")
+    geo = dict(num_slots=2, max_len=32, prefill_chunk=4, paged=True,
+               kv_block_size=4)
+    req = PS.Request(uid=0, prompt=_prompt(cfg, 6), max_new=9,
+                     temperature=0.0)
+    base = PS.ServeEngine(tp, cfg, acfg, PS.SchedulerConfig(**geo)).run(
+        [req])[0]
+    for draft in ("ngram", "self", "int4"):
+        eng = PS.ServeEngine(tp, cfg, acfg, PS.SchedulerConfig(
+            speculative=True, draft=draft, **geo))
+        assert eng.spec_enabled and not eng.gating_reasons
+        np.testing.assert_array_equal(eng.run([req])[0], base)
+        assert eng.spec_steps > 0
 
 
 @pytest.mark.parametrize("field,value,gated", [
@@ -411,16 +432,14 @@ def test_unported_lifecycle_and_families_raise(carried):
         with pytest.raises(NotImplementedError,
                            match="continuous batching is not wired"):
             PS.ServeEngine(tp, get_config(arch).reduce(), acfg)
-    # the port keeps the reference's field names, in its order, less the
-    # fields that only tune the drafter, not ported; the defaults differ
-    # only where a feature is not ported
+    # the port keeps every reference field, in its order; the defaults
+    # differ only where a feature is not ported
     ours, theirs = PS.SchedulerConfig(), RS.SchedulerConfig()
     names = [f.name for f in dataclasses.fields(ours)]
-    tuning = {"draft_k", "draft", "draft_layers"}
-    assert names == [f.name for f in dataclasses.fields(theirs)
-                     if f.name not in tuning]
+    assert names == [f.name for f in dataclasses.fields(theirs)]
     assert ours.prefix_cache == theirs.prefix_cache
-    for name in ("cache_salt", "state_snapshots", "drift_dt", "recalibrate",
+    for name in ("cache_salt", "state_snapshots", "speculative", "draft_k",
+                 "draft", "draft_layers", "drift_dt", "recalibrate",
                  "recal_interval", "recal_threshold"):
         assert getattr(ours, name) == getattr(theirs, name)
 
