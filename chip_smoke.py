@@ -47,7 +47,7 @@ Phases, in order; any failure exits non-zero:
                llama-3.2-1b's verify windows (M = 16, 24, 40), the chunk
                forward's LM head on the last position (M = 2), and the int4
                drafter's prompt prefills (int4_matmul at each padded prompt
-               of phase 20's workload, its head at M = 1; parity and the
+               of phase 21's workload, its head at M = 1; parity and the
                kernel's time). 10 calls x 3 rounds a timing (3 x 3 at the
                eval's largest shapes).
 3. analog   -- full-width llama-3.2-1b (16 layers, random weights from a
@@ -116,8 +116,9 @@ Phases, in order; any failure exits non-zero:
                contiguous), and a chunk + decode step's logits within 1e-4.
 10. cli     -- ``repro_torch.launch.serve.main``, continuous (paged) and
                static, and continuous with ``--arch mamba2-130m``.
-11. phi-3   -- phases 3 and 4 for full-width phi-3-mini-4k (32 layers, d
-               3072, 3.82 B fp32 parameters, random from a seed):
+11. phi-3   -- phases 3 and 4 for full-width phi-3-mini-4k (d 3072, 8 of
+               its 32 layers, random from a seed; phases 12, 13 and 15 run
+               it at the same depth):
                ``analog_hw`` + ``use_pallas=True`` against unfused,
                ``digital_int4`` against ``digital_rtn4``, under the same
                gates.
@@ -145,8 +146,8 @@ Phases, in order; any failure exits non-zero:
                its kernel; then the same with ``prefix_cache=False`` and
                the same generator seed: equal answers, candidates/s.
 14. train   -- HWA distillation (paper Fig. 2b): ``distill_recipe`` trains
-               full-width llama-3.2-1b (student a copy of the random
-               teacher) for 4 steps of batch 4 x 256 Markov tokens,
+               full-width llama-3.2-1b at 4 of its 16 layers (student a
+               copy of the random teacher) for 4 steps of batch 4 x 256 Markov tokens,
                ``analog`` on ``analog_matmul`` (w + w_noise against the
                noise-free bound), KD at temperature 2, remat on. Gates:
                (i) at each llama site at M = 1024 the fused Function's
@@ -177,7 +178,8 @@ Phases, in order; any failure exits non-zero:
                with seconds per seed, peak GB and launches; the reduced
                PTQ on the card against the CPU (ranges, greedy tokens).
 16. moe     -- qwen3-moe-30b-a3b (d 2048, 128 experts, top-8) at full
-               width and 6 of its 48 layers (17 GB of fp32 weights):
+               width and 3 of its 48 layers (9.8 GB of fp32 weights; the
+               script's time limit):
                phases 3 and 4 (static engine, ``analog_hw`` fused against
                unfused and ``digital_int4`` against ``digital_rtn4``; every
                site, each batched expert site one launch of all 128
@@ -202,8 +204,9 @@ Phases, in order; any failure exits non-zero:
                per chunk forward, 1 paged decode or prefill); then
                internvl2-2b (vlm: 256 random patch embeddings through the
                projector ahead of each prompt) and musicgen-medium (audio:
-               4 codebooks a token, a 4 x 2048 head) at full width on the
-               static engine, both deployments; each run's peak memory.
+               4 codebooks a token, a 4 x 2048 head) at full width (6 of
+               24 and 8 of 48 layers) on the static engine, both
+               deployments; each run's peak memory.
                Then the three reduced models on the card against the CPU,
                as phase 16's.
 
@@ -244,20 +247,27 @@ Phases, in order; any failure exits non-zero:
                (one seed, a CPU generator) under phase 16's causal rule.
 
 20. prefix  -- the radix prefix cache (on by default in every engine
-               above): 16 greedy requests in 4 groups, each group sharing
+               above): 12 greedy requests in 4 groups, each group sharing
                a 256-token system prompt, each request its own suffix of
-               32-224 tokens and 16-40 new tokens, through phase 8's
+               32-224 tokens and 12-28 new tokens, through phase 8's
                geometry (8 slots, chunk 32, block 16; the pool sized to
-               keep every prompt block). (a) full-width llama-3.2-1b,
+               keep every prompt block). 12 requests for 8 slots, so that
+               the prime pass admits each group's third request after its
+               group-mates' prefills have registered the system prompt's
+               blocks (live sharing). (a) full-width llama-3.2-1b at 4
+               of its 16 layers,
                ``analog_hw`` + ``use_pallas=True``: cold (no cache), then
                one engine with the cache that serves the workload twice
                (prime, warm under new uids), on the bf16 pool and on the
-               int8 pool; (b) full-width mamba2-130m, ``analog_hw``, the
+               int8 pool; (b) full-width mamba2-130m at 8 of its 24
+               layers, ``analog_hw``, the
                same three runs on the state-snapshot pool (``paged=True``,
                inert for KV; the pool at its auto size, 8 x 34 snapshots).
                Gates: prime and warm tokens equal cold bit for bit; the
-               warm pass hits on every request, llama skipping each padded
-               prompt but its last chunk, mamba restoring at least 16
+               prime pass hits on the requests admitted after the first
+               eight (llama skipping prompt tokens, mamba restoring
+               snapshots); the warm pass hits on every request, llama skipping each padded
+               prompt but its last chunk, mamba restoring at least 8
                snapshots and launching fewer ``ssd_scan`` than cold;
                blocks and snapshots conserved; no indexed block or
                snapshot rewritten and no cache leaf replaced; every
@@ -271,9 +281,11 @@ Phases, in order; any failure exits non-zero:
                fork-aware ``sample_candidates`` against the independent
                path.
 
-21. spec    -- speculative decoding on phase 20's workload and geometry
-               (k = 4), each engine's prefix cache primed by the first
-               prompt of each group: (a) full-width llama-3.2-1b ``fp``
+21. spec    -- speculative decoding on the first 8 requests of phase
+               20's workload (2 a group) and its geometry (k = 4), each
+               engine's prefix cache primed by the first prompt of each
+               group: (a) phase 20's full-width llama-3.2-1b at 4
+               of its 16 layers, ``fp``
                non-speculative and with the ngram, self and int4 drafters,
                ``analog_hw`` + ``use_pallas=True`` non-speculative and with
                the ngram and int4 drafters. Gates: every request's tokens
@@ -298,6 +310,32 @@ Phases, in order; any failure exits non-zero:
                token inside a window give equal tokens and spec counters,
                equal to non-speculative; mamba2 and jamba gated.
 
+22. lifecycle -- the request lifecycle and the async front end on
+               full-width llama-3.2-1b, ``analog_hw`` + ``use_pallas=True``,
+               the bf16 pool in phase 8's geometry: (a) phase 8's 16
+               requests, greedy, closed loop, then through
+               ``AsyncServeFrontend`` open-loop (``launch.serve.
+               open_loop_run``): Poisson arrivals at 2 requests/s, and
+               bursts of 4 at 8 requests/s into a queue of 4 with a 2 s
+               TTFT deadline. Gates: every arrival one terminal status and
+               ``submitted`` the arrivals; streamed tokens equal each
+               result; every request's tokens (a timed-out one's partial
+               output) equal the closed loop's bit for bit, or, replayed
+               with its forwards recorded, part by phase 16's causal rule;
+               blocks conserved, no cache leaf replaced, every kernel
+               launched as the engine's counters say. (b) with the ngram
+               and the int4 drafters (k = 4): a cancel between
+               ``step_begin`` and ``step_commit`` of a speculative window
+               deferred past the commit, no ``RewindError``; a chaos fault
+               at the third dispatch errors the in-flight requests, the
+               reset keeps every leaf's storage (all zero after it), and a
+               probe served before the fault and after it gives the same
+               tokens. (c) the HTTP front door on an ephemeral loopback
+               port: 503 at a full queue, 200 with the engine's tokens,
+               ``GET /health`` equal to the engine's counters. It prints
+               tokens/s, TTFT and TPOT p50/p99, outcomes, the queue's
+               high-water mark and the front end's steps of each run.
+
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
 """
@@ -305,6 +343,7 @@ as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import collections
 import contextlib
 import dataclasses
@@ -364,13 +403,16 @@ PREFILL_ROWS = 2
 # chunk forward of its compact rows
 M_ENGINE_DECODE, M_ENGINE_CHUNK = ENGINE_SLOTS, PREFILL_ROWS * ENGINE_CHUNK
 # phi-3-mini-4k, the paper's primary subject model: (site, K, N, sites per
-# forward) of its 32 layers and the LM head (padded_vocab 32256); MHA at
+# forward) of its layers and the LM head (padded_vocab 32256); MHA at
 # head dim 96 on the paged kernels (phase 5, at one context); the eval
 # forward's rows, 64 sequences of 64 tokens (phase 12)
 PHI3 = "phi-3-mini-4k"
-PHI3_SITES = [("qkv", 3072, 9216, 32), ("o", 3072, 3072, 32),
-              ("gate_up", 3072, 16384, 32), ("down", 8192, 3072, 32),
-              ("lm_head", 3072, 32256, 1)]
+# phi-3-mini-4k runs PHI3_LAYERS of its 32 layers (so that the script
+# keeps inside its time limit; every shape is its own)
+PHI3_LAYERS = 8
+PHI3_SITES = [("qkv", 3072, 9216, PHI3_LAYERS), ("o", 3072, 3072, PHI3_LAYERS),
+              ("gate_up", 3072, 16384, PHI3_LAYERS),
+              ("down", 8192, 3072, PHI3_LAYERS), ("lm_head", 3072, 32256, 1)]
 PHI3_PAGED = (32, 32, 96, 16)
 PHI3_PAGED_CONTEXT = 512
 # the eval forwards' rows (phase 12): markov_next's 64 sequences of 64
@@ -406,6 +448,11 @@ M_BON_DECODE, M_BON_CHUNK = ENGINE_SLOTS, 2 * 8
 # default); the training forward's MVM rows (phase 2 holds the kernel there
 # on noisy weights)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME_AT = 4, 256, 4, 2
+# llama-3.2-1b trains at TRAIN_LAYERS of its 16 layers (cut so that the
+# script keeps inside its time limit: the resume check writes and reads
+# the params and both moments, 12 bytes a parameter; the embedding and the
+# untied head stay whole)
+TRAIN_LAYERS = 4
 M_TRAIN = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_GAMMA = 0.02
 NOISY_RUNS = {(ARCH, M_TRAIN)}
@@ -430,8 +477,10 @@ MAMBA = "mamba2-130m"
 MAMBA_SITES = [("in_proj", 768, 3352, 24), ("out_proj", 1536, 768, 24)]
 MAMBA_MVM_PER_FORWARD = sum(s[3] for s in MAMBA_SITES)      # 48
 MAMBA_PROMPT, MAMBA_NEW = 1024, 32
-# decode steps of each timing round of the static engine's step times
-MAMBA_STEP_TOKENS = 8
+# decode steps of each host-clock round of the static engine's step times
+# (step_times): few, so that the script keeps inside its time limit; the
+# device times come from CUDA graphs and do not depend on it
+STEP_TIME_TOKENS = 4
 MAMBA_M_PREFILL = BATCH * MAMBA_PROMPT
 # ssd_scan cases (phase 6): (name, rows, tokens, incoming state); "chunk"
 # is what the continuous engine runs, and the kernels line reports it
@@ -473,7 +522,7 @@ PAGED_TOL = 1e-5
 # prefill (4 x 32) has 8 rows, the static decode (4 x 1) 4, the engine's
 # decode (8 slots) 8 and its chunk (2 x 32) 4
 MOE = "qwen3-moe-30b-a3b"
-MOE_LAYERS = 6
+MOE_LAYERS = 3
 MOE_EXPERTS = 128
 MOE_DENSE_SITES = [("qkv", 2048, 2560, MOE_LAYERS),
                    ("o", 2048, 2048, MOE_LAYERS),
@@ -531,30 +580,38 @@ JAMBA_MIXERS = 7
 # a long prefill from a state
 JAMBA_SSD_CASES = [("jamba chunk", PREFILL_ROWS, ENGINE_CHUNK, True),
                    ("jamba prefill", BATCH, 1024, True)]
-# internvl2-2b, the vlm family (phase 17): full width and depth (24 layers,
-# d 2048, 16 / 8 heads of hd 128, padded vocab 92672) with the projector
-# site of its 256 patch embeddings of width 1024, which the static prefill
-# prepends to the prompt: 4 x (256 + 32) rows, the projector's 4 x 256
+# internvl2-2b, the vlm family (phase 17): full width (d 2048, 16 / 8 heads
+# of hd 128, padded vocab 92672) at INTERNVL_LAYERS of its 24 layers, with
+# the projector site of its 256 patch embeddings of width 1024, which the
+# static prefill prepends to the prompt: 4 x (256 + 32) rows, the
+# projector's 4 x 256
 INTERNVL = "internvl2-2b"
-INTERNVL_SITES = [("qkv", 2048, 4096, 24), ("o", 2048, 2048, 24),
-                  ("gate_up", 2048, 16384, 24), ("down", 8192, 2048, 24),
+INTERNVL_LAYERS = 6
+INTERNVL_SITES = [("qkv", 2048, 4096, INTERNVL_LAYERS),
+                  ("o", 2048, 2048, INTERNVL_LAYERS),
+                  ("gate_up", 2048, 16384, INTERNVL_LAYERS),
+                  ("down", 8192, 2048, INTERNVL_LAYERS),
                   ("lm_head", 2048, 92672, 1)]
 INTERNVL_PROJECTOR = [("projector", 1024, 2048, 1)]
 VIT_TOKENS, VIT_DIM = 256, 1024
 M_VLM_PREFILL, M_PROJECTOR = BATCH * (VIT_TOKENS + PROMPT_LEN), BATCH * 256
-# musicgen-medium, the audio family (phase 17): full width and depth (48
-# layers, d 1536, MHA 24 heads, LayerNorm and GELU, 4 codebooks of 2048
-# codes summed at the input and predicted by one head of 4 x 2048)
+# musicgen-medium, the audio family (phase 17): full width (d 1536, MHA 24
+# heads, LayerNorm and GELU, 4 codebooks of 2048 codes summed at the input
+# and predicted by one head of 4 x 2048) at MUSICGEN_LAYERS of its 48
+# layers (both cut in depth so that the script keeps inside its time limit)
 MUSICGEN = "musicgen-medium"
-MUSICGEN_SITES = [("qkv", 1536, 4608, 48), ("o", 1536, 1536, 48),
-                  ("up", 1536, 6144, 48), ("down", 6144, 1536, 48),
+MUSICGEN_LAYERS = 8
+MUSICGEN_SITES = [("qkv", 1536, 4608, MUSICGEN_LAYERS),
+                  ("o", 1536, 1536, MUSICGEN_LAYERS),
+                  ("up", 1536, 6144, MUSICGEN_LAYERS),
+                  ("down", 6144, 1536, MUSICGEN_LAYERS),
                   ("lm_head", 1536, 8192, 1)]
 FAMILY_ARCHS = (JAMBA, INTERNVL, MUSICGEN)
 # HWA distillation of the ssm and moe families (phase 18), as phase 14's:
 # mamba2-130m at full width and depth (24 layers) and qwen3-moe-30b-a3b at
 # full width and MOE_TRAIN_LAYERS of its 48 layers (1.236 B fp32
-# parameters: the student, the teacher, the gradients and two moments fill
-# about llama's 59.7 GB; two layers would not fit the card); the training
+# parameters: the student, the teacher, the gradients and two moments
+# peak at 44 GB; two layers would not fit the card); the training
 # forward's rows per expert: max(1, int(256 * 8 * 1.25 / 128)) = 20
 # capacity slots per sequence, 4 sequences
 TRAIN_FAMILY_ARCHS = (MAMBA, MOE)
@@ -591,16 +648,21 @@ DEVICE_RECAL = dict(recal_interval=8, recal_threshold=0.15)
 DEVICE_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
 
 # phase 20: the radix prefix cache and the state-snapshot pool. 4 groups of
-# 4 greedy requests; a group shares a 256-token system prompt, each request
+# 3 greedy requests; a group shares a 256-token system prompt, each request
 # adds its own suffix of 32-224 tokens (a multiple of the chunk, so a
 # group's prompts share their left-pad count and with it their chain keys)
-# and asks for 16-40 new tokens (cut from 16-64 so that the script,
-# which runs this workload in phases 20 and 21, keeps inside its time
-# limit)
-PREFIX_GROUPS, PREFIX_PER_GROUP, PREFIX_SYSTEM = 4, 4, 256
+# and asks for 12-28 new tokens (cut from 4 requests a group and 16-64 new
+# tokens, then 16-40, so that the script keeps inside its time limit). 12
+# requests for the 8 slots: the last 4 are admitted while their
+# group-mates' blocks are live, so the prime pass hits on them
+PREFIX_GROUPS, PREFIX_PER_GROUP, PREFIX_SYSTEM = 4, 3, 256
 PREFIX_SUFFIX_CHUNKS = (1, 7)
-PREFIX_NEW = (16, 40)
+PREFIX_NEW = (12, 28)
 PREFIX_WARM_UID = 1000
+# phases 20 and 21 run llama-3.2-1b and mamba2-130m at full width and these
+# depths of their 16 and 24 layers, so that the script keeps inside its
+# time limit (their engines are bound by the host's work per layer)
+PREFIX_LAYERS = {ARCH: 4, MAMBA: 8}
 PREFIX_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
 #: the engine counters each phase-20 run reads as deltas
 PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
@@ -608,8 +670,9 @@ PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
                    "prefix_skipped_tokens", "prefix_cow_copies",
                    "state_snaps_captured", "state_snap_restores")
 
-# phase 21: speculative decoding on the continuous engine, phase 20's
-# workload and geometry with draft_k = SPEC_K: the fp deployment
+# phase 21: speculative decoding on the continuous engine, the first
+# SPEC_PER_GROUP requests of each group of phase 20's workload
+# (spec_requests) in its geometry with draft_k = SPEC_K: the fp deployment
 # non-speculative and with each drafter, analog_hw (use_pallas=True) with
 # the ngram and int4 drafters; the self drafter in fp must accept at least
 # SPEC_SELF_ACCEPT of its proposals. A verify window runs 8 slots x (k + 1)
@@ -619,6 +682,7 @@ PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
 # at llama's and qwen3-moe's heads). The reduced models are held card
 # against CPU in mode off, paged at block 4 and contiguous.
 SPEC_K = 4
+SPEC_PER_GROUP = 2
 SPEC_FP_DRAFTS = ("ngram", "self", "int4")
 SPEC_HW_DRAFTS = ("ngram", "int4")
 SPEC_SELF_ACCEPT = 0.99
@@ -707,9 +771,15 @@ def cuda_time_ms(torch, fn, n_args: int, reps: int = 20,
     return sorted(times)[len(times) // 2]
 
 
+_SLEEP_MS_PER_CYCLE: list = []
+
+
 def sleep_ms_per_cycle(torch) -> float:
     """Milliseconds of one cycle of ``torch.cuda._sleep``, the card's spin
-    kernel (measured: its clock runs at the card's own rate)."""
+    kernel (measured once a process: its clock runs at the card's own
+    rate)."""
+    if _SLEEP_MS_PER_CYCLE:
+        return _SLEEP_MS_PER_CYCLE[0]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -717,7 +787,14 @@ def sleep_ms_per_cycle(torch) -> float:
     torch.cuda._sleep(10_000_000)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / 10_000_000
+    _SLEEP_MS_PER_CYCLE.append(start.elapsed_time(end) / 10_000_000)
+    return _SLEEP_MS_PER_CYCLE[0]
+
+
+#: the first spin of :func:`device_ms` (ms), doubled where the host's
+#: queueing of a round outlasts it (a 20 ms start spent about 100 s of
+#: phase 2 spinning: about 1700 timings x 3 rounds)
+SPIN_MS = 4.0
 
 
 def device_ms(torch, fn, n_args: int, reps: int = 20,
@@ -728,7 +805,7 @@ def device_ms(torch, fn, n_args: int, reps: int = 20,
     queueing outlasted the spin is repeated with a longer spin). Median
     over ``rounds``; arguments rotate as in :func:`cuda_time_ms`."""
     per_cycle = sleep_ms_per_cycle(torch)
-    spin_ms = 20.0
+    spin_ms = SPIN_MS
     for i in range(3):
         fn(i % n_args)
     torch.cuda.synchronize()
@@ -1130,13 +1207,13 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
 
 def draft_prefill_rows() -> list:
     """The rows of the int4 drafter's prompt prefills in phase 21: one
-    whole padded prompt of phase 20's workload each (``int4_matmul`` only;
+    whole padded prompt of its workload (:func:`spec_requests`) each (``int4_matmul`` only;
     phase 2 holds the kernel there), its LM head on the last position
     alone."""
     from repro_torch.serve.scheduler import padded_prompt_len
 
     return sorted({padded_prompt_len(len(r.prompt), ENGINE_CHUNK)
-                   for r in prefix_requests(model_config(ARCH))})
+                   for r in spec_requests(model_config(ARCH))})
 
 
 #: the LM head of a chunk forward and of the drafter's prompt prefill runs
@@ -1820,7 +1897,7 @@ def mamba_static_phase(torch, cfg, params, labels, deploy: str) -> dict:
         res.update(sites=n_sites, site_elements=n_el, site_flips=n_flip)
         check(rel_l2 < E2E_TOL, f"mamba {deploy}: fused vs {what} logits "
               f"rel L2 {rel_l2:.3e} >= {E2E_TOL}")
-    res.update(step_times(torch, cfg, p, acfg, prompt, MAMBA_STEP_TOKENS))
+    res.update(step_times(torch, cfg, p, acfg, prompt, STEP_TIME_TOKENS))
     print(f"  mamba {deploy}: launches {launches}, generate {gen_s:.2f}s; vs "
           f"{what}: " + (f"{res['site_flips']} of {res['site_elements']} site "
                          f"outputs one ADC level apart at near-ties; "
@@ -2355,23 +2432,26 @@ def _deploy_args(deploy: str):
 
 
 #: (layers, d_model, padded_vocab) each full-width model must have
-FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (32, 3072, 32256),
+FULL_WIDTH = {ARCH: (16, 2048, 128256), PHI3: (PHI3_LAYERS, 3072, 32256),
               MOE: (MOE_LAYERS, 2048, 152064),
               JAMBA: (JAMBA_LAYERS, 4096, 65536),
-              INTERNVL: (24, 2048, 92672), MUSICGEN: (48, 1536, 2048)}
+              INTERNVL: (INTERNVL_LAYERS, 2048, 92672),
+              MUSICGEN: (MUSICGEN_LAYERS, 1536, 2048)}
 
 
 def model_config(arch: str):
     """``arch``'s published config; qwen3-moe-30b-a3b cut to MOE_LAYERS of
     its 48 layers and jamba-v0.1-52b to one super-block (JAMBA_LAYERS) of
-    its four (at full depth their fp32 weights do not fit the card)."""
+    its four (at full depth their fp32 weights do not fit the card);
+    phi-3-mini-4k, internvl2-2b and musicgen-medium cut to PHI3_LAYERS,
+    INTERNVL_LAYERS and MUSICGEN_LAYERS (the script's time limit)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    if arch == MOE:
-        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
-    if arch == JAMBA:
-        cfg = dataclasses.replace(cfg, num_layers=JAMBA_LAYERS)
+    depth = {MOE: MOE_LAYERS, JAMBA: JAMBA_LAYERS, PHI3: PHI3_LAYERS,
+             INTERNVL: INTERNVL_LAYERS, MUSICGEN: MUSICGEN_LAYERS}
+    if arch in depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth[arch])
     return cfg
 
 
@@ -2396,17 +2476,22 @@ def prefix_len(cfg, extra) -> int:
     return cfg.vit_tokens if extra is not None else 0
 
 
-def full_width(torch, arch: str, seed: int = 0):
-    """``arch`` at full width (and depth, but for ``model_config``'s cut)
-    on the card, random weights from ``seed``: ``(cfg, params,
-    labels)``."""
+def full_width(torch, arch: str, seed: int = 0, layers: int | None = None):
+    """``arch`` at full width (and depth, but for ``model_config``'s cut,
+    or ``layers`` of its layers when given) on the card, random weights
+    from ``seed``: ``(cfg, params, labels)``."""
     from repro_torch.models import build
 
     dev = torch.device("cuda")
-    cfg, params, labels = build(model_config(arch), torch.Generator(
+    cfg = model_config(arch)
+    want = FULL_WIDTH[arch]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        want = (layers,) + want[1:]
+    cfg, params, labels = build(cfg, torch.Generator(
         device=dev).manual_seed(seed), device=dev)
-    check((cfg.num_layers, cfg.d_model, cfg.padded_vocab)
-          == FULL_WIDTH[arch], f"unexpected config {cfg}")
+    check((cfg.num_layers, cfg.d_model, cfg.padded_vocab) == want,
+          f"unexpected config {cfg}")
     return cfg, params, labels
 
 
@@ -2649,7 +2734,7 @@ def token_attribution(torch, cfg, pa, acfg_a, pb, acfg_b, prompt,
 
 
 def step_times(torch, cfg, params, acfg, prompt,
-               new_tokens: int = NEW_TOKENS, extra=None) -> dict:
+               new_tokens: int = STEP_TIME_TOKENS, extra=None) -> dict:
     """Host-clock time of one prefill and of a greedy decode step
     (synchronized, after the main-path run warmed everything up; median of
     3 rounds), and the device time of one decode step and of one prefill:
@@ -3754,21 +3839,21 @@ def noise_key():
 
 def train_model(torch, arch: str):
     """``arch`` for HWA training on the card, random weights from seed 0:
-    llama-3.2-1b and mamba2-130m at full width and depth, qwen3-moe at
-    full width and MOE_TRAIN_LAYERS of its 48 layers. ``(cfg, params,
-    labels)``."""
+    mamba2-130m at full width and depth, llama-3.2-1b at full width and
+    TRAIN_LAYERS of its 16 layers, qwen3-moe at full width and
+    MOE_TRAIN_LAYERS of its 48 layers. ``(cfg, params, labels)``."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
 
-    if arch == ARCH:
-        return full_width(torch, ARCH)
     cfg = get_config(arch)
-    if arch == MOE:
-        cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    layers = {ARCH: TRAIN_LAYERS, MOE: MOE_TRAIN_LAYERS}
+    if arch in layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers[arch])
     dev = torch.device("cuda")
     cfg, params, labels = build(cfg, torch.Generator(
         device=dev).manual_seed(0), device=dev)
-    want = {MAMBA: (24, 768), MOE: (MOE_TRAIN_LAYERS, 2048)}[arch]
+    want = {ARCH: (TRAIN_LAYERS, 2048), MAMBA: (24, 768),
+            MOE: (MOE_TRAIN_LAYERS, 2048)}[arch]
     check((cfg.num_layers, cfg.d_model) == want, f"unexpected config {cfg}")
     return cfg, params, labels
 
@@ -3872,8 +3957,10 @@ def train_run(torch, arch: str) -> dict:
     prof = train_step_profile(torch, cfg, acfg, tcfg, labels, trainer.params,
                               trainer.state, make_batch(next(iter(loader))))
 
-    # gate (iii): save at TRAIN_RESUME_AT, restore in a fresh trainer, step on
-    whole = {k: v.cpu() for k, v in flatten_paths(
+    # gate (iii): save at TRAIN_RESUME_AT, restore in a fresh trainer, step
+    # on; the uninterrupted run's leaves are kept on the card (a copy on
+    # the host took longer than the checkpoint's write and read together)
+    whole = {k: v.clone() for k, v in flatten_paths(
         {"params": trainer.params, "opt": trainer.state["opt"]}).items()}
     del trainer
     torch.cuda.empty_cache()
@@ -3923,8 +4010,7 @@ def train_run(torch, arch: str) -> dict:
                       for name, st in prof["stages"].items()))
     resumed = flatten_paths({"params": second.params,
                              "opt": second.state["opt"]})
-    apart = [k for k, v in resumed.items()
-             if not torch.equal(v.cpu(), whole[k])]
+    apart = [k for k, v in resumed.items() if not torch.equal(v, whole[k])]
     check(not apart, f"train {arch} resume: {len(apart)} leaves differ, "
           f"e.g. {apart[:3]}")                                 # gate (iii)
     print(f"  gate (iii) {arch}: saved at step {TRAIN_RESUME_AT}, restored "
@@ -5204,6 +5290,13 @@ def prefix_requests(cfg) -> list:
     return reqs
 
 
+def spec_requests(cfg) -> list:
+    """Phase 21's workload (and phase 22's speculative one): the first
+    SPEC_PER_GROUP requests of each group of phase 20's, the same prompts
+    and budgets."""
+    return prefix_requests(cfg)[:PREFIX_GROUPS * SPEC_PER_GROUP]
+
+
 def leaf_ptrs(eng) -> dict:
     """The storage pointer of every cache leaf the prefix cache writes (all
     but the ``pos`` cursors, which each decode step returns anew)."""
@@ -5302,8 +5395,9 @@ def same_tokens(a: dict, b: dict, shift: int, what: str) -> None:
 def prefix_engine(torch, cfg, p, acfg, tag: str, mvm: str) -> dict:
     """Phase 20 (a) / (b) for one model and deployment: cold (no cache),
     then prime and warm on one engine with the cache. Gates: prime and
-    warm tokens equal cold bit for bit; the warm pass hits on every
-    request, a KV family skipping each padded prompt but its last chunk;
+    warm tokens equal cold bit for bit; the prime pass hits on every
+    request admitted after the first ENGINE_SLOTS (blocks or snapshots
+    its group-mates registered); the warm pass hits on every request, a KV family skipping each padded prompt but its last chunk;
     the pools conserved; no indexed block or snapshot rewritten; every
     cache leaf kept (the cache writes in place); each kernel launched as
     the engine's counters say."""
@@ -5343,6 +5437,17 @@ def prefix_engine(torch, cfg, p, acfg, tag: str, mvm: str) -> dict:
     same_tokens(warm["out"], cold["out"], PREFIX_WARM_UID,
                 f"{tag}: warm against cold")
     n = len(reqs)
+    # live sharing: the requests past the first ENGINE_SLOTS are admitted
+    # after their group-mates' prefills registered the system prompt
+    late = n - ENGINE_SLOTS
+    check(late > 0 and prime["prefix_hits"] >= late
+          and prime["prefix_skipped_tokens"] >= late * PREFIX_SYSTEM
+          and (eng.pool is not None or prime["state_snap_restores"] >= late),
+          f"{tag}: the prime pass hit {prime['prefix_hits']} of "
+          f"{prime['prefix_lookups']} requests, skipped "
+          f"{prime['prefix_skipped_tokens']} prompt tokens, restored "
+          f"{prime['state_snap_restores']} snapshots (at least {late} "
+          f"requests admitted after the first {ENGINE_SLOTS} must hit)")
     check(warm["prefix_lookups"] == warm["prefix_hits"] == n,
           f"{tag}: the warm pass hit {warm['prefix_hits']} of "
           f"{warm['prefix_lookups']} requests")
@@ -5377,8 +5482,9 @@ def prefix_engine(torch, cfg, p, acfg, tag: str, mvm: str) -> dict:
                   for leaf, _ in cache_leaves(eng, "spool")) / 1e9
     pool_gb = sum(leaf.numel() * leaf.element_size()
                   for leaf, _ in cache_leaves(eng, "pool")) / 1e9
-    print(f"  {tag}: prime and warm equal cold bit for bit; warm hit "
-          f"{n}/{n}; chunk forwards {cold['prefill_forwards']} cold, "
+    print(f"  {tag}: prime and warm equal cold bit for bit; prime hit "
+          f"{prime['prefix_hits']}/{n} ({prime['prefix_skipped_tokens']} "
+          f"prompt tokens skipped), warm hit {n}/{n}; chunk forwards {cold['prefill_forwards']} cold, "
           f"{warm['prefill_forwards']} warm; mean TTFT "
           f"{cold['ttft_ms']:.1f} -> {warm['ttft_ms']:.1f} ms; tokens/s "
           f"{cold['tokens_per_s']:.1f} / {prime['tokens_per_s']:.1f} / "
@@ -5499,9 +5605,10 @@ def reduced_prefix_check(torch, arch: str) -> dict:
 
 
 def phase_prefix(torch) -> dict:
-    """Phase 20: (a) full-width llama-3.2-1b, analog_hw on the kernels, on
-    the bf16 pool (cold / prime / warm) and the int8 pool; (b) full-width
-    mamba2-130m, analog_hw, on the snapshot pool (``paged=True``, inert
+    """Phase 20: (a) full-width llama-3.2-1b at PREFIX_LAYERS of its
+    layers, analog_hw on the kernels, on the bf16 pool (cold / prime /
+    warm) and the int8 pool; (b) full-width mamba2-130m at PREFIX_LAYERS
+    of its layers, analog_hw, on the snapshot pool (``paged=True``, inert
     for KV); (c) the reduced models, card against CPU."""
     from repro_torch.launch.serve import deploy_model
 
@@ -5511,9 +5618,11 @@ def phase_prefix(torch) -> dict:
     print(f"  phase 20's numbers on {gpu_name_and_power()}")
     out = {}
     for arch in (ARCH, MAMBA):
-        cfg, params, labels = (full_width(torch, arch) if arch == ARCH
-                               else build(arch, torch.Generator(
-                                   device=dev).manual_seed(0), device=dev))
+        cfg, params, labels = (
+            full_width(torch, arch, layers=PREFIX_LAYERS[arch])
+            if arch == ARCH else build(dataclasses.replace(
+                model_config(arch), num_layers=PREFIX_LAYERS[arch]),
+                torch.Generator(device=dev).manual_seed(0), device=dev))
         gen = torch.Generator(device="cuda").manual_seed(7)
         p, acfg = deploy_model(_deploy_args("analog_hw"), cfg, params,
                                labels, gen, inplace=True)
@@ -5854,7 +5963,7 @@ def spec_pass(torch, eng, reqs, tag: str, mvm, seen: dict) -> dict:
     finally:
         eng._spec_commit = real_commit
     run_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = engine_launches(torch, eng, before, tag, mvm)
     d = {k: getattr(eng, k) - before[k] for k in SPEC_COUNTERS}
     for r in reqs:
         out = results[r.uid]
@@ -5862,18 +5971,6 @@ def spec_pass(torch, eng, reqs, tag: str, mvm, seen: dict) -> dict:
               and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
               f"{tag}: request {r.uid} ended {eng.status[r.uid]} with "
               f"{len(out)}/{r.max_new} tokens")
-    want = collections.Counter()
-    if mvm:
-        want[mvm] += mvm_sites(cfg) * (d["decode_steps"]
-                                       + d["prefill_forwards"])
-    if eng.draft_acfg is not None and eng.draft_acfg.int4_serve:
-        want["int4_matmul"] += mvm_sites(eng.draft_cfg) * d["draft_forwards"]
-    want["paged_flash_decode"] += attn_layers(cfg) * (d["decode_steps"]
-                                                      - d["spec_steps"])
-    want["paged_flash_prefill"] += attn_layers(cfg) * (
-        d["prefill_forwards"] + d["spec_steps"])
-    want = {k: v for k, v in want.items() if v}
-    check(launches == want, f"{tag}: launches {launches}, expected {want}")
     tokens = sum(r.max_new for r in reqs)
     windows = d["spec_steps"]
     res = {"run_s": run_s, "tokens": tokens, "tokens_per_s": tokens / run_s,
@@ -5923,12 +6020,7 @@ def spec_engine(torch, cfg, p, acfg, reqs, draft, mvm, tag: str,
     check(rows_kept(torch, eng.pool._index, kept),
           f"{tag}: an indexed block was rewritten")
     check(leaf_ptrs(eng) == ptrs, f"{tag}: a cache leaf was replaced")
-    pool = eng.pool
-    check(pool.num_live == 0
-          and pool.num_free + pool.num_cached == pool.num_blocks
-          and not pool._window, f"{tag}: pool not conserved "
-          f"({pool.num_live} live, {pool.num_free} free, {pool.num_cached} "
-          f"cached of {pool.num_blocks})")
+    pool_conserved(eng, tag)
     if draft == "int4":
         check(eng.draft_acfg.int4_serve and eng.draft_acfg.kv_bits == 0,
               f"{tag}: the drafter is not the packed int4 deployment")
@@ -6191,8 +6283,10 @@ def reduced_spec_check(torch, arch: str) -> dict:
 
 def phase_speculative(torch, rows: dict | None = None,
                       base_hw: dict | None = None) -> dict:
-    """Phase 21: (a) full-width llama-3.2-1b on phase 20's workload and
-    geometry, its prefix cache primed: fp non-speculative and with the
+    """Phase 21: (a) full-width llama-3.2-1b at PREFIX_LAYERS of its layers
+    (phase 20's model) on :func:`spec_requests`
+    (phase 20's first 8 requests) in phase 20's geometry, its prefix cache
+    primed: fp non-speculative and with the
     ngram, self and int4 drafters; analog_hw (``use_pallas=True``)
     non-speculative (its tokens equal to ``base_hw``, phase 20's of the
     same engine, when given) and with the ngram and int4 drafters. Gates:
@@ -6208,8 +6302,8 @@ def phase_speculative(torch, rows: dict | None = None,
     from repro_torch.launch.serve import deploy_model
 
     print(f"  phase 21's numbers on {gpu_name_and_power()}")
-    cfg, params, labels = full_width(torch, ARCH)
-    reqs = prefix_requests(cfg)
+    cfg, params, labels = full_width(torch, ARCH, layers=PREFIX_LAYERS[ARCH])
+    reqs = spec_requests(cfg)
     seen, out = {}, {}
 
     t0 = time.perf_counter()
@@ -6284,6 +6378,583 @@ def phase_speculative(torch, rows: dict | None = None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the request lifecycle and the async front end
+# ---------------------------------------------------------------------------
+
+#: (a)'s open-loop runs: (name, arrival process, long-run requests/s, the
+#: bounded queue (0: none), the TTFT deadline in seconds (0: none))
+LIFECYCLE_RUNS = (("poisson", "poisson", 2.0, 0, 0.0),
+                  ("burst", "burst", 8.0, 4, 2.0))
+#: (b)'s drafters, its requests' and its probe's budgets, and the dispatch
+#: (counted from the workload's start) at which the chaos hook raises
+LIFECYCLE_DRAFTS = ("ngram", "int4")
+LIFECYCLE_SPEC_NEW, LIFECYCLE_PROBE_NEW, LIFECYCLE_FAULT_AT = 8, 4, 3
+LIFECYCLE_PROBE_UID = 3000
+
+
+def lifecycle_requests(cfg) -> list:
+    """Phase 8's 16 requests (prompts of 32-480 tokens, 16-64 new), greedy."""
+    return [dataclasses.replace(r, temperature=0.0, top_k=0)
+            for r in engine_requests(cfg, ENGINE_REQUESTS, seed=0)]
+
+
+def lifecycle_scfg(torch, reqs, **kw):
+    """Phase 8's geometry (8 slots, chunk 32, block 16, the bf16 pool),
+    fault-tolerant as the launcher's open-loop modes run it."""
+    from repro_torch.serve.scheduler import SchedulerConfig, required_max_len
+
+    max_len = max(required_max_len(len(r.prompt), r.max_new, ENGINE_CHUNK)
+                  for r in reqs)
+    return SchedulerConfig(num_slots=ENGINE_SLOTS, max_len=max_len,
+                           prefill_chunk=ENGINE_CHUNK,
+                           cache_dtype=torch.bfloat16, paged=True,
+                           kv_block_size=PAGED_BS, fault_tolerant=True, **kw)
+
+
+#: the engine's forward counters that :func:`engine_launches` reads
+LIFECYCLE_COUNTERS = ("decode_steps", "prefill_forwards", "spec_steps",
+                      "draft_forwards")
+
+
+def engine_counters(eng) -> dict:
+    """The engine's forward counters that :func:`engine_launches` reads."""
+    return {k: getattr(eng, k) for k in LIFECYCLE_COUNTERS}
+
+
+def engine_launches(torch, eng, before: dict, tag: str,
+                    mvm: str | None = "analog_matmul") -> dict:
+    """The kernels' launches since they were set to 0, held against the
+    engine's counters since ``before``: the target's MVM kernel ``mvm``
+    (None: an fp target launches none) at every site of its decode steps,
+    windows and chunks, the int4 drafter's at every site of its forwards,
+    the decode kernel at every decode step that is no window, the prefill
+    kernel at every chunk forward and window."""
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    d = {k: getattr(eng, k) - before[k] for k in LIFECYCLE_COUNTERS}
+    cfg = eng.cfg
+    want = collections.Counter()
+    if mvm:
+        want[mvm] += mvm_sites(cfg) * (d["decode_steps"]
+                                       + d["prefill_forwards"])
+    if eng.draft_acfg is not None and eng.draft_acfg.int4_serve:
+        want["int4_matmul"] += mvm_sites(eng.draft_cfg) * d["draft_forwards"]
+    want["paged_flash_decode"] += attn_layers(cfg) * (d["decode_steps"]
+                                                      - d["spec_steps"])
+    want["paged_flash_prefill"] += attn_layers(cfg) * (
+        d["prefill_forwards"] + d["spec_steps"])
+    want = {k: v for k, v in want.items() if v}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    return launches
+
+
+def pool_conserved(eng, tag: str) -> None:
+    """No block live, no window open, every block free, cached or live and
+    the refcounts those of the owners."""
+    pool = eng.pool
+    check(pool.num_live == 0 and not pool._window
+          and pool.num_free + pool.num_cached + pool.num_live
+          == pool.num_blocks
+          and sum(pool._ref.values()) == sum(len(v) for v in
+                                             pool._owned.values()),
+          f"{tag}: pool not conserved ({pool.num_live} live, "
+          f"{pool.num_free} free, {pool.num_cached} cached of "
+          f"{pool.num_blocks})")
+
+
+@contextlib.contextmanager
+def lifecycle_logged(eng, log: list):
+    """Inside the block every ``try_submit``, ``step_begin`` and
+    ``step_commit`` of ``eng`` is logged in order: ``("submit", req)``,
+    ``("begin", uids that timed out in it, whether it dispatched)``,
+    ``("commit",)``; the order the front end's two threads called them in
+    (one at a time)."""
+    real = {n: getattr(eng, n) for n in ("try_submit", "step_begin",
+                                         "step_commit")}
+
+    def try_submit(req):
+        log.append(("submit", req))
+        return real["try_submit"](req)
+
+    def step_begin():
+        before = {u for u, s in eng.status.items() if s == "timed_out"}
+        pending = real["step_begin"]()
+        log.append(("begin", sorted(u for u, s in eng.status.items()
+                                    if s == "timed_out" and u not in before),
+                    pending is not None))
+        return pending
+
+    def step_commit(pending):
+        log.append(("commit",))
+        return real["step_commit"](pending)
+
+    eng.try_submit, eng.step_begin = try_submit, step_begin
+    eng.step_commit = step_commit
+    try:
+        yield
+    finally:
+        for n in real:
+            delattr(eng, n)
+
+
+def lifecycle_replay(torch, eng, log: list, want: dict, rec: list,
+                     what: str) -> None:
+    """Replay an open-loop run's logged calls (:func:`lifecycle_logged`) on
+    ``eng``, a fresh engine of the run's config, with its forwards recorded
+    (:func:`spec_recorded` with sites) into ``rec``: the same submits, the
+    logged timeouts forced at their step (the replay's own clock times
+    nothing out: deadlines are dropped), the same steps. The replay must
+    give every request the run's tokens."""
+    pending = None
+    with spec_recorded(torch, eng, rec, True):
+        for e in log:
+            if e[0] == "submit":
+                eng.try_submit(dataclasses.replace(e[1], ttft_deadline=0.0,
+                                                   deadline=0.0))
+            elif e[0] == "begin":
+                for u in e[1]:
+                    eng.cancel(u, status="timed_out")
+                pending = eng.step_begin()
+                check((pending is not None) == e[2], f"{what}: the replay "
+                      "dispatched where the run did not, or the reverse")
+            else:
+                eng.step_commit(pending)
+    for uid, toks in want.items():
+        check(np.array_equal(eng.results.get(uid), toks), f"{what}: the "
+              f"replay gave request {uid} other tokens")
+
+
+def lifecycle_parity(torch, cfg, p, acfg, reqs, base: dict, out: dict,
+                     log: list, scfg, what: str) -> dict:
+    """Every request's tokens of an open-loop run (``out``; a timed-out
+    one's partial output) against the closed-loop tokens ``base``: equal
+    bit for bit, or a prefix of them. Where one parts, both runs are
+    replayed with their forwards recorded (the closed loop by ``run``, the
+    open loop by :func:`lifecycle_replay`) and its first differing token
+    is tied to its origin by phase 16's causal rule
+    (:func:`spec_site_origin`)."""
+    from repro_torch.serve.scheduler import ServeEngine
+
+    parted = {}
+    for r in reqs:
+        a = out.get(r.uid)
+        if a is None or not len(a):
+            continue
+        b = base[r.uid][:len(a)]
+        if not np.array_equal(a, b):
+            parted[r.uid] = int(np.nonzero(a != b)[0][0])
+    res = {"equal": len([r for r in reqs if len(out.get(r.uid, ()))])
+           - len(parted), "parted": []}
+    if parted:
+        base_log, open_log = [], []
+        eng = ServeEngine(p, cfg, acfg, lifecycle_scfg(torch, reqs))
+        with spec_recorded(torch, eng, base_log, True):
+            got = eng.run(reqs)
+        for r in reqs:
+            check(np.array_equal(got[r.uid], base[r.uid]), f"{what}: the "
+                  f"recorded closed-loop re-run gave request {r.uid} other "
+                  "tokens")
+        del eng
+        lifecycle_replay(torch, ServeEngine(p, cfg, acfg, scfg), log, out,
+                         open_log, what)
+        bp, op = spec_positions(base_log), spec_positions(open_log)
+        for r in reqs:
+            if r.uid in parted:
+                res["parted"].append(spec_site_origin(
+                    torch, cfg, acfg, r, parted[r.uid], (base_log, bp),
+                    (open_log, op), what))
+        del base_log, open_log
+        torch.cuda.empty_cache()
+    return res
+
+
+def latency_ms(vals) -> dict:
+    """p50 and p99 of seconds ``vals`` in ms (None where none is given)."""
+    xs = [v for v in vals if v is not None]
+    if not xs:
+        return {"p50": None, "p99": None}
+    return {"p50": float(np.percentile(xs, 50)) * 1e3,
+            "p99": float(np.percentile(xs, 99)) * 1e3}
+
+
+def ms_pair(d: dict) -> str:
+    """``p50 / p99`` of :func:`latency_ms` for a report line."""
+    return " / ".join("-" if d[k] is None else f"{d[k]:.1f}"
+                      for k in ("p50", "p99"))
+
+
+def lifecycle_open_loop(torch, cfg, p, acfg, reqs, base: dict, name: str,
+                        arrival: str, qps: float, max_queue: int,
+                        ttft: float) -> dict:
+    """One open-loop run of (a) through ``AsyncServeFrontend``
+    (``launch.serve.open_loop_run``): every arrival reaches exactly one
+    terminal status and the books balance; streamed tokens equal each
+    result; every request's tokens equal the closed loop's or part by the
+    causal rule (:func:`lifecycle_parity`); blocks conserved, no cache leaf
+    replaced, the kernels launched as the engine's counters say."""
+    from repro_torch.launch.serve import arrival_offsets, open_loop_run
+    from repro_torch.serve.frontend import AsyncServeFrontend
+    from repro_torch.serve.scheduler import TERMINAL, ServeEngine
+
+    tag = f"{cfg.name} open-loop {name} ({arrival} @ {qps:g} requests/s"
+    tag += (f", max_queue {max_queue}" if max_queue else "") + (
+        f", TTFT deadline {ttft:g} s)" if ttft else ")")
+    scfg = lifecycle_scfg(torch, reqs, max_queue=max_queue)
+    eng = ServeEngine(p, cfg, acfg, scfg)
+    ptrs = leaf_ptrs(eng)
+    run_reqs = [dataclasses.replace(r, ttft_deadline=ttft) for r in reqs]
+    offsets = arrival_offsets(len(reqs), qps, arrival,
+                              np.random.default_rng(1))
+    fe = AsyncServeFrontend(eng)
+    log = []
+
+    async def drive():
+        await fe.start()
+        try:
+            return await open_loop_run(fe, run_reqs, offsets)
+        finally:
+            await fe.stop()
+
+    before = engine_counters(eng)
+    zero_counts(torch)
+    with lifecycle_logged(eng, log):
+        records, wall = asyncio.run(drive())
+    launches = engine_launches(torch, eng, before, tag)
+    check(sorted(r["uid"] for r in records) == [r.uid for r in reqs]
+          and eng.submitted == len(reqs)
+          and all(eng.status[r.uid] in TERMINAL for r in reqs),
+          f"{tag}: {len(records)} terminal records of {len(reqs)} arrivals, "
+          f"{eng.submitted} submitted")
+    by = collections.Counter(eng.status[r.uid] for r in reqs)
+    check(by.get("errored", 0) == 0 and eng.fault_count == 0,
+          f"{tag}: faults {eng.step_faults}")
+    for rec in records:
+        got = eng.results[rec["uid"]]
+        check(rec["status"] == eng.status[rec["uid"]]
+              and rec["streamed"] == [int(t) for t in got]
+              and rec["tokens"] == len(got),
+              f"{tag}: request {rec['uid']}'s stream or result is not the "
+              "engine's")
+    for r in reqs:
+        if eng.status[r.uid] == "finished":
+            check(len(eng.results[r.uid]) == r.max_new, f"{tag}: request "
+                  f"{r.uid} finished with {len(eng.results[r.uid])} tokens")
+    pool_conserved(eng, tag)
+    check(leaf_ptrs(eng) == ptrs, f"{tag}: a cache leaf was replaced")
+    out = dict(eng.results)
+    parity = lifecycle_parity(torch, cfg, p, acfg, reqs, base, out, log,
+                              scfg, tag)
+    tokens = sum(len(eng.results[r.uid]) for r in reqs)
+    # TTFT over the requests that got a first token; a request retired
+    # without one (timed out, errored) counts at its time to retirement, a
+    # lower bound of its TTFT, in ttft_all_ms (over every admitted arrival)
+    ttfts = [r["ttft"] for r in records]
+    no_token = [r["latency"] for r in records
+                if r["status"] != "shed" and r["ttft"] is None]
+    tpots = [(eng.finished_at[r.uid] - eng.first_token_at[r.uid])
+             / (len(eng.results[r.uid]) - 1) for r in reqs
+             if eng.status[r.uid] == "finished"
+             and len(eng.results[r.uid]) > 1]
+    res = {"arrival": arrival, "qps": qps, "max_queue": max_queue,
+           "ttft_deadline_s": ttft, "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "outcomes": dict(by),
+           "ttft_ms": latency_ms(ttfts), "tpot_ms": latency_ms(tpots),
+           "ttft_n": len([t for t in ttfts if t is not None]),
+           "ttft_all_ms": latency_ms(
+               [t for t in ttfts if t is not None] + no_token),
+           "no_token": len(no_token),
+           "no_token_min_ms": min(no_token) * 1e3 if no_token else None,
+           "queue_high_water": eng.queue_high_water,
+           "frontend_steps": fe.steps, "launches": launches,
+           "shed_count": eng.shed_count, "timeout_count": eng.timeout_count,
+           "parity": parity}
+    print(f"  {tag}: {tokens} tokens in {wall:.2f} s ({tokens / wall:.1f} "
+          f"tok/s), outcomes {dict(by)}, TTFT p50/p99 "
+          f"{ms_pair(res['ttft_ms'])} ms over the {res['ttft_n']} requests "
+          f"with a first token (over all {res['ttft_n'] + len(no_token)} "
+          f"admitted, the {len(no_token)} retired without one at their "
+          f"time to retirement, a lower bound: at least "
+          f"{ms_pair(res['ttft_all_ms'])} ms), TPOT p50/p99 "
+          f"{ms_pair(res['tpot_ms'])} ms over the finished, queue high-water "
+          f"{eng.queue_high_water}, {fe.steps} front-end steps; {parity['equal']} requests' tokens equal the closed "
+          f"loop's bit for bit, {len(parity['parted'])} part at near-ties "
+          f"{parity['parted']}; launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_leaves(eng) -> list:
+    """Every cache leaf of ``eng`` and of its drafter."""
+    from repro_torch.serve.scheduler import _walk
+
+    out = [leaf for (leaf,) in _walk(eng.caches)]
+    if eng.draft_caches is not None:
+        out += [leaf for (leaf,) in _walk(eng.draft_caches)]
+    return out
+
+
+def lifecycle_spec(torch, cfg, p, acfg, draft: str) -> dict:
+    """(b) with ``draft`` (k = SPEC_K) on one fault-tolerant engine over
+    phase 21's eight requests (budget LIFECYCLE_SPEC_NEW): a probe
+    served alone; a cancel between ``step_begin`` and ``step_commit`` of a
+    speculative window, deferred past the commit (the slot live and in the
+    pool's rewind window until then), with no ``RewindError`` and the pool
+    conserved; a chaos fault at the LIFECYCLE_FAULT_AT-th dispatch of the
+    next four requests, every one of them then ``errored`` with the fault's
+    reason, every cache leaf (the drafter's too) keeping its storage and
+    zeroed; the probe again under a new uid, equal bit for bit. The
+    kernels launched as the engine's counters say."""
+    from repro_torch.serve.kv_pool import RewindError
+    from repro_torch.serve.scheduler import Request, ServeEngine
+
+    tag = f"{cfg.name} lifecycle, {draft} drafter"
+    reqs = [dataclasses.replace(r, max_new=LIFECYCLE_SPEC_NEW)
+            for r in spec_requests(cfg)]
+    probe = Request(uid=LIFECYCLE_PROBE_UID, prompt=reqs[0].prompt,
+                    max_new=LIFECYCLE_PROBE_NEW, temperature=0.0)
+    state = {"armed": False, "seen": 0, "ptrs": None}
+
+    def chaos(point):
+        if point != "dispatch" or not state["armed"]:
+            return
+        state["seen"] += 1
+        if state["seen"] == LIFECYCLE_FAULT_AT:
+            state["ptrs"] = [leaf.data_ptr() for leaf in engine_leaves(eng)]
+            raise RuntimeError("chaos: injected dispatch fault")
+
+    scfg = dataclasses.replace(spec_scfg(torch, reqs, draft),
+                               fault_tolerant=True)
+    eng = ServeEngine(p, cfg, acfg, scfg, chaos_hook=chaos)
+    check(eng.spec_enabled and eng._tolerant, f"{tag}: not speculative")
+    before = engine_counters(eng)
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    try:
+        first = eng.run([probe])[probe.uid].copy()
+        for r in reqs[:4]:
+            eng.submit(r)
+        pending = None
+        while pending is None or pending["op"] != "spec":
+            if pending is not None:
+                eng.step_commit(pending)
+            check(eng.queue or eng.num_active, f"{tag}: no window opened")
+            pending = eng.step_begin()
+        row = pending["decode_rows"][0]
+        uid = eng.slots[row].req.uid
+        check(eng.pool.in_window(uid), f"{tag}: request {uid} is not in the "
+              "open window")
+        check(eng.cancel(uid) and eng.status[uid] == "decode"
+              and eng.slots[row] is not None and eng.pool.in_window(uid),
+              f"{tag}: the cancel mid-window was not deferred")
+        eng.step_commit(pending)
+        check(eng.status[uid] in ("cancelled", "finished")
+              and not eng.pool.in_window(uid), f"{tag}: the deferred cancel "
+              f"left request {uid} {eng.status[uid]}")
+        cancelled = eng.status[uid]
+        eng.run()
+        pool_conserved(eng, f"{tag} after the cancel")
+        check(all(eng.status[r.uid] == "finished" for r in reqs[:4]
+                  if r.uid != uid), f"{tag}: a request did not finish")
+        state["armed"] = True
+        eng.run(reqs[4:])
+    except RewindError as e:
+        check(False, f"{tag}: {e}")
+    check(eng.fault_count == 1 and state["ptrs"] is not None,
+          f"{tag}: {eng.fault_count} faults")
+    errored = [r.uid for r in reqs[4:] if eng.status[r.uid] == "errored"]
+    check(errored == [r.uid for r in reqs[4:]]
+          and all("chaos: injected dispatch fault" in eng.errors[u]
+                  for u in errored), f"{tag}: the in-flight requests ended "
+          f"{[eng.status[r.uid] for r in reqs[4:]]}")
+    leaves = engine_leaves(eng)
+    check([leaf.data_ptr() for leaf in leaves] == state["ptrs"],
+          f"{tag}: the fault reset replaced a cache leaf")
+    check(not any(bool(leaf.any()) for leaf in leaves),
+          f"{tag}: the fault reset left a cache leaf nonzero")
+    pool_conserved(eng, f"{tag} after the fault")
+    again = eng.run([dataclasses.replace(probe, uid=probe.uid + 1)])[
+        probe.uid + 1]
+    check(np.array_equal(again, first), f"{tag}: the probe after the fault "
+          f"gave {again.tolist()}, before it {first.tolist()}")
+    run_s = time.perf_counter() - t0
+    launches = engine_launches(torch, eng, before, tag)
+    res = {"run_s": run_s, "cancel_status": cancelled,
+           "errored": len(errored), "fault": eng.step_faults[0],
+           "spec_steps": eng.spec_steps, "launches": launches,
+           "probe": first.tolist()}
+    print(f"  {tag}: a cancel mid-window deferred to the commit (ended "
+          f"{cancelled}); a fault at dispatch {LIFECYCLE_FAULT_AT} errored "
+          f"{len(errored)} requests; the reset kept every leaf's storage "
+          f"({len(leaves)} leaves, all zero); the probe equal before and "
+          f"after; {run_s:.2f} s, {eng.spec_steps} windows, launches "
+          f"{launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+async def http_exchange(port: int, method: str, path: str, body=None):
+    """One HTTP/1.1 request to the front door on ``127.0.0.1:port``:
+    ``(status code, JSON body)``."""
+    raw = json.dumps(body).encode() if body is not None else b""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+                 f"Content-Length: {len(raw)}\r\n\r\n".encode() + raw)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, payload = data.split(b"\r\n\r\n", 1)
+    return int(head.split()[1]), json.loads(payload)
+
+
+def lifecycle_http(torch, cfg, p, acfg, reqs) -> dict:
+    """(c) the HTTP front door (``launch.serve.open_http``) on an ephemeral
+    loopback port over an engine of (a)'s burst config: four requests fill
+    the queue before the front end starts, so the POST it applies first is
+    answered 503 with the reason; a second POST 200 with the engine's
+    tokens; ``GET /health`` equal to the engine's counters once idle; then
+    the door stops."""
+    from repro_torch.launch.serve import open_http
+    from repro_torch.serve.frontend import AsyncServeFrontend
+    from repro_torch.serve.scheduler import ServeEngine
+
+    tag = f"{cfg.name} HTTP front door"
+    eng = ServeEngine(p, cfg, acfg, lifecycle_scfg(torch, reqs, max_queue=4))
+    fe = AsyncServeFrontend(eng)
+    args = argparse.Namespace(new_tokens=8, seed=0, ttft_timeout=0.0,
+                              request_timeout=0.0, port=0)
+    post = {"prompt": [int(t) for t in reqs[0].prompt[:32]], "max_new": 8,
+            "temperature": 0.0}
+
+    async def door():
+        server = await open_http(fe, args, cfg.vocab_size)
+        port = server.sockets[0].getsockname()[1]
+        for i, r in enumerate(reqs[1:5]):
+            check(eng.try_submit(dataclasses.replace(
+                r, uid=10_000 + i, prompt=r.prompt[:32], max_new=8)) is None,
+                f"{tag}: a filler was shed")
+        shed = asyncio.ensure_future(http_exchange(port, "POST", "/generate",
+                                                   post))
+        t = time.perf_counter()
+        while fe._commands.empty():
+            check(time.perf_counter() - t < 30, f"{tag}: the POST never "
+                  "reached the front end")
+            await asyncio.sleep(0.005)
+        await fe.start()
+        try:
+            out = {"shed": await shed,
+                   "ok": await http_exchange(port, "POST", "/generate",
+                                             post)}
+            while eng.num_active or eng.queue_depth:
+                await asyncio.sleep(0.01)
+            out["health"] = await http_exchange(port, "GET", "/health")
+        finally:
+            server.close()
+            await server.wait_closed()
+            await fe.stop()
+        return out
+
+    before = engine_counters(eng)
+    zero_counts(torch)
+    out = asyncio.run(door())
+    launches = engine_launches(torch, eng, before, tag)
+    code, body = out["shed"]
+    check(code == 503 and body["status"] == "shed"
+          and "queue full" in body["reason"], f"{tag}: {code} {body}")
+    code, ok = out["ok"]
+    check(code == 200 and ok["status"] == "finished"
+          and ok["tokens"] == [int(t) for t in eng.results[ok["uid"]]]
+          and len(ok["tokens"]) == 8, f"{tag}: {code} {ok}")
+    code, health = out["health"]
+    want = dict(active=eng.num_active, queued=eng.queue_depth,
+                submitted=eng.submitted, shed=eng.shed_count,
+                timed_out=eng.timeout_count, cancelled=eng.cancel_count,
+                step_faults=eng.fault_count,
+                queue_high_water=eng.queue_high_water)
+    check(code == 200 and health == want, f"{tag}: /health {health}, the "
+          f"engine's {want}")
+    pool_conserved(eng, tag)
+    print(f"  {tag}: 503 at a full queue ({body['reason']}), 200 with the "
+          f"engine's {len(ok['tokens'])} tokens (TTFT {ok['ttft'] * 1e3:.1f}"
+          f" ms), /health {health}; launches {launches}")
+    del eng
+    return {"health": health, "ttft_s": ok["ttft"], "launches": launches}
+
+
+def phase_lifecycle(torch, phase8_tokens_per_s: float | None = None) -> dict:
+    """Phase 22 on full-width llama-3.2-1b, ``analog_hw`` with
+    ``use_pallas=True`` (phase 8's model and deployment): (a) phase 8's
+    16 requests, greedy, closed loop on the bf16 pool in phase 8's geometry,
+    then through the async front end open-loop (:data:`LIFECYCLE_RUNS`,
+    :func:`lifecycle_open_loop`); (b) a cancel mid speculative window, a
+    chaos fault and the in-place reset with the ngram and int4 drafters
+    (:func:`lifecycle_spec`); (c) the HTTP front door
+    (:func:`lifecycle_http`). Returns every run's numbers; ``runs`` holds
+    the launches of each main-path run."""
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serve.scheduler import ServeEngine
+
+    print(f"  phase 22's numbers on {gpu_name_and_power()}")
+    t0 = time.perf_counter()
+    seconds = {}
+    cfg, params, labels = full_width(torch, ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p, acfg = deploy_model(_deploy_args("analog_hw"), cfg, params, labels,
+                           gen, inplace=True)
+    acfg = dataclasses.replace(acfg, use_pallas=True)
+    reqs = lifecycle_requests(cfg)
+    seconds["model"] = time.perf_counter() - t0
+
+    eng = ServeEngine(p, cfg, acfg, lifecycle_scfg(torch, reqs))
+    before = engine_counters(eng)
+    zero_counts(torch)
+    t = time.perf_counter()
+    base = {u: v.copy() for u, v in eng.run(reqs).items()}
+    torch.cuda.synchronize()
+    closed_s = time.perf_counter() - t
+    tag = f"{cfg.name} closed loop (greedy)"
+    closed = {"run_s": closed_s,
+              "tokens": sum(len(v) for v in base.values()),
+              "launches": engine_launches(torch, eng, before, tag)}
+    closed["tokens_per_s"] = closed["tokens"] / closed_s
+    check(all(eng.status[r.uid] == "finished"
+              and len(base[r.uid]) == r.max_new for r in reqs),
+          f"{tag}: a request did not finish")
+    pool_conserved(eng, tag)
+    del eng
+    print(f"  {tag}: {closed['tokens']} tokens in {closed_s:.2f} s "
+          f"({closed['tokens_per_s']:.1f} tok/s); phase 8's sampled run "
+          f"{phase8_tokens_per_s} tok/s")
+    seconds["closed"] = time.perf_counter() - t0
+    runs = {"closed": closed}
+    for name, arrival, qps, max_queue, ttft in LIFECYCLE_RUNS:
+        runs[name] = lifecycle_open_loop(torch, cfg, p, acfg, reqs, base,
+                                         name, arrival, qps, max_queue,
+                                         ttft)
+        runs[name]["tokens_per_s_over_closed"] = (
+            runs[name]["tokens_per_s"] / closed["tokens_per_s"])
+        seconds[name] = time.perf_counter() - t0
+    for draft in LIFECYCLE_DRAFTS:
+        runs[f"spec_{draft}"] = lifecycle_spec(torch, cfg, p, acfg, draft)
+        seconds[f"spec_{draft}"] = time.perf_counter() - t0
+    runs["http"] = lifecycle_http(torch, cfg, p, acfg, reqs)
+    seconds["http"] = time.perf_counter() - t0
+    del p, params
+    torch.cuda.empty_cache()
+    print(f"  phase 22: front-end tokens/s against the closed loop's "
+          + ", ".join(f"{k} {runs[k]['tokens_per_s_over_closed']:.3f}"
+                      for k, *_ in LIFECYCLE_RUNS)
+          + f" (phase 8's sampled closed loop {phase8_tokens_per_s} tok/s); "
+          "seconds since its start: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; on {gpu_name_and_power()}")
+    return {"runs": runs, "seconds": seconds,
+            "phase8_tokens_per_s": phase8_tokens_per_s}
+
+
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -6308,7 +6979,9 @@ def line_launches(results: dict) -> dict:
     (phase 15), and the ageing chip's static and continuous runs (phase
     19, every launch with ``col_off``), and phase 20's cold, prime and
     warm runs of the prefix cache, and phase 21's priming and measured
-    runs of each deployment and drafter. Each count was read right after
+    runs of each deployment and drafter, and phase 22's closed-loop run,
+    open-loop runs, speculative lifecycle runs (each drafter's probes,
+    cancel and fault) and HTTP run. Each count was read right after
     its run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
     the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18,
@@ -6316,8 +6989,9 @@ def line_launches(results: dict) -> dict:
     fork-aware one), phase 21's recorded re-runs and forward timings,
     phase 19's graph check, the timing replays and
     the fused-against-unfused checks after each run (site parity, the
-    token attribution), the CLI (phase 10), and the training phases'
-    profiled steps and resume checks."""
+    token attribution), phase 22's recorded replays (only where a request
+    parts), the CLI (phase 10), and the training phases' profiled steps
+    and resume checks."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -6380,6 +7054,8 @@ def line_launches(results: dict) -> dict:
             continue
         add(f"speculative/{key}/prime", r["prime"]["launches"])
         add(f"speculative/{key}", r["launches"])
+    for key, r in results["lifecycle"]["runs"].items():
+        add(f"lifecycle/{key}", r["launches"])
     return out
 
 
@@ -6513,94 +7189,104 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/21] setup")
+        phase("[1/22] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/21] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/22] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/21] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/22] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/21] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/22] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/21] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/22] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/21] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/22] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/21] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/22] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/21] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/22] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/21] reduced continuous engines, card against cpu")
+        phase("[9/22] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/21] serving CLI")
+        phase("[10/22] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/21] static engine, phi-3-mini-4k at full width: "
+        phase("[11/22] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/21] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/22] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/21] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/22] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/21] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/22] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/21] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/22] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/21] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/22] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/21] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/22] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/21] HWA distillation at full width, {MAMBA} and {MOE} "
+        phase(f"[18/22] HWA distillation at full width, {MAMBA} and {MOE} "
               f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
               "training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/21] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/22] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
-        phase(f"[20/21] prefix cache: full-width {ARCH} (bf16 and int8 "
+        phase(f"[20/22] prefix cache: full-width {ARCH} at "
+              f"{PREFIX_LAYERS[ARCH]} layers (bf16 and int8 "
               f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
               "reduced models, card against cpu")
         results["prefix"] = phase_prefix(torch)
-        phase(f"[21/21] speculative decoding: full-width {ARCH} (fp with "
+        phase(f"[21/22] speculative decoding: full-width {ARCH} at "
+              f"{PREFIX_LAYERS[ARCH]} layers (fp with "
               "the ngram, self and int4 drafters; analog_hw with ngram and "
-              "int4) on phase 20's workload; reduced models, card against "
-              "cpu")
+              "int4) on phase 20's first 8 requests; reduced models, card "
+              "against cpu")
         t21 = time.perf_counter()
         base_hw = {int(u): np.asarray(v, np.int32) for u, v in
                    results["prefix"][f"{ARCH}/kv16"]["tokens"].items()}
         results["speculative"] = phase_speculative(torch, rows, base_hw)
         results["speculative"]["phase_s"] = time.perf_counter() - t21
+        phase(f"[22/22] lifecycle: full-width {ARCH} through the async "
+              "front end open-loop (poisson, bursts with a bounded queue and "
+              "TTFT deadlines), a cancel mid speculative window and a chaos "
+              "fault (ngram and int4 drafters), the HTTP front door")
+        t22 = time.perf_counter()
+        results["lifecycle"] = phase_lifecycle(
+            torch, results["engine"]["analog_hw/kv16"]["tokens_per_s"])
+        results["lifecycle"]["phase_s"] = time.perf_counter() - t22
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -73,14 +73,33 @@ first N blocks. The report line gives the windows and the acceptance:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduced --paged --speculative --draft ngram
 
-The open-loop front door and tensor parallelism of the JAX package's
-launcher are not ported yet.
+Open-loop modes (``serve.frontend``): ``--qps`` replays the same
+workload as arriving traffic (``--arrival poisson``: exponential gaps at
+the rate; ``burst``: groups of 4 at the same long-run rate) through the
+async front end, with per-request deadlines (``--request-timeout``,
+``--ttft-timeout``) and a bounded admission queue (``--max-queue``: an
+arrival at a full queue is shed with its reason, never dropped silently);
+``--serve`` opens an HTTP/1.1 front door on ``127.0.0.1:--port`` (``POST
+/generate`` with a JSON body, ``GET /health`` for the engine's lifecycle
+counters) until interrupted. Both run the engine fault-tolerant, and on
+the card build the kernels before the arrival clock starts. The report
+line gives the outcomes by status, TTFT and TPOT percentiles and the
+queue's high-water mark:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --paged --qps 4 --arrival burst --max-queue 4 \
+        --request-timeout 30 --ttft-timeout 5
+
+Tensor parallelism (the JAX package's ``--tp``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
+import itertools
+import json
 import sys
 import time
 
@@ -94,6 +113,7 @@ from repro_torch.core.analog import (AnalogConfig, pack_int4_weights,
 from repro_torch.core.noise import validate_noise_config
 from repro_torch.models import build
 from repro_torch.serve.decode import digital_int4_config, generate
+from repro_torch.serve.frontend import AsyncServeFrontend, ShedError
 from repro_torch.serve.scheduler import (Request, SchedulerConfig,
                                          ServeEngine, required_max_len)
 
@@ -229,13 +249,204 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "probability of the attached device state "
                          "(--drift-hours mode; faults are permanent: "
                          "recalibration never clears them)")
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="open-loop mode: replay the workload as arriving "
+                         "traffic at this rate through the async front end "
+                         "(0 = closed loop)")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "burst"],
+                    help="open-loop arrivals: poisson = exponential gaps "
+                         "at --qps, burst = groups of 4 arriving together "
+                         "at the same long-run rate")
+    ap.add_argument("--request-timeout", type=float, default=0.0,
+                    help="end-to-end deadline of each request in seconds "
+                         "(0 = none); an overdue request is retired "
+                         "timed_out with its partial output")
+    ap.add_argument("--ttft-timeout", type=float, default=0.0,
+                    help="first-token deadline of each request in seconds "
+                         "(0 = none), enforced while queued and during "
+                         "prefill")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue of the open-loop modes "
+                         "(0 = unbounded); an arrival at a full queue is "
+                         "shed with its reason")
+    ap.add_argument("--serve", action="store_true",
+                    help="open an HTTP/1.1 front door on --port (POST "
+                         "/generate, GET /health) and serve until "
+                         "interrupted instead of the synthetic workload")
+    ap.add_argument("--port", type=int, default=8321,
+                    help="TCP port of --serve on 127.0.0.1 (0 = any free "
+                         "port)")
     return ap.parse_args(argv)
+
+
+def arrival_offsets(n: int, qps: float, arrival: str,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Arrival times (seconds from the start) of ``n`` open-loop requests:
+    ``poisson``, exponential gaps at rate ``qps``; ``burst``, groups of 4
+    arriving together, the groups spaced so that the long-run rate is still
+    ``qps`` (a transient overload of a bounded queue at a sustainable mean
+    rate)."""
+    if arrival == "poisson":
+        return np.cumsum(rng.exponential(1.0 / qps, size=n))
+    group = 4
+    starts = np.arange(n) // group * (group / qps)
+    return starts + rng.uniform(0, 1e-3, size=n)
+
+
+async def open_loop_run(frontend: AsyncServeFrontend, reqs, offsets):
+    """Submit each of ``reqs`` at its arrival offset and collect every
+    terminal result, the shed ones too. Returns ``(records, wall
+    seconds)``, a record a dict of uid, status, ttft, latency, the token
+    count and the reason; ``streamed`` holds the tokens the request's
+    stream yielded."""
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    records: list[dict] = []
+
+    async def one(req, at):
+        await asyncio.sleep(max(0.0, at - (loop.time() - t0)))
+        try:
+            h = await frontend.submit(req)
+        except ShedError as e:
+            records.append(dict(uid=req.uid, status="shed", ttft=None,
+                                latency=0.0, tokens=0, reason=str(e),
+                                streamed=[]))
+            return
+        streamed = [t async for t in h.stream()]
+        res = await h.result()
+        records.append(dict(uid=req.uid, status=res.status, ttft=res.ttft,
+                            latency=res.latency, tokens=len(res.tokens),
+                            reason=res.reason, streamed=streamed))
+
+    await asyncio.gather(*(one(r, a) for r, a in zip(reqs, offsets)))
+    return records, loop.time() - t0
+
+
+#: the largest request body the front door reads (bytes)
+MAX_BODY = 1 << 20
+
+
+def http_handler(frontend: AsyncServeFrontend, args, vocab: int):
+    """The front door's connection handler ``handle(reader, writer)``, one
+    HTTP/1.1 request a connection. ``POST /generate`` takes JSON
+    ``{"prompt": [ids], "max_new", "temperature", "top_k", "seed",
+    "ttft_deadline", "deadline"}`` (defaults from ``args``) and answers 200
+    with ``{"uid", "status", "tokens", "reason", "ttft", "latency"}``, 503
+    with the engine's reason when the request is shed, 400 on a bad body
+    (no JSON, no non-empty ``prompt``, a Content-Length past MAX_BODY);
+    ``GET /health`` answers the engine's lifecycle counters; anything else
+    404. ``writer`` needs only ``write``, ``drain`` and ``close``."""
+    uids = itertools.count()
+
+    async def handle(reader, writer):
+        try:
+            head = await reader.readuntil(b"\r\n\r\n")
+        except (asyncio.IncompleteReadError, asyncio.LimitOverrunError):
+            writer.close()
+            return
+        method, path = (head.split(b"\r\n", 1)[0].decode("latin-1").split()
+                        + ["", ""])[:2]
+
+        def respond(code, obj):
+            payload = json.dumps(obj).encode()
+            writer.write(
+                f"HTTP/1.1 {code}\r\nContent-Type: application/json\r\n"
+                f"Content-Length: {len(payload)}\r\n"
+                f"Connection: close\r\n\r\n".encode() + payload)
+
+        eng = frontend.engine
+        if method == "GET" and path == "/health":
+            respond("200 OK", dict(
+                active=eng.num_active, queued=eng.queue_depth,
+                submitted=eng.submitted, shed=eng.shed_count,
+                timed_out=eng.timeout_count, cancelled=eng.cancel_count,
+                step_faults=eng.fault_count,
+                queue_high_water=eng.queue_high_water))
+        elif method == "POST" and path == "/generate":
+            try:
+                clen = 0
+                for h in head.split(b"\r\n")[1:]:
+                    if h.lower().startswith(b"content-length:"):
+                        clen = int(h.split(b":", 1)[1])
+                if not 0 <= clen <= MAX_BODY:
+                    raise ValueError(f"Content-Length {clen} outside "
+                                     f"[0, {MAX_BODY}]")
+                spec = json.loads(await reader.readexactly(clen) or b"{}")
+                prompt = np.asarray(spec["prompt"], np.int32) % vocab
+                if prompt.ndim != 1 or not len(prompt):
+                    raise ValueError("prompt must be a non-empty list of "
+                                     "token ids")
+                req = Request(
+                    uid=next(uids), prompt=prompt,
+                    max_new=int(spec.get("max_new", args.new_tokens)),
+                    temperature=float(spec.get("temperature", 0.8)),
+                    top_k=int(spec.get("top_k", 50)),
+                    seed=int(spec.get("seed", args.seed)),
+                    ttft_deadline=float(spec.get("ttft_deadline",
+                                                 args.ttft_timeout)),
+                    deadline=float(spec.get("deadline",
+                                            args.request_timeout)))
+            except (KeyError, TypeError, ValueError,
+                    asyncio.IncompleteReadError) as e:
+                respond("400 Bad Request", dict(error=str(e)))
+            else:
+                try:
+                    h = await frontend.submit(req)
+                except ShedError as e:
+                    respond("503 Service Unavailable",
+                            dict(uid=req.uid, status="shed", reason=str(e)))
+                else:
+                    res = await h.result()
+                    respond("200 OK", dict(
+                        uid=res.uid, status=res.status,
+                        tokens=[int(t) for t in res.tokens],
+                        reason=res.reason, ttft=res.ttft,
+                        latency=res.latency))
+        else:
+            respond("404 Not Found", dict(error=f"no route {path}"))
+        await writer.drain()
+        writer.close()
+
+    return handle
+
+
+async def open_http(frontend: AsyncServeFrontend, args,
+                    vocab: int) -> asyncio.AbstractServer:
+    """Start the front door (:func:`http_handler`) on ``127.0.0.1:
+    args.port`` (0: a free port, read off ``server.sockets``)."""
+    return await asyncio.start_server(http_handler(frontend, args, vocab),
+                                      "127.0.0.1", args.port)
+
+
+async def http_serve(frontend: AsyncServeFrontend, args, vocab: int):
+    """Serve the front door until cancelled (Ctrl-C)."""
+    server = await open_http(frontend, args, vocab)
+    port = server.sockets[0].getsockname()[1]
+    print(f"[serve] HTTP front door on http://127.0.0.1:{port} "
+          "(POST /generate, GET /health); Ctrl-C to stop")
+    async with server:
+        await server.serve_forever()
+
+
+def prepare_kernels(device: torch.device) -> None:
+    """Build and load every kernel library before an open-loop clock
+    starts (on the card a first launch would otherwise run ``nvcc`` inside
+    a request's deadline); nothing to do on the CPU."""
+    if device.type != "cuda":
+        return
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
 
 
 def main(argv=None):
     """CLI entry point. Returns ``{uid: generated ids}`` from the
-    continuous engine, or the static engine's tokens [num_requests,
-    new_tokens] (on the host)."""
+    continuous engine, its open-loop records with ``--qps`` (None after
+    ``--serve``), or the static engine's tokens [num_requests, new_tokens]
+    (on the host)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     validate_noise_config(args.noise_model, args.noise_gamma)
@@ -287,6 +498,9 @@ def main(argv=None):
         if args.speculative:
             print("[serve] --speculative is a continuous-engine option: "
                   "ignored on the static path")
+        if args.qps > 0 or args.serve:
+            print("[serve] --qps/--serve are continuous-engine modes: "
+                  "ignored on the static path")
         prompts = torch.randint(0, cfg.vocab_size, (args.num_requests, 4),
                                 generator=gen, device=device)
         if cfg.family == "audio":          # one token per codebook
@@ -301,7 +515,12 @@ def main(argv=None):
               f"({total / dt:.1f} tok/s); sample: {toks[0, :8].tolist()}")
         return toks
 
+    open_loop = args.serve or args.qps > 0
     reqs = mixed_requests(args, cfg)
+    if open_loop and (args.request_timeout or args.ttft_timeout):
+        reqs = [dataclasses.replace(r, deadline=args.request_timeout,
+                                    ttft_deadline=args.ttft_timeout)
+                for r in reqs]
     chunk = args.prefill_chunk
     max_len = max(required_max_len(len(r.prompt), r.max_new, chunk)
                   for r in reqs)
@@ -318,7 +537,11 @@ def main(argv=None):
         recalibrate=args.recalibrate,
         # the watchdog's cadence scaled to the workload, so that a short
         # run still reads health a few times
-        recal_interval=max(1, est_steps // 8) if drift_dt else 25))
+        recal_interval=max(1, est_steps // 8) if drift_dt else 25,
+        # the open-loop modes bound the queue and survive step faults: a
+        # front door degrades, it does not die
+        max_queue=args.max_queue if open_loop else 0,
+        fault_tolerant=open_loop))
     flags = {"drift": "--drift-hours"}
     for feature, why in eng.gating_reasons.items():
         flag = flags.get(feature, "--" + feature.replace("_", "-"))
@@ -326,6 +549,9 @@ def main(argv=None):
         # when the flag was given
         if feature != "prefix_cache" or flag in argv:
             print(f"[serve] {flag} is inert for {cfg.name}: {why}")
+    if open_loop:
+        prepare_kernels(device)
+        return open_loop_main(args, eng, reqs, cfg.vocab_size)
     t0 = time.perf_counter()
     results = eng.run(reqs)
     dt = time.perf_counter() - t0
@@ -370,8 +596,52 @@ def main(argv=None):
           f"{eng.decode_tokens_during_admission} decode tokens emitted "
           f"during admission, p50 latency "
           f"{lats[len(lats) // 2] * 1e3:.0f}ms{prefix}{spec}{drift}; "
-          f"{latency_report(eng)}); sample: {results[0][:8].tolist()}")
+          f"{lifecycle_report(eng)}); sample: {results[0][:8].tolist()}")
     return results
+
+
+def open_loop_main(args, eng: ServeEngine, reqs, vocab: int):
+    """``--serve``: the HTTP front door until interrupted (returns None);
+    ``--qps``: the workload as arriving traffic through the async front
+    end, every arrival accounted for. Returns the open-loop records."""
+    fe = AsyncServeFrontend(eng)
+    if args.serve:
+        async def door():
+            await fe.start()
+            try:
+                await http_serve(fe, args, vocab)
+            finally:
+                await fe.stop()
+
+        try:
+            asyncio.run(door())
+        except KeyboardInterrupt:
+            print(f"[serve] shutting down; {lifecycle_report(eng)}")
+        return None
+    rng = np.random.default_rng(args.seed + 1)
+    offsets = arrival_offsets(len(reqs), args.qps, args.arrival, rng)
+
+    async def drive():
+        await fe.start()
+        try:
+            return await open_loop_run(fe, reqs, offsets)
+        finally:
+            await fe.stop()
+
+    records, wall = asyncio.run(drive())
+    by = {}
+    for r in records:
+        by[r["status"]] = by.get(r["status"], 0) + 1
+    total = sum(r["tokens"] for r in records)
+    # no silent drop: every arrival reached one terminal status
+    if not len(records) == len(reqs) == eng.submitted:
+        raise RuntimeError(f"{len(reqs)} arrivals, {len(records)} "
+                           f"terminal records, {eng.submitted} submitted")
+    print(f"[serve] open-loop ({args.arrival} @ {args.qps:g} qps, "
+          f"{len(reqs)} arrivals): {total} tokens in {wall:.2f}s "
+          f"({total / wall:.1f} tok/s), outcomes {by}, {fe.steps} engine "
+          f"steps; {lifecycle_report(eng)}")
+    return records
 
 
 def attach_drift(args, params, labels, acfg, reqs):
@@ -409,9 +679,10 @@ def lat_stats(vals) -> str:
             f"{np.percentile(xs, 99) * 1e3:.0f}ms")
 
 
-def latency_report(eng: ServeEngine) -> str:
-    """TTFT and TPOT percentiles of a finished run (the part of the
-    reference's lifecycle report that this port's engine measures)."""
+def lifecycle_report(eng: ServeEngine) -> str:
+    """The lifecycle tail of the report line: TTFT and TPOT percentiles,
+    the shed, timed-out, cancelled and step-fault counts and the queue's
+    high-water mark."""
     ttfts, tpots = [], []
     for uid, first in eng.first_token_at.items():
         sub = eng.submit_time.get(uid)
@@ -422,8 +693,10 @@ def latency_report(eng: ServeEngine) -> str:
         if done is not None and n > 1:
             tpots.append((done - first) / (n - 1))
     return (f"TTFT p50/p99 {lat_stats(ttfts)}, "
-            f"TPOT p50/p99 {lat_stats(tpots)}")
-
+            f"TPOT p50/p99 {lat_stats(tpots)}, "
+            f"{eng.shed_count} shed, {eng.timeout_count} timed out, "
+            f"{eng.cancel_count} cancelled, {eng.fault_count} step faults, "
+            f"queue high-water {eng.queue_high_water}")
 
 if __name__ == "__main__":
     main()

@@ -55,21 +55,32 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str,
 # ---------------------------------------------------------------------------
 
 
+def rope_tables(positions: torch.Tensor, hd: int, theta: float,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotary ``(cos, sin)`` [..., S, 1, hd/2] of ``positions``
+    [..., S], shared by every tensor rotated at those positions."""
+    half = hd // 2
+    expo = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    freqs = torch.pow(torch.full_like(expo, theta), expo)
+    ang = positions[..., :, None].float() * freqs            # [..., S, hd/2]
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotate x [..., S, H, hd] by :func:`rope_tables`' ``(cos, sin)``."""
+    cos, sin = tables
+    x1, x2 = torch.split(x.float(), x.shape[-1] // 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Apply rotary embeddings. x [..., S, H, hd], positions [..., S]."""
     if theta <= 0:
         return x
-    hd = x.shape[-1]
-    half = hd // 2
-    expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.full_like(expo, theta), expo)
-    ang = positions[..., :, None].float() * freqs            # [..., S, hd/2]
-    cos = torch.cos(ang)[..., :, None, :]
-    sin = torch.sin(ang)[..., :, None, :]
-    x1, x2 = torch.split(x.float(), half, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return apply_rope(x, rope_tables(positions, x.shape[-1], theta,
+                                     x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +229,9 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
         k = k.reshape(*k.shape[:-1], cfg.num_kv_heads, hd)
         v = v.reshape(*v.shape[:-1], cfg.num_kv_heads, hd)
         stats_in = {"q": st_q, "k": st_k, "v": st_v}
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.rope_theta > 0:                 # one table for q and k
+        tables = rope_tables(positions, hd, cfg.rope_theta, x.device)
+        q, k = apply_rope(q, tables), apply_rope(k, tables)
     scale = cfg.head_dim ** -0.5
     s = x.shape[1]
 

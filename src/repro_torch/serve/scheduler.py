@@ -111,25 +111,45 @@ mixed-length traffic instead:
   ``0x5ECA1`` and the recalibration count, so a run gives the same bits
   twice.
 
+* **Request lifecycle** -- every request moves through ``queued ->
+  prefill -> decode`` to exactly one terminal status: ``finished``,
+  ``cancelled``, ``timed_out``, ``shed`` or ``errored``, each but the
+  first with its reason in ``errors``. ``try_submit`` sheds at a full
+  bounded queue (``SchedulerConfig.max_queue``) or where ``submit`` would
+  refuse the request; ``cancel`` works at every stage and keeps the
+  partial output; ``Request.ttft_deadline`` / ``deadline`` retire overdue
+  requests at step boundaries. The step is split in two: ``step_begin``
+  enforces deadlines, admits and dispatches the step's device work with no
+  host read, ``step_commit`` reads it back and does the host bookkeeping.
+  A cancel that lands between the two is deferred to the commit (the
+  cancel-vs-rewind ordering contract of ``serve.kv_pool``). A
+  fault-tolerant engine (``SchedulerConfig.fault_tolerant`` or a
+  ``chaos_hook``) turns an exception raised in a step into ``errored``
+  results for the in-flight requests, resets the caches in place and the
+  host pools anew, and keeps serving the queue; an allocator fault at
+  admission sheds the queue head only, and a bad health read skips that
+  watchdog check. A CUDA error that makes the reset itself fail
+  propagates: a device-side fault poisons the CUDA context for good.
+  ``events`` logs ``("token", uid, tok)`` and ``("done", uid, status)``
+  for the async front end (``serve.frontend``).
+
 Cursors (``pos``, ``start``) live on the device; the engine keeps host
 mirrors and reads the device once per engine step, for the sampled tokens.
 Every device write of the prefix cache (the copy-on-write block copy, the
-snapshot capture and restore, the table rows) goes into the existing
-leaves in place, so CUDA graphs captured over them stay valid.
+snapshot capture and restore, the table rows) and the fault reset goes
+into the existing leaves in place, so CUDA graphs captured over them stay
+valid. Every device write the engine makes, from whichever thread calls
+it, is issued on the one stream the engine was built on.
 
-**What this port does not run yet.** The JAX package's engine also has
-request deadlines, shedding and chaos recovery (the watchdog's
-fault-tolerant health read with it), and tensor parallelism.
-Their ``SchedulerConfig`` / ``Request`` fields keep their names here but
-default to off, and asking for one raises ``NotImplementedError`` naming
-its ROADMAP item. The step is not split into ``step_begin`` /
-``step_commit`` (that split serves the async front end, not ported
-either).
+Tensor parallelism (``SchedulerConfig.tp``) is not ported: the field
+keeps its name here but defaults to off, and asking for it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -169,8 +189,10 @@ class Request:
     is kept). ``greedy_first``: how many first tokens are argmax picks
     before temperature sampling. ``seed`` seeds the request's own noise,
     so its tokens do not depend on its batch-mates. ``ttft_deadline`` /
-    ``deadline`` belong to the request lifecycle, not ported: non-zero
-    values are refused at submit.
+    ``deadline`` (seconds from submission, 0 = none): a request with no
+    token yet past either one, or one past ``deadline`` mid-decode, is
+    retired ``timed_out`` at the next step boundary with its partial
+    output.
     """
 
     uid: int
@@ -243,9 +265,11 @@ class SchedulerConfig:
     the clock is inert and ``gating_reasons["drift"]`` says why; without a
     running clock so is the watchdog (``gating_reasons["recalibrate"]``).
 
-    The remaining fields are the JAX package's, for features not ported
-    yet (see the module docstring). They default to off, and turning one
-    on raises: ``max_queue``, ``fault_tolerant``, ``tp``.
+    ``max_queue > 0`` bounds the admission queue: ``try_submit`` sheds a
+    request that arrives at a full queue. ``fault_tolerant=True`` (implied
+    by a ``chaos_hook``) survives a fault raised in a step (see the module
+    docstring). ``tp`` (tensor parallelism) is not ported: it defaults to
+    off, and turning it on raises.
     """
 
     num_slots: int = 4
@@ -273,14 +297,13 @@ class SchedulerConfig:
     tp: int = 1
 
 
-_SERVING = "ROADMAP section 1, item 9 (serving features)"
 #: SchedulerConfig fields of features not ported: (off value, where queued)
 _NOT_PORTED = {
-    "max_queue": (0, _SERVING + ": request lifecycle (shedding)"),
-    "fault_tolerant": (False, _SERVING + ": request lifecycle (chaos "
-                                         "recovery)"),
     "tp": (1, "ROADMAP section 1, item 10 (tensor parallelism)"),
 }
+
+#: the terminal statuses of the request lifecycle
+TERMINAL = ("finished", "cancelled", "timed_out", "shed", "errored")
 
 
 #: why ``SchedulerConfig.paged`` is inert on an ssm stack (the reference's
@@ -391,7 +414,13 @@ class ServeEngine:
         results[0]                     # np.ndarray of generated ids
 
     ``submit`` / ``step`` expose the loop (e.g. to admit requests
-    mid-decode). The engine runs where ``params`` live: on the card the
+    mid-decode); ``try_submit``, ``cancel``, ``step_begin`` /
+    ``step_commit``, ``queue_depth`` and ``drain_events`` the request
+    lifecycle (see the module docstring), whose telemetry is
+    ``submitted``, ``shed_count``, ``timeout_count``, ``cancel_count``,
+    ``fault_count``, ``health_faults``, ``step_faults`` and
+    ``queue_high_water`` (the reference's names). The engine runs where
+    ``params`` live: on the card the
     paged layout runs the paged-attention kernels and an ssm stack the
     ``ssd_scan`` kernel, on the CPU their plain versions. A requested
     option that cannot run on the model's family is recorded in
@@ -404,8 +433,7 @@ class ServeEngine:
     ``state_snap_restores``, speculative decoding ``spec_steps``,
     ``spec_proposed`` and ``spec_accepted`` (the reference's names) and
     ``draft_forwards`` (the model drafter's forwards: window steps,
-    catch-ups and prompt prefills). Not ported (see the module docstring):
-    deadlines, shedding, chaos recovery and tensor parallelism.
+    catch-ups and prompt prefills). Not ported: tensor parallelism.
     """
 
     def __init__(self, params, cfg, acfg: AnalogConfig,
@@ -420,16 +448,15 @@ class ServeEngine:
         target's (a separately trained small drafter, say), and
         ``draft_fn(context, k) -> [<= k] ids`` replaces model drafting by
         a host callable over the request's prompt and generated tokens.
-        ``chaos_hook`` (fault injection) is not ported and raises."""
+        ``chaos_hook(point)`` is called at the fault-injection points
+        ``"alloc"`` (admission), ``"dispatch"`` (each step's dispatch) and
+        ``"health"`` (the watchdog's read); an exception it raises is a
+        fault, and installing one makes the engine fault-tolerant."""
         for name, (off, where) in _NOT_PORTED.items():
             if getattr(scfg, name) != off:
                 raise NotImplementedError(
                     f"SchedulerConfig.{name}={getattr(scfg, name)!r} is not "
                     f"ported yet ({where})")
-        if chaos_hook is not None:
-            raise NotImplementedError(
-                f"chaos_hook is not ported yet ({_SERVING}: request "
-                "lifecycle)")
         if cfg.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"continuous batching is not wired for family="
@@ -439,6 +466,10 @@ class ServeEngine:
         self.params = params
         self.cfg, self.acfg, self.scfg = cfg, acfg, scfg
         self.device = params["embed"]["tokens"].device
+        # every device write goes onto the stream the engine was built on,
+        # whichever thread makes it (the current stream is thread-local)
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         b = scfg.num_slots
         # a requested feature that cannot run on this family is recorded
         # with its reason (the launcher prints these), never dropped quietly
@@ -495,10 +526,32 @@ class ServeEngine:
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Optional[_Slot]] = [None] * b
         self.results: dict[int, np.ndarray] = {}
+        self.finished_at: dict[int, float] = {}
+        # the request lifecycle: each uid's status (queued -> prefill ->
+        # decode -> one of TERMINAL), the reason of every terminal status
+        # but finished, submission and first-token times (deadlines, TTFT)
         self.status: dict[int, str] = {}
+        self.errors: dict[int, str] = {}
         self.submit_time: dict[int, float] = {}
         self.first_token_at: dict[int, float] = {}
-        self.finished_at: dict[int, float] = {}
+        #: ("token", uid, tok) per sampled token and ("done", uid, status)
+        #: per terminal transition, drained by the async front end
+        self.events: collections.deque[tuple] = collections.deque()
+        # lifecycle telemetry (the launcher's report)
+        self.submitted = 0
+        self.shed_count = 0
+        self.timeout_count = 0
+        self.cancel_count = 0
+        self.fault_count = 0
+        self.health_faults = 0
+        self.step_faults: list[str] = []
+        self.queue_high_water = 0
+        self.chaos_hook = chaos_hook
+        self._tolerant = bool(scfg.fault_tolerant) or chaos_hook is not None
+        # the step between step_begin and step_commit; a cancel of a
+        # slotted request in that span waits for the commit
+        self._inflight: Optional[dict] = None
+        self._deferred_cancels: list[tuple[int, str, Optional[str]]] = []
         # telemetry the CLI's report reads: decode forwards (pure decode
         # steps plus the decode substep of mixed steps), steps that fused
         # both phases, chunk forwards, decode tokens emitted while a
@@ -615,11 +668,8 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Enqueue a request (admitted at the next free slot)."""
-        if req.ttft_deadline or req.deadline:
-            raise NotImplementedError(
-                f"request deadlines are not ported yet ({_SERVING}: request "
-                "lifecycle)")
+        """Enqueue a request (admitted at the next free slot). Raises
+        ``ValueError`` for a request this engine can never serve."""
         if req.max_new < 1:
             raise ValueError("max_new must be >= 1")
         need = required_max_len(len(req.prompt), req.max_new,
@@ -635,43 +685,127 @@ class ServeEngine:
                 raise ValueError(
                     f"request {req.uid}: needs {nblk} KV blocks, pool has "
                     f"{self.pool.num_blocks} total")
+        self.submitted += 1
         self.status[req.uid] = "queued"
         self.submit_time[req.uid] = time.perf_counter()
         self.queue.append(req)
+        self.queue_high_water = max(self.queue_high_water, len(self.queue))
+
+    def try_submit(self, req: Request) -> Optional[str]:
+        """Submit under admission control: ``None`` when accepted, else the
+        reason the request was shed (status ``"shed"``, the reason in
+        ``errors[uid]``): the bounded queue (``max_queue``) is full, or
+        :meth:`submit` would refuse the request."""
+        mq = self.scfg.max_queue
+        if mq and len(self.queue) >= mq:
+            reason = (f"admission queue full ({len(self.queue)}/{mq}) — "
+                      f"engine saturated, retry later")
+        else:
+            try:
+                self.submit(req)
+                return None
+            except ValueError as e:
+                reason = str(e)
+        self.submitted += 1
+        self.shed_count += 1
+        self._finish_unadmitted(req.uid, "shed", reason)
+        return reason
+
+    def cancel(self, uid: int, *, status: str = "cancelled",
+               reason: Optional[str] = None) -> bool:
+        """Cancel request ``uid`` at whatever stage it is in: a queued one
+        leaves the queue, a slotted one is retired with its partial output
+        (every pool reference released, its block tables on the sink).
+        True when the request was live, False when it was already terminal
+        or unknown (a finish that won is not an error). Between
+        :meth:`step_begin` and :meth:`step_commit` a slotted request's
+        cancel is deferred to the commit: the step in flight may still
+        rewind into its blocks (the cancel-vs-rewind ordering contract)."""
+        for i, r in enumerate(self.queue):
+            if r.uid == uid:
+                del self.queue[i]
+                if status == "cancelled":
+                    self.cancel_count += 1
+                self._finish_unadmitted(uid, status, reason)
+                return True
+        for b, s in enumerate(self.slots):
+            if s is not None and s.req.uid == uid:
+                if self._inflight is not None:
+                    self._deferred_cancels.append((uid, status, reason))
+                else:
+                    if status == "cancelled":
+                        self.cancel_count += 1
+                    with self._on_stream():
+                        self._retire_slot(b, status, reason)
+                return True
+        return False
 
     def step(self) -> None:
-        """One engine iteration: admit queue heads into free slots (strict
-        FIFO; a paged engine admits the head only when the pool can cover
-        its worst case), then run the step the slot mix calls for: a fused
-        mixed step while any slot is mid-prefill, else a decode block."""
-        t0 = time.perf_counter()
-        self._admit_loop()
-        decode_rows = [b for b, s in enumerate(self.slots)
-                       if s is not None and not s.prefilling]
-        prefill_rows = [b for b, s in enumerate(self.slots)
-                        if s is not None and s.prefilling]
-        if prefill_rows:
-            self._mixed_commit(self._mixed_dispatch(decode_rows,
-                                                    prefill_rows))
-            kind = "mixed" if decode_rows else "prefill"
-        elif decode_rows:
-            # a model drafter takes the window even at k = 0 (a row one
-            # token from its budget): its draft step still consumes the
-            # emitted token, keeping its cache in step; a host drafter has
-            # no cache and falls back to the cheaper decode block
-            if self._spec and (self.draft_caches is not None
-                               or self._spec_k(decode_rows)):
-                self._spec_commit(self._spec_dispatch(decode_rows))
-            else:
-                self._decode_commit(self._decode_dispatch(decode_rows))
-            kind = "decode"
-        else:
-            return
-        self.phase_time[kind] += time.perf_counter() - t0
-        # the chip ages only while it computes: an idle iteration
-        # returned above, so the clock ticks worked steps only
-        if self._drift:
-            self._advance_drift()
+        """One engine iteration: :meth:`step_begin` and, unless the engine
+        was idle, :meth:`step_commit` right after it."""
+        pending = self.step_begin()
+        if pending is not None:
+            self.step_commit(pending)
+
+    def step_begin(self) -> Optional[dict]:
+        """First half of an iteration: retire overdue requests, admit
+        queue heads into free slots (strict FIFO; a paged engine admits the
+        head only when the pool can cover its worst case) and dispatch the
+        step the slot mix calls for (a fused mixed step while any slot is
+        mid-prefill, else a decode block or a speculative window), with no
+        host read. Returns the pending record for :meth:`step_commit`, or
+        None when the engine is idle (or a tolerated fault reset it).
+        Exactly one step may be in flight."""
+        if self._inflight is not None:
+            raise RuntimeError("step_begin with a step already in flight "
+                               "— commit it first (step_commit)")
+        with self._on_stream():
+            try:
+                self._enforce_deadlines()
+                self._admit_loop()
+                pending = self._dispatch()
+            except Exception as e:                    # noqa: BLE001
+                if not self._tolerant:
+                    raise
+                self._fault_reset(e)
+                return None
+        self._inflight = pending
+        return pending
+
+    def step_commit(self, pending: dict) -> None:
+        """Second half: read the dispatched step back (its one host read)
+        and do the host bookkeeping (token appends, phase flips,
+        registration, retirement), then apply the cancels deferred while
+        it was in flight, then tick the drift clock."""
+        if pending is not self._inflight:
+            raise RuntimeError("step_commit of a step that is not the "
+                               "one in flight")
+        with self._on_stream():
+            try:
+                {"mixed": self._mixed_commit,
+                 "spec": self._spec_commit,
+                 "decode": self._decode_commit}[pending["op"]](pending)
+            except Exception as e:                    # noqa: BLE001
+                self._inflight = None
+                if not self._tolerant:
+                    raise
+                self._fault_reset(e)
+                return
+            self._inflight = None
+            self.phase_time[pending["kind"]] += (time.perf_counter()
+                                                 - pending["t0"])
+            for uid, status, reason in self._deferred_cancels:
+                for b, s in enumerate(self.slots):
+                    if s is not None and s.req.uid == uid:
+                        if status == "cancelled":
+                            self.cancel_count += 1
+                        self._retire_slot(b, status, reason)
+                        break          # a finish during the commit won
+            self._deferred_cancels.clear()
+            # the chip ages only while it computes: an idle iteration
+            # reaches no commit, so the clock ticks worked steps only
+            if self._drift:
+                self._advance_drift()
 
     def run(self, requests: Sequence[Request] = ()) -> dict[int, np.ndarray]:
         """Drive until every queued or submitted request completes."""
@@ -680,6 +814,19 @@ class ServeEngine:
         while self.queue or any(s is not None for s in self.slots):
             self.step()
         return self.results
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet admitted to a slot."""
+        return len(self.queue)
+
+    def drain_events(self) -> list[tuple]:
+        """Pop every pending stream event, in order: ``("token", uid,
+        tok)`` per sampled token, ``("done", uid, status)`` per terminal
+        transition."""
+        out = list(self.events)
+        self.events.clear()
+        return out
 
     @property
     def prefix_enabled(self) -> bool:
@@ -752,14 +899,109 @@ class ServeEngine:
 
     def _admit_loop(self) -> None:
         """Admit queue heads into free slots (strict FIFO: a head the pool
-        cannot cover waits, and nothing behind it overtakes it)."""
+        cannot cover waits, and nothing behind it overtakes it). On a
+        tolerant engine an allocator fault at admission sheds the head
+        with its reason instead of failing the step."""
         free = [b for b in range(self.scfg.num_slots)
                 if self.slots[b] is None]
         while free and self.queue:
-            plan = self._plan_admission(self.queue[0])
+            try:
+                self._chaos("alloc")
+                plan = self._plan_admission(self.queue[0])
+            except Exception as e:                    # noqa: BLE001
+                if not self._tolerant:
+                    raise
+                req = self.queue.popleft()
+                self.shed_count += 1
+                self._finish_unadmitted(
+                    req.uid, "shed",
+                    f"allocator fault at admission: "
+                    f"{type(e).__name__}: {e}")
+                continue
             if plan is None:
                 break                          # out of blocks: head waits
             self._admit_request(self.queue.popleft(), free.pop(0), plan)
+
+    def _dispatch(self) -> Optional[dict]:
+        """Dispatch the step kind the slot mix calls for; returns its
+        pending record (None: idle)."""
+        decode_rows = [b for b, s in enumerate(self.slots)
+                       if s is not None and not s.prefilling]
+        prefill_rows = [b for b, s in enumerate(self.slots)
+                        if s is not None and s.prefilling]
+        t0 = time.perf_counter()
+        if prefill_rows:
+            pending = self._mixed_dispatch(decode_rows, prefill_rows)
+            kind = "mixed" if decode_rows else "prefill"
+        elif decode_rows:
+            # a model drafter takes the window even at k = 0 (a row one
+            # token from its budget): its draft step still consumes the
+            # emitted token, keeping its cache in step; a host drafter has
+            # no cache and falls back to the cheaper decode block
+            if self._spec and (self.draft_caches is not None
+                               or self._spec_k(decode_rows)):
+                pending = self._spec_dispatch(decode_rows)
+            else:
+                pending = self._decode_dispatch(decode_rows)
+            kind = "decode"
+        else:
+            return None
+        pending["kind"], pending["t0"] = kind, t0
+        return pending
+
+    def _chaos(self, point: str) -> None:
+        """Call the chaos hook at a named fault-injection point."""
+        if self.chaos_hook is not None:
+            self.chaos_hook(point)
+
+    def _on_stream(self):
+        """Context that puts the engine's device work on its own stream
+        (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _enforce_deadlines(self) -> None:
+        """Retire every request past its TTFT or end-to-end deadline: a
+        queued one leaves the queue, a slotted one releases its blocks and
+        snapshots and keeps its partial output. Runs in
+        :meth:`step_begin` only, so it never races a step in flight."""
+        now = time.perf_counter()
+
+        def overdue(req, started):
+            born = self.submit_time.get(req.uid, now)
+            dl = min(req.ttft_deadline or float("inf"),
+                     req.deadline or float("inf")) if not started else (
+                         req.deadline or float("inf"))
+            return now - born > dl
+
+        stale = [r.uid for r in self.queue if overdue(r, False)]
+        for uid in stale:
+            self.timeout_count += 1
+            self.cancel(uid, status="timed_out",
+                        reason="deadline passed while queued")
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            if s.count == 0 and overdue(s.req, False):
+                self.timeout_count += 1
+                self._retire_slot(b, "timed_out",
+                                  "TTFT deadline passed during prefill")
+            elif s.count > 0 and overdue(s.req, True):
+                self.timeout_count += 1
+                self._retire_slot(b, "timed_out",
+                                  "end-to-end deadline passed mid-decode")
+
+    def _finish_unadmitted(self, uid: int, status: str,
+                           reason: Optional[str]) -> None:
+        """Terminal bookkeeping of a request that never held a slot (shed,
+        or cancelled or timed out while queued)."""
+        self.results[uid] = np.zeros(0, np.int32)
+        self.status[uid] = status
+        if reason is not None:
+            self.errors[uid] = reason
+        self.finished_at[uid] = time.perf_counter()
+        self.events.append(("done", uid, status))
 
     def _plan_admission(self, req: Request) -> Optional[dict]:
         """The queue head's padded prompt layout and its prefix-cache match,
@@ -972,17 +1214,23 @@ class ServeEngine:
         if s.snaps:
             self.state_pool.release(s.req.uid)
 
-    def _retire_slot(self, b: int, status: str) -> None:
-        """Retire slot ``b``: record its output, release every pool
-        reference it holds (KV blocks, the copy-on-write tail, snapshots
-        captured and never registered) and point its block tables at the
-        sink, so that the freed row's masked writes cannot land in blocks
-        the next admission gets, or in retained cache blocks."""
+    def _retire_slot(self, b: int, status: str,
+                     reason: Optional[str] = None) -> None:
+        """Retire slot ``b`` into terminal ``status`` (the one retirement
+        path of finish, cancel, timeout and deadline): record its full or
+        partial output, release every pool reference it holds (KV blocks,
+        the copy-on-write tail, snapshots captured and never registered)
+        and point its block tables at the sink, so that the freed row's
+        masked writes cannot land in blocks the next admission gets, or in
+        retained cache blocks."""
         slot = self.slots[b]
         uid = slot.req.uid
         self.results[uid] = np.array(slot.out, np.int32)
         self.finished_at[uid] = time.perf_counter()
         self.status[uid] = status
+        if reason is not None:
+            self.errors[uid] = reason
+        self.events.append(("done", uid, status))
         self.slots[b] = None
         self._dirty = True
         if self.state_pool is not None and self.state_pool.owns(uid):
@@ -994,14 +1242,59 @@ class ServeEngine:
             zrow = np.zeros(self.caches_tbl_width, np.int32)
             self._reset_slot(b, start=0, pos=0, table=zrow, wtable=zrow)
 
+    def _fault_reset(self, exc: BaseException) -> None:
+        """Recover from a fault raised in a step: every in-flight request
+        ends ``errored`` with its partial output and the fault's message,
+        the host pools are made anew (their index with them), every cache
+        leaf of the engine and of its drafter is zeroed in place (no leaf
+        is replaced, so graphs over them stay valid; the state is that of
+        a fresh engine) and the host mirrors are reset. The queue is
+        untouched. On the card the reset ends with a synchronize, so that
+        a device-side error, which no reset can serve after, propagates
+        from here."""
+        msg = f"step fault: {type(exc).__name__}: {exc}"
+        self.step_faults.append(msg)
+        self.fault_count += 1
+        now = time.perf_counter()
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            uid = s.req.uid
+            self.results[uid] = np.array(s.out, np.int32)
+            self.finished_at[uid] = now
+            self.status[uid] = "errored"
+            self.errors[uid] = msg
+            self.events.append(("done", uid, "errored"))
+            self.slots[b] = None
+        self._deferred_cancels.clear()
+        self._inflight = None
+        scfg = self.scfg
+        if self.pool is not None:
+            self.pool = KVPool(self.pool.num_blocks, scfg.kv_block_size,
+                               salt=scfg.cache_salt)
+        if self.state_pool is not None:
+            self.state_pool = StateSnapshotPool(
+                self.state_pool.num_blocks, scfg.kv_block_size,
+                salt=scfg.cache_salt)
+        for tree in (self.caches, self.draft_caches):
+            for (leaf,) in _walk(tree or {}):
+                if isinstance(leaf, torch.Tensor):
+                    leaf.zero_()
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._pos[:] = 0
+        self._start[:] = 0
+        self._last_tok[:] = 0
+        self._dev = {}
+        self._dirty = True
+
     # ------------------------------------------------------------------
     # the drift clock and its watchdog
     # ------------------------------------------------------------------
 
     def _read_health(self) -> None:
         """Read per-tile health into the telemetry; a non-finite read
-        raises (the reference's fault-tolerant skip comes with the request
-        lifecycle, ROADMAP section 1, item 9)."""
+        raises (and leaves the telemetry as it was)."""
         h = devices.health(self.params)
         if not np.isfinite(h["mean_scale_err"]):
             raise ValueError(f"non-finite tile health read: "
@@ -1015,14 +1308,28 @@ class ServeEngine:
         ``recal_interval`` ticks read health and, past ``recal_threshold``
         with ``recalibrate=True``, reprogram the chip in place (the leaves
         of ``self.params`` are written, never replaced; caches, pool and
-        slots are untouched)."""
+        slots are untouched). A tolerant engine skips a failed or
+        non-finite health read and counts it in ``health_faults``."""
         devices.advance(self.params, self.scfg.drift_dt)
         self.drift_hours += self.scfg.drift_dt
         self._steps_since_check += 1
         if self._steps_since_check < self.scfg.recal_interval:
             return
         self._steps_since_check = 0
-        self._read_health()
+        try:
+            self._chaos("health")
+            self._read_health()
+        except Exception as e:                        # noqa: BLE001
+            if not self._tolerant:
+                raise
+            # a corrupted read must never drive the watchdog: skip this
+            # check, count it and keep serving; the next interval reads
+            # afresh
+            self.health_faults += 1
+            self.step_faults.append(
+                f"health-read fault (watchdog check skipped): "
+                f"{type(e).__name__}: {e}")
+            return
         self.watchdog_checks += 1
         if self._recal and self.tile_scale_err > self.scfg.recal_threshold:
             t0 = time.perf_counter()
@@ -1105,6 +1412,7 @@ class ServeEngine:
         can overshoot, back to back on the device."""
         if self._dirty:
             self._refresh_device_state()
+        self._chaos("dispatch")
         k = 1
         remaining = min(self.slots[b].req.max_new - self.slots[b].count
                         for b in decode_rows)
@@ -1116,7 +1424,8 @@ class ServeEngine:
             out.append(self._dev["toks"])
         self.decode_steps += k
         self.step_token_log.append((len(decode_rows) * k, 0))
-        return dict(dec_toks=torch.stack(out), decode_rows=decode_rows)
+        return dict(op="decode", dec_toks=torch.stack(out),
+                    decode_rows=decode_rows)
 
     def _decode_commit(self, p: dict) -> None:
         """Read the block's tokens back (the step's one host read) and
@@ -1157,6 +1466,7 @@ class ServeEngine:
         sample of a row whose prompt finished."""
         if self._dirty:
             self._refresh_device_state()
+        self._chaos("dispatch")
         c, pbw = self.scfg.prefill_chunk, self.prefill_batch
         n_dec = len(decode_rows)
         n_pf = int(np.clip((self.step_budget - n_dec) // c, 1,
@@ -1200,7 +1510,7 @@ class ServeEngine:
         self.prefill_forwards += 1
         self.prefill_chunks += len(pf_rows)
         self.step_token_log.append((n_dec * k, len(pf_rows) * c))
-        return dict(dec=dec, first=first, pf_rows=pf_rows,
+        return dict(op="mixed", dec=dec, first=first, pf_rows=pf_rows,
                     decode_rows=decode_rows, k=k, n_dec=n_dec)
 
     def _mixed_commit(self, p: dict) -> None:
@@ -1391,6 +1701,7 @@ class ServeEngine:
         pool error (the cancel-vs-rewind ordering contract)."""
         if self._dirty:
             self._refresh_device_state()
+        self._chaos("dispatch")
         k = self._spec_k(decode_rows)
         if self._draft_host:
             drafts = self._tensor(self._host_drafts(decode_rows, k))
@@ -1403,8 +1714,8 @@ class ServeEngine:
         if self.pool is not None:
             self.pool.begin_window(self.slots[b].req.uid
                                    for b in decode_rows)
-        return dict(target=target, n_emit=n_emit, decode_rows=decode_rows,
-                    k=k)
+        return dict(op="spec", target=target, n_emit=n_emit,
+                    decode_rows=decode_rows, k=k)
 
     def _spec_commit(self, p: dict) -> None:
         """Read the window back (the step's one host read), close the
@@ -1458,5 +1769,6 @@ class ServeEngine:
         if slot.count == 1:
             self.first_token_at[uid] = time.perf_counter()
             self.status[uid] = "decode"
+        self.events.append(("token", uid, tok))
         if tok in slot.req.stop_tokens or slot.count >= slot.req.max_new:
             self._retire_slot(b, "finished")

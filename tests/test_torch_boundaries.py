@@ -1,7 +1,8 @@
 """Guards of the port's boundaries.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
-  nor the reference package ``repro`` (an AST scan of every file).
+* The port (``src/repro_torch``), ``chip_smoke.py`` and the tool that
+  profiles it import neither JAX nor the reference package ``repro`` (an
+  AST scan of every file).
 * On CPU tensors the kernels' plain versions run and the launch counters
   stay at 0; a tensor on any other non-CUDA device is refused, not served
   by the plain version.
@@ -10,6 +11,8 @@
 """
 
 import ast
+import importlib.util
+import json
 import os
 import pathlib
 import shutil
@@ -31,7 +34,7 @@ from repro_torch.models import model as model_mod
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -67,7 +70,8 @@ def test_port_files_exist():
                 "serve/scheduler.py", "kernels/ssd_scan.py",
                 "kernels/csrc/ssd_scan.cu", "models/mamba2.py",
                 "data/corpus.py", "data/synthetic.py", "eval/tasks.py",
-                "eval/harness.py", "serve/prm.py", "serve/engine.py"):
+                "eval/harness.py", "serve/prm.py", "serve/engine.py",
+                "serve/frontend.py"):
         assert (port / rel).is_file(), rel
 
 
@@ -383,6 +387,47 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
+def _profile_tool():
+    spec = importlib.util.spec_from_file_location(
+        "profile_chip_smoke", ROOT / "tools" / "profile_chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_profile_tool_sums_seconds_by_call_path():
+    tool = _profile_tool()
+    samples = [["x:runpy.py:run", "cs:main", "cs:phase_a", "rt:m.py:f",
+                "x:t.py:mm"],
+               ["cs:main", "cs:phase_a"],
+               ["cs:main", "cs:phase_b", "x:streams.py:synchronize"]]
+    out = tool.summarize(samples, 0.5)
+    assert out["samples"] == 3
+    assert out["incl"] == {"cs:main": 1.5, "cs:main > cs:phase_a": 1.0,
+                           "cs:main > cs:phase_b": 0.5}
+    assert out["leaf_rt"] == {"cs:phase_a | rt:m.py:f": 0.5}
+    assert out["leaf_any"] == {"cs:phase_a | x:t.py:mm": 0.5,
+                               "cs:phase_a | cs:phase_a": 0.5,
+                               "cs:phase_b | x:streams.py:synchronize": 0.5}
+
+
+def test_profile_tool_keeps_chip_smokes_exit_code(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would drive it")
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = tmp_path / "profile.json"
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "profile_chip_smoke.py"),
+         "--out", str(out)], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout
+    assert json.loads(out.read_text())["period"] == 0.1
+
+
 def test_chip_smoke_kernels_line_sums_one_main_path_run():
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -432,11 +477,15 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
             "bound_ms": 0.01 * t, "bound_by": "operations",
             "max_abs_err": 1e-6 * t} for name, b, t, h0 in cs.SSD_CASES]
     by_path = {"analog_matmul": {"static/analog_hw": 7, "eval/x/hw": 100,
-                                 "best_of_n/x/analog_hw": 3},
-               "int4_matmul": {"static/digital_int4": 9},
+                                 "best_of_n/x/analog_hw": 3,
+                                 "lifecycle/poisson": 40},
+               "int4_matmul": {"static/digital_int4": 9,
+                               "lifecycle/spec_int4": 5},
                "paged_flash_decode": {"continuous/analog_hw/kv16": 32,
-                                      "best_of_n/x/analog_hw": 1},
-               "paged_flash_prefill": {"continuous/analog_hw/kv16": 16},
+                                      "best_of_n/x/analog_hw": 1,
+                                      "lifecycle/burst": 4},
+               "paged_flash_prefill": {"continuous/analog_hw/kv16": 16,
+                                       "lifecycle/http": 2},
                "ssd_scan": {"continuous/mamba2-130m/analog_hw": 24 * 83}}
     line = cs.kernels_line(rows, paged, ssd, by_path)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -467,7 +516,8 @@ def test_chip_smoke_kernels_line_sums_one_main_path_run():
     assert scan["plain_ms"] == pytest.approx(64.0)
     assert scan["bound_by"] == "operations" and scan["library_ms"] is None
     assert scan["max_abs_err"] == pytest.approx(8192e-6)
-    assert [k["launches"] for k in line["kernels"]] == [110, 9, 33, 16,
+    # phase 22's runs count in the totals, not in the one run's times
+    assert [k["launches"] for k in line["kernels"]] == [150, 14, 37, 18,
                                                         24 * 83]
     assert [k["launches_by_path"] for k in line["kernels"]] == list(
         by_path.values())
@@ -485,8 +535,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     count too, and of qwen3-moe-30b-a3b, phase 19's static and
     continuous runs on an ageing chip, phase 20's cold, prime and warm
     runs of the prefix cache, and phase 21's priming and measured runs of
-    each speculative deployment and drafter), each run's counts under one
-    path, and nothing for a kernel that a run did not launch."""
+    each speculative deployment and drafter, phase 22's closed-loop,
+    open-loop, speculative lifecycle and HTTP runs), each run's counts
+    under one path, and nothing for a kernel that a run did not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -574,6 +625,15 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         **{k: spec_run(*v) for k, v in spec_keys.items()},
         "times": {}, "shapes": {}, "reduced": {}, "seconds": {},
         "phase_s": 0.0}
+    life_keys = {"closed": ("analog_matmul",) + attn,
+                 "poisson": ("analog_matmul",) + attn,
+                 "burst": ("analog_matmul",) + attn,
+                 "spec_ngram": ("analog_matmul",) + attn,
+                 "spec_int4": ("analog_matmul", "int4_matmul") + attn,
+                 "http": ("analog_matmul",) + attn}
+    results["lifecycle"] = {
+        "runs": {k: {"launches": counts(*v)} for k, v in life_keys.items()},
+        "seconds": {}, "phase8_tokens_per_s": 1.0, "phase_s": 0.0}
     total = next(seen) - 1
     prefix = {f"prefix/{key}/{run}" for key in (
         f"{cs.ARCH}/kv16", f"{cs.ARCH}/kv8", cs.MAMBA)
@@ -584,6 +644,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
             for run in ("", "/prime")}
     spec_analog = {p for p in spec if "analog_hw" in p}
     spec_int4 = {p for p in spec if "int4" in p}
+    life = {f"lifecycle/{k}" for k in life_keys}
     out = cs.line_launches(results)
     assert list(out) == names
     # every count of every run lands once, under its own path
@@ -602,7 +663,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
         "devices/static/analog_hw", "devices/continuous/analog_hw/kv16",
-        *prefix, *spec_analog}
+        *prefix, *spec_analog, *life}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -612,7 +673,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"{kind}/{arch}/digital_int4" for arch in (cs.ARCH, cs.PHI3)
           for kind in ("eval", "ptq")),
         *(f"static/{arch}/digital_int4" for arch in cs.FAMILY_ARCHS),
-        *spec_int4}
+        *spec_int4, "lifecycle/spec_int4"}
     assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
     assert set(out["paged_flash_decode"]) == {
         "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
@@ -621,7 +682,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/analog_hw/kv16",
         f"continuous/{cs.MOE}/digital_int4/kv16",
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
-        "devices/continuous/analog_hw/kv16", *prefix_kv, *spec}
+        "devices/continuous/analog_hw/kv16", *prefix_kv, *spec, *life}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")

@@ -21,8 +21,8 @@ holds equal to the packed-int4 kernel.
   solo tokens; stop tokens; ``greedy_first`` and ``top_k = 1``; the token
   budget split with no starvation; out-of-blocks backpressure; block
   conservation; ``submit``'s capacity checks.
-* Every ``SchedulerConfig`` feature that is not ported raises, and the
-  prefix cache runs; the drift clock and the watchdog gate as the
+* Tensor parallelism, the one ``SchedulerConfig`` feature not ported,
+  raises; the prefix cache and the request lifecycle run; the drift clock and the watchdog gate as the
   reference's on params without device state.
 
 Sampling randomness does not cross between the packages, so sampled
@@ -334,10 +334,22 @@ def test_submit_validates_capacity(carried):
 @pytest.mark.parametrize("field,value", [
     ("max_queue", 4), ("fault_tolerant", True), ("tp", 2)])
 def test_unported_features_raise(carried, field, value):
+    """``tp`` is not ported and raises; ``max_queue`` and
+    ``fault_tolerant``, the request lifecycle's, run since it was ported
+    (``tests/test_torch_lifecycle.py`` holds them against the
+    reference)."""
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+    if field == "tp":
+        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+            PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+        return
+    eng = PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+    assert eng._tolerant == (field == "fault_tolerant")
+    out = eng.run([PS.Request(uid=0, prompt=_prompt(cfg, 5), max_new=4,
+                              temperature=0.0)])
+    assert len(out[0]) == 4 and eng.status[0] == "finished"
+    assert eng.submitted == 1 and eng.queue_high_water == 1
 
 
 def test_prefix_cache_is_ported(carried):
@@ -408,14 +420,27 @@ def test_drift_and_recalibrate_gate_without_device_state(carried, field,
 
 
 def test_unported_lifecycle_and_families_raise(carried):
+    """Tensor parallelism raises; the request lifecycle runs (a chaos hook
+    is called at its points, deadlines are accepted and a request within
+    them finishes); the moe family is served, the vlm and audio families
+    are not; every reference field is kept, in its order, with the
+    reference's defaults but for the type of ``cache_dtype``."""
     cfg, _, _, _, tp, _ = carried
     acfg = PA.AnalogConfig(mode="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PS.ServeEngine(tp, cfg, acfg, chaos_hook=lambda point: None)
-    eng = PS.ServeEngine(tp, cfg, acfg)
-    for kw in (dict(deadline=1.0), dict(ttft_deadline=1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit(PS.Request(uid=0, prompt=_prompt(cfg, 4), **kw))
+    with pytest.raises(NotImplementedError, match="tp.*ROADMAP"):
+        PS.ServeEngine(tp, cfg, acfg, PS.SchedulerConfig(tp=2))
+    points = []
+    eng = PS.ServeEngine(tp, cfg, acfg, chaos_hook=points.append)
+    assert eng._tolerant
+    for uid, kw in enumerate((dict(deadline=60.0),
+                              dict(ttft_deadline=60.0))):
+        eng.submit(PS.Request(uid=uid, prompt=_prompt(cfg, 4), max_new=3,
+                              temperature=0.0, **kw))
+    out = eng.run()
+    assert all(len(out[u]) == 3 and eng.status[u] == "finished"
+               for u in (0, 1))
+    assert {"alloc", "dispatch"} <= set(points)
+    assert eng.timeout_count == eng.fault_count == 0
     # the moe family is served (tests/test_torch_moe.py holds its engines
     # against the reference, tests/test_torch_hybrid_engine.py the hybrid
     # family's); the vlm and audio families are not served by this engine
@@ -440,8 +465,11 @@ def test_unported_lifecycle_and_families_raise(carried):
     assert ours.prefix_cache == theirs.prefix_cache
     for name in ("cache_salt", "state_snapshots", "speculative", "draft_k",
                  "draft", "draft_layers", "drift_dt", "recalibrate",
-                 "recal_interval", "recal_threshold"):
+                 "recal_interval", "recal_threshold", "max_queue",
+                 "fault_tolerant", "tp"):
         assert getattr(ours, name) == getattr(theirs, name)
+    assert ([f.name for f in dataclasses.fields(PS.Request)]
+            == [f.name for f in dataclasses.fields(RS.Request)])
 
 
 def test_batched_sampler_rows_are_independent():
