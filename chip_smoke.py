@@ -106,10 +106,17 @@ Phases, in order; any failure exits non-zero:
                ``analog_hw`` and ``digital_int4`` (``paged=True``, inert for
                an ssm stack, which the engine records). Every request must
                finish, every block come back, and every projection,
-               attention and SSD call run on its kernel. Then one decode
-               forward and one chunk forward (2 rows x 32 columns) of the
-               engine at its slots' live context, on the host clock and
-               on the device (CUDA graphs).
+               attention and SSD call run on its kernel. The engine
+               replays its steps as CUDA graphs (``serve/graphs.py``);
+               llama's ``analog_hw`` run on the bf16 pool runs first with
+               the bodies eager (``_eager``), then graphed: tokens bit for
+               bit, every counter and launch equal, tokens/s, TTFT, TPOT,
+               host ms a step, peak GB and the graphs captured of both;
+               so do 4 requests sampled at top-k 50 and top-p 0.9. Then
+               one decode step of the engine (graphed and eager, host
+               clock), one decode forward and one chunk forward (2 rows x
+               32 columns) at its slots' live context, on the host clock
+               and on the device (CUDA graphs).
 9. reduced  -- reduced llama-3.2-1b and mamba2-130m through the engine on the
                card and on the CPU (plain versions): equal greedy tokens for
                ``fp`` and ``analog_hw`` (llama: paged and per-slot
@@ -237,8 +244,10 @@ Phases, in order; any failure exits non-zero:
                clock spanning about 200 h and the watchdog on: at least
                one recalibration, each lowering the tile scale error,
                ``nu`` / ``dead`` / ``stuck`` and every leaf's storage
-               kept, no request, slot or block evicted, then phase 8's
-               decode and chunk forward times on that chip; (c) the
+               kept, no request, slot or block evicted, graphed against
+               the same run eager from the same chip state, bit for bit
+               (tokens, counters, launches, recalibrations), then phase
+               8's decode and chunk forward times on that chip; (c) the
                8-slot decode forward as a CUDA graph replayed after an
                ``advance`` and after a ``recalibrate``, equal to the eager
                forward bit for bit; (d) reduced llama-3.2-1b, mamba2-130m,
@@ -288,8 +297,12 @@ Phases, in order; any failure exits non-zero:
                of its 16 layers, ``fp``
                non-speculative and with the ngram, self and int4 drafters,
                ``analog_hw`` + ``use_pallas=True`` non-speculative and with
-               the ngram and int4 drafters. Gates: every request's tokens
-               equal the non-speculative run's bit for bit, or, re-run
+               the ngram and int4 drafters, each of these two first eager,
+               then graphed: bit for bit, every counter and launch equal
+               (the self drafter's near-tie check reads the drafter's
+               logits on the host inside each window, so its run is
+               eager, as are the recorded re-runs). Gates: every request's
+               tokens equal the non-speculative run's bit for bit, or, re-run
                with its forwards recorded (the re-run must give the run's
                tokens), its first differing token is explained: ``fp`` at
                a top-2 near-tie of the logits, ``analog_hw`` by phase 16's
@@ -347,6 +360,7 @@ import asyncio
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -397,6 +411,8 @@ PAGED_CONTEXTS = (128, 512, 2048)
 DECODE_ROWS, DECODE_SPLITS = 8, (1, 4)
 POOL_DTYPES = ("f32", "bf16", "i8")
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_REQUESTS = 8, 32, 16
+# phase 8's sampled top-p requests held graphed against eager
+SAMPLED_AB = 4
 # the engine's compact prefill width: (slots + 2 chunks - slots) // chunk
 PREFILL_ROWS = 2
 # the continuous engine's MVM rows: a decode forward over its slots and a
@@ -2001,9 +2017,93 @@ def moe_layers(cfg) -> int:
     return 0
 
 
+#: the engine counters a graphed run must share with an eager one
+AB_COUNTERS = ("decode_steps", "mixed_steps", "prefill_forwards",
+               "prefill_chunks", "decode_tokens_during_admission",
+               "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+               "prefix_skipped_tokens", "spec_steps", "spec_proposed",
+               "spec_accepted", "draft_forwards", "recal_count",
+               "watchdog_checks", "drift_hours")
+
+
+def engine_run(torch, eng, reqs, eager: bool = False) -> dict:
+    """Serve ``reqs`` on ``eng`` (its step bodies eagerly with ``eager``,
+    else as its captured CUDA graphs), every launch count and the peak
+    memory set to 0 just before: the results, seconds, peak GB, launches,
+    ``analog_matmul`` calls by ``col_off``, recalibrations, the
+    :data:`AB_COUNTERS`, mean TTFT and TPOT, host ms per decode forward of
+    a decode block and per fused step (the steps that captured a graph
+    included), and the graphs' telemetry."""
+    eng._eager = eager
+    with_off, recals = {}, []
+    counters = _counters()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in counters.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    with col_off_counted(with_off), recal_recorded(recals):
+        results = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ttft = [eng.first_token_at[r.uid] - eng.submit_time[r.uid] for r in reqs]
+    tpot = [(eng.finished_at[r.uid] - eng.first_token_at[r.uid])
+            / max(1, len(results[r.uid]) - 1) for r in reqs]
+    blocks = eng.decode_steps - eng.mixed_steps - eng.spec_steps
+    sg = eng.step_graphs
+    return {"results": results, "run_s": run_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {n: m.launches for n, m in counters.items()},
+            "with_off": with_off, "recals": recals,
+            "counters": {k: getattr(eng, k) for k in AB_COUNTERS},
+            "ttft_ms": 1e3 * float(np.mean(ttft)),
+            "tpot_ms": 1e3 * float(np.mean(tpot)),
+            "decode_forward_host_ms": (1e3 * eng.phase_time["decode"]
+                                       / max(1, blocks)),
+            "mixed_step_host_ms": (1e3 * eng.phase_time["mixed"]
+                                   / max(1, eng.mixed_steps)),
+            "graphs": ({"captured": sg.captures, "replays": sg.replays,
+                        "capture_s": sg.capture_s,
+                        "keys": [list(k) for k in sg.keys()]}
+                       if sg is not None and not eager else None)}
+
+
+def engine_ab(torch, runs: dict, tag: str) -> dict:
+    """Gate an eager and a graphed run of one workload (:func:`engine_run`):
+    tokens bit for bit, every counter, launch and recalibration record
+    equal; print tokens/s, TTFT, TPOT, host ms a step and peak GB side by
+    side and the graphs captured. Returns the side-by-side numbers."""
+    e, g = runs["eager"], runs["graphed"]
+    bad = [u for u in e["results"]
+           if not np.array_equal(e["results"][u], g["results"].get(u))]
+    check(not bad and sorted(e["results"]) == sorted(g["results"]),
+          f"{tag}: graphed tokens differ from eager for requests {bad}")
+    for key in ("counters", "launches", "with_off", "recals"):
+        check(e[key] == g[key], f"{tag}: graphed {key} {g[key]}, eager "
+              f"{e[key]}")
+    total = sum(len(v) for v in g["results"].values())
+    out = {}
+    for name, r in runs.items():
+        out[name] = {k: r[k] for k in ("run_s", "peak_gb", "ttft_ms",
+                                       "tpot_ms", "decode_forward_host_ms",
+                                       "mixed_step_host_ms")}
+        out[name]["tokens_per_s"] = total / r["run_s"]
+    out["graphs"] = g["graphs"]
+    print(f"  {tag}, eager / graphed: " + ", ".join(
+        f"{k} {out['eager'][k]:.2f} / {out['graphed'][k]:.2f}" for k in (
+            "tokens_per_s", "ttft_ms", "tpot_ms", "decode_forward_host_ms",
+            "mixed_step_host_ms", "peak_gb"))
+          + f"; tokens, counters and launches equal bit for bit; "
+          f"{g['graphs']['captured']} graphs captured in "
+          f"{g['graphs']['capture_s']:.2f} s, {g['graphs']['replays']} "
+          "replays")
+    return out
+
+
 def engine_phase(torch, cfg, params, labels, deploy: str,
                  kv_bits: int, inplace: bool = False,
-                 chip: bool = False) -> dict:
+                 chip: bool = False, ab: bool = False) -> dict:
     """Serve the mixed workload at full width with ``paged=True`` under
     ``deploy``; check that every request finished, every block came back
     (an ssm stack has no pool and must say why) and every call ran on its
@@ -2016,7 +2116,11 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
     the tile scale error, keep ``nu`` / ``dead`` / ``stuck`` bit for bit
     and every leaf's storage, and evict nothing; every non-expert
     launch carries ``col_off``; the busy and graph checks then run
-    (:func:`devices_graph_check`)."""
+    (:func:`devices_graph_check`). The engine replays its step graphs;
+    with ``ab`` the workload first runs on an engine whose bodies run
+    eagerly, which the graphed run must equal bit for bit
+    (:func:`engine_ab`; on the chip, from the same state: the drift clock
+    writes the device leaves, which are restored in between)."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.serve.scheduler import (SchedulerConfig, ServeEngine,
                                              required_max_len)
@@ -2037,7 +2141,7 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
                            prefill_chunk=ENGINE_CHUNK,
                            cache_dtype=torch.bfloat16, paged=True,
                            kv_block_size=PAGED_BS)
-    run_scfg, recals, with_off = scfg, [], {}
+    run_scfg = scfg
     if chip:
         check(deploy == "analog_hw", f"{deploy}: the device model is analog")
         p = attach_chip(torch, p, labels, 0.0)
@@ -2050,20 +2154,23 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
         kept = {k: v.clone() for k, v in leaves.items()
                 if k.rsplit("/", 1)[1] in ("nu", "dead", "stuck")}
         ptrs = {k: v.data_ptr() for k, v in leaves.items()}
-    eng = ServeEngine(p, cfg, acfg, run_scfg)
-    counters = _counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for m in counters.values():
-        m.launches = 0
-    t0 = time.perf_counter()
-    with col_off_counted(with_off), recal_recorded(recals):
-        results = eng.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {name: m.launches for name, m in counters.items()}
     tag = f"{cfg.name} {deploy} kv_bits={kv_bits}"
+    runs = {}
+    if ab:
+        state = ({k: v.clone() for k, v in chip_leaves(p).items()} if chip
+                 else {})
+        runs["eager"] = engine_run(torch, ServeEngine(p, cfg, acfg,
+                                                      run_scfg), reqs,
+                                   eager=True)
+        for k, v in chip_leaves(p).items():
+            v.copy_(state[k])
+        del state
+        torch.cuda.empty_cache()
+    eng = ServeEngine(p, cfg, acfg, run_scfg)
+    runs["graphed"] = run = engine_run(torch, eng, reqs)
+    results, run_s, peak_gb = run["results"], run["run_s"], run["peak_gb"]
+    launches, with_off, recals = (run["launches"], run["with_off"],
+                                  run["recals"])
     total = sum(len(v) for v in results.values())
     check(sorted(results) == [r.uid for r in reqs], f"{tag}: lost requests")
     for r in reqs:
@@ -2127,7 +2234,12 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
            "decode_tokens_during_admission":
                eng.decode_tokens_during_admission,
            "phase_s": dict(eng.phase_time), "launches": launches,
-           "gating_reasons": dict(eng.gating_reasons)}
+           "gating_reasons": dict(eng.gating_reasons),
+           "graphs": run["graphs"]}
+    if ab:
+        res["ab"] = engine_ab(torch, runs, tag)
+        if not chip:
+            res["ab_sampled"] = sampled_ab(torch, cfg, p, acfg, scfg)
     res.update(engine_busy(torch, cfg, p, acfg, scfg))
     if chip:
         res["graph"] = devices_graph_check(torch, cfg, p, acfg, scfg)
@@ -2144,7 +2256,10 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
           f"{eng.decode_steps} decode "
           f"forwards, {eng.prefill_forwards} chunk forwards "
           f"({eng.mixed_steps} fused with decode), launches {launches}; "
-          f"decode step {res['decode_step_ms']:.2f} ms host, "
+          f"{run['graphs']['captured']} step graphs captured in "
+          f"{run['graphs']['capture_s']:.2f} s, {run['graphs']['replays']} "
+          f"replays; decode step {res['decode_step_ms']:.2f} ms host "
+          f"({res['decode_step_eager_ms']:.2f} eager), "
           f"{res['decode_device_ms']:.2f} ms device (busy "
           f"{res['device_busy']:.3f}); chunk forward "
           f"{res['chunk_forward_ms']:.2f} ms host, "
@@ -2154,6 +2269,21 @@ def engine_phase(torch, cfg, params, labels, deploy: str,
     del eng, p
     torch.cuda.empty_cache()
     return res
+
+
+def sampled_ab(torch, cfg, p, acfg, scfg) -> dict:
+    """SAMPLED_AB requests sampled at temperature 0.8, top-k 50 and top-p
+    0.9 (prompts and budgets of :func:`engine_requests`, another seed)
+    through an eager and a graphed engine: :func:`engine_ab`'s gates."""
+    from repro_torch.serve.scheduler import ServeEngine
+
+    reqs = [dataclasses.replace(r, top_p=0.9)
+            for r in engine_requests(cfg, SAMPLED_AB, seed=1)]
+    runs = {name: engine_run(torch, ServeEngine(p, cfg, acfg, scfg), reqs,
+                             eager=name == "eager")
+            for name in ("eager", "graphed")}
+    return engine_ab(torch, runs, f"{cfg.name} {SAMPLED_AB} sampled "
+                     "requests (top-k 50, top-p 0.9)")
 
 
 def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
@@ -2174,13 +2304,19 @@ def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
             temperature=0.0))
     while any(s is None or s.prefilling for s in eng.slots):
         eng.step()
-    steps0 = eng.decode_steps
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        eng.step()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / (eng.decode_steps - steps0)
+    eng.step()                      # the decode block's graph is captured
+    host = {}
+    for mode in ("graphed", "eager"):
+        eng._eager = mode == "eager"
+        steps0 = eng.decode_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        host[mode] = ((time.perf_counter() - t0) * 1e3
+                      / (eng.decode_steps - steps0))
+    host_ms = host["graphed"]
     check(all(s is not None for s in eng.slots), "busy: a slot retired")
     eng._refresh_device_state()
     d = eng._dev
@@ -2193,7 +2329,8 @@ def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
 
     dev_ms = graph_ms(torch, step, reps=10)
     res = {"decode_step_ms": host_ms, "decode_device_ms": dev_ms,
-           "device_busy": dev_ms / host_ms}
+           "device_busy": dev_ms / host_ms,
+           "decode_step_eager_ms": host["eager"]}
     res.update(chunk_busy(torch, eng, cfg, params, acfg))
     del eng
     return res
@@ -2270,7 +2407,9 @@ def phase_engine(torch, arch: str = ARCH) -> dict:
     out = {}
     for deploy, kv_bits in runs:
         key = deploy if cfg.family == "ssm" else f"{deploy}/kv{kv_bits or 16}"
-        out[key] = engine_phase(torch, cfg, params, labels, deploy, kv_bits)
+        # llama's analog_hw run on the bf16 pool: eager against graphed
+        out[key] = engine_phase(torch, cfg, params, labels, deploy, kv_bits,
+                                ab=key == "analog_hw/kv16")
     del params
     torch.cuda.empty_cache()
     return out
@@ -5001,8 +5140,10 @@ def chip_leaves(params: dict, prefix: str = "") -> dict:
 def col_off_counted(seen: dict):
     """Inside the block every ``analog_matmul`` call adds one to
     ``seen["col_off"]`` when it carries a column offset, else to
-    ``seen["plain"]``."""
+    ``seen["plain"]``; a replayed engine step graph adds what its capture
+    counted (``serve.graphs.counting``)."""
     from repro_torch.kernels import dispatch
+    from repro_torch.serve import graphs
 
     real = dispatch.analog_matmul
 
@@ -5013,7 +5154,8 @@ def col_off_counted(seen: dict):
 
     dispatch.analog_matmul = call
     try:
-        yield
+        with graphs.counting(seen):
+            yield
     finally:
         dispatch.analog_matmul = real
 
@@ -5151,6 +5293,8 @@ def reduced_devices_check(torch, arch: str) -> dict:
             chip = _to(chip, torch.device("cuda"))
         calls, routes = [], []
         eng = ServeEngine(chip, cfg, acfg, scfg)
+        # every site call is recorded in Python: eager step bodies
+        eng._eager = True
         with device_sites_recorded(calls), routes_recorded(torch, routes,
                                                             calls):
             out = eng.run(reqs)
@@ -5236,7 +5380,7 @@ def phase_devices(torch, static_pristine: dict,
     out = {"static": serve_phase(torch, "analog_hw", "analog_hw", chip=True)}
     cfg, params, labels = full_width(torch, ARCH)
     out["engine"] = engine_phase(torch, cfg, params, labels, "analog_hw", 0,
-                                 inplace=True, chip=True)
+                                 inplace=True, chip=True, ab=True)
     del params
     torch.cuda.empty_cache()
     for what, aged, pristine, keys in (
@@ -5785,11 +5929,14 @@ def spec_self_ties(torch, ties: list):
     column ``i`` (the same input token at the same position) differ by at
     most fp32 rounding, ``SITE_INPUT_TOL * (1 + |logit|)``, and the
     window's top-2 gap there is at most twice their largest difference
-    (greedy rows). Each rejection's gap and difference go to ``ties``."""
+    (greedy rows). Each rejection's gap and difference go to ``ties``.
+    The check reads the drafter's logits on the host inside the window, so
+    the engines run their step bodies eagerly in the block."""
     from repro_torch.serve import scheduler as S
 
-    real_fwd, real_verify = S.ServeEngine._draft_forward, S.ServeEngine._verify
-    real_sv = S.speculative_verify
+    real_fwd, real_verify = (S.ServeEngine._draft_forward,
+                             S.ServeEngine._verify_body)
+    real_sv, real_run = S.speculative_verify, S.ServeEngine._run_body
     state = {"draft": [], "rows": None}
 
     def fwd(self, toks, off, active):
@@ -5797,12 +5944,16 @@ def spec_self_ties(torch, ties: list):
         state["draft"].append(logits)
         return logits
 
-    def verify(self, decode_rows, drafts):
-        state["rows"] = decode_rows
+    def verify(self, k, key):
+        state["rows"] = [b for b, s in enumerate(self.slots)
+                         if s is not None and not s.prefilling]
         try:
-            return real_verify(self, decode_rows, drafts)
+            return real_verify(self, k, key)
         finally:
             state["draft"], state["rows"] = [], None
+
+    def run_eager(self, key, body):
+        body()
 
     def sv(logits, drafts, *a, **k):
         target, n_acc = real_sv(logits, drafts, *a, **k)
@@ -5825,14 +5976,14 @@ def spec_self_ties(torch, ties: list):
                 ties.append({"top2_gap": gap, "max_dlogit": float(d.max())})
         return target, n_acc
 
-    S.ServeEngine._draft_forward, S.ServeEngine._verify = fwd, verify
-    S.speculative_verify = sv
+    S.ServeEngine._draft_forward, S.ServeEngine._verify_body = fwd, verify
+    S.speculative_verify, S.ServeEngine._run_body = sv, run_eager
     try:
         yield
     finally:
         S.ServeEngine._draft_forward = real_fwd
-        S.ServeEngine._verify = real_verify
-        S.speculative_verify = real_sv
+        S.ServeEngine._verify_body = real_verify
+        S.speculative_verify, S.ServeEngine._run_body = real_sv, real_run
 
 
 def spec_site_flips(torch, p, xa, xb, ya, yb, acfg, what: str) -> int:
@@ -5985,6 +6136,25 @@ def spec_pass(torch, eng, reqs, tag: str, mvm, seen: dict) -> dict:
     return res
 
 
+def spec_ab(eager: dict, graphed: dict, reqs, tag: str) -> None:
+    """A phase-21 run graphed against the same run eager: every request's
+    tokens bit for bit, and every counter and launch equal."""
+    for r in reqs:
+        check(np.array_equal(eager["out"][r.uid], graphed["out"][r.uid]),
+              f"{tag}: graphed tokens of request {r.uid} differ from eager")
+    for key in ("launches", "forwards", "prime") + SPEC_COUNTERS:
+        a, b = eager[key], graphed[key]
+        if key == "prime":
+            a, b = ({k: v for k, v in x.items() if k in SPEC_COUNTERS
+                     or k == "launches"} for x in (a, b))
+        check(a == b, f"{tag}: graphed {key} {b}, eager {a}")
+    print(f"  {tag}: graphed equal to eager bit for bit (tokens, counters, "
+          f"launches); tokens/s {eager['tokens_per_s']:.1f} eager, "
+          f"{graphed['tokens_per_s']:.1f} graphed; "
+          f"{graphed['graphs']['captured']} graphs captured in "
+          f"{graphed['graphs']['capture_s']:.2f} s")
+
+
 def spec_leaders(reqs) -> list:
     """The priming pass of a phase-21 engine: the workload's first request
     of each group, asking for its first token only (its prompt is indexed
@@ -5995,15 +6165,17 @@ def spec_leaders(reqs) -> list:
 
 
 def spec_engine(torch, cfg, p, acfg, reqs, draft, mvm, tag: str,
-                seen: dict) -> dict:
+                seen: dict, eager: bool = False) -> dict:
     """One phase-21 run: an engine (``draft`` None: not speculative) whose
-    prefix cache is primed (:func:`spec_leaders`), then the workload.
+    prefix cache is primed (:func:`spec_leaders`), then the workload; its
+    step bodies as graphs, or eagerly with ``eager``.
     Gates: the primed first tokens equal the workload's, every request
     hits, the pool conserved, no indexed block rewritten, no cache leaf
     replaced (phase 20's), no ``RewindError``."""
     from repro_torch.serve.scheduler import ServeEngine
 
     eng = ServeEngine(p, cfg, acfg, spec_scfg(torch, reqs, draft))
+    eng._eager = eager
     check(eng.spec_enabled == (draft is not None), f"{tag}: spec_enabled "
           f"{eng.spec_enabled}")
     ptrs = leaf_ptrs(eng)
@@ -6033,6 +6205,10 @@ def spec_engine(torch, cfg, p, acfg, reqs, draft, mvm, tag: str,
           + f"forwards: {f['draft']} draft, {f['verify']} verify, "
           f"{f['decode']} decode, {f['chunk']} chunk; launches "
           f"{run['launches']}")
+    run["graphs"] = (None if eager else
+                     {"captured": eng.step_graphs.captures,
+                      "capture_s": eng.step_graphs.capture_s,
+                      "keys": [list(k) for k in eng.step_graphs.keys()]})
     del eng
     torch.cuda.empty_cache()
     return {"prime": {k: v for k, v in prime.items() if k != "out"}, **run}
@@ -6043,10 +6219,13 @@ def spec_record(torch, cfg, p, acfg, reqs, draft, need: dict, want: dict,
     """The recorded re-run of a phase-21 run (primed as it was), stepped
     until each request of ``need`` has its first ``need[uid]`` tokens;
     every request's tokens so far must be a prefix of ``want`` (the run's
-    own). Returns the log of :func:`spec_recorded`."""
+    own). Returns the log of :func:`spec_recorded`. Its forwards are
+    recorded in Python, so its step bodies run eagerly (``_eager``); the
+    run's own tokens were the graphed engine's."""
     from repro_torch.serve.scheduler import ServeEngine
 
     eng = ServeEngine(p, cfg, acfg, spec_scfg(torch, reqs, draft))
+    eng._eager = True
     eng.run(spec_leaders(reqs))
     log = []
 
@@ -6320,11 +6499,21 @@ def phase_speculative(torch, rows: dict | None = None,
                         f"against the non-speculative run")
         for draft in drafts:
             ties = []
+            if deploy == "analog_hw":
+                # the eager engine first; the graphed run must equal it
+                eager = spec_engine(torch, cfg, p, acfg, reqs, draft, mvm,
+                                    f"{cfg.name} {deploy} {draft} drafter "
+                                    "eager", seen, eager=True)
             with (spec_self_ties(torch, ties) if draft == "self"
                   else contextlib.nullcontext()):
                 runs[draft] = spec_engine(torch, cfg, p, acfg, reqs, draft,
                                           mvm, f"{cfg.name} {deploy} "
                                           f"{draft} drafter", seen)
+            if deploy == "analog_hw":
+                spec_ab(eager, runs[draft], reqs,
+                        f"{cfg.name} {deploy} {draft} drafter")
+                out[f"{deploy}/{draft}/eager"] = {
+                    k: v for k, v in eager.items() if k != "out"}
             if draft == "self":
                 acc = runs[draft]["acceptance"]
                 check(acc >= SPEC_SELF_ACCEPT, f"{deploy} self: the drafter "
@@ -6548,7 +6737,9 @@ def lifecycle_parity(torch, cfg, p, acfg, reqs, base: dict, out: dict,
            - len(parted), "parted": []}
     if parted:
         base_log, open_log = [], []
+        # recorded re-runs record their forwards in Python: eager bodies
         eng = ServeEngine(p, cfg, acfg, lifecycle_scfg(torch, reqs))
+        eng._eager = True
         with spec_recorded(torch, eng, base_log, True):
             got = eng.run(reqs)
         for r in reqs:
@@ -6556,8 +6747,9 @@ def lifecycle_parity(torch, cfg, p, acfg, reqs, base: dict, out: dict,
                   f"recorded closed-loop re-run gave request {r.uid} other "
                   "tokens")
         del eng
-        lifecycle_replay(torch, ServeEngine(p, cfg, acfg, scfg), log, out,
-                         open_log, what)
+        eng = ServeEngine(p, cfg, acfg, scfg)
+        eng._eager = True
+        lifecycle_replay(torch, eng, log, out, open_log, what)
         bp, op = spec_positions(base_log), spec_positions(open_log)
         for r in reqs:
             if r.uid in parted:

@@ -103,6 +103,7 @@ def request_uniforms(seeds, counts, vocab: int, device) -> torch.Tensor:
 
 def speculative_verify(logits: torch.Tensor, drafts: torch.Tensor, seeds,
                        counts, greedy_first, temperature, top_k, top_p, *,
+                       uniforms: torch.Tensor | None = None,
                        use_top_k: bool = True, use_top_p: bool = True):
     """Exact-match accept / reject and the bonus draw of a draft-and-verify
     window.
@@ -125,31 +126,44 @@ def speculative_verify(logits: torch.Tensor, drafts: torch.Tensor, seeds,
     ``target[0 .. n_acc]`` are the non-speculative tokens, the last one the
     bonus draw at the first rejected (or the window's last) position.
 
+    With ``counts`` a tensor, every per-row argument is a [B] tensor on
+    the logits' device (``seeds`` is not read) and ``uniforms`` [k+1, B,
+    V] holds the noise of column ``i`` of row ``b`` at ``[i, b]``, drawn by
+    the caller from the same ``request_uniforms(seed, count + i)``, or is
+    None when no column samples: the form of a step body, which neither
+    reads nor uploads host data. The draws are the same bits.
+
     Returns ``(target [k+1, B] int64, n_acc [B] int64)``: emit ``n_acc +
     1`` tokens a row.
     """
     b, kp1, v = logits.shape
     dev = logits.device
-    cnt = (np.asarray(counts, np.int64)[None, :]
-           + np.arange(kp1, dtype=np.int64)[:, None]).reshape(-1)
-    temp = np.tile(np.asarray(temperature, np.float32), kp1)
-    greedy = (cnt < np.tile(np.asarray(greedy_first, np.int64), kp1)) | (
-        temp <= 0.0)
-    uniforms = None
-    noisy = np.flatnonzero(~greedy)
-    if len(noisy):
-        seed = np.tile(np.asarray(seeds, np.int64), kp1)
-        uniforms = torch.full((kp1 * b, v), 0.5, device=dev)
-        uniforms[torch.as_tensor(noisy, device=dev)] = request_uniforms(
-            seed[noisy], cnt[noisy], v, dev)
+    if not isinstance(counts, torch.Tensor):
+        # host arrays: the noise of each sampled column is drawn here
+        cnt = (np.asarray(counts, np.int64)[None, :]
+               + np.arange(kp1, dtype=np.int64)[:, None])
+        greedy = (cnt < np.asarray(greedy_first, np.int64)) | (
+            np.asarray(temperature, np.float32) <= 0.0)
+        noisy = np.flatnonzero(~greedy.reshape(-1))
+        uniforms = None
+        if len(noisy):
+            seed = np.tile(np.asarray(seeds, np.int64), kp1)
+            uniforms = torch.full((kp1 * b, v), 0.5, device=dev)
+            uniforms[torch.as_tensor(noisy, device=dev)] = request_uniforms(
+                seed[noisy], cnt.reshape(-1)[noisy], v, dev)
+        counts, greedy_first, top_k = (
+            torch.as_tensor(np.asarray(a, np.int64), device=dev)
+            for a in (counts, greedy_first, top_k))
+        temperature, top_p = (
+            torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in (temperature, top_p))
+    cnt = counts[None, :] + torch.arange(kp1, device=dev)[:, None]
+    temp = temperature.repeat(kp1)
+    greedy = (cnt.reshape(-1) < greedy_first.repeat(kp1)) | (temp <= 0.0)
     flat = logits.transpose(0, 1).reshape(kp1 * b, v)
     target = sample_logits_batched(
-        flat, torch.as_tensor(temp, device=dev),
-        torch.as_tensor(np.tile(np.asarray(top_k, np.int64), kp1),
-                        device=dev),
-        torch.as_tensor(np.tile(np.asarray(top_p, np.float32), kp1),
-                        device=dev),
-        torch.as_tensor(greedy, device=dev), uniforms,
+        flat, temp, top_k.repeat(kp1), top_p.repeat(kp1), greedy,
+        None if uniforms is None else uniforms.reshape(kp1 * b, v),
         use_top_k=use_top_k, use_top_p=use_top_p).reshape(kp1, b)
     if kp1 == 1:
         return target, torch.zeros(b, dtype=torch.int64, device=dev)

@@ -133,6 +133,19 @@ mixed-length traffic instead:
   ``events`` logs ``("token", uid, tok)`` and ``("done", uid, status)``
   for the async front end (``serve.frontend``).
 
+* **Steps as CUDA graphs** (``serve.graphs``, the counterpart of the
+  reference's jitted steps) -- each step kind is a body over static
+  buffers: a decode block of ``k`` steps, the fused mixed step (with the
+  model drafter's catch-up), a verify window, the model drafter's ``k +
+  1`` steps with their window. Before the step the host writes what
+  varies into those buffers in place (the per-slot state, the greedy mask,
+  the noise of every sampled draw from ``request_uniforms``, the chunk's
+  tokens, masks, offsets and rows, the drafts, the window's counters); a
+  body makes no host read and no upload and writes its outputs into
+  static buffers. On the card the engine captures each body's key at its
+  first use and replays it inside ``step_begin``; on the CPU it runs the
+  same bodies eagerly.
+
 Cursors (``pos``, ``start``) live on the device; the engine keeps host
 mirrors and reads the device once per engine step, for the sampled tokens.
 Every device write of the prefix cache (the copy-on-write block copy, the
@@ -162,6 +175,7 @@ from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
                                      pack_int4_weights)
 from repro_torch.models import transformer as T
 from repro_torch.models.model import apply as model_apply
+from repro_torch.serve import graphs
 from repro_torch.serve.decode import digital_int4_config, serve_step
 from repro_torch.serve.kv_pool import SINK_BLOCK, KVPool, StateSnapshotPool
 from repro_torch.serve.sampling import (request_uniforms,
@@ -305,6 +319,9 @@ _NOT_PORTED = {
 #: the terminal statuses of the request lifecycle
 TERMINAL = ("finished", "cancelled", "timed_out", "shed", "errored")
 
+#: ``ServeEngine._inflight`` while ``step_begin`` dispatches
+_DISPATCHING: dict = {"op": None}
+
 
 #: why ``SchedulerConfig.paged`` is inert on an ssm stack (the reference's
 #: reason: the prefix cache runs on the snapshot pool alone there)
@@ -359,6 +376,18 @@ def _map_leaves(fn, tree: dict, *others: dict) -> dict:
     return {k: (_map_leaves(fn, v, *(o[k] for o in others))
                 if isinstance(v, dict) else fn(v, *(o[k] for o in others)))
             for k, v in tree.items()}
+
+
+def _keep_leaves(tree: dict, new: dict) -> None:
+    """Write every leaf of ``new`` that is not the same tensor as its
+    counterpart in ``tree`` into that counterpart, in place (a forward
+    returns the slot layouts' ``pos`` cursors anew; every other leaf it
+    writes in place), so that the engine's cache leaves never change."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _keep_leaves(tree[k], v)
+        elif v is not tree[k]:
+            tree[k].copy_(v)
 
 
 def _walk(tree: dict, *others: dict):
@@ -603,8 +632,14 @@ class ServeEngine:
         self._temp = np.ones(b, np.float32)
         self._topk = np.zeros(b, np.int64)
         self._topp = np.ones(b, np.float32)
-        self._dev: dict[str, torch.Tensor] = {}
+        self._init_step_buffers()
         self._dirty = True
+        #: the step graphs (None on the CPU, where the bodies run eagerly
+        #: over the same buffers); ``_eager`` runs them eagerly on the card
+        #: too, for comparisons only
+        self.step_graphs = (graphs.StepGraphs(self.device)
+                            if self.device.type == "cuda" else None)
+        self._eager = False
 
     def _init_drafter(self, scfg: SchedulerConfig, draft_params, draft_cfg,
                       draft_acfg, draft_fn) -> None:
@@ -759,17 +794,23 @@ class ServeEngine:
         if self._inflight is not None:
             raise RuntimeError("step_begin with a step already in flight "
                                "— commit it first (step_commit)")
+        # the dispatch (a graph capture included) counts as in flight: a
+        # cancel from another thread waits for the commit
+        self._inflight = _DISPATCHING
         with self._on_stream():
             try:
                 self._enforce_deadlines()
                 self._admit_loop()
                 pending = self._dispatch()
             except Exception as e:                    # noqa: BLE001
+                self._inflight = None
                 if not self._tolerant:
                     raise
                 self._fault_reset(e)
                 return None
-        self._inflight = pending
+            self._inflight = pending
+            if pending is None:
+                self._apply_deferred_cancels()
         return pending
 
     def step_commit(self, pending: dict) -> None:
@@ -794,18 +835,23 @@ class ServeEngine:
             self._inflight = None
             self.phase_time[pending["kind"]] += (time.perf_counter()
                                                  - pending["t0"])
-            for uid, status, reason in self._deferred_cancels:
-                for b, s in enumerate(self.slots):
-                    if s is not None and s.req.uid == uid:
-                        if status == "cancelled":
-                            self.cancel_count += 1
-                        self._retire_slot(b, status, reason)
-                        break          # a finish during the commit won
-            self._deferred_cancels.clear()
+            self._apply_deferred_cancels()
             # the chip ages only while it computes: an idle iteration
             # reaches no commit, so the clock ticks worked steps only
             if self._drift:
                 self._advance_drift()
+
+    def _apply_deferred_cancels(self) -> None:
+        """Retire the slotted requests whose cancel waited for the step in
+        flight (a finish during the commit won)."""
+        for uid, status, reason in self._deferred_cancels:
+            for b, s in enumerate(self.slots):
+                if s is not None and s.req.uid == uid:
+                    if status == "cancelled":
+                        self.cancel_count += 1
+                    self._retire_slot(b, status, reason)
+                    break
+        self._deferred_cancels.clear()
 
     def run(self, requests: Sequence[Request] = ()) -> dict[int, np.ndarray]:
         """Drive until every queued or submitted request completes."""
@@ -1285,7 +1331,6 @@ class ServeEngine:
         self._pos[:] = 0
         self._start[:] = 0
         self._last_tok[:] = 0
-        self._dev = {}
         self._dirty = True
 
     # ------------------------------------------------------------------
@@ -1340,70 +1385,163 @@ class ServeEngine:
             self.recal_time += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
-    # the step
+    # the step: static buffers, staged uploads, the bodies
     # ------------------------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _init_step_buffers(self) -> None:
+        """Allocate, once, every tensor a step body reads that varies from
+        step to step and every tensor it writes: the per-slot step state
+        (``_dev``: ``toks``, ``off``, ``active``, ``temp``, ``topk``,
+        ``topp``), the greedy mask and the noise ``[steps, num_slots, V]``
+        of a decode block, a drafter's steps or a window's columns (row 1
+        also serves the fused step's compact rows), the fused step's chunk
+        inputs, the drafts and the window's counters, and the outputs. The
+        host writes the inputs in place from staging twins (pinned on the
+        card) on the engine's stream, so a graph over them stays valid."""
+        scfg, nb, dev = self.scfg, self.scfg.num_slots, self.device
+        c, pbw = scfg.prefill_chunk, self.prefill_batch
+        kd = scfg.draft_k if self._spec else 1
+        ns = max(scfg.decode_block, kd + 1)
+        i64, f32 = torch.int64, torch.float32
+        staged = {"toks": ((nb,), i64), "off": ((nb,), i64),
+                  "active": ((nb,), f32), "temp": ((nb,), f32),
+                  "topk": ((nb,), i64), "topp": ((nb,), f32),
+                  "greedy": ((ns, nb), torch.bool),
+                  "noise_idx": ((ns * nb,), i64),
+                  "pf_toks": ((pbw, c), i64), "pf_mask": ((pbw, c), f32),
+                  "pf_off": ((pbw,), i64), "pf_idx": ((pbw,), i64),
+                  "drafts": ((kd, nb), i64), "counts": ((nb,), i64),
+                  "gfirst": ((nb,), i64)}
+        outputs = {"out": ((ns, nb), i64), "first": ((pbw,), i64),
+                   "target": ((kd + 1, nb), i64), "n_emit": ((nb,), i64)}
+        self._buf = {n: torch.zeros(s, dtype=t, device=dev)
+                     for n, (s, t) in {**staged, **outputs}.items()}
+        self._buf["noise"] = torch.full((ns, nb, self.cfg.vocab_size), 0.5,
+                                        device=dev)
+        cuda = dev.type == "cuda"
+        self._stage = {n: torch.zeros(s, dtype=t, pin_memory=cuda)
+                       for n, (s, t) in staged.items()}
+        # per staging twin, its last copy: the host writes a twin only
+        # after that copy has been made
+        self._staged = {n: torch.cuda.Event() if cuda else None
+                        for n in staged}
+        self._dev = {n: self._buf[n] for n in ("toks", "off", "active",
+                                               "temp", "topk", "topp")}
+
+    def _upload(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """Write ``arr`` into the leading rows of static buffer ``name`` (a
+        copy from its staging twin on the current stream); returns those
+        rows."""
+        ev, st = self._staged[name], self._stage[name]
+        n = len(arr) if np.ndim(arr) else None
+        if ev is not None:
+            ev.synchronize()
+        st[:n].numpy()[...] = arr
+        rows = self._buf[name][:n]
+        rows.copy_(st[:n], non_blocking=ev is not None)
+        if ev is not None:
+            ev.record()
+        return rows
+
     def _refresh_device_state(self) -> None:
-        """Re-upload the per-slot step state from the host mirrors (only
-        when the slot set changed since the last step)."""
+        """Write the per-slot step state from the host mirrors into its
+        static buffers (only when the slot set changed since the last
+        step)."""
         active = np.array([s is not None and not s.prefilling
                            for s in self.slots], np.float32)
-        self._dev = {"toks": self._tensor(self._last_tok),
-                     "off": self._tensor(self._pos - self._start),
-                     "active": self._tensor(active),
-                     "temp": self._tensor(self._temp),
-                     "topk": self._tensor(self._topk),
-                     "topp": self._tensor(self._topp)}
+        for name, arr in (("toks", self._last_tok),
+                          ("off", self._pos - self._start),
+                          ("active", active), ("temp", self._temp),
+                          ("topk", self._topk), ("topp", self._topp)):
+            self._upload(name, arr)
         self._dirty = False
 
-    def _sample(self, logits: torch.Tensor, rows: Sequence[int],
-                counts: Sequence[int], idx=None) -> torch.Tensor:
-        """Sample one token per row of ``logits`` [n, V]. ``rows`` are the
-        slots whose samples will be used, at token counts ``counts``;
-        ``idx`` maps logits rows to slots (None: row ``b`` is slot ``b``).
-        Noise is drawn only for those rows that do not pick greedily."""
-        n, v = logits.shape
-        slot_of = list(range(n)) if idx is None else list(idx)
-        greedy = np.ones(n, bool)
-        noisy, seeds, cnts = [], [], []
-        for i, b in enumerate(slot_of):
-            if b not in rows:
-                continue
+    def _stage_sampling(self, rows: Sequence[int], steps: int,
+                        first: Sequence[tuple] = ()) -> tuple:
+        """Stage the greedy mask and the noise of a step: slot ``b`` of
+        ``rows`` draws its ``count + i``-th token at step ``i < steps``
+        (mask and noise row ``i``, column ``b``), and each ``(j, b)`` of
+        ``first`` its first token from the fused step's compact row ``j``
+        (row 1, column ``j``). A draw is greedy below the request's
+        ``greedy_first`` or at temperature 0, and then gets no noise; every
+        other entry of the mask is greedy. The noise of a sampled draw is
+        ``request_uniforms(seed, count)``, drawn here, outside any body.
+        Returns the body's sampling key ``(sampled, use_top_k,
+        use_top_p)``."""
+        greedy = np.ones(self._buf["greedy"].shape, bool)
+        nb = greedy.shape[1]
+        draws = [(i, b, b, self.slots[b].count + i)
+                 for b in rows for i in range(steps)]
+        draws += [(1, j, b, 0) for j, b in first]
+        seeds, cnts, flat = [], [], []
+        top_k = top_p = False
+        for i, col, b, cnt in draws:
             req = self.slots[b].req
-            cnt = counts[rows.index(b)]
             if cnt >= req.greedy_first and req.temperature > 0.0:
-                greedy[i] = False
-                noisy.append(i)
+                greedy[i, col] = False
                 seeds.append(req.seed)
                 cnts.append(cnt)
-        live = [self.slots[b].req for b in rows]
-        sel = torch.as_tensor(slot_of, device=self.device)
-        d = self._dev
-        uniforms = None
-        if noisy:
-            uniforms = torch.full((n, v), 0.5, device=self.device)
-            uniforms[torch.as_tensor(noisy, device=self.device)] = (
-                request_uniforms(seeds, cnts, v, self.device))
-        return sample_logits_batched(
-            logits, d["temp"][sel], d["topk"][sel], d["topp"][sel],
-            self._tensor(greedy), uniforms,
-            use_top_k=any(r.top_k > 0 for r in live),
-            use_top_p=any(r.top_p < 1.0 for r in live))
+                flat.append(i * nb + col)
+                top_k |= req.top_k > 0
+                top_p |= req.top_p < 1.0
+        self._upload("greedy", greedy)
+        if flat:
+            noise = self._buf["noise"]
+            noise.view(-1, noise.shape[-1]).index_copy_(
+                0, self._upload("noise_idx", np.asarray(flat, np.int64)),
+                request_uniforms(seeds, cnts, noise.shape[-1], self.device))
+        return (bool(flat), top_k, top_p)
 
-    def _decode_forward(self, decode_rows: list[int], i: int) -> None:
-        """One decode step over every slot (rows not in decode phase are
-        masked), sampling the decode rows at their ``i``-th token of this
-        engine step. Updates the device-resident toks / off."""
+    def _run_body(self, key: tuple, body) -> None:
+        """Run a step body: as a captured graph on the card (captured at
+        the key's first use), eagerly on the CPU or with ``_eager``."""
+        if self.step_graphs is None or self._eager:
+            body()
+        else:
+            self.step_graphs.run(key, body, torch.cuda.current_stream(
+                self.device))
+
+    def _sample_step(self, logits: torch.Tensor, i: int, key: tuple,
+                     idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample one token per row of ``logits`` [n, V] with greedy mask
+        and noise row ``i``; ``idx`` maps the rows to slots (None: row
+        ``b`` is slot ``b``). Body code."""
+        sampled, top_k, top_p = key
+        d, n = self._dev, logits.shape[0]
+        temp, topk, topp = d["temp"], d["topk"], d["topp"]
+        if idx is not None:
+            temp, topk, topp = (t.index_select(0, idx)
+                                for t in (temp, topk, topp))
+        return sample_logits_batched(
+            logits, temp, topk, topp, self._buf["greedy"][i, :n],
+            self._buf["noise"][i, :n] if sampled else None,
+            use_top_k=top_k, use_top_p=top_p)
+
+    def _target_step(self) -> torch.Tensor:
+        """One decode forward over every slot (rows not decoding are
+        masked and leave the cache as it was); returns the logits [B, V].
+        Body code."""
         d = self._dev
-        logits, self.caches = serve_step(
+        logits, new = serve_step(
             self.params, self.cfg, self.acfg, d["toks"][:, None],
             self.caches, d["off"][:, None], seq_mask=d["active"][:, None])
-        counts = [self.slots[b].count + i for b in decode_rows]
-        d["toks"] = self._sample(logits, decode_rows, counts)
-        d["off"] = d["off"] + 1
+        _keep_leaves(self.caches, new)
+        return logits
+
+    def _decode_body(self, k: int, key: tuple) -> None:
+        """``k`` decode-and-sample steps back to back: step ``i`` samples
+        with mask and noise row ``i``, feeds its tokens to the next one and
+        writes them to ``out[i]``. Body code (the reference's
+        ``_decode_scan``)."""
+        d, out = self._dev, self._buf["out"]
+        for i in range(k):
+            tok = self._sample_step(self._target_step(), i, key)
+            d["toks"].copy_(tok)
+            d["off"].add_(1)
+            out[i].copy_(tok)
 
     @torch.no_grad()
     def _decode_dispatch(self, decode_rows: list[int]) -> dict:
@@ -1418,13 +1556,12 @@ class ServeEngine:
                         for b in decode_rows)
         while k * 2 <= min(remaining, self.scfg.decode_block):
             k *= 2
-        out = []
-        for i in range(k):
-            self._decode_forward(decode_rows, i)
-            out.append(self._dev["toks"])
+        key = self._stage_sampling(decode_rows, k)
+        self._run_body(("decode", k) + key,
+                       lambda: self._decode_body(k, key))
         self.decode_steps += k
         self.step_token_log.append((len(decode_rows) * k, 0))
-        return dict(op="decode", dec_toks=torch.stack(out),
+        return dict(op="decode", dec_toks=self._buf["out"][:k],
                     decode_rows=decode_rows)
 
     def _decode_commit(self, p: dict) -> None:
@@ -1452,6 +1589,29 @@ class ServeEngine:
         for leaf, full, ax in _walk(sub, caches, axes):
             if ax >= 0:
                 full.index_copy_(ax, idx, leaf)
+
+    def _mixed_body(self, has_dec: bool, drafter: bool, key: tuple) -> None:
+        """The fused step: with decode rows, the model drafter's catch-up
+        (it consumes the decode substep's input token; its logits are not
+        used) and one decode-and-sample substep into ``out[0]``; then the
+        chunk forward of the compact rows ``pf_idx`` (gathered, run at
+        ``pf_off`` under ``pf_mask``, scattered back) and the first-token
+        sample of every compact row into ``first``. Body code (the
+        reference's ``_mixed_step_jit`` with ``_draft_step_jit``)."""
+        d, buf = self._dev, self._buf
+        if has_dec:
+            if drafter:
+                self._draft_forward(d["toks"], d["off"], d["active"])
+            self._decode_body(1, key)
+        idx = buf["pf_idx"]
+        sub = self._gather_rows(idx)
+        logits, _, sub = model_apply(
+            self.params, self.cfg, self.acfg, AnalogCtx(),
+            {"tokens": buf["pf_toks"]}, caches=sub,
+            pos_offset=buf["pf_off"][:, None], seq_mask=buf["pf_mask"],
+            last_only=True)
+        self._scatter_rows(sub, idx)
+        buf["first"].copy_(self._sample_step(logits[:, -1], 1, key, idx))
 
     @torch.no_grad()
     def _mixed_dispatch(self, decode_rows: list[int],
@@ -1483,34 +1643,26 @@ class ServeEngine:
             pf_toks[i] = s.toks[j * c:(j + 1) * c]
             pf_mask[i] = s.mask[j * c:(j + 1) * c]
             pf_off[i] = j * c - s.npad
-        k = 1 if n_dec else 0
-        dec = None
-        if k and self.draft_caches is not None:
-            # keep the model drafter in step through admissions: it
-            # consumes the decode substep's input token (logits unused)
-            d = self._dev
-            self._draft_forward(d["toks"], d["off"], d["active"])
-        if k:
-            self._decode_forward(decode_rows, 0)
-            dec = self._dev["toks"]
-        idx = self._tensor(np.asarray(pf_idx, np.int64))
-        sub = self._gather_rows(idx)
-        logits, _, sub = model_apply(
-            self.params, self.cfg, self.acfg, AnalogCtx(),
-            {"tokens": self._tensor(pf_toks)}, caches=sub,
-            pos_offset=self._tensor(pf_off)[:, None],
-            seq_mask=self._tensor(pf_mask), last_only=True)
-        self._scatter_rows(sub, idx)
-        done = [b for b in pf_rows
+        for name, arr in (("pf_toks", pf_toks), ("pf_mask", pf_mask),
+                          ("pf_off", pf_off),
+                          ("pf_idx", np.asarray(pf_idx, np.int64))):
+            self._upload(name, arr)
+        done = [(i, b) for i, b in enumerate(pf_rows)
                 if self.slots[b].chunk + 1 == self.slots[b].nchunks]
-        first = self._sample(logits[:, -1], done, [0] * len(done),
-                             idx=pf_idx)
+        key = self._stage_sampling(decode_rows, 1, done)
+        k = 1 if n_dec else 0
+        drafter = self.draft_caches is not None
+        self._run_body(("mixed", bool(k), drafter) + key,
+                       lambda: self._mixed_body(bool(k), drafter, key))
         if k:
             self.mixed_steps += 1          # steps that fused both phases
+            if drafter:
+                self.draft_forwards += 1
         self.prefill_forwards += 1
         self.prefill_chunks += len(pf_rows)
         self.step_token_log.append((n_dec * k, len(pf_rows) * c))
-        return dict(op="mixed", dec=dec, first=first, pf_rows=pf_rows,
+        return dict(op="mixed", dec=self._buf["out"][0] if k else None,
+                    first=self._buf["first"][:n_pf], pf_rows=pf_rows,
                     decode_rows=decode_rows, k=k, n_dec=n_dec)
 
     def _mixed_commit(self, p: dict) -> None:
@@ -1606,12 +1758,13 @@ class ServeEngine:
     def _draft_forward(self, toks: torch.Tensor, off: torch.Tensor,
                        active: torch.Tensor) -> torch.Tensor:
         """One decode step of the model drafter over every slot (inactive
-        rows masked) on its own cache. Returns the logits [B, V]."""
-        logits, self.draft_caches = serve_step(
+        rows masked) on its own cache. Returns the logits [B, V]. Body
+        code (the reference's ``_draft_step_jit``)."""
+        logits, new = serve_step(
             self.draft_params, self.draft_cfg, self.draft_acfg,
             toks[:, None], self.draft_caches, off[:, None],
             seq_mask=active[:, None])
-        self.draft_forwards += 1
+        _keep_leaves(self.draft_caches, new)
         return logits
 
     def _draft_prefill(self, b: int, s: _Slot) -> None:
@@ -1635,61 +1788,58 @@ class ServeEngine:
         self._scatter_rows(sub, idx, caches, axes)
         self.draft_forwards += 1
 
-    def _model_drafts(self, decode_rows: list[int], k: int) -> torch.Tensor:
-        """``k + 1`` drafter decode steps, each sampled with the verifier's
-        counters, so that a drafter equal to the target proposes exactly
-        the verifier's draws. The window takes drafts ``1 .. k``: the
-        drafter's cache then holds exactly the window's tokens, and both
-        caches rewind by the same ``delta``. Returns drafts [k, B]."""
-        d = self._dev
-        toks, out = d["toks"], []
-        for i in range(k + 1):
-            logits = self._draft_forward(toks, d["off"] + i, d["active"])
-            toks = self._sample(logits, decode_rows,
-                                [self.slots[b].count + i
-                                 for b in decode_rows])
-            out.append(toks)
-        return torch.stack(out[:k]) if k else toks.new_zeros((0, len(toks)))
-
-    def _verify(self, decode_rows: list[int],
-                drafts: torch.Tensor) -> tuple:
-        """Score the window ``[last token, d_1 .. d_k]`` in one ``[B, k+1]``
-        forward at each row's own offset (rows not decoding are masked and
-        leave the cache as it was), verify it, and rewind each row's cursor
-        to its old position plus its emitted count. Returns ``(target
-        [k+1, B], n_emit [B], delta [B])``; a model drafter rewinds its own
-        cache by the same ``delta``."""
-        d = self._dev
-        k = drafts.shape[0]
+    def _verify_body(self, k: int, key: tuple) -> torch.Tensor:
+        """Score the window ``[last token, d_1 .. d_k]`` (``drafts[:k]``)
+        in one ``[B, k+1]`` forward at each row's own offset (rows not
+        decoding are masked and leave the cache as it was), verify it with
+        the noise rows ``0 .. k`` and the staged ``counts`` / ``gfirst``,
+        and rewind each row's cursor to its old position plus its emitted
+        count. Writes ``target[:k+1]`` and ``n_emit`` and returns ``delta``
+        [B], by which a model drafter rewinds its own cache. Body code (the
+        reference's ``_spec_verify_jit``)."""
+        d, buf = self._dev, self._buf
         nb = self.scfg.num_slots
-        window = torch.cat([d["toks"][:, None], drafts.T.to(d["toks"].dtype)],
-                           dim=1)
+        drafts = buf["drafts"][:k]
+        window = torch.cat([d["toks"][:, None], drafts.T], dim=1)
         mask = d["active"][:, None].expand(nb, k + 1).contiguous()
-        logits, _, self.caches = model_apply(
+        logits, _, new = model_apply(
             self.params, self.cfg, self.acfg, AnalogCtx(),
             {"tokens": window}, caches=self.caches,
             pos_offset=d["off"][:, None], seq_mask=mask)
-        seeds = np.zeros(nb, np.int64)
-        counts = np.zeros(nb, np.int64)
-        # rows outside the window draw greedily (no noise; unused)
-        gfirst = np.full(nb, k + 1, np.int64)
-        for b in decode_rows:
-            req = self.slots[b].req
-            seeds[b], counts[b] = req.seed, self.slots[b].count
-            gfirst[b] = req.greedy_first
-        live = [self.slots[b].req for b in decode_rows]
+        _keep_leaves(self.caches, new)
+        sampled, top_k, top_p = key
         target, n_acc = speculative_verify(
-            logits, drafts, seeds, counts, gfirst, self._temp, self._topk,
-            self._topp, use_top_k=any(r.top_k > 0 for r in live),
-            use_top_p=any(r.top_p < 1.0 for r in live))
+            logits, drafts, None, buf["counts"], buf["gfirst"], d["temp"],
+            d["topk"], d["topp"],
+            uniforms=buf["noise"][:k + 1] if sampled else None,
+            use_top_k=top_k, use_top_p=top_p)
         act = d["active"] > 0
         n_emit = torch.where(act, n_acc + 1, torch.zeros_like(n_acc))
         delta = torch.where(act, k + 1 - n_emit, torch.zeros_like(n_emit))
         self._rewind_pos(self.caches, self._axes, self._kinds, delta)
         bonus = target.gather(0, n_acc[None])[0]
-        d["toks"] = torch.where(act, bonus, d["toks"])
-        d["off"] = d["off"] + n_emit
-        return target, n_emit, delta
+        d["toks"].copy_(torch.where(act, bonus, d["toks"]))
+        d["off"].add_(n_emit)
+        buf["target"][:k + 1].copy_(target)
+        buf["n_emit"].copy_(n_emit)
+        return delta
+
+    def _spec_body(self, k: int, key: tuple) -> None:
+        """``k + 1`` model drafter steps, each sampled with the verifier's
+        mask and noise row, so that a drafter equal to the target proposes
+        exactly the verifier's draws; the window takes drafts ``1 .. k``
+        (the drafter's cache then holds exactly the window's tokens), then
+        :meth:`_verify_body`, and the drafter rewinds by the same ``delta``
+        as the target. Body code (the reference's ``_spec_step_jit``)."""
+        d, drafts = self._dev, self._buf["drafts"]
+        toks = d["toks"]
+        for i in range(k + 1):
+            toks = self._sample_step(
+                self._draft_forward(toks, d["off"] + i, d["active"]), i, key)
+            if i < k:
+                drafts[i].copy_(toks)
+        delta = self._verify_body(k, key)
+        self._rewind_pos(self.draft_caches, self._daxes, self._dkinds, delta)
 
     @torch.no_grad()
     def _spec_dispatch(self, decode_rows: list[int]) -> dict:
@@ -1703,19 +1853,30 @@ class ServeEngine:
             self._refresh_device_state()
         self._chaos("dispatch")
         k = self._spec_k(decode_rows)
+        nb = self.scfg.num_slots
+        counts = np.zeros(nb, np.int64)
+        # rows outside the window draw greedily (no noise; unused)
+        gfirst = np.full(nb, k + 1, np.int64)
+        for b in decode_rows:
+            counts[b] = self.slots[b].count
+            gfirst[b] = self.slots[b].req.greedy_first
+        self._upload("counts", counts)
+        self._upload("gfirst", gfirst)
+        key = self._stage_sampling(decode_rows, k + 1)
         if self._draft_host:
-            drafts = self._tensor(self._host_drafts(decode_rows, k))
-            target, n_emit, _ = self._verify(decode_rows, drafts)
+            self._upload("drafts", self._host_drafts(decode_rows, k))
+            self._run_body(("verify", k) + key,
+                           lambda: self._verify_body(k, key))
         else:
-            drafts = self._model_drafts(decode_rows, k)
-            target, n_emit, delta = self._verify(decode_rows, drafts)
-            self._rewind_pos(self.draft_caches, self._daxes, self._dkinds,
-                             delta)
+            self._run_body(("spec", k) + key,
+                           lambda: self._spec_body(k, key))
+            self.draft_forwards += k + 1
         if self.pool is not None:
             self.pool.begin_window(self.slots[b].req.uid
                                    for b in decode_rows)
-        return dict(op="spec", target=target, n_emit=n_emit,
-                    decode_rows=decode_rows, k=k)
+        return dict(op="spec", target=self._buf["target"][:k + 1],
+                    n_emit=self._buf["n_emit"], decode_rows=decode_rows,
+                    k=k)
 
     def _spec_commit(self, p: dict) -> None:
         """Read the window back (the step's one host read), close the

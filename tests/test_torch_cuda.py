@@ -983,3 +983,179 @@ def test_device_clock_and_recalibration_in_place_on_the_card(card):
         assert {key: v.data_ptr() for key, v in leaves.items()} == ptrs
         for key in ("t", "t_prog", "gain", "off", "nu", "dead", "stuck"):
             assert torch.equal(leaves[key].cpu(), cpu["l"]["device"][key])
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's steps as CUDA graphs (serve.graphs)
+# ---------------------------------------------------------------------------
+
+def _graph_model(arch, dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config(arch).reduce()
+    if cfg.family in ("moe", "hybrid"):
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    return build(cfg, 0, device=dev)[:2]
+
+
+def _graph_reqs(cfg, n, seed=0):
+    """``n`` requests of 16 new tokens (decode blocks at k = 8, 4, 2, 1),
+    every second one sampled with top-k or top-p."""
+    import numpy as np
+
+    from repro_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        kw = (dict(temperature=0.8, top_k=5 if i % 4 == 1 else 0,
+                   top_p=0.9 if i % 4 == 3 else 1.0, seed=seed + i)
+              if i % 2 else dict(temperature=0.0))
+        out.append(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(3, 20))).astype(np.int32),
+            max_new=16, **kw))
+    return out
+
+
+def _launch_counts():
+    from repro_torch.serve import graphs
+    return [m.launches for m in graphs.KERNELS]
+
+
+def _cache_leaves(eng):
+    """Every cache leaf of the engine and of its drafter; a pool leaf
+    without its sink block, which the masked rows of a step write in an
+    undefined order (duplicate indices) and nothing reads."""
+    from repro_torch.serve.kv_pool import SINK_BLOCK
+    from repro_torch.serve.scheduler import _walk
+
+    out = [leaf if kind != "pool" else torch.cat(
+               [leaf[:, :SINK_BLOCK], leaf[:, SINK_BLOCK + 1:]], dim=1)
+           for leaf, kind in _walk(eng.caches, eng._kinds)]
+    if eng.draft_caches is not None:
+        out += [leaf for (leaf,) in _walk(eng.draft_caches)]
+    return out
+
+
+GRAPH_CASES = [(arch, None) for arch in ("llama-3.2-1b", "qwen3-moe-30b-a3b",
+                                         "mamba2-130m", "jamba-v0.1-52b")]
+GRAPH_CASES += [(arch, draft) for arch in ("llama-3.2-1b",
+                                           "qwen3-moe-30b-a3b")
+                for draft in ("ngram", "self", "int4")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,draft", GRAPH_CASES, ids=str)
+def test_engine_graph_replay_equals_eager_steps(card, arch, draft):
+    """Two engines on the same weights in lockstep, one replaying its
+    captured step graphs and one running the same bodies eagerly (the
+    private ``_eager``): after every step the tokens, the host cursors,
+    every cache leaf (``pos`` cursors included; a pool leaf without its
+    sink block), the decoding rows' next tokens and every counter are
+    equal bit for bit, and so are the kernel launches the step counted;
+    every body key of the workload was captured once and replayed."""
+    import numpy as np
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg, params = _graph_model(arch, card)
+    spec = dict(speculative=True, draft=draft, draft_k=4) if draft else {}
+    scfg = SchedulerConfig(num_slots=3, max_len=64, prefill_chunk=8,
+                           kv_block_size=8, paged=True, **spec)
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    engines = [ServeEngine(params, cfg, acfg, scfg) for _ in range(2)]
+    eager, graphed = engines
+    eager._eager = True
+    for eng in engines:
+        for r in _graph_reqs(cfg, 6):
+            eng.submit(r)
+    names = ("decode_steps", "mixed_steps", "prefill_forwards",
+             "prefill_chunks", "spec_steps", "spec_proposed",
+             "spec_accepted", "draft_forwards")
+    while eager.queue or eager.num_active:
+        c0 = _launch_counts()
+        eager.step()
+        c1 = _launch_counts()
+        graphed.step()
+        c2 = _launch_counts()
+        assert [b - a for a, b in zip(c0, c1)] == [
+            b - a for a, b in zip(c1, c2)]
+        assert [getattr(eager, n) for n in names] == [
+            getattr(graphed, n) for n in names]
+        np.testing.assert_array_equal(eager._pos, graphed._pos)
+        for a, b in zip(_cache_leaves(eager), _cache_leaves(graphed)):
+            assert torch.equal(a, b)
+        # the next step's input tokens of the decoding rows (a masked
+        # row's token is never read: it is written anew at its flip)
+        live = eager._dev["active"] > 0
+        assert torch.equal(eager._dev["toks"][live],
+                           graphed._dev["toks"][live])
+        assert torch.equal(eager._dev["off"], graphed._dev["off"])
+    assert not graphed.queue and not graphed.num_active
+    for uid, toks in eager.results.items():
+        np.testing.assert_array_equal(graphed.results[uid], toks)
+    sg = graphed.step_graphs
+    assert eager.step_graphs.captures == 0
+    assert sg.captures == len(sg.keys()) and sg.replays > 0
+    kinds = {k[0] for k in sg.keys()}
+    assert {"decode", "mixed"} <= kinds if not draft else (
+        {"verify" if draft == "ngram" else "spec", "mixed"} <= kinds)
+
+
+@pytest.mark.cuda
+def test_engine_launch_counters_graphed_equal_eager(card):
+    """Whole runs: the kernel launch counters after a graphed run equal
+    those after an eager run of the same workload, and follow the
+    engine's forwards."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve import graphs
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg, params = _graph_model("llama-3.2-1b", card)
+    scfg = SchedulerConfig(num_slots=3, max_len=64, prefill_chunk=8,
+                           kv_block_size=8, paged=True)
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    counts, forwards = [], []
+    for eager in (True, False):
+        for m in graphs.KERNELS:
+            m.launches = 0
+        eng = ServeEngine(params, cfg, acfg, scfg)
+        eng._eager = eager
+        eng.run(_graph_reqs(cfg, 6, seed=1))
+        counts.append(_launch_counts())
+        forwards.append((eng.decode_steps, eng.prefill_forwards))
+    assert counts[0] == counts[1] and forwards[0] == forwards[1]
+    steps, chunks = forwards[0]
+    got = dict(zip(graphs.KERNELS, counts[1]))
+    sites = 4 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    assert got[k_analog] == sites * (steps + chunks)
+    assert got[k_decode] == cfg.num_layers * steps
+    assert got[k_prefill] == cfg.num_layers * chunks
+
+
+@pytest.mark.cuda
+def test_engine_failed_capture_raises(card):
+    """A body that reads the host cannot be captured: the step raises
+    (no fallback to eager)."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg, params = _graph_model("llama-3.2-1b", card)
+    eng = ServeEngine(params, cfg, AnalogConfig(mode="off"),
+                      SchedulerConfig(num_slots=2, max_len=40,
+                                      prefill_chunk=8, kv_block_size=8,
+                                      paged=True))
+    real = eng._decode_body
+
+    def reads_host(k, key):
+        real(k, key)
+        eng._dev["toks"].sum().item()
+
+    eng._decode_body = reads_host
+    with pytest.raises(RuntimeError):
+        eng.run(_graph_reqs(cfg, 2))
+    torch.cuda.synchronize()

@@ -109,6 +109,36 @@ def _deploy(carried, deploy):
             PA.AnalogConfig(mode=deploy))
 
 
+@pytest.fixture(scope="module")
+def deployed(carried):
+    """:func:`_deploy` of ``carried``, each deployment made once per model
+    and shared by the tests that use it."""
+    made = {}
+
+    def get(deploy):
+        if deploy not in made:
+            made[deploy] = _deploy(carried, deploy)
+        return made[deploy]
+    return get
+
+
+@pytest.fixture(scope="module")
+def ref_logits(carried, deployed):
+    """The reference's logits of each deployment on the forward tests'
+    tokens, computed once per model (the fused and unfused cases of the
+    port hold themselves against the same reference forward)."""
+    made = {}
+
+    def get(deploy):
+        if deploy not in made:
+            rp, racfg, _, _ = deployed(deploy)
+            toks = _tokens(carried[0], 2, 12, seed=1)
+            made[deploy] = (toks, ref_apply(rp, carried[0], racfg, REF_EVAL,
+                                            {"tokens": jnp.asarray(toks)})[0])
+        return made[deploy]
+    return get
+
+
 def _tokens(cfg, b, s, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -388,14 +418,13 @@ def test_batched_int4_matmul_ref_equals_per_expert(m):
                          ids=["unfused", "fused"])
 @pytest.mark.parametrize("deploy", ["off", "analog_hw", "rtn",
                                     "digital_int4"])
-def test_forward_logits_match_reference(carried, deploy, use_pallas):
+def test_forward_logits_match_reference(carried, deployed, ref_logits,
+                                        deploy, use_pallas):
     cfg = carried[0]
-    rp, racfg, tp, tacfg = _deploy(carried, deploy)
+    _, _, tp, tacfg = deployed(deploy)
     if deploy != "digital_int4":
         tacfg = dataclasses.replace(tacfg, use_pallas=use_pallas)
-    toks = _tokens(cfg, 2, 12, seed=1)
-    want, _, _ = ref_apply(rp, cfg, racfg, REF_EVAL,
-                           {"tokens": jnp.asarray(toks)})
+    toks, want = ref_logits(deploy)
     got, stats, _ = port_apply(tp, cfg, tacfg, PA.AnalogCtx(),
                                {"tokens": torch.from_numpy(toks).long()})
     assert got.shape == (2, 12, cfg.vocab_size)
@@ -419,9 +448,9 @@ def test_labels_and_carry_over(carried):
 
 
 @pytest.mark.parametrize("deploy", ["off", "digital_int4"])
-def test_prefill_decode_equals_full_forward(carried, deploy):
+def test_prefill_decode_equals_full_forward(carried, deployed, deploy):
     cfg = _no_drop(carried[0])
-    _, _, tp, tacfg = _deploy(carried, deploy)
+    _, _, tp, tacfg = deployed(deploy)
     b, s, sp = 2, 16, 12
     toks = torch.from_numpy(_tokens(cfg, b, s, seed=2)).long()
     full, _, _ = port_apply(tp, cfg, tacfg, PA.AnalogCtx(), {"tokens": toks})
@@ -438,9 +467,10 @@ def test_prefill_decode_equals_full_forward(carried, deploy):
 
 
 @pytest.mark.parametrize("deploy", ["off", "analog_hw", "digital_int4"])
-def test_greedy_generate_matches_reference_tokens(carried, deploy):
+def test_greedy_generate_matches_reference_tokens(carried, deployed,
+                                                  deploy):
     cfg = carried[0]
-    rp, racfg, tp, tacfg = _deploy(carried, deploy)
+    rp, racfg, tp, tacfg = deployed(deploy)
     prompt = _tokens(cfg, 3, 5, seed=3)
     want = ref_generate(rp, cfg, racfg, jax.random.PRNGKey(4),
                         jnp.asarray(prompt), 6, greedy_first=6)
@@ -466,12 +496,13 @@ def _churn(cfg):
 
 
 @pytest.mark.parametrize("deploy", ["off", "analog_hw", "digital_int4"])
-def test_engine_matches_reference_paged_and_contiguous(carried, deploy):
+def test_engine_matches_reference_paged_and_contiguous(carried, deployed,
+                                                       deploy):
     """Greedy tokens of the port's engine, paged and per-slot contiguous,
     equal the reference engine's (no-drop capacity, as the reference's
     ``tests/test_scheduler.py`` builds its moe models)."""
     cfg = _no_drop(carried[0])
-    rp, racfg, tp, tacfg = _deploy(carried, deploy)
+    rp, racfg, tp, tacfg = deployed(deploy)
     reqs = _churn(cfg)
     geo = dict(num_slots=2, max_len=32, prefill_chunk=4, kv_block_size=4)
     want = RS.ServeEngine(rp, cfg, racfg, RS.SchedulerConfig(

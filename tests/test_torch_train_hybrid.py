@@ -8,8 +8,10 @@ package's, and its rematerialisation.
   clear of near-ties). The reference's side runs in a child process: its
   jitted jamba train step is the largest program the suite compiles, and
   a crash of XLA's compiler there (a segmentation fault, seen once under
-  six test workers) then ends the child, which is run once more, and not
-  the test worker.
+  six test workers) then ends the child, which is started once more, and
+  not the test worker. One child serves both cases of a module: its
+  imports and its copy of the model are made once, while the parent
+  builds its own.
 * ``remat`` checkpoints each super-block, as the reference's scan body is
   checkpointed: a training step recomputes every site of the stack in its
   backward (the LM head, outside the stack, runs once), and its result
@@ -49,35 +51,74 @@ def model():
     return carried_model(ARCH)
 
 
-def _reference_in_a_child(tmp_path, use_pallas: bool) -> dict:
-    """``reference_step`` for jamba, computed by a child process into an
-    npz; run once more if the child dies by a signal."""
-    out = tmp_path / "reference.npz"
-    code = ("import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
-            "import test_torch_train_families as F; "
-            "np.savez(sys.argv[2], **F.reference_step("
-            "F.carried_model(sys.argv[3]), sys.argv[4] == '1'))")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(TESTS.parent / "src"), os.environ.get("PYTHONPATH", "")]),
-        JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
-    for _ in range(2):
-        proc = subprocess.run(
-            [sys.executable, "-c", code, str(TESTS), str(out), ARCH,
-             "1" if use_pallas else "0"], env=env, capture_output=True,
-            text=True, timeout=900, cwd=TESTS.parent)
-        if proc.returncode >= 0:
-            break
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(out) as f:
-        return dict(f)
+#: the child's loop: build the carried model once, then one reference step
+#: per request line ("<use_pallas> <npz path>"), "done" after each
+_CHILD = ("import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
+          "import test_torch_train_families as F; "
+          "model = F.carried_model(sys.argv[2]); "
+          "[(np.savez(line.split()[1], **F.reference_step("
+          "model, line.split()[0] == '1')), print('done', flush=True)) "
+          "for line in sys.stdin]")
+
+
+class _ReferenceChild:
+    """``reference_step`` for jamba in a child process, started once per
+    module (its imports and the carried model shared by both cases and
+    made while the parent builds its own) and asked for one step per
+    case; a child that dies by a signal is started once more."""
+
+    def __init__(self, tmp_path):
+        self.tmp = tmp_path
+        self.proc = None
+        self._start()
+
+    def _start(self):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(TESTS.parent / "src"), os.environ.get("PYTHONPATH", "")]),
+            JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+        self.err = open(self.tmp / "child.err", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CHILD, str(TESTS), ARCH], env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err,
+            text=True, cwd=TESTS.parent)
+
+    def step(self, use_pallas: bool) -> dict:
+        out = self.tmp / f"reference_{int(use_pallas)}.npz"
+        for attempt in range(2):
+            try:
+                self.proc.stdin.write(f"{int(use_pallas)} {out}\n")
+                self.proc.stdin.flush()
+                done = self.proc.stdout.readline().strip() == "done"
+            except BrokenPipeError:
+                done = False
+            if done:
+                break
+            code = self.proc.wait(timeout=900)
+            self.err.seek(0)
+            assert attempt == 0 and code < 0, self.err.read()[-3000:]
+            self._start()
+        with np.load(out) as f:
+            return dict(f)
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=900)
+        self.err.close()
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    child = _ReferenceChild(tmp_path_factory.mktemp("reference"))
+    yield child
+    child.close()
 
 
 @pytest.mark.parametrize("use_pallas", [False, True],
                          ids=["unfused", "fused"])
-def test_train_step_matches_the_reference(model, use_pallas, no_route_ties,
-                                          tmp_path):
+def test_train_step_matches_the_reference(reference, model, use_pallas,
+                                          no_route_ties):
     check_train_step(model, use_pallas, no_route_ties,
-                     _reference_in_a_child(tmp_path, use_pallas))
+                     reference.step(use_pallas))
 
 
 def _site_calls(monkeypatch):
