@@ -232,7 +232,15 @@ Phases, in order; any failure exits non-zero:
                finite and nonzero; (v) reduced mamba2-130m, qwen3-moe,
                dbrx and jamba trained on the card against the CPU (site
                inputs and gradients by the causal rule, routes moved only
-               at near-ties or after a site output apart, losses).
+               at near-ties or after a site output apart, losses). Then
+               internvl2-2b (6 of 24 layers, 256 patch embeddings a row
+               through the ``projector`` site, 4 x (256 + 256) rows) and
+               musicgen-medium (8 of 48 layers, tokens [4, 256, 4]) at
+               full width: gates (ii)-(iv) on 4 steps, each step's
+               launches, then 3 steps timed and one under the profiler
+               (ms a step, training tokens/s, peak GB, the device split);
+               and both reduced, trained on the card against the CPU, as
+               gate (v).
 
 19. devices -- the per-tile device model (``core.devices``: programming
                gain, drift, periphery offsets, stuck columns, dead tiles)
@@ -348,6 +356,28 @@ Phases, in order; any failure exits non-zero:
                ``GET /health`` equal to the engine's counters. It prints
                tokens/s, TTFT and TPOT p50/p99, outcomes, the queue's
                high-water mark and the front end's steps of each run.
+23. tp      -- tensor-parallel serving on the one card, the shards of
+               every column-parallel weight and of the KV pool sharing
+               cuda:0 (``ServeEngine(shard_devices=...)``): (a) every
+               llama site at M = 8 and 64 split 2 and 4 ways, each shard's
+               launch on the whole site's plan equal to the whole launch's
+               columns bit for bit (both MVM kernels; the whole launches
+               are phase 2's); (b) full-width llama-3.2-1b at 2 of its 16
+               layers on phase 21's 8 greedy requests and bf16 pool: fp,
+               digital_int4 and analog_hw (``use_pallas=True``) at tp 1, 2
+               and 4 -- analog_hw and digital_int4 bit for bit, fp equal
+               or parting only at a top-2 near-tie; every kernel launched
+               tp times as often as at tp 1; tokens/s, TPOT, a decode
+               step's host and device ms, peak GB; tp 3 gated (32 heads
+               do not divide) and serving tp 1's tokens; (c)
+               qwen3-moe-30b-a3b (3 layers, expert-parallel: 64 experts a
+               shard) and mamba2-130m (4 layers; its scan replicated)
+               analog_hw at tp 2, bit for bit; (d) qwen2.5-32b at full
+               width and 2 of its 64 layers, analog_hw at tp 2 and 4 fed
+               from host memory (each shard copied to the card, no
+               unsharded copy beside the shards), tokens equal to tp 1's.
+               Depths cut from 4 and 8 layers to keep the script near
+               600 s.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -650,6 +680,36 @@ SSD_GRAD_TOL = 1e-4
 # the CPU (every family that trains but the dense one, which phase 14
 # holds)
 REDUCED_TRAIN_ARCHS = (MAMBA, MOE, "dbrx-132b", JAMBA)
+# phase 18 also distils the vlm and audio families at full width with the
+# kernels (TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS checked steps, then
+# FAMILY_TIMED_STEPS unchecked and timed): internvl2-2b at INTERNVL_LAYERS
+# with VIT_TOKENS patch embeddings a row (its stack and LM head at
+# TRAIN_BATCH x (VIT_TOKENS + TRAIN_SEQ) rows, the projector at TRAIN_BATCH
+# x VIT_TOKENS, K 1024), musicgen-medium at MUSICGEN_LAYERS (tokens [B, S,
+# 4]); phase 2's labels for their training launches (on noisy weights)
+VLM_AUDIO_TRAIN = (INTERNVL, MUSICGEN)
+FAMILY_TIMED_STEPS = 2
+# gate (v)'s one exception, for the arch whose card run showed it: reduced
+# musicgen-medium's third step parted card against CPU by 6.2e-4 at two
+# ADC near-ties (PERF.md). There, and only there, a later step's
+# losses may part if (a) the card's parameters and Adam state before that
+# step are the CPU's: per leaf, |card - cpu| over |cpu's update since the
+# start| (parameters) or over |cpu| (moments), in L2 norm, within
+# TRAIN_STATE_TOL, the step counts equal (Adam's near-sign updates of
+# near-zero gradients part element by element, so an elementwise bound
+# would hold nothing); and (b) that step's forward from the CPU's
+# parameters, run on both sides, shows a site output apart (the causal
+# rule) and holds the loss on the rows nothing reached. Every other arch
+# holds every step's loss within REDUCED_LOSS_TOL; every arch prints the
+# state readings before each step
+LATER_TIE_ARCHS = (MUSICGEN,)
+TRAIN_STATE_TOL = 1e-2
+INTERNVL_TRAIN, MUSICGEN_TRAIN = f"{INTERNVL}/train", f"{MUSICGEN}/train"
+M_VLM_TRAIN = TRAIN_BATCH * (VIT_TOKENS + TRAIN_SEQ)             # 2048
+M_PROJECTOR_TRAIN = TRAIN_BATCH * VIT_TOKENS                     # 1024
+NOISY_RUNS |= {(INTERNVL_TRAIN, M_VLM_TRAIN),
+               (INTERNVL_TRAIN, M_PROJECTOR_TRAIN),
+               (MUSICGEN_TRAIN, M_TRAIN)}
 
 
 # phase 19, the per-tile device model: DeviceConfig's defaults plus
@@ -680,6 +740,17 @@ PREFIX_WARM_UID = 1000
 # time limit (their engines are bound by the host's work per layer)
 PREFIX_LAYERS = {ARCH: 4, MAMBA: 8}
 PREFIX_REDUCED = (ARCH, MAMBA, MOE, JAMBA)
+# phase 23, tensor parallelism on one card (every shard on cuda:0):
+# full-width llama-3.2-1b at TP_LAYERS[ARCH] of its layers at each of
+# TP_DEGREES; qwen3-moe-30b-a3b (MOE_LAYERS) and mamba2-130m
+# (TP_LAYERS[MAMBA]) at tp 2; qwen2.5-32b at full width and QWEN32_LAYERS
+# of its 64 layers at QWEN32_DEGREES; fp greedy tokens may part between
+# degrees only where the tp = 1 logits' top-2 gap is within TP_FP_TIE of
+# their scale (cuBLAS picks its products by shape)
+TP_DEGREES = (1, 2, 4)
+TP_LAYERS = {ARCH: 2, MAMBA: 4}
+QWEN32, QWEN32_LAYERS, QWEN32_DEGREES = "qwen2.5-32b", 2, (1, 2, 4)
+TP_FP_TIE = 1e-3
 #: the engine counters each phase-20 run reads as deltas
 PREFIX_COUNTERS = ("decode_steps", "prefill_forwards", "prefill_chunks",
                    "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
@@ -1218,7 +1289,11 @@ MVM_RUNS = ([(ARCH, SITES, m, True, True) for m in (M_DECODE, M_PREFILL)]
                 M_DECODE, M_VLM_PREFILL)]
             + [(INTERNVL, INTERNVL_PROJECTOR, M_PROJECTOR, False, True)]
             + [(MUSICGEN, MUSICGEN_SITES, m, False, True) for m in (
-                M_DECODE, M_PREFILL)])
+                M_DECODE, M_PREFILL)]
+            + [(INTERNVL_TRAIN, INTERNVL_SITES, M_VLM_TRAIN, False, False),
+               (INTERNVL_TRAIN, INTERNVL_PROJECTOR, M_PROJECTOR_TRAIN, False,
+                False),
+               (MUSICGEN_TRAIN, MUSICGEN_SITES, M_TRAIN, False, False)])
 
 
 def draft_prefill_rows() -> list:
@@ -1358,7 +1433,9 @@ PER_SITE = {(arch, s[0], experts): s[3]
                 (MOE_TRAIN, MOE_TRAIN_SITES, True),
                 (JAMBA, JAMBA_SITES, False), (JAMBA, JAMBA_EXPERT_SITES, True),
                 (INTERNVL, INTERNVL_SITES + INTERNVL_PROJECTOR, False),
-                (MUSICGEN, MUSICGEN_SITES, False))
+                (MUSICGEN, MUSICGEN_SITES, False),
+                (INTERNVL_TRAIN, INTERNVL_SITES + INTERNVL_PROJECTOR, False),
+                (MUSICGEN_TRAIN, MUSICGEN_SITES, False))
             for s in sites}
 #: the per-shape times and bounds that forward_totals sums
 TOTAL_KEYS = ("ms", "explicit_bound_ms", "plain_ms", "matmul_ms",
@@ -3985,26 +4062,35 @@ def train_model(torch, arch: str):
     from repro_torch.models import build
 
     cfg = get_config(arch)
-    layers = {ARCH: TRAIN_LAYERS, MOE: MOE_TRAIN_LAYERS}
+    layers = {ARCH: TRAIN_LAYERS, MOE: MOE_TRAIN_LAYERS,
+              INTERNVL: INTERNVL_LAYERS, MUSICGEN: MUSICGEN_LAYERS}
     if arch in layers:
         cfg = dataclasses.replace(cfg, num_layers=layers[arch])
     dev = torch.device("cuda")
     cfg, params, labels = build(cfg, torch.Generator(
         device=dev).manual_seed(0), device=dev)
     want = {ARCH: (TRAIN_LAYERS, 2048), MAMBA: (24, 768),
-            MOE: (MOE_TRAIN_LAYERS, 2048)}[arch]
+            MOE: (MOE_TRAIN_LAYERS, 2048), INTERNVL: (INTERNVL_LAYERS, 2048),
+            MUSICGEN: (MUSICGEN_LAYERS, 1536)}[arch]
     check((cfg.num_layers, cfg.d_model) == want, f"unexpected config {cfg}")
     return cfg, params, labels
+
+
+def projector(cfg) -> int:
+    """The vlm's projector site: one launch of a forward with patch
+    embeddings (a training batch always has them)."""
+    return 1 if cfg.family == "vlm" else 0
 
 
 def train_step_launches(cfg) -> dict:
     """Kernel launches of one training step with remat: every analog site
     of the forward, and again every site of the stack in its
-    recomputation (the untied LM head runs once); each mixer's
+    recomputation (the untied LM head and the vlm's projector run once);
+    each mixer's
     ``ssd_scan`` in the forward and its recomputation (the backward
     differentiates the plain version and launches nothing)."""
     head = 0 if cfg.tie_embeddings else 1
-    out = {"analog_matmul": 2 * mvm_sites(cfg) - head}
+    out = {"analog_matmul": 2 * mvm_sites(cfg) - head + projector(cfg)}
     if mixer_layers(cfg):
         out["ssd_scan"] = 2 * mixer_layers(cfg)
     return out
@@ -4347,32 +4433,166 @@ def ssd_gradients(torch) -> dict:
     return {"rel": rel, "worst": worst}
 
 
+def family_tokens(cfg, rows: int, seq: int, seed: int) -> np.ndarray:
+    """``rows`` corpus sequences of ``seq + 1`` tokens from the Markov
+    corpus of ``seed``; the audio family's ``[rows, seq + 1, K]``, codebook
+    ``k`` from the corpus of ``seed + k``."""
+    from repro_torch.data.corpus import MarkovCorpus
+
+    if cfg.family != "audio":
+        return MarkovCorpus(cfg.vocab_size, seed=seed).sample(rows, seq + 1)
+    return np.stack([MarkovCorpus(cfg.vocab_size, seed=seed + k).sample(
+        rows, seq + 1) for k in range(cfg.num_codebooks)], axis=-1)
+
+
+def family_batch(torch, cfg, raw, gen, teacher, device) -> dict:
+    """A distillation batch of corpus rows ``raw`` on ``device``: tokens,
+    labels, the vlm's ``patch_embeds`` [B, vit_tokens, vit_dim] (normal,
+    from ``gen``) and the teacher's logits over the model's sequence (the
+    vlm's image prefix included; audio ``[B, S, K, V]``)."""
+    from repro_torch.data.synthetic import teacher_logits
+
+    raw = torch.as_tensor(np.asarray(raw), dtype=torch.int64, device=device)
+    batch = {"tokens": raw[:, :-1], "labels": raw[:, 1:]}
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.randn(
+            (raw.shape[0], cfg.vit_tokens, cfg.vit_dim), generator=gen,
+            device=gen.device).to(device)
+    batch.update(extra)
+    batch["teacher_logits"] = teacher_logits(teacher, cfg, batch["tokens"],
+                                             extra)
+    return batch
+
+
+def train_family_run(torch, arch: str) -> dict:
+    """HWA distillation of the vlm or audio family at full width on the
+    kernels (``train_model``; the student a copy of the teacher; batches
+    from :func:`family_batch`, the vlm's with VIT_TOKENS patch embeddings a
+    row): TRAIN_STEPS steps under gate (ii) (the range rules and eq. 4
+    after every step, the projector's range among them) with each step's
+    launches counted, then FAMILY_TIMED_STEPS steps timed on the host
+    clock, then one step under the profiler (the device split)."""
+    import repro_torch.train.recipes as recipes
+    from repro_torch.data.loader import TokenLoader
+
+    acfg, tcfg = train_configs()
+    cfg, params, labels = train_model(torch, arch)
+    n_params = sum(t.numel() for t in _leaves(params))
+    dev = torch.device("cuda")
+    tokens = family_tokens(cfg, TRAIN_BATCH * (TRAIN_STEPS
+                                               + FAMILY_TIMED_STEPS + 1),
+                           TRAIN_SEQ, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    loader = TokenLoader(tokens, TRAIN_BATCH, seed=0)
+
+    def make_batch(raw):
+        return family_batch(torch, cfg, raw, gen, params, dev)
+
+    log = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch)
+    with training_checked(torch, acfg, log):
+        trainer = recipes._run(recipes._clone(params), labels, cfg, acfg,
+                               tcfg, loader, make_batch,
+                               num_steps=TRAIN_STEPS, ckpt_dir=None, seed=0)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = list(trainer.history)
+    check(len(hist) == TRAIN_STEPS and trainer.skipped_steps == 0
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"train {arch}: losses {[h['loss'] for h in hist]}")   # gate (iv)
+    sites = mvm_sites(cfg) + projector(cfg)
+    check(log["ranges_checked"] == [sites] * TRAIN_STEPS
+          and len(log["clip"]) == TRAIN_STEPS,
+          f"train {arch}: ranges checked {log['ranges_checked']}")
+    per_step = train_step_launches(cfg)
+    check(log["step_launches"] == [per_step] * TRAIN_STEPS,
+          f"train {arch}: launches per step {log['step_launches']}, "
+          f"expected {per_step}")
+    # the teacher's logits come from a digital forward: no launches
+    check(launches == {k: TRAIN_STEPS * v for k, v in per_step.items()},
+          f"train {arch}: launches {launches}")
+    for i, h in enumerate(hist):
+        print(f"  train {arch} step {i}{' (warm-up)' if i == 0 else ''}, "
+              f"gates (ii) checked in it: {1e3 * h['dt']:.1f} ms, loss "
+              f"{h['loss']:.6f} (kd {h['kd']:.6f}), grad norm "
+              f"{h['grad_norm']:.4f}, lr {h['lr']:.2e}; weights clipped "
+              f"{log['clip'][i]['clipped_share']:.2e}")
+    batches = (make_batch(raw) for raw in loader)
+    trainer.fit(batches, FAMILY_TIMED_STEPS)
+    timed = trainer.history[TRAIN_STEPS:]
+    check(len(timed) == FAMILY_TIMED_STEPS
+          and all(math.isfinite(h["loss"]) for h in timed),
+          f"train {arch}: timed steps {timed}")
+    dts = [h["dt"] for h in timed]
+    step_ms = 1e3 * sum(dts) / len(dts)
+    rows = TRAIN_BATCH * (TRAIN_SEQ + VIT_TOKENS * projector(cfg))
+    prof = train_step_profile(torch, cfg, acfg, tcfg, labels, trainer.params,
+                              trainer.state, next(batches))
+    print(f"  train {arch} ({n_params / 1e9:.3f}B params), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}"
+          + (f" + {VIT_TOKENS} patch embeddings" if projector(cfg)
+             else f" x {cfg.num_codebooks} codebooks") +
+          f": {step_ms:.1f} ms per step (mean of {len(dts)}: "
+          + ", ".join(f"{1e3 * d:.1f}" for d in dts)
+          + f"), {M_TRAIN / step_ms * 1e3:.0f} training tokens/s "
+          f"({rows} rows a step), peak {peak_gb:.2f} GB, launches "
+          f"{launches} ({per_step} per step)")
+    print(f"  train {arch} step on the device (torch.profiler): "
+          f"analog_matmul {prof['analog_matmul_ms']:.2f} ms (forward + "
+          f"remat), cuBLAS matmuls {prof['matmul_ms']:.2f} ms, other "
+          f"{prof['other_ms']:.2f} ms; {prof['device_ms']:.2f} ms of the "
+          f"{step_ms:.1f} ms step; largest other: " + ", ".join(
+              f"{name} {ms:.2f}" for name, ms in prof["top_other"]))
+    print(f"  train {arch} step by stage (CUDA events; peak allocated): "
+          + ", ".join(f"{name} {st['ms']:.1f} ms ({st['peak_gb']:.2f} GB)"
+                      for name, st in prof["stages"].items()))
+    del trainer, params, batches
+    torch.cuda.empty_cache()
+    return {"params": n_params, "steps": hist, "timed": timed,
+            "step_ms": step_ms, "tokens_per_s": M_TRAIN / step_ms * 1e3,
+            "rows_per_step": rows, "peak_gb": peak_gb, "launches": launches,
+            "launches_per_step": per_step, "profile": prof,
+            "clip": log["clip"]}
+
+
 def phase_train_families(torch) -> dict:
     """HWA distillation of mamba2-130m and qwen3-moe-30b-a3b at full width
     (``train_run``: gates (ii)–(iv) and the launch counts of every step)
     after gate (i) at their new shapes (the batched expert site's STE
     backward at E 128 and MOE_TRAIN_ROWS rows, the SSD autograd rule at
-    the training scan); then gate (v), the reduced mamba2-130m,
-    qwen3-moe-30b-a3b, dbrx-132b and jamba-v0.1-52b trained on the card
-    against the CPU."""
+    the training scan); internvl2-2b and musicgen-medium at full width
+    (:func:`train_family_run`); then gate (v), the reduced mamba2-130m,
+    qwen3-moe-30b-a3b, dbrx-132b, jamba-v0.1-52b, internvl2-2b and
+    musicgen-medium trained on the card against the CPU."""
     out = {"gate_i": {"experts": expert_site_gradients(torch),
                       "ssd": ssd_gradients(torch)}}
     for arch in TRAIN_FAMILY_ARCHS:
         out[arch] = train_run(torch, arch)
+    for arch in VLM_AUDIO_TRAIN:
+        out[arch] = train_family_run(torch, arch)
     out["reduced"] = {arch: reduced_train_check(torch, arch)
-                      for arch in REDUCED_TRAIN_ARCHS}
+                      for arch in REDUCED_TRAIN_ARCHS + VLM_AUDIO_TRAIN}
     return out
 
 
 def _by_row(t, p, rows: int, seq: int):
     """A site tensor's elements by (row, position) of the batch: [rows,
-    seq, -1] for a 2-D site; for a batched (expert) site, whose [E, B·C,
+    seq, -1] for a 2-D site (the vlm's projector, whose positions are the
+    first of the sequence, padded with zeros); for a batched (expert) site, whose [E, B·C,
     ·] rows are each sequence's capacity slots, [rows, E · C · ·]: its
     elements by row only (``seq`` unused)."""
     if p["kernel"].dim() == 3:
         e = p["kernel"].shape[0]
         return t.reshape(e, rows, -1).transpose(0, 1).reshape(rows, -1)
-    return t.reshape(rows, seq, -1)
+    t = t.reshape(rows, -1, t.shape[-1])
+    if t.shape[1] < seq:     # the vlm's projector: the image prefix
+        out = t.new_zeros((rows, seq, t.shape[-1]))
+        out[:, :t.shape[1]] = t
+        return out
+    return t
 
 
 def _rows_masked(g, p, clean):
@@ -4387,20 +4607,29 @@ def _rows_masked(g, p, clean):
 def row_losses(torch, cfg, tcfg, logits, batch, routes: list):
     """Each row's share of a step's loss, so that the loss is their mean:
     ``kd_beta`` times the row's KD and ``ce_weight`` times its CE from
-    ``logits`` (the LM head site's output, padded vocab), and
+    ``logits`` (the LM head site's output, padded vocab; audio's ``K · V``
+    columns as ``[K, V]``; the vlm's labels and mask lined up with its
+    image prefix, as the loss lines them up), and
     ``aux_loss_weight`` times the mean over the routed layers of the row's
     Switch loss, ``E · sum_e density_e · mean_s probs_e`` (``routes``:
     ``routes_recorded``'s ids and probabilities)."""
     from repro_torch.train.distill import ce_loss, kd_loss
+    from repro_torch.train.train_step import _align_vlm_labels
 
-    lg = logits[..., :cfg.vocab_size].float()
+    if cfg.family == "audio":       # the head's K x V columns
+        lg = logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
+                            cfg.vocab_size).float()
+    else:
+        lg = logits[..., :cfg.vocab_size].float()
+    labels, mask = _align_vlm_labels(cfg, batch)
     e = cfg.num_experts
     out = []
     for r in range(lg.shape[0]):
+        m = None if mask is None else mask[r:r + 1]
         share = (tcfg.kd_beta * kd_loss(
             lg[r:r + 1], batch["teacher_logits"][r:r + 1],
-            tcfg.kd_temperature)
-            + tcfg.ce_weight * ce_loss(lg[r:r + 1], batch["labels"][r:r + 1]))
+            tcfg.kd_temperature, m)
+            + tcfg.ce_weight * ce_loss(lg[r:r + 1], labels[r:r + 1], m))
         if routes:
             aux = []
             for ids, probs, _ in routes:
@@ -4413,58 +4642,23 @@ def row_losses(torch, cfg, tcfg, logits, batch, routes: list):
     return torch.stack(out)
 
 
-def reduced_train_check(torch, arch: str) -> dict:
-    """Gate (v): the reduced ``arch`` trains on the card (the kernels) and
-    on the CPU (their plain versions) from the same weights and batches,
-    ``train_noise`` off. First step: every analog site's input and output
-    are recorded, and its upstream gradient, and every MoE routing; a
-    site input may differ beyond ``SITE_INPUT_TOL`` only where an earlier
-    site output apart (an ADC near-tie flip) reaches
-    (``reduced_eval_check``'s causal rule: the rest of the row; a batched
-    expert site's slots are a row's, so there the whole row), and a
-    routing id may differ only where the CPU's k-th and (k+1)-th router
-    probabilities lie within ROUTE_TIE or where an earlier site output
-    apart reached it; its row then counts as reached (the capacity ranks
-    of the row's later tokens move with it).
-    At every row nothing reached, each site's upstream gradient agrees
-    within ``REDUCED_GRAD_TOL`` of its largest magnitude (every gradient
-    leaf too when nothing was reached). Each site's backward is then
-    replayed on both sides from its recorded input, parameters and
-    upstream gradient, with the reached rows of that gradient zeroed: its
-    dx and dw (the card's products) agree within ``REDUCED_GRAD_TOL`` of
-    their largest magnitude and its dbeta within ``REDUCED_GRAD_TOL`` of
-    its sum of |terms|. Then ``REDUCED_TRAIN_STEPS`` steps of the train
-    step (remat on): losses within ``REDUCED_LOSS_TOL``; where a route
-    moved, the first step's loss row by row on the unreached rows
-    (``row_losses``), since the reached rows train other experts and the
-    later steps start from parameters they moved apart (reported)."""
+def train_forward_parity(torch, arch: str, cfg, acfg, tcfg, params: dict,
+                         batch: dict, rows: int, seq: int) -> dict:
+    """Gate (v)'s comparison of one loss function call (and its backward)
+    from the same ``params`` (on the CPU) on both sides: every analog
+    site's input, output and upstream gradient, and every MoE routing,
+    recorded; the causal rule (see :func:`reduced_train_check`), the
+    upstream gradients and the replayed site backwards on the rows nothing
+    reached, every gradient leaf when nothing was. Returns the records by
+    side (``rec``: calls, routes, gradient leaves), each side's loss, the
+    reach and the numbers gate (v) prints."""
     from repro_torch.checkpoint import flatten_paths, unflatten_paths
-    from repro_torch.configs import get_config
     from repro_torch.core import analog as A
-    from repro_torch.core.analog import AnalogConfig
-    from repro_torch.data.corpus import MarkovCorpus
-    from repro_torch.data.synthetic import teacher_logits
     from repro_torch.kernels import ref
-    from repro_torch.models import build
     from repro_torch.train import train_step as ts
 
-    cfg = get_config(arch).reduce()
-    cfg, params, labels = build(cfg, 0, device="cpu")
-    rows, seq = REDUCED_TRAIN_SHAPE
-    toks = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=1).sample(
-        rows * REDUCED_TRAIN_STEPS, seq + 1)).long()
-    batches = []
-    for i in range(REDUCED_TRAIN_STEPS):
-        raw = toks[rows * i:rows * (i + 1)]
-        batches.append({"tokens": raw[:, :-1], "labels": raw[:, 1:],
-                        "teacher_logits": teacher_logits(
-                            params, cfg, raw[:, :-1])})
-    acfg = AnalogConfig(mode="analog", use_pallas=True, train_noise=False,
-                        out_bound=14.0, kappa_init=18.0)
-    tcfg = ts.TrainConfig(kd_temperature=2.0, ce_weight=0.5, peak_lr=1e-3,
-                          total_steps=10)
     cuda = torch.device("cuda")
-    rec, losses = {}, {}
+    rec, loss_at = {}, {}
     for side, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
         p = _to(params, dev)
         leaves = {k: v.detach().clone().requires_grad_()
@@ -4484,19 +4678,14 @@ def reduced_train_check(torch, arch: str) -> dict:
                 torch, routes, calls):
             loss, _ = ts.make_loss_fn(cfg, acfg, dataclasses.replace(
                 tcfg, remat=False))(unflatten_paths(leaves),
-                                    _to(batches[0], dev), (0,))
+                                    _to(batch, dev), (0,))
             grads = torch.autograd.grad(loss, list(leaves.values()))
         rec[side] = (calls, routes,
                      {k: g.cpu() for k, g in zip(leaves, grads)})
-        step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
-        state = ts.init_train_state(p)
-        losses[side] = []
-        for b in batches:
-            p, state, m = step(p, state, _to(b, dev), (0,))
-            losses[side].append(float(m["loss"]))
+        loss_at[side] = float(loss.detach())
     (calls_c, routes_c, grads_c), (calls_g, routes_g, grads_g) = (
         rec["cpu"], rec["cuda"])
-    check(len(calls_c) == len(calls_g) == mvm_sites(cfg),
+    check(len(calls_c) == len(calls_g) == mvm_sites(cfg) + projector(cfg),
           f"reduced train {arch}: {len(calls_c)} / {len(calls_g)} site "
           f"calls")
     check(len(routes_c) == len(routes_g) == moe_layers(cfg),
@@ -4596,52 +4785,204 @@ def reduced_train_check(torch, arch: str) -> dict:
         check(leaf_worst <= REDUCED_GRAD_TOL,
               f"reduced train {arch}: a gradient leaf is {leaf_worst:.2e} "
               f"apart")
-    print(f"  gate (v) reduced {arch}, {rows} x {seq}: {out_flips} site "
-          f"output positions apart (ADC near-ties)"
+    return {"rec": rec, "loss": loss_at, "reach": reach, "clean": clean,
+            "out_flips": out_flips, "moved": moved, "worst": worst,
+            "site_worst": site_worst, "site_dbeta": site_dbeta,
+            "leaf_worst": leaf_worst}
+
+
+def reduced_train_check(torch, arch: str) -> dict:
+    """Gate (v): the reduced ``arch`` trains on the card (the kernels) and
+    on the CPU (their plain versions) from the same weights and batches,
+    ``train_noise`` off. First step: every analog site's input and output
+    are recorded, and its upstream gradient, and every MoE routing; a
+    site input may differ beyond ``SITE_INPUT_TOL`` only where an earlier
+    site output apart (an ADC near-tie flip) reaches
+    (``reduced_eval_check``'s causal rule: the rest of the row; a batched
+    expert site's slots are a row's, so there the whole row), and a
+    routing id may differ only where the CPU's k-th and (k+1)-th router
+    probabilities lie within ROUTE_TIE or where an earlier site output
+    apart reached it; its row then counts as reached (the capacity ranks
+    of the row's later tokens move with it).
+    At every row nothing reached, each site's upstream gradient agrees
+    within ``REDUCED_GRAD_TOL`` of its largest magnitude (every gradient
+    leaf too when nothing was reached). Each site's backward is then
+    replayed on both sides from its recorded input, parameters and
+    upstream gradient, with the reached rows of that gradient zeroed: its
+    dx and dw (the card's products) agree within ``REDUCED_GRAD_TOL`` of
+    their largest magnitude and its dbeta within ``REDUCED_GRAD_TOL`` of
+    its sum of |terms| (:func:`train_forward_parity`). Then
+    ``REDUCED_TRAIN_STEPS`` steps of the train step (remat on): losses
+    within ``REDUCED_LOSS_TOL``; where a route moved, the first step's
+    loss row by row on the unreached rows (``row_losses``), since the
+    reached rows train other experts and the later steps start from
+    parameters they moved apart (reported). Before every step the card's
+    parameters and Adam state are read against the CPU's
+    (:func:`train_state_apart`); for ``LATER_TIE_ARCHS`` alone a later
+    step whose losses part is held by that reading (within
+    ``TRAIN_STATE_TOL``) and by its forward from the CPU's parameters on
+    both sides, as the first step's (a site output apart must explain it
+    under the causal rule; the loss is held on the rows nothing
+    reached)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.models import build
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config(arch).reduce()
+    cfg, params, labels = build(cfg, 0, device="cpu")
+    rows, seq = REDUCED_TRAIN_SHAPE
+    toks = family_tokens(cfg, rows * REDUCED_TRAIN_STEPS, seq, 1)
+    gen = torch.Generator().manual_seed(1)
+    batches = [family_batch(torch, cfg, toks[rows * i:rows * (i + 1)], gen,
+                            params, torch.device("cpu"))
+               for i in range(REDUCED_TRAIN_STEPS)]
+    seq += cfg.vit_tokens * projector(cfg)       # the model's positions
+    acfg = AnalogConfig(mode="analog", use_pallas=True, train_noise=False,
+                        out_bound=14.0, kappa_init=18.0)
+    tcfg = ts.TrainConfig(kd_temperature=2.0, ce_weight=0.5, peak_lr=1e-3,
+                          total_steps=10)
+    step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+    losses, before = {}, {}
+    for side, dev in (("cpu", torch.device("cpu")),
+                      ("cuda", torch.device("cuda"))):
+        p = _to(params, dev)
+        state = ts.init_train_state(p)
+        losses[side], before[side] = [], []
+        for b in batches:
+            before[side].append((p, state))   # the step is functional
+            p, state, m = step(p, state, _to(b, dev), (0,))
+            losses[side].append(float(m["loss"]))
+    states = [train_state_apart(torch, arch, before, params, i)
+              for i in range(1, REDUCED_TRAIN_STEPS)]
+    fwd = train_forward_parity(torch, arch, cfg, acfg, tcfg, params,
+                               batches[0], rows, seq)
+    rec, clean, moved = fwd["rec"], fwd["clean"], fwd["moved"]
+    print(f"  gate (v) reduced {arch}, {rows} x {seq}: {fwd['out_flips']} "
+          f"site output positions apart (ADC near-ties)"
           + (f", {moved} routing ids moved at near-ties" if moe_layers(cfg)
              else "")
           + f", {int(clean.sum())} of {rows} rows unreached; upstream "
-          f"gradients within {worst:.2e} of their max there; replayed on "
-          f"those rows, site dx and dw within {site_worst:.2e} of their max, "
-          f"dbeta within {site_dbeta:.2e} of its sum of |terms|"
-          + ("" if leaf_worst is None else
-             f", every gradient leaf within {leaf_worst:.2e}")
-          + f"; losses card {losses['cuda']} / cpu {losses['cpu']}")
+          f"gradients within {fwd['worst']:.2e} of their max there; "
+          f"replayed on those rows, site dx and dw within "
+          f"{fwd['site_worst']:.2e} of their max, dbeta within "
+          f"{fwd['site_dbeta']:.2e} of its sum of |terms|"
+          + ("" if fwd["leaf_worst"] is None else
+             f", every gradient leaf within {fwd['leaf_worst']:.2e}")
+          + f"; losses card {losses['cuda']} / cpu {losses['cpu']}; "
+          "card state against the cpu's before steps "
+          + ", ".join(f"{i + 1}: parameters {st['params']:.2e}, moments "
+                      f"{st['moments']:.2e}" for i, st in enumerate(states)))
     row_rel = None
+    later = []
     if moved:
         # the reached rows train on other experts: the first step's loss
-        # is held row by row where nothing reached (each row's share
-        # rebuilt from the recorded logits and routes, the sum of the
-        # shares checked against the step's loss on both sides); the
-        # later steps start from parameters those rows moved apart
-        shares = {}
-        for side, (calls, routes, _) in rec.items():
-            shares[side] = row_losses(torch, cfg, tcfg, calls[-1][1],
-                                      batches[0], routes)
-            check(abs(float(shares[side].mean()) - losses[side][0])
-                  <= REDUCED_LOSS_TOL * (1 + abs(losses[side][0])),
-                  f"reduced train {arch}: the rows' losses do not add up "
-                  f"to the {side} step's loss")
-        want = shares["cpu"][clean]
-        row_rel = float(((shares["cuda"][clean] - want).abs()
-                         / (1 + want.abs())).max())
-        check(row_rel <= REDUCED_LOSS_TOL, f"reduced train {arch}: an "
-              f"unreached row's loss is {row_rel:.2e} apart")
+        # is held row by row where nothing reached; the later steps start
+        # from parameters those rows moved apart
+        row_rel = rows_held(torch, arch, cfg, tcfg, fwd, batches[0],
+                            {side: v[0] for side, v in losses.items()})
         print(f"  gate (v) reduced {arch}: a route moved, so the first "
               f"step's loss is held on the {int(clean.sum())} unreached "
               f"rows (within {row_rel:.2e}); later steps' losses card - "
               f"cpu: " + ", ".join(f"{a - b:.3e}" for a, b in zip(
                   losses["cuda"][1:], losses["cpu"][1:])))
     else:
-        for a, b in zip(losses["cuda"], losses["cpu"]):
-            check(abs(a - b) <= REDUCED_LOSS_TOL * (1 + abs(b)),
-                  f"reduced train {arch}: losses card {losses['cuda']}, "
-                  f"cpu {losses['cpu']}")
-    return {"site_output_positions_apart": out_flips,
+        for i, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+            if abs(a - b) <= REDUCED_LOSS_TOL * (1 + abs(b)):
+                continue
+            check(i > 0 and arch in LATER_TIE_ARCHS, f"reduced train "
+                  f"{arch}: losses card {losses['cuda']}, cpu "
+                  f"{losses['cpu']}")
+            st = states[i - 1]
+            check(max(st["params"], st["moments"]) <= TRAIN_STATE_TOL,
+                  f"reduced train {arch}: before step {i} the card's state "
+                  f"is apart from the cpu's (parameters {st['params']:.2e}, "
+                  f"moments {st['moments']:.2e})")
+            lat = train_forward_parity(torch, arch, cfg, acfg, tcfg,
+                                       before["cpu"][i][0], batches[i], rows,
+                                       seq)
+            check(bool(lat["reach"].any()) and not lat["moved"],
+                  f"reduced train {arch}: step {i}'s losses part (card "
+                  f"{a}, cpu {b}) with no site output apart")
+            rel = rows_held(torch, arch, cfg, tcfg, lat, batches[i],
+                            lat["loss"])
+            later.append({"step": i, "apart": a - b, "state": st,
+                          "site_output_positions_apart": lat["out_flips"],
+                          "rows_unreached": int(lat["clean"].sum()),
+                          "row_loss_rel": rel})
+            print(f"  gate (v) reduced {arch} step {i}: losses part by "
+                  f"{a - b:.3e}; the card's state before it within "
+                  f"{st['params']:.2e} (parameters) and {st['moments']:.2e} "
+                  f"(moments) of the cpu's; from the cpu's parameters before "
+                  f"it, {lat['out_flips']} site output positions apart (ADC "
+                  f"near-ties), {int(lat['clean'].sum())} of {rows} rows "
+                  f"unreached, their losses within {rel:.2e}, upstream "
+                  f"gradients within {lat['worst']:.2e}, site dx and dw "
+                  f"within {lat['site_worst']:.2e}")
+    return {"site_output_positions_apart": fwd["out_flips"],
             "routes_moved": moved, "row_loss_rel": row_rel,
-            "rows_unreached": int(clean.sum()), "grad_rel": worst,
-            "site_grad_rel": site_worst, "site_dbeta_rel": site_dbeta,
-            "leaf_grad_rel": leaf_worst, "losses": losses}
+            "rows_unreached": int(clean.sum()), "grad_rel": fwd["worst"],
+            "site_grad_rel": fwd["site_worst"],
+            "site_dbeta_rel": fwd["site_dbeta"],
+            "leaf_grad_rel": fwd["leaf_worst"], "losses": losses,
+            "states": states, "later_steps": later}
+
+
+def train_state_apart(torch, arch: str, before: dict, params: dict,
+                      i: int) -> dict:
+    """The card's parameters and Adam state before step ``i`` against the
+    CPU's (``before[side][i]``, from the same ``params``): the step counts
+    equal, and the largest per-leaf L2 ratio |card - cpu| / |cpu - params|
+    over the parameters (the CPU's update since the start) and |card -
+    cpu| / |cpu| over the moments (0 where both sides are equal)."""
+    from repro_torch.checkpoint import flatten_paths
+
+    (pc, sc), (pg, sg) = before["cpu"][i], before["cuda"][i]
+    check(int(sc["step"]) == int(sg["step"]) and int(sc["opt"]["count"])
+          == int(sg["opt"]["count"]), f"reduced train {arch}: step counts "
+          f"apart before step {i}")
+    init = flatten_paths(params)
+    out = {}
+    for group, c, g in (("params", pc, pg),
+                        ("moments", {"m": sc["opt"]["m"], "v": sc["opt"]["v"]},
+                         {"m": sg["opt"]["m"], "v": sg["opt"]["v"]})):
+        fc, fg = flatten_paths(c), flatten_paths(g)
+        worst = 0.0
+        for k, vc in fc.items():
+            vc = vc.detach().float()
+            d = float(torch.linalg.vector_norm(
+                fg[k].detach().cpu().float() - vc))
+            if d == 0.0:
+                continue
+            base = vc - init[k].float() if group == "params" else vc
+            n = float(torch.linalg.vector_norm(base))
+            worst = max(worst, d / n if n > 0 else float("inf"))
+        out[group] = worst
+    return out
+
+
+def rows_held(torch, arch: str, cfg, tcfg, fwd: dict, batch: dict,
+              loss: dict) -> float:
+    """A compared loss call's loss row by row (``row_losses`` from its
+    recorded logits and routes): on each side the rows' shares add up to
+    that side's ``loss``, and on the rows nothing reached the card's share
+    is within ``REDUCED_LOSS_TOL`` of the CPU's. Returns the largest
+    relative difference there."""
+    shares = {}
+    for side, (calls, routes, _) in fwd["rec"].items():
+        shares[side] = row_losses(torch, cfg, tcfg, calls[-1][1], batch,
+                                  routes)
+        check(abs(float(shares[side].mean().detach()) - loss[side])
+              <= REDUCED_LOSS_TOL * (1 + abs(loss[side])),
+              f"reduced train {arch}: the rows' losses do not add up "
+              f"to the {side} step's loss")
+    clean = fwd["clean"]
+    want = shares["cpu"][clean]
+    rel = float(((shares["cuda"][clean] - want).abs()
+                 / (1 + want.abs())).max())
+    check(rel <= REDUCED_LOSS_TOL, f"reduced train {arch}: an unreached "
+          f"row's loss is {rel:.2e} apart")
+    return rel
 
 
 # ---------------------------------------------------------------------------
@@ -7147,6 +7488,370 @@ def phase_lifecycle(torch, phase8_tokens_per_s: float | None = None) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 23: tensor parallelism on one card
+# ---------------------------------------------------------------------------
+
+#: the engine counters that every tp of one workload must share
+TP_COUNTERS = ("decode_steps", "mixed_steps", "prefill_forwards",
+               "prefill_chunks", "prefix_hits", "prefix_skipped_tokens")
+
+
+def tp_shard_plans(torch) -> dict:
+    """Each shard's MVM launch runs its whole site's plan: llama's sites at
+    the engine's decode and chunk rows, split over 2 and 4 shards, each
+    shard launched with ``plan_shape`` = the whole site's; the shards'
+    columns joined equal the whole launch bit for bit (``analog_matmul``
+    with the folded bound, ``int4_matmul``). The whole launches are those
+    phase 2 holds against the plain versions. Also reported: how many
+    outputs differ when a shard plans its own shape instead (the split of
+    K its own width gives)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.analog_matmul import analog_matmul
+    from repro_torch.kernels.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    dev = torch.device("cuda")
+    beta = torch.full((1,), 3.0, device=dev)
+    out = []
+    for site, k, n, _ in SITES:
+        for m in (M_ENGINE_DECODE, M_ENGINE_CHUNK):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            w_int, scale = _rtn4(torch, w)
+            packed = ref.pack_int4(w_int)
+            whole = analog_matmul(x, w, beta, lam=14.0)
+            whole4 = int4_matmul(x, packed, scale.reshape(n))
+            row = {"site": site, "M": m, "K": k, "N": n}
+            for tp in TP_DEGREES[1:]:
+                cols = n // tp
+                own = apart = apart4 = own4 = 0
+                for i in range(tp):
+                    c = slice(i * cols, (i + 1) * cols)
+                    ws = w[:, c].contiguous()
+                    ys = analog_matmul(x, ws, beta, lam=14.0,
+                                       plan_shape=(1, n))
+                    apart += int((ys != whole[:, c]).sum())
+                    own += int((analog_matmul(x, ws, beta, lam=14.0)
+                                != whole[:, c]).sum())
+                    pc = slice(i * cols // 2, (i + 1) * cols // 2)
+                    ps = packed[:, pc].contiguous()
+                    ss = scale.reshape(n)[c].contiguous()
+                    apart4 += int((int4_matmul(x, ps, ss, plan_shape=(1, n))
+                                   != whole4[:, c]).sum())
+                    own4 += int((int4_matmul(x, ps, ss) != whole4[:, c])
+                                .sum())
+                check(apart == 0 and apart4 == 0, f"tp {site} M={m} tp={tp}: "
+                      f"{apart} analog_matmul / {apart4} int4_matmul outputs "
+                      "of the shards part from the whole launch's")
+                row[f"tp{tp}"] = {"own_plan_apart": own,
+                                  "own_plan_apart_int4": own4}
+            out.append(row)
+            print(f"  shard plans {site:8s} M={m:3d} {k}->{n}: shards of "
+                  f"{TP_DEGREES[1:]} on the whole site's plan equal the whole launch bit "
+                  "for bit (analog_matmul, int4_matmul); on their own plans "
+                  + ", ".join(f"tp {tp}: {row[f'tp{tp}']['own_plan_apart']}"
+                              f" / {row[f'tp{tp}']['own_plan_apart_int4']}"
+                              for tp in TP_DEGREES[1:])
+                  + f" of {m * n} outputs apart")
+    return {"sites": out}
+
+
+def _rtn4(torch, w):
+    """Per-column RTN int4 of ``w`` [K, N]: ``(w_int, scale [1, N])``."""
+    from repro_torch.core import quant
+
+    return quant.rtn_quantize(w, 4, axis=-2)
+
+
+def tp_decode_ms(torch, eng, cfg) -> dict:
+    """Host and device ms of one decode forward of ``eng``: ENGINE_SLOTS
+    greedy requests of 64-token prompts (fewer where the engine's
+    ``max_len`` is shorter) admitted and prefilled, three
+    graphed decode steps on the host clock (synchronized), then the same
+    step over the same slots captured as a CUDA graph and replayed back to
+    back (its device time)."""
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(23)
+    plen = min(64, eng.scfg.max_len - 24 - eng.scfg.prefill_chunk)
+    for i in range(ENGINE_SLOTS):
+        eng.submit(Request(uid=9000 + i, prompt=rng.integers(
+            0, cfg.vocab_size, plen).astype(np.int32), max_new=24,
+            temperature=0.0))
+    while any(s is None or s.prefilling for s in eng.slots):
+        eng.step()
+    eng.step()
+    steps0 = eng.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / max(
+        1, eng.decode_steps - steps0)
+    eng._refresh_device_state()
+    d = eng._dev
+
+    def step():
+        logits, _ = serve_step(eng.params, cfg, eng.acfg,
+                               d["toks"][:, None], eng.caches,
+                               d["off"][:, None],
+                               seq_mask=d["active"][:, None])
+        return torch.argmax(logits, dim=-1)
+
+    dev_ms = graph_ms(torch, step, reps=5)
+    eng.run()
+    return {"decode_host_ms": host_ms, "decode_device_ms": dev_ms}
+
+
+def tp_fp_tie(torch, cfg, params, req, tokens, t: int) -> dict:
+    """The fp rule for a request whose greedy token ``t`` parts between two
+    tensor-parallel degrees: the tp = 1 model's logits at that position
+    (a forward of the prompt and the first ``t`` tokens) have a top-2 gap
+    within TP_FP_TIE of their scale (cuBLAS picks its products by shape,
+    and a shard's shape is another)."""
+    from repro_torch.core.analog import AnalogConfig, AnalogCtx
+    from repro_torch.models.model import apply as model_apply
+
+    seq = np.concatenate([req.prompt, np.asarray(tokens[:t], np.int32)])
+    toks = torch.as_tensor(seq[None], dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        logits, _, _ = model_apply(params, cfg, AnalogConfig(mode="off"),
+                                   AnalogCtx(), {"tokens": toks},
+                                   last_only=True)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    gap = float(top[0] - top[1])
+    check(gap <= TP_FP_TIE * (1 + abs(float(top[0]))), f"fp tp: request "
+          f"{req.uid} parts at token {t} with a top-2 gap {gap:.3e}")
+    return {"uid": req.uid, "token": t, "top2_gap": gap}
+
+
+def tp_engine(torch, cfg, p, acfg, scfg, reqs, tp: int, what: str,
+              timed: bool = False) -> dict:
+    """``reqs`` through a ``tp``-way engine whose shards share cuda:0
+    (graphed: the captures take every shard's launches), every count set
+    to 0 just before (:func:`engine_run`); with ``timed``, the decode
+    forward's host and device ms after (:func:`tp_decode_ms`)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.serve.scheduler import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    eng = ServeEngine(p, cfg, acfg, dataclasses.replace(scfg, tp=tp),
+                      shard_devices=[dev] * tp if tp > 1 else None)
+    if tp > 1 and "tensor_parallel" not in eng.gating_reasons:
+        check(eng.mesh is not None and eng.mesh.tp == tp
+              and (eng.step_graphs is not None or eng.device.type != "cuda"),
+              f"{what}: tp={tp} did not shard on one card")
+        leaves = [v for v in _leaves_any(eng.params)
+                  if isinstance(v, sharding.Shards)]
+        check(leaves and all(len(v.parts) == tp for v in leaves),
+              f"{what}: tp={tp}: {len(leaves)} sharded leaves")
+    run = engine_run(torch, eng, reqs)
+    total = sum(len(v) for v in run["results"].values())
+    res = {"tokens": {int(u): np.asarray(v).tolist()
+                      for u, v in run["results"].items()},
+           "tokens_per_s": total / run["run_s"], "run_s": run["run_s"],
+           "peak_gb": run["peak_gb"], "launches": run["launches"],
+           "counters": {k: getattr(eng, k) for k in TP_COUNTERS},
+           "gating": dict(eng.gating_reasons),
+           "graphs": run["graphs"]["captured"] if run["graphs"] else 0,
+           "tpot_ms": run["tpot_ms"], "ttft_ms": run["ttft_ms"]}
+    if timed:
+        res.update(tp_decode_ms(torch, eng, cfg))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _leaves_any(tree):
+    """Every leaf of a nested dict, tensors and shards alike."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_any(v)
+    else:
+        yield tree
+
+
+def tp_compare(torch, cfg, p, runs: dict, reqs, what: str,
+               exact: bool) -> dict:
+    """Every tp's run of one workload against tp = 1's: tokens bit for bit
+    (``exact``; else a parting request only at a top-2 near-tie of the tp =
+    1 logits, :func:`tp_fp_tie`), the engine's counters equal, and each
+    kernel's launches ``tp`` times tp = 1's (every site and every
+    attention layer runs once per shard; the Mamba-2 scan, replicated,
+    as often as at tp = 1)."""
+    base = runs[1]
+    out = {}
+    for tp, r in runs.items():
+        if tp == 1:
+            continue
+        parted = [u for u in base["tokens"]
+                  if r["tokens"][u] != base["tokens"][u]]
+        check(r["counters"] == base["counters"] or parted,
+              f"{what} tp={tp}: counters {r['counters']}, tp=1 "
+              f"{base['counters']}")
+        ties = []
+        if parted:
+            check(not exact, f"{what} tp={tp}: requests {parted} part from "
+                  "tp=1's tokens")
+            for u in parted:
+                a, b = r["tokens"][u], base["tokens"][u]
+                t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                req = next(q for q in reqs if q.uid == u)
+                ties.append(tp_fp_tie(torch, cfg, p, req, b, t))
+        else:
+            want = {k: v * (1 if k == "ssd_scan" else tp)
+                    for k, v in base["launches"].items() if v}
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == want, f"{what} tp={tp}: launches {got}, expected "
+                  f"tp x tp=1's {want}")
+        out[tp] = {"equal": len(reqs) - len(parted), "ties": ties}
+    return out
+
+
+def tp_print(what: str, runs: dict, cmp: dict) -> None:
+    for tp, r in runs.items():
+        eq = ("" if tp == 1 else
+              f"; {cmp[tp]['equal']} of {len(r['tokens'])} requests equal "
+              "tp=1 bit for bit" + ("" if not cmp[tp]["ties"] else
+                                    f", the others at near-ties "
+                                    f"{cmp[tp]['ties']}"))
+        timing = ("" if "decode_host_ms" not in r else
+                  f", decode step host {r['decode_host_ms']:.2f} ms, device "
+                  f"{r['decode_device_ms']:.2f} ms")
+        print(f"  {what} tp={tp}: {r['tokens_per_s']:.1f} tokens/s, TPOT "
+              f"{r['tpot_ms']:.2f} ms, peak {r['peak_gb']:.2f} GB, launches "
+              f"{r['launches']}, {r['graphs']} graphs captured"
+              + timing + eq)
+
+
+def phase_tp(torch) -> dict:
+    """Phase 23: tensor parallelism on the one card, the shards of every
+    column-parallel weight and of the pool sharing cuda:0. (a) Each
+    shard's launch runs the whole site's plan (:func:`tp_shard_plans`).
+    (b) Full-width llama-3.2-1b at TP_LAYERS of its layers on phase 21's 8
+    greedy requests and its geometry (bf16 pool, prefix cache on):
+    analog_hw and digital_int4 at tp 1, 2 and 4 bit for bit, fp equal or
+    parting only at a top-2 near-tie; every kernel launched tp times as
+    often; tokens/s, the decode step's host and device ms, peak GB. (c)
+    qwen3-moe-30b-a3b (MOE_LAYERS) and mamba2-130m (TP_LAYERS) analog_hw at
+    tp 2. (d) qwen2.5-32b at full width, QWEN32_LAYERS of its 64 layers,
+    fed to the sharded engines from host memory,
+    analog_hw at tp 2 and 4 equal to tp 1 (the reference's big-config
+    smoke, on the kernels). (e) llama at tp 3: gated (32 heads do not
+    divide), serving tp = 1's tokens."""
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import Request, SchedulerConfig
+
+    print(f"  phase 23's numbers on {gpu_name_and_power()}")
+    dev = torch.device("cuda")
+    out = {"shard_plans": tp_shard_plans(torch)}
+
+    def deployed(cfg, params, labels, deploy, seed=7):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        p, acfg = deploy_model(_deploy_args(deploy), cfg, params, labels,
+                               gen, inplace=True)
+        if deploy == "analog_hw":
+            acfg = dataclasses.replace(acfg, use_pallas=True)
+        return p, acfg
+
+    # (b) llama-3.2-1b: fp first, then digital_int4 (carriers beside the
+    # weights), then analog_hw (programmed into the weights in place)
+    cfg, params, labels = full_width(torch, ARCH, layers=TP_LAYERS[ARCH])
+    reqs = spec_requests(cfg)
+    scfg = spec_scfg(torch, reqs, None)
+    for deploy in ("fp", "digital_int4", "analog_hw"):
+        p, acfg = deployed(cfg, params, labels, deploy)
+        what = f"{cfg.name} {deploy}"
+        runs = {tp: tp_engine(torch, cfg, p, acfg, scfg, reqs, tp, what,
+                              timed=deploy == "analog_hw")
+                for tp in TP_DEGREES}
+        cmp = tp_compare(torch, cfg, params, runs, reqs, what,
+                         exact=deploy != "fp")
+        tp_print(what, runs, cmp)
+        out[f"{ARCH}/{deploy}"] = {"runs": runs, "compare": cmp}
+        if deploy == "analog_hw":
+            gated = tp_engine(torch, cfg, p, acfg, scfg, reqs, 3,
+                              f"{what} tp=3")
+            reason = gated["gating"].get("tensor_parallel", "")
+            check("divisible" in reason and gated["tokens"]
+                  == runs[1]["tokens"], f"{what} tp=3: gating {reason!r}, "
+                  "tokens apart from tp=1's")
+            print(f"  {what} tp=3: gated ({reason}); serves tp=1's tokens "
+                  "bit for bit")
+            out[f"{ARCH}/tp3"] = {"reason": reason,
+                                  "launches": gated["launches"]}
+        del p
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-moe and mamba2-130m at tp 2
+    for arch in (MOE, MAMBA):
+        if arch == MOE:
+            cfg, params, labels = full_width(torch, MOE)
+        else:
+            cfg, params, labels = build(dataclasses.replace(
+                model_config(arch), num_layers=TP_LAYERS[arch]),
+                torch.Generator(device=dev).manual_seed(0), device=dev)
+        p, acfg = deployed(cfg, params, labels, "analog_hw")
+        reqs = spec_requests(cfg)
+        scfg = spec_scfg(torch, reqs, None)
+        what = f"{cfg.name} analog_hw"
+        runs = {tp: tp_engine(torch, cfg, p, acfg, scfg, reqs, tp, what)
+                for tp in (1, 2)}
+        cmp = tp_compare(torch, cfg, p, runs, reqs, what, exact=True)
+        tp_print(what, runs, cmp)
+        out[f"{arch}/analog_hw"] = {"runs": runs, "compare": cmp}
+        del p, params
+        torch.cuda.empty_cache()
+
+    # (d) qwen2.5-32b at full width, QWEN32_LAYERS layers, deployed on the
+    # card and handed to the sharded engines in host memory, as
+    # ``launch/serve.py --tp`` hands them a model: each shard is copied to
+    # the card, so their peak holds no unsharded copy beside the shards;
+    # tp = 1 serves the same weights moved back to the card, last
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(QWEN32), num_layers=QWEN32_LAYERS)
+    cfg, params, labels = build(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff)
+          == (5120, 40, 8, 27648), f"unexpected config {cfg}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    p, acfg = deployed(cfg, params, labels, "analog_hw")
+    host = _to(p, torch.device("cpu"))
+    del p, params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(32)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 16 + 8 * i)
+                    .astype(np.int32), max_new=8, temperature=0.0)
+            for i in range(4)]
+    scfg = SchedulerConfig(num_slots=4, max_len=64, prefill_chunk=16,
+                           cache_dtype=torch.bfloat16, paged=True,
+                           kv_block_size=PAGED_BS)
+    what = f"{cfg.name} analog_hw"
+    runs = {tp: tp_engine(torch, cfg, host, acfg, scfg, reqs, tp, what)
+            for tp in QWEN32_DEGREES if tp > 1}
+    p = _to(host, dev)
+    del host
+    runs = dict(sorted({**runs, 1: tp_engine(torch, cfg, p, acfg, scfg,
+                                             reqs, 1, what)}.items()))
+    cmp = tp_compare(torch, cfg, p, runs, reqs, what, exact=True)
+    tp_print(what, runs, cmp)
+    print(f"  {what}: tp > 1 from host memory (each shard copied to the "
+          f"card), tp = 1 from the card; {n_params / 1e9:.3f}B params, "
+          f"{4 * n_params / 1e9:.2f} GB in fp32")
+    out[f"{QWEN32}/analog_hw"] = {"runs": runs, "compare": cmp,
+                                  "params": n_params}
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -7173,7 +7878,8 @@ def line_launches(results: dict) -> dict:
     warm runs of the prefix cache, and phase 21's priming and measured
     runs of each deployment and drafter, and phase 22's closed-loop run,
     open-loop runs, speculative lifecycle runs (each drafter's probes,
-    cancel and fault) and HTTP run. Each count was read right after
+    cancel and fault) and HTTP run, and phase 23's tensor-parallel runs
+    (each degree's, the gated tp = 3 one too). Each count was read right after
     its run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
     the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18,
@@ -7182,8 +7888,9 @@ def line_launches(results: dict) -> dict:
     phase 19's graph check, the timing replays and
     the fused-against-unfused checks after each run (site parity, the
     token attribution), phase 22's recorded replays (only where a request
-    parts), the CLI (phase 10), and the training phases' profiled steps
-    and resume checks."""
+    parts), the CLI (phase 10), the training phases' profiled steps
+    and resume checks, and phase 23's shard-plan checks and decode
+    timings."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -7248,6 +7955,17 @@ def line_launches(results: dict) -> dict:
         add(f"speculative/{key}", r["launches"])
     for key, r in results["lifecycle"]["runs"].items():
         add(f"lifecycle/{key}", r["launches"])
+    for key, r in results["tp"].items():
+        if key in ("shard_plans", "phase_s"):
+            continue
+        if key.endswith("/tp3"):
+            add(f"tp/{key}", r["launches"])
+            continue
+        for tp, run in r["runs"].items():
+            add(f"tp/{key}/tp{tp}", run["launches"])
+    for arch in VLM_AUDIO_TRAIN:
+        add(f"train/{arch}/analog",
+            results["train_families"][arch]["launches"])
     return out
 
 
@@ -7381,87 +8099,88 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/22] setup")
+        phase("[1/23] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/22] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/23] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/22] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/23] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/22] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/23] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/22] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/23] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/22] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/23] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/22] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/23] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/22] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/23] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/22] reduced continuous engines, card against cpu")
+        phase("[9/23] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/22] serving CLI")
+        phase("[10/23] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/22] static engine, phi-3-mini-4k at full width: "
+        phase("[11/23] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/22] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/23] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/22] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/23] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/22] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/23] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/22] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/23] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/22] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/23] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/22] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/23] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/22] HWA distillation at full width, {MAMBA} and {MOE} "
-              f"({MOE_TRAIN_LAYERS} layer); reduced ssm, moe and hybrid "
-              "training, card against cpu")
+        phase(f"[18/23] HWA distillation at full width, {MAMBA}, {MOE} "
+              f"({MOE_TRAIN_LAYERS} layer), {INTERNVL} ({INTERNVL_LAYERS} "
+              f"layers) and {MUSICGEN} ({MUSICGEN_LAYERS}); reduced ssm, moe, "
+              "hybrid, vlm and audio training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/22] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/23] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
-        phase(f"[20/22] prefix cache: full-width {ARCH} at "
+        phase(f"[20/23] prefix cache: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (bf16 and int8 "
               f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
               "reduced models, card against cpu")
         results["prefix"] = phase_prefix(torch)
-        phase(f"[21/22] speculative decoding: full-width {ARCH} at "
+        phase(f"[21/23] speculative decoding: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (fp with "
               "the ngram, self and int4 drafters; analog_hw with ngram and "
               "int4) on phase 20's first 8 requests; reduced models, card "
@@ -7471,7 +8190,7 @@ def main() -> int:
                    results["prefix"][f"{ARCH}/kv16"]["tokens"].items()}
         results["speculative"] = phase_speculative(torch, rows, base_hw)
         results["speculative"]["phase_s"] = time.perf_counter() - t21
-        phase(f"[22/22] lifecycle: full-width {ARCH} through the async "
+        phase(f"[22/23] lifecycle: full-width {ARCH} through the async "
               "front end open-loop (poisson, bursts with a bounded queue and "
               "TTFT deadlines), a cancel mid speculative window and a chaos "
               "fault (ngram and int4 drafters), the HTTP front door")
@@ -7479,6 +8198,13 @@ def main() -> int:
         results["lifecycle"] = phase_lifecycle(
             torch, results["engine"]["analog_hw/kv16"]["tokens_per_s"])
         results["lifecycle"]["phase_s"] = time.perf_counter() - t22
+        phase(f"[23/23] tensor parallelism on one card: full-width {ARCH} "
+              f"at {TP_LAYERS[ARCH]} layers (fp, digital_int4, analog_hw at "
+              f"tp {TP_DEGREES}; tp 3 gated), {MOE} and {MAMBA} at tp 2, "
+              f"{QWEN32} at {QWEN32_LAYERS} layers at tp {QWEN32_DEGREES}")
+        t23 = time.perf_counter()
+        results["tp"] = phase_tp(torch)
+        results["tp"]["phase_s"] = time.perf_counter() - t23
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -48,6 +48,7 @@ import torch
 from repro_torch.core import devices as devices_lib
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import quant
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ref as kref
 
@@ -178,9 +179,10 @@ class _NoisyMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         w_eff = w if w_noise is None else w + w_noise
         if w.dim() == 3:
-            y = torch.matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w_eff)
+            y = kref.site_matmul(x.reshape(w.shape[0], -1, x.shape[-1]),
+                                 w_eff)
             return y.reshape(x.shape[:-1] + (w.shape[-1],))
-        return torch.matmul(x, w_eff)
+        return kref.site_matmul(x, w_eff)
 
     @staticmethod
     def backward(ctx, g):
@@ -261,8 +263,15 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
     """Apply one analog/quantized linear. Returns ``(y, stats)``; with
     ``ctx.collect_stats`` the stats (``x_std``, ``x_absmax``,
     ``clip_frac``, detached, on the input's device) feed the input-range
-    rules the train step applies after each update."""
+    rules the train step applies after each update.
+
+    A tensor-parallel site (its kernel a ``distributed.sharding.Shards``)
+    runs once per shard on its columns or experts and is gathered
+    (``sharding.parallel_linear``); a shard's site dict carries ``cols``
+    ``(first column, site width)`` where its device state stayed whole."""
     w = p["kernel"]
+    if isinstance(w, sharding.Shards):
+        return sharding.parallel_linear(analog_linear, p, x, cfg, ctx)
     in_dtype = x.dtype
     stats = empty_stats()
     if ctx.training and cfg.mode == "rtn":
@@ -271,7 +280,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             "as in the reference (no training rules)")
 
     if cfg.mode == "off":
-        y = torch.matmul(x, w.to(in_dtype)).to(in_dtype)
+        y = kref.site_matmul(x, w.to(in_dtype)).to(in_dtype)
         if "bias" in p:
             y = y + p["bias"].to(in_dtype)
         return y, stats
@@ -312,8 +321,8 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             with torch.no_grad():       # kref.adc_bound, its colmax kept
                 colmax = kref.abs_max(wf, -2)
                 bound = cfg.out_bound * beta * colmax
-                w_dev, col_off = devices_lib.corrupt_weights(wf, dev, bound,
-                                                             colmax)
+                w_dev, col_off = devices_lib.corrupt_weights(
+                    wf, dev, bound, colmax, cols=p.get("cols"))
             if fused:
                 y = dispatch.analog_mvm(xf, w_dev, beta, bound,
                                         in_bits=cfg.input_bits,
@@ -343,7 +352,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
             y = noisy_matmul(x_q, wf, w_noise)
     elif cfg.mode in ("qat", "di8"):
         w_q = quant.weight_fake_quant(wf, cfg.weight_bits, axis=-2)
-        y = torch.matmul(x_q, w_q)
+        y = kref.site_matmul(x_q, w_q)
     else:  # rtn
         use_int4 = (cfg.use_pallas and cfg.int4_serve
                     and dispatch.can_use_int4(w.shape[-1], cfg.weight_bits))
@@ -369,7 +378,7 @@ def analog_linear(p: dict, x: torch.Tensor, cfg: AnalogConfig,
                                         out_bits=cfg.output_bits)
                 adc_done = True
             else:
-                y = torch.matmul(x_q, wf)
+                y = kref.site_matmul(x_q, wf)
 
     # ---- output (ADC) side -----------------------------------------------
     if (cfg.output_quant and cfg.mode in ("analog", "rtn")

@@ -48,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ref as kref
 
 
@@ -252,7 +253,8 @@ def _scale_tiles(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def corrupt_weights(w: torch.Tensor, dev: dict, bound: torch.Tensor,
-                    colmax: torch.Tensor | None = None
+                    colmax: torch.Tensor | None = None,
+                    cols: tuple[int, int] | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The device state materialised as ``(w_eff, col_off)``.
 
@@ -265,12 +267,25 @@ def corrupt_weights(w: torch.Tensor, dev: dict, bound: torch.Tensor,
     gives it); ``col_off`` the per-column offset added to the accumulator
     before the ADC. The fused kernel and the unfused path both take these
     two arrays as they are. No host read: a CUDA graph can hold the call.
+
+    ``cols`` ``(c0, n_site)``: ``w`` is columns ``c0 ..`` of a site
+    ``n_site`` wide whose whole state ``dev`` holds (a tensor-parallel
+    shard whose boundary falls inside a tile): the grid is spread over the
+    site's columns and read at the shard's, the same products as the whole
+    site's.
     """
     kdim, n = w.shape[-2:]
-    w_eff = _scale_tiles(w, _tile_scale(dev))
+    stuck = dev["stuck"]
+    if cols is None:
+        w_eff = _scale_tiles(w, _tile_scale(dev))
+        n_site, c0 = n, 0
+    else:
+        c0, n_site = cols
+        w_eff = w * _expand_tiles(_tile_scale(dev), kdim,
+                                  n_site)[..., c0:c0 + n]
+        stuck = stuck[..., c0:c0 + n]
     if colmax is None:
         colmax = kref.abs_max(w, -2)                   # pristine ceiling
-    stuck = dev["stuck"]
     # both faults in one pass: a stuck column reads 0 (Gmin) or colmax
     pinned = torch.where(stuck == 2, colmax, torch.zeros_like(colmax))
     w_eff = torch.where((stuck != 0).unsqueeze(-2), pinned.unsqueeze(-2),
@@ -282,9 +297,10 @@ def corrupt_weights(w: torch.Tensor, dev: dict, bound: torch.Tensor,
         growth = growth[..., None, None]
     col_frac = torch.sum(dev["off"] * growth, dim=-2)  # [.., TN]
     tn = col_frac.shape[-1]
-    rn = -(-n // tn)
+    rn = -(-n_site // tn)
     col_frac = col_frac[..., :, None].expand(
-        *col_frac.shape, rn).reshape(*col_frac.shape[:-1], tn * rn)[..., :n]
+        *col_frac.shape, rn).reshape(*col_frac.shape[:-1],
+                                     tn * rn)[..., c0:c0 + n]
     return w_eff, col_frac * bound
 
 
@@ -298,7 +314,9 @@ def health(params) -> dict:
     ``hours_since_cal`` (the largest ``t - t_prog``). Each site's sums are
     taken where its state lives and read back in one transfer.
     """
-    devs = _devices(params)
+    # a tensor-parallel site's state is read gathered
+    devs = [{k: sharding.whole(v) for k, v in d.items()}
+            for d in _devices(params)]
     if not devs:
         return {"sites": 0, "tiles": 0, "dead_tiles": 0, "stuck_cols": 0,
                 "mean_scale_err": 0.0, "hours_since_cal": 0.0}

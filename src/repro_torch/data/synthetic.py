@@ -69,8 +69,8 @@ def teacher_logits(params, cfg, tokens,
                    extra_inputs: Optional[dict] = None) -> torch.Tensor:
     """Teacher forward for distillation targets (FP, no noise). ``tokens``
     (a tensor or an array) go to the params' device."""
-    tokens = torch.as_tensor(tokens, dtype=torch.int64,
-                             device=params["embed"]["tokens"].device)
+    tokens = torch.as_tensor(tokens, dtype=torch.int64, device=next(
+        iter(params["embed"].values())).device)
     inputs = {"tokens": tokens, **(extra_inputs or {})}
     logits, _, _ = model_apply(params, cfg, AnalogConfig(mode="off"),
                                AnalogCtx(), inputs)

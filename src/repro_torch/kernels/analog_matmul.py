@@ -47,7 +47,8 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                   bound: torch.Tensor | None = None,
                   col_off: torch.Tensor | None = None, *,
                   lam: float | None = None, in_bits: int = 8,
-                  out_bits: int = 8, promote: bool = True) -> torch.Tensor:
+                  out_bits: int = 8, promote: bool = True,
+                  plan_shape: tuple[int, int] | None = None) -> torch.Tensor:
     """Fused DAC-quant → MVM → ADC-quant of ``x [M, K] @ w_eff [K, N]``,
     or of E experts at once: ``x [E, M, K] @ w_eff [E, K, N]``.
 
@@ -59,7 +60,10 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
     its mapping and split-K from the shape and ``in_bits``
     (``_launch.plan``). ``promote=False`` only measures what promotion
     buys: the tensor cores of the ``mma`` mapping then carry the whole K
-    sum. Returns fp32.
+    sum. ``plan_shape`` ``(E, N)`` plans the launch as one of E experts
+    and N columns (a tensor-parallel shard of a larger site runs the whole
+    site's mapping and K split; its scratch covers the shard). Returns
+    fp32.
     """
     global launches
     ref.check_one_bound(bound, lam)
@@ -85,7 +89,8 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
         _launch.check("col_off", col_off, torch.float32, lead + (n,), dev)
     if not (2 <= in_bits <= 24 and 2 <= out_bits <= 24):
         raise ValueError(f"bits out of range: {in_bits}, {out_bits}")
-    plan = _launch.plan("analog_matmul", m, k, n, dev.index, in_bits, e)
+    pe, pn = (e, n) if plan_shape is None else plan_shape
+    plan = _launch.plan("analog_matmul", m, k, pn, dev.index, in_bits, pe)
     out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     scratch = _launch.scratch(plan, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -48,6 +48,8 @@ it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import _launch, ref
@@ -56,6 +58,32 @@ from repro_torch.kernels.int4_matmul import int4_matmul
 from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill import paged_flash_prefill
 from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+@contextlib.contextmanager
+def whole_site(experts: int, n: int, first_expert: int = 0,
+               first_col: int = 0):
+    """Run every MVM in the block as part of a site of ``experts`` experts
+    and ``n`` output columns, the shard's first expert and column at
+    ``first_expert`` / ``first_col``: a tensor-parallel shard
+    (``distributed.sharding.parallel_linear``) computes some of the
+    site's columns or experts. On the card its launch runs the whole
+    site's mapping and K split; on the CPU its plain product runs at the
+    whole site's shape (``ref.site_matmul``). Either way each column sums
+    K in the whole site's order, and its bits do not depend on how many
+    columns the shard computes."""
+    token = ref.WHOLE_SITE.set((experts, n, first_expert, first_col))
+    try:
+        yield
+    finally:
+        ref.WHOLE_SITE.reset(token)
+
+
+def _plan_shape():
+    """``(experts, columns)`` of the whole site of a shard's launch, or
+    None (:func:`whole_site`)."""
+    site = ref.WHOLE_SITE.get()
+    return None if site is None else site[:2]
 
 
 def use_fused(cfg) -> bool:
@@ -114,7 +142,8 @@ def analog_mvm(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                       None if bound is None else bound.float().contiguous(),
                       None if col_off is None
                       else col_off.float().contiguous(),
-                      lam=lam, in_bits=in_bits, out_bits=out_bits)
+                      lam=lam, in_bits=in_bits, out_bits=out_bits,
+                      plan_shape=_plan_shape())
     return y.reshape(*lead, n)
 
 
@@ -200,7 +229,7 @@ def int4_mvm_packed(x_q: torch.Tensor, w_packed: torch.Tensor,
     n = w_packed.shape[-1] * 2
     y = int4_matmul(x2, w_packed.contiguous(),
                     scale.reshape(tuple(w_packed.shape[:-2]) + (n,))
-                    .float().contiguous())
+                    .float().contiguous(), plan_shape=_plan_shape())
     return y.reshape(*lead, n)
 
 

@@ -42,11 +42,14 @@ def _lib():
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+                scale: torch.Tensor,
+                plan_shape: tuple[int, int] | None = None) -> torch.Tensor:
     """``y = x @ dequant(w_packed, scale)``: x [M, K] fp32, w_packed
     [K, N//2] uint8, scale [N] fp32 → [M, N] fp32; or E experts at once
     with a leading E on each (scale [E, N]). On the card the library picks
-    its mapping and split-K from the shape (``_launch.plan``)."""
+    its mapping and split-K from the shape (``_launch.plan``);
+    ``plan_shape`` ``(E, N)`` plans it as one of E experts and N columns
+    (a tensor-parallel shard runs its whole site's plan)."""
     global launches
     if x.device.type == "cpu":
         return ref.int4_matmul_ref(x, w_packed, scale)
@@ -63,7 +66,8 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     _launch.check("x", x, torch.float32, lead + (m, k), dev)
     _launch.check("w_packed", w_packed, torch.uint8, lead + (k, n // 2), dev)
     _launch.check("scale", scale, torch.float32, lead + (n,), dev)
-    plan = _launch.plan("int4_matmul", m, k, n, dev.index, None, e)
+    pe, pn = (e, n) if plan_shape is None else plan_shape
+    plan = _launch.plan("int4_matmul", m, k, pn, dev.index, None, pe)
     out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     scratch = _launch.scratch(plan, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

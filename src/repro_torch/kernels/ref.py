@@ -15,6 +15,8 @@ IEEE divisions of two tensors on every device.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 
 
@@ -77,6 +79,46 @@ def check_one_bound(bound: torch.Tensor | None, lam: float | None) -> None:
                          "(fold lam * beta * max|w| from the weights)")
 
 
+#: ``(experts, columns, first expert, first column)`` of the whole site a
+#: tensor-parallel shard's product belongs to, or None
+#: (``kernels.dispatch.whole_site`` sets it)
+WHOLE_SITE: contextvars.ContextVar = contextvars.ContextVar(
+    "whole_site", default=None)
+
+
+def site_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x, w)``; for a tensor-parallel shard on the CPU
+    (inside ``dispatch.whole_site``), computed at its whole site's shape.
+
+    A BLAS product picks its blocking, and so each output's order of
+    summation over K, from the product's shape and the thread count: the
+    columns of a shard's narrower product need not equal the whole
+    product's (at 4 threads an ``[8, 2048] @ [2048, 1024]`` column half
+    does not). Here the shard's columns (or experts: ``x`` [e, M, K],
+    ``w`` [e, K, N]) are placed at their offsets in zeros of the whole
+    site's shape, the whole-shaped product is run, and the shard's part
+    is taken: every output is then the whole product's bit for bit, at
+    any thread count. On the card the products are the caller's (a shard
+    launch runs its whole site's plan; cuBLAS picks by shape)."""
+    site = WHOLE_SITE.get()
+    if site is None or x.device.type != "cpu":
+        return torch.matmul(x, w)
+    e, n, e0, c0 = site
+    if w.dim() == 3 and w.shape[0] < e:
+        es = w.shape[0]
+        xp = x.new_zeros((e,) + tuple(x.shape[1:]))
+        wp = w.new_zeros((e,) + tuple(w.shape[1:]))
+        xp[e0:e0 + es] = x
+        wp[e0:e0 + es] = w
+        return torch.matmul(xp, wp)[e0:e0 + es]
+    ns = w.shape[-1]
+    if ns < n:
+        wp = w.new_zeros(tuple(w.shape[:-1]) + (n,))
+        wp[..., c0:c0 + ns] = w
+        return torch.matmul(x, wp)[..., c0:c0 + ns]
+    return torch.matmul(x, w)
+
+
 def analog_matmul_ref(x: torch.Tensor, w_eff: torch.Tensor,
                       beta: torch.Tensor, bound: torch.Tensor | None = None,
                       col_off: torch.Tensor | None = None, *,
@@ -100,7 +142,7 @@ def analog_matmul_ref(x: torch.Tensor, w_eff: torch.Tensor,
     beta = torch.clamp_min(beta.float(), 1e-8)
     x_q = div(beta, qi) * torch.round(clip(xf, -beta, beta) * rdiv(qi, beta))
 
-    y = torch.matmul(x_q, w_eff.float())
+    y = site_matmul(x_q, w_eff.float())
     if col_off is not None:
         y = y + col_off.float()[..., None, :]
 
@@ -129,7 +171,7 @@ def int4_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
     Batched experts: x [E, M, K], w_packed [E, K, N//2], scale [E, N].
     """
     w = unpack_int4(w_packed).float() * scale.float()[..., None, :]
-    return torch.matmul(x.float(), w).to(x.dtype)
+    return site_matmul(x.float(), w).to(x.dtype)
 
 
 def pack_int4(w_int: torch.Tensor) -> torch.Tensor:

@@ -90,7 +90,16 @@ queue's high-water mark:
         --reduced --paged --qps 4 --arrival burst --max-queue 4 \
         --request-timeout 30 --ttft-timeout 5
 
-Tensor parallelism (the JAX package's ``--tp``) is not ported yet.
+``--tp N`` serves the continuous engine tensor-parallel in N shards
+(``distributed.sharding``: column-parallel weights, ``kv_heads / N`` heads
+of the pool per shard, greedy tokens equal to tp = 1 bit for bit), shard
+``i`` on card ``i``; with fewer cards, or on the CPU, the engine serves at
+tp = 1 and the launcher says why. A sharded model is built and deployed in
+host memory (its random weights drawn by the CPU generator from
+``--seed``, so they are not the card-built tp = 1 run's), each shard is
+copied straight to its card and the replicated leaves to card 0, and the
+host copy is dropped once the engine holds the shards: no card holds the
+whole model.
 """
 
 from __future__ import annotations
@@ -111,6 +120,7 @@ from repro_torch.core import devices
 from repro_torch.core.analog import (AnalogConfig, pack_int4_weights,
                                      perturb_analog_weights)
 from repro_torch.core.noise import validate_noise_config
+from repro_torch.distributed import sharding
 from repro_torch.models import build
 from repro_torch.serve.decode import digital_int4_config, generate
 from repro_torch.serve.frontend import AsyncServeFrontend, ShedError
@@ -229,6 +239,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--draft-layers", type=int, default=0,
                     help="truncate the model drafter to its first N blocks "
                          "(0 = full depth; layer-skip self-speculation)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards: column-parallel weights "
+                         "and a per-shard KV-head split of the pool; "
+                         "greedy decode stays bitwise identical to tp=1")
     ap.add_argument("--noise-model", default="none",
                     choices=["none", "hw", "gaussian"],
                     help="extra eval-time weight perturbation on analog "
@@ -458,8 +472,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduce()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    cfg, params, labels = build(cfg, gen, device=device)
+    shard_devices = host_built_shards(args, cfg, device)
+    home = torch.device("cpu") if shard_devices else device
+    gen = torch.Generator(device=home).manual_seed(args.seed)
+    cfg, params, labels = build(cfg, gen, device=home)
     params, acfg = deploy_model(args, cfg, params, labels, gen, inplace=True)
     if args.noise_model != "none":
         if acfg.mode == "analog":
@@ -541,14 +557,20 @@ def main(argv=None):
         # the open-loop modes bound the queue and survive step faults: a
         # front door degrades, it does not die
         max_queue=args.max_queue if open_loop else 0,
-        fault_tolerant=open_loop))
-    flags = {"drift": "--drift-hours"}
+        fault_tolerant=open_loop, tp=args.tp), shard_devices=shard_devices)
+    del params         # the engine holds the shards; the host copy goes
+    flags = {"drift": "--drift-hours", "tensor_parallel": "--tp"}
     for feature, why in eng.gating_reasons.items():
         flag = flags.get(feature, "--" + feature.replace("_", "-"))
         # --prefix-cache is on by default: its reason is printed only
         # when the flag was given
         if feature != "prefix_cache" or flag in argv:
             print(f"[serve] {flag} is inert for {cfg.name}: {why}")
+    if eng.mesh is not None:
+        print(f"[serve] tensor parallel: tp={args.tp} over "
+              f"{[str(d) for d in eng.mesh.devices]} (column-parallel "
+              f"weights, kv_heads/{args.tp} per shard; built in host "
+              f"memory, each shard copied to its device)")
     if open_loop:
         prepare_kernels(device)
         return open_loop_main(args, eng, reqs, cfg.vocab_size)
@@ -598,6 +620,20 @@ def main(argv=None):
           f"{lats[len(lats) // 2] * 1e3:.0f}ms{prefix}{spec}{drift}; "
           f"{lifecycle_report(eng)}); sample: {results[0][:8].tolist()}")
     return results
+
+
+def host_built_shards(args, cfg, device) -> list | None:
+    """The shard devices of a ``--tp`` engine that will shard (the
+    continuous engine on a family it serves, enough devices, heads that
+    divide), or None. Such a model is built in host memory and each shard
+    copied to its device, so that no card holds the whole model."""
+    if (args.tp <= 1 or args.engine != "continuous"
+            or cfg.family in ("audio", "vlm")):
+        return None
+    devs = sharding.available_devices(device)
+    if sharding.serve_tp_unsupported(cfg, args.tp, devs) is not None:
+        return None
+    return devs[:args.tp]
 
 
 def open_loop_main(args, eng: ServeEngine, reqs, vocab: int):

@@ -11,7 +11,10 @@ Fig. 2a), stage 2 distils the HWA student from it (Fig. 2b) in ``--mode``
 Runs on the card; ``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions (``--reduced --device cpu --steps 4 --pretrain-steps 4``
 takes seconds). ``--production-mesh`` (the reference's 256/512-chip mesh)
-waits for tensor parallelism.
+waits for the training half of ROADMAP item 10. The vlm family trains on
+the corpus as text (it has no patch embeddings), and the audio family's
+model refuses the corpus's two-dimensional tokens, as the reference's CLI
+does.
 """
 
 from __future__ import annotations
@@ -61,8 +64,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: tensor parallelism over torch.distributed "
-            "is ROADMAP section 1, item 10")
+            "--production-mesh: the training half of ROADMAP section 1, "
+            "item 10 (ZeRO state over the data axis) is not ported")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, analog_linear,
                                      init_linear, linear_labels)
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch
 
 # ---------------------------------------------------------------------------
@@ -215,6 +216,11 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     dropped (per slot) or sent to the sink block 0 (paged) and its cursor
     stays. All three update the buffers **in place**; the returned cache
     holds the same buffers and the new cursors.
+
+    A tensor-parallel engine's cache holds its K/V leaves as shards on the
+    KV heads (``distributed.sharding``): each shard then scores its own
+    query heads against its own K/V (one kernel launch per shard) and the
+    heads are gathered before ``o`` (``sharding.head_parallel``).
     """
     hd = cfg.head_dim
     if "qkv" in p:
@@ -235,36 +241,41 @@ def attention(p: dict, x: torch.Tensor, cfg, acfg: AnalogConfig,
     scale = cfg.head_dim ** -0.5
     s = x.shape[1]
 
-    if cache is not None and "kp" in cache:          # paged slots
-        out, new_cache = _paged_slot_attention(cache, q, k, v, scale,
-                                               acfg.kv_splits, seq_mask)
-    elif cache is not None and "start" in cache:     # per-slot buffers
-        out, new_cache = _slot_attention(cache, q, k, v, scale, seq_mask)
-    elif cache is not None and s == 1:               # decode step
-        pos = cache["pos"]
-        k_buf, v_buf = cache["k"], cache["v"]
-        k_buf[:, pos:pos + 1] = k.to(k_buf.dtype)
-        v_buf[:, pos:pos + 1] = v.to(v_buf.dtype)
-        t = k_buf.shape[1]
-        mask = (torch.arange(t, device=x.device) <= pos)[None, None, :]
-        mask = mask.expand(x.shape[0], 1, t)
-        out = _gqa_scores_softmax_v(q, k_buf, v_buf, mask, scale)
-        new_cache = {"k": k_buf, "v": v_buf, "pos": pos + 1}
-    else:                                            # train / prefill
-        if s <= 1024:
+    def attend(cache, q, k, v):
+        if cache is not None and "kp" in cache:          # paged slots
+            return _paged_slot_attention(cache, q, k, v, scale,
+                                         acfg.kv_splits, seq_mask)
+        if cache is not None and "start" in cache:     # per-slot buffers
+            return _slot_attention(cache, q, k, v, scale, seq_mask)
+        dev = q.device
+        if cache is not None and s == 1:               # decode step
+            pos = cache["pos"]
+            k_buf, v_buf = cache["k"], cache["v"]
+            k_buf[:, pos:pos + 1] = k.to(k_buf.dtype)
+            v_buf[:, pos:pos + 1] = v.to(v_buf.dtype)
+            t = k_buf.shape[1]
+            mask = (torch.arange(t, device=dev) <= pos)[None, None, :]
+            mask = mask.expand(q.shape[0], 1, t)
+            out = _gqa_scores_softmax_v(q, k_buf, v_buf, mask, scale)
+            return out, {"k": k_buf, "v": v_buf, "pos": pos + 1}
+        if s <= 1024:                                  # train / prefill
             t = k.shape[1]
             mask = (positions[:, :, None]
-                    >= torch.arange(t, device=x.device)[None, None, :])
+                    >= torch.arange(t, device=dev)[None, None, :])
             out = _gqa_scores_softmax_v(q, k, v, mask, scale)
         else:
             out = _chunked_causal_attention(q, k, v, scale)
-        if cache is not None:                        # prefill fills the cache
-            cache["k"][:, :s] = k.to(cache["k"].dtype)
-            cache["v"][:, :s] = v.to(cache["v"].dtype)
-            new_cache = {"k": cache["k"], "v": cache["v"],
-                         "pos": cache["pos"] + s}
-        else:
-            new_cache = None
+        if cache is None:
+            return out, None
+        cache["k"][:, :s] = k.to(cache["k"].dtype)     # prefill fills it
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return out, {"k": cache["k"], "v": cache["v"],
+                     "pos": cache["pos"] + s}
+
+    if sharding.is_sharded(cache):
+        out, new_cache = sharding.head_parallel(attend, cache, q, k, v)
+    else:
+        out, new_cache = attend(cache, q, k, v)
 
     out = out.reshape(*x.shape[:-1], cfg.num_heads * cfg.head_dim)
     y, st_o = analog_linear(p["o"], out, acfg, ctx.site("o"))

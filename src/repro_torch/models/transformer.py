@@ -24,8 +24,10 @@ The families' layers:
   mixer followed by its own FFN, MoE at odd positions. Its noise context
   folds the super-block index, then the layer's position in it.
 
-Four families train: dense, moe, ssm and hybrid. Only the serving path
-runs for vlm and audio: training them raises (:func:`forward`).
+All six families train. The vlm's ``projector`` site runs its training
+forward (noise, the STE rules, its input statistics) like every other
+site, and the audio family's codebook embeddings and ``[K · V]`` head
+train as one table and one site.
 """
 
 from __future__ import annotations
@@ -43,12 +45,6 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-#: training each family needs what is not ported yet, by ROADMAP item
-_NOT_TRAINED = {
-    "vlm": "training the vlm family (internvl2) is not ported: this port "
-           "serves it (ROADMAP section 1, item 12)",
-    "audio": "training the audio family (musicgen) is not ported: this "
-             "port serves it (ROADMAP section 1, item 12)"}
 
 
 def _check_family(cfg) -> None:
@@ -66,11 +62,12 @@ def tree_index(tree, i: int):
 
 def tree_unbind(tree, n: int) -> list:
     """The ``n`` trees of a stacked tree's leading axis, as views
-    (``unbind``, whose backward stacks the per-layer gradients once)."""
+    (``unbind``, whose backward stacks the per-layer gradients once; a
+    tensor-parallel ``Shards`` leaf unbinds every shard)."""
     if isinstance(tree, dict):
         parts = {k: tree_unbind(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(tree.unbind(0))
 
 
 def tree_stack(trees: list):
@@ -488,6 +485,11 @@ def embed_inputs(params: dict, cfg, inputs: dict):
     _check_family(cfg)
     tokens = inputs["tokens"]
     if cfg.family == "audio":
+        if tokens.dim() != 3:
+            # the reference fails here too, on broadcasting in the RoPE
+            raise ValueError(
+                f"the audio family takes tokens [B, S, K] (one id per "
+                f"codebook), got shape {tuple(tokens.shape)}")
         emb = params["embed"]["codebooks"]                   # [K, V, d]
         x = emb[0][tokens[..., 0]]
         for k in range(1, cfg.num_codebooks):
@@ -538,8 +540,6 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
     and returns the final-norm hidden states in place of the logits (the
     chunked-vocab loss applies :func:`apply_lm_head` per chunk).
     """
-    if ctx.training and cfg.family in _NOT_TRAINED:
-        raise NotImplementedError(_NOT_TRAINED[cfg.family])
     x, positions = embed_inputs(params, cfg, inputs)
     stats: dict[str, Any] = {}
     if cfg.family == "vlm" and "patch_embeds" in inputs:

@@ -4,8 +4,8 @@
 per-tensor scale, adding back what the previous step's quantization lost;
 the optimizer consumes the dequantized values, bit for bit what a receiver
 would rebuild from the int8 wire format. The reference's explicit
-compressed all-reduce (``psum_compressed``) waits for tensor parallelism
-over ``torch.distributed`` (ROADMAP section 1, item 10).
+compressed all-reduce (``psum_compressed``) waits for sharded training
+state, the training half of ROADMAP section 1, item 10.
 """
 
 from __future__ import annotations

@@ -43,7 +43,9 @@ block boundary, indexed under the same chain key. The rewind floor and window
 speculative windows commit under (``serve.scheduler``).
 
 Pure host-side Python; the device only sees the block-table rows this
-hands out.
+hands out. Under tensor parallelism (``distributed.sharding``) each shard
+holds ``KV / tp`` heads of every physical block, so one allocator, one
+index and one block table serve every shard unchanged.
 """
 
 from __future__ import annotations

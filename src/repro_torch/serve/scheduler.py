@@ -154,9 +154,24 @@ into the existing leaves in place, so CUDA graphs captured over them stay
 valid. Every device write the engine makes, from whichever thread calls
 it, is issued on the one stream the engine was built on.
 
-Tensor parallelism (``SchedulerConfig.tp``) is not ported: the field
-keeps its name here but defaults to off, and asking for it raises
-``NotImplementedError`` naming its ROADMAP item.
+**Tensor parallelism** (``SchedulerConfig.tp > 1``) serves the model in
+``tp`` shards (``distributed.sharding``, the reference's serve rules): every
+column-parallel weight and the KV pool (on its KV heads, every shard holding
+``KV / tp`` heads of every physical block) are split, each sharded site
+runs one launch per shard on its own columns, experts or heads, and the
+shards are gathered, never summed, so tp-way greedy decode equals tp = 1
+bit for bit. The host side is single: one engine makes every admission,
+prefix-index, window, deadline, cancel and recovery decision once, and the
+block tables, refcounts, radix index and snapshot pools stay
+shard-agnostic; every copy-on-write block copy and every reset writes every
+shard in place. Shard ``i`` sits on card ``i`` by default;
+``ServeEngine(shard_devices=...)`` places them explicitly, several on one
+device (the CPU tests; ``chip_smoke.py`` on one card). The drafter's
+weights and caches shard too. With the shards on the engine's card the
+step graphs capture every shard's launches; with shards on several cards
+the bodies run eagerly. A tp the config or runtime cannot take (heads or
+KV heads that do not divide, too few devices) is recorded in
+``gating_reasons["tensor_parallel"]`` and the engine serves at tp = 1.
 """
 
 from __future__ import annotations
@@ -173,6 +188,7 @@ import torch
 from repro_torch.core import devices
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx,
                                      pack_int4_weights)
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer as T
 from repro_torch.models.model import apply as model_apply
 from repro_torch.serve import graphs
@@ -282,8 +298,9 @@ class SchedulerConfig:
     ``max_queue > 0`` bounds the admission queue: ``try_submit`` sheds a
     request that arrives at a full queue. ``fault_tolerant=True`` (implied
     by a ``chaos_hook``) survives a fault raised in a step (see the module
-    docstring). ``tp`` (tensor parallelism) is not ported: it defaults to
-    off, and turning it on raises.
+    docstring). ``tp > 1`` serves tensor-parallel over ``tp`` shards (see
+    the module docstring), or at tp = 1 with
+    ``gating_reasons["tensor_parallel"]`` where it cannot.
     """
 
     num_slots: int = 4
@@ -310,11 +327,6 @@ class SchedulerConfig:
     fault_tolerant: bool = False
     tp: int = 1
 
-
-#: SchedulerConfig fields of features not ported: (off value, where queued)
-_NOT_PORTED = {
-    "tp": (1, "ROADMAP section 1, item 10 (tensor parallelism)"),
-}
 
 #: the terminal statuses of the request lifecycle
 TERMINAL = ("finished", "cancelled", "timed_out", "shed", "errored")
@@ -462,13 +474,14 @@ class ServeEngine:
     ``state_snap_restores``, speculative decoding ``spec_steps``,
     ``spec_proposed`` and ``spec_accepted`` (the reference's names) and
     ``draft_forwards`` (the model drafter's forwards: window steps,
-    catch-ups and prompt prefills). Not ported: tensor parallelism.
+    catch-ups and prompt prefills). ``mesh`` is the tensor-parallel
+    ``distributed.sharding.ServeMesh``, None at tp = 1.
     """
 
     def __init__(self, params, cfg, acfg: AnalogConfig,
                  scfg: SchedulerConfig = SchedulerConfig(), *,
                  draft_params=None, draft_cfg=None, draft_acfg=None,
-                 draft_fn=None, chaos_hook=None):
+                 draft_fn=None, chaos_hook=None, shard_devices=None):
         """Allocate the slot caches (and the block pool when paged) and the
         host-side request state.
 
@@ -480,29 +493,52 @@ class ServeEngine:
         ``chaos_hook(point)`` is called at the fault-injection points
         ``"alloc"`` (admission), ``"dispatch"`` (each step's dispatch) and
         ``"health"`` (the watchdog's read); an exception it raises is a
-        fault, and installing one makes the engine fault-tolerant."""
-        for name, (off, where) in _NOT_PORTED.items():
-            if getattr(scfg, name) != off:
-                raise NotImplementedError(
-                    f"SchedulerConfig.{name}={getattr(scfg, name)!r} is not "
-                    f"ported yet ({where})")
+        fault, and installing one makes the engine fault-tolerant.
+        ``shard_devices`` (``scfg.tp`` devices, which may repeat) places
+        the shards of a tensor-parallel engine; by default shard ``i`` sits
+        on card ``i``, and an engine on the CPU, one device, gates tp > 1
+        unless it is given them. A sharded engine serves on shard 0's
+        device: ``params`` may lie in host memory, each shard is then
+        copied straight to its device and the replicated leaves to shard
+        0's, and the engine keeps no unsharded copy of a sharded weight
+        (the caller drops its own, as ``launch/serve.py`` does)."""
         if cfg.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"continuous batching is not wired for family="
                 f"{cfg.family!r} (multi-codebook tokens / patch-embed "
                 "prefill), as in the reference: serve it with the static "
                 "engine (serve.decode.generate)")
-        self.params = params
         self.cfg, self.acfg, self.scfg = cfg, acfg, scfg
         self.device = params["embed"]["tokens"].device
+        # a requested feature that cannot run on this family is recorded
+        # with its reason (the launcher prints these), never dropped quietly
+        self.gating_reasons: dict[str, str] = {}
+        # tensor parallelism: the mesh, or None at tp = 1 (also where tp
+        # is gated); the weights shard before the drafter is built from them
+        self.mesh: Optional[sharding.ServeMesh] = None
+        if scfg.tp > 1:
+            if shard_devices is not None and len(shard_devices) != scfg.tp:
+                raise ValueError(f"shard_devices has {len(shard_devices)} "
+                                 f"devices for tp={scfg.tp}")
+            avail = (shard_devices if shard_devices is not None
+                     else sharding.available_devices(self.device))
+            reason = sharding.serve_tp_unsupported(cfg, scfg.tp, avail)
+            if reason is not None:
+                self.gating_reasons["tensor_parallel"] = reason
+            else:
+                self.mesh = sharding.serve_mesh(scfg.tp, avail[:scfg.tp])
+                # the engine serves from shard 0's device, wherever the
+                # params were built (host memory, for a model larger than
+                # one card)
+                self.device = self.mesh.devices[0]
+        self.params = (params if self.mesh is None
+                       else sharding.shard_params_for_serve(self.mesh,
+                                                            params))
         # every device write goes onto the stream the engine was built on,
         # whichever thread makes it (the current stream is thread-local)
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         b = scfg.num_slots
-        # a requested feature that cannot run on this family is recorded
-        # with its reason (the launcher prints these), never dropped quietly
-        self.gating_reasons: dict[str, str] = {}
         # attention-free ssm stacks have no KV to page: no pool, and the
         # per-slot state layout either way
         paged = scfg.paged and cfg.family != "ssm"
@@ -529,8 +565,8 @@ class ServeEngine:
                 "and per-tile device state attached to the params)")
         if self._recal and scfg.recal_interval < 1:
             raise ValueError("recal_interval must be >= 1")
-        self._init_drafter(scfg, draft_params, draft_cfg, draft_acfg,
-                           draft_fn)
+        self._init_drafter(scfg, params, draft_params, draft_cfg,
+                           draft_acfg, draft_fn)
         self.pool: Optional[KVPool] = None
         kv_bits = acfg.kv_bits if paged else 0
         if paged:
@@ -550,6 +586,9 @@ class ServeEngine:
                                     kv_block_size=scfg.kv_block_size,
                                     kv_blocks=scfg.kv_blocks or None,
                                     kv_bits=kv_bits, state_snaps=state_snaps)
+        if self.mesh is not None:
+            self.caches = sharding.shard_caches_for_serve(self.mesh,
+                                                          self.caches)
         self._axes, self._kinds = T.cache_slot_spec(
             cfg, paged=paged, kv_bits=kv_bits, state_snaps=state_snaps > 0)
         self.queue: collections.deque[Request] = collections.deque()
@@ -635,20 +674,28 @@ class ServeEngine:
         self._init_step_buffers()
         self._dirty = True
         #: the step graphs (None on the CPU, where the bodies run eagerly
-        #: over the same buffers); ``_eager`` runs them eagerly on the card
-        #: too, for comparisons only
+        #: over the same buffers, and with shards on other cards than the
+        #: engine's: a capture does not span devices); ``_eager`` runs them
+        #: eagerly on the card too, for comparisons only
+        one_card = self.mesh is None or set(self.mesh.devices) == {
+            self.device}
         self.step_graphs = (graphs.StepGraphs(self.device)
-                            if self.device.type == "cuda" else None)
+                            if self.device.type == "cuda" and one_card
+                            else None)
         self._eager = False
 
-    def _init_drafter(self, scfg: SchedulerConfig, draft_params, draft_cfg,
-                      draft_acfg, draft_fn) -> None:
+    def _init_drafter(self, scfg: SchedulerConfig, whole_params,
+                      draft_params, draft_cfg, draft_acfg, draft_fn) -> None:
         """Gate speculative decoding by family and build the drafter: a
         host drafter (``"ngram"`` or ``draft_fn``) has no cache; a model
         drafter gets its params (the first ``draft_layers`` blocks, the
         packed-int4 carriers built once for ``"int4"``), its deployment and
-        a contiguous per-slot cache of its own (never paged)."""
-        cfg, acfg, params = self.cfg, self.acfg, self.params
+        a contiguous per-slot cache of its own (never paged). Under tensor
+        parallelism its weights and cache shard as the target's: the
+        target's shards are shared, and carriers packed from the unsharded
+        ``whole_params`` (or a caller's ``draft_params``) are sharded."""
+        cfg, acfg = self.cfg, self.acfg
+        params = whole_params if self.mesh is None else self.params
         self._spec = bool(scfg.speculative) and cfg.family in ("dense",
                                                                "moe")
         if scfg.speculative and not self._spec:
@@ -680,22 +727,29 @@ class ServeEngine:
                     dataclasses.replace(acfg, weight_bits=4))
                 pack = True
         dacfg = dataclasses.replace(dacfg, kv_bits=0)
-        dparams = draft_params
+        dparams, shard = draft_params, draft_params is not None
         if dparams is None:
-            dparams = params
+            # packing reads the unsharded weights; the carriers then shard
+            dparams = whole_params if pack else params
+            shard = pack
             if dcfg.num_layers < cfg.num_layers:
                 # layer-skip drafting: the first n stacked blocks
-                dparams = dict(params)
-                dparams["blocks"] = _slice_layers(params["blocks"],
+                dparams = dict(dparams)
+                dparams["blocks"] = _slice_layers(dparams["blocks"],
                                                   dcfg.num_layers)
         if pack:
             dparams = pack_int4_weights(dparams)
+        if shard and self.mesh is not None:
+            dparams = sharding.shard_params_for_serve(self.mesh, dparams)
         self.draft_params, self.draft_cfg, self.draft_acfg = (dparams, dcfg,
                                                               dacfg)
         dev = dparams["embed"]["tokens"].device
         self.draft_caches = T.init_caches(dcfg, scfg.num_slots, scfg.max_len,
                                           scfg.cache_dtype, dev,
                                           per_slot=True)
+        if self.mesh is not None:
+            self.draft_caches = sharding.shard_caches_for_serve(
+                self.mesh, self.draft_caches)
         self._daxes, self._dkinds = T.cache_slot_spec(dcfg)
 
     # ------------------------------------------------------------------
@@ -1324,7 +1378,7 @@ class ServeEngine:
                 salt=scfg.cache_salt)
         for tree in (self.caches, self.draft_caches):
             for (leaf,) in _walk(tree or {}):
-                if isinstance(leaf, torch.Tensor):
+                if isinstance(leaf, (torch.Tensor, sharding.Shards)):
                     leaf.zero_()
         if self._stream is not None:
             self._stream.synchronize()

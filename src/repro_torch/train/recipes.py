@@ -48,10 +48,11 @@ def _clone(params: dict) -> dict:
 
 
 def _device_of(params: dict, device) -> torch.device:
-    """``device`` when given, else the device of the embedding."""
+    """``device`` when given, else the device of the embedding (the audio
+    family's codebook table)."""
     if device is not None:
         return torch.device(device)
-    return params["embed"]["tokens"].device
+    return next(iter(params["embed"].values())).device
 
 
 def _run(params, labels, cfg, acfg, tcfg, loader, make_batch, *,

@@ -138,15 +138,38 @@ def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
+def _align_vlm_labels(cfg, batch: dict):
+    """``(labels, mask)`` of a batch, lined up with the vlm's ``[image ‖
+    text]`` sequence: with ``patch_embeds`` and labels, ``vit_tokens``
+    zero labels and a zero mask are prepended (the mask is all ones over
+    the text when the batch has none)."""
+    labels, mask = batch.get("labels"), batch.get("mask")
+    if "patch_embeds" not in batch or labels is None:
+        return labels, mask
+    b, dev = labels.shape[0], labels.device
+    labels = torch.cat([torch.zeros((b, cfg.vit_tokens), dtype=labels.dtype,
+                                    device=dev), labels], dim=1)
+    if mask is None:
+        mask = torch.ones(batch["labels"].shape[:2], device=dev)
+    mask = torch.cat([torch.zeros((b, cfg.vit_tokens), device=dev),
+                      mask.float()], dim=1)
+    return labels, mask
+
+
 def make_loss_fn(cfg, acfg: AnalogConfig, tcfg: TrainConfig):
     """The KD / CE loss closure ``(params, batch, key, teacher_params) →
     (loss, (stats, metrics))``, with the chunked-vocab form when
-    ``vocab_chunk`` applies."""
+    ``vocab_chunk`` applies. A vlm batch's ``patch_embeds`` go to the
+    model (and the teacher) and its labels and mask are lined up with the
+    image prefix (:func:`_align_vlm_labels`); an audio batch carries
+    tokens and labels ``[B, S, K]``."""
 
     def loss_fn(params, batch, noise_key, teacher_params=None):
         ctx = AnalogCtx(key=noise_key, training=True, collect_stats=True)
         inputs = {"tokens": batch["tokens"]}
-        labels, mask = batch.get("labels"), batch.get("mask")
+        if "patch_embeds" in batch:
+            inputs["patch_embeds"] = batch["patch_embeds"]
+        labels, mask = _align_vlm_labels(cfg, batch)
         chunked = (tcfg.vocab_chunk > 0
                    and cfg.vocab_size >= 4 * tcfg.vocab_chunk)
         dev = batch["tokens"].device
@@ -176,6 +199,7 @@ def make_loss_fn(cfg, acfg: AnalogConfig, tcfg: TrainConfig):
             if mask is None:
                 mask = torch.ones((hidden.shape[0], s), device=dev)
             mask_p = _pad_seq(mask.float(), s_pad - s)
+            # audio labels are [B, S, K]: padded on the sequence alone
             labels_p = None if labels is None else _pad_seq(labels,
                                                             s_pad - s)
 
@@ -255,7 +279,8 @@ def make_train_step(cfg, acfg: AnalogConfig, tcfg: TrainConfig, labels,
     reference's production KD path); the unchunked loss takes a batch's
     ``teacher_logits`` in its place where the batch has them.
     ``pregather_params`` and ``shard_grads`` are no-ops: they are
-    sharding hints, and there is no mesh (ROADMAP section 1, item 10).
+    sharding hints, and training has no mesh (the training half of ROADMAP
+    section 1, item 10).
     """
     loss_fn = make_loss_fn(cfg, acfg, tcfg)
     n_acc = tcfg.accum_steps

@@ -532,12 +532,15 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     static, continuous, eval, best-of-n, training and PTQ-eval run (the
     moe model's static and continuous runs too, phase 17's hybrid, vlm
     and audio runs, phase 18's training of mamba2-130m, whose scans
-    count too, and of qwen3-moe-30b-a3b, phase 19's static and
+    count too, of qwen3-moe-30b-a3b, internvl2-2b and musicgen-medium,
+    phase 19's static and
     continuous runs on an ageing chip, phase 20's cold, prime and warm
     runs of the prefix cache, and phase 21's priming and measured runs of
     each speculative deployment and drafter, phase 22's closed-loop,
-    open-loop, speculative lifecycle and HTTP runs), each run's counts
-    under one path, and nothing for a kernel that a run did not launch."""
+    open-loop, speculative lifecycle and HTTP runs, and phase 23's
+    tensor-parallel runs at every degree, the gated tp = 3 one too), each
+    run's counts under one path, and nothing for a kernel that a run did
+    not launch."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -581,7 +584,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "train": {"launches": {"analog_matmul": next(seen)}},
         "train_families": {
             cs.MAMBA: {"launches": counts("analog_matmul", "ssd_scan")},
-            cs.MOE: {"launches": counts("analog_matmul")}},
+            cs.MOE: {"launches": counts("analog_matmul")},
+            cs.INTERNVL: {"launches": counts("analog_matmul")},
+            cs.MUSICGEN: {"launches": counts("analog_matmul")}},
         "ptq": {arch: {"analog_hw": {"launches": {
                            "analog_matmul": next(seen)}},
                        "digital_int4": {"launches": {
@@ -634,6 +639,22 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     results["lifecycle"] = {
         "runs": {k: {"launches": counts(*v)} for k, v in life_keys.items()},
         "seconds": {}, "phase8_tokens_per_s": 1.0, "phase_s": 0.0}
+    tp_keys = {f"{cs.ARCH}/fp": (attn, cs.TP_DEGREES),
+               f"{cs.ARCH}/digital_int4": (("int4_matmul",) + attn,
+                                           cs.TP_DEGREES),
+               f"{cs.ARCH}/analog_hw": (("analog_matmul",) + attn,
+                                        cs.TP_DEGREES),
+               f"{cs.MOE}/analog_hw": (("analog_matmul",) + attn, (1, 2)),
+               f"{cs.MAMBA}/analog_hw": (("analog_matmul", "ssd_scan"),
+                                         (1, 2)),
+               f"{cs.QWEN32}/analog_hw": (("analog_matmul",) + attn,
+                                          cs.QWEN32_DEGREES)}
+    results["tp"] = {
+        **{k: {"runs": {tp: {"launches": counts(*v)} for tp in degrees},
+               "compare": {}} for k, (v, degrees) in tp_keys.items()},
+        f"{cs.ARCH}/tp3": {"launches": counts("analog_matmul", *attn),
+                           "reason": ""},
+        "shard_plans": {}, "phase_s": 0.0}
     total = next(seen) - 1
     prefix = {f"prefix/{key}/{run}" for key in (
         f"{cs.ARCH}/kv16", f"{cs.ARCH}/kv8", cs.MAMBA)
@@ -645,6 +666,12 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     spec_analog = {p for p in spec if "analog_hw" in p}
     spec_int4 = {p for p in spec if "int4" in p}
     life = {f"lifecycle/{k}" for k in life_keys}
+    tp_runs = {k: {f"tp/{k}/tp{tp}" for tp in degrees}
+               for k, (_, degrees) in tp_keys.items()}
+    tp_all = set().union(*tp_runs.values()) | {f"tp/{cs.ARCH}/tp3"}
+    tp_attn = tp_all - tp_runs[f"{cs.MAMBA}/analog_hw"]
+    tp_analog = tp_all - tp_runs[f"{cs.ARCH}/fp"] - tp_runs[
+        f"{cs.ARCH}/digital_int4"]
     out = cs.line_launches(results)
     assert list(out) == names
     # every count of every run lands once, under its own path
@@ -656,6 +683,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         "continuous/analog_hw/kv8", f"continuous/{cs.MAMBA}/analog_hw",
         f"train/{cs.ARCH}/analog", f"train/{cs.MAMBA}/analog",
         f"train/{cs.MOE}/analog", f"static/{cs.MOE}/analog_hw",
+        f"train/{cs.INTERNVL}/analog", f"train/{cs.MUSICGEN}/analog",
         f"continuous/{cs.MOE}/analog_hw/kv16",
         *(f"{kind}/{arch}/{d}" for arch in (cs.ARCH, cs.PHI3)
           for kind, d in (("eval", "hw"), ("eval", "gaussian"),
@@ -663,7 +691,7 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
         "devices/static/analog_hw", "devices/continuous/analog_hw/kv16",
-        *prefix, *spec_analog, *life}
+        *prefix, *spec_analog, *life, *tp_analog}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",
@@ -673,7 +701,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"{kind}/{arch}/digital_int4" for arch in (cs.ARCH, cs.PHI3)
           for kind in ("eval", "ptq")),
         *(f"static/{arch}/digital_int4" for arch in cs.FAMILY_ARCHS),
-        *spec_int4, "lifecycle/spec_int4"}
+        *spec_int4, "lifecycle/spec_int4",
+        *tp_runs[f"{cs.ARCH}/digital_int4"]}
     assert set(out["paged_flash_decode"]) == set(out["paged_flash_prefill"])
     assert set(out["paged_flash_decode"]) == {
         "continuous/analog_hw/kv16", "continuous/digital_int4/kv16",
@@ -682,10 +711,12 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"continuous/{cs.MOE}/analog_hw/kv16",
         f"continuous/{cs.MOE}/digital_int4/kv16",
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
-        "devices/continuous/analog_hw/kv16", *prefix_kv, *spec, *life}
+        "devices/continuous/analog_hw/kv16", *prefix_kv, *spec, *life,
+        *tp_attn}
     assert set(out["ssd_scan"]) == {
         f"static/{cs.MAMBA}/{d}" for d in ("fp", "analog_hw", "digital_int4")
     } | {f"continuous/{cs.MAMBA}/{d}" for d in ("analog_hw", "digital_int4")
          } | {f"static/{cs.JAMBA}/{d}" for d in ("analog_hw", "digital_int4")
               } | {f"continuous/{cs.JAMBA}/analog_hw/kv16",
-                   f"train/{cs.MAMBA}/analog"} | prefix_ssm
+                   f"train/{cs.MAMBA}/analog"} | prefix_ssm | tp_runs[
+        f"{cs.MAMBA}/analog_hw"]

@@ -26,6 +26,10 @@ of the query tile), and ``ssd_scan`` against its plain version at ragged
 sequence lengths (one launch up to 32 tokens, three with scratch beyond,
 and the three on a single chunk as well), with groups shared by several heads, strided inputs and an incoming
 state, bitwise the same run to run and under CUDA-graph replay.
+Tensor-parallel serving (``-k tp``): a shard's MVM launch on its columns or
+experts under the whole site's plan equals the whole launch's bit for bit;
+tp = 2 engines whose shards share the card replay their step graphs equal
+to eager, step by step; a tp-way run counts tp launches per sharded site.
 ``chip_smoke.py`` does the same at the main path's full-width shapes.
 
 Tolerance: ``analog_matmul`` may differ from its plain version only by one
@@ -1159,3 +1163,232 @@ def test_engine_failed_capture_raises(card):
     with pytest.raises(RuntimeError):
         eng.run(_graph_reqs(cfg, 2))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving on one card (distributed.sharding)
+# ---------------------------------------------------------------------------
+
+TP_SHAPES = [(1, 8, 2048, 3072), (1, 64, 2048, 16384), (1, 8, 8192, 2048),
+             (1, 130, 515, 1032), (8, 4, 300, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("e,m,k,n", TP_SHAPES, ids=str)
+def test_tp_shard_launch_runs_the_whole_sites_plan(card, e, m, k, n, tp):
+    """A shard's launch under ``plan_shape`` (the whole site's experts and
+    columns) gives the whole launch's columns (a batched site: its
+    experts) bit for bit, for both MVM kernels; so does a shard run through
+    ``dispatch.whole_site``."""
+    gen = torch.Generator(device=card).manual_seed(e * m + k + n + tp)
+    lead = (e,) if e > 1 else ()
+    x = torch.randn(lead + (m, k), generator=gen, device=card)
+    w = torch.randn(lead + (k, n), generator=gen, device=card) * k ** -0.5
+    beta = torch.full((1,), 2.5, device=card)
+    w_int, scale = _rtn4(w)
+    packed = ref.pack_int4(w_int)
+    scale = scale.reshape(lead + (n,)).contiguous()
+    whole = k_analog.analog_matmul(x, w, beta, lam=14.0)
+    whole4 = k_int4.int4_matmul(x, packed, scale)
+    if e > 1:                          # expert-parallel: E / tp experts each
+        step = e // tp
+        for i in range(tp):
+            s = slice(i * step, (i + 1) * step)
+            got = k_analog.analog_matmul(x[s].contiguous(),
+                                         w[s].contiguous(), beta, lam=14.0,
+                                         plan_shape=(e, n))
+            assert torch.equal(got, whole[s])
+            got4 = k_int4.int4_matmul(x[s].contiguous(),
+                                      packed[s].contiguous(),
+                                      scale[s].contiguous(),
+                                      plan_shape=(e, n))
+            assert torch.equal(got4, whole4[s])
+        return
+    cols = n // tp
+    for i in range(tp):
+        c = slice(i * cols, (i + 1) * cols)
+        ws = w[:, c].contiguous()
+        got = k_analog.analog_matmul(x, ws, beta, lam=14.0,
+                                     plan_shape=(1, n))
+        assert torch.equal(got, whole[:, c])
+        with dispatch.whole_site(1, n):
+            got = dispatch.analog_mvm(x, ws, beta, lam=14.0)
+        assert torch.equal(got, whole[:, c])
+        pc = slice(i * cols // 2, (i + 1) * cols // 2)
+        got4 = k_int4.int4_matmul(x, packed[:, pc].contiguous(),
+                                  scale[c].contiguous(), plan_shape=(1, n))
+        assert torch.equal(got4, whole4[:, c])
+
+
+def _rtn4(w):
+    from repro_torch.core import quant
+    return quant.rtn_quantize(w, 4, axis=-2)
+
+
+def _tp_cache_leaves(eng):
+    """Every cache leaf of a (possibly sharded) engine, gathered, a pool
+    leaf without its sink block (see ``_cache_leaves``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.serve.kv_pool import SINK_BLOCK
+    from repro_torch.serve.scheduler import _walk
+
+    out = []
+    for leaf, kind in _walk(eng.caches, eng._kinds):
+        leaf = sharding.whole(leaf)
+        if kind == "pool":
+            leaf = torch.cat([leaf[:, :SINK_BLOCK], leaf[:, SINK_BLOCK + 1:]],
+                             dim=1)
+        out.append(leaf)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-1b", "qwen3-moe-30b-a3b"])
+def test_tp_engine_graph_replay_equals_eager_steps(card, arch):
+    """Two tp = 2 engines whose shards share the card, in lockstep, one
+    replaying its captured step graphs (decode blocks and fused chunk
+    steps, every shard's launches inside) and one running the bodies
+    eagerly: after every step the tokens, cursors, every cache leaf (the
+    shards gathered), the decoding rows' next tokens, the counters and the
+    launches counted are equal; the tokens equal a tp = 1 engine's."""
+    import numpy as np
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg, params = _graph_model(arch, card)
+    scfg = SchedulerConfig(num_slots=3, max_len=64, prefill_chunk=8,
+                           kv_block_size=8, paged=True, tp=2)
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    engines = [ServeEngine(params, cfg, acfg, scfg, shard_devices=[card] * 2)
+               for _ in range(2)]
+    eager, graphed = engines
+    assert graphed.mesh is not None and graphed.step_graphs is not None
+    eager._eager = True
+    for eng in engines:
+        for r in _graph_reqs(cfg, 6):
+            eng.submit(r)
+    names = ("decode_steps", "mixed_steps", "prefill_forwards",
+             "prefill_chunks")
+    while eager.queue or eager.num_active:
+        c0 = _launch_counts()
+        eager.step()
+        c1 = _launch_counts()
+        graphed.step()
+        c2 = _launch_counts()
+        assert [b - a for a, b in zip(c0, c1)] == [
+            b - a for a, b in zip(c1, c2)]
+        assert [getattr(eager, n) for n in names] == [
+            getattr(graphed, n) for n in names]
+        np.testing.assert_array_equal(eager._pos, graphed._pos)
+        for a, b in zip(_tp_cache_leaves(eager), _tp_cache_leaves(graphed)):
+            assert torch.equal(a, b)
+        live = eager._dev["active"] > 0
+        assert torch.equal(eager._dev["toks"][live],
+                           graphed._dev["toks"][live])
+    one = ServeEngine(params, cfg, acfg, SchedulerConfig(
+        num_slots=3, max_len=64, prefill_chunk=8, kv_block_size=8,
+        paged=True)).run(_graph_reqs(cfg, 6))
+    for uid, toks in one.items():
+        np.testing.assert_array_equal(graphed.results[uid], toks)
+        np.testing.assert_array_equal(eager.results[uid], toks)
+    kinds = {k[0] for k in graphed.step_graphs.keys()}
+    assert {"decode", "mixed"} <= kinds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_launch_counters_count_every_shard(card, tp):
+    """A graphed tp-way run counts ``tp`` launches per sharded site and per
+    attention layer: every kernel's count is tp times the tp = 1 run's,
+    and the tokens are the same."""
+    import numpy as np
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve import graphs
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    # the reduced llama's 2 KV heads do not split 4 ways: MHA at tp = 4
+    cfg = get_config("llama-3.2-1b").reduce()
+    if cfg.num_kv_heads % tp:
+        cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_heads)
+    cfg, params, _ = build(cfg, 0, device=card)
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    counts, outs = [], []
+    for n in (1, tp):
+        for m in graphs.KERNELS:
+            m.launches = 0
+        eng = ServeEngine(params, cfg, acfg, SchedulerConfig(
+            num_slots=3, max_len=64, prefill_chunk=8, kv_block_size=8,
+            paged=True, tp=n), shard_devices=[card] * n if n > 1 else None)
+        assert "tensor_parallel" not in eng.gating_reasons
+        outs.append(eng.run(_graph_reqs(cfg, 6, seed=2)))
+        counts.append(_launch_counts())
+    assert [tp * c for c in counts[0]] == counts[1]
+    for uid, toks in outs[0].items():
+        np.testing.assert_array_equal(outs[1][uid], toks)
+
+
+@pytest.mark.cuda
+def test_tp_engine_from_host_params_holds_only_shards(card):
+    """A tp = 2 engine handed a model in host memory (full-width
+    llama-3.2-1b at 2 layers, as ``launch/serve.py --tp`` builds it):
+    every shard and replicated leaf lands on the card, the card's peak
+    while the engine is built stays below twice the model (the whole model
+    is never there beside its shards), and the tokens equal a tp = 1
+    engine's over the same weights moved to the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama-3.2-1b"), num_layers=2)
+    cfg, params, _ = build(cfg, 0, device="cpu")
+    model_bytes = sum(t.numel() * t.element_size()
+                      for t in _tree_tensors(params))
+    acfg = AnalogConfig(mode="analog", train_noise=False, use_pallas=True)
+    scfg = SchedulerConfig(num_slots=3, max_len=64, prefill_chunk=8,
+                           kv_block_size=8, paged=True)
+    torch.cuda.synchronize(card)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    eng = ServeEngine(params, cfg, acfg, dataclasses.replace(scfg, tp=2),
+                      shard_devices=[card] * 2)
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert eng.mesh is not None and eng.device.type == "cuda"
+    for t in _tree_tensors(eng.params):
+        parts = t.parts if isinstance(t, sharding.Shards) else [t]
+        assert all(p.device == eng.device for p in parts)
+    assert peak < 1.5 * model_bytes, (peak, model_bytes)
+    got = eng.run(_graph_reqs(cfg, 4, seed=3))
+    del eng
+    want = ServeEngine(_to_card(params, card), cfg, acfg, scfg).run(
+        _graph_reqs(cfg, 4, seed=3))
+    for uid, toks in want.items():
+        np.testing.assert_array_equal(got[uid], toks)
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_tensors(v)
+    else:
+        yield tree
+
+
+def _to_card(tree, card):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, card) for k, v in tree.items()}
+    return tree.to(card)

@@ -334,7 +334,7 @@ def test_noise_context_folds_super_block_then_layer(carried, monkeypatch):
     """Every analog site of the training forward is keyed by (super-block,
     layer in it, site), as the reference's ``fold_in(fold_in(key, sb),
     j)``. The training forward runs (it was refused before the SSD and
-    batched-expert backwards were ported); vlm and audio still refuse."""
+    batched-expert backwards were ported), and so do vlm and audio."""
     cfg, _, _, _, pp, _ = carried
     keys = []
     real = PA.analog_linear
@@ -356,8 +356,8 @@ def test_noise_context_folds_super_block_then_layer(carried, monkeypatch):
     assert keys[2] == fold(fold(sb, 0), tag("gate_up"))
     assert keys[4] == fold(fold(sb, 1), tag("in_proj"))
     assert len(set(keys)) == len(keys)
-    # the hybrid family trains now (tests/test_torch_train_hybrid.py);
-    # the vlm and audio families still refuse, naming their ROADMAP item
+    # the hybrid family trains now (tests/test_torch_train_hybrid.py), and
+    # so do the vlm and audio families (tests/test_torch_train_vlm_audio.py)
     logits, _, _ = port_apply(pp, cfg, PA.AnalogConfig(mode="analog"),
                               PA.AnalogCtx(key=(1,), training=True),
                               {"tokens": torch.zeros((1, 4),
@@ -365,9 +365,11 @@ def test_noise_context_folds_super_block_then_layer(carried, monkeypatch):
     assert logits.shape == (1, 4, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     for arch in ("internvl2-2b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP section 1, item 12"):
-            port_apply({}, get_config(arch).reduce(),
-                       PA.AnalogConfig(mode="analog"),
-                       PA.AnalogCtx(key=(1,), training=True),
-                       {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+        vcfg, vp, _ = port_build(get_config(arch).reduce(), 0, device="cpu")
+        kdim = (vcfg.num_codebooks,) if vcfg.family == "audio" else ()
+        logits, _, _ = port_apply(
+            vp, vcfg, PA.AnalogConfig(mode="analog"),
+            PA.AnalogCtx(key=(1,), training=True),
+            {"tokens": torch.zeros((1, 4) + kdim, dtype=torch.long)})
+        assert tuple(logits.shape) == (1, 4) + kdim + (vcfg.vocab_size,)
+        assert bool(torch.isfinite(logits).all())

@@ -21,9 +21,10 @@ holds equal to the packed-int4 kernel.
   solo tokens; stop tokens; ``greedy_first`` and ``top_k = 1``; the token
   budget split with no starvation; out-of-blocks backpressure; block
   conservation; ``submit``'s capacity checks.
-* Tensor parallelism, the one ``SchedulerConfig`` feature not ported,
-  raises; the prefix cache and the request lifecycle run; the drift clock and the watchdog gate as the
-  reference's on params without device state.
+* Tensor parallelism runs (gated to tp = 1 on one device without shard
+  devices; ``tests/test_torch_tp_serve.py`` holds it); the prefix cache
+  and the request lifecycle run; the drift clock and the watchdog gate as
+  the reference's on params without device state.
 
 Sampling randomness does not cross between the packages, so sampled
 requests are held only to the port's own contracts.
@@ -334,17 +335,19 @@ def test_submit_validates_capacity(carried):
 @pytest.mark.parametrize("field,value", [
     ("max_queue", 4), ("fault_tolerant", True), ("tp", 2)])
 def test_unported_features_raise(carried, field, value):
-    """``tp`` is not ported and raises; ``max_queue`` and
+    """None of these raises any more: ``max_queue`` and
     ``fault_tolerant``, the request lifecycle's, run since it was ported
-    (``tests/test_torch_lifecycle.py`` holds them against the
-    reference)."""
+    (``tests/test_torch_lifecycle.py`` holds them against the reference),
+    and ``tp`` since tensor parallelism was: on the CPU, one device, with
+    no shard devices given, it is gated with the reference's
+    too-few-devices reason and the engine serves at tp = 1
+    (``tests/test_torch_tp_serve.py``)."""
     cfg, _, _, _, tp, _ = carried
     scfg = dataclasses.replace(PS.SchedulerConfig(), **{field: value})
-    if field == "tp":
-        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-            PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
-        return
     eng = PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"), scfg)
+    if field == "tp":
+        assert eng.mesh is None
+        assert "devices" in eng.gating_reasons["tensor_parallel"]
     assert eng._tolerant == (field == "fault_tolerant")
     out = eng.run([PS.Request(uid=0, prompt=_prompt(cfg, 5), max_new=4,
                               temperature=0.0)])
@@ -420,15 +423,16 @@ def test_drift_and_recalibrate_gate_without_device_state(carried, field,
 
 
 def test_unported_lifecycle_and_families_raise(carried):
-    """Tensor parallelism raises; the request lifecycle runs (a chaos hook
+    """Tensor parallelism runs (gated to tp = 1 on one device); the
+    request lifecycle runs (a chaos hook
     is called at its points, deadlines are accepted and a request within
     them finishes); the moe family is served, the vlm and audio families
     are not; every reference field is kept, in its order, with the
     reference's defaults but for the type of ``cache_dtype``."""
     cfg, _, _, _, tp, _ = carried
     acfg = PA.AnalogConfig(mode="off")
-    with pytest.raises(NotImplementedError, match="tp.*ROADMAP"):
-        PS.ServeEngine(tp, cfg, acfg, PS.SchedulerConfig(tp=2))
+    gated = PS.ServeEngine(tp, cfg, acfg, PS.SchedulerConfig(tp=2))
+    assert "tp=2 needs 2 devices" in gated.gating_reasons["tensor_parallel"]
     points = []
     eng = PS.ServeEngine(tp, cfg, acfg, chaos_hook=points.append)
     assert eng._tolerant

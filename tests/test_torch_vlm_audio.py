@@ -19,8 +19,8 @@ from a numpy generator. Tolerances:
   test_generate_audio_multicodebook``'s case, greedy).
 
 Both families are served by the static engine only, as in the reference:
-the continuous engine refuses them, the CLI falls back and says so, and
-training them is refused with its ROADMAP item.
+the continuous engine refuses them and the CLI falls back and says so.
+They train (``test_torch_train_vlm_audio.py``).
 """
 
 import dataclasses
@@ -232,11 +232,16 @@ def test_continuous_engine_and_training_are_refused(carried, capsys):
     cfg, tp = carried[0], carried[4]
     with pytest.raises(NotImplementedError, match="continuous batching"):
         PS.ServeEngine(tp, cfg, PA.AnalogConfig(mode="off"))
-    with pytest.raises(NotImplementedError,
-                       match=f"{cfg.family}.*ROADMAP section 1, item 12"):
-        port_apply(tp, cfg, PA.AnalogConfig(mode="analog"),
-                   PA.AnalogCtx(key=(1,), training=True),
-                   _port_in(_inputs(cfg, 1, 4, seed=6)))
+    # training runs now (tests/test_torch_train_vlm_audio.py holds its
+    # step against the reference's): a training forward gives finite
+    # logits of the serving forward's shape
+    logits, _, _ = port_apply(tp, cfg, PA.AnalogConfig(mode="analog"),
+                              PA.AnalogCtx(key=(1,), training=True),
+                              _port_in(_inputs(cfg, 1, 4, seed=6)))
+    s_out = 4 + (cfg.vit_tokens if cfg.family == "vlm" else 0)
+    kdim = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    assert tuple(logits.shape) == (1, s_out) + kdim + (cfg.vocab_size,)
+    assert bool(torch.isfinite(logits).all())
     toks = serve_cli.main(["--device", "cpu", "--reduced", "--arch",
                            cfg.name.removesuffix("-smoke"), "--num-requests",
                            "2", "--new-tokens", "3"])
