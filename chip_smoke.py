@@ -378,6 +378,27 @@ Phases, in order; any failure exits non-zero:
                unsharded copy beside the shards), tokens equal to tp 1's.
                Depths cut from 4 and 8 layers to keep the script near
                600 s.
+24. cost    -- the cost counter (``launch/cost_analysis.py``) and the dry
+               run against the card: (i) full-width llama-3.2-1b's 4 x 32
+               prefill and one decode forward under analog_hw and
+               digital_int4, the continuous engine's decode step and 32-
+               column chunk step on the bf16 pool, and a mamba2-130m
+               prefill, each counted once on the card and once on the meta
+               device -- FLOPs, bytes and every kernel entry equal; (ii)
+               each kernel's counted calls equal its launches; (iii) one
+               meta launch of each kernel counts the (FLOPs, bytes) its
+               phase fed ``bound_ms`` (``repro_torch.kernels.cost``; the
+               paged kernels at tables their rows fill); (iv) the dry
+               run's parameter bytes of llama in fp32 on a one-card host
+               mesh against the allocator's growth over the build, within
+               512 B a leaf; (v) the counted peak bytes against
+               ``max_memory_allocated`` for the prefill and phase 14's
+               train step (PEAK_REL / PEAK_ABS); (vi) the train step's and
+               phase 8's graphed decode step's counted FLOPs beside their
+               ms; (vii) the ``train_4k`` cell of every ARCH_NAMES arch on
+               the single production mesh: per-device argument bytes, and
+               for a fixed list of four (VII_FLOP_ARCHS) the FLOPs at one
+               layer pattern.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -961,16 +982,21 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mvm_bounds(nbytes: float, m: int, k: int, n: int, mapping: str) -> dict:
-    """Both bounds of an [M, K] @ [K, N] launch: the fp32 one (2MKN flops at
-    the CUDA cores' rate) and the tensor-core one (2 x 2MKN TF32 flops);
-    ``bound_ms`` is the one of the launch's mapping."""
-    fp32, fp32_by = bound_ms(nbytes, 2.0 * m * k * n)
-    tf32, tf32_by = bound_ms(nbytes, 4.0 * m * k * n, TF32_FLOP_PER_S)
+def mvm_bounds(work: tuple, mapping: str) -> dict:
+    """Both bounds of an MVM launch from its ``(flops, bytes)``
+    (``repro_torch.kernels.cost``, what the cost counter counts): the fp32
+    one (the flops at the CUDA cores' rate) and the tensor-core one (twice
+    the flops at the TF32 rate: two TF32 products per fp32 product);
+    ``bound_ms`` is the one of the launch's mapping. The work is kept in
+    the row (``flops``, ``bytes``) for phase 24."""
+    flops, nbytes = work
+    fp32, fp32_by = bound_ms(nbytes, flops)
+    tf32, tf32_by = bound_ms(nbytes, 2.0 * flops, TF32_FLOP_PER_S)
     mma = mapping == "mma"
     return {"bound_ms": tf32 if mma else fp32,
             "bound_by": tf32_by if mma else fp32_by,
-            "fp32_bound_ms": fp32, "mma_bound_ms": tf32}
+            "fp32_bound_ms": fp32, "mma_bound_ms": tf32,
+            "flops": flops, "bytes": nbytes}
 
 
 def analog_flips(torch, x, w, beta, bound, off, y_k,
@@ -1023,6 +1049,7 @@ def analog_case(torch, gen, m, k, n, with_off: bool,
     bound)."""
     from repro_torch.core.noise import gaussian_weight_noise
     from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import dispatch, ref
 
     dev = torch.device("cuda")
@@ -1086,13 +1113,14 @@ def analog_case(torch, gen, m, k, n, with_off: bool,
     # before the kernel folded it
     bound_calc = device_ms(torch, lambda i: ref.adc_bound(ws[i], beta, lam),
                            copies, **reps)
-    # x, w, beta, col_off read once, the output written once
-    nbytes = 4 * (m * k + k * n + 1 + (n if with_off else 0) + m * n)
+    # x, w, beta, the explicit bound (noisy) and col_off read once, the
+    # output written once
+    work = kcost.analog_matmul(1, m, k, n, bound=noisy, col_off=with_off)
     return {"M": m, "K": k, "N": n, "col_off": with_off, "noisy": noisy,
             "adc_clipped": clipped, "ms": ms,
             "explicit_bound_ms": explicit, "wall_ms": wall,
             "plain_ms": plain, "matmul_ms": mm, "adc_bound_ms": bound_calc,
-            **mvm_bounds(nbytes, m, k, n, plan.mapping),
+            **mvm_bounds(work, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits, "flips": n_flip,
             "parity_outputs": outputs, "flip_rate": n_flip / outputs,
             "flip_rate_unpromoted": (n_flip_np / outputs
@@ -1103,6 +1131,7 @@ def analog_case(torch, gen, m, k, n, with_off: bool,
 def int4_case(torch, gen, m, k, n, timed: bool = True) -> dict:
     """One int4_matmul shape: parity against the plain version, times
     (without ``timed`` the kernel's device time alone)."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import int4_matmul as k4
 
@@ -1134,10 +1163,10 @@ def int4_case(torch, gen, m, k, n, timed: bool = True) -> dict:
 
     reps = timing_reps(m, k, n)
     ms = device_ms(torch, kernel, copies, **reps)
-    nbytes = 4 * m * k + k * n // 2 + 4 * n + 4 * m * n
+    work = kcost.int4_matmul(1, m, k, n)
     if not timed:
         return {"M": m, "K": k, "N": n, "ms": ms,
-                **mvm_bounds(nbytes, m, k, n, plan.mapping),
+                **mvm_bounds(work, plan.mapping),
                 "mapping": plan.mapping, "splits": plan.splits,
                 "max_abs_err": float(diff.max()),
                 "max_err_over_bound": err_ratio}
@@ -1149,7 +1178,7 @@ def int4_case(torch, gen, m, k, n, timed: bool = True) -> dict:
     mm = device_ms(torch, lambda i: x @ w_mm[i], len(w_mm), **reps)
     return {"M": m, "K": k, "N": n, "ms": ms, "wall_ms": wall,
             "plain_ms": plain, "matmul_ms": mm,
-            **mvm_bounds(nbytes, m, k, n, plan.mapping),
+            **mvm_bounds(work, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits,
             "max_abs_err": float(diff.max()),
             "max_err_over_bound": err_ratio}
@@ -1170,6 +1199,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
     ``w + gamma · colmax_e · tau`` (each expert's own column scale)
     against the explicit [E, N] bound of the noise-free ``w``."""
     from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import int4_matmul as k4
 
@@ -1206,7 +1236,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
         check(n_flip <= MAX_FLIP_RATE * e * m * n,
               f"batched analog_matmul {e}x{m}x{k}x{n}: {n_flip} flips")
         extra = {"flips": n_flip, "flip_rate": n_flip / (e * m * n)}
-        nbytes = 4 * (e * m * k + e * k * n + 1 + e * m * n)
+        work = kcost.analog_matmul(e, m, k, n, bound=noisy, col_off=False)
 
         def plain(i):
             if noisy:
@@ -1234,7 +1264,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
         max_err = float(diff.max())
         extra = {"max_err_over_bound": float((diff / err_bound).max())}
         del y_ref, err_bound, diff
-        nbytes = 4 * e * m * k + e * k * n // 2 + 4 * e * n + 4 * e * m * n
+        work = kcost.int4_matmul(e, m, k, n)
 
         def plain(i):
             return ref.int4_matmul_ref(x, packed, scale)
@@ -1246,7 +1276,7 @@ def moe_case(torch, gen, kernel: str, e: int, m: int, k: int, n: int,
     return {"E": e, "M": m, "K": k, "N": n, "arch": arch, "col_off": False,
             "noisy": noisy, "ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
             "matmul_ms": bmm, "library": "torch.bmm",
-            **mvm_bounds(nbytes, e * m, k, n, plan.mapping),
+            **mvm_bounds(work, plan.mapping),
             "mapping": plan.mapping, "splits": plan.splits,
             "max_abs_err": max_err, **extra}
 
@@ -1528,6 +1558,17 @@ def gather_sdpa(torch, q, kp, vp, ks, vs, tbl, pos, start, scale):
     return out[:, 0] if decode else out
 
 
+def paged_work(torch, q, kp, tbl, pos, start) -> tuple[float, int]:
+    """``(flops, bytes)`` of a paged kernel call on these inputs by
+    ``repro_torch.kernels.cost.paged_attention``: the pool tokens each
+    row's live range ``start .. pos + S - 1`` holds, and the keys each of
+    its S columns attends (column ``i``: ``start .. pos + i``). Reads the
+    cursors (a host sync)."""
+    from repro_torch.kernels import cost as kcost
+
+    return kcost.paged_work(q, kp, tbl, pos.cpu(), start.cpu())
+
+
 def paged_case(torch, gen, kind: str, context: int, dtype: str,
                splits: int, heads=LLAMA_PAGED) -> dict:
     """One paged kernel case at ``heads`` = (H, KV, hd, block): parity
@@ -1605,12 +1646,11 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
     # (over 4000 at context 2048): timed as a graph on one pool copy
     plain_ms = graph_ms(torch, lambda: plain(0), reps=3)
     lib_ms = device_ms(torch, library, n, reps=5, rounds=3)
-    # each input read once, the output written once: live K/V (+ scales),
-    # q, out, the table rows and cursors
-    nbytes = (kv_bytes + 2 * 4 * q.numel() + 4 * (tbl.numel() + 2 * rows))
-    cols = torch.arange(chunk, dtype=torch.float64)
-    attended = float((context - chunk + 1 + cols).sum()) * rows
-    bnd, by = bound_ms(nbytes, 4.0 * hd * nq * attended)
+    # each input read once, the output written once: the live K/V (+
+    # scales), q, out, the table rows and cursors; the keys each column
+    # attends (repro_torch.kernels.cost, which the cost counter also uses)
+    flops, nbytes = paged_work(torch, q, pools[0][0], tbl, pos, start)
+    bnd, by = bound_ms(nbytes, flops)
     pool_dtype = pools[0][0].dtype
     plan = (kd.decode_plan(nq, nkv, hd, bs, pool_dtype)
             if decode else kp_.prefill_plan(hd, bs, pool_dtype))
@@ -1620,6 +1660,7 @@ def paged_case(torch, gen, kind: str, context: int, dtype: str,
             "splits": splits, "rows": rows, "chunk": chunk, "ms": ms,
             "wall_ms": wall, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bnd, "bound_by": by, "copies": n,
+            "flops": flops, "bytes": nbytes,
             "max_abs_err": float(err.max()), "library_abs_err": lib_err,
             "plan": plan_dict(plan, bs)}
 
@@ -1779,6 +1820,7 @@ def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
     launch is also run and timed as the three passes. Input copies rotate
     so that their bytes exceed the 50 MB L2."""
     from repro_torch.kernels import _launch, ref
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ssd_scan as ks
 
     heads, pdim = cfg.ssm_heads, cfg.ssm_headdim
@@ -1826,11 +1868,11 @@ def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
     # each input read once (b / c per group), y and the state written once.
     # The least work of the function is the recurrence's C h and state
     # update, 2 N P FMAs per token and head (a chunked form adds L (P + N G
-    # / H)), two operations per FMA; the kernel runs its products as split
-    # TF32 on the tensor cores, three TF32 products per fp32 product
-    nbytes = in_bytes + 4 * (heads + rows * tokens * heads * pdim
-                             + rows * heads * n * pdim)
-    flops = 2.0 * rows * tokens * heads * 2 * n * pdim
+    # / H)), two operations per FMA (repro_torch.kernels.cost.ssd_scan_least,
+    # whose bytes are the cost counter's); the kernel runs its products as
+    # split TF32 on the tensor cores, three TF32 products per fp32 product
+    flops, nbytes = kcost.ssd_scan_least(rows, tokens, heads, pdim, n, g,
+                                         with_h0)
     bnd, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
     l32_flops = 2.0 * rows * tokens * heads * (
         SSD_L32_CHUNK * (n + pdim) + 2 * n * pdim)
@@ -1845,7 +1887,7 @@ def ssd_case(torch, gen, cfg, name: str, rows: int, tokens: int,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "l32_bound_ms": l32_bnd, "l32_bound_by": l32_by,
             "gflop": flops / 1e9, "l32_gflop": l32_flops / 1e9,
-            "mbytes": nbytes / 1e6,
+            "mbytes": nbytes / 1e6, "flops": flops, "bytes": nbytes,
             "max_abs_err": max(errs), "y_abs_err": errs[0],
             "state_abs_err": errs[1]}
 
@@ -2405,9 +2447,21 @@ def engine_busy(torch, cfg, params, acfg, scfg) -> dict:
         return torch.argmax(logits, dim=-1)
 
     dev_ms = graph_ms(torch, step, reps=10)
+    # one decode call's work at the table's capacity and at the keys the
+    # replayed step's cursors reach (phase 24's rate divides the second)
+    from repro_torch.kernels import cost as kcost
+    c = eng.caches
+    paged = None
+    if isinstance(c, dict) and "kp" in c:
+        q = torch.empty((ENGINE_SLOTS, cfg.num_heads, cfg.head_dim),
+                        device="meta")
+        paged = {"capacity": kcost.paged_work(q, c["kp"][0], c["tbl"][0]),
+                 "attended": kcost.paged_work(q, c["kp"][0], c["tbl"][0],
+                                              c["pos"][0].cpu(),
+                                              c["start"][0].cpu())}
     res = {"decode_step_ms": host_ms, "decode_device_ms": dev_ms,
            "device_busy": dev_ms / host_ms,
-           "decode_step_eager_ms": host["eager"]}
+           "decode_step_eager_ms": host["eager"], "decode_paged": paged}
     res.update(chunk_busy(torch, eng, cfg, params, acfg))
     del eng
     return res
@@ -7852,6 +7906,502 @@ def phase_tp(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the cost counter and the meta-device dry run
+# ---------------------------------------------------------------------------
+
+#: gate (v): the counter's peak of live tensor bytes on the meta device
+#: against the card's peak growth over the same run
+#: (``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
+#: was allocated before): within PEAK_REL of the card's, or within
+#: PEAK_ABS (PERF.md section 6: the prediction made before the first run)
+PEAK_REL, PEAK_ABS = 0.15, 256 << 20
+#: gate (iv): the caching allocator rounds each block up to 512 bytes
+ALLOC_ROUND = 512
+#: gate (iii)'s paged cases: rows, table blocks, the prefill's columns
+COST_PAGED = (2, 8, 4)
+#: (vii): the archs whose train step's FLOPs are counted, a fixed list
+#: sized to the phase's 45 s: the dense, moe, ssm and audio families (the
+#: step runs on the meta device at one layer pattern, 1.4 to 7 s an arch on
+#: the CPU of an H100 host, most of it in torch's meta kernels). jamba's
+#: super-block (15 s) and internvl2 are left out; their counts are held
+#: against XLA's by the CPU tests and run in the dry-run grid
+VII_FLOP_ARCHS = ("granite-3-8b", "qwen3-moe-30b-a3b", "mamba2-130m",
+                  "musicgen-medium")
+
+
+def to_meta(torch, tree):
+    """``tree`` with every tensor as a meta tensor of its shape, strides
+    and dtype (ints and other leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: to_meta(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_meta(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tuple(tree.shape), tree.stride(),
+                                   dtype=tree.dtype, device="meta")
+    return tree
+
+
+def counted(torch, fn, card: bool) -> tuple[dict, dict, float]:
+    """``fn()`` inside a cost counter: ``(analysis, launches, peak)``. On
+    the card the kernels' launch counts over the run and the growth of the
+    allocator's peak over what was allocated before; on the meta device
+    ``{}`` and the counter's ``peak_bytes``."""
+    from repro_torch.launch.cost_analysis import CostCounter
+
+    if card:
+        zero_counts(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with CostCounter() as cc:
+        out = fn()
+    del out
+    a = cc.analyze()
+    if not card:
+        return a, {}, float(a["peak_bytes"])
+    torch.cuda.synchronize()
+    return a, launch_counts(), float(torch.cuda.max_memory_allocated()
+                                     - base)
+
+
+def cost_pair(torch, what: str, make) -> dict:
+    """Gates (i) and (ii) for one run: ``make(device)`` gives the run's
+    thunk on ``device``; it runs once on the card and once on the meta
+    device, each inside the counter. FLOPs, bytes and every kernel entry
+    must be equal, and each kernel's counted calls equal its launches."""
+    a_card, launched, peak_card = counted(torch, make(torch.device("cuda")),
+                                          True)
+    a_meta, _, peak_meta = counted(torch, make(torch.device("meta")), False)
+    for key in ("flops", "hbm_bytes", "kernels"):
+        check(a_card[key] == a_meta[key],
+              f"cost {what}: {key} on the card {a_card[key]} differs from "
+              f"the meta run's {a_meta[key]}")
+    calls = {n: k["calls"] for n, k in a_card["kernels"].items()}
+    check(calls == launched, f"cost {what}: counted calls {calls}, "
+          f"launches {launched}")
+    print(f"  cost {what}: {a_card['flops']:.6e} FLOP, "
+          f"{a_card['hbm_bytes']:.6e} B on the card and on meta; calls = "
+          f"launches {launched}; peak {peak_meta / 2**20:.1f} MiB counted, "
+          f"{peak_card / 2**20:.1f} MiB on the card")
+    return {"flops": a_card["flops"], "hbm_bytes": a_card["hbm_bytes"],
+            "kernels": a_card["kernels"], "launches": launched,
+            "peak_bytes": peak_meta, "card_peak_bytes": peak_card}
+
+
+def peak_gate(what: str, r: dict) -> None:
+    """Gate (v): the counted peak within the predicted tolerance of the
+    card's."""
+    meta, card = r["peak_bytes"], r["card_peak_bytes"]
+    tol = max(PEAK_REL * card, PEAK_ABS)
+    print(f"  cost {what}: peak_bytes {meta:.0f} against the card's "
+          f"max_memory_allocated growth {card:.0f} ({meta / card:.3f}x; "
+          f"tolerance {tol:.0f} B)")
+    check(abs(meta - card) <= tol, f"cost {what}: the counted peak "
+          f"{meta:.0f} B is outside {tol:.0f} B of the card's {card:.0f}")
+
+
+def llama_forwards(torch, cfg, params, acfg, what: str) -> dict:
+    """Gates (i) and (ii) on llama-3.2-1b's static-engine forwards: a 4 x
+    32 prefill into a fresh contiguous cache and one decode forward."""
+    from repro_torch.core.analog import AnalogCtx
+    from repro_torch.models import transformer as T
+
+    max_len = PROMPT_LEN + NEW_TOKENS
+
+    def prefill(dev):
+        p = params if dev.type != "meta" else to_meta(torch, params)
+        tokens = torch.zeros((BATCH, PROMPT_LEN), dtype=torch.long,
+                             device=dev)
+
+        def run():
+            with torch.no_grad():
+                caches = T.init_caches(cfg, BATCH, max_len, torch.float32,
+                                       dev)
+                return T.forward(p, cfg, acfg, AnalogCtx(),
+                                 {"tokens": tokens}, caches=caches)[0]
+        return run
+
+    def decode(dev):
+        p = params if dev.type != "meta" else to_meta(torch, params)
+        caches = T.init_caches(cfg, BATCH, max_len, torch.float32, dev)
+        caches["pos"] = PROMPT_LEN
+        token = torch.zeros((BATCH, 1), dtype=torch.long, device=dev)
+
+        def run():
+            with torch.no_grad():
+                return T.forward(p, cfg, acfg, AnalogCtx(), {"tokens": token},
+                                 caches=caches, pos_offset=PROMPT_LEN)[0]
+        return run
+
+    return {"prefill": cost_pair(torch, f"{what} prefill {BATCH}x"
+                                 f"{PROMPT_LEN}", prefill),
+            "decode": cost_pair(torch, f"{what} decode", decode)}
+
+
+def engine_forwards(torch, cfg, params, acfg, max_len: int) -> dict:
+    """Gates (i) and (ii) on the continuous engine's forwards on the paged
+    bf16 pool: a decode step of its ENGINE_SLOTS rows and a chunk step of
+    ENGINE_CHUNK columns (the rows' tables and cursors as a fresh pool
+    has them)."""
+    from repro_torch.core.analog import AnalogCtx
+    from repro_torch.models import transformer as T
+
+    def step(cols):
+        def make(dev):
+            p = params if dev.type != "meta" else to_meta(torch, params)
+            caches = T.init_caches(cfg, ENGINE_SLOTS, max_len,
+                                   torch.bfloat16, dev, paged=True,
+                                   kv_block_size=PAGED_BS)
+            tokens = torch.zeros((ENGINE_SLOTS, cols), dtype=torch.long,
+                                 device=dev)
+            off = torch.zeros((ENGINE_SLOTS, 1), dtype=torch.int32,
+                              device=dev)
+            mask = torch.ones((ENGINE_SLOTS, cols), device=dev)
+
+            def run():
+                with torch.no_grad():
+                    return T.forward(p, cfg, acfg, AnalogCtx(),
+                                     {"tokens": tokens}, caches=caches,
+                                     pos_offset=off, seq_mask=mask,
+                                     last_only=cols > 1)[0]
+            return run
+        return make
+
+    return {"decode": cost_pair(torch, "engine decode step", step(1)),
+            "chunk": cost_pair(torch, f"engine chunk step of "
+                               f"{ENGINE_CHUNK}", step(ENGINE_CHUNK))}
+
+
+def per_launch(torch, name: str, call) -> tuple[float, int]:
+    """The counted ``(flops, bytes)`` of one meta call of kernel
+    ``name``."""
+    a, _, _ = counted(torch, call, False)
+    k = a["kernels"][name]
+    check(k["calls"] == 1, f"cost {name}: {k['calls']} calls counted")
+    return k["flops"], k["bytes"]
+
+
+def bound_inputs_check(torch, rows: dict, ssd_rows: list) -> dict:
+    """Gate (iii): one counted launch of each kernel on the meta device
+    equals the ``(flops, bytes)`` its phase fed ``bound_ms`` for the same
+    shape: phase 2's MVM rows (2-D and batched experts), phase 6's scans
+    (the counter's chunked FLOPs and the bound's least FLOPs each by the
+    package's formula, the bytes one number), and, for the paged kernels,
+    whose bound counts the keys the cursors reach, a decode and a
+    four-column prefill whose rows stop short of their tables' ends: the
+    meta call counts the tables' capacity, the same call on CPU copies
+    (its cursors readable) the attended work, which must equal
+    ``paged_work`` on the card's inputs, as phase 5 feeds its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import analog_matmul as km
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import int4_matmul as k4
+    from repro_torch.kernels import paged_attention as kd
+    from repro_torch.kernels import paged_prefill as kp_
+    from repro_torch.kernels import ssd_scan as ks
+
+    meta = torch.device("meta")
+
+    def mt(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    checked = {}
+
+    def same(name, what, got, want):
+        check(got == want, f"cost {name} {what}: counted {got}, the bound "
+              f"took {want}")
+        checked[f"{name} {what}"] = list(got)
+
+    for name in ("analog_matmul", "int4_matmul"):
+        picks = [next(r for r in rows[name] if "E" not in r)]
+        picks += [r for r in rows[name] if "E" in r][:1]
+        for r in picks:
+            e = r.get("E", 1)
+            m, k, n = r["M"], r["K"], r["N"]
+            lead = (e,) if "E" in r else ()
+            x = mt(*lead, m, k)
+            if name == "analog_matmul":
+                bound = mt(*lead, n) if r.get("noisy") else None
+                off = mt(*lead, n) if r.get("col_off") else None
+                got = per_launch(torch, name, lambda: km.analog_matmul(
+                    x, mt(*lead, k, n), mt(1), bound, off,
+                    lam=None if bound is not None else 14.0))
+            else:
+                got = per_launch(torch, name, lambda: k4.int4_matmul(
+                    x, mt(*lead, k, n // 2, dtype=torch.uint8),
+                    mt(*lead, n)))
+            same(name, f"E{e} M{m} K{k} N{n}", got,
+                 (r["flops"], r["bytes"]))
+    for r in ssd_rows[:2]:
+        cfg = get_config(r["arch"])
+        b, s = r["rows"], r["tokens"]
+        heads, pdim = cfg.ssm_heads, cfg.ssm_headdim
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        got = per_launch(torch, "ssd_scan", lambda: ks.ssd_scan(
+            mt(b, s, heads, pdim), mt(b, s, heads), mt(heads),
+            mt(b, s, g, n), mt(b, s, g, n),
+            mt(b * heads, n, pdim) if r["h0"] else None))
+        # the counter counts the JAX package's chunked products (XLA's
+        # count), the bound the recurrence's least work: the bytes are one
+        # number, the FLOPs each the package's formula for this shape
+        shape = (b, s, heads, pdim, n, g, r["h0"])
+        same("ssd_scan", f"{b}x{s} h0={int(r['h0'])}",
+             (kcost.ssd_scan(*shape)[0], got[1],
+              kcost.ssd_scan_least(*shape)[0]),
+             (got[0], r["bytes"], r["flops"]))
+    dev = torch.device("cuda")
+    nq, nkv, hd, bs = LLAMA_PAGED
+    nrows, nb, cols = COST_PAGED
+    tbl = (1 + torch.arange(nrows * nb, dtype=torch.int32, device=dev)
+           ).reshape(nrows, nb)
+    # row 0 up to the last block's first half, row 1 from 3 to mid-table
+    pos = torch.tensor([nb * bs - bs // 2 - cols, nb * bs // 2],
+                       dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    kp = torch.zeros((1 + nrows * nb, bs, nkv, hd), dtype=torch.bfloat16,
+                     device=dev)
+    for name, q in (("paged_flash_decode", torch.zeros((nrows, nq, hd),
+                                                       device=dev)),
+                    ("paged_flash_prefill", torch.zeros(
+                        (nrows, cols, nq, hd), device=dev))):
+        fn = kd.paged_flash_decode if q.dim() == 3 else kp_.paged_flash_prefill
+        ins = (q, kp, kp, tbl, pos, start)
+        metas = [to_meta(torch, t) for t in ins]
+        a_meta, _, _ = counted(torch, lambda: fn(*metas, scale=hd ** -0.5),
+                               False)
+        cpus = [t.cpu() for t in ins]
+        a_cpu, _, _ = counted(torch, lambda: fn(*cpus, scale=hd ** -0.5),
+                              False)
+        k_meta, k_cpu = a_meta["kernels"][name], a_cpu["kernels"][name]
+        check(k_meta["calls"] == k_cpu["calls"] == 1,
+              f"cost {name}: {k_meta['calls']} / {k_cpu['calls']} calls")
+        check(k_meta["attended_flops"] is None,
+              f"cost {name}: the meta call reported attended work")
+        what = f"{nrows} rows, {nb} blocks"
+        same(name, f"{what}, capacity",
+             (k_meta["flops"], k_meta["bytes"], k_cpu["flops"],
+              k_cpu["bytes"]), kcost.paged_work(q, kp, tbl) * 2)
+        same(name, f"{what}, attended",
+             (k_cpu["attended_flops"], k_cpu["attended_bytes"]),
+             paged_work(torch, q, kp, tbl, pos, start))
+    print(f"  cost (iii): {len(checked)} counted launches equal the bound's "
+          "inputs: " + "; ".join(checked))
+    return checked
+
+
+def alloc_check(torch) -> tuple:
+    """Gate (iv): the dry run's parameter bytes of full-width llama-3.2-1b
+    in fp32 on a one-card host mesh against the allocator's growth across
+    the real build, within ALLOC_ROUND bytes a leaf."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, device_bytes
+
+    mesh = make_host_mesh(1, devices=1)
+    plan = build_cell(ARCH, "prefill_32k", mesh, dtype=torch.float32)
+    dry = device_bytes(plan.args[0], plan.arg_specs[0], mesh)
+    leaves = sum(1 for _ in _leaves(plan.args[0]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cfg, params, labels = full_width(torch, ARCH)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    print(f"  cost (iv): the dry run's parameter bytes {dry} against the "
+          f"allocator's growth {grown} over the build ({leaves} leaves, "
+          f"{grown - dry} B apart, at most {ALLOC_ROUND * leaves} allowed)")
+    check(0 <= grown - dry <= ALLOC_ROUND * leaves,
+          f"cost (iv): dry run {dry} B, allocator {grown} B")
+    return {"dry_run_bytes": dry, "allocated_bytes": grown,
+            "leaves": leaves}, (cfg, params, labels)
+
+
+def train_cost(torch) -> dict:
+    """Phase 14's training step (llama-3.2-1b at TRAIN_LAYERS layers, batch
+    TRAIN_BATCH x TRAIN_SEQ, the teacher inside) on the card and on the
+    meta device, each in the counter: gate (v)'s peak, and (vi)'s rate
+    from a timed step outside the counter."""
+    from repro_torch.core import noise as noise_lib
+    from repro_torch.train import train_step as ts
+
+    acfg, tcfg = train_configs()
+    cfg, params, labels = train_model(torch, ARCH)
+    step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+    key = noise_lib.prng_key(0)
+
+    def make(dev):
+        p = params if dev.type != "meta" else to_meta(torch, params)
+        state = ts.init_train_state(p)
+        tokens = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.long,
+                             device=dev)
+        batch = {"tokens": tokens, "labels": tokens}
+        return lambda: step(p, state, batch, key, p)
+
+    a_card, launched, peak_card = counted(torch, make(torch.device("cuda")),
+                                          True)
+    a_meta, _, peak_meta = counted(torch, make(torch.device("meta")), False)
+    calls = {n: k["calls"] for n, k in a_card["kernels"].items()}
+    check(calls == launched, f"cost train: counted calls {calls}, "
+          f"launches {launched}")
+    run = make(torch.device("cuda"))
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 2
+    res = {"flops": a_meta["flops"], "card_flops": a_card["flops"],
+           "hbm_bytes": a_meta["hbm_bytes"], "kernels": a_meta["kernels"],
+           "peak_bytes": peak_meta, "card_peak_bytes": peak_card,
+           "step_ms": ms, "tflop_per_s": a_meta["flops"] / ms / 1e9}
+    print(f"  cost train step ({ARCH}, {TRAIN_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): {a_meta['flops']:.6e} FLOP counted "
+          f"on meta ({a_card['flops']:.6e} on the card), {ms:.2f} ms a step "
+          f"on the card: {res['tflop_per_s']:.2f} TFLOP/s; calls = launches "
+          f"{launched}")
+    del params
+    return res
+
+
+def decode_block_cost(torch, phase8: dict) -> tuple:
+    """(vi): the counted FLOPs of phase 8's graphed decode step (llama
+    analog_hw on the engine's bf16 pool, ENGINE_SLOTS rows at the engine's
+    max_len), on the meta device, beside its measured device time."""
+    from repro_torch.core.analog import AnalogConfig, AnalogCtx
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.scheduler import required_max_len
+
+    cfg = model_config(ARCH)
+    params, _ = T.init_model(None, cfg, torch.float32, torch.device("meta"))
+    reqs = engine_requests(cfg, ENGINE_REQUESTS, seed=0)
+    max_len = max(required_max_len(len(r.prompt), r.max_new, ENGINE_CHUNK)
+                  for r in reqs)
+    meta = torch.device("meta")
+    caches = T.init_caches(cfg, ENGINE_SLOTS, max_len, torch.bfloat16, meta,
+                           paged=True, kv_block_size=PAGED_BS)
+    acfg = AnalogConfig(mode="analog", use_pallas=True)
+    token = torch.empty((ENGINE_SLOTS, 1), dtype=torch.long, device=meta)
+    off = torch.empty((ENGINE_SLOTS, 1), dtype=torch.int32, device=meta)
+    a, _, _ = counted(torch, lambda: T.forward(
+        params, cfg, acfg, AnalogCtx(), {"tokens": token}, caches=caches,
+        pos_offset=off, seq_mask=torch.empty((ENGINE_SLOTS, 1),
+                                             device=meta))[0], False)
+    ms = phase8["decode_device_ms"]
+    # the meta count holds the paged calls at their tables' capacity; the
+    # rate divides the work of phase 8's replayed step, whose cursors
+    # (read there) reach fewer keys
+    k = a["kernels"]["paged_flash_decode"]
+    attended = (a["flops"] - k["flops"]
+                + k["calls"] * phase8["decode_paged"]["attended"][0])
+    res = {"flops": attended, "capacity_flops": a["flops"],
+           "kernels": a["kernels"], "device_ms": ms,
+           "tflop_per_s": attended / ms / 1e9, "max_len": max_len}
+    print(f"  cost decode step ({ARCH} analog_hw, {ENGINE_SLOTS} slots, "
+          f"max_len {max_len}, graphed): {attended:.6e} FLOP attended "
+          f"({a['flops']:.6e} counted on meta at the tables' capacity), "
+          f"{ms:.4f} ms on the device (phase 8): "
+          f"{res['tflop_per_s']:.3f} TFLOP/s")
+    return res, max_len
+
+
+def dryrun_train_cells(torch) -> dict:
+    """(vii): the ``train_4k`` cell of every ARCH_NAMES arch on the single
+    production mesh, on the meta device: per-device argument bytes at full
+    depth from the cell's specs, and for the VII_FLOP_ARCHS the counted
+    FLOPs of the step at one layer pattern (one layer, or a hybrid's
+    super-block) with the seconds of that meta run."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell, device_bytes
+
+    mesh = make_production_mesh()
+    out = {}
+    for arch in ARCH_NAMES:
+        plan = build_cell(arch, "train_4k", mesh)
+        arg = device_bytes(plan.args, plan.arg_specs, mesh)
+        cfg = get_config(arch)
+        depth = max(cfg.attn_every, cfg.moe_every, 1)
+        res = {"argument_bytes_per_device": arg}
+        what = ""
+        if arch in VII_FLOP_ARCHS:
+            t0 = time.perf_counter()
+            cut = build_cell(arch, "train_4k", mesh,
+                             arch_overrides={"num_layers": depth})
+            flops = cut.analyze()[0]["flops"]
+            res.update(flops_layers=depth, flops=flops,
+                       meta_s=time.perf_counter() - t0)
+            what = (f"; {flops:.4e} FLOP at {depth} layer(s) "
+                    f"({res['meta_s']:.1f} s on meta)")
+        out[arch] = res
+        print(f"  dry run {arch} train_4k single: "
+              f"{arg / 2**30:.3f} GiB of arguments per device{what}")
+    return out
+
+
+def phase_cost(torch, rows: dict, ssd_rows: list, phase8: dict) -> dict:
+    """Phase 24: the cost counter against the card, and the dry run."""
+    import dataclasses as dc
+
+    from repro_torch.launch.serve import deploy_model
+
+    t0 = time.perf_counter()
+    print(f"  {gpu_name_and_power()}")
+    alloc, (cfg, params, labels) = alloc_check(torch)
+    out = {"alloc": alloc}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p_hw, acfg_hw = deploy_model(_deploy_args("analog_hw"), cfg, params,
+                                 labels, gen, inplace=True)
+    acfg_hw = dc.replace(acfg_hw, use_pallas=True)
+    out["analog_hw"] = llama_forwards(torch, cfg, p_hw, acfg_hw, "analog_hw")
+    check(out["analog_hw"]["prefill"]["launches"]
+          == {"analog_matmul": LAUNCHES_PER_FORWARD},
+          f"cost: the prefill launched {out['analog_hw']['prefill']}")
+    peak_gate(f"{ARCH} analog_hw prefill", out["analog_hw"]["prefill"])
+    p_i4, acfg_i4 = deploy_model(_deploy_args("digital_int4"), cfg, p_hw,
+                                 labels, gen)
+    out["digital_int4"] = llama_forwards(torch, cfg, p_i4, acfg_i4,
+                                         "digital_int4")
+    del p_i4
+    block, max_len = decode_block_cost(torch, phase8)
+    out["engine"] = engine_forwards(torch, cfg, p_hw, acfg_hw, max_len)
+    del p_hw, params
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.analog import AnalogConfig, AnalogCtx
+    from repro_torch.models import build
+    from repro_torch.models import transformer as T
+
+    mcfg, mparams, _ = build(MAMBA, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+
+    def mamba_prefill(dev):
+        p = mparams if dev.type != "meta" else to_meta(torch, mparams)
+        tokens = torch.zeros((BATCH, PROMPT_LEN), dtype=torch.long,
+                             device=dev)
+
+        def run():
+            with torch.no_grad():
+                caches = T.init_caches(mcfg, BATCH, PROMPT_LEN,
+                                       torch.float32, dev)
+                return T.forward(p, mcfg, AnalogConfig(mode="off"),
+                                 AnalogCtx(), {"tokens": tokens},
+                                 caches=caches)[0]
+        return run
+
+    out["mamba_prefill"] = cost_pair(torch, f"{MAMBA} prefill {BATCH}x"
+                                     f"{PROMPT_LEN}", mamba_prefill)
+    del mparams
+    torch.cuda.empty_cache()
+    out["bounds"] = bound_inputs_check(torch, rows, ssd_rows)
+    out["train"] = train_cost(torch)
+    peak_gate(f"{ARCH} train step", out["train"])
+    out["decode_block"] = block
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_train_cells(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -8001,7 +8551,8 @@ def kernels_line(rows: dict, paged_rows: dict, ssd_rows: list,
     ``ssd_scan``: the times are per launch at the phase-6 case named in
     ``case`` (the engine's chunk, ``SSD_LINE_CASE``); ``max_abs_err`` is the
     largest over all phase-6 cases, y and final state; ``bound_ms`` is the
-    recurrence's work (2 N P FMAs per token and head) as split TF32 on the
+    recurrence's work (2 N P FMAs per token and head,
+    ``repro_torch.kernels.cost.ssd_scan_least``) as split TF32 on the
     tensor cores against the bytes (phase 6's rows keep PR 13's L = 32
     fp32 bound beside it as ``l32_bound_ms``); ``library_ms`` is
     null (no single PyTorch call computes an SSD scan)."""
@@ -8099,88 +8650,88 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/23] setup")
+        phase("[1/24] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/23] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/24] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/23] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/24] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/23] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/24] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/23] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/24] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/23] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/24] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/23] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/24] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/23] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/24] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/23] reduced continuous engines, card against cpu")
+        phase("[9/24] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/23] serving CLI")
+        phase("[10/24] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/23] static engine, phi-3-mini-4k at full width: "
+        phase("[11/24] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/23] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/24] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/23] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/24] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/23] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/24] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/23] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/24] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/23] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/24] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/23] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/24] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/23] HWA distillation at full width, {MAMBA}, {MOE} "
+        phase(f"[18/24] HWA distillation at full width, {MAMBA}, {MOE} "
               f"({MOE_TRAIN_LAYERS} layer), {INTERNVL} ({INTERNVL_LAYERS} "
               f"layers) and {MUSICGEN} ({MUSICGEN_LAYERS}); reduced ssm, moe, "
               "hybrid, vlm and audio training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/23] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/24] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
-        phase(f"[20/23] prefix cache: full-width {ARCH} at "
+        phase(f"[20/24] prefix cache: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (bf16 and int8 "
               f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
               "reduced models, card against cpu")
         results["prefix"] = phase_prefix(torch)
-        phase(f"[21/23] speculative decoding: full-width {ARCH} at "
+        phase(f"[21/24] speculative decoding: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (fp with "
               "the ngram, self and int4 drafters; analog_hw with ngram and "
               "int4) on phase 20's first 8 requests; reduced models, card "
@@ -8190,7 +8741,7 @@ def main() -> int:
                    results["prefix"][f"{ARCH}/kv16"]["tokens"].items()}
         results["speculative"] = phase_speculative(torch, rows, base_hw)
         results["speculative"]["phase_s"] = time.perf_counter() - t21
-        phase(f"[22/23] lifecycle: full-width {ARCH} through the async "
+        phase(f"[22/24] lifecycle: full-width {ARCH} through the async "
               "front end open-loop (poisson, bursts with a bounded queue and "
               "TTFT deadlines), a cancel mid speculative window and a chaos "
               "fault (ngram and int4 drafters), the HTTP front door")
@@ -8198,13 +8749,20 @@ def main() -> int:
         results["lifecycle"] = phase_lifecycle(
             torch, results["engine"]["analog_hw/kv16"]["tokens_per_s"])
         results["lifecycle"]["phase_s"] = time.perf_counter() - t22
-        phase(f"[23/23] tensor parallelism on one card: full-width {ARCH} "
+        phase(f"[23/24] tensor parallelism on one card: full-width {ARCH} "
               f"at {TP_LAYERS[ARCH]} layers (fp, digital_int4, analog_hw at "
               f"tp {TP_DEGREES}; tp 3 gated), {MOE} and {MAMBA} at tp 2, "
               f"{QWEN32} at {QWEN32_LAYERS} layers at tp {QWEN32_DEGREES}")
         t23 = time.perf_counter()
         results["tp"] = phase_tp(torch)
         results["tp"]["phase_s"] = time.perf_counter() - t23
+        phase(f"[24/24] cost counter and dry run: {ARCH} analog_hw and "
+              f"digital_int4 forwards, the engine's decode and chunk steps "
+              f"and a {MAMBA} prefill counted on the card and on the meta "
+              f"device; bound inputs, allocator bytes, peak bytes, rates; "
+              f"the train_4k dry run")
+        results["cost"] = phase_cost(
+            torch, rows, ssd_rows, results["engine"]["analog_hw/kv16"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -42,9 +42,12 @@ def site_tag(name: str) -> int:
     return zlib.crc32(name.encode())
 
 
-def key_generator(key: tuple, device) -> torch.Generator:
+def key_generator(key: tuple, device) -> torch.Generator | None:
     """A generator on ``device`` seeded from the whole key (a 63-bit
-    BLAKE2b digest of its ints)."""
+    BLAKE2b digest of its ints); None on the meta device, where nothing is
+    drawn (the dry run's shapes alone)."""
+    if torch.device(device).type == "meta":
+        return None
     digest = hashlib.blake2b(struct.pack(f"<{len(key)}q", *key),
                              digest_size=8).digest()
     seed = int.from_bytes(digest, "little") & ((1 << 63) - 1)

@@ -1,7 +1,22 @@
-"""Tensor-parallel serving: column-parallel shards joined by gathers.
+"""Tensor-parallel serving, and the training sharding rules as specs.
 
-The serving half of the JAX package's ``distributed/sharding.py``, its
-semantics rather than its mechanism. The reference serves over a ``(1,
+The JAX package's ``distributed/sharding.py`` in two halves.
+
+*The training rules, as specs* (the end of this module): the logical-axis
+rules (:func:`default_rules`, :func:`activate`, :func:`resolve`), the
+parameter table :data:`_PARAM_RULES` with its ``M:`` expert keys, and the
+spec trees of parameters (:func:`param_spec_tree`), of the ZeRO-sharded
+optimizer state (:func:`zero_spec_tree`), of a batch
+(:func:`batch_spec_for`) and of the decode caches
+(:func:`cache_spec_tree`). A spec is a plain tuple, one mesh axis name (or
+tuple of names, or None) per dimension, resolved against a
+:class:`repro_torch.launch.mesh.Mesh` of axis names and sizes. The dry run
+(``launch.dryrun``) divides each leaf by them; nothing places training
+state by them yet (ROADMAP section 1, item 10). The reference's
+``shard_hint`` has no counterpart: the port has no partitioner, and its
+model code places nothing by hints.
+
+*The serving half*, its semantics rather than its mechanism. The reference serves over a ``(1,
 tp)`` device mesh whose "model" axis carries every weight's output
 dimension, while its serve rules force every activation back to replicated
 at each reduction boundary; no floating-point sum ever spans shards, so
@@ -17,7 +32,9 @@ column-parallel weight and of the KV pool, shard ``i`` on mesh device
   a batched expert site runs ``E / tp`` experts per shard and gathers the
   experts, so the MoE combine runs after the gather, as the reference's
   ``moe_out -> None``). On one device the gather is a ``torch.cat``, across
-  cards a peer copy, never an add. The bias is added after the gather;
+  cards a peer copy, never an add; each reports its gathered bytes to the
+  active cost counters as an all-gather. The bias is added after the
+  gather;
 * attention runs per shard on its own query and KV heads against its own
   shard of the pool (:func:`head_parallel`); everything else (embedding,
   norms, router, the Mamba-2 internals, the sampler) runs replicated on the
@@ -41,12 +58,14 @@ counterpart in the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence
+import threading
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import cost, dispatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,6 +461,7 @@ def parallel_linear(linear: Callable, p: dict, x: torch.Tensor, cfg, ctx):
         outs.append(y.to(home))
         stats = st if stats is None else stats
     y = torch.cat(outs, dim=0 if experts else -1)
+    cost.collective("all-gather", y.numel() * y.element_size())
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y, stats
@@ -478,4 +498,286 @@ def head_parallel(attend: Callable, cache: dict, q: torch.Tensor,
                         else x.to(home) if isinstance(x, torch.Tensor)
                         else x)
                  for name, x in first.items()}
-    return torch.cat(outs, dim=-2), new_cache
+    out = torch.cat(outs, dim=-2)
+    cost.collective("all-gather", out.numel() * out.element_size())
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# the training rules, as specs
+# ---------------------------------------------------------------------------
+
+_state = threading.local()
+
+
+def _active() -> Optional[dict]:
+    """The thread-local active ``{"mesh", "rules"}`` context, or None."""
+    return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def activate(mesh, rules: dict[str, Any]):
+    """Resolve specs against ``mesh`` (a ``launch.mesh.Mesh``) and
+    ``rules`` inside the block."""
+    prev = _active()
+    _state.ctx = {"mesh": mesh, "rules": dict(rules)}
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def default_rules(mesh, *, batch_shardable: bool = True,
+                  seq_shard_kv: bool = False) -> dict[str, Any]:
+    """The reference's logical-axis → mesh-axis mapping for the standard
+    mesh: batch over ``("pod", "data")`` where it divides, heads / mlp /
+    vocab / experts over "model", the KV sequence over "data" only when
+    the batch cannot be sharded (``long_500k``), the ZeRO state over
+    "data". The activation axes are kept for the rules' sake; the port
+    places no activation by them."""
+    pod = ("pod",) if "pod" in mesh.axis_names else ()
+    return {
+        "batch": pod + ("data",) if batch_shardable else None,
+        "heads": "model",
+        "mlp": "model",
+        "vocab": "model",
+        "experts": "model",
+        "moe_buf": "model",
+        "embed": None,
+        "seq": None,
+        "kv_seq": ("data",) if seq_shard_kv else None,
+        "kv_seq_model": "model",
+        "zero": "data",
+        "attn_out": "model",
+        "mlp_act": "model",
+        "moe_out": "model",
+        "ssm_heads": "model",
+        "ssm_conv": "model",
+        "serve_act": "skip",
+    }
+
+
+def serve_rules(mesh) -> dict[str, Any]:
+    """The reference's serve rules: weights over "model", every activation
+    axis replicated, and the ``"__serve_params__"`` marker that switches
+    :func:`param_spec_tree` onto :data:`_SERVE_PARAM_RULES`."""
+    del mesh
+    return {
+        "batch": None, "seq": None, "kv_seq": None, "kv_seq_model": None,
+        "heads": "model", "mlp": "model", "vocab": "model",
+        "experts": "model", "moe_buf": "model", "attn_out": None,
+        "mlp_act": None, "moe_out": None, "serve_act": None,
+        "ssm_heads": None, "ssm_conv": None, "embed": None, "zero": None,
+        "__serve_params__": True,
+    }
+
+
+def _axis_size(mesh, axis) -> int:
+    """Devices along a mesh axis name, or the product over a tuple of
+    names (1 for None)."""
+    if axis is None:
+        return 1
+    shape = mesh.shape
+    if isinstance(axis, (tuple, list)):
+        n = 1
+        for a in axis:
+            n *= shape.get(a, 1)
+        return n
+    return shape.get(axis, 1)
+
+
+def _guard_spec(mesh, shape: tuple, axes: tuple) -> tuple:
+    """The reference's ``_guard`` (named apart from the serve side's
+    :func:`_guard`): an axis whose extent does not divide its dimension
+    replicates (None), and a mesh axis maps to at most one dimension."""
+    out, used = [], set()
+    for dim, ax in zip(shape, axes):
+        names = tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+        if (ax is None or dim % _axis_size(mesh, ax) != 0
+                or any(n in used for n in names)):
+            out.append(None)
+        else:
+            out.append(ax)
+            used.update(names)
+    return tuple(out)
+
+
+def resolve(logical: tuple, shape: tuple | None = None) -> tuple:
+    """Logical axes → a spec under the active context (guarded against
+    ``shape`` when given)."""
+    ctx = _active()
+    if ctx is None:
+        raise RuntimeError("resolve needs an active mesh (activate)")
+    axes = tuple(ctx["rules"].get(ax) if ax is not None else None
+                 for ax in logical)
+    if shape is not None:
+        axes = _guard_spec(ctx["mesh"], shape, axes)
+    return axes
+
+
+#: The reference's training table: (site, leaf) → logical axes of the
+#: rightmost dimensions (leading stacked-layer dimensions replicate).
+#: ``M:`` keys are a MoE site's experts: the expert axis maps to "model",
+#: and d_ff stays whole (a mesh axis maps to one dimension only).
+_PARAM_RULES = {
+    ("qkv", "kernel"): (None, "heads"),
+    ("qkv", "bias"): ("heads",),
+    ("q", "kernel"): (None, "heads"),
+    ("q", "bias"): ("heads",),
+    ("k", "kernel"): (None, "heads"),
+    ("k", "bias"): ("heads",),
+    ("v", "kernel"): (None, "heads"),
+    ("v", "bias"): ("heads",),
+    ("o", "kernel"): ("heads", None),
+    ("gate_up", "kernel"): (None, "mlp"),
+    ("up", "kernel"): (None, "mlp"),
+    ("up", "bias"): ("mlp",),
+    ("down", "kernel"): ("mlp", None),
+    ("down", "bias"): (None,),
+    ("M:gate_up", "kernel"): ("experts", None, None),
+    ("M:down", "kernel"): ("experts", None, None),
+    ("router", "kernel"): (None, None),
+    ("in_proj", "kernel"): (None, "mlp"),
+    ("out_proj", "kernel"): ("mlp", None),
+    ("conv_w", None): (None, "mlp"),
+    ("conv_b", None): ("mlp",),
+    ("gate_norm", None): ("mlp",),
+    ("a_log", None): (None,),
+    ("d_skip", None): (None,),
+    ("dt_bias", None): (None,),
+    ("tokens", None): ("vocab", None),
+    ("codebooks", None): (None, "vocab", None),
+    ("lm_head", "kernel"): (None, "vocab"),
+    ("projector", "kernel"): (None, None),
+}
+
+
+def _walk_specs(params, leaf_fn):
+    """``leaf_fn(site, leaf, value, in_moe)`` over a parameter tree, with
+    the reference's walk: a leaf's site is the key of its dict, and a dict
+    holding a ``router`` makes everything below it a MoE site."""
+    def walk(node, site, in_moe):
+        if isinstance(node, dict):
+            moe_here = in_moe or "router" in node
+            return {k: walk(v, k, moe_here) if isinstance(v, dict)
+                    else leaf_fn(site, k, v, moe_here)
+                    for k, v in node.items()}
+        return leaf_fn(site, None, node, in_moe)
+    return walk(params, None, False)
+
+
+def param_spec_tree(params) -> Any:
+    """The spec tree of a parameter tree under the active rules (the serve
+    table under :func:`serve_rules`)."""
+    return _walk_specs(params, _leaf_spec)
+
+
+def _leaf_spec(site, leaf, value, in_moe) -> tuple:
+    """The spec of one named parameter leaf; () replicates it (norms,
+    scalars, input ranges)."""
+    ctx = _active()
+    rules = ctx["rules"]
+    table = (_SERVE_PARAM_RULES if rules.get("__serve_params__")
+             else _PARAM_RULES)
+    key = None
+    if site is not None:
+        prefixed = (f"M:{site}", leaf) if in_moe else None
+        if prefixed in table:
+            key = prefixed
+        elif (site, leaf) in table:
+            key = (site, leaf)
+    if key is None and (leaf, None) in table:
+        key = (leaf, None)
+    if key is None and (site, None) in table:
+        key = (site, None)
+    if key is None:
+        return ()
+    logical = table[key]
+    pad = (None,) * (value.dim() - len(logical))
+    axes = pad + tuple(rules.get(ax) if ax is not None else None
+                       for ax in logical)
+    return _guard_spec(ctx["mesh"], tuple(value.shape), axes)
+
+
+def zero_spec_tree(params) -> Any:
+    """The optimizer moments' specs (ZeRO-1/2): each parameter's spec with
+    the "zero" axis on its first free dimension that the data axis
+    divides."""
+    ctx = _active()
+    mesh = ctx["mesh"]
+    dsize = mesh.shape.get("data", 1)
+
+    def upgrade(site, leaf, p, in_moe):
+        spec = _leaf_spec(site, leaf, p, in_moe)
+        if p.dim() == 0 or dsize == 1:
+            return spec
+        parts = list(spec) + [None] * (p.dim() - len(spec))
+        for i, ax in enumerate(parts):
+            if ax is None and p.shape[i] % dsize == 0 and p.shape[i] >= dsize:
+                parts[i] = ctx["rules"].get("zero")
+                break
+        return _guard_spec(mesh, tuple(p.shape), tuple(parts))
+
+    return _walk_specs(params, upgrade)
+
+
+def batch_spec(ndim: int) -> tuple:
+    """The batch axis on the first dimension, the rest replicated."""
+    b = _active()["rules"].get("batch")
+    return (b,) + (None,) * (ndim - 1)
+
+
+def batch_spec_for(shape: tuple) -> tuple:
+    """:func:`batch_spec`, guarded against a batch that does not divide."""
+    ctx = _active()
+    return _guard_spec(ctx["mesh"], tuple(shape), batch_spec(len(shape)))
+
+
+def cache_spec_tree(caches) -> Any:
+    """The decode caches' specs: KV ``k`` / ``v`` [.., B, T, KV, hd] on
+    (batch, kv_seq, heads, None) where the heads divide the model axis,
+    else on (batch, kv_seq_model, None, None); the paged pools ``kp`` /
+    ``vp`` and their int8 scales on their KV heads; the SSM state [.., B,
+    H, N, P] on (batch, ssm_heads, None, None); the conv tail [.., B, W-1,
+    C] on (batch, None, ssm_conv). Leading stacked dimensions replicate,
+    and so do the tables, cursors and snapshot pools (a cursor that is a
+    host int has the spec ())."""
+    ctx = _active()
+    rules, mesh = ctx["rules"], ctx["mesh"]
+    hsize = _axis_size(mesh, rules.get("heads"))
+
+    def leaf(name, x):
+        if not isinstance(x, torch.Tensor):
+            return ()
+        if name in ("k", "v"):
+            logical = (("batch", "kv_seq", "heads", None)
+                       if x.shape[-2] % hsize == 0
+                       else ("batch", "kv_seq_model", None, None))
+        elif name in ("kp", "vp"):
+            logical = (("heads", None) if x.shape[-2] % hsize == 0
+                       else (None, None))
+        elif name in ("ks", "vs"):
+            logical = ("heads",) if x.shape[-1] % hsize == 0 else (None,)
+        elif name == "ssm":
+            logical = ("batch", "ssm_heads", None, None)
+        elif name == "conv":
+            logical = ("batch", None, "ssm_conv")
+        else:
+            return ()
+        pad = (None,) * (x.dim() - len(logical))
+        axes = pad + tuple(rules.get(ax) if ax else None for ax in logical)
+        return _guard_spec(mesh, tuple(x.shape), axes)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in node.items()}
+
+    return walk(caches)
+
+
+def shard_bytes(x: torch.Tensor, spec: tuple, mesh) -> int:
+    """Bytes of one device's shard of ``x`` under ``spec``."""
+    n = x.numel() * x.element_size()
+    for ax in spec:
+        n //= _axis_size(mesh, ax)
+    return n

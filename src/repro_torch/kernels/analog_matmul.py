@@ -13,7 +13,10 @@ experts, which Pallas' batching rule turns into a grid dimension).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.analog_matmul_ref`) for a CPU tensor; there
-is no fallback from one to the other. ``launches`` counts kernel launches.
+is no fallback from one to the other. A meta tensor is checked as on the
+card and gets an empty result (the dry run's shape-only call). Every call
+reports its work to the active cost counters (``kernels.cost``).
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _launch, ref
+from repro_torch.kernels import _build, _launch, cost, ref
 
 #: kernel launches since the last reset (the plain CPU version adds nothing)
 launches = 0
@@ -65,13 +68,30 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
     site's mapping and K split; its scratch covers the shard). Returns
     fp32.
     """
-    global launches
     ref.check_one_bound(bound, lam)
+
+    def work():
+        e = x.shape[0] if x.dim() == 3 else 1
+        return cost.analog_matmul(e, x.shape[-2], x.shape[-1],
+                                  w_eff.shape[-1], bound=bound is not None,
+                                  col_off=col_off is not None)
+
+    return cost.counted("analog_matmul", work, lambda: _analog_matmul(
+        x, w_eff, beta, bound, col_off, lam, in_bits, out_bits, promote,
+        plan_shape))
+
+
+def _analog_matmul(x, w_eff, beta, bound, col_off, lam, in_bits, out_bits,
+                   promote, plan_shape):
+    """The call on the plain version (CPU), the card, or the meta
+    device."""
+    global launches
     if x.device.type == "cpu":
         return ref.analog_matmul_ref(x, w_eff, beta, bound, col_off, lam=lam,
                                      in_bits=in_bits, out_bits=out_bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"analog_matmul runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"analog_matmul runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     if x.dim() not in (2, 3) or w_eff.dim() != x.dim():
         raise ValueError("analog_matmul takes x [M, K] and w_eff [K, N], "
                          "or x [E, M, K] and w_eff [E, K, N]")
@@ -89,6 +109,8 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
         _launch.check("col_off", col_off, torch.float32, lead + (n,), dev)
     if not (2 <= in_bits <= 24 and 2 <= out_bits <= 24):
         raise ValueError(f"bits out of range: {in_bits}, {out_bits}")
+    if dev.type == "meta":
+        return torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     pe, pn = (e, n) if plan_shape is None else plan_shape
     plan = _launch.plan("analog_matmul", m, k, pn, dev.index, in_bits, pe)
     out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)

@@ -23,7 +23,8 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
   ragged tails included. The function is the same; the chunking is the
   kernel's own.
 * A CPU tensor runs each kernel's plain PyTorch version (the CPU tests); a
-  CUDA tensor launches the kernel or raises. There is no switch that sends
+  CUDA tensor launches the kernel or raises; a meta tensor gets the
+  wrapper's shape-only result (``launch.dryrun``). There is no switch that sends
   a CUDA tensor to the plain version: a caller that wants it calls ``ref``.
 * Autograd: :func:`fused_analog_mvm` is a ``torch.autograd.Function`` (the
   reference's ``jax.custom_vjp``): its forward runs ``analog_matmul`` on
@@ -36,7 +37,8 @@ Dispatch rules (the reference's ``kernels/dispatch.py``):
   (``ref.ssd_scan_ref``) rebuilt from the saved inputs: the reference's
   gradient is XLA's derivative of that same chunked jnp math, and the
   forward stays on the kernel. The paged kernels have no backward, as in
-  the reference.
+  the reference. Both rules run on the meta device too (the dry run's
+  train step), where the forward is the wrapper's shape-only call.
 
 The MVM kernels take one [M, K] @ [K, N] product, or a batch of E
 experts' products in one launch, so ``[B, S, K]`` activations are
@@ -52,7 +54,7 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _launch, cost, ref
 from repro_torch.kernels.analog_matmul import analog_matmul
 from repro_torch.kernels.int4_matmul import int4_matmul
 from repro_torch.kernels.paged_attention import paged_flash_decode
@@ -290,7 +292,9 @@ class _SSD(torch.autograd.Function):
         wanted = [t for t in ins if t is not None and t.requires_grad]
         outs, grads = [], []
         with torch.enable_grad():
-            y, h = ref.ssd_scan_ref(*ins)
+            # the forward's work was counted at its call; its rebuild here
+            # is not counted again
+            y, h = cost.uncounted(lambda: ref.ssd_scan_ref(*ins))
         for out, g in ((y, g_y), (h, g_h)):
             if g is not None:   # the final state: None where no cache reads it
                 outs.append(out)
@@ -315,12 +319,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     card (the plain version makes both, as the JAX package does). Returns
     (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
 
-    Differentiable: on the card the forward launches the kernel and the
-    backward rebuilds ``ref.ssd_scan_ref`` from the saved inputs and
-    differentiates it (with the upstream gradients of y and of the final
-    state; the masked entries' ``exp`` is clamped there, so their
-    backward is 0, not ``inf · 0``); on the CPU the plain version is
-    differentiated directly.
+    Differentiable: the forward runs ``ssd_scan`` (the kernel on the card,
+    the plain version on the CPU, the shape-only call on the meta device)
+    and the backward rebuilds ``ref.ssd_scan_ref`` from the saved inputs
+    and differentiates it (with the upstream gradients of y and of the
+    final state; the masked entries' ``exp`` is clamped there, so their
+    backward is 0, not ``inf · 0``). On every device a train step thus
+    runs one path, and a cost counter counts it alike.
     """
     heads, g = x.shape[2], b.shape[2]
     if heads % g:
@@ -328,7 +333,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          "groups")
     args = (x.float(), dt.float(), a.float().contiguous(), b.float(),
             c.float(), None if h0 is None else h0.float().contiguous())
-    if x.device.type == "cpu" or not (torch.is_grad_enabled() and any(
+    if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in args)):
         return ssd_scan(*args)
     return _SSD.apply(*args)

@@ -12,7 +12,9 @@ A MoE site's experts run in one launch: x [E, M, K] against w_packed
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.int4_matmul_ref`) for a CPU tensor; there
-is no fallback from one to the other. ``launches`` counts kernel launches.
+is no fallback from one to the other. A meta tensor is checked as on the
+card and gets an empty result. Every call reports its work to the active
+cost counters (``kernels.cost``). ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _launch, ref
+from repro_torch.kernels import _build, _launch, cost, ref
 
 #: kernel launches since the last reset (the plain CPU version adds nothing)
 launches = 0
@@ -50,11 +52,24 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     its mapping and split-K from the shape (``_launch.plan``);
     ``plan_shape`` ``(E, N)`` plans it as one of E experts and N columns
     (a tensor-parallel shard runs its whole site's plan)."""
+    def work():
+        e = x.shape[0] if x.dim() == 3 else 1
+        return cost.int4_matmul(e, x.shape[-2], x.shape[-1],
+                                2 * w_packed.shape[-1])
+
+    return cost.counted("int4_matmul", work, lambda: _int4_matmul(
+        x, w_packed, scale, plan_shape))
+
+
+def _int4_matmul(x, w_packed, scale, plan_shape):
+    """The call on the plain version (CPU), the card, or the meta
+    device."""
     global launches
     if x.device.type == "cpu":
         return ref.int4_matmul_ref(x, w_packed, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"int4_matmul runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     if x.dim() not in (2, 3) or w_packed.dim() != x.dim():
         raise ValueError("int4_matmul takes x [M, K] and w_packed [K, N//2],"
                          " or x [E, M, K] and w_packed [E, K, N//2]")
@@ -66,6 +81,8 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     _launch.check("x", x, torch.float32, lead + (m, k), dev)
     _launch.check("w_packed", w_packed, torch.uint8, lead + (k, n // 2), dev)
     _launch.check("scale", scale, torch.float32, lead + (n,), dev)
+    if dev.type == "meta":
+        return torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     pe, pn = (e, n) if plan_shape is None else plan_shape
     plan = _launch.plan("int4_matmul", m, k, pn, dev.index, None, pe)
     out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)

@@ -12,8 +12,10 @@ warp order (:func:`decode_plan` reports the mapping).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.paged_decode_ref`) for a CPU tensor; there
-is no fallback from one to the other. ``launches`` counts the calls that
-launched the kernel (its merge pass included).
+is no fallback from one to the other. A meta tensor is checked as on the
+card and gets an empty result. Every call reports its work, by shape, to
+the active cost counters (``kernels.cost``). ``launches`` counts the
+calls that launched the kernel (its merge pass included).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _launch, _paged, ref
+from repro_torch.kernels import _build, _launch, _paged, cost, ref
 
 #: kernel launches since the last reset (the plain CPU version adds nothing)
 launches = 0
@@ -66,13 +68,24 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     must be fp32 and every tensor contiguous. Returns [B, H, hd] in
     ``q.dtype``.
     """
+    return cost.counted(
+        "paged_flash_decode", lambda: cost.paged_work(q, kp, tbl),
+        lambda: _decode(q, kp, vp, tbl, pos, start, scale, k_scale,
+                        v_scale, num_splits),
+        lambda: cost.paged_attended(q, kp, tbl, pos, start))
+
+
+def _decode(q, kp, vp, tbl, pos, start, scale, k_scale, v_scale,
+            num_splits):
+    """The call on the plain version (CPU), the card, or the meta
+    device."""
     global launches
     if q.device.type == "cpu":
         return ref.paged_decode_ref(q, kp, vp, tbl, pos, start, scale,
                                     k_scale, v_scale, num_splits)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_decode runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"paged_flash_decode runs on cuda, cpu or meta, "
+                         f"not {q.device}")
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, hd], got {tuple(q.shape)}")
     bsz, nq, hd = q.shape
@@ -83,6 +96,8 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if num_splits < 1:
         raise ValueError(f"num_splits must be >= 1, got {num_splits}")
     out = torch.empty((bsz, nq, hd), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out
     o_part = m_part = l_part = None
     if num_splits > 1:
         o_part = torch.empty((bsz, num_splits, nq, hd), dtype=torch.float32,

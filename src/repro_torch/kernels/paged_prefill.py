@@ -13,8 +13,10 @@ blocks over its warps (:func:`prefill_plan` reports the mapping).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.paged_prefill_ref`) for a CPU tensor;
-there is no fallback from one to the other. ``launches`` counts kernel
-launches.
+there is no fallback from one to the other. A meta tensor is checked as
+on the card and gets an empty result. Every call reports its work, by
+shape, to the active cost counters (``kernels.cost``). ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _launch, _paged, ref
+from repro_torch.kernels import _build, _launch, _paged, cost, ref
 
 #: kernel launches since the last reset (the plain CPU version adds nothing)
 launches = 0
@@ -65,13 +67,23 @@ def paged_flash_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     card q must be fp32 and every tensor contiguous. Returns
     [B, S, H, hd] in ``q.dtype``.
     """
+    return cost.counted(
+        "paged_flash_prefill", lambda: cost.paged_work(q, kp, tbl),
+        lambda: _prefill(q, kp, vp, tbl, pos, start, scale, k_scale,
+                         v_scale),
+        lambda: cost.paged_attended(q, kp, tbl, pos, start))
+
+
+def _prefill(q, kp, vp, tbl, pos, start, scale, k_scale, v_scale):
+    """The call on the plain version (CPU), the card, or the meta
+    device."""
     global launches
     if q.device.type == "cpu":
         return ref.paged_prefill_ref(q, kp, vp, tbl, pos, start, scale,
                                      k_scale, v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_prefill runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"paged_flash_prefill runs on cuda, cpu or meta, "
+                         f"not {q.device}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, S, H, hd], got {tuple(q.shape)}")
     bsz, s, nq, hd = q.shape
@@ -80,6 +92,8 @@ def paged_flash_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     npool, bs, nkv, nb, code = _paged.check_pool(
         kp, vp, k_scale, v_scale, tbl, pos, start, bsz, nq, hd, dev)
     out = torch.empty((bsz, s, nq, hd), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out
     p = _paged.ptr
     err = _lib()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), p(k_scale),
                  p(v_scale), tbl.data_ptr(), pos.data_ptr(),

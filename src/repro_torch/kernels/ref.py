@@ -425,11 +425,14 @@ def ssd_decode_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
                     a: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor):
     """One token of the SSD recurrence (serving decode): h [BH, N, P],
     x_t [BH, P], dt_t [BH], a [BH], b_t / c_t [BH, N] → (h', y [BH, P]).
-    Plain tensor code in the JAX package too (no kernel)."""
+    Plain tensor code in the JAX package too (no kernel). Mixed dtypes
+    promote as ``jnp.einsum``'s do (a bf16 gate against the fp32 state
+    contracts in fp32)."""
     decay = torch.exp(dt_t * a)
     h = (decay[:, None, None] * h
          + (dt_t[:, None] * b_t)[:, :, None] * x_t[:, None, :])
-    y = torch.einsum("zn,znp->zp", c_t, h)
+    dtype = torch.promote_types(c_t.dtype, h.dtype)
+    y = torch.einsum("zn,znp->zp", c_t.to(dtype), h.to(dtype))
     return h, y.to(x_t.dtype)
 
 

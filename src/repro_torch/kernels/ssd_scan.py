@@ -12,7 +12,10 @@ allocates on the current stream.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`) for a CPU tensor; there is no
-fallback from one to the other. ``launches`` counts scans run on the kernel
+fallback from one to the other. A meta tensor is checked as on the card
+and gets empty results. Every call reports its work, by shape, to the
+active cost counters (``kernels.cost``: the JAX package's chunked count,
+not the kernel's chunking). ``launches`` counts scans run on the kernel
 (one per call, whatever the plan's device launches).
 """
 
@@ -23,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _launch, ref
+from repro_torch.kernels import _build, _launch, cost, ref
 
 #: scans run on the kernel since the last reset (the plain CPU version adds
 #: nothing)
@@ -73,11 +76,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     takes one launch (``chip_smoke.py`` times the two against each other).
     Returns (y [B, S, H, P] fp32, final state [B·H, N, P] fp32).
     """
+    def work():
+        bsz, s, heads, pdim = x.shape
+        return cost.ssd_scan(bsz, s, heads, pdim, b.shape[3], b.shape[2],
+                             h0 is not None)
+
+    return cost.counted("ssd_scan", work,
+                        lambda: _scan(x, dt, a, b, c, h0, passes))
+
+
+def _scan(x, dt, a, b, c, h0, passes):
+    """The call on the plain version (CPU), the card, or the meta
+    device."""
     global launches
     if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, a, b, c, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+        # contiguous, as the kernel writes it (the layout a caller's
+        # reshape sees is then the same on every device)
+        y, h = ref.ssd_scan_ref(x, dt, a, b, c, h0)
+        return y.contiguous(), h
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError("ssd_scan takes x [B, S, H, P] and b / c "
                          "[B, S, G, N]")
@@ -91,6 +110,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _launch.check("a", a, torch.float32, (heads,), dev)
     if h0 is not None:
         _launch.check("h0", h0, torch.float32, (bsz * heads, n, pdim), dev)
+    if dev.type == "meta":
+        return (torch.empty((bsz, s, heads, pdim), dtype=torch.float32,
+                            device=dev),
+                torch.empty((bsz * heads, n, pdim), dtype=torch.float32,
+                            device=dev))
     plan = _launch.ssd_plan(bsz, s, heads, pdim, n, g, passes)
     y = torch.empty((bsz, s, heads, pdim), dtype=torch.float32, device=dev)
     h = torch.empty((bsz * heads, n, pdim), dtype=torch.float32, device=dev)

@@ -1,5 +1,5 @@
-"""Decoder LMs of the port (dense family in this slice)."""
+"""Decoder LMs of the port: every family of the JAX package."""
 
-from repro_torch.models.model import AnalogLM, apply, build
+from repro_torch.models.model import AnalogLM, apply, build, input_specs
 
-__all__ = ["AnalogLM", "apply", "build"]
+__all__ = ["AnalogLM", "apply", "build", "input_specs"]

@@ -1,12 +1,13 @@
-"""Public model API: ``build`` / ``apply``, and :class:`AnalogLM`, an
-``nn.Module`` that holds the parameter tree as buffers."""
+"""Public model API: ``build`` / ``apply`` / ``input_specs``, and
+:class:`AnalogLM`, an ``nn.Module`` that holds the parameter tree as
+buffers."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.checkpoint import flatten_paths, unflatten_paths
-from repro_torch.configs import ArchConfig, get_config
+from repro_torch.configs import ArchConfig, ShapeConfig, get_config
 from repro_torch.core.analog import AnalogConfig, AnalogCtx
 from repro_torch.models import transformer as T
 
@@ -37,6 +38,40 @@ def apply(params, cfg: ArchConfig, acfg: AnalogConfig, ctx: AnalogCtx,
           inputs, **kw):
     """Run the model forward (alias of ``transformer.forward``)."""
     return T.forward(params, cfg, acfg, ctx, inputs, **kw)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """The model's inputs for one (arch × shape) cell as meta tensors
+    (the reference's ``ShapeDtypeStruct`` stand-ins; nothing is
+    allocated).
+
+    ``train``: tokens and labels [B, S] int32 (audio [B, S, K]); the vlm's
+    text is ``S - vit_tokens`` long beside ``patch_embeds`` [B,
+    vit_tokens, vit_dim] of ``dtype``. ``prefill``: the tokens (and
+    ``patch_embeds``). ``decode``: one token, the contiguous cache of
+    ``seq_len`` from :func:`transformer.init_caches` on the meta device,
+    and ``pos``, the new token's position as the contiguous cache takes it
+    (a host int, the cache's last)."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def ids(*dims):
+        if cfg.family == "audio":
+            dims += (cfg.num_codebooks,)
+        return torch.empty(dims, dtype=torch.int32, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        text = s - cfg.vit_tokens if cfg.family == "vlm" else s
+        specs = {"tokens": ids(b, text)}
+        if shape.kind == "train":
+            specs["labels"] = ids(b, text)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = torch.empty(
+                (b, cfg.vit_tokens, cfg.vit_dim), dtype=dtype, device=meta)
+        return specs
+    caches = T.init_caches(cfg, b, s, dtype, device=meta)
+    return {"token": ids(b, 1), "caches": caches, "pos": s - 1}
 
 
 class AnalogLM(torch.nn.Module):

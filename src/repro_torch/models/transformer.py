@@ -8,6 +8,10 @@ so :func:`apply_blocks` is a loop over ``l`` over views of each leaf
 ``remat`` each layer runs under ``torch.utils.checkpoint`` (non-reentrant)
 and is recomputed in the backward; its training noise is keyed by (key,
 layer, site), so the recomputed layer draws the noise its forward drew.
+``remat`` True (or ``"dots"``) keeps the outputs of the unbatched matmuls
+(``mm``, ``addmm``: the projections) and recomputes the rest, the
+reference's ``dots_with_no_batch_dims_saveable`` policy; ``"nothing"``
+recomputes everything.
 
 The families' layers:
 
@@ -33,6 +37,8 @@ train as one table and one site.
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
+
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -351,10 +357,40 @@ def _layer_cache(caches: dict | None, i: int, slots: bool):
             for k, v in caches.items()}
 
 
+#: the unbatched matmuls whose outputs ``remat=True`` keeps (the
+#: reference's ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``:
+#: a projection's product is a dot with no batch dimension, attention's and
+#: the experts' are batched)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat=True``: keep the unbatched
+    matmuls' outputs, recompute every other op."""
+    if op in _SAVED_DOTS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint(fn, *args, remat: bool | str = True):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` with the policy of
+    ``remat`` (True / ``"dots"``: :func:`_save_dots`; ``"nothing"``: a full
+    recompute). No default generator draws inside (the noise has its own
+    key), so no RNG state is stashed."""
+    kw = {}
+    if remat != "nothing":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                  acfg: AnalogConfig, ctx: AnalogCtx, positions: torch.Tensor,
                  caches: dict | None = None,
-                 seq_mask: torch.Tensor | None = None, remat: bool = False):
+                 seq_mask: torch.Tensor | None = None,
+                 remat: bool | str = False):
     """Run the layer stack. Returns ``(x, stats, new_caches)``.
 
     Layer ``i`` gets ``ctx`` with ``i`` folded into its noise key (the
@@ -362,7 +398,8 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
     the layer's position in it). ``remat`` (training, no caches)
     checkpoints each layer (hybrid: each super-block, as the reference's
     scan body): its activations are recomputed in the backward instead of
-    kept.
+    kept, but for the projections' products under True / ``"dots"``
+    (:func:`checkpoint`).
 
     ``caches`` is :func:`init_caches`' stacked tree, every tensor leaf
     ``[L, ...]`` (hybrid: the nested ``{"attn", "mamba"}`` tree, ``[n_sb,
@@ -397,11 +434,7 @@ def apply_blocks(params_blocks: dict, x: torch.Tensor, cfg,
                 return apply_attn_layer(p_l, x, cfg, acfg, ctx_l,
                                         positions, ffn_kind=ffn_kind)[:2]
 
-            # no default generator draws here (the noise has its own key),
-            # so there is no RNG state to stash and restore
-            x, st = torch.utils.checkpoint.checkpoint(
-                layer, p_l, x, use_reentrant=False,
-                preserve_rng_state=False)
+            x, st = checkpoint(layer, p_l, x, remat=remat)
         elif fam == "hybrid":
             x, st, nc = _hybrid_sb_apply(p_l, x, cfg, acfg, ctx_l, positions,
                                          cache_l, seq_mask)
@@ -523,8 +556,8 @@ def forward(params: dict, cfg, acfg: AnalogConfig, ctx: AnalogCtx,
             inputs: dict, caches: dict | None = None,
             pos_offset: Optional[int | torch.Tensor] = None,
             last_only: bool = False,
-            seq_mask: torch.Tensor | None = None, remat: bool = False,
-            return_hidden: bool = False):
+            seq_mask: torch.Tensor | None = None,
+            remat: bool | str = False, return_hidden: bool = False):
     """Full forward. Returns ``(logits, stats, new_caches)``.
 
     ``inputs``: ``{"tokens": ...}`` ([B, S], audio [B, S, K]), and for

@@ -23,6 +23,13 @@ replays the graph on the engine's stream. All graphs of one engine share
 one memory pool. A capture or a replay that fails raises; nothing falls
 back to eager execution.
 
+CUDA refuses to destroy a graph while a stream of the capturing thread
+captures, and the refusal invalidates the capture. A dead engine in a
+reference cycle is freed by a cyclic collection, which may run inside a
+capture (any allocation can start one). So a :class:`StepGraphs` that dies
+while a capture is under way, in any thread, leaves its graphs to a
+module-level list, and the last capture to end destroys them.
+
 The kernels' ``launches`` counters are Python increments, which a replay
 does not run. So a capture records the counters' deltas (and takes them
 back: the capture launched nothing) and every replay adds them, and the
@@ -34,7 +41,9 @@ treatment while it is open.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
+import weakref
 
 import torch
 
@@ -47,6 +56,38 @@ KERNELS = (analog_matmul, int4_matmul, paged_attention, paged_prefill,
 
 #: the callers' count dicts open in :func:`counting`
 _counting: list[dict] = []
+
+#: captures under way in all threads, and the graphs of the StepGraphs that
+#: died during one (destroyed when the last capture ends); reentrant, as a
+#: collection that frees a StepGraphs can start while this thread holds it
+_lock = threading.RLock()
+_capturing = 0
+_graveyard: list[dict] = []
+
+
+def _retire(graphs: dict) -> None:
+    """A dead StepGraphs' graphs: destroyed now, or after the last capture
+    under way."""
+    with _lock:
+        if _capturing:
+            _graveyard.append(graphs)
+        else:
+            graphs.clear()
+
+
+@contextlib.contextmanager
+def _capture_under_way():
+    global _capturing
+    with _lock:
+        _capturing += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _capturing -= 1
+            if not _capturing:
+                while _graveyard:
+                    _graveyard.pop().clear()
 
 
 @contextlib.contextmanager
@@ -100,6 +141,7 @@ class StepGraphs:
     def __init__(self, device: torch.device):
         self.device = device
         self._graphs: dict[tuple, tuple] = {}
+        weakref.finalize(self, _retire, self._graphs)
         self._pool = None
         self._side = None
         self.captures = 0
@@ -131,8 +173,9 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         snap = _snapshot()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._side,
-                                  capture_error_mode="thread_local"):
+            with _capture_under_way(), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._side,
+                    capture_error_mode="thread_local"):
                 body()
         finally:
             deltas = _take_back(snap)

@@ -56,8 +56,9 @@ class TrainConfig:
     aux_loss_weight: float = 0.01  # MoE load balancing
     accum_steps: int = 1
     grad_compression: bool = False
-    #: checkpoint every layer (``torch.utils.checkpoint``); the reference's
-    #: ``'nothing'`` / ``'dots'`` policies both mean recompute here
+    #: checkpoint every layer (``transformer.checkpoint``): True / ``'dots'``
+    #: keeps the projections' products (the reference's default policy),
+    #: ``'nothing'`` recomputes everything, False keeps every activation
     remat: bool | str = True
     #: sequence-chunk size of the chunked-vocab loss (0 = off); active only
     #: when vocab >= 4 x the chunk
@@ -181,7 +182,7 @@ def make_loss_fn(cfg, acfg: AnalogConfig, tcfg: TrainConfig):
             # chunk, each chunk checkpointed (its logits recomputed in the
             # backward)
             hidden, stats, _ = T.forward(params, cfg, acfg, ctx, inputs,
-                                         remat=bool(tcfg.remat),
+                                         remat=tcfg.remat,
                                          return_hidden=True)
             t_hidden = None
             if teacher_params is not None and tcfg.kd_beta:
@@ -239,7 +240,7 @@ def make_loss_fn(cfg, acfg: AnalogConfig, tcfg: TrainConfig):
                 metrics["ce"] = ce
         else:
             logits, stats, _ = T.forward(params, cfg, acfg, ctx, inputs,
-                                         remat=bool(tcfg.remat))
+                                         remat=tcfg.remat)
             t_logits = batch.get("teacher_logits")
             if t_logits is None and teacher_params is not None:
                 with torch.no_grad():

@@ -4,8 +4,9 @@
   profiles it import neither JAX nor the reference package ``repro`` (an
   AST scan of every file).
 * On CPU tensors the kernels' plain versions run and the launch counters
-  stay at 0; a tensor on any other non-CUDA device is refused, not served
-  by the plain version.
+  stay at 0; a meta tensor gets the shape-only result of the dry run; a
+  tensor on any other device is refused, not served by the plain
+  version.
 * Entry points that default to the card raise when there is none instead
   of running on the CPU.
 """
@@ -144,8 +145,22 @@ def test_cpu_tensors_run_the_plain_ssd_scan():
     assert k_ssd.launches == 0
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrappers do not serve (``xpu``):
+    the meta device is the dry run's shape-only path now
+    (``tests/test_torch_cost.py``), so it no longer stands for one."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype).as_subclass(_Elsewhere)
+
+
 def test_other_devices_are_refused_not_served():
-    x = torch.empty(2, 8, device="meta")
+    x = _elsewhere(2, 8)
     w = torch.empty(8, 4, device="meta")
     with pytest.raises(ValueError):
         k_analog.analog_matmul(x, w, torch.empty(1, device="meta"),
@@ -158,14 +173,14 @@ def test_other_devices_are_refused_not_served():
     tbl = torch.empty(2, 2, dtype=torch.int32, device="meta")
     cur = torch.empty(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        k_decode.paged_flash_decode(torch.empty(2, 4, 8, device="meta"),
+        k_decode.paged_flash_decode(_elsewhere(2, 4, 8),
                                     pool, pool, tbl, cur, cur, scale=1.0)
     with pytest.raises(ValueError):
-        k_prefill.paged_flash_prefill(torch.empty(2, 3, 4, 8, device="meta"),
+        k_prefill.paged_flash_prefill(_elsewhere(2, 3, 4, 8),
                                       pool, pool, tbl, cur, cur, scale=1.0)
     gates = torch.empty(2, 3, 1, 16, device="meta")
     with pytest.raises(ValueError):
-        k_ssd.ssd_scan(torch.empty(2, 3, 4, 16, device="meta"),
+        k_ssd.ssd_scan(_elsewhere(2, 3, 4, 16),
                        torch.empty(2, 3, 4, device="meta"),
                        torch.empty(4, device="meta"), gates, gates)
 

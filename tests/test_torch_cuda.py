@@ -1165,6 +1165,62 @@ def test_engine_failed_capture_raises(card):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+def test_engine_capture_survives_collecting_a_dead_engine(card):
+    """A cyclic collection inside a capture frees a dead engine (kept
+    alive only by a reference cycle) with its step graphs: the capture is
+    not invalidated (the dead graphs are destroyed after it), and the live
+    engine gives the dead engine's tokens, and again when the same
+    workload replays the graphs captured around the collection."""
+    import gc
+    import weakref
+
+    import numpy as np
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.serve import graphs
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeEngine
+
+    cfg, params = _graph_model("llama-3.2-1b", card)
+    scfg = SchedulerConfig(num_slots=2, max_len=40, prefill_chunk=8,
+                           kv_block_size=8, paged=True)
+    acfg = AnalogConfig(mode="off")
+    dead = ServeEngine(params, cfg, acfg, scfg)
+    dead.run(_graph_reqs(cfg, 2))
+    assert dead.step_graphs.captures > 0
+    want = {uid: np.array(t) for uid, t in dead.results.items()}
+    probe = weakref.ref(dead.step_graphs)
+    dead.cycle = dead
+    holder = [dead]
+    del dead
+    eng = ServeEngine(params, cfg, acfg, scfg)
+    real = eng._decode_body
+    collected = []
+
+    def drops_and_collects(k, key):
+        real(k, key)
+        if holder and torch.cuda.is_current_stream_capturing():
+            # the dead engine becomes garbage inside the capture (a
+            # collection at the capture's start cannot free it first)
+            holder.clear()
+            collected.append(gc.collect())
+            collected.append(probe() is None)
+
+    eng._decode_body = drops_and_collects
+    first = {uid: np.array(t) for uid, t in
+             eng.run(_graph_reqs(cfg, 2)).items()}
+    torch.cuda.synchronize()
+    assert collected and collected[0] > 0 and collected[1]
+    assert not graphs._graveyard and graphs._capturing == 0
+    again = eng.run(_graph_reqs(cfg, 2))
+    torch.cuda.synchronize()
+    assert eng.step_graphs.replays > 0
+    assert set(first) == set(again) == set(want)
+    for uid, toks in want.items():
+        np.testing.assert_array_equal(first[uid], toks)
+        np.testing.assert_array_equal(again[uid], toks)
+
+
 # ---------------------------------------------------------------------------
 # tensor-parallel serving on one card (distributed.sharding)
 # ---------------------------------------------------------------------------

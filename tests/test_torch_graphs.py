@@ -17,6 +17,10 @@ buffers, so these tests hold exactly the code that is captured.
   and a hybrid model (each reference engine built once; the port's weights
   carried into the reference's tree by value).
 * A sampled request draws the same tokens solo and mid-batch.
+* A step-graph set that dies while a capture is under way keeps its
+  graphs until the last capture ends (the card test
+  ``test_engine_capture_survives_collecting_a_dead_engine`` holds the
+  capture itself).
 """
 
 import contextlib
@@ -295,3 +299,35 @@ def test_sampled_request_draws_the_same_solo_and_mid_batch(draft):
     eng.submit(probe)
     mid = eng.run()[99]
     np.testing.assert_array_equal(mid, solo)
+
+
+@pytest.mark.parametrize("during_capture", [True, False])
+def test_dead_step_graphs_wait_for_the_captures(during_capture):
+    """A ``StepGraphs`` freed by a cyclic collection inside a capture (in
+    any thread) hands its graphs to the module's list, which the last
+    capture to end empties; outside a capture they go at once."""
+    import gc
+    import weakref
+
+    from repro_torch.serve import graphs
+
+    class Graph:                # stands in for a torch.cuda.CUDAGraph
+        pass
+
+    sg = graphs.StepGraphs(torch.device("cpu"))
+    graph = Graph()
+    sg._graphs[("decode", 1)] = (graph, None)
+    probe = weakref.ref(graph)
+    sg.cycle = sg
+    del sg, graph
+    outer = graphs._capture_under_way() if during_capture else (
+        contextlib.nullcontext())
+    with outer:
+        with graphs._capture_under_way() if during_capture else (
+                contextlib.nullcontext()):
+            gc.collect()
+            assert (probe() is not None) == during_capture
+        # a capture still under way: the graphs wait for it
+        assert (probe() is not None) == during_capture
+    assert probe() is None
+    assert not graphs._graveyard and graphs._capturing == 0
