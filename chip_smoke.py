@@ -399,6 +399,22 @@ Phases, in order; any failure exits non-zero:
                the single production mesh: per-device argument bytes, and
                for a fixed list of four (VII_FLOP_ARCHS) the FLOPs at one
                layer pattern.
+25. sharded -- sharded training state on the one card: phase 14's HWA
+               step (full-width llama-3.2-1b at 2 layers, the teacher
+               inside) for 3 steps unsharded and on placed meshes 1 x 1,
+               2 x 1, 4 x 1 and 2 x 2 (data x model), every position on
+               cuda:0. Gates: (i) 1 x 1 bit for bit the unsharded step;
+               (ii) the others, each step from the unsharded run's state
+               before it, within SHARD_TOL; (iii) a reshard 4 -> 2
+               value-exact and the next step bit for bit the step from the
+               gathered state placed afresh; (iv) ``psum_compressed`` on
+               the card equal to the CPU's. Also each run's launches (data
+               shards x the unsharded count), its collectives' counted
+               bytes against what the placement moves, the largest
+               position's state bytes, peak GB and ms a step; a
+               free-running data-2 run's drift and the DAC / ADC codes
+               that move at its step 2; the training launcher on the host
+               mesh. One card shows parity and placement, not memory.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. It takes no arguments.
@@ -3893,7 +3909,7 @@ def training_checked(torch, acfg, log: dict):
     site_std = {}
     real_ranges = ts._update_input_ranges
     real_clip, real_make = clipping.clip_tree, recipes.make_train_step
-    real_adam = ts.adamw_update
+    real_adam = ts.apply_gradients
 
     def site(p, x, cfg, ctx):
         if ctx.training:
@@ -3995,7 +4011,7 @@ def training_checked(torch, acfg, log: dict):
     log.update(recomputed_sites=0, ranges_checked=[], clip=[],
                step_launches=[], router_grad=[])
     ts._update_input_ranges = ranges
-    ts.adamw_update = adam
+    ts.apply_gradients = adam
     clipping.clip_tree = clip
     recipes.make_train_step = make
     try:
@@ -4003,7 +4019,7 @@ def training_checked(torch, acfg, log: dict):
             yield
     finally:
         ts._update_input_ranges = real_ranges
-        ts.adamw_update = real_adam
+        ts.apply_gradients = real_adam
         clipping.clip_tree = real_clip
         recipes.make_train_step = real_make
 
@@ -4037,7 +4053,7 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
         ev.record()
         marks.append((name, ev, torch.cuda.max_memory_allocated()))
 
-    real_loss, real_adam = ts.make_loss_fn, ts.adamw_update
+    real_loss, real_adam = ts.make_loss_fn, ts.apply_gradients
     real_clip = clipping.clip_tree
 
     def make_loss(*a, **k):
@@ -4060,7 +4076,7 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
         mark("range rules and eq. 4")
         return out
 
-    ts.make_loss_fn, ts.adamw_update = make_loss, adam
+    ts.make_loss_fn, ts.apply_gradients = make_loss, adam
     clipping.clip_tree = clip
     try:
         step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
@@ -4073,7 +4089,7 @@ def train_step_profile(torch, cfg, acfg, tcfg, labels, params, state,
             del out
             torch.cuda.synchronize()
     finally:
-        ts.make_loss_fn, ts.adamw_update = real_loss, real_adam
+        ts.make_loss_fn, ts.apply_gradients = real_loss, real_adam
         clipping.clip_tree = real_clip
     stages = {name: {"ms": a.elapsed_time(b), "peak_gb": peak / 1e9}
               for (_, a, _), (name, b, peak) in zip(marks, marks[1:])}
@@ -8402,6 +8418,482 @@ def phase_cost(torch, rows: dict, ssd_rows: list, phase8: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: sharded training state on one card
+# ---------------------------------------------------------------------------
+
+# llama-3.2-1b at full width and SHARD_LAYERS of its 16 layers, phase 14's
+# batch, SHARD_STEPS steps on each mesh (data x model; every position on
+# the one card), against the unsharded step
+SHARD_LAYERS = 2
+SHARD_STEPS = 3
+SHARD_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+# gate (ii): tests/test_torch_sharded_train.py's rule, B·S·u: each gradient
+# element is a sum over the batch's tokens, which a sharded step adds in
+# another order (u = 2^-24); parameters (every input_range among them: the
+# EMA init sets it from the pooled x_std, a few u from the whole batch's),
+# losses and the gradient norm within SHARD_TOL · (1 + |x|), each moment
+# leaf within 2 · SHARD_TOL of its scale, K times that for an input
+# range's moments, whose gradient sums K times the terms (sharded_apart).
+# Each step starts from the unsharded run's state before it, so both sides
+# take the same inputs. A free-running data-2 run goes on from its own
+# state; it prints how far that drifts from the unsharded run's
+# (sharded_drift), not gated, and how many of step 2's DAC and ADC codes
+# differ between the two runs' parameters (sharded_code_moves)
+SHARD_TOL = TRAIN_BATCH * TRAIN_SEQ * 2.0 ** -24
+# gate (iv): psum_compressed over this many shards of a [K, N] leaf
+PSUM_SHARDS, PSUM_SHAPE = 4, (2048, 2048)
+
+
+def sharded_apart(torch, got, want) -> dict:
+    """Gate (ii)'s worst errors of a gathered ``(params, state)`` against
+    the unsharded one, and the leaf of each: ``"params"``, max |a - b| /
+    (1 + |b|); ``"moments"``, per leaf max |Δv| / max |v| and max |Δm| over
+    (1 - b1) max sqrt(v̂) (v̂ = v / (1 - b2^t): the RMS gradient, the size
+    of one step's part of m, which may itself cancel across steps). An
+    ``input_range``'s gradient sums over every element of its site's
+    input, K times the tokens, so its moments' errors are divided by K
+    (its value's are not)."""
+    from repro_torch.checkpoint import flatten_paths
+    from repro_torch.optim.adamw import AdamWConfig
+
+    ad = AdamWConfig()
+    out = {"params": (0.0, None), "moments": (0.0, None)}
+    (p, s), (p0, s0) = got, want
+    fp, f0 = flatten_paths(p), flatten_paths(p0)
+
+    def terms(k):
+        if not k.endswith("input_range"):
+            return 1
+        return f0[k[:-len("input_range")] + "kernel"].shape[-2]
+    for k, v in f0.items():
+        e = float(((fp[k] - v).abs() / (1 + v.abs())).max())
+        if e > out["params"][0]:
+            out["params"] = (e, k)
+    t = int(s0["opt"]["count"])
+    fm, fv = flatten_paths(s["opt"]["m"]), flatten_paths(s["opt"]["v"])
+    for k, v in flatten_paths(s0["opt"]["v"]).items():
+        m = flatten_paths(s0["opt"]["m"])[k]
+        rms = float(torch.sqrt(v.abs().max() / (1 - ad.b2 ** t)))
+        for name, a, b, scale in (
+                (f"m:{k}", fm[k], m, (1 - ad.b1) * rms),
+                (f"v:{k}", fv[k], v, float(v.abs().max()))):
+            e = float((a - b).abs().max()) / max(scale, 1e-30) / terms(k)
+            if e > out["moments"][0]:
+                out["moments"] = (e, name)
+    return out
+
+
+def sharded_equal(torch, a, b) -> list:
+    """The leaves of two gathered trees that differ (bit for bit)."""
+    from repro_torch.checkpoint import flatten_paths
+
+    fa = flatten_paths(a)
+    return [k for k, v in flatten_paths(b).items()
+            if not torch.equal(fa[k], v)]
+
+
+def sharded_drift(torch, got, want, init) -> dict:
+    """A free-running sharded run's state against the unsharded run's
+    (``train_state_apart``'s rule): the largest per-leaf L2 ratio |a - b| /
+    |b - init| over the parameters (the unsharded update since the start)
+    and |a - b| / |b| over the moments."""
+    from repro_torch.checkpoint import flatten_paths
+
+    (p, s), (p0, s0) = got, want
+    f_init = flatten_paths(init)
+    out = {}
+    for group, a_tree, b_tree in (
+            ("params", p, p0),
+            ("moments", {"m": s["opt"]["m"], "v": s["opt"]["v"]},
+             {"m": s0["opt"]["m"], "v": s0["opt"]["v"]})):
+        fa, worst = flatten_paths(a_tree), (0.0, None)
+        for k, b in flatten_paths(b_tree).items():
+            d = float(torch.linalg.vector_norm(fa[k] - b))
+            if d == 0.0:
+                continue
+            ref = b - f_init[k] if group == "params" else b
+            n = float(torch.linalg.vector_norm(ref))
+            if (d / n if n > 0 else float("inf")) > worst[0]:
+                worst = (d / n if n > 0 else float("inf"), k)
+        out[group] = worst
+    return out
+
+
+def sharded_run(torch, cfg, params, labels, teacher, batch, mesh, base,
+                forced: bool = True):
+    """SHARD_STEPS steps of phase 14's train step (teacher inside) under
+    ``mesh`` (None: unsharded), the teacher placed by its ZeRO specs. The
+    first is a warm-up, the second timed on the host clock, the last run
+    in the cost counter (its all-gather and reduce-scatter bytes). Where
+    ``base`` (the unsharded run's steps) is given, each step is held
+    against it: ``forced``, each step starts from the unsharded run's
+    state before it (placed on the mesh outside the timer), so both sides
+    take the same inputs and only the gradient sum's order parts them
+    (``sharded_apart``); otherwise the run goes on from its own state and
+    the drift is read (``sharded_drift``). Returns the run's record, its
+    final ``(params, state)`` and, for the unsharded run, every step's
+    ``(params, state, metrics)`` (for a free-running one, the first
+    step's ``(params, metrics)``, gathered)."""
+    from repro_torch.distributed import placement
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.train import train_step as ts
+
+    acfg, tcfg = train_configs()
+    step = ts.make_train_step(cfg, acfg, tcfg, labels, train_lr(tcfg))
+    key = noise_key()
+    under = (contextlib.nullcontext() if mesh is None
+             else shd.activate(mesh, shd.default_rules(mesh)))
+    p, st = params, ts.init_train_state(params)
+    steps, ms, coll = [], None, {}
+    zero_counts(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with under:
+        t_ = teacher if mesh is None else placement.place_by(teacher, mesh)
+        for i in range(SHARD_STEPS):
+            if forced and base is not None and i > 0:
+                p = placement.place_by(base[i - 1][0], mesh)
+                st = placement.place_by(base[i - 1][1], mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == SHARD_STEPS - 1:
+                with CostCounter() as cc:
+                    p, st, m = step(p, st, batch, key, t_)
+                coll = cc.analyze()["collective_bytes"]
+            else:
+                p, st, m = step(p, st, batch, key, t_)
+            torch.cuda.synchronize()
+            if i == 1:
+                ms = (time.perf_counter() - t0) * 1e3
+            m = {k: float(v) for k, v in m.items()}
+            steps.append(m)
+            if base is not None:
+                got = (placement.gather_tree(p), placement.gather_tree(st))
+                steps[-1]["apart"] = (
+                    sharded_apart(torch, got, base[i][:2]) if forced
+                    else sharded_drift(torch, got, base[i][:2], params))
+                if not forced and i == 0:
+                    steps[-1]["tree"] = (got[0],)
+                del got
+            elif mesh is None:
+                steps[-1]["tree"] = (p, st)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # what the counted step's collectives must move: the split
+        # parameter leaves gathered at its start and after AdamW, the
+        # teacher's once; their gradients' slices scattered
+        split = [x for x in placement._leaves(p)
+                 if isinstance(x, placement.Placed) and len(x.blocks()) > 1]
+        want = {"all-gather": 3.0 * sum(x.numel() * x.element_size()
+                                        for x in split),
+                "reduce-scatter": float(sum(
+                    x.parts[0].numel() * x.element_size() for x in split))}
+        held = {"p": p, "m": st["opt"]["m"], "v": st["opt"]["v"], "t": t_}
+        state_bytes = (placement.position_bytes(held) if mesh
+                       else [placement.tree_bytes(held)])
+    rec = {"steps": [{k: v for k, v in s.items() if k != "tree"}
+                     for s in steps], "ms": ms, "launches": launches,
+           "peak_gb": peak_gb, "collective_bytes": dict(coll),
+           "collective_want": want,
+           "largest_state_bytes": max(state_bytes)}
+    return rec, (p, st), [s.pop("tree") + (s,) for s in steps
+                          if "tree" in s]
+
+
+def sharded_code_moves(torch, cfg, p_a, p_b, batch) -> dict:
+    """Step 2's forward (the whole batch, step 2's noise, no remat) from
+    two runs' parameters after step 1: how many DAC codes (eq. 1's
+    ``round(clip(x) · Q / beta)``) and ADC codes (eq. 2's, read back from
+    each site's output over its bound) differ between them, of how many.
+    A token position is reached once a code moved there or, through
+    attention, at an earlier position of its sequence at an earlier site;
+    codes that move where nothing reached (first moves) can only have
+    lain at a rounding tie: for them, the largest distance of a DAC
+    value from its tie beside the largest DAC input change there (code
+    units), and the largest ADC move in levels where no DAC code of the
+    site moved."""
+    from repro_torch.core import noise as noise_lib
+    from repro_torch.kernels import ref as kref
+    from repro_torch.train import train_step as ts
+
+    acfg, tcfg = train_configs()
+    loss_fn = ts.make_loss_fn(cfg, acfg, dataclasses.replace(tcfg,
+                                                             remat=False))
+    q_in, q_out = kref.qmax(acfg.input_bits), kref.qmax(acfg.output_bits)
+    sides = []
+    for params in (p_a, p_b):
+        calls = []
+
+        def spy(pp, x, cfg_, ctx):
+            y, st = real(pp, x, cfg_, ctx)
+            beta = torch.clamp_min(pp["input_range"].reshape(()).float(),
+                                   1e-8)
+            v = torch.clamp(x.float(), -beta, beta) * kref.rdiv(q_in, beta)
+            bound = kref.adc_bound(pp["kernel"], beta, acfg.out_bound)
+            calls.append((v, torch.round(y.float() * kref.rdiv(
+                q_out, bound)).to(torch.int16)))
+            return y, st
+
+        with torch.no_grad(), sites_replaced(spy) as real:
+            loss_fn(params, batch, noise_lib.fold_in(noise_key(), 1))
+        sides.append(calls)
+    check(len(sides[0]) == len(sides[1]) == mvm_sites(cfg),
+          f"sharded codes: {len(sides[0])} / {len(sides[1])} site calls")
+    out = {"dac_moved": 0, "dac_total": 0, "adc_moved": 0, "adc_total": 0,
+           "dac_first": 0, "adc_first": 0, "first_tie_distance": 0.0,
+           "first_input_change": 0.0, "first_adc_levels": 0}
+    reach = torch.zeros(batch["tokens"].shape[:2], dtype=torch.bool,
+                        device=batch["tokens"].device)
+    for (va, ya), (vb, yb) in zip(*sides):
+        dac = torch.round(va) != torch.round(vb)
+        adc = ya != yb
+        out["dac_moved"] += int(dac.sum())
+        out["adc_moved"] += int(adc.sum())
+        out["dac_total"] += va.numel()
+        out["adc_total"] += ya.numel()
+        clean = ~reach
+        if bool(clean.any()):
+            out["first_input_change"] = max(out["first_input_change"], float(
+                (va - vb).abs()[clean].max()))
+        first = dac & clean[..., None]
+        out["dac_first"] += int(first.sum())
+        if bool(first.any()):
+            out["first_tie_distance"] = max(out["first_tie_distance"], float(
+                (va[first] - torch.floor(va[first]) - 0.5).abs().max()))
+        first = adc & (clean & ~dac.any(-1))[..., None]
+        out["adc_first"] += int(first.sum())
+        if bool(first.any()):
+            out["first_adc_levels"] = max(out["first_adc_levels"], int(
+                (ya[first].int() - yb[first].int()).abs().max()))
+        moved = dac.any(-1) | adc.any(-1)
+        reach |= torch.cummax(moved.int(), dim=1).values.bool()
+    return out
+
+
+def clone_tree(tree):
+    """A copy of every tensor leaf of a nested dict."""
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def psum_card_check(torch) -> dict:
+    """Gate (iv): ``psum_compressed`` over PSUM_SHARDS shards (the second
+    all zeros) on the card equals the CPU's bit for bit."""
+    from repro_torch.optim.compression import psum_compressed
+
+    gen = torch.Generator().manual_seed(25)
+    shards = [torch.randn(PSUM_SHAPE, generator=gen) * 10.0 ** (i - 2)
+              for i in range(PSUM_SHARDS)]
+    shards[1].zero_()
+    cpu = psum_compressed(shards)
+    card = psum_compressed([s.cuda() for s in shards]).cpu()
+    diff = int((card != cpu).sum())
+    check(diff == 0, f"sharded: psum_compressed on the card parts from the "
+          f"CPU's at {diff} of {cpu.numel()} elements")      # gate (iv)
+    print(f"  gate (iv): psum_compressed over {PSUM_SHARDS} shards of "
+          f"{list(PSUM_SHAPE)} (one all zeros) on the card equals the CPU's "
+          f"bit for bit")
+    return {"elements": cpu.numel()}
+
+
+def sharded_launcher(torch) -> dict:
+    """The training launcher as a user runs it (``python -m
+    repro_torch.launch.train --reduced``, 2 pre-training and 2
+    distillation steps): the host mesh over the visible cards, data =
+    their count, its state placed there."""
+    from repro_torch.checkpoint import flatten_paths
+    from repro_torch.distributed import placement
+    from repro_torch.launch import train as train_cli
+
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["--reduced", "--steps", "2",
+                              "--pretrain-steps", "2", "--batch", "4",
+                              "--seq", "32"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    leaf = flatten_paths(trainer.params)["embed/tokens"]
+    n = torch.cuda.device_count()
+    check(int(trainer.state["step"]) == 2
+          and isinstance(leaf, placement.Placed)
+          and leaf.mesh.shape == {"data": n, "model": 1}
+          and math.isfinite(trainer.history[-1]["kd"]),
+          f"sharded launcher: step {int(trainer.state['step'])}, mesh "
+          f"{getattr(leaf, 'mesh', None)}")
+    print(f"  launcher (python -m repro_torch.launch.train --reduced, 2 + 2 "
+          f"steps): host mesh {leaf.mesh.shape} over the {n} visible "
+          f"card(s) in {secs:.1f} s, final KD loss "
+          f"{trainer.history[-1]['kd']:.4f}")
+    return {"s": secs, "launches": launch_counts()}
+
+
+def phase_sharded(torch) -> dict:
+    """Phase 25: phase 14's HWA step (llama-3.2-1b at full width,
+    SHARD_LAYERS layers, batch TRAIN_BATCH x TRAIN_SEQ, the teacher inside)
+    over placed meshes whose positions all sit on the one card, with gates
+    (i) (1, 1) bit for bit the unsharded step, (ii) data 2, 4 and (2, 2)
+    each step within SHARD_TOL of the unsharded step from the same state
+    (a free-running data-2 run's drift is printed), (iii) a reshard
+    4 → 2 value-exact and the step after it bit-exact against the
+    gathered state placed afresh, (iv) ``psum_compressed`` card = CPU;
+    each run's launches (data shards x the unsharded count) and the
+    collectives' bytes, against what the placement moves; the free run's
+    moved DAC / ADC codes at step 2; the training launcher on the host
+    mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import MarkovCorpus
+    from repro_torch.distributed import elastic, placement
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh, place_mesh
+    from repro_torch.models import build
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    print(f"  {gpu_name_and_power()}; every mesh position on this one "
+          f"card: the runs show parity and placement, not a memory saving")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=SHARD_LAYERS)
+    cfg, params, labels = build(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    check((cfg.num_layers, cfg.d_model) == (SHARD_LAYERS, 2048),
+          f"sharded: unexpected config {cfg}")
+    teacher = clone_tree(params)     # distill_recipe's: the student's copy
+    raw = MarkovCorpus(cfg.vocab_size, seed=0).sample(TRAIN_BATCH,
+                                                      TRAIN_SEQ + 1)
+    batch = {"tokens": torch.as_tensor(raw[:, :-1], dtype=torch.int64,
+                                       device=dev),
+             "labels": torch.as_tensor(raw[:, 1:], dtype=torch.int64,
+                                       device=dev)}
+    per_step = train_step_launches(cfg)["analog_matmul"]
+    whole = placement.tree_bytes(params)
+    out = {}
+    base_rec, _, base = sharded_run(torch, cfg, params, labels, teacher,
+                                    batch, None, None)
+    out["unsharded"] = base_rec
+    ms0 = base_rec["ms"]
+    print(f"  unsharded: {ms0:.1f} ms a step, {base_rec['launches']} "
+          f"launches in {SHARD_STEPS} steps, peak {base_rec['peak_gb']:.2f} "
+          f"GB; state (params, moments, teacher) "
+          f"{base_rec['largest_state_bytes'] / 1e9:.3f} GB")
+    for shape in SHARD_MESHES:
+        mesh = place_mesh(Mesh(("data", "model"), shape),
+                          [dev] * (shape[0] * shape[1]))
+        name = "x".join(map(str, shape))
+        rec, final, _ = sharded_run(torch, cfg, params, labels, teacher,
+                                    batch, mesh, base)
+        out[name] = rec
+        n = shape[0]
+        check(rec["launches"] == {"analog_matmul":
+                                  n * per_step * SHARD_STEPS},
+              f"sharded {name}: launches {rec['launches']}, expected "
+              f"{n} x {per_step} a step")
+        worst = {k: max(s["apart"][k][0] for s in rec["steps"])
+                 for k in ("params", "moments")}
+        loss_err = max(abs(s["loss"] - b["loss"]) / (1 + abs(b["loss"]))
+                       for s, b in zip(rec["steps"], base_rec["steps"]))
+        gn_err = max(abs(s["grad_norm"] - b["grad_norm"])
+                     / (1 + abs(b["grad_norm"]))
+                     for s, b in zip(rec["steps"], base_rec["steps"]))
+        rec["worst"] = dict(worst, loss=loss_err, grad_norm=gn_err)
+        if shape == (1, 1):                                    # gate (i)
+            check(all(v == 0.0 for v in rec["worst"].values()),
+                  f"sharded 1x1: apart from the unsharded step "
+                  f"{rec['worst']} ({rec['steps'][-1]['apart']})")
+        else:                                                  # gate (ii)
+            check(worst["params"] <= SHARD_TOL and loss_err <= SHARD_TOL
+                  and gn_err <= SHARD_TOL
+                  and worst["moments"] <= 2 * SHARD_TOL,
+                  f"sharded {name}: {rec['worst']} against {SHARD_TOL:.3e} "
+                  f"({[s['apart'] for s in rec['steps']]})")
+        ag = rec["collective_bytes"].get("all-gather", 0)
+        rs = rec["collective_bytes"].get("reduce-scatter", 0)
+        check({"all-gather": ag, "reduce-scatter": rs}
+              == rec["collective_want"],
+              f"sharded {name}: counted {rec['collective_bytes']}, the "
+              f"placement moves {rec['collective_want']}")
+        print(f"  {name}: {rec['ms']:.1f} ms a step ({rec['ms'] / ms0:.2f}x "
+              f"unsharded), analog_matmul {rec['launches']['analog_matmul']} "
+              f"launches ({n} data shards x {per_step} a step x "
+              f"{SHARD_STEPS}), peak {rec['peak_gb']:.2f} GB; largest "
+              f"position's state {rec['largest_state_bytes'] / 1e9:.3f} GB "
+              f"of {base_rec['largest_state_bytes'] / 1e9:.3f} GB unsharded "
+              f"(params {whole / 1e9:.3f} GB); counted in step "
+              f"{SHARD_STEPS}: all-gather {ag} B, reduce-scatter {rs} B; "
+              f"apart from unsharded: params {worst['params']:.3e}, moments "
+              f"{worst['moments']:.3e}, loss {loss_err:.3e}, grad norm "
+              f"{gn_err:.3e} ({'bit for bit' if shape == (1, 1) else f'gate {SHARD_TOL:.3e}'})")
+        if shape == (4, 1):                                    # gate (iii)
+            m2 = place_mesh(Mesh(("data", "model"), (2, 1)), [dev] * 2)
+            tree = {"params": final[0], "state": final[1]}
+            t0 = time.perf_counter()
+            moved = elastic.reshard(tree, m2)
+            reshard_s = time.perf_counter() - t0
+            whole_t = placement.gather_tree(tree)
+            apart = sharded_equal(torch, placement.gather_tree(moved),
+                                  whole_t)
+            check(not apart, f"sharded reshard 4 -> 2: {apart[:3]} differ")
+            fresh = placement.place_by(whole_t, m2)
+            del tree, final, whole_t
+            acfg, tcfg = train_configs()
+            step = ts.make_train_step(cfg, acfg, tcfg, labels,
+                                      train_lr(tcfg))
+            outs = []
+            with shd.activate(m2, shd.default_rules(m2)):
+                t_ = placement.place_by(teacher, m2)
+                for t in (moved, fresh):
+                    np_, ns, nm = step(t["params"], t["state"], batch,
+                                       noise_key(), t_)
+                    outs.append(placement.gather_tree(
+                        {"params": np_, "opt": ns["opt"],
+                         "loss": nm["loss"]}))
+                    del np_, ns
+            del moved, fresh, t_
+            apart = sharded_equal(torch, outs[0], outs[1])
+            check(not apart, f"sharded resumed step: {apart[:3]} differ")
+            out["reshard"] = {"s": reshard_s}
+            print(f"  gate (iii): reshard 4 -> 2 in {reshard_s:.2f} s, every "
+                  f"leaf equal; the next step on data 2 equals the step from "
+                  f"the gathered state placed afresh, bit for bit")
+            del outs
+        final = None
+        torch.cuda.empty_cache()
+    m2 = place_mesh(Mesh(("data", "model"), (2, 1)), [dev] * 2)
+    rec, _, first = sharded_run(torch, cfg, params, labels, teacher, batch,
+                                m2, base, forced=False)
+    out["2x1/free"] = rec
+    rec["codes"] = sharded_code_moves(torch, cfg, base[0][0], first[0][0],
+                                      batch)
+    del first
+    print(f"  2x1 free-running {SHARD_STEPS} steps (not gated): loss "
+          + ", ".join(f"{s_['loss']:.6f}" for s_ in rec["steps"])
+          + " (unsharded " + ", ".join(f"{b['loss']:.6f}"
+                                       for b in base_rec["steps"])
+          + "); state apart per leaf in L2 after each step, params over "
+          "the unsharded update / moments: " + "; ".join(
+              f"{s_['apart']['params'][0]:.3e} ({s_['apart']['params'][1]})"
+              f" / {s_['apart']['moments'][0]:.3e} "
+              f"({s_['apart']['moments'][1]})" for s_ in rec["steps"]))
+    c = rec["codes"]
+    print(f"  2x1 free-running step 2's forward from each run's parameters "
+          f"after step 1 (whole batch, step 2's noise): DAC codes moved "
+          f"{c['dac_moved']} of {c['dac_total']}, ADC codes "
+          f"{c['adc_moved']} of {c['adc_total']}; where nothing had reached "
+          f"the position: {c['dac_first']} DAC codes, each within "
+          f"{c['first_tie_distance']:.3e} of its rounding tie (DAC inputs "
+          f"there changed by at most {c['first_input_change']:.3e} code "
+          f"units), and {c['adc_first']} ADC codes, by at most "
+          f"{c['first_adc_levels']} level, at positions whose DAC codes "
+          f"all held")
+    del base, params, teacher
+    torch.cuda.empty_cache()
+    out["launcher"] = sharded_launcher(torch)
+    out["psum"] = psum_card_check(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 LINE_PATHS = {"analog_matmul": "static/analog_hw",
               "int4_matmul": "static/digital_int4",
               "paged_flash_decode": "continuous/analog_hw/kv16",
@@ -8429,7 +8921,8 @@ def line_launches(results: dict) -> dict:
     runs of each deployment and drafter, and phase 22's closed-loop run,
     open-loop runs, speculative lifecycle runs (each drafter's probes,
     cancel and fault) and HTTP run, and phase 23's tensor-parallel runs
-    (each degree's, the gated tp = 3 one too). Each count was read right after
+    (each degree's, the gated tp = 3 one too), and phase 25's training runs
+    (unsharded and on each mesh). Each count was read right after
     its run, with every count set to 0 right before it. Not counted: the
     kernel comparisons (phases 2, 5, 6 and the gates (i) of 14 and 18),
     the reduced checks against the CPU (phases 9, 12, 14, 15, 16, 17, 18,
@@ -8439,8 +8932,8 @@ def line_launches(results: dict) -> dict:
     the fused-against-unfused checks after each run (site parity, the
     token attribution), phase 22's recorded replays (only where a request
     parts), the CLI (phase 10), the training phases' profiled steps
-    and resume checks, and phase 23's shard-plan checks and decode
-    timings."""
+    and resume checks, phase 23's shard-plan checks and decode
+    timings, and phase 25's steps after a reshard."""
     out = {name: {} for name in LINE_PATHS}
 
     def add(path: str, launches: dict) -> None:
@@ -8516,6 +9009,9 @@ def line_launches(results: dict) -> dict:
     for arch in VLM_AUDIO_TRAIN:
         add(f"train/{arch}/analog",
             results["train_families"][arch]["launches"])
+    for key, r in results["sharded"].items():
+        if key not in ("reshard", "psum", "phase_s"):
+            add(f"sharded/{ARCH}/{key}", r["launches"])
     return out
 
 
@@ -8650,88 +9146,88 @@ def main() -> int:
         print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
     try:
-        phase("[1/24] setup")
+        phase("[1/25] setup")
         results["setup"] = phase_setup(torch)
-        phase("[2/24] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
+        phase("[2/25] MVM kernels at llama-3.2-1b, phi-3-mini-4k, "
               "mamba2-130m, qwen3-moe-30b-a3b, jamba-v0.1-52b, internvl2-2b "
               "and musicgen-medium main-path shapes")
         rows = phase_kernels(torch)
-        phase("[3/24] static engine, llama-3.2-1b, analog_hw serving, "
+        phase("[3/25] static engine, llama-3.2-1b, analog_hw serving, "
               "use_pallas=True")
         results["small"] = small_reference_check(torch)
         results["analog"] = serve_phase(torch, "analog_hw", "analog_hw")
-        phase("[4/24] static engine, llama-3.2-1b, digital_int4 serving")
+        phase("[4/25] static engine, llama-3.2-1b, digital_int4 serving")
         results["int4"] = serve_phase(torch, "digital_int4", "digital_rtn4")
-        phase("[5/24] paged-attention kernels at llama-3.2-1b, "
+        phase("[5/25] paged-attention kernels at llama-3.2-1b, "
               "phi-3-mini-4k, qwen3-moe-30b-a3b and jamba-v0.1-52b "
               "attention shapes")
         paged_rows = phase_paged(torch)
-        phase("[6/24] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
+        phase("[6/25] ssd_scan at mamba2-130m and jamba-v0.1-52b shapes")
         ssd_rows = phase_ssd(torch)
-        phase("[7/24] static engine, mamba2-130m: fp, analog_hw, "
+        phase("[7/25] static engine, mamba2-130m: fp, analog_hw, "
               "digital_int4")
         results["mamba_static"] = phase_mamba_static(torch)
-        phase("[8/24] continuous engine at full width: llama-3.2-1b on the "
+        phase("[8/25] continuous engine at full width: llama-3.2-1b on the "
               "paged pool, mamba2-130m")
         results["engine"] = phase_engine(torch)
         results["engine_mamba"] = phase_engine(torch, MAMBA)
-        phase("[9/24] reduced continuous engines, card against cpu")
+        phase("[9/25] reduced continuous engines, card against cpu")
         results["reduced_engine"] = reduced_engine_check(torch)
         results["reduced_mamba"] = reduced_mamba_check(torch)
-        phase("[10/24] serving CLI")
+        phase("[10/25] serving CLI")
         results["cli"] = phase_cli(torch)
-        phase("[11/24] static engine, phi-3-mini-4k at full width: "
+        phase("[11/25] static engine, phi-3-mini-4k at full width: "
               "analog_hw (use_pallas=True), digital_int4")
         results["phi3_analog"] = serve_phase(torch, "analog_hw", "analog_hw",
                                              PHI3)
         results["phi3_int4"] = serve_phase(torch, "digital_int4",
                                            "digital_rtn4", PHI3)
-        phase("[12/24] noisy eval (10 seeds) at full width: llama-3.2-1b, "
+        phase("[12/25] noisy eval (10 seeds) at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced eval, card against cpu")
         results["eval"] = {arch: phase_eval(torch, arch)
                            for arch in (ARCH, PHI3)}
         results["reduced_eval"] = {arch: reduced_eval_check(torch, arch)
                                    for arch in (ARCH, PHI3)}
-        phase("[13/24] best-of-n at full width: llama-3.2-1b, "
+        phase("[13/25] best-of-n at full width: llama-3.2-1b, "
               "phi-3-mini-4k")
         results["best_of_n"] = {arch: phase_best_of_n(torch, arch)
                                 for arch in (ARCH, PHI3)}
-        phase("[14/24] HWA distillation at full width, llama-3.2-1b; "
+        phase("[14/25] HWA distillation at full width, llama-3.2-1b; "
               "reduced training, card against cpu")
         results["train"] = phase_train(torch)
-        phase("[15/24] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
+        phase("[15/25] SpinQuant-lite PTQ at full width: llama-3.2-1b, "
               "phi-3-mini-4k; reduced PTQ, card against cpu")
         results["ptq"] = {arch: phase_ptq(torch, arch)
                           for arch in (ARCH, PHI3)}
         results["reduced_ptq"] = reduced_ptq_check(torch)
-        phase(f"[16/24] {MOE} at full width, {MOE_LAYERS} layers: static "
+        phase(f"[16/25] {MOE} at full width, {MOE_LAYERS} layers: static "
               "and continuous engines; reduced moe models, card against "
               "cpu")
         results["moe"] = phase_moe(torch)
         results["reduced_moe"] = {arch: reduced_card_check(torch, arch)
                                   for arch in MOE_REDUCED}
-        phase(f"[17/24] {JAMBA} at full width, one super-block: static and "
+        phase(f"[17/25] {JAMBA} at full width, one super-block: static and "
               f"continuous engines; {INTERNVL} and {MUSICGEN} at full width "
               "on the static engine; reduced models, card against cpu")
         results["families"] = phase_families(torch)
         results["reduced_families"] = {arch: reduced_card_check(torch, arch)
                                        for arch in FAMILY_ARCHS}
-        phase(f"[18/24] HWA distillation at full width, {MAMBA}, {MOE} "
+        phase(f"[18/25] HWA distillation at full width, {MAMBA}, {MOE} "
               f"({MOE_TRAIN_LAYERS} layer), {INTERNVL} ({INTERNVL_LAYERS} "
               f"layers) and {MUSICGEN} ({MUSICGEN_LAYERS}); reduced ssm, moe, "
               "hybrid, vlm and audio training, card against cpu")
         results["train_families"] = phase_train_families(torch)
-        phase(f"[19/24] devices: full-width {ARCH} on an ageing chip "
+        phase(f"[19/25] devices: full-width {ARCH} on an ageing chip "
               "(static and continuous engines, the drift clock, the "
               "watchdog, CUDA graphs); reduced families, card against cpu")
         results["devices"] = phase_devices(
             torch, results["analog"], results["engine"]["analog_hw/kv16"])
-        phase(f"[20/24] prefix cache: full-width {ARCH} at "
+        phase(f"[20/25] prefix cache: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (bf16 and int8 "
               f"pools) and {MAMBA} (state snapshots) cold, prime and warm; "
               "reduced models, card against cpu")
         results["prefix"] = phase_prefix(torch)
-        phase(f"[21/24] speculative decoding: full-width {ARCH} at "
+        phase(f"[21/25] speculative decoding: full-width {ARCH} at "
               f"{PREFIX_LAYERS[ARCH]} layers (fp with "
               "the ngram, self and int4 drafters; analog_hw with ngram and "
               "int4) on phase 20's first 8 requests; reduced models, card "
@@ -8741,7 +9237,7 @@ def main() -> int:
                    results["prefix"][f"{ARCH}/kv16"]["tokens"].items()}
         results["speculative"] = phase_speculative(torch, rows, base_hw)
         results["speculative"]["phase_s"] = time.perf_counter() - t21
-        phase(f"[22/24] lifecycle: full-width {ARCH} through the async "
+        phase(f"[22/25] lifecycle: full-width {ARCH} through the async "
               "front end open-loop (poisson, bursts with a bounded queue and "
               "TTFT deadlines), a cancel mid speculative window and a chaos "
               "fault (ngram and int4 drafters), the HTTP front door")
@@ -8749,20 +9245,26 @@ def main() -> int:
         results["lifecycle"] = phase_lifecycle(
             torch, results["engine"]["analog_hw/kv16"]["tokens_per_s"])
         results["lifecycle"]["phase_s"] = time.perf_counter() - t22
-        phase(f"[23/24] tensor parallelism on one card: full-width {ARCH} "
+        phase(f"[23/25] tensor parallelism on one card: full-width {ARCH} "
               f"at {TP_LAYERS[ARCH]} layers (fp, digital_int4, analog_hw at "
               f"tp {TP_DEGREES}; tp 3 gated), {MOE} and {MAMBA} at tp 2, "
               f"{QWEN32} at {QWEN32_LAYERS} layers at tp {QWEN32_DEGREES}")
         t23 = time.perf_counter()
         results["tp"] = phase_tp(torch)
         results["tp"]["phase_s"] = time.perf_counter() - t23
-        phase(f"[24/24] cost counter and dry run: {ARCH} analog_hw and "
+        phase(f"[24/25] cost counter and dry run: {ARCH} analog_hw and "
               f"digital_int4 forwards, the engine's decode and chunk steps "
               f"and a {MAMBA} prefill counted on the card and on the meta "
               f"device; bound inputs, allocator bytes, peak bytes, rates; "
               f"the train_4k dry run")
         results["cost"] = phase_cost(
             torch, rows, ssd_rows, results["engine"]["analog_hw/kv16"])
+        phase(f"[25/25] sharded training state on one card: full-width "
+              f"{ARCH} at {SHARD_LAYERS} layers, {SHARD_STEPS} steps on "
+              f"meshes {' '.join('x'.join(map(str, m)) for m in SHARD_MESHES)}"
+              f" against the unsharded step; reshard 4 -> 2; the "
+              f"launcher; psum_compressed card against cpu")
+        results["sharded"] = phase_sharded(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -40,7 +40,9 @@ Deployment-time programming noise is applied once per model instance by
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -133,17 +135,37 @@ def empty_stats() -> dict:
             "clip_frac": torch.zeros(())}
 
 
+_moments = threading.local()
+
+
+@contextlib.contextmanager
+def with_input_means():
+    """Inside the block (on this thread) a site's whole-input statistics
+    also carry ``x_mean``, which a data-parallel train step needs to
+    combine its shards' ``x_std`` into the whole batch's."""
+    prev = getattr(_moments, "on", False)
+    _moments.on = True
+    try:
+        yield
+    finally:
+        _moments.on = prev
+
+
 @torch.no_grad()
 def input_stats(xf: torch.Tensor, beta: torch.Tensor,
                 dims=None) -> dict:
     """A site's input statistics over ``dims`` (all of them with None):
     ``x_std`` (population), ``x_absmax`` and ``clip_frac``, the share of
-    ``|x| > beta``."""
+    ``|x| > beta`` (and ``x_mean`` over all of them inside
+    :func:`with_input_means`)."""
     clipped = (torch.abs(xf) > beta).float()
     if dims is None:
-        return {"x_std": torch.std(xf, correction=0),
-                "x_absmax": torch.amax(torch.abs(xf)),
-                "clip_frac": torch.mean(clipped)}
+        out = {"x_std": torch.std(xf, correction=0),
+               "x_absmax": torch.amax(torch.abs(xf)),
+               "clip_frac": torch.mean(clipped)}
+        if getattr(_moments, "on", False):
+            out["x_mean"] = torch.mean(xf)
+        return out
     return {"x_std": torch.std(xf, dim=dims, correction=0),
             "x_absmax": torch.amax(torch.abs(xf), dim=dims),
             "clip_frac": torch.mean(clipped, dim=dims)}

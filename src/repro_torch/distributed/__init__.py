@@ -1,5 +1,6 @@
-"""Tensor-parallel serving (``sharding``): the serving half of the JAX
-package's ``distributed`` package."""
+"""The JAX package's ``distributed`` package: tensor-parallel serving and
+the training specs (``sharding``), the training state placed by them
+(``placement``) and resharding between meshes (``elastic``)."""
 
 from repro_torch.distributed.sharding import (ServeMesh, Shards,
                                               serve_mesh,

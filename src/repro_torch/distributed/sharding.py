@@ -11,10 +11,11 @@ optimizer state (:func:`zero_spec_tree`), of a batch
 (:func:`cache_spec_tree`). A spec is a plain tuple, one mesh axis name (or
 tuple of names, or None) per dimension, resolved against a
 :class:`repro_torch.launch.mesh.Mesh` of axis names and sizes. The dry run
-(``launch.dryrun``) divides each leaf by them; nothing places training
-state by them yet (ROADMAP section 1, item 10). The reference's
-``shard_hint`` has no counterpart: the port has no partitioner, and its
-model code places nothing by hints.
+(``launch.dryrun``) divides each leaf by them, and
+``distributed.placement`` places the training state by them on a placed
+mesh (the train step's ZeRO slices; its own module, beside this one). The
+reference's ``shard_hint`` has no counterpart: the port has no
+partitioner, and its model code places nothing by hints.
 
 *The serving half*, its semantics rather than its mechanism. The reference serves over a ``(1,
 tp)`` device mesh whose "model" axis carries every weight's output
@@ -66,6 +67,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch.kernels import cost, dispatch
+from repro_torch.launch.mesh import indexed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,19 +99,11 @@ def serve_mesh(tp: int, devices: Optional[Sequence] = None) -> ServeMesh:
     repeat), or by default on the first ``tp`` cards."""
     if devices is None:
         devices = available_devices("cuda")[:tp]
-    devices = tuple(_indexed(torch.device(d)) for d in devices)
+    devices = tuple(indexed(d) for d in devices)
     if len(devices) != tp:
         raise ValueError(f"a tp={tp} mesh needs {tp} devices, got "
                          f"{len(devices)}")
     return ServeMesh(devices)
-
-
-def _indexed(device: torch.device) -> torch.device:
-    """``cuda`` as the current card's ``cuda:i`` (the device a tensor made
-    there reports), any other device as it is."""
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,8 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                   col_off: torch.Tensor | None = None, *,
                   lam: float | None = None, in_bits: int = 8,
                   out_bits: int = 8, promote: bool = True,
-                  plan_shape: tuple[int, int] | None = None) -> torch.Tensor:
+                  plan_shape: tuple[int, int] | None = None,
+                  plan_rows: int | None = None) -> torch.Tensor:
     """Fused DAC-quant → MVM → ADC-quant of ``x [M, K] @ w_eff [K, N]``,
     or of E experts at once: ``x [E, M, K] @ w_eff [E, K, N]``.
 
@@ -65,7 +66,10 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
     buys: the tensor cores of the ``mma`` mapping then carry the whole K
     sum. ``plan_shape`` ``(E, N)`` plans the launch as one of E experts
     and N columns (a tensor-parallel shard of a larger site runs the whole
-    site's mapping and K split; its scratch covers the shard). Returns
+    site's mapping and K split; its scratch covers the shard).
+    ``plan_rows`` plans it as a launch of that many rows (a data shard of
+    a training batch runs the whole batch's K split, where both take the
+    same mapping, so that each row sums K as in the whole launch). Returns
     fp32.
     """
     ref.check_one_bound(bound, lam)
@@ -78,11 +82,11 @@ def analog_matmul(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
 
     return cost.counted("analog_matmul", work, lambda: _analog_matmul(
         x, w_eff, beta, bound, col_off, lam, in_bits, out_bits, promote,
-        plan_shape))
+        plan_shape, plan_rows))
 
 
 def _analog_matmul(x, w_eff, beta, bound, col_off, lam, in_bits, out_bits,
-                   promote, plan_shape):
+                   promote, plan_shape, plan_rows):
     """The call on the plain version (CPU), the card, or the meta
     device."""
     global launches
@@ -113,6 +117,11 @@ def _analog_matmul(x, w_eff, beta, bound, col_off, lam, in_bits, out_bits,
         return torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     pe, pn = (e, n) if plan_shape is None else plan_shape
     plan = _launch.plan("analog_matmul", m, k, pn, dev.index, in_bits, pe)
+    if plan_rows is not None and plan_rows != m:
+        whole = _launch.plan("analog_matmul", plan_rows, k, pn, dev.index,
+                             in_bits, pe)
+        if whole.mapping == plan.mapping:   # its scratch covers fewer rows
+            plan = whole
     out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     scratch = _launch.scratch(plan, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

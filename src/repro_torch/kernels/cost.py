@@ -195,7 +195,8 @@ def uncounted(call: Callable[[], object]):
 
 
 def collective(kind: str, nbytes: int) -> None:
-    """Report one arithmetic-free gather of ``nbytes`` (the gathered
-    result) to every active counter."""
+    """Report one collective of ``kind`` moving ``nbytes`` (its output:
+    the gathered result, or a reduce-scatter's slice) to every active
+    counter."""
     for c in _counters():
         c.count_collective(kind, nbytes)

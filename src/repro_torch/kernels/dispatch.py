@@ -81,6 +81,33 @@ def whole_site(experts: int, n: int, first_expert: int = 0,
         ref.WHOLE_SITE.reset(token)
 
 
+#: data shards of the running train step (``data_shards``): a process-wide
+#: value, not a context variable, because a checkpointed layer's
+#: recomputation runs on the autograd engine's thread
+_ROW_SHARDS = 1
+
+
+@contextlib.contextmanager
+def data_shards(n: int):
+    """Run every ``analog_matmul`` launch in the block as one of ``n``
+    equal data shards of a training batch: it plans as the whole batch's
+    launch of ``n`` times its rows (``analog_matmul(plan_rows=)``), so each
+    row sums K in the whole launch's order where both take the same
+    mapping. The CPU's plain product is not affected."""
+    global _ROW_SHARDS
+    prev, _ROW_SHARDS = _ROW_SHARDS, n
+    try:
+        yield
+    finally:
+        _ROW_SHARDS = prev
+
+
+def _plan_rows(m: int):
+    """The rows a launch of ``m`` rows plans as (:func:`data_shards`), or
+    None."""
+    return None if _ROW_SHARDS == 1 else m * _ROW_SHARDS
+
+
 def _plan_shape():
     """``(experts, columns)`` of the whole site of a shard's launch, or
     None (:func:`whole_site`)."""
@@ -145,7 +172,8 @@ def analog_mvm(x: torch.Tensor, w_eff: torch.Tensor, beta: torch.Tensor,
                       None if col_off is None
                       else col_off.float().contiguous(),
                       lam=lam, in_bits=in_bits, out_bits=out_bits,
-                      plan_shape=_plan_shape())
+                      plan_shape=_plan_shape(),
+                      plan_rows=_plan_rows(x2.shape[-2]))
     return y.reshape(*lead, n)
 
 

@@ -23,7 +23,9 @@ CPU or CUDA tensors alike.
   its inputs and writes its outputs. It is not XLA's fused count.
 * ``collective_bytes`` / ``collective_counts`` / ``collective_total_bytes``:
   what the tensor-parallel engine's gathers (``distributed.sharding``)
-  report, keyed by the reference's collective names.
+  and the sharded train step's gathers and reduce-scatters
+  (``distributed.placement``) report, keyed by the reference's collective
+  names.
 * ``kernels``: ``{name: {"calls", "flops", "bytes"}}`` of the five kernel
   wrappers. A wrapper reports one call by its shapes and hides the ops it
   runs (the plain version on the CPU), so a call counts the same on every
@@ -174,7 +176,7 @@ class CostCounter(TorchDispatchMode):
             self._track(t)
 
     def count_collective(self, kind: str, nbytes: int) -> None:
-        """One gather of ``nbytes``."""
+        """One collective of ``nbytes``."""
         self.coll_bytes[kind] += nbytes
         self.coll_counts[kind] += 1
 

@@ -17,11 +17,12 @@ records:
   ``argument_size_in_bytes`` (parameters, train state, batch or caches),
   ``output_size_in_bytes``, and ``temp_size_in_bytes``, the counter's
   ``peak_bytes``: the peak of the tensors the step allocated, over the
-  whole unpartitioned step (the port does not partition it yet);
+  whole unpartitioned step (the cell's mesh is a mesh by shape);
 * ``analysis``: the counter's output, for the whole step. Its
-  ``collective_*`` entries are None: the cell runs on one meta device, and
-  what the sharded step's collectives would move waits for the training
-  runtime (ROADMAP section 1, item 10);
+  ``collective_*`` entries are None: the cell runs on one meta device,
+  unpartitioned. The sharded step runs on a placed mesh
+  (``distributed.placement``), whose gathers and reduce-scatters
+  ``chip_smoke.py`` phase 25 counts on the card;
 * ``status``.
 
 Artifacts go to ``dryrun_out/<arch>__<shape>__<mesh>.json`` at the

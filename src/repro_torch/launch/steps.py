@@ -20,9 +20,12 @@ Cell kinds:
 * ``decode_32k`` / ``long_500k`` → one token against the statically
   shaped contiguous cache.
 
-The step runs unpartitioned (the port places nothing by the specs yet:
-ROADMAP section 1, item 10), so its count is the whole step's; the specs
-give each device's share of the arguments and outputs.
+The cell's mesh is a mesh by shape, not a placed one, so the step runs
+unpartitioned and its count is the whole step's; the specs give each
+device's share of the arguments and outputs. The sharded step, and the
+gathers and reduce-scatters it reports (``distributed.placement``), run
+only on a placed mesh: ``chip_smoke.py`` phase 25 counts them on the
+card.
 """
 
 from __future__ import annotations

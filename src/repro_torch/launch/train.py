@@ -1,4 +1,4 @@
-"""Training launcher: the paper's pipeline end to end on one device.
+"""Training launcher: the paper's pipeline end to end on a device mesh.
 
 Stage 0 pre-trains a teacher on the structured Markov corpus (CE), stage 1
 optionally samples the training data from it (``--synthetic-data``, paper
@@ -10,8 +10,14 @@ Fig. 2a), stage 2 distils the HWA student from it (Fig. 2b) in ``--mode``
 
 Runs on the card; ``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions (``--reduced --device cpu --steps 4 --pretrain-steps 4``
-takes seconds). ``--production-mesh`` (the reference's 256/512-chip mesh)
-waits for the training half of ROADMAP item 10. The vlm family trains on
+takes seconds). As the reference's, the launcher runs the recipes under a
+mesh: the host mesh over the visible cards (data = their count, model 1;
+one device with ``--device cpu``), or with ``--production-mesh`` the 16 x
+16 production mesh, which needs 256 cards and raises a ``ValueError``
+naming both counts on fewer. The state is placed by the training rules and
+the step runs data-parallel over them (``train.train_step``); on one card
+the mesh is ``(1, 1)`` and the step is the unsharded one, bit for bit.
+The vlm family trains on
 the corpus as text (it has no patch embeddings), and the audio family's
 model refuses the corpus's two-dimensional tokens, as the reference's CLI
 does.
@@ -28,6 +34,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.data.corpus import MarkovCorpus
 from repro_torch.data.synthetic import GenConfig, generate_synthetic
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     place_mesh)
 from repro_torch.models import build
 from repro_torch.train.recipes import distill_recipe, pretrain_recipe
 from repro_torch.train.train_step import TrainConfig
@@ -63,13 +71,15 @@ def main(argv=None):
     ``--mode off``)."""
     args = parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the training half of ROADMAP section 1, "
-            "item 10 (ZeRO state over the data axis) is not ported")
+        mesh = place_mesh(make_production_mesh())
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
     device = torch.device(args.device)
+    if not args.production_mesh:
+        mesh = make_host_mesh(devices=None if args.device == "cuda"
+                              else [device])
+    print(f"[launch] mesh {dict(mesh.shape)}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduce()
@@ -84,7 +94,8 @@ def main(argv=None):
     print(f"[launch] pre-training teacher ({args.pretrain_steps} steps)")
     teacher, _ = pretrain_recipe(
         params, labels, cfg, corpus_tokens, num_steps=args.pretrain_steps,
-        batch_size=args.batch, ckpt_dir=ckpt("teacher"), seed=args.seed)
+        batch_size=args.batch, ckpt_dir=ckpt("teacher"), seed=args.seed,
+        mesh=mesh)
 
     # stage 1: the data (paper Fig. 2a)
     if args.synthetic_data:
@@ -108,7 +119,7 @@ def main(argv=None):
     _, trainer = distill_recipe(
         teacher, labels, cfg, tokens, acfg=acfg, tcfg=tcfg,
         batch_size=args.batch, num_steps=args.steps,
-        ckpt_dir=ckpt("student"), seed=args.seed)
+        ckpt_dir=ckpt("student"), seed=args.seed, mesh=mesh)
     print(f"[launch] final KD loss: {trainer.history[-1]['kd']:.4f}; "
           f"stragglers flagged: {len(trainer.monitor.events)}")
     return trainer

@@ -55,6 +55,46 @@ def _decays(label: str, p: torch.Tensor) -> bool:
     return label in ("analog_weight", "digital") and p.dim() >= 2
 
 
+def prepare(norm: torch.Tensor, count: torch.Tensor, lr,
+            cfg: AdamWConfig = AdamWConfig()) -> dict:
+    """The step's scalars from the global gradient norm and the old
+    ``count``: the clipping scale, the new count, the bias corrections and
+    the learning rate as an fp32 tensor."""
+    scale = torch.clamp_max(rdiv(cfg.max_grad_norm,
+                                 torch.clamp_min(norm, 1e-12)), 1.0)
+    count = count + 1
+    cf = count.float()
+    return {"scale": scale, "count": count,
+            "b1c": 1.0 - torch.pow(torch.tensor(cfg.b1), cf),
+            "b2c": 1.0 - torch.pow(torch.tensor(cfg.b2), cf),
+            "lr": torch.as_tensor(lr, dtype=torch.float32)}
+
+
+@torch.no_grad()
+def leaf_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, label: str, k: dict,
+                cfg: AdamWConfig = AdamWConfig()):
+    """One leaf's AdamW step (or one slice's: every op is elementwise)
+    with the scalars ``k`` of :func:`prepare`; ``label`` is the leaf's
+    (decay for matrices labelled ``analog_weight`` / ``digital``).
+    Returns ``(new_p, m, v)``. The scalars may lie on another device than
+    the slice (a sharded step computes them on its first shard's): each is
+    moved to the slice's."""
+    dev = p.device
+    g32 = (g * k["scale"].to(dev, g.dtype)).float()
+    del g
+    m = torch.mul(m, cfg.b1).add_(torch.mul(g32, 1 - cfg.b1))
+    v = torch.mul(v, cfg.b2).add_(torch.mul(g32, 1 - cfg.b2).mul_(g32))
+    del g32
+    # bias corrections and lr as device tensors: a quotient by a host
+    # scalar would be a multiply by its reciprocal on the card
+    step = torch.div(m, k["b1c"].to(dev)).div_(
+        torch.div(v, k["b2c"].to(dev)).sqrt_().add_(cfg.eps))
+    if _decays(label, p):
+        step.add_(torch.mul(p.float(), cfg.weight_decay))
+    return torch.sub(p.float(), step.mul_(k["lr"].to(dev))).to(p.dtype), m, v
+
+
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict, labels: dict,
                  lr: torch.Tensor, cfg: AdamWConfig = AdamWConfig()):
@@ -68,38 +108,18 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, labels: dict,
     scale is applied to each leaf as it is used, and products and sums of
     fresh temporaries are taken in place, which rounds the same)."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(rdiv(cfg.max_grad_norm,
-                                 torch.clamp_min(norm, 1e-12)), 1.0)
-    count = opt_state["count"] + 1
-    cf = count.float()
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1), cf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2), cf)
-    lr = torch.as_tensor(lr, dtype=torch.float32)
-
+    k = prepare(norm, opt_state["count"], lr, cfg)
     flat_p, flat_l = flatten_paths(params), flatten_paths(labels)
     flat_m, flat_v = flatten_paths(opt_state["m"]), flatten_paths(
         opt_state["v"])
     new_p, new_m, new_v = {}, {}, {}
     for path, p in flat_p.items():
-        dev = p.device
-        g = _pop_path(grads, path)
-        g32 = (g * scale.to(g.dtype)).float()
-        del g
-        m = torch.mul(flat_m[path], cfg.b1).add_(torch.mul(g32, 1 - cfg.b1))
-        v = torch.mul(flat_v[path], cfg.b2).add_(
-            torch.mul(g32, 1 - cfg.b2).mul_(g32))
-        del g32
-        # bias corrections and lr as device tensors: a quotient by a host
-        # scalar would be a multiply by its reciprocal on the card
-        step = torch.div(m, b1c.to(dev)).div_(
-            torch.div(v, b2c.to(dev)).sqrt_().add_(cfg.eps))
-        if _decays(flat_l[path], p):
-            step.add_(torch.mul(p.float(), cfg.weight_decay))
-        new_p[path] = torch.sub(p.float(), step.mul_(lr.to(dev))).to(p.dtype)
-        new_m[path], new_v[path] = m, v
+        new_p[path], new_m[path], new_v[path] = leaf_update(
+            p, _pop_path(grads, path), flat_m[path], flat_v[path],
+            flat_l[path], k, cfg)
     return (unflatten_paths(new_p),
             {"m": unflatten_paths(new_m), "v": unflatten_paths(new_v),
-             "count": count},
+             "count": k["count"]},
             norm)
 
 

@@ -12,13 +12,17 @@
   quantized RTN at eval time (no training).
 
 The training recipes run where the parameters live, or on ``device`` when
-it is given. A resumed run also restores the loader's position from the
-checkpoint, so it consumes the batches the interrupted run would have. The
-PTQ recipe runs where the parameters live.
+it is given; given a placed ``mesh`` (``launch.mesh``), under it: the
+train step then runs data-parallel over the ZeRO placement of its state
+(``train.train_step.make_train_step``), and the recipe returns the
+parameters gathered. A resumed run also restores the loader's position
+from the checkpoint, so it consumes the batches the interrupted run would
+have. The PTQ recipe runs where the parameters live.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -28,6 +32,8 @@ from repro_torch.core import rotations as rot
 from repro_torch.core.analog import AnalogConfig, AnalogCtx
 from repro_torch.data.loader import TokenLoader
 from repro_torch.data.synthetic import teacher_logits
+from repro_torch.distributed import placement
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.model import apply as model_apply
 from repro_torch.optim.schedule import polynomial_with_warmup
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
@@ -56,11 +62,12 @@ def _device_of(params: dict, device) -> torch.device:
 
 
 def _run(params, labels, cfg, acfg, tcfg, loader, make_batch, *,
-         num_steps, ckpt_dir, seed) -> Trainer:
-    """Build the step and the trainer, resume, and fit ``num_steps``. The
-    trainer holds the only references to the initial parameters and
-    state, so each is freed once a step has replaced it (at full width the
-    initial moments alone are 12 GB)."""
+         num_steps, ckpt_dir, seed, mesh=None) -> Trainer:
+    """Build the step and the trainer, resume, and fit ``num_steps`` (under
+    ``mesh`` with its default rules when given). The trainer holds the
+    only references to the initial parameters and state, so each is freed
+    once a step has replaced it (at full width the initial moments alone
+    are 12 GB)."""
     def lr_sched(step):
         return polynomial_with_warmup(
             step, peak_lr=tcfg.peak_lr, total_steps=tcfg.total_steps,
@@ -73,10 +80,13 @@ def _run(params, labels, cfg, acfg, tcfg, loader, make_batch, *,
                       seed=seed, log_every=max(num_steps // 5, 1),
                       ckpt_every=max(num_steps // 2, 1))
     del params
-    extra = trainer.try_resume()
-    if extra and extra.get("data_state"):
-        loader.restore(extra["data_state"])
-    trainer.fit((make_batch(raw) for raw in loader), num_steps)
+    under = (contextlib.nullcontext() if mesh is None
+             else shd.activate(mesh, shd.default_rules(mesh)))
+    with under:
+        extra = trainer.try_resume()
+        if extra and extra.get("data_state"):
+            loader.restore(extra["data_state"])
+        trainer.fit((make_batch(raw) for raw in loader), num_steps)
     return trainer
 
 
@@ -84,7 +94,7 @@ def distill_recipe(teacher_params, labels, cfg, tokens: np.ndarray, *,
                    acfg: AnalogConfig, tcfg: TrainConfig,
                    batch_size: int = 8, num_steps: int = 200,
                    ckpt_dir: Optional[str] = None, seed: int = 0,
-                   student_params=None, device=None):
+                   student_params=None, device=None, mesh=None):
     """HWA-train a student (default: a copy of the teacher) by
     distillation on ``tokens`` [N, S] (synthetic or corpus sequences).
     Returns ``(student_params, trainer)``."""
@@ -103,8 +113,8 @@ def distill_recipe(teacher_params, labels, cfg, tokens: np.ndarray, *,
     trainer = _run(_on(student_params, dev) if student_params is not None
                    else _clone(teacher_params), labels, cfg, acfg, tcfg,
                    loader, make_batch, num_steps=num_steps,
-                   ckpt_dir=ckpt_dir, seed=seed)
-    return trainer.params, trainer
+                   ckpt_dir=ckpt_dir, seed=seed, mesh=mesh)
+    return placement.gather_tree(trainer.params), trainer
 
 
 def pretrain_recipe(params, labels, cfg, tokens: np.ndarray, *,
@@ -112,7 +122,7 @@ def pretrain_recipe(params, labels, cfg, tokens: np.ndarray, *,
                     tcfg: Optional[TrainConfig] = None,
                     batch_size: int = 8, num_steps: int = 300,
                     ckpt_dir: Optional[str] = None, seed: int = 0,
-                    device=None):
+                    device=None, mesh=None):
     """CE pre-training (teacher construction, App. A comparisons). Returns
     ``(params, trainer)``."""
     tcfg = tcfg or TrainConfig(peak_lr=3e-3, total_steps=num_steps,
@@ -128,8 +138,9 @@ def pretrain_recipe(params, labels, cfg, tokens: np.ndarray, *,
                                           device=dev)}
 
     trainer = _run(params, labels, cfg, acfg, tcfg, loader, make_batch,
-                   num_steps=num_steps, ckpt_dir=ckpt_dir, seed=seed)
-    return trainer.params, trainer
+                   num_steps=num_steps, ckpt_dir=ckpt_dir, seed=seed,
+                   mesh=mesh)
+    return placement.gather_tree(trainer.params), trainer
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from typing import Any, Callable, Iterable, Optional
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import noise as noise_lib
+from repro_torch.distributed import placement
 
 
 @dataclasses.dataclass
@@ -45,7 +46,10 @@ class Trainer:
     It runs where the step's tensors live: the recipes put them on the card
     unless the caller asks for the CPU. ``seed`` gives the noise key
     (``noise.prng_key``), which the step folds with its step count, so a
-    resumed run draws the noise the uninterrupted one would have."""
+    resumed run draws the noise the uninterrupted one would have. A
+    sharded run's state (``distributed.placement``) is written whole, in
+    the same layout, so a checkpoint resumes on any mesh or none: it is
+    restored whole, and the step places it."""
 
     def __init__(self, train_step: Callable, params, state, *,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 200,
@@ -68,8 +72,9 @@ class Trainer:
 
     # -- fault tolerance ----------------------------------------------------
     def try_resume(self) -> Optional[dict]:
-        """Restore the newest valid checkpoint, if any, onto the devices of
-        the current trees. Returns its ``extra`` (None without one)."""
+        """Restore the newest valid checkpoint, if any, whole onto the
+        devices of the current trees (a placed leaf: its first slice's).
+        Returns its ``extra`` (None without one)."""
         if not self.ckpt_dir or ckpt.latest_step(self.ckpt_dir) is None:
             return None
         tree = {"params": self.params, "state": self.state}
@@ -86,8 +91,8 @@ class Trainer:
         step = int(self.state["step"])
         extra = {"data_state": self.data_state_fn(),
                  "skipped_steps": self.skipped_steps, **(tag_extra or {})}
-        ckpt.save(self.ckpt_dir, step,
-                  {"params": self.params, "state": self.state}, extra=extra)
+        ckpt.save(self.ckpt_dir, step, placement.gather_tree(
+            {"params": self.params, "state": self.state}), extra=extra)
         ckpt.retain(self.ckpt_dir, keep=self.keep)
 
     # -- the loop -------------------------------------------------------------

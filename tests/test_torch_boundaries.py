@@ -1,8 +1,9 @@
 """Guards of the port's boundaries.
 
-* The port (``src/repro_torch``), ``chip_smoke.py`` and the tool that
-  profiles it import neither JAX nor the reference package ``repro`` (an
-  AST scan of every file).
+* The port (``src/repro_torch``), ``chip_smoke.py`` and the port's
+  tools (the one that profiles it, the KV-memory and ZeRO-plan tables)
+  import neither JAX nor the reference package ``repro`` (an AST scan of
+  every file).
 * On CPU tensors the kernels' plain versions run and the launch counters
   stay at 0; a meta tensor gets the shape-only result of the dry run; a
   tensor on any other device is refused, not served by the plain
@@ -35,7 +36,9 @@ from repro_torch.models import model as model_mod
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_chip_smoke.py",
+    ROOT / "tools" / "kv_memory_table_torch.py",
+    ROOT / "tools" / "zero_plan_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -72,7 +75,8 @@ def test_port_files_exist():
                 "kernels/csrc/ssd_scan.cu", "models/mamba2.py",
                 "data/corpus.py", "data/synthetic.py", "eval/tasks.py",
                 "eval/harness.py", "serve/prm.py", "serve/engine.py",
-                "serve/frontend.py"):
+                "serve/frontend.py", "distributed/placement.py",
+                "distributed/elastic.py"):
         assert (port / rel).is_file(), rel
 
 
@@ -552,8 +556,9 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
     continuous runs on an ageing chip, phase 20's cold, prime and warm
     runs of the prefix cache, and phase 21's priming and measured runs of
     each speculative deployment and drafter, phase 22's closed-loop,
-    open-loop, speculative lifecycle and HTTP runs, and phase 23's
-    tensor-parallel runs at every degree, the gated tp = 3 one too), each
+    open-loop, speculative lifecycle and HTTP runs, phase 23's
+    tensor-parallel runs at every degree, the gated tp = 3 one too, and
+    phase 25's unsharded and sharded training runs), each
     run's counts under one path, and nothing for a kernel that a run did
     not launch."""
     import importlib.util
@@ -670,6 +675,11 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         f"{cs.ARCH}/tp3": {"launches": counts("analog_matmul", *attn),
                            "reason": ""},
         "shard_plans": {}, "phase_s": 0.0}
+    shard_keys = ("unsharded", *("x".join(map(str, m))
+                                 for m in cs.SHARD_MESHES), "2x1/free")
+    results["sharded"] = {
+        **{k: {"launches": counts("analog_matmul")} for k in shard_keys},
+        "reshard": {"s": 0.0}, "psum": {}, "phase_s": 0.0}
     total = next(seen) - 1
     prefix = {f"prefix/{key}/{run}" for key in (
         f"{cs.ARCH}/kv16", f"{cs.ARCH}/kv8", cs.MAMBA)
@@ -706,7 +716,8 @@ def test_chip_smoke_line_launches_counts_every_main_path_run():
         *(f"static/{arch}/analog_hw" for arch in cs.FAMILY_ARCHS),
         f"continuous/{cs.JAMBA}/analog_hw/kv16",
         "devices/static/analog_hw", "devices/continuous/analog_hw/kv16",
-        *prefix, *spec_analog, *life, *tp_analog}
+        *prefix, *spec_analog, *life, *tp_analog,
+        *(f"sharded/{cs.ARCH}/{k}" for k in shard_keys)}
     assert set(out["int4_matmul"]) == {
         "static/digital_int4", f"static/{cs.PHI3}/digital_int4",
         f"static/{cs.MAMBA}/digital_int4", "continuous/digital_int4/kv16",

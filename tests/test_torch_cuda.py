@@ -31,6 +31,13 @@ experts under the whole site's plan equals the whole launch's bit for bit;
 tp = 2 engines whose shards share the card replay their step graphs equal
 to eager, step by step; a tp-way run counts tp launches per sharded site.
 ``chip_smoke.py`` does the same at the main path's full-width shapes.
+Data-parallel training (``-k data_shard``): a data shard's MVM launch on
+its rows under ``dispatch.data_shards`` equals the whole launch's rows
+bit for bit; a data-2 train step on a mesh over the card and the CPU
+holds the unsharded step on the card (digital: metrics within 1e-5,
+state within 1e-4; analog finite, with the unsharded step's launches),
+and the compressed gradient's
+slices on both devices equal ``compress_grads`` bit for bit.
 
 Tolerance: ``analog_matmul`` may differ from its plain version only by one
 ADC level where the plain version's pre-ADC value lies within the fp32 dot
@@ -1275,6 +1282,168 @@ def test_tp_shard_launch_runs_the_whole_sites_plan(card, e, m, k, n, tp):
         got4 = k_int4.int4_matmul(x, packed[:, pc].contiguous(),
                                   scale[c].contiguous(), plan_shape=(1, n))
         assert torch.equal(got4, whole4[:, c])
+
+
+# (E, M of the whole batch, K, N): llama-3.2-1b's training sites at phase
+# 14's 1024 rows, a ragged site, and a batched expert site
+DATA_SHAPES = [(1, 1024, 2048, 3072), (1, 1024, 8192, 2048),
+               (1, 1024, 2048, 16384), (1, 520, 515, 1032),
+               (8, 64, 300, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("e,m,k,n_cols", DATA_SHAPES, ids=str)
+def test_data_shard_launch_runs_the_whole_batchs_plan(card, e, m, k, n_cols,
+                                                      n):
+    """A data shard's rows (each expert's rows of a batched site) under
+    ``dispatch.data_shards(n)`` give the whole launch's rows bit for bit:
+    the shard's launch runs the whole batch's K split."""
+    gen = torch.Generator(device=card).manual_seed(e * m + k + n_cols + n)
+    lead = (e,) if e > 1 else ()
+    x = torch.randn(lead + (m, k), generator=gen, device=card)
+    w = torch.randn(lead + (k, n_cols), generator=gen,
+                    device=card) * k ** -0.5
+    beta = torch.full((1,), 2.5, device=card)
+    whole = dispatch.analog_mvm(x, w, beta, lam=14.0)
+    rows = m // n
+    for i in range(n):
+        r = slice(i * rows, (i + 1) * rows)
+        with dispatch.data_shards(n):
+            got = dispatch.analog_mvm(x[..., r, :].contiguous(), w, beta,
+                                      lam=14.0)
+        assert torch.equal(got, whole[..., r, :])
+
+
+def _two_device_run(card, mode: str, mesh_devices, steps: int = 3):
+    """``steps`` steps of reduced llama-3.2-1b's train step (teacher
+    inside, a CE mix and a mask that gives the shards unequal token
+    counts) from weights on the card, under a data mesh on
+    ``mesh_devices`` (None: unsharded). Returns ``[(params, opt, metrics)]``
+    gathered to the card and the ``analog_matmul`` launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.distributed import placement
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh, place_mesh
+    from repro_torch.models import build
+    from repro_torch.optim.schedule import polynomial_with_warmup
+    from repro_torch.train import train_step as ts
+
+    cfg, params, labels = build(get_config("llama-3.2-1b").reduce(), 0,
+                                device=card)
+    teacher = {k: v for k, v in params.items()}
+    acfg = AnalogConfig(mode=mode, use_pallas=True, init_steps=3,
+                        kappa_init=18.0, out_bound=14.0)
+    tcfg = ts.TrainConfig(peak_lr=1e-3, total_steps=20, kd_temperature=2.0,
+                          ce_weight=0.5)
+    step = ts.make_train_step(cfg, acfg, tcfg, labels, lambda s: (
+        polynomial_with_warmup(s, peak_lr=1e-3, total_steps=20)))
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 13), generator=gen)
+    mask = (torch.rand((4, 12), generator=gen) < 0.7).float()
+    mask[-1, :3] = 0.0
+    batch = {"tokens": toks[:, :-1].to(card), "labels": toks[:, 1:].to(card),
+             "mask": mask.to(card)}
+    mesh = (None if mesh_devices is None else place_mesh(
+        Mesh(("data", "model"), (len(mesh_devices), 1)), mesh_devices))
+    p, st, out = params, ts.init_train_state(params), []
+    k_analog.launches = 0
+    for _ in range(steps):
+        if mesh is None:
+            p, st, m = step(p, st, batch, (7,), teacher)
+        else:
+            with shd.activate(mesh, shd.default_rules(mesh)):
+                p, st, m = step(p, st, batch, (7,), teacher)
+        out.append((placement.gather_tree(p, card),
+                    placement.gather_tree(st["opt"], card), m))
+    return out, k_analog.launches
+
+
+@pytest.mark.cuda
+def test_data_shard_step_across_card_and_cpu(card):
+    """A data-2 train step on a mesh placed over ``["cuda:0", "cpu"]``
+    (the one card's rig): the shards' forwards and backwards on their own
+    devices, the gradient sum on the first, the ZeRO slices and AdamW on
+    each slice's device (its clipping scale and learning rate moved
+    there), against the unsharded step on the card over 3 steps. Digital
+    (mode ``off``), the CPU's products and the card's round apart by a
+    few u of their K-term sums: the loss, ``ce`` and ``grad_norm`` within
+    ``1e-5 (1 + |card|)``; every parameter within ``1e-4 (1 + |card|)``
+    and every moment leaf within ``1e-4`` of its largest magnitude, since
+    AdamW divides each gradient element by its own RMS, so an element
+    whose sum over the batch cancels carries its terms' rounding at O(1)
+    relative into m, times the learning rate into the parameter (the same
+    run with both positions on the CPU parts from the unsharded step by
+    1.2e-7 in the metrics, 1.9e-6 in the parameters and 2.8e-6 in the
+    moments). Analog, the CPU shard runs the
+    kernel's plain version, which may part from it at ADC near-ties: the
+    run's values are finite and the card shard launches the kernel as
+    often as the unsharded step does."""
+    from repro_torch.checkpoint import flatten_paths
+
+    cpu = torch.device("cpu")
+    base, _ = _two_device_run(card, "off", None)
+    runs, _ = _two_device_run(card, "off", [card, cpu])
+    for i, ((p, o, m), (p0, o0, m0)) in enumerate(zip(runs, base)):
+        for name in ("loss", "ce", "grad_norm"):
+            a, b = float(m[name]), float(m0[name])
+            assert abs(a - b) <= 1e-5 * (1 + abs(b)), (i, name, a, b)
+        fp = flatten_paths(p)
+        for path, v in flatten_paths(p0).items():
+            err = float(((fp[path] - v).abs() / (1 + v.abs())).max())
+            assert err <= 1e-4, (i, path, err)
+        fo = flatten_paths({"m": o["m"], "v": o["v"]})
+        for path, v in flatten_paths({"m": o0["m"], "v": o0["v"]}).items():
+            err = float((fo[path] - v).abs().max())
+            assert err <= 1e-4 * float(v.abs().max()), (i, path, err)
+    base, n_base = _two_device_run(card, "analog", None, steps=2)
+    runs, n_runs = _two_device_run(card, "analog", [card, cpu], steps=2)
+    assert n_runs == n_base > 0
+    for p, o, m in runs:
+        assert all(bool(torch.isfinite(v).all()) for v in
+                   flatten_paths({"p": p, "m": o["m"], "v": o["v"]}).values())
+        assert all(bool(torch.isfinite(m[k])) for k in ("loss", "kd", "ce",
+                                                        "grad_norm"))
+
+
+@pytest.mark.cuda
+def test_data_shard_compressed_slices_across_card_and_cpu(card):
+    """A gradient and error state placed by their ZeRO specs on a data-2
+    mesh over ``["cuda:0", "cpu"]``, each leaf compressed slice by slice
+    with the whole leaf's scale (the scale taken on the first slice's
+    device, moved to the other's), equals ``compress_grads`` of the whole
+    trees on the CPU bit for bit (every op is elementwise or a max)."""
+    from repro_torch.checkpoint import flatten_paths, unflatten_paths
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import placement
+    from repro_torch.launch.mesh import Mesh, place_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import compression
+
+    _, params, _ = build(get_config("llama-3.2-1b").reduce(), 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    grads = {p: torch.randn(v.shape, generator=gen) * 1e-3
+             for p, v in flatten_paths(params).items()}
+    errs = {p: torch.randn(v.shape, generator=gen) * 1e-5
+            for p, v in grads.items()}
+    want_g, want_e = compression.compress_grads(unflatten_paths(grads),
+                                                unflatten_paths(errs))
+    mesh = place_mesh(Mesh(("data", "model"), (2, 1)), [card, "cpu"])
+    pg = flatten_paths(placement.place_by(unflatten_paths(grads), mesh))
+    pe = flatten_paths(placement.place_by(unflatten_paths(errs), mesh))
+    split = 0
+    for path, leaf in pg.items():
+        if not isinstance(leaf, placement.Placed):
+            continue
+        split += len(leaf.blocks()) > 1
+        g, e = placement.map_leaf(compression.compress_slices, leaf,
+                                  pe[path])
+        assert torch.equal(placement.gather(g, "cpu"),
+                           flatten_paths(want_g)[path]), path
+        assert torch.equal(placement.gather(e, "cpu"),
+                           flatten_paths(want_e)[path]), path
+    assert split > 0
 
 
 def _rtn4(w):

@@ -12,8 +12,8 @@
   ``distill_recipe`` resumed from its checkpoint directory (it restores
   the loader's position too);
 * ``python -m repro_torch.launch.train --device cpu --reduced --steps 4
-  --pretrain-steps 4`` exits 0, and ``--production-mesh`` names its
-  ROADMAP item.
+  --pretrain-steps 4`` exits 0, and ``--production-mesh`` on fewer than
+  256 cards raises the mesh's ``ValueError``, naming both counts.
 """
 
 import os
@@ -274,6 +274,6 @@ def test_train_cli_on_the_cpu():
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "final KD loss" in out.stdout
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP section 1, item 10"):
+    with pytest.raises(ValueError,
+                       match=r"needs 256 devices, \d+ are visible"):
         train_cli.main(["--production-mesh", "--device", "cpu"])
